@@ -1,0 +1,281 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, one printed line or more each; any failed check raises:
+1. device: require CUDA, print the card's name and power limit, TF32 off;
+2. build the hand-written kernels (historymatching_tpu_torch/csrc) with nvcc;
+3. kernel K (transport) against its plain PyTorch version, float32;
+4. kernel P (pressure MG-PCG) against its plain version: (a) fixed work,
+   (b) the main path's solver settings;
+5. the flagship workload: N=1000 members, 64x64, 40 steps, 4-pass ES-MDA
+   (prior, truth simulation, observations, forward_model -> simulate ->
+   es_mda), with launch counts of both kernels over the run;
+6. each kernel's time against its plain version at the main path's shapes.
+
+The line before the last is the kernels' JSON record; the last line is
+{"ok": true, "device": {...}}. Without a card, or without the package
+beside this script, it exits non-zero and prints no result.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SEED = 1
+N, NX, NY, NTIME, DT, PASSES = 1000, 64, 64, 40, 0.025, 4
+# Solver settings of the reference bench (bench.bench_sim_kwargs base and
+# bench.DEFAULT_SCHED per pass), without the TPU-only strategy keys.
+BASE = dict(tol=2e-4, maxiter=768, patience_iters=256)
+LOOSE = dict(tol=2e-3, maxiter=256, patience_iters=128)
+SCHED = [LOOSE, LOOSE, LOOSE, dict(maxiter=128)]
+K_TOL, P_TOL = 1e-5, 1e-3
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def cuda_ms(fn, reps):
+    """Mean milliseconds of `fn` on the card over `reps` runs, after a warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def flagship_model(torch, dev):
+    """The reference bench case (bench.build_model): 2x1 domain, centre
+    injector, 4 producers at (0.12, 0.87) x (Lx, Ly), balanced unit rates."""
+    import numpy as np
+
+    from historymatching_tpu_torch import ResSim
+
+    Lx, Ly = 2.0, 1.0
+    near01 = np.array([0.12, 0.87])
+    prd_xy = [[x, y] for y in Ly * near01 for x in Lx * near01]
+    return ResSim.build(Nx=NX, Ny=NY, Lx=Lx, Ly=Ly, inj_xy=[[Lx / 2, Ly / 2]], prd_xy=prd_xy,
+                        inj_rates=[[1.0]], prd_rates=np.ones((4, 1)) / 4,
+                        dtype=torch.float32, device=dev)
+
+
+def main():
+    try:
+        import torch
+    except ImportError:
+        log("chip_smoke: FAIL: torch is not installed")
+        return 2
+    if not torch.cuda.is_available():
+        log("chip_smoke: FAIL: no CUDA device (this check runs on the GPU only)")
+        return 2
+    if not os.path.isdir(os.path.join(ROOT, "historymatching_tpu_torch")):
+        log("chip_smoke: FAIL: historymatching_tpu_torch/ is not beside this script")
+        return 2
+    sys.path.insert(0, ROOT)
+
+    import historymatching_tpu_torch as ht
+    from historymatching_tpu_torch.models.ressim import _source_field, cfl_substeps, scaled_system
+    from historymatching_tpu_torch.ops import _build
+    from historymatching_tpu_torch.ops.pressure import pressure_solve_cuda, pressure_solve_torch
+    from historymatching_tpu_torch.ops.transport import (
+        transport_substeps_cuda,
+        transport_substeps_torch,
+    )
+    from historymatching_tpu_torch.ops.stencil import face_fluxes
+    from historymatching_tpu_torch.parallel.runner import set_perm
+
+    assert "jax" not in sys.modules, "the port must not import JAX"
+
+    # 1. device
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip().splitlines()
+    card = smi[0] if smi else "nvidia-smi gave nothing"
+    log(f"[1] device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
+        f"torch {torch.__version__} cuda {torch.version.cuda}")
+    assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
+    log("[1] TF32 off (matmul and cudnn)")
+
+    # 2. build
+    t0 = time.perf_counter()
+    _build.lib()
+    log(f"[2] kernels built in {time.perf_counter() - t0:.1f} s -> {_build.build_info['path']}")
+    for line in _build.build_info.get("ptxas", "").splitlines():
+        if "registers" in line or "spill" in line:
+            log("[2] ptxas:", line.strip())
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    model = flagship_model(torch, dev)
+    fl = model.fluid
+    fluid = (fl.vw, fl.vo, fl.swc, fl.sor)
+
+    # 3. K against its plain version
+    B = 128
+    s = torch.rand(B, NX, NY, generator=gen, device=dev)
+    Fx = 0.1 * torch.randn(B, NX + 1, NY, generator=gen, device=dev)
+    Fy = 0.1 * torch.randn(B, NX, NY + 1, generator=gen, device=dev)
+    Fx[:, 0] = Fx[:, -1] = 0
+    Fy[:, :, 0] = Fy[:, :, -1] = 0
+    q = torch.zeros(B, NX, NY, device=dev)
+    q[:, NX // 2, NY // 2], q[:, 5, 5], q[:, -6, -6] = 1.0, -0.5, -0.5
+    n_sub = torch.randint(1, 513, (B,), generator=gen, device=dev, dtype=torch.int32)
+    dts_pv = 0.5 / n_sub.float()
+    s_k = transport_substeps_cuda(s, Fx, Fy, q, dts_pv, n_sub, fluid)
+    s_t = transport_substeps_torch(s, Fx, Fy, q, dts_pv, n_sub, fluid)
+    k_err = float((s_k - s_t).abs().max())
+    log(f"[3] K vs plain: N={B} {NX}x{NY}, n_sub {int(n_sub.min())}..{int(n_sub.max())}: "
+        f"max|ds| = {k_err:.3e} (tol {K_TOL})")
+    assert torch.isfinite(s_k).all() and k_err <= K_TOL
+
+    # 4. P against its plain version, on scaled hierarchies of prior fields
+    perm = ht.sample_prior_perm(gen, model, B, r=0.8)
+    mm = set_perm(model, perm)
+    _, _, diag, sd, hier, Ainv = scaled_system(mm, torch.zeros(B, NX, NY, device=dev))
+    qf = _source_field(model, model.inj_rates[:, 0], model.prd_rates[:, 0])
+    args = (hier, Ainv, (qf * sd).contiguous(), torch.zeros_like(sd), (diag * sd).contiguous())
+    # Fixed work is one restart window (8 iterations, then the residual
+    # replacement and the best-iterate logic). Over more windows float32 CG
+    # on these fields is chaotic: two float32 summation orders, or float32
+    # against float64, part by O(1) on some members after 16 iterations.
+    fixed = dict(tol=0.0, maxiter=8, patience_iters=160)
+    p_k, _, _ = pressure_solve_cuda(*args, **fixed)
+    p_t, _, _ = pressure_solve_torch(*args, **fixed)
+    # A member whose weighted residual never improves on its start returns
+    # the start (zeros) from both; that counts as agreement.
+    dn, nt = (p_k - p_t).norm(dim=(-2, -1)), p_t.norm(dim=(-2, -1))
+    p_err = float(torch.where((dn == 0) & (nt == 0), 0.0, dn / nt).max())
+    p_abs = float((p_k - p_t).abs().max())
+    log(f"[4a] P vs plain, fixed work (one window, 8 iterations): max rel |dp| = {p_err:.3e} "
+        f"(tol {P_TOL}), max abs {p_abs:.3e} of max |p| {float(p_t.abs().max()):.3e}; "
+        f"{int((nt == 0).sum())} members kept their start")
+    assert torch.isfinite(p_k).all() and p_err <= P_TOL
+    _, it_k, rel_k = pressure_solve_cuda(*args, **BASE)
+    _, it_t, rel_t = pressure_solve_torch(*args, **BASE)
+    acc_k, acc_t = rel_k <= 5e-2, rel_t <= 5e-2
+    close = float(((it_k - it_t).abs() <= 8).float().mean())
+    med_k, med_t = int(it_k.median()), int(it_t.median())
+    mean_k, mean_t = float(it_k.float().mean()), float(it_t.float().mean())
+    log(f"[4b] P vs plain, bench settings: accepted kernel {int(acc_k.sum())}/{B}, "
+        f"plain {int(acc_t.sum())}/{B}; iterations median {med_k} vs {med_t}, mean "
+        f"{mean_k:.1f} vs {mean_t:.1f}; within 8 for {close:.1%}")
+    # Over hundreds of float32 iterations the two summation orders take
+    # different paths (see [4a]), so members at their float32 floor near the
+    # acceptance line (5e-2) may land on either side. Required: the kernel
+    # accepts as many members (within 2% of the batch), a member only the
+    # plain version accepts is such a borderline one (kernel rel < 0.13, below
+    # the floor of garbage solves, models/ressim.py in the JAX package), and
+    # the iteration-count distributions agree (median within a window, mean
+    # within 10%).
+    only_t = acc_t & ~acc_k
+    log(f"[4b] accepted by one side only: plain {int(only_t.sum())} "
+        f"(kernel rel {[round(float(v), 4) for v in rel_k[only_t]]}), kernel "
+        f"{int((acc_k & ~acc_t).sum())}")
+    assert int(acc_k.sum()) >= int(acc_t.sum()) - max(1, B // 50)
+    assert bool((rel_k[only_t] < 0.13).all())
+    assert abs(med_k - med_t) <= 8 and abs(mean_k - mean_t) <= 0.1 * mean_t
+
+    # 5. the flagship workload
+    _, R12 = ht.temporal_R(NTIME, model.nPrd, dtype=torch.float32, device=dev)
+    truth = ht.sample_prior_perm(gen, model, 1, r=0.8)[0]
+    prior = ht.sample_prior_perm(gen, model, N, r=0.8)
+    noise = R12 @ torch.randn(NTIME * model.nPrd, generator=gen, device=dev)
+    stats = []
+
+    def make_fwd(kw):
+        def fwd(E):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            wsats, prods, res = ht.forward_model(model, E, dt=DT, nTime=NTIME,
+                                                 keep_wsats=False, return_sim=True, **kw)
+            torch.cuda.synchronize()
+            stats.append(dict(seconds=time.perf_counter() - t, res=res, final=wsats))
+            return prods.reshape(prods.shape[0], -1)
+        return fwd
+
+    fwds = [make_fwd(dict(BASE, **ov)) for ov in SCHED]
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    _, prod_truth = ht.forward_model(model, truth[None], dt=DT, nTime=NTIME,
+                                     keep_wsats=False, **BASE)
+    obs = torch.clamp(prod_truth[0].reshape(-1) + noise, 0, 1)
+    post = ht.es_mda(prior, fwds, obs, R12, ht.mda_alphas(PASSES, device=dev), generator=gen)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t_start
+    launches = dict(_build.LAUNCHES)
+
+    rmse = lambda E: float(((E.mean(0) - truth) ** 2).mean().sqrt())  # noqa: E731
+    spread = lambda E: float(E.std(0).mean())  # noqa: E731
+    for i, st in enumerate(stats):
+        res = st["res"]
+        log(f"[5] pass {i + 1}: {st['seconds']:.3f} s; cg_ok {float(res.cg_ok.float().mean()):.1%}; "
+            f"cg_iters median {int(res.cg_iters.median())} max {int(res.cg_iters.max())}; "
+            f"substeps median {int(res.substeps.median())}")
+    log(f"[5] N={N} {NX}x{NY} nTime={NTIME} {PASSES}-pass ES-MDA total {total:.3f} s "
+        f"(truth sim + forward passes + analyses, synchronized)")
+    log(f"[5] rmse vs truth: prior {rmse(prior):.4f} -> posterior {rmse(post):.4f}; "
+        f"spread prior {spread(prior):.4f} -> posterior {spread(post):.4f}")
+    log(f"[5] kernel launches on the main path: {launches}")
+    assert all(v >= (1 + PASSES) * NTIME for v in launches.values()), launches
+    for st in stats:
+        for x in (st["final"], st["res"].prd_sats):
+            assert torch.isfinite(x).all()
+            assert float(x.min()) >= fl.swc and float(x.max()) <= 1.0 - fl.sor
+    assert torch.isfinite(post).all() and post.shape == prior.shape
+    assert spread(post) < spread(prior)
+
+    # 6. kernel vs plain time at the main path's shapes: one step from the
+    # last forward pass's final states, at the final pass's solver settings.
+    s_end = stats[-1]["final"][:, 0].reshape(N, NX, NY).contiguous()
+    mm = set_perm(model, post)
+    q1 = _source_field(model, model.inj_rates[:, 0], model.prd_rates[:, 0])
+    TX, TY, diag, sd, hier, Ainv = scaled_system(mm, s_end)
+    args = (hier, Ainv, (q1 * sd).contiguous(), torch.zeros_like(sd), (diag * sd).contiguous())
+    kw = dict(BASE, **SCHED[-1])
+    p_ms = cuda_ms(lambda: pressure_solve_cuda(*args, **kw), 3)
+    p_plain_ms = cuda_ms(lambda: pressure_solve_torch(*args, **kw), 1)
+    y, _, _ = pressure_solve_cuda(*args, **kw)
+    Fx, Fy = (F.contiguous() for F in face_fluxes(TX, TY, y * sd))
+    nsub, dtspv = cfl_substeps(mm, Fx, Fy, q1, DT)
+    qb = q1.expand(N, NX, NY).contiguous()
+    t_ms = cuda_ms(lambda: transport_substeps_cuda(s_end, Fx, Fy, qb, dtspv, nsub, fluid), 5)
+    t_plain_ms = cuda_ms(lambda: transport_substeps_torch(s_end, Fx, Fy, qb, dtspv, nsub,
+                                                          fluid), 1)
+    log(f"[6] one step at N={N} {NX}x{NY}: pressure kernel {p_ms:.3f} ms vs plain "
+        f"{p_plain_ms:.3f} ms; transport kernel {t_ms:.3f} ms vs plain {t_plain_ms:.3f} ms "
+        f"(substeps median {int(nsub.median())} max {int(nsub.max())})")
+
+    kernels = [
+        dict(name="transport_upwind", route="cuda",
+             source="historymatching_tpu_torch/csrc/transport_upwind.cu",
+             replaces="historymatching_tpu/ops/transport_pallas.py:68",
+             launches=launches["transport_upwind"], max_abs_err=k_err, ms=t_ms,
+             plain_ms=t_plain_ms),
+        dict(name="pressure_pcg", route="cuda",
+             source="historymatching_tpu_torch/csrc/pressure_pcg.cu",
+             replaces="historymatching_tpu/ops/pressure_pallas.py:34",
+             launches=launches["pressure_pcg"], max_abs_err=p_abs, ms=p_ms,
+             plain_ms=p_plain_ms),
+    ]
+    log(card)
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                           "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,32 @@
+"""Carry state from the JAX package into the port.
+
+The system has no trained weights; what crosses over is a model
+configuration (its arrays and its grid and fluid scalars), ensembles and
+the random draws of a run. Arrays arrive as anything `numpy.asarray`
+reads, which includes JAX arrays, so this module needs no JAX itself.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from historymatching_tpu_torch.models.ressim import Fluid, ResSim
+
+
+def tensor(x, device=None, dtype=None):
+    """An ensemble, a field or a batch of draws as a tensor."""
+    return torch.as_tensor(np.array(x), dtype=dtype, device=device)
+
+
+def ressim_from_reference(model, device=None, dtype=None):
+    """The port's `ResSim` from a JAX-package `ResSim`: its arrays (K, well
+    coordinates, well rates) read with NumPy, its grid and fluid scalars
+    read by attribute."""
+    g, fl = model.grid, model.fluid
+    a = np.asarray
+    return ResSim.build(Nx=g.Nx, Ny=g.Ny, Lx=g.Lx, Ly=g.Ly, K=a(model.K),
+                        inj_xy=a(model.inj_xy), prd_xy=a(model.prd_xy),
+                        inj_rates=a(model.inj_rates), prd_rates=a(model.prd_rates),
+                        fluid=Fluid(vw=fl.vw, vo=fl.vo, swc=fl.swc, sor=fl.sor),
+                        name=model.name, dtype=dtype, device=device)

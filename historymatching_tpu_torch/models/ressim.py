@@ -1,0 +1,343 @@
+"""2D two-phase incompressible reservoir simulator, TPFA (PyTorch counterpart
+of `historymatching_tpu.models.ressim`).
+
+Per time step: the Jacobi-scaled TPFA pressure system is solved by
+multigrid-preconditioned CG (kernel P on the card), Darcy face fluxes
+follow, then explicit upwind saturation transport with CFL substepping
+(kernel K on the card). Quadratic Corey relative permeabilities.
+
+Members are a leading axis: a model whose `K` is (N, 2, Nx, Ny) simulates N
+members at once, sharing grid, fluid and wells. The time loop is a Python
+loop. Only the `scale_system=True`, `precond="mg"` path of the JAX package
+is ported; `simulate` takes none of the TPU strategy knobs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from historymatching_tpu_torch.grid import Grid2D
+from historymatching_tpu_torch.ops.multigrid import build_hierarchy_5pt, coarse_inverse, n_levels
+from historymatching_tpu_torch.ops.pressure import pressure_solve
+from historymatching_tpu_torch.ops.stencil import (
+    face_fluxes,
+    stencil_diag_nopin,
+    transmissibilities,
+)
+from historymatching_tpu_torch.ops.transport import transport_substeps
+
+
+@dataclasses.dataclass(frozen=True)
+class Fluid:
+    """Two-phase fluid: viscosities and irreducible saturations."""
+
+    vw: float = 1.0
+    vo: float = 1.0
+    swc: float = 0.0
+    sor: float = 0.0
+
+
+def _f(x, dtype=None, device=None):
+    """A floating tensor; an existing floating dtype is kept unless `dtype`."""
+    t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.array(x))
+    if dtype is None and not t.is_floating_point():
+        dtype = torch.get_default_dtype()
+    return t.to(dtype=dtype or t.dtype, device=device)
+
+
+def _atleast_2d(t):
+    return t.reshape(1, -1) if t.ndim < 2 else t
+
+
+@dataclasses.dataclass(frozen=True)
+class ResSim:
+    """Immutable reservoir model. Tensors: K (..., 2, Nx, Ny) direction
+    permeabilities, with an optional leading member axis; well coordinates
+    (nWell, 2); well rates (nWell, nT), nT == 1 meaning constant in time."""
+
+    K: torch.Tensor
+    inj_xy: torch.Tensor
+    prd_xy: torch.Tensor
+    inj_rates: torch.Tensor
+    prd_rates: torch.Tensor
+    grid: Grid2D
+    fluid: Fluid
+    name: str = ""
+
+    @classmethod
+    def build(cls, Nx=32, Ny=32, Lx=1.0, Ly=1.0, K=None, inj_xy=None, prd_xy=None,
+              inj_rates=None, prd_rates=None, fluid=None, name="", dtype=None,
+              device=None):
+        """Wells default to a centre injector and a far-corner producer with
+        balanced unit rates."""
+        grid = Grid2D(Nx=Nx, Ny=Ny, Lx=Lx, Ly=Ly)
+        if K is None:
+            K = np.ones((2, Nx, Ny))
+        if inj_xy is None:
+            inj_xy = [[Lx / 2, Ly / 2]]
+        if prd_xy is None:
+            prd_xy = [[Lx - grid.hx / 2, Ly - grid.hy / 2]]
+        if inj_rates is None:
+            inj_rates = np.ones((len(np.atleast_2d(inj_xy)), 1))
+        if prd_rates is None:
+            n = len(np.atleast_2d(prd_xy))
+            prd_rates = np.ones((n, 1)) / n
+        cv = lambda x: _f(x, dtype, device)  # noqa: E731
+        return cls(K=cv(K), inj_xy=_atleast_2d(cv(inj_xy)), prd_xy=_atleast_2d(cv(prd_xy)),
+                   inj_rates=_atleast_2d(cv(inj_rates)),
+                   prd_rates=_atleast_2d(cv(prd_rates)), grid=grid,
+                   fluid=fluid or Fluid(), name=name)
+
+    def replace(self, **kw):
+        """Functional reconfiguration; arrays become tensors on K's device."""
+        for k in ("K", "inj_xy", "prd_xy", "inj_rates", "prd_rates"):
+            if k in kw:
+                v = _f(kw[k], device=self.K.device)
+                kw[k] = v if k == "K" else _atleast_2d(v)
+        return dataclasses.replace(self, **kw)
+
+    @property
+    def Nx(self):
+        return self.grid.Nx
+
+    @property
+    def Ny(self):
+        return self.grid.Ny
+
+    @property
+    def Lx(self):
+        return self.grid.Lx
+
+    @property
+    def Ly(self):
+        return self.grid.Ly
+
+    @property
+    def Nxy(self):
+        return self.grid.Nxy
+
+    @property
+    def shape(self):
+        return self.grid.shape
+
+    @property
+    def mesh(self):
+        return self.grid.mesh
+
+    @property
+    def domain(self):
+        return self.grid.domain
+
+    @property
+    def nInj(self):
+        return self.inj_xy.shape[0]
+
+    @property
+    def nPrd(self):
+        return self.prd_xy.shape[0]
+
+    def sub2ind(self, ix, iy):
+        return self.grid.sub2ind(ix, iy)
+
+    def xy2ind(self, x, y):
+        return self.grid.xy2ind(x, y)
+
+    def sim(self, dt, nTime, wsat0, **kw):
+        """Saturations (nTime+1, Nxy), including the initial state."""
+        return simulate(self, wsat0, dt, nTime, **kw).wsats
+
+    def validate(self):
+        """Raise on unbalanced rates or out-of-domain wells."""
+        inj = np.atleast_2d(self.inj_rates.cpu().numpy())
+        prd = np.atleast_2d(self.prd_rates.cpu().numpy())
+        ti, tp = inj.sum(0), prd.sum(0)
+        if not np.allclose(ti, tp.repeat(len(ti)) if tp.size == 1 else tp):
+            raise ValueError(f"Unbalanced rates: inj {ti} != prd {tp}")
+        for xy, lbl in ((self.inj_xy, "inj"), (self.prd_xy, "prd")):
+            xy = xy.cpu().numpy()
+            ok = (xy[:, 0] >= 0) & (xy[:, 0] <= self.Lx) & (xy[:, 1] >= 0) & (xy[:, 1] <= self.Ly)
+            if not ok.all():
+                raise ValueError(f"{lbl}_xy outside domain: {xy[~ok]}")
+        return self
+
+
+class SimResult(NamedTuple):
+    """Outputs of `simulate`. Per-member fields carry the model's leading
+    member axis; the rate and validity fields describe the shared wells."""
+
+    wsats: torch.Tensor  # (..., nTime+1, Nxy), or (..., 2, Nxy) without keep_wsats
+    actual_inj_rates: torch.Tensor  # (nInj, nTime)
+    actual_prd_rates: torch.Tensor  # (nPrd, nTime)
+    valid: torch.Tensor  # bool: rates balanced, wells in domain
+    cg_ok: torch.Tensor  # (...,) bool: every pressure solve accepted
+    cg_iters: torch.Tensor  # (..., nTime) int32
+    substeps: torch.Tensor  # (..., nTime) int32
+    prd_sats: torch.Tensor  # (..., nTime, nPrd) producer-cell saturations
+
+
+def relperm(s, fluid: Fluid):
+    """Quadratic (Corey) mobilities (Mw, Mo)."""
+    S = (s - fluid.swc) / (1.0 - fluid.swc - fluid.sor)
+    return S**2 / fluid.vw, (1.0 - S) ** 2 / fluid.vo
+
+
+def frac_flow(s, fluid: Fluid):
+    Mw, Mo = relperm(s, fluid)
+    return Mw / (Mw + Mo)
+
+
+def _rates_seq(rates, nTime):
+    """(nWell, nT) -> (nTime, nWell); nT == 1 broadcasts."""
+    rates = _atleast_2d(rates)
+    nT = rates.shape[1]
+    if nT == 1:
+        return rates[:, 0].expand(nTime, rates.shape[0])
+    if nT != nTime:
+        raise ValueError(f"rates have {nT} steps; expected 1 or {nTime}")
+    return rates.T
+
+
+def _source_field(model: ResSim, inj_t, prd_t):
+    """(Nx, Ny) source field for one step; wells in one cell add up."""
+    g = model.grid
+    q = torch.zeros(g.Nxy, dtype=inj_t.dtype, device=inj_t.device)
+    inj_ind = g.xy2ind(model.inj_xy[:, 0], model.inj_xy[:, 1]).to(q.device)
+    prd_ind = g.xy2ind(model.prd_xy[:, 0], model.prd_xy[:, 1]).to(q.device)
+    q.index_add_(0, inj_ind, inj_t)
+    q.index_add_(0, prd_ind, -prd_t)
+    return q.reshape(g.shape)
+
+
+def scaled_system(model: ResSim, s):
+    """The Jacobi-scaled TPFA system of saturations `s` (..., Nx, Ny): the
+    pinned operator's faces TX, TY and diagonal, sd = rsqrt(diag), and the
+    scaled operator's multigrid hierarchy (unit diagonal) with its coarse
+    inverse. The pin is the mean of the unpinned diagonal, at cell (0, 0)."""
+    g = model.grid
+    if n_levels(g.Nx, g.Ny) < 2:
+        raise NotImplementedError(f"grid {g.Nx}x{g.Ny} has no multigrid hierarchy")
+    Mw, Mo = relperm(s, model.fluid)
+    mob = Mw + Mo
+    TX, TY = transmissibilities(model.K[..., 0, :, :] * mob, model.K[..., 1, :, :] * mob,
+                                g.hx, g.hy)
+    diag = stencil_diag_nopin(TX, TY)
+    diag[..., 0, 0] += diag.mean(dim=(-2, -1))
+    sd = torch.rsqrt(diag)
+    TXs = TX * sd[..., :-1, :] * sd[..., 1:, :]
+    TYs = TY * sd[..., :, :-1] * sd[..., :, 1:]
+    hier = build_hierarchy_5pt(TXs, TYs, torch.ones_like(diag))
+    return TX, TY, diag, sd, hier, coarse_inverse(hier)
+
+
+def pressure_step(model: ResSim, s, q, p0, tol, maxiter, tol_accept=None,
+                  patience_iters=96):
+    """Scaled TPFA pressure solve for saturations `s` (..., Nx, Ny).
+    Returns (p, Fx, Fy, iters, accepted).
+
+    Solves D^-1/2 A D^-1/2 y = D^-1/2 q, p = D^-1/2 y, stopping on the
+    physical residual norm (metric weight sqrt(diag)); the fluxes use the
+    unscaled operator."""
+    TX, TY, diag, sd, hier, Ainv = scaled_system(model, s)
+    mweight = diag * sd
+    lead = diag.shape[:-2]
+    flat = lambda t: t.expand(*lead, *t.shape[-2:]).reshape(-1, *t.shape[-2:])  # noqa: E731
+    hier_b = [tuple(flat(t) for t in lvl) for lvl in hier]
+    y, iters, rel = pressure_solve(hier_b, flat(Ainv), flat(q * sd), flat(p0 * mweight),
+                                   flat(mweight), tol, maxiter, patience_iters)
+    p = y.reshape(diag.shape) * sd
+    Fx, Fy = face_fluxes(TX, TY, p)
+    accepted = rel.reshape(lead) <= (tol if tol_accept is None else tol_accept)
+    return p, Fx, Fy, iters.reshape(lead), accepted
+
+
+def cfl_substeps(model: ResSim, Fx, Fy, q, dt, max_substeps=4096):
+    """Per-member CFL substep counts n_sub = clip(ceil(dt / cfl), 1,
+    max_substeps), cfl = (1-swc-sor)/3 * min(pv / influx), and the substep
+    length over pore volume. Returns (n_sub int32, dts / pv)."""
+    g = model.grid
+    fl = model.fluid
+    pv = g.h2
+    fi = q.clamp_min(0.0)
+    XP, XN = Fx.clamp_min(0.0), Fx.clamp_max(0.0)
+    YP, YN = Fy.clamp_min(0.0), Fy.clamp_max(0.0)
+    Vi = XP[..., :-1, :] + YP[..., :, :-1] - XN[..., 1:, :] - YN[..., :, 1:]
+    inflow = Vi + fi
+    pos = inflow > 0
+    pm = torch.where(pos, pv / torch.where(pos, inflow, 1.0), torch.inf).amin(dim=(-2, -1))
+    cfl = (1.0 - fl.swc - fl.sor) / 3.0 * pm
+    n_sub = torch.clamp(torch.ceil(dt / cfl), 1, max_substeps).to(torch.int32)
+    dts = dt / n_sub.to(Fx.dtype)
+    return n_sub, dts / pv
+
+
+def transport_step(model: ResSim, s, Fx, Fy, q, dt, max_substeps=4096):
+    """Explicit upwind transport over one outer step `dt` with per-member
+    CFL substepping (`cfl_substeps`). Returns (s, n_sub)."""
+    fl = model.fluid
+    n_sub, dts_pv = cfl_substeps(model, Fx, Fy, q, dt, max_substeps)
+    s = transport_substeps(s, Fx, Fy, q, dts_pv, n_sub, (fl.vw, fl.vo, fl.swc, fl.sor))
+    return s, n_sub
+
+
+def simulate(model: ResSim, wsat0, dt, nTime, *, tol=None, tol_accept=None, maxiter=None,
+             max_substeps=4096, patience_iters=96, keep_wsats=True):
+    """Run `nTime` steps of size `dt` from saturation `wsat0` (..., Nxy).
+
+    Restartable: pass a previous run's last `wsats` row as `wsat0`. Solver
+    defaults follow the dtype: tol 2e-3 / tol_accept 5e-2 / maxiter
+    4 max(Nx, Ny) in float32; 1e-10 / 1e-6 / Nxy in float64. With
+    `keep_wsats=False`, `wsats` holds only [initial, final]; `prd_sats`
+    always holds the producer-cell series.
+    """
+    g = model.grid
+    dev = model.K.device
+    wsat0 = _f(wsat0, device=dev)
+    dtype = wsat0.dtype
+    f64 = dtype == torch.float64
+    tol = (1e-10 if f64 else 2e-3) if tol is None else tol
+    tol_accept = (1e-6 if f64 else 5e-2) if tol_accept is None else tol_accept
+    maxiter = (g.Nxy if f64 else 4 * max(g.Nx, g.Ny)) if maxiter is None else maxiter
+
+    model = model.replace(K=model.K.to(dtype))
+    lead = torch.broadcast_shapes(model.K.shape[:-3], wsat0.shape[:-1])
+    s0 = wsat0.reshape(*wsat0.shape[:-1], *g.shape).expand(*lead, *g.shape)
+    inj_seq = _rates_seq(model.inj_rates, nTime).to(dtype)
+    prd_seq = _rates_seq(model.prd_rates, nTime).to(dtype)
+
+    tot_i, tot_p = inj_seq.sum(1), prd_seq.sum(1)
+    scale = torch.clamp_min(tot_i.abs() + tot_p.abs(), 1e-30)
+    balanced = ((tot_i - tot_p).abs() <= 1e-6 * scale).all()
+    wells_ok = (g.in_domain(model.inj_xy[:, 0], model.inj_xy[:, 1]).all()
+                & g.in_domain(model.prd_xy[:, 0], model.prd_xy[:, 1]).all())
+    prd_idx = g.xy2ind(model.prd_xy[:, 0], model.prd_xy[:, 1]).to(dev)
+
+    s, p = s0, torch.zeros_like(s0)
+    sats, sobs, iters, conv, subs = [], [], [], [], []
+    for t in range(nTime):
+        q = _source_field(model, inj_seq[t], prd_seq[t])
+        p, Fx, Fy, it, ok = pressure_step(model, s, q, p, tol, maxiter, tol_accept,
+                                          patience_iters)
+        s, n_sub = transport_step(model, s, Fx, Fy, q, dt, max_substeps)
+        flat_s = s.reshape(*lead, -1)
+        sobs.append(flat_s[..., prd_idx])
+        iters.append(it)
+        conv.append(ok)
+        subs.append(n_sub)
+        if keep_wsats:
+            sats.append(flat_s)
+    first = s0.reshape(*lead, -1)
+    wsats = torch.stack([first] + (sats if keep_wsats else [s.reshape(*lead, -1)]), dim=-2)
+    return SimResult(
+        wsats=wsats,
+        actual_inj_rates=inj_seq.T,
+        actual_prd_rates=prd_seq.T,
+        valid=balanced & wells_ok.to(balanced.device),
+        cg_ok=torch.stack(conv, -1).all(-1),
+        cg_iters=torch.stack(iters, -1),
+        substeps=torch.stack(subs, -1),
+        prd_sats=torch.stack(sobs, dim=-2),
+    )

@@ -1,0 +1,53 @@
+"""The PyTorch port imports no JAX: it must run on a host that has none.
+Checked in a subprocess with `jax` blocked at the finder level, like
+tests/test_packaging.py blocks the optional extras."""
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_port_imports_without_jax():
+    code = """
+import sys
+
+class _Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in ('jax', 'jaxlib', 'historymatching_tpu'):
+            raise ImportError(name + ' must not be imported by the port')
+        return None
+
+sys.meta_path.insert(0, _Block())
+import importlib, pkgutil
+import historymatching_tpu_torch as ht
+for mod in pkgutil.walk_packages(ht.__path__, 'historymatching_tpu_torch.'):
+    importlib.import_module(mod.name)
+import torch
+assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
+m = ht.ResSim.build(Nx=8, Ny=8, dtype=torch.float64)
+r = ht.simulate(m, torch.zeros(m.Nxy, dtype=torch.float64), 0.01, 2)
+assert bool(r.cg_ok)
+print('port-import-ok')
+"""
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                       text=True, timeout=300,
+                       env=dict(os.environ, OMP_NUM_THREADS="1"))
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "port-import-ok" in r.stdout
+
+
+def test_chip_smoke_refuses_without_cuda_or_package(tmp_path):
+    """chip_smoke.py exits non-zero and prints no result where there is no
+    card, and where the port's package is not beside it."""
+    import shutil
+
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path / "chip_smoke.py")
+    for cwd in (REPO, str(tmp_path)):
+        r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, capture_output=True,
+                           text=True, timeout=300,
+                           env=dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                                    OMP_NUM_THREADS="1"))
+        assert r.returncode != 0
+        assert '"ok": true' not in r.stdout
