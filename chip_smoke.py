@@ -5,14 +5,20 @@
 
 Phases, one printed line or more each; any failed check raises:
 1. device: require CUDA, print the card's name and power limit, TF32 off;
-2. build the hand-written kernels (historymatching_tpu_torch/csrc) with nvcc;
+2. build the hand-written kernels (historymatching_tpu_torch/csrc) with nvcc,
+   one compiler per source, in parallel; print each kernel's registers,
+   local (spill) bytes, shared memory and resident blocks per SM;
 3. kernel K (transport) against its plain PyTorch version, float32;
 4. kernel P (pressure MG-PCG) against its plain version: (a) fixed work,
    (b) the main path's solver settings;
 5. the flagship workload: N=1000 members, 64x64, 40 steps, 4-pass ES-MDA
    (prior, truth simulation, observations, forward_model -> simulate ->
-   es_mda), with launch counts of both kernels over the run;
-6. each kernel's time against its plain version at the main path's shapes.
+   es_mda) through the entry points' default device, with launch counts of
+   both kernels over the run;
+6. each kernel's time against its plain version at the main path's shapes,
+   and the least time the card could take for the same work (bound_ms);
+7. torch.profiler over 10 steps of a loose pass: device time by stage and
+   the card's idle share.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a card, or without the package
@@ -34,6 +40,19 @@ BASE = dict(tol=2e-4, maxiter=768, patience_iters=256)
 LOOSE = dict(tol=2e-3, maxiter=256, patience_iters=128)
 SCHED = [LOOSE, LOOSE, LOOSE, dict(maxiter=128)]
 K_TOL, P_TOL = 1e-5, 1e-3
+# Peak rates of one H100 SXM (NVIDIA's data sheet): float32 outside the
+# tensor cores, and device memory.
+F32_FLOPS, HBM_BYTES = 67e12, 3.35e12
+# The least work a unit of each kernel's function needs. K: flops a cell and
+# substep with the upwind split folded once a step into five coefficients
+# with dt (fw 8, the update and s + acc 11, the clamp 2), and flops a cell
+# and step for that fold (18); the kernel does more, to keep the plain
+# version's rounding. P, counted from the code: flops a fine cell and CG
+# iteration outside the V-cycle (matvec 9, p.Ap 2, x and r updates 4, r.z
+# and (w r)^2 5, p update 2), and a V-cycle's flops a cell of each smoothed
+# level (two sweeps down with the zero start folded, residual and
+# restriction, prolongation and two sweeps up).
+K_FLOPS_SUBSTEP, K_FLOPS_FOLD, P_FLOPS_FINE, P_FLOPS_VCYCLE = 21, 18, 22, 54
 
 
 def log(*a):
@@ -55,9 +74,10 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def flagship_model(torch, dev):
+def flagship_model(torch):
     """The reference bench case (bench.build_model): 2x1 domain, centre
-    injector, 4 producers at (0.12, 0.87) x (Lx, Ly), balanced unit rates."""
+    injector, 4 producers at (0.12, 0.87) x (Lx, Ly), balanced unit rates,
+    on the entry point's default device."""
     import numpy as np
 
     from historymatching_tpu_torch import ResSim
@@ -67,7 +87,34 @@ def flagship_model(torch, dev):
     prd_xy = [[x, y] for y in Ly * near01 for x in Lx * near01]
     return ResSim.build(Nx=NX, Ny=NY, Lx=Lx, Ly=Ly, inj_xy=[[Lx / 2, Ly / 2]], prd_xy=prd_xy,
                         inj_rates=[[1.0]], prd_rates=np.ones((4, 1)) / 4,
-                        dtype=torch.float32, device=dev)
+                        dtype=torch.float32)
+
+
+def pressure_bound_ms(hier, Ainv, iters):
+    """Least time of a P launch: its flops (the iterations these members
+    ran) at the float32 rate, or its bytes (hierarchy, coarse inverse, q,
+    p0, w read once, p written once) at the memory rate."""
+    cells = [lvl[2][0].numel() for lvl in hier]
+    per_iter = cells[0] * P_FLOPS_FINE + P_FLOPS_VCYCLE * sum(cells[:-1]) + 2 * cells[-1] ** 2
+    flops = per_iter * float(iters.double().sum())
+    nbytes = 4 * (sum(t.numel() for lvl in hier for t in lvl) + Ainv.numel()
+                  + 4 * hier[0][2].numel() + 2 * iters.numel())
+    return bound(flops, nbytes)
+
+
+def transport_bound_ms(s, Fx, Fy, q, n_sub):
+    """Least time of a K launch: its flops (the substeps these members run,
+    and one fold a member) or its bytes (s, Fx, Fy, q, dts_pv, n_sub read
+    once, s written once)."""
+    flops = s[0].numel() * (K_FLOPS_SUBSTEP * float(n_sub.double().sum())
+                            + K_FLOPS_FOLD * n_sub.numel())
+    nbytes = 4 * (2 * s.numel() + Fx.numel() + Fy.numel() + q.numel() + 2 * n_sub.numel())
+    return bound(flops, nbytes)
+
+
+def bound(flops, nbytes):
+    t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def main():
@@ -111,13 +158,22 @@ def main():
     # 2. build
     t0 = time.perf_counter()
     _build.lib()
-    log(f"[2] kernels built in {time.perf_counter() - t0:.1f} s -> {_build.build_info['path']}")
-    for line in _build.build_info.get("ptxas", "").splitlines():
-        if "registers" in line or "spill" in line:
-            log("[2] ptxas:", line.strip())
+    log(f"[2] kernels built in {time.perf_counter() - t0:.1f} s "
+        f"(compiled: {_build.build_info['built']}) -> {_build.build_info['paths']}")
+    for stem, text in _build.build_info["ptxas"].items():
+        for line in text.splitlines():
+            if "spill" in line and not line.strip().startswith("0 bytes stack frame, 0 bytes"):
+                log(f"[2] ptxas {stem}: {line.strip()}")
+    for name in _build.LAUNCHES:
+        for grid in _build.GRIDS:
+            info = _build.kernel_info(name, *grid)
+            log(f"[2] {name} {grid[0]}x{grid[1]}: {info['registers']} registers, "
+                f"{info['local_bytes']} local (stack/spill) bytes, {info['shared_bytes']} shared "
+                f"bytes, {info['threads']} threads, {info['blocks_per_sm']} resident blocks/SM")
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    model = flagship_model(torch, dev)
+    model = flagship_model(torch)
+    assert model.K.is_cuda, "ResSim.build must default to the card"
     fl = model.fluid
     fluid = (fl.vw, fl.vo, fl.swc, fl.sor)
 
@@ -187,7 +243,7 @@ def main():
     assert abs(med_k - med_t) <= 8 and abs(mean_k - mean_t) <= 0.1 * mean_t
 
     # 5. the flagship workload
-    _, R12 = ht.temporal_R(NTIME, model.nPrd, dtype=torch.float32, device=dev)
+    _, R12 = ht.temporal_R(NTIME, model.nPrd, dtype=torch.float32)
     truth = ht.sample_prior_perm(gen, model, 1, r=0.8)[0]
     prior = ht.sample_prior_perm(gen, model, N, r=0.8)
     noise = R12 @ torch.randn(NTIME * model.nPrd, generator=gen, device=dev)
@@ -211,7 +267,7 @@ def main():
     _, prod_truth = ht.forward_model(model, truth[None], dt=DT, nTime=NTIME,
                                      keep_wsats=False, **BASE)
     obs = torch.clamp(prod_truth[0].reshape(-1) + noise, 0, 1)
-    post = ht.es_mda(prior, fwds, obs, R12, ht.mda_alphas(PASSES, device=dev), generator=gen)
+    post = ht.es_mda(prior, fwds, obs, R12, ht.mda_alphas(PASSES), generator=gen)
     torch.cuda.synchronize()
     total = time.perf_counter() - t_start
     launches = dict(_build.LAUNCHES)
@@ -246,28 +302,73 @@ def main():
     kw = dict(BASE, **SCHED[-1])
     p_ms = cuda_ms(lambda: pressure_solve_cuda(*args, **kw), 3)
     p_plain_ms = cuda_ms(lambda: pressure_solve_torch(*args, **kw), 1)
-    y, _, _ = pressure_solve_cuda(*args, **kw)
+    y, p_iters, _ = pressure_solve_cuda(*args, **kw)
+    p_bound, p_by = pressure_bound_ms(hier, Ainv, p_iters)
     Fx, Fy = (F.contiguous() for F in face_fluxes(TX, TY, y * sd))
     nsub, dtspv = cfl_substeps(mm, Fx, Fy, q1, DT)
-    qb = q1.expand(N, NX, NY).contiguous()
-    t_ms = cuda_ms(lambda: transport_substeps_cuda(s_end, Fx, Fy, qb, dtspv, nsub, fluid), 5)
-    t_plain_ms = cuda_ms(lambda: transport_substeps_torch(s_end, Fx, Fy, qb, dtspv, nsub,
+    q1 = q1[None].contiguous()  # one source field, read by every member
+    t_ms = cuda_ms(lambda: transport_substeps_cuda(s_end, Fx, Fy, q1, dtspv, nsub, fluid), 5)
+    t_plain_ms = cuda_ms(lambda: transport_substeps_torch(s_end, Fx, Fy, q1, dtspv, nsub,
                                                           fluid), 1)
+    t_bound, t_by = transport_bound_ms(s_end, Fx, Fy, q1, nsub)
+    t_err = float((transport_substeps_cuda(s_end, Fx, Fy, q1, dtspv, nsub, fluid)
+                   - transport_substeps_torch(s_end, Fx, Fy, q1, dtspv, nsub, fluid)).abs().max())
     log(f"[6] one step at N={N} {NX}x{NY}: pressure kernel {p_ms:.3f} ms vs plain "
-        f"{p_plain_ms:.3f} ms; transport kernel {t_ms:.3f} ms vs plain {t_plain_ms:.3f} ms "
-        f"(substeps median {int(nsub.median())} max {int(nsub.max())})")
+        f"{p_plain_ms:.3f} ms, bound {p_bound:.4f} ms ({p_by}; cg_iters median "
+        f"{int(p_iters.median())} mean {float(p_iters.float().mean()):.1f}); transport kernel "
+        f"{t_ms:.3f} ms vs plain {t_plain_ms:.3f} ms, bound {t_bound:.4f} ms ({t_by}; substeps "
+        f"median {int(nsub.median())} max {int(nsub.max())}; max|ds| vs plain {t_err:.3e}, "
+        f"tol {K_TOL})")
+    assert t_err <= K_TOL
+
+    # 7. where a step's device time goes: 10 steps of a loose pass, from the
+    # last pass's final states, unprofiled for the wall time, then profiled.
+    wsat = s_end.reshape(N, -1)
+    prof_kw = dict(dt=DT, nTime=10, keep_wsats=False, **dict(BASE, **LOOSE))
+    ht.simulate(mm, wsat, **dict(prof_kw, nTime=1))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ht.simulate(mm, wsat, **prof_kw)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / 10
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ht.simulate(mm, wsat, **prof_kw)
+        torch.cuda.synchronize()
+    stages = {"pressure_pcg": 0.0, "transport_upwind": 0.0, "torch ops": 0.0}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:  # device activity only, each counted once
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        us = ev.self_cuda_time_total if us is None else us
+        key = next((k for k in _build.LAUNCHES if k in ev.key), "torch ops")
+        stages[key] += us / 1e3 / 10
+    busy = sum(stages.values())
+    log(f"[7] profile, 10 loose-pass steps at N={N}: per step " + ", ".join(
+        f"{k} {v:.3f} ms ({v / busy:.1%})" for k, v in stages.items())
+        + f"; device busy {busy:.3f} ms of {wall_ms:.3f} ms unprofiled wall, idle "
+        f"{1 - busy / wall_ms:.1%}")
+    assert busy > 0, "the profiler saw no device time"
+    # The card cannot be busy longer than the wall. The profiled and the
+    # unprofiled run differ, but device times repeat to about 1% between
+    # runs, so beyond 5% the profile double-counts or its overhead leaks in.
+    assert busy <= 1.05 * wall_ms, f"device time {busy:.3f} ms exceeds the wall {wall_ms:.3f} ms"
+
+    def record(name, route, source, replaces, err, ms, plain_ms, bound_ms, by):
+        return dict(name=name, route=route, source=source, replaces=replaces,
+                    launches=launches[name], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=by, library_ms=None,
+                    share_of_bound=bound_ms / ms)
 
     kernels = [
-        dict(name="transport_upwind", route="cuda",
-             source="historymatching_tpu_torch/csrc/transport_upwind.cu",
-             replaces="historymatching_tpu/ops/transport_pallas.py:68",
-             launches=launches["transport_upwind"], max_abs_err=k_err, ms=t_ms,
-             plain_ms=t_plain_ms),
-        dict(name="pressure_pcg", route="cuda",
-             source="historymatching_tpu_torch/csrc/pressure_pcg.cu",
-             replaces="historymatching_tpu/ops/pressure_pallas.py:34",
-             launches=launches["pressure_pcg"], max_abs_err=p_abs, ms=p_ms,
-             plain_ms=p_plain_ms),
+        record("transport_upwind", "cuda", "historymatching_tpu_torch/csrc/transport_upwind.cu",
+               "historymatching_tpu/ops/transport_pallas.py:68", k_err, t_ms, t_plain_ms,
+               t_bound, t_by),
+        record("pressure_pcg", "cuda", "historymatching_tpu_torch/csrc/pressure_pcg.cu",
+               "historymatching_tpu/ops/pressure_pallas.py:34", p_abs, p_ms, p_plain_ms,
+               p_bound, p_by),
     ]
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -6,7 +6,10 @@ The module layout and names mirror the JAX package. Plain tensor code is
 PyTorch; the two hot loops (the MG-PCG pressure solve and the CFL-substep
 transport) are hand-written CUDA kernels for sm_90a (`csrc/`), built on
 first use. On CPU tensors each kernel's plain PyTorch version runs
-instead.
+instead. Entry points that create tensors (`ResSim.build`, the samplers,
+`temporal_R`, `mda_alphas`, `convert`) put them on the card unless the
+caller names another device; functions that take tensors follow their
+inputs' device.
 
 Importing this package turns TF32 off: the DA algebra and the multigrid
 transfers need full float32 products (the JAX package forces the same with

@@ -14,12 +14,12 @@ import torch
 from historymatching_tpu_torch.models.ressim import Fluid, ResSim
 
 
-def tensor(x, device=None, dtype=None):
+def tensor(x, device="cuda", dtype=None):
     """An ensemble, a field or a batch of draws as a tensor."""
     return torch.as_tensor(np.array(x), dtype=dtype, device=device)
 
 
-def ressim_from_reference(model, device=None, dtype=None):
+def ressim_from_reference(model, device="cuda", dtype=None):
     """The port's `ResSim` from a JAX-package `ResSim`: its arrays (K, well
     coordinates, well rates) read with NumPy, its grid and fluid scalars
     read by attribute."""

@@ -25,7 +25,7 @@ def _embedding_spectrum(Nx, Ny, hx, hy, r):
 
 
 def gaussian_fields_fft(grid, N=1, r=0.2, generator=None, noise=None, dtype=None,
-                        device=None):
+                        device="cuda"):
     """N unit-variance Gaussian fields on a regular `Grid2D`, flattened to
     (N, Nxy): Re(DFT2(sqrt(S/M) * (zr + i zi))) cropped to the grid.
 
@@ -44,9 +44,10 @@ def gaussian_fields_fft(grid, N=1, r=0.2, generator=None, noise=None, dtype=None
 
 
 def sample_prior_perm(generator, model, N, r=0.8, noise=None, dtype=None, device=None):
-    """Prior pre-permeability fields for a model or grid (N, Nxy)."""
+    """Prior pre-permeability fields for a model or grid (N, Nxy), on the
+    model's device, or for a grid on `device` (the card by default)."""
     grid = getattr(model, "grid", model)
-    if device is None and hasattr(model, "K"):
-        device = model.K.device
+    if device is None:
+        device = model.K.device if hasattr(model, "K") else "cuda"
     return gaussian_fields_fft(grid, N=N, r=r, generator=generator, noise=noise,
                                dtype=dtype, device=device)

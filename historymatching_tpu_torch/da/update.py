@@ -43,7 +43,7 @@ def ens_update0(prior_ens, obs_ens, obs, perturbs, decorr):
     return prior_ens + _kalman_term(S, D, X)
 
 
-def mda_alphas(n, dtype=None, device=None):
+def mda_alphas(n, dtype=None, device="cuda"):
     """Constant MDA inflation: alpha_i = n, sum 1/alpha = 1."""
     return torch.full((n,), float(n), dtype=dtype or torch.get_default_dtype(), device=device)
 

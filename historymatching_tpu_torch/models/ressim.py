@@ -71,9 +71,10 @@ class ResSim:
     @classmethod
     def build(cls, Nx=32, Ny=32, Lx=1.0, Ly=1.0, K=None, inj_xy=None, prd_xy=None,
               inj_rates=None, prd_rates=None, fluid=None, name="", dtype=None,
-              device=None):
+              device="cuda"):
         """Wells default to a centre injector and a far-corner producer with
-        balanced unit rates."""
+        balanced unit rates. The tensors land on `device`, the card unless
+        the caller names another."""
         grid = Grid2D(Nx=Nx, Ny=Ny, Lx=Lx, Ly=Ly)
         if K is None:
             K = np.ones((2, Nx, Ny))
@@ -215,8 +216,12 @@ def _source_field(model: ResSim, inj_t, prd_t):
 def scaled_system(model: ResSim, s):
     """The Jacobi-scaled TPFA system of saturations `s` (..., Nx, Ny): the
     pinned operator's faces TX, TY and diagonal, sd = rsqrt(diag), and the
-    scaled operator's multigrid hierarchy (unit diagonal) with its coarse
-    inverse. The pin is the mean of the unpinned diagonal, at cell (0, 0)."""
+    scaled operator's multigrid hierarchy with its coarse inverse. The pin
+    is the mean of the unpinned diagonal, at cell (0, 0).
+
+    Contract: the scaled operator's diagonal is 1, so the hierarchy's fine
+    diagonal is a broadcast view of ones. Kernel P (`ops/pressure.py`)
+    relies on this and does not read that diagonal."""
     g = model.grid
     if n_levels(g.Nx, g.Ny) < 2:
         raise NotImplementedError(f"grid {g.Nx}x{g.Ny} has no multigrid hierarchy")
@@ -229,7 +234,7 @@ def scaled_system(model: ResSim, s):
     sd = torch.rsqrt(diag)
     TXs = TX * sd[..., :-1, :] * sd[..., 1:, :]
     TYs = TY * sd[..., :, :-1] * sd[..., :, 1:]
-    hier = build_hierarchy_5pt(TXs, TYs, torch.ones_like(diag))
+    hier = build_hierarchy_5pt(TXs, TYs, diag.new_ones(()).expand_as(diag))
     return TX, TY, diag, sd, hier, coarse_inverse(hier)
 
 

@@ -1,9 +1,10 @@
 """Builds and loads the hand-written CUDA kernels of `csrc/`.
 
-`nvcc` compiles every `csrc/*.cu` into one shared library with a plain C
-interface, for `sm_90a` (Hopper), on first use, into `_build/` beside the
-package. The library's name carries a hash of the sources and flags, so an
-edited source rebuilds. It is loaded with `ctypes`; each C entry point
+`nvcc` compiles each `csrc/*.cu` into its own shared library with a plain
+C interface, for `sm_90a` (Hopper), on first use, into `_build/` beside
+the package; the compilers run in parallel. A library's name carries a
+hash of its source, the shared headers and the flags, so an edited source
+rebuilds. The libraries are loaded with `ctypes`; each C entry point
 returns `cudaGetLastError()` after its launch, and `check` raises on a
 non-zero code.
 
@@ -21,31 +22,49 @@ import os
 import shutil
 import subprocess
 import time
+import types
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "--expt-relaxed-constexpr", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# The grids every kernel is instantiated for (csrc/grids.cuh).
+GRIDS = ((16, 16), (20, 20), (32, 32), (64, 64))
 
 LAUNCHES = {"transport_upwind": 0, "pressure_pcg": 0}
 
 _lib = None
 build_info = {}
 
-P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+P, I, F, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
+# Per source file, its C entry points and their argument types.
 _SIGNATURES = {
-    # s, Fx, Fy, q, dts_pv, n_sub, out, B, Nx, Ny, vw, vo, swc, sor, stream
-    "hm_transport_substeps": [P, P, P, P, P, P, P, I, I, I, F, F, F, F, P],
-    # hier, q, p0, w, p_out, it_out, rel_out, B, Nx, Ny, n_levels, hier_stride,
-    # tol, maxiter, restart_every, patience, stream
-    "hm_pressure_solve": [P, P, P, P, P, P, P, I, I, I, I, I, F, I, I, I, P],
+    "transport_upwind": {
+        # s, Fx, Fy, q, q_stride, dts_pv, n_sub, out, B, Nx, Ny, vw, vo, swc, sor, stream
+        "hm_transport_substeps": [P, P, P, P, I, P, P, P, I, I, I, D, D, D, D, P],
+        "hm_transport_info": [I, I, P],
+    },
+    "pressure_pcg": {
+        # level pointers, Ainv, q, p0, w, p_out, it_out, rel_out, B, Nx, Ny,
+        # n_levels, tol, maxiter, restart_every, patience, stream
+        "hm_pressure_solve": [P, P, P, P, P, P, P, P, I, I, I, I, F, I, I, I, P],
+        "hm_pressure_info": [I, I, P],
+    },
 }
 
 
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def check_grid(kernel, Nx, Ny):
+    """Raise unless the kernels are instantiated for an (Nx, Ny) grid."""
+    if (Nx, Ny) not in GRIDS:
+        names = ", ".join(f"{a}x{b}" for a, b in GRIDS)
+        raise ValueError(f"{kernel} kernel is instantiated for the grids {names}; got {Nx}x{Ny}")
 
 
 def _nvcc():
@@ -55,42 +74,66 @@ def _nvcc():
     return path
 
 
+def _read(path):
+    with open(path, "rb") as f:
+        return f.read()
+
+
 def lib():
-    """The loaded kernel library, built first if its sources changed."""
+    """The kernels' C entry points, built first where their sources changed."""
     global _lib
     if _lib is not None:
         return _lib
-    sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
-        with open(src, "rb") as f:
-            h.update(os.path.basename(src).encode() + f.read())
-    so = os.path.join(BUILD_DIR, f"libhm_kernels_{h.hexdigest()[:16]}.so")
     t0 = time.perf_counter()
-    built = False
-    if not os.path.exists(so):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
-                           capture_output=True, text=True)
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr[-8000:]}")
-        os.replace(tmp, so)
-        build_info["ptxas"] = r.stderr
-        built = True
-    handle = ctypes.CDLL(so)
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(handle, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    build_info.update(path=so, built=built, seconds=time.perf_counter() - t0)
-    _lib = handle
+    headers = b"".join(os.path.basename(h).encode() + _read(h)
+                       for h in sorted(glob.glob(os.path.join(CSRC, "*.cuh"))))
+    paths, jobs = {}, {}
+    for stem in _SIGNATURES:
+        src = os.path.join(CSRC, f"{stem}.cu")
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + headers + _read(src)).hexdigest()
+        paths[stem] = so = os.path.join(BUILD_DIR, f"lib{stem}_{h[:16]}.so")
+        if not os.path.exists(so):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{so}.{os.getpid()}.tmp"
+            jobs[stem] = (tmp, subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                                                stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                                text=True))
+    ptxas = {}
+    for stem, (tmp, proc) in jobs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {stem}.cu ({proc.returncode}):\n{err[-8000:]}")
+        os.replace(tmp, paths[stem])
+        ptxas[stem] = err
+    fns = {}
+    for stem, sigs in _SIGNATURES.items():
+        handle = ctypes.CDLL(paths[stem])
+        for name, argtypes in sigs.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            fns[name] = fn
+    build_info.update(paths=paths, built=sorted(jobs), ptxas=ptxas,
+                      seconds=time.perf_counter() - t0)
+    _lib = types.SimpleNamespace(**fns)
     return _lib
 
 
 def check(code, name):
     if code != 0:
         raise RuntimeError(f"{name}: CUDA error {code} at launch")
+
+
+def kernel_info(kernel, Nx, Ny):
+    """A kernel's resources at one grid, as the CUDA runtime reports them:
+    registers and local (stack and spill) bytes a thread, dynamic shared
+    bytes and threads a block, resident blocks an SM."""
+    check_grid(kernel, Nx, Ny)
+    out = (ctypes.c_int * 5)()
+    fn = {"pressure_pcg": "hm_pressure_info", "transport_upwind": "hm_transport_info"}[kernel]
+    check(getattr(lib(), fn)(Nx, Ny, out), kernel)
+    keys = ("registers", "local_bytes", "shared_bytes", "threads", "blocks_per_sm")
+    return dict(zip(keys, out))
 
 
 def stream_ptr(device):

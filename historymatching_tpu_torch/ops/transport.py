@@ -3,9 +3,10 @@
 Replaces the TPU kernels of `historymatching_tpu/ops/transport_pallas.py`
 (`transport_substeps_pallas`, `_batched`, `_packed`): on the card one
 thread block per member loops over that member's own substep count
-(`csrc/transport_upwind.cu`). Beside it, `transport_substeps_torch` is the
-plain PyTorch version; it runs the batch to its largest count and freezes
-each member after its own, which gives the same per-member result.
+(`csrc/transport_upwind.cu`, a template on the grid). Beside it,
+`transport_substeps_torch` is the plain PyTorch version; it runs the batch
+to its largest count and freezes each member after its own, which gives
+the same per-member result.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor takes the
 kernel, which raises on what it does not take.
@@ -17,9 +18,6 @@ import torch
 import torch.nn.functional as F
 
 from historymatching_tpu_torch.ops import _build
-
-MAX_CELLS = 4096  # 1024 threads x 4 cells held in registers
-
 
 def transport_substeps_torch(s, Fx, Fy, q, dts_pv, n_sub, fluid):
     """Plain version. s (B, Nx, Ny); Fx (B, Nx+1, Ny); Fy (B, Nx, Ny+1);
@@ -50,13 +48,11 @@ def transport_substeps_torch(s, Fx, Fy, q, dts_pv, n_sub, fluid):
 
 def transport_substeps_cuda(s, Fx, Fy, q, dts_pv, n_sub, fluid):
     """The hand kernel. Same arguments as the plain version, float32 on one
-    CUDA device."""
+    CUDA device; a `q` with one member is read by every member in place."""
     B, Nx, Ny = s.shape
-    if Nx * Ny > MAX_CELLS:
-        raise ValueError(f"transport kernel takes at most {MAX_CELLS} cells, got {Nx}x{Ny}")
-    q = q.expand(B, Nx, Ny)
+    _build.check_grid("transport", Nx, Ny)
     shapes = {"s": (s, (B, Nx, Ny)), "Fx": (Fx, (B, Nx + 1, Ny)),
-              "Fy": (Fy, (B, Nx, Ny + 1)), "q": (q, (B, Nx, Ny)),
+              "Fy": (Fy, (B, Nx, Ny + 1)), "q": (q, (1 if q.shape[0] == 1 else B, Nx, Ny)),
               "dts_pv": (dts_pv, (B,))}
     for name, (t, shape) in shapes.items():
         if not t.is_cuda or t.dtype != torch.float32 or tuple(t.shape) != shape:
@@ -68,12 +64,11 @@ def transport_substeps_cuda(s, Fx, Fy, q, dts_pv, n_sub, fluid):
     out = torch.empty_like(s)
     if B == 0:
         return out
-    lib = _build.lib()
     vw, vo, swc, sor = (float(v) for v in fluid)
-    code = lib.hm_transport_substeps(
-        s.data_ptr(), Fx.data_ptr(), Fy.data_ptr(), q.data_ptr(), dts_pv.data_ptr(),
-        n_sub.data_ptr(), out.data_ptr(), B, Nx, Ny, vw, vo, swc, sor,
-        _build.stream_ptr(s.device))
+    q_stride = 0 if q.shape[0] == 1 else Nx * Ny
+    code = _build.lib().hm_transport_substeps(
+        s.data_ptr(), Fx.data_ptr(), Fy.data_ptr(), q.data_ptr(), q_stride, dts_pv.data_ptr(),
+        n_sub.data_ptr(), out.data_ptr(), B, Nx, Ny, vw, vo, swc, sor, _build.stream_ptr(s.device))
     _build.check(code, "transport_upwind")
     _build.LAUNCHES["transport_upwind"] += 1
     return out

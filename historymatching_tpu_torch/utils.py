@@ -14,11 +14,11 @@ def center(E, dim=0):
     return E - x, x.squeeze(dim)
 
 
-def gaussian_noise(N, M, L=1.0, generator=None, Z=None, dtype=None, device=None):
+def gaussian_noise(N, M, L=1.0, generator=None, Z=None, dtype=None, device="cuda"):
     """A 0-mean Gaussian ensemble (N, M): `Z @ L.T` for a Cholesky factor
     `L` (M, M), or `Z * L` for a scalar std-dev. `Z` is drawn from
-    `generator` unless the standard-normal draws are given. A matrix factor
-    sets the dtype and device."""
+    `generator` on `device` unless the standard-normal draws are given. A
+    matrix factor sets the dtype and device."""
     if isinstance(L, torch.Tensor) and L.ndim == 2:
         dtype, device = L.dtype, L.device
     dtype = dtype or torch.get_default_dtype()
@@ -49,7 +49,7 @@ def toeplitz(c):
 
 
 def temporal_R(nTime, nPrd, variance=1e-2, length_tmp=2.0, cutoff=1e-2,
-               dtype=torch.float64, device=None):
+               dtype=torch.float64, device="cuda"):
     """Temporally-correlated obs-error covariance R = kron(R1well, I_nPrd):
     exponential correlation exp(-t/length_tmp) cut off below `cutoff`,
     scaled by `variance`. Returns (R, R12) with R12 the lower Cholesky

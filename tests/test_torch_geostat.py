@@ -28,7 +28,7 @@ def test_fields_match_jax_with_its_noise(Nx, Ny, r):
     k1, k2 = jax.random.split(key)  # the draws gaussian_fields_fft makes
     zr = np.array(jax.random.normal(k1, (N, 2 * Nx, 2 * Ny), dtype=np.float64))
     zi = np.array(jax.random.normal(k2, (N, 2 * Nx, 2 * Ny), dtype=np.float64))
-    out = gaussian_fields_fft(gt, N=N, r=r, noise=(zr, zi), dtype=torch.float64)
+    out = gaussian_fields_fft(gt, N=N, r=r, noise=(zr, zi), dtype=torch.float64, device="cpu")
     assert out.shape == (N, Nx * Ny)
     assert rel_err(out, ref) < 1e-10
 
@@ -36,7 +36,7 @@ def test_fields_match_jax_with_its_noise(Nx, Ny, r):
 def test_sample_prior_perm_generator():
     m = default_model(Nx=16, Ny=16)
     g = torch.Generator().manual_seed(0)
-    E = sample_prior_perm(g, Grid2D(16, 16, 2.0, 1.0), N=64, dtype=torch.float64)
+    E = sample_prior_perm(g, Grid2D(16, 16, 2.0, 1.0), N=64, dtype=torch.float64, device="cpu")
     assert E.shape == (64, m.Nxy) and torch.isfinite(E).all()
     # unit marginal variance, up to sampling error at N=64 over correlated cells
     assert 0.5 < float(E.var(0).mean()) < 1.5

@@ -3,9 +3,10 @@ the card, in float32. Skipped without CUDA (this file imports no JAX, so it
 also runs on a host without it: `python -m pytest --noconftest
 tests/test_torch_kernels_cuda.py`).
 
-Tolerances: K 1e-5 absolute on saturations (FMA contraction and operation
-order over hundreds of substeps); P 1e-3 relative on p after fixed work
-(block reductions sum in another order than torch)."""
+Tolerances: K 1e-5 absolute on saturations (FMA contraction, the kernel's
+folded flux coefficients and fast reciprocal, over hundreds of substeps);
+P 1e-3 relative on p after fixed work (block reductions sum in another
+order than torch, and the coarse sweeps multiply by 1/d)."""
 
 import numpy as np
 import pytest
@@ -13,7 +14,12 @@ import torch
 
 from historymatching_tpu_torch.models.ressim import ResSim, scaled_system
 from historymatching_tpu_torch.ops import _build
-from historymatching_tpu_torch.ops.pressure import pressure_solve_cuda, pressure_solve_torch
+from historymatching_tpu_torch.ops.multigrid import n_levels
+from historymatching_tpu_torch.ops.pressure import (
+    pressure_solve_cuda,
+    pressure_solve_torch,
+    smem_bytes,
+)
 from historymatching_tpu_torch.ops.transport import (
     transport_substeps,
     transport_substeps_torch,
@@ -31,6 +37,7 @@ def dev():
 
 
 def _model(Nx, Ny, dev):
+    """The flagship geometry (2x1 domain, centre injector, 4 producers)."""
     near01 = np.array([0.12, 0.87])
     prd = [[x, y] for y in near01 for x in 2.0 * near01]
     return ResSim.build(Nx=Nx, Ny=Ny, Lx=2.0, Ly=1.0, inj_xy=[[1.0, 0.5]], prd_xy=prd,
@@ -38,7 +45,7 @@ def _model(Nx, Ny, dev):
                         dtype=torch.float32, device=dev)
 
 
-@pytest.mark.parametrize("Nx,Ny", [(16, 16), (20, 20), (64, 64)])
+@pytest.mark.parametrize("Nx,Ny", _build.GRIDS)
 def test_transport_kernel_matches_plain(dev, Nx, Ny):
     g = torch.Generator(device=dev).manual_seed(0)
     B = 8
@@ -60,7 +67,7 @@ def test_transport_kernel_matches_plain(dev, Nx, Ny):
     assert float((out - ref).abs().max()) <= 1e-5
 
 
-@pytest.mark.parametrize("Nx,Ny", [(16, 16), (20, 20), (64, 64)])
+@pytest.mark.parametrize("Nx,Ny", _build.GRIDS)
 def test_pressure_kernel_matches_plain(dev, Nx, Ny):
     g = torch.Generator(device=dev).manual_seed(1)
     m = _model(Nx, Ny, dev)
@@ -83,6 +90,55 @@ def test_pressure_kernel_matches_plain(dev, Nx, Ny):
     assert float(err.max()) <= 1e-3
 
 
+def test_pressure_members_leave_at_their_own_windows(dev):
+    """One launch, four members at 64x64: a warm start one window from the
+    tolerance, one two windows away, a cold start on a mild field that
+    needs >= 8 windows, and a rough field that runs to maxiter. Each block
+    stops on its own count, as the per-member `pcg` does."""
+    Nx = Ny = 64
+    g = torch.Generator().manual_seed(2)
+    m = _model(Nx, Ny, "cpu")
+    base = torch.randn(1, m.Nxy, generator=g)
+    mm = set_perm(m, torch.tensor([0.5, 0.5, 0.3, 0.8])[:, None] * base)
+    _, _, diag, sd, hier, Ainv = scaled_system(mm, torch.zeros(4, Nx, Ny))
+    q = torch.zeros(Nx, Ny)
+    q[Nx // 2, Ny // 2], q[1, 1] = 1.0, -1.0
+    qs, w = q * sd, diag * sd
+    ref, _, _ = pressure_solve_torch(hier, Ainv, qs, torch.zeros_like(qs), w, tol=1e-5,
+                                     maxiter=512)
+    warm = torch.tensor([1e-4, 3e-4, 0.0, 0.0])[:, None, None]
+    noise = torch.randn(4, Nx, Ny, generator=g)
+    p0 = torch.where(warm > 0, ref + warm * noise * ref.abs().amax(dim=(1, 2), keepdim=True),
+                     torch.zeros_like(ref))
+    to = lambda t: t.to(dev).contiguous()  # noqa: E731
+    args = ([tuple(to(t) for t in lvl) for lvl in hier], to(Ainv), to(qs), to(p0), to(w))
+    kw = dict(tol=1e-3, maxiter=128, patience_iters=512)
+    p_k, it_k, rel_k = pressure_solve_cuda(*args, **kw)
+    p_t, it_t, rel_t = pressure_solve_torch(*args, **kw)
+    it_k, it_t = it_k.tolist(), it_t.tolist()
+    assert it_k[:2] == it_t[:2] == [8, 16]
+    assert it_k[2] >= 64 and abs(it_k[2] - it_t[2]) <= 8
+    assert it_k[3] == it_t[3] == 128 and float(rel_k[3]) > 1e-3
+    assert bool((rel_k[:3] <= 1e-3).all())
+    err = ((p_k - p_t).norm(dim=(-2, -1)) / p_t.norm(dim=(-2, -1)))[:3]
+    assert float(err.max()) <= 1e-3
+
+
+@pytest.mark.parametrize("Nx,Ny", _build.GRIDS)
+def test_kernel_resources(dev, Nx, Ny):
+    """What the runtime reports matches the wrapper's footprint formula, and
+    P keeps two blocks resident on an SM at the flagship grid."""
+    p = _build.kernel_info("pressure_pcg", Nx, Ny)
+    assert p["shared_bytes"] == smem_bytes(Nx, Ny, n_levels(Nx, Ny))
+    assert p["blocks_per_sm"] >= (2 if (Nx, Ny) == (64, 64) else 1)
+    k = _build.kernel_info("transport_upwind", Nx, Ny)
+    assert k["shared_bytes"] == 2 * 4 * Nx * Ny and k["blocks_per_sm"] >= 1
+
+
+def test_build_defaults_to_cuda(dev):
+    assert ResSim.build(Nx=16, Ny=16).K.is_cuda
+
+
 def test_kernels_refuse_what_they_do_not_take(dev):
     s = torch.zeros(2, 8, 8, dtype=torch.float64, device=dev)
     with pytest.raises(ValueError):
@@ -91,8 +147,11 @@ def test_kernels_refuse_what_they_do_not_take(dev):
                            torch.ones(2, dtype=torch.float64, device=dev),
                            torch.ones(2, dtype=torch.int32, device=dev), (1.0, 1.0, 0.0, 0.0))
     big = torch.zeros(1, 128, 128, device=dev)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="instantiated for the grids"):
         transport_substeps(big, torch.zeros(1, 129, 128, device=dev),
                            torch.zeros(1, 128, 129, device=dev), big,
                            torch.ones(1, device=dev),
                            torch.ones(1, dtype=torch.int32, device=dev), (1.0, 1.0, 0.0, 0.0))
+    with pytest.raises(ValueError, match="instantiated for the grids"):
+        pressure_solve_cuda([], torch.zeros(1, 16, 16, device=dev), big, big, big, tol=1e-3,
+                            maxiter=8)

@@ -26,7 +26,7 @@ for mod in pkgutil.walk_packages(ht.__path__, 'historymatching_tpu_torch.'):
     importlib.import_module(mod.name)
 import torch
 assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
-m = ht.ResSim.build(Nx=8, Ny=8, dtype=torch.float64)
+m = ht.ResSim.build(Nx=8, Ny=8, dtype=torch.float64, device="cpu")
 r = ht.simulate(m, torch.zeros(m.Nxy, dtype=torch.float64), 0.01, 2)
 assert bool(r.cg_ok)
 print('port-import-ok')

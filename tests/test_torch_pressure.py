@@ -23,7 +23,9 @@ from historymatching_tpu.ops.pressure_pallas import pressure_solve_pallas
 from historymatching_tpu.ops.stencil import stencil_matvec as matvec_j
 from historymatching_tpu_torch import convert
 from historymatching_tpu_torch.models.ressim import pressure_step
-from historymatching_tpu_torch.ops.multigrid import build_hierarchy_5pt, coarse_inverse
+from historymatching_tpu_torch.models.ressim import scaled_system as scaled_system_t
+from historymatching_tpu_torch.ops._build import GRIDS
+from historymatching_tpu_torch.ops.multigrid import build_hierarchy_5pt, coarse_inverse, n_levels
 from historymatching_tpu_torch.ops.pressure import pressure_solve, smem_bytes
 from historymatching_tpu_torch.parallel.runner import set_perm
 from tests.torch_helpers import default_model, perm_fields, rel_err, scaled_system
@@ -47,7 +49,8 @@ def test_pcg_matches_vmapped_pcg_f64():
     q[8, 8], q[2, 2], q[13, 3] = 1.0, -0.5, -0.5
     tol, maxiter = 1e-10, 256
 
-    mt = set_perm(convert.ressim_from_reference(m, dtype=torch.float64), torch.as_tensor(perm))
+    mt = set_perm(convert.ressim_from_reference(m, dtype=torch.float64, device="cpu"),
+                  torch.as_tensor(perm))
     st, qt, p0t = map(torch.as_tensor, (s, q, p0))
     p_t, Fx_t, Fy_t, it_t, ok_t = pressure_step(mt, st, qt, p0t, tol, maxiter, 1e-6)
 
@@ -100,9 +103,23 @@ def test_plain_kernel_twin_matches_pallas_interpret_f32():
         assert np.allclose(p_t[k].numpy(), np.asarray(p_j), atol=2e-3 * scale), k
 
 
+def test_scaled_system_has_unit_fine_diagonal():
+    """The contract kernel P relies on without reading it: the scaled
+    operator's diagonal sd^2 diag is 1, and the hierarchy's fine diagonal
+    is ones."""
+    m = default_model(Nx=16, Ny=16)
+    mt = set_perm(convert.ressim_from_reference(m, dtype=torch.float64, device="cpu"),
+                  torch.as_tensor(perm_fields(7, 3, m.Nxy)))
+    s = torch.as_tensor(np.random.default_rng(7).uniform(0.2, 0.8, size=(3, 16, 16)))
+    _, _, diag, sd, hier, _ = scaled_system_t(mt, s)
+    assert torch.allclose(diag * sd * sd, torch.ones_like(diag), rtol=1e-12, atol=0)
+    assert hier[0][2].shape == diag.shape and bool((hier[0][2] == 1).all())
+
+
 def test_kernel_shared_memory_budget():
-    """The kernel's footprint (csrc/pressure_pcg.cu source note) fits one
-    Hopper block on every grid the repository uses."""
-    assert smem_bytes(64, 64, 5) == 196768
-    for Nx, Ny, L in ((64, 64, 5), (20, 20, 3), (16, 16, 3)):
-        assert smem_bytes(Nx, Ny, L) <= 232448
+    """The kernel's footprint (csrc/pressure_pcg.cu source note) lets two
+    blocks share an H100 SM at 64x64 (<= 113 KB each of the SM's 228 KB),
+    and every instantiated grid fits a block."""
+    assert smem_bytes(64, 64, 5) == 114976 <= 113 * 1024
+    for Nx, Ny in GRIDS:
+        assert 0 < smem_bytes(Nx, Ny, n_levels(Nx, Ny)) <= 113 * 1024

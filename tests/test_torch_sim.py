@@ -28,7 +28,7 @@ def _one_thread():
 
 
 def _model(Nx=16, Ny=16):
-    return convert.ressim_from_reference(default_model(Nx=Nx, Ny=Ny), dtype=F64)
+    return convert.ressim_from_reference(default_model(Nx=Nx, Ny=Ny), dtype=F64, device="cpu")
 
 
 def _zeros(m):
@@ -91,7 +91,7 @@ def test_symmetry_uniform_K():
     inj = [[c(7), c(7)], [c(8), c(7)], [c(7), c(8)], [c(8), c(8)]]
     prd = [[c(2), c(2)], [c(13), c(2)], [c(2), c(13)], [c(13), c(13)]]
     m = ResSim.build(Nx=N, Ny=N, inj_xy=inj, prd_xy=prd, inj_rates=np.ones((4, 1)) / 4,
-                     prd_rates=np.ones((4, 1)) / 4, dtype=F64)
+                     prd_rates=np.ones((4, 1)) / 4, dtype=F64, device="cpu")
     s = simulate(m, _zeros(m), dt=0.02, nTime=6).wsats[-1].reshape(N, N).numpy()
     assert s.max() > 0.1
     assert np.allclose(s, s[::-1, :], atol=1e-8)

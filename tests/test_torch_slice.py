@@ -55,14 +55,15 @@ def test_two_pass_es_mda_slice_matches_jax():
                                                 L=jnp.asarray(R12, jnp.float32))))
 
     # The port, on the same inputs.
-    mt = convert.ressim_from_reference(m, dtype=F64)
-    truth_t, prior_t, noise_t, R12_t = (convert.tensor(x, dtype=F64)
+    mt = convert.ressim_from_reference(m, dtype=F64, device="cpu")
+    truth_t, prior_t, noise_t, R12_t = (convert.tensor(x, dtype=F64, device="cpu")
                                         for x in (truth, prior, noise, R12))
     _, pt_t = ht.forward_model(mt, truth_t[None], dt=dt, nTime=nTime, keep_wsats=False)
     obs_t = torch.clamp(pt_t[0].reshape(-1) + noise_t, 0, 1)
     assert rel_err(obs_t, obs_j) < 1e-9
     fwd_t = ht.obs_ens_fn(mt, dt, nTime)
-    post_t = ht.es_mda(prior_t, fwd_t, obs_t, R12_t, ht.mda_alphas(2, dtype=F64), noise=draws)
+    alphas_t = ht.mda_alphas(2, dtype=F64, device="cpu")
+    post_t = ht.es_mda(prior_t, fwd_t, obs_t, R12_t, alphas_t, noise=draws)
 
     assert post_t.shape == (N, m.Nxy) and torch.isfinite(post_t).all()
     assert rel_err(post_t, post_j) < 1e-7

@@ -39,7 +39,7 @@ def _inputs(seed, B, Nx, Ny, dtype):
 
 def test_transport_step_f64_matches_jax():
     m = default_model(Nx=12, Ny=10)
-    mt = convert.ressim_from_reference(m, dtype=torch.float64)
+    mt = convert.ressim_from_reference(m, dtype=torch.float64, device="cpu")
     s, Fx, Fy, q = _inputs(0, 3, 12, 10, np.float64)
     s_t, n_t = transport_step(mt, *map(torch.as_tensor, (s, Fx, Fy, q)), 0.01)
     for b in range(3):

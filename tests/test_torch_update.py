@@ -46,7 +46,7 @@ def test_ens_update0_both_branches(N, nTime):
 
 def test_temporal_R_and_noise():
     R_j, R12_j = temporal_R_j(5, 4)
-    R_t, R12_t = temporal_R(5, 4)
+    R_t, R12_t = temporal_R(5, 4, device="cpu")
     assert rel_err(R_t, R_j) < 1e-15 and rel_err(R12_t, R12_j) < 1e-15
     Z = np.random.default_rng(0).normal(size=(3, 20))
     assert rel_err(gaussian_noise(3, 20, L=R12_t, Z=t64(Z)), Z @ np.asarray(R12_j).T) < 1e-15
@@ -70,6 +70,6 @@ def test_es_mda_with_jax_draws():
         key, sub = jax.random.split(key)
         draws.append(np.asarray(noise_j(sub, N, p, L=jnp.asarray(R12, jnp.float32))))
     Gt = t64(G)
-    out = ut.es_mda(t64(E0), lambda E: E @ Gt, t64(obs), t64(R12), ut.mda_alphas(2),
+    out = ut.es_mda(t64(E0), lambda E: E @ Gt, t64(obs), t64(R12), ut.mda_alphas(2, device="cpu"),
                     noise=draws)
     assert rel_err(out, ref) < 1e-8
