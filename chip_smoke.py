@@ -13,12 +13,17 @@ Phases, one printed line or more each; any failed check raises:
    (b) the main path's solver settings;
 5. the flagship workload: N=1000 members, 64x64, 40 steps, 4-pass ES-MDA
    (prior, truth simulation, observations, forward_model -> simulate ->
-   es_mda) through the entry points' default device, with launch counts of
-   both kernels over the run;
+   es_mda) through the entry points' default device, on the reference's
+   solver schedule with its straggler recook, with launch counts of both
+   kernels over the run and, per pass, the members recooked a step;
 6. each kernel's time against its plain version at the main path's shapes,
    and the least time the card could take for the same work (bound_ms);
+   6b. one step's recooked solve (three P launches) and its bound;
 7. torch.profiler over 10 steps of a loose pass: device time by stage and
-   the card's idle share.
+   the card's idle share;
+8. the recook on the card against the recook around P's plain version;
+9. localized ES-MDA (4x4-cell domains, radius 1.2) at the flagship size;
+10. IES (10 Gauss-Newton iterations, xStep 0.4) at the flagship size.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a card, or without the package
@@ -34,11 +39,18 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 1
 N, NX, NY, NTIME, DT, PASSES = 1000, 64, 64, 40, 0.025, 4
-# Solver settings of the reference bench (bench.bench_sim_kwargs base and
-# bench.DEFAULT_SCHED per pass), without the TPU-only strategy keys.
-BASE = dict(tol=2e-4, maxiter=768, patience_iters=256)
-LOOSE = dict(tol=2e-3, maxiter=256, patience_iters=128)
-SCHED = [LOOSE, LOOSE, LOOSE, dict(maxiter=128)]
+# Solver settings of the reference bench: bench.bench_sim_kwargs without
+# `packed`, `coarse_warm` and `warm_start` (TPU-only or off), and
+# bench.DEFAULT_SCHED per ES-MDA pass, bench.IES_DEFAULT_SCHED per IES
+# iteration.
+BASE = dict(tol=2e-4, maxiter=768, patience_iters=256, two_pass=True, twopass_j1=64,
+            twopass_div=4, refine=True)
+LOOSE = dict(tol=2e-3, maxiter=256, patience_iters=128, twopass_j1=8, twopass_div=8)
+FINAL = dict(twopass_div=8, twopass_j1=8, maxiter=128)
+SCHED = [LOOSE, LOOSE, LOOSE, FINAL]
+IES_SCHED = [LOOSE] * 8 + [FINAL] * 2
+IES_ITERS, IES_STEP = 10, 0.4
+SOLVE_KEYS = ("tol", "maxiter", "patience_iters")  # what one P launch takes
 K_TOL, P_TOL = 1e-5, 1e-3
 # Peak rates of one H100 SXM (NVIDIA's data sheet): float32 outside the
 # tensor cores, and device memory.
@@ -134,13 +146,20 @@ def main():
     import historymatching_tpu_torch as ht
     from historymatching_tpu_torch.models.ressim import _source_field, cfl_substeps, scaled_system
     from historymatching_tpu_torch.ops import _build
-    from historymatching_tpu_torch.ops.pressure import pressure_solve_cuda, pressure_solve_torch
+    from historymatching_tpu_torch.da.localization import domain_partition
+    from historymatching_tpu_torch.da.update import decorrelator
+    from historymatching_tpu_torch.ops.pressure import (
+        pressure_solve_cuda,
+        pressure_solve_recook,
+        pressure_solve_torch,
+        recook_plan,
+    )
     from historymatching_tpu_torch.ops.transport import (
         transport_substeps_cuda,
         transport_substeps_torch,
     )
     from historymatching_tpu_torch.ops.stencil import face_fluxes
-    from historymatching_tpu_torch.parallel.runner import set_perm
+    from historymatching_tpu_torch.parallel.runner import prod_inds, set_perm
 
     assert "jax" not in sys.modules, "the port must not import JAX"
 
@@ -217,8 +236,9 @@ def main():
         f"(tol {P_TOL}), max abs {p_abs:.3e} of max |p| {float(p_t.abs().max()):.3e}; "
         f"{int((nt == 0).sum())} members kept their start")
     assert torch.isfinite(p_k).all() and p_err <= P_TOL
-    _, it_k, rel_k = pressure_solve_cuda(*args, **BASE)
-    _, it_t, rel_t = pressure_solve_torch(*args, **BASE)
+    base1 = {k: BASE[k] for k in SOLVE_KEYS}
+    _, it_k, rel_k = pressure_solve_cuda(*args, **base1)
+    _, it_t, rel_t = pressure_solve_torch(*args, **base1)
     acc_k, acc_t = rel_k <= 5e-2, rel_t <= 5e-2
     close = float(((it_k - it_t).abs() <= 8).float().mean())
     med_k, med_t = int(it_k.median()), int(it_t.median())
@@ -247,20 +267,41 @@ def main():
     truth = ht.sample_prior_perm(gen, model, 1, r=0.8)[0]
     prior = ht.sample_prior_perm(gen, model, N, r=0.8)
     noise = R12 @ torch.randn(NTIME * model.nPrd, generator=gen, device=dev)
-    stats = []
 
-    def make_fwd(kw):
+    def make_fwd(kw, stats):
         def fwd(E):
             torch.cuda.synchronize()
-            t = time.perf_counter()
+            t, p_before = time.perf_counter(), _build.LAUNCHES["pressure_pcg"]
             wsats, prods, res = ht.forward_model(model, E, dt=DT, nTime=NTIME,
                                                  keep_wsats=False, return_sim=True, **kw)
             torch.cuda.synchronize()
-            stats.append(dict(seconds=time.perf_counter() - t, res=res, final=wsats))
+            stats.append(dict(seconds=time.perf_counter() - t, res=res, final=wsats,
+                              p_launches=_build.LAUNCHES["pressure_pcg"] - p_before))
             return prods.reshape(prods.shape[0], -1)
         return fwd
 
-    fwds = [make_fwd(dict(BASE, **ov)) for ov in SCHED]
+    def log_passes(tag, stats, kws):
+        for i, (st, kw) in enumerate(zip(stats, kws)):
+            res = st["res"]
+            plan = recook_plan(N, NY, kw["maxiter"], kw["two_pass"], kw["twopass_j1"],
+                               kw["twopass_div"])
+            log(f"[{tag}] pass {i + 1}: {st['seconds']:.3f} s; recook K={plan and plan[1]}, "
+                f"members recooked a step {float(res.recooked.sum()) / NTIME:.2f}, P launches "
+                f"{st['p_launches']}; cg_ok {float(res.cg_ok.float().mean()):.1%}; cg_iters "
+                f"median {int(res.cg_iters.median())} max {int(res.cg_iters.max())}; substeps "
+                f"median {int(res.substeps.median())}")
+
+    def check_states(stats):
+        for st in stats:
+            for x in (st["final"], st["res"].prd_sats):
+                assert torch.isfinite(x).all()
+                assert float(x.min()) >= fl.swc and float(x.max()) <= 1.0 - fl.sor
+
+    rmse = lambda E: float(((E.mean(0) - truth) ** 2).mean().sqrt())  # noqa: E731
+    spread = lambda E: float(E.std(0).mean())  # noqa: E731
+    kws = [dict(BASE, **ov) for ov in SCHED]
+    stats = []
+    fwds = [make_fwd(kw, stats) for kw in kws]
     _build.reset_launches()
     torch.cuda.synchronize()
     t_start = time.perf_counter()
@@ -272,23 +313,16 @@ def main():
     total = time.perf_counter() - t_start
     launches = dict(_build.LAUNCHES)
 
-    rmse = lambda E: float(((E.mean(0) - truth) ** 2).mean().sqrt())  # noqa: E731
-    spread = lambda E: float(E.std(0).mean())  # noqa: E731
-    for i, st in enumerate(stats):
-        res = st["res"]
-        log(f"[5] pass {i + 1}: {st['seconds']:.3f} s; cg_ok {float(res.cg_ok.float().mean()):.1%}; "
-            f"cg_iters median {int(res.cg_iters.median())} max {int(res.cg_iters.max())}; "
-            f"substeps median {int(res.substeps.median())}")
+    log_passes("5", stats, kws)
     log(f"[5] N={N} {NX}x{NY} nTime={NTIME} {PASSES}-pass ES-MDA total {total:.3f} s "
         f"(truth sim + forward passes + analyses, synchronized)")
     log(f"[5] rmse vs truth: prior {rmse(prior):.4f} -> posterior {rmse(post):.4f}; "
         f"spread prior {spread(prior):.4f} -> posterior {spread(post):.4f}")
     log(f"[5] kernel launches on the main path: {launches}")
     assert all(v >= (1 + PASSES) * NTIME for v in launches.values()), launches
-    for st in stats:
-        for x in (st["final"], st["res"].prd_sats):
-            assert torch.isfinite(x).all()
-            assert float(x.min()) >= fl.swc and float(x.max()) <= 1.0 - fl.sor
+    # the recook engages on every pass of the schedule: three P launches a step
+    assert all(st["p_launches"] == 3 * NTIME for st in stats), [st["p_launches"] for st in stats]
+    check_states(stats)
     assert torch.isfinite(post).all() and post.shape == prior.shape
     assert spread(post) < spread(prior)
 
@@ -299,7 +333,8 @@ def main():
     q1 = _source_field(model, model.inj_rates[:, 0], model.prd_rates[:, 0])
     TX, TY, diag, sd, hier, Ainv = scaled_system(mm, s_end)
     args = (hier, Ainv, (q1 * sd).contiguous(), torch.zeros_like(sd), (diag * sd).contiguous())
-    kw = dict(BASE, **SCHED[-1])
+    final = dict(BASE, **FINAL)
+    kw = {k: final[k] for k in SOLVE_KEYS}
     p_ms = cuda_ms(lambda: pressure_solve_cuda(*args, **kw), 3)
     p_plain_ms = cuda_ms(lambda: pressure_solve_torch(*args, **kw), 1)
     y, p_iters, _ = pressure_solve_cuda(*args, **kw)
@@ -320,6 +355,16 @@ def main():
         f"median {int(nsub.median())} max {int(nsub.max())}; max|ds| vs plain {t_err:.3e}, "
         f"tol {K_TOL})")
     assert t_err <= K_TOL
+
+    # 6b. the recooked solve of that step: three P launches and the torch
+    # ops between them, with the bound of the iterations all passes ran
+    rec_ms = cuda_ms(lambda: pressure_solve_recook(*args, **final), 3)
+    _, rec_iters, rel_rk, rec_k = pressure_solve_recook(*args, **final)
+    rec_bound, rec_by = pressure_bound_ms(hier, Ainv, rec_iters)
+    log(f"[6b] recooked solve of one step at N={N}: {rec_ms:.3f} ms (single launch at maxiter "
+        f"{kw['maxiter']}: {p_ms:.3f} ms), bound {rec_bound:.4f} ms ({rec_by}; iterations "
+        f"summed over the passes: median {int(rec_iters.median())} mean "
+        f"{float(rec_iters.float().mean()):.1f}; {int(rec_k.sum())} members recooked)")
 
     # 7. where a step's device time goes: 10 steps of a loose pass, from the
     # last pass's final states, unprofiled for the wall time, then profiled.
@@ -355,6 +400,77 @@ def main():
     # unprofiled run differ, but device times repeat to about 1% between
     # runs, so beyond 5% the profile double-counts or its overhead leaks in.
     assert busy <= 1.05 * wall_ms, f"device time {busy:.3f} ms exceeds the wall {wall_ms:.3f} ms"
+
+    # 8. the recook on the card against the recook around P's plain version,
+    # on [6]'s inputs. The plan comes from shapes, so K is the same; float32
+    # ties near the cut may swap a few members, and members at their float32
+    # floor near the acceptance line may land on either side (see [4b]).
+    plan = recook_plan(N, NY, final["maxiter"], True, final["twopass_j1"], final["twopass_div"])
+    _, rec_iters_t, rel_rt, rec_t = pressure_solve_recook(*args, solve=pressure_solve_torch,
+                                                          **final)
+    both = int((rec_k & rec_t).sum())
+    n_k, n_t = int(rec_k.sum()), int(rec_t.sum())
+    acc_rk, acc_rt = int((rel_rk <= 5e-2).sum()), int((rel_rt <= 5e-2).sum())
+    med_rk, med_rt = int(rec_iters.median()), int(rec_iters_t.median())
+    log(f"[8] recook, card vs plain, N={N}: K={plan[1]} of Nb={plan[0]}; recooked {n_k} vs {n_t}, "
+        f"{both} in both ({both / min(n_k, n_t):.1%}); accepted {acc_rk} vs {acc_rt}; iterations "
+        f"median {med_rk} vs {med_rt}, max {int(rec_iters.max())} vs {int(rec_iters_t.max())}")
+    assert 0 < n_k <= plan[1] and 0 < n_t <= plan[1]
+    assert both >= 0.95 * min(n_k, n_t)
+    assert abs(acc_rk - acc_rt) <= 0.02 * N
+    assert abs(med_rk - med_rt) <= 8
+
+    # 9. localized ES-MDA: 4x4-cell domains (256) with the bump taper of
+    # radius 1.2 around the producers; p = 160 <= N, the obs-space branch.
+    domains, taper_dom = domain_partition(model.grid, prod_inds(model), nTime=NTIME, steps=(4, 4),
+                                          radius=1.2, dtype=torch.float32)
+    stats_loc = []
+    fwds = [make_fwd(kw, stats_loc) for kw in kws]
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    post_loc = ht.es_mda(prior, fwds, obs, R12, ht.mda_alphas(PASSES), generator=gen,
+                         domains=domains, taper_dom=taper_dom)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_loc = dict(_build.LAUNCHES)
+    log_passes("9", stats_loc, kws)
+    log(f"[9] localized {PASSES}-pass ES-MDA, {domains.shape[0]} domains of {domains.shape[1]} "
+        f"cells, p={obs.numel()}: {wall:.3f} s, of which analyses "
+        f"{wall - sum(st['seconds'] for st in stats_loc):.3f} s; rmse prior {rmse(prior):.4f} -> "
+        f"{rmse(post_loc):.4f}; spread {spread(prior):.4f} -> {spread(post_loc):.4f}; launches "
+        f"{launches_loc}")
+    assert domains.shape == (NX * NY // 16, 16) and obs.numel() <= N
+    assert all(v >= PASSES * NTIME for v in launches_loc.values()), launches_loc
+    check_states(stats_loc)
+    assert torch.isfinite(post_loc).all() and post_loc.shape == prior.shape
+    assert spread(post_loc) < spread(prior)
+
+    # 10. IES: 10 Gauss-Newton iterations of step 0.4, 8 loose and 2 at the
+    # final pass's settings. Its pseudo-inverse is torch.linalg.pinv, an SVD
+    # of the N x N weights each iteration; timed on the last weights.
+    ies_kws = [dict(BASE, **ov) for ov in IES_SCHED]
+    stats_ies, weights = [], []
+    fwds = [make_fwd(kw, stats_ies) for kw in ies_kws]
+    perturbs = ht.gaussian_noise(N, obs.numel(), L=R12, generator=gen)
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    post_ies, _ = ht.ies(prior, fwds, obs, perturbs, decorrelator(R12), xStep=IES_STEP,
+                         iMax=IES_ITERS, callback=lambda info: weights.append(info["W"]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_ies = dict(_build.LAUNCHES)
+    pinv_ms = cuda_ms(lambda: torch.linalg.pinv(weights[-1]), 3)
+    log_passes("10", stats_ies, ies_kws)
+    log(f"[10] IES, {IES_ITERS} iterations, xStep {IES_STEP}: {wall:.3f} s, of which outside the "
+        f"forward runs {wall - sum(st['seconds'] for st in stats_ies):.3f} s; pinv of the "
+        f"{N}x{N} weights {pinv_ms:.3f} ms; rmse prior {rmse(prior):.4f} -> {rmse(post_ies):.4f}; "
+        f"spread {spread(prior):.4f} -> {spread(post_ies):.4f}; launches {launches_ies}")
+    assert all(v >= IES_ITERS * NTIME for v in launches_ies.values()), launches_ies
+    check_states(stats_ies)
+    assert torch.isfinite(post_ies).all() and post_ies.shape == prior.shape
+    assert spread(post_ies) < spread(prior)
 
     def record(name, route, source, replaces, err, ms, plain_ms, bound_ms, by):
         return dict(name=name, route=route, source=source, replaces=replaces,

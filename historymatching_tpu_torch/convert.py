@@ -1,8 +1,8 @@
 """Carry state from the JAX package into the port.
 
 The system has no trained weights; what crosses over is a model
-configuration (its arrays and its grid and fluid scalars), ensembles and
-the random draws of a run. Arrays arrive as anything `numpy.asarray`
+configuration (its arrays and its grid and fluid scalars), ensembles, the
+random draws of a run and the localization of an analysis. Arrays arrive as anything `numpy.asarray`
 reads, which includes JAX arrays, so this module needs no JAX itself.
 """
 
@@ -30,3 +30,16 @@ def ressim_from_reference(model, device="cuda", dtype=None):
                         inj_rates=a(model.inj_rates), prd_rates=a(model.prd_rates),
                         fluid=Fluid(vw=fl.vw, vo=fl.vo, swc=fl.swc, sor=fl.sor),
                         name=model.name, dtype=dtype, device=device)
+
+
+def localization(domains=None, taper_dom=None, taper=None, device="cuda", dtype=None):
+    """The localization keywords of `es_mda` from the JAX package's:
+    `domains` (int64) and `taper_dom` of `localization.domain_partition`,
+    or a per-cell `taper`. Only those given are returned."""
+    out = {}
+    if domains is not None:
+        out["domains"] = tensor(domains, device=device, dtype=torch.int64)
+    for name, x in (("taper_dom", taper_dom), ("taper", taper)):
+        if x is not None:
+            out[name] = tensor(x, device=device, dtype=dtype)
+    return out

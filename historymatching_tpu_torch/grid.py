@@ -69,6 +69,17 @@ class Grid2D:
         """(ix, iy) subscripts -> flat index (C-order over (Nx, Ny))."""
         return _t(ix) * self.Ny + _t(iy)
 
+    def ind2sub(self, ind):
+        """Flat index -> (ix, iy)."""
+        ind = _t(ind)
+        return ind // self.Ny, ind % self.Ny
+
+    def ind2xy(self, ind):
+        """Flat index -> cell-centre (x, y) in float64, stacked on the first
+        axis."""
+        ix, iy = (i.to(torch.float64) for i in self.ind2sub(ind))
+        return torch.stack([(ix + 0.5) * self.hx, (iy + 0.5) * self.hy], dim=0)
+
     def xy2sub(self, x, y):
         """Coordinates -> subscripts of the containing cell: floor, then clip
         to the grid, as integers."""

@@ -9,7 +9,9 @@ follow, then explicit upwind saturation transport with CFL substepping
 Members are a leading axis: a model whose `K` is (N, 2, Nx, Ny) simulates N
 members at once, sharing grid, fluid and wells. The time loop is a Python
 loop. Only the `scale_system=True`, `precond="mg"` path of the JAX package
-is ported; `simulate` takes none of the TPU strategy knobs.
+is ported. Of its solver strategy keys `simulate` takes the straggler
+recook's (`two_pass`, `twopass_j1`, `twopass_div`, `refine`), with the
+reference's rule for where it engages (`ops.pressure.recook_plan`).
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch
 
 from historymatching_tpu_torch.grid import Grid2D
 from historymatching_tpu_torch.ops.multigrid import build_hierarchy_5pt, coarse_inverse, n_levels
-from historymatching_tpu_torch.ops.pressure import pressure_solve
+from historymatching_tpu_torch.ops.pressure import pressure_solve_recook
 from historymatching_tpu_torch.ops.stencil import (
     face_fluxes,
     stencil_diag_nopin,
@@ -178,6 +180,7 @@ class SimResult(NamedTuple):
     cg_iters: torch.Tensor  # (..., nTime) int32
     substeps: torch.Tensor  # (..., nTime) int32
     prd_sats: torch.Tensor  # (..., nTime, nPrd) producer-cell saturations
+    recooked: torch.Tensor  # (..., nTime) bool: the member's solve was recooked
 
 
 def relperm(s, fluid: Fluid):
@@ -239,24 +242,28 @@ def scaled_system(model: ResSim, s):
 
 
 def pressure_step(model: ResSim, s, q, p0, tol, maxiter, tol_accept=None,
-                  patience_iters=96):
+                  patience_iters=96, two_pass=True, twopass_j1=64, twopass_div=4,
+                  refine=True):
     """Scaled TPFA pressure solve for saturations `s` (..., Nx, Ny).
-    Returns (p, Fx, Fy, iters, accepted).
+    Returns (p, Fx, Fy, iters, accepted, recooked).
 
     Solves D^-1/2 A D^-1/2 y = D^-1/2 q, p = D^-1/2 y, stopping on the
     physical residual norm (metric weight sqrt(diag)); the fluxes use the
-    unscaled operator."""
+    unscaled operator. The solve is the reference's straggler recook
+    (`ops.pressure.pressure_solve_recook`) where its rule engages, else
+    one pass; `recooked` marks the members it solved again."""
     TX, TY, diag, sd, hier, Ainv = scaled_system(model, s)
     mweight = diag * sd
     lead = diag.shape[:-2]
     flat = lambda t: t.expand(*lead, *t.shape[-2:]).reshape(-1, *t.shape[-2:])  # noqa: E731
     hier_b = [tuple(flat(t) for t in lvl) for lvl in hier]
-    y, iters, rel = pressure_solve(hier_b, flat(Ainv), flat(q * sd), flat(p0 * mweight),
-                                   flat(mweight), tol, maxiter, patience_iters)
+    y, iters, rel, recooked = pressure_solve_recook(
+        hier_b, flat(Ainv), flat(q * sd), flat(p0 * mweight), flat(mweight), tol, maxiter,
+        patience_iters, two_pass, twopass_j1, twopass_div, refine)
     p = y.reshape(diag.shape) * sd
     Fx, Fy = face_fluxes(TX, TY, p)
     accepted = rel.reshape(lead) <= (tol if tol_accept is None else tol_accept)
-    return p, Fx, Fy, iters.reshape(lead), accepted
+    return p, Fx, Fy, iters.reshape(lead), accepted, recooked.reshape(lead)
 
 
 def cfl_substeps(model: ResSim, Fx, Fy, q, dt, max_substeps=4096):
@@ -289,12 +296,15 @@ def transport_step(model: ResSim, s, Fx, Fy, q, dt, max_substeps=4096):
 
 
 def simulate(model: ResSim, wsat0, dt, nTime, *, tol=None, tol_accept=None, maxiter=None,
-             max_substeps=4096, patience_iters=96, keep_wsats=True):
+             max_substeps=4096, patience_iters=96, two_pass=True, twopass_j1=64,
+             twopass_div=4, refine=True, keep_wsats=True):
     """Run `nTime` steps of size `dt` from saturation `wsat0` (..., Nxy).
 
     Restartable: pass a previous run's last `wsats` row as `wsat0`. Solver
     defaults follow the dtype: tol 2e-3 / tol_accept 5e-2 / maxiter
-    4 max(Nx, Ny) in float32; 1e-10 / 1e-6 / Nxy in float64. With
+    4 max(Nx, Ny) in float32; 1e-10 / 1e-6 / Nxy in float64. `two_pass`,
+    `twopass_j1`, `twopass_div` and `refine` set the straggler recook
+    (`pressure_step`), with the JAX package's defaults. With
     `keep_wsats=False`, `wsats` holds only [initial, final]; `prd_sats`
     always holds the producer-cell series.
     """
@@ -321,17 +331,19 @@ def simulate(model: ResSim, wsat0, dt, nTime, *, tol=None, tol_accept=None, maxi
     prd_idx = g.xy2ind(model.prd_xy[:, 0], model.prd_xy[:, 1]).to(dev)
 
     s, p = s0, torch.zeros_like(s0)
-    sats, sobs, iters, conv, subs = [], [], [], [], []
+    sats, sobs, iters, conv, subs, recs = [], [], [], [], [], []
     for t in range(nTime):
         q = _source_field(model, inj_seq[t], prd_seq[t])
-        p, Fx, Fy, it, ok = pressure_step(model, s, q, p, tol, maxiter, tol_accept,
-                                          patience_iters)
+        p, Fx, Fy, it, ok, rec = pressure_step(model, s, q, p, tol, maxiter, tol_accept,
+                                               patience_iters, two_pass, twopass_j1,
+                                               twopass_div, refine)
         s, n_sub = transport_step(model, s, Fx, Fy, q, dt, max_substeps)
         flat_s = s.reshape(*lead, -1)
         sobs.append(flat_s[..., prd_idx])
         iters.append(it)
         conv.append(ok)
         subs.append(n_sub)
+        recs.append(rec)
         if keep_wsats:
             sats.append(flat_s)
     first = s0.reshape(*lead, -1)
@@ -345,4 +357,5 @@ def simulate(model: ResSim, wsat0, dt, nTime, *, tol=None, tol_accept=None, maxi
         cg_iters=torch.stack(iters, -1),
         substeps=torch.stack(subs, -1),
         prd_sats=torch.stack(sobs, dim=-2),
+        recooked=torch.stack(recs, -1),
     )

@@ -24,7 +24,7 @@ import torch
 from historymatching_tpu_torch.ops import _build
 from historymatching_tpu_torch.ops.cg import pcg
 from historymatching_tpu_torch.ops.multigrid import n_levels, vcycle_apply
-from historymatching_tpu_torch.ops.stencil import stencil_matvec
+from historymatching_tpu_torch.ops.stencil import stencil_matvec, stencil_residual_ds
 
 
 def pressure_solve_torch(hier, Ainv, q, p0, w, tol, maxiter, patience_iters=96,
@@ -114,3 +114,80 @@ def pressure_solve(hier, Ainv, q, p0, w, tol, maxiter, patience_iters=96):
     version on the CPU."""
     fn = pressure_solve_cuda if q.is_cuda else pressure_solve_torch
     return fn(hier, Ainv, q, p0, w, tol, maxiter, patience_iters)
+
+
+REFINE_ITERS = 96  # the refinement pass's iteration cap (pressure_pallas.py:378)
+
+
+def recook_plan(N, Ny, maxiter, two_pass=True, twopass_j1=64, twopass_div=4):
+    """The reference's rule for the straggler recook, from shapes only:
+    (Nb, K), the padded batch and the members recooked from it, or None
+    where the reference solves in one pass.
+
+    The reference recooks only where it lane-packs P = 128 // Ny members a
+    row (Ny <= 64, 128 % Ny == 0; pressure_pallas.py:303-304), pads the
+    batch to a multiple of group = 16 P (:309-311), and engages with
+    `two_pass`, maxiter > twopass_j1 and at least two groups (:351); it
+    recooks K = max(group, (Nb // twopass_div // group) group) members
+    (:359). Kept literally, so the port recooks the members the reference
+    did at every shape (a 20x20 grid never recooks)."""
+    if not (Ny <= 64 and 128 % Ny == 0):
+        return None
+    group = 16 * (128 // Ny)
+    Nb = N + (-N) % group
+    if not (two_pass and maxiter > twopass_j1 and Nb >= 2 * group):
+        return None
+    return Nb, max(group, (Nb // twopass_div // group) * group)
+
+
+def pressure_solve_recook(hier, Ainv, q, p0, w, tol, maxiter, patience_iters=96,
+                          two_pass=True, twopass_j1=64, twopass_div=4, refine=True,
+                          solve=pressure_solve):
+    """The reference's three-pass solve (pressure_pallas.py:336-397) around
+    `solve` (by default the dispatch above; on either device):
+
+    1. every member with the iteration cap `twopass_j1`;
+    2. the K members with the largest pass-1 residual (`recook_plan`; the
+       batch padded by modular gather, a stable descending sort, so ties
+       go to the lower index as in `lax.top_k`, padded copies dropped)
+       again, warm-started from pass 1, with the full `maxiter`;
+    3. with `refine`, a compensated residual of those members
+       (`stencil_residual_ds`), its correction solved from zero with 96
+       iterations on the same hierarchy, and `rel` rescaled to the
+       refined iterate's.
+
+    Returns (p, iters, rel, recooked): iterations add up over the passes;
+    `recooked` (B,) marks the members of passes 2 and 3. Nothing waits for
+    the device: the plan comes from shapes, the indices stay on it."""
+    B, _, Ny = q.shape
+    plan = recook_plan(B, Ny, maxiter, two_pass, twopass_j1, twopass_div)
+    if plan is None:
+        p, it, rel = solve(hier, Ainv, q, p0, w, tol, maxiter, patience_iters)
+        return p, it, rel, torch.zeros(B, dtype=torch.bool, device=q.device)
+    Nb, K = plan
+    p1, it1, rel1 = solve(hier, Ainv, q, p0, w, tol, twopass_j1, patience_iters)
+    pad = torch.arange(Nb, device=q.device) % B
+    top = torch.sort(rel1[pad], descending=True, stable=True).indices[:K]
+    idx = pad[top]
+    take = lambda t: t[idx]  # noqa: E731
+    hier_k = [tuple(take(t) for t in lvl) for lvl in hier]
+    Ainv_k, q_k, w_k = take(Ainv), take(q), take(w)
+    p2, it2, rel2 = solve(hier_k, Ainv_k, q_k, take(p1), w_k, tol, maxiter, patience_iters)
+    if refine:
+        r_ds = stencil_residual_ds(*hier_k[0], p2, q_k)
+        d3, it3, rel3 = solve(hier_k, Ainv_k, r_ds, torch.zeros_like(r_ds), w_k, tol,
+                              REFINE_ITERS, patience_iters)
+        p2 = p2 + d3
+        it2 = it2 + it3
+        num = (w_k * r_ds).reshape(K, -1).norm(dim=1)
+        den = (w_k * q_k).reshape(K, -1).norm(dim=1).clamp_min(torch.finfo(q.dtype).tiny)
+        rel2 = rel3 * num / den
+    # Picks of padded copies (top >= B) write to a spare last slot; their
+    # member is picked at its own index too (equal rel, lower index first).
+    dst = torch.where(top < B, idx, B)
+    extend = lambda t: torch.cat([t, t[:1]])  # noqa: E731
+    p = extend(p1).index_copy_(0, dst, p2)[:B]
+    it = extend(it1).index_add_(0, dst, it2)[:B]
+    rel = extend(rel1).index_copy_(0, dst, rel2)[:B]
+    recooked = torch.zeros(B + 1, dtype=torch.bool, device=q.device).index_fill_(0, dst, True)
+    return p, it, rel, recooked[:B]

@@ -54,6 +54,53 @@ def stencil_matvec(TX, TY, diag, p):
     return out
 
 
+def _two_sum(a, b):
+    """Error-free addition (Knuth 2Sum): a + b = s + err exactly."""
+    s = a + b
+    bv = s - a
+    err = (a - (s - bv)) + (b - bv)
+    return s, err
+
+
+def _two_prod(a, b):
+    """Error-free product (Dekker split, float32 splitter 2^12 + 1):
+    a * b = p + e exactly in float32. Each eager op is its own kernel, so
+    nothing contracts these products into an FMA (which would void the
+    split); keep them out of `torch.compile` and fused kernels."""
+    c = 4097.0 * a
+    hi = c - (c - a)
+    lo = a - hi
+    p = a * b
+    e = (hi * b - p) + lo * b
+    return p, e
+
+
+def stencil_residual_ds(TX, TY, diag, p, b):
+    """Compensated (double-single) residual r = b - A p for the 5-point
+    operator, in the JAX package's operation order: every product an
+    error-free two-prod, the sum Neumaier-accumulated. The recook's
+    refinement pass (`ops.pressure.pressure_solve_recook`) solves for the
+    correction from it."""
+
+    def padded_prod(T, pn, pad):
+        hi, lo = _two_prod(T, pn)
+        return F.pad(hi, pad), F.pad(lo, pad)
+
+    terms = [
+        padded_prod(TX, p[..., 1:, :], (0, 0, 0, 1)),
+        padded_prod(TX, p[..., :-1, :], (0, 0, 1, 0)),
+        padded_prod(TY, p[..., :, 1:], (0, 1)),
+        padded_prod(TY, p[..., :, :-1], (1, 0)),
+    ]
+    dhi, dlo = _two_prod(diag, p)
+    acc, comp = _two_sum(b, -dhi)
+    comp = comp - dlo
+    for hi, lo in terms:
+        acc, e = _two_sum(acc, hi)
+        comp = comp + (e + lo)
+    return acc + comp
+
+
 def face_fluxes(TX, TY, p):
     """Darcy face fluxes, padded with the zero-flux boundary.
     Fx (..., Nx+1, Ny), Fy (..., Nx, Ny+1); positive = flow towards +x/+y."""

@@ -17,9 +17,12 @@ from historymatching_tpu_torch.ops import _build
 from historymatching_tpu_torch.ops.multigrid import n_levels
 from historymatching_tpu_torch.ops.pressure import (
     pressure_solve_cuda,
+    pressure_solve_recook,
     pressure_solve_torch,
+    recook_plan,
     smem_bytes,
 )
+from historymatching_tpu_torch.ops.stencil import stencil_residual_ds
 from historymatching_tpu_torch.ops.transport import (
     transport_substeps,
     transport_substeps_torch,
@@ -122,6 +125,55 @@ def test_pressure_members_leave_at_their_own_windows(dev):
     assert bool((rel_k[:3] <= 1e-3).all())
     err = ((p_k - p_t).norm(dim=(-2, -1)) / p_t.norm(dim=(-2, -1)))[:3]
     assert float(err.max()) <= 1e-3
+
+
+def _fixed_work_err(p_k, p_t):
+    """Per-member relative difference; zero from both counts as agreement
+    (a member whose weighted residual never improved on its start)."""
+    dn, nt = (p_k - p_t).norm(dim=(-2, -1)), p_t.norm(dim=(-2, -1))
+    return float(torch.where((dn == 0) & (nt == 0), 0.0, dn / nt).max())
+
+
+@pytest.mark.parametrize("Nx,Ny", [(16, 16), (64, 64)])
+def test_pressure_kernel_on_the_recook_passes(dev, Nx, Ny):
+    """The recook's new uses of P: a gathered subset of members (fresh
+    tensors from an index, in another order) warm-started from an earlier
+    solve, and the correction solve from zero on a compensated residual.
+    Each against the plain version after one restart window; then the
+    whole recook, three launches, against the plain recook."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    m = _model(Nx, Ny, dev)
+    B = 64 if Ny == 64 else 256
+    mm = set_perm(m, 0.8 * torch.randn(B, m.Nxy, generator=g, device=dev))
+    _, _, diag, sd, hier, Ainv = scaled_system(mm, torch.zeros(B, Nx, Ny, device=dev))
+    q = torch.zeros(Nx, Ny, device=dev)
+    q[Nx // 2, Ny // 2], q[1, 1] = 1.0, -1.0
+    qs, w = (q * sd).contiguous(), (diag * sd).contiguous()
+    hier = [tuple(t.expand(B, *t.shape[-2:]) for t in lvl) for lvl in hier]
+    p1, _, _ = pressure_solve_cuda(hier, Ainv, qs, torch.zeros_like(qs), w, tol=0.0, maxiter=8)
+    idx = torch.randperm(B, generator=g, device=dev)[: B // 4]
+    sub = ([tuple(t[idx] for t in lvl) for lvl in hier], Ainv[idx], qs[idx])
+    fixed = dict(tol=0.0, maxiter=8, patience_iters=160)
+    p_k, it_k, _ = pressure_solve_cuda(*sub, p1[idx], w[idx], **fixed)
+    p_t, it_t, _ = pressure_solve_torch(*sub, p1[idx], w[idx], **fixed)
+    assert torch.equal(it_k, it_t) and _fixed_work_err(p_k, p_t) <= 1e-3
+    r_ds = stencil_residual_ds(*sub[0][0], p_k, sub[2])
+    d_k, _, _ = pressure_solve_cuda(*sub[:2], r_ds, torch.zeros_like(r_ds), w[idx], **fixed)
+    d_t, _, _ = pressure_solve_torch(*sub[:2], r_ds, torch.zeros_like(r_ds), w[idx], **fixed)
+    assert torch.isfinite(d_k).all() and _fixed_work_err(d_k, d_t) <= 1e-3
+
+    kw = dict(tol=2e-4, maxiter=128, patience_iters=256, twopass_j1=8, twopass_div=8)
+    Nb, K = recook_plan(B, Ny, 128, True, 8, 8)
+    before = _build.LAUNCHES["pressure_pcg"]
+    _, it_k, rel_k, rec_k = pressure_solve_recook(hier, Ainv, qs, torch.zeros_like(qs), w, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["pressure_pcg"] == before + 3
+    _, it_t, rel_t, rec_t = pressure_solve_recook(hier, Ainv, qs, torch.zeros_like(qs), w,
+                                                  solve=pressure_solve_torch, **kw)
+    assert int(rec_k.sum()) == int(rec_t.sum()) == K  # B is a multiple of the group
+    # float32 ties near the cut may swap a member in or out
+    assert int((rec_k & rec_t).sum()) >= 0.9 * K
+    assert abs(int((rel_k <= 5e-2).sum()) - int((rel_t <= 5e-2).sum())) <= max(1, B // 50)
 
 
 @pytest.mark.parametrize("Nx,Ny", _build.GRIDS)

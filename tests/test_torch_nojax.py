@@ -1,6 +1,8 @@
 """The PyTorch port imports no JAX: it must run on a host that has none.
 Checked in a subprocess with `jax` blocked at the finder level, like
-tests/test_packaging.py blocks the optional extras."""
+tests/test_packaging.py blocks the optional extras: every module of the
+package is imported, and the simulator (with the straggler recook
+engaged), the localized ES-MDA and IES run."""
 
 import os
 import subprocess
@@ -29,6 +31,26 @@ assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.al
 m = ht.ResSim.build(Nx=8, Ny=8, dtype=torch.float64, device="cpu")
 r = ht.simulate(m, torch.zeros(m.Nxy, dtype=torch.float64), 0.01, 2)
 assert bool(r.cg_ok)
+# The new paths run without JAX: the recook (8x8 packs 16 members a row,
+# so 300 members pad to 512 and the worst 256 are recooked), the localized
+# ES-MDA and IES, on a linear forward operator.
+from historymatching_tpu_torch.parallel.runner import set_perm
+g = torch.Generator().manual_seed(0)
+mm = set_perm(m, 0.3 * torch.randn(300, m.Nxy, generator=g, dtype=torch.float64))
+r = ht.simulate(mm, torch.zeros(m.Nxy, dtype=torch.float64), 0.01, 2, maxiter=128)
+per_step = r.recooked.sum(0)
+assert bool(((per_step > 0) & (per_step <= 256)).all()) and bool(r.cg_ok.all())
+dom, tap = ht.localization.domain_partition(m.grid, [9, 54], nTime=3, steps=(4, 4),
+                                            device="cpu")
+G = torch.randn(m.Nxy, 6, generator=g, dtype=torch.float64) / 8
+E0 = torch.randn(10, m.Nxy, generator=g, dtype=torch.float64)
+_, R12 = ht.temporal_R(3, 2, device="cpu")
+obs = torch.zeros(6, dtype=torch.float64)
+post = ht.es_mda(E0, lambda E: E @ G, obs, R12, ht.mda_alphas(2, dtype=torch.float64,
+                 device="cpu"), generator=g, domains=dom, taper_dom=tap)
+post_ies, _ = ht.ies(E0, lambda E: E @ G, obs, 0.1 * torch.randn(10, 6, generator=g,
+                     dtype=torch.float64), torch.eye(6, dtype=torch.float64) * 10, iMax=2)
+assert bool(torch.isfinite(post).all() & torch.isfinite(post_ies).all())
 print('port-import-ok')
 """
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

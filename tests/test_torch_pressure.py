@@ -52,7 +52,8 @@ def test_pcg_matches_vmapped_pcg_f64():
     mt = set_perm(convert.ressim_from_reference(m, dtype=torch.float64, device="cpu"),
                   torch.as_tensor(perm))
     st, qt, p0t = map(torch.as_tensor, (s, q, p0))
-    p_t, Fx_t, Fy_t, it_t, ok_t = pressure_step(mt, st, qt, p0t, tol, maxiter, 1e-6)
+    p_t, Fx_t, Fy_t, it_t, ok_t, rec_t = pressure_step(mt, st, qt, p0t, tol, maxiter, 1e-6)
+    assert not bool(rec_t.any())  # N=4 is below the recook's engage size
 
     # The same coarse inverse on the JAX side (the port's is a Cholesky
     # inverse, the JAX package's a Newton-Schulz one).
