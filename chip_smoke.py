@@ -23,7 +23,18 @@ Phases, one printed line or more each; any failed check raises:
    the card's idle share;
 8. the recook on the card against the recook around P's plain version;
 9. localized ES-MDA (4x4-cell domains, radius 1.2) at the flagship size;
-10. IES (10 Gauss-Newton iterations, xStep 0.4) at the flagship size.
+10. IES (10 Gauss-Newton iterations, xStep 0.4) at the flagship size;
+11. the EnOpt model (20x20, the reference bench's inj_xy case, its JAX
+    draws from historymatching_tpu_torch/data): K and P against their
+    plain versions on one step of the 400-member landscape batch, each
+    member with its own injector, and each kernel's time and bound at 400
+    members and at 40 (a gradient batch of 4 starts x 10);
+12. the exhaustive landscape: all 400 cell-centre injector positions in
+    one `npv` batch, held against the JAX package's float64 landscape;
+13. `gd_scan_multi`, the bench's EnOpt case: 4 starts, 10 perturbations,
+    8 trial steps, 30 iterations, held to the bench's 2% criterion;
+14. robust EnOpt over a 31-member permeability ensemble: GD with StoSAG
+    gradients for 30 iterations, then Paired and Mean-model for 5 each.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a card, or without the package
@@ -65,6 +76,10 @@ F32_FLOPS, HBM_BYTES = 67e12, 3.35e12
 # level (two sweeps down with the zero start folded, residual and
 # restriction, prolongation and two sweeps up).
 K_FLOPS_SUBSTEP, K_FLOPS_FOLD, P_FLOPS_FINE, P_FLOPS_VCYCLE = 21, 18, 22, 54
+# EnOpt (phases 11-14): the bench's gd_scan_multi (bench._enopt_fields) and
+# the reference's robust case (Optimise.py:833-875), each at its full size.
+EN_ITERS, EN_NENS, EN_CHOL, EN_SMALL_B = 30, 10, 0.1, 40
+ROBUST_N, ROBUST_ITERS, ROBUST_SHORT_ITERS = 31, 30, 5
 
 
 def log(*a):
@@ -127,6 +142,253 @@ def transport_bound_ms(s, Fx, Fy, q, n_sub):
 def bound(flops, nbytes):
     t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def sync():
+    import torch
+
+    torch.cuda.synchronize()
+
+
+def device_stages(fn, steps):
+    """`fn` run under torch.profiler: (device ms a step by stage, device
+    activities a step). Stages are kernel P, kernel K and every other
+    device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from historymatching_tpu_torch.ops import _build
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    stages = {"pressure_pcg": 0.0, "transport_upwind": 0.0, "torch ops": 0.0}
+    count = 0
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:  # device activity only, each counted once
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        us = ev.self_cuda_time_total if us is None else us
+        key = next((k for k in _build.LAUNCHES if k in ev.key), "torch ops")
+        stages[key] += us / 1e3 / steps
+        count += ev.count
+    return stages, count / steps
+
+
+def profile_steps(fn, steps):
+    """`fn` run once unprofiled for the wall, then under torch.profiler:
+    (device ms a step by stage, device busy ms a step, wall ms a step,
+    device activities a step)."""
+    sync()
+    t0 = time.perf_counter()
+    fn()
+    sync()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    stages, per_step = device_stages(fn, steps)
+    busy = sum(stages.values())
+    assert busy > 0, "the profiler saw no device time"
+    # The card cannot be busy longer than the wall. The profiled and the
+    # unprofiled run differ, but device times repeat to about 1% between
+    # runs, so beyond 5% the profile double-counts or its overhead leaks in.
+    assert busy <= 1.05 * wall_ms, f"device time {busy:.3f} ms exceeds the wall {wall_ms:.3f} ms"
+    return stages, busy, wall_ms, per_step
+
+
+def enopt_phases(dev, gen):
+    """Phases 11-14. Returns, per kernel, its figures at 20x20 for the
+    kernels' record."""
+    import numpy as np
+    import torch
+
+    import historymatching_tpu_torch as ht
+    from historymatching_tpu_torch.models.ressim import (
+        _source_field,
+        cfl_substeps,
+        pressure_step,
+        scaled_system,
+        transport_step,
+    )
+    from historymatching_tpu_torch.ops import _build
+    from historymatching_tpu_torch.ops.pressure import pressure_solve_cuda, pressure_solve_torch
+    from historymatching_tpu_torch.ops.stencil import face_fluxes
+    from historymatching_tpu_torch.ops.transport import (
+        transport_substeps_cuda,
+        transport_substeps_torch,
+    )
+    from historymatching_tpu_torch.opt.cases import enopt_case
+
+    # 11. K and P at 20x20 on step 21 of the 40 of the landscape batch (one
+    # injector a member), warm-started from step 20's pressure as in
+    # `simulate`, on the solver settings `npv` runs: simulate's float32
+    # defaults, one P launch a step.
+    case = enopt_case(device=dev)
+    em, cfg = case.model, case.cfg
+    nx, ny = em.shape
+    fl = em.fluid
+    fluid = (fl.vw, fl.vo, fl.swc, fl.sor)
+    B = case.cells.shape[0]
+    land_m = em.replace(inj_xy=case.cells[:, None, :])
+    path_kw = dict(tol=2e-3, maxiter=4 * max(nx, ny), patience_iters=96)
+    half = ht.simulate(land_m, torch.zeros(em.Nxy, device=dev), cfg.dt, cfg.nTime // 2 - 1,
+                       keep_wsats=False)
+    s_prev = half.wsats[:, -1].reshape(B, nx, ny)
+    q = _source_field(land_m, land_m.inj_rates[..., 0], land_m.prd_rates[..., 0]).contiguous()
+    p_prev, Fx, Fy, *_ = pressure_step(land_m, s_prev, q, torch.zeros_like(s_prev),
+                                       path_kw["tol"], path_kw["maxiter"], 5e-2)
+    s_mid = transport_step(land_m, s_prev, Fx, Fy, q, cfg.dt)[0].contiguous()
+    TX, TY, diag, sd, hier, Ainv = scaled_system(land_m, s_mid)
+    args = (hier, Ainv, (q * sd).contiguous(), (p_prev * diag * sd).contiguous(),
+            (diag * sd).contiguous())
+    fixed = dict(tol=0.0, maxiter=8, patience_iters=160)
+    p_k, _, _ = pressure_solve_cuda(*args, **fixed)
+    p_t, _, _ = pressure_solve_torch(*args, **fixed)
+    dn, nt = (p_k - p_t).norm(dim=(-2, -1)), p_t.norm(dim=(-2, -1))
+    p_err = float(torch.where((dn == 0) & (nt == 0), 0.0, dn / nt).max())
+    y, p_iters, _ = pressure_solve_cuda(*args, **path_kw)
+    Fx, Fy = (F.contiguous() for F in face_fluxes(TX, TY, y * sd))
+    nsub, dtspv = cfl_substeps(land_m, Fx, Fy, q, cfg.dt)
+    t_args = (s_mid, Fx, Fy, q, dtspv, nsub, fluid)
+    k_err = float((transport_substeps_cuda(*t_args) - transport_substeps_torch(*t_args)).abs().max())
+    log(f"[11] 20x20 landscape step, N={B}, one injector a member: P vs plain, one window: max "
+        f"rel |dp| = {p_err:.3e} (tol {P_TOL}); K vs plain: max|ds| = {k_err:.3e} (tol {K_TOL}); "
+        f"cg_iters median {int(p_iters.median())} max {int(p_iters.max())}, substeps median "
+        f"{int(nsub.median())} max {int(nsub.max())}")
+    assert torch.isfinite(p_k).all() and p_err <= P_TOL and k_err <= K_TOL
+
+    def sub(b):
+        take = lambda t: t[:b].contiguous()  # noqa: E731
+        return ([tuple(take(t) for t in lvl) for lvl in hier], take(Ainv), take(args[2]),
+                take(args[3]), take(args[4])), tuple(take(t) for t in t_args[:6]) + (fluid,)
+
+    # A launch's device time from the profiler; CUDA events around
+    # back-to-back launches give the launch interval, which at this size the
+    # host's submission may set rather than the kernel.
+    figs = {"pressure_pcg": {}, "transport_upwind": {}}
+    reps = 20
+    for b in (B, EN_SMALL_B):
+        pa, ta = sub(b)
+        it_b = pressure_solve_cuda(*pa, **path_kw)[1]
+        launch = {"pressure_pcg": lambda: pressure_solve_cuda(*pa, **path_kw),
+                  "transport_upwind": lambda: transport_substeps_cuda(*ta)}
+        bounds = {"pressure_pcg": pressure_bound_ms(pa[0], pa[1], it_b),
+                  "transport_upwind": transport_bound_ms(ta[0], ta[1], ta[2], ta[3], ta[5])}
+        tag = "" if b == B else f"_b{b}"
+        said = []
+        for name, fn in launch.items():
+            interval = cuda_ms(fn, reps)
+            ms = device_stages(lambda: [fn() for _ in range(reps)], reps)[0][name]
+            bnd, by = bounds[name]
+            figs[name].update({f"ms{tag}": ms, f"interval_ms{tag}": interval,
+                               f"bound_ms{tag}": bnd, f"bound_by{tag}": by,
+                               f"share_of_bound{tag}": bnd / ms})
+            said.append(f"{'P' if name == 'pressure_pcg' else 'K'} {ms:.4f} ms on the device "
+                        f"(launch interval {interval:.4f} ms), bound {bnd:.5f} ms ({by}, "
+                        f"{bnd / ms:.1%})")
+        log(f"[11] one launch at N={b} 20x20: " + "; ".join(said) + f"; cg_iters mean "
+            f"{float(it_b.float().mean()):.1f}, substeps mean {float(ta[5].float().mean()):.1f}")
+    figs["pressure_pcg"]["plain_ms"] = cuda_ms(lambda: pressure_solve_torch(*args, **path_kw), 1)
+    figs["transport_upwind"]["plain_ms"] = cuda_ms(lambda: transport_substeps_torch(*t_args), 1)
+    figs["pressure_pcg"]["max_abs_err"] = float((p_k - p_t).abs().max())
+    figs["transport_upwind"]["max_abs_err"] = k_err
+    log(f"[11] plain versions at N={B}: P {figs['pressure_pcg']['plain_ms']:.3f} ms, K "
+        f"{figs['transport_upwind']['plain_ms']:.3f} ms")
+    # Whether small batches leave the card idle: one npv call of the
+    # landscape's 400 members and of a gradient batch's 40, profiled.
+    for b in (B, EN_SMALL_B):
+        call = lambda: ht.npv_value(em, cfg, inj_xy=case.cells[:b, None, :])  # noqa: E731
+        stages, busy, wall_ms, acts = profile_steps(call, cfg.nTime)
+        log(f"[11] profile, one npv call of N={b} (40 steps): per step " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in stages.items()) + f"; device busy {busy:.4f} ms of "
+            f"{wall_ms:.4f} ms unprofiled wall, idle {1 - busy / wall_ms:.1%}; {acts:.1f} "
+            f"device activities a step")
+
+    def run(tag, fn):
+        _build.reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        assert all(v > 0 for v in launches.values()), (tag, launches)
+        for name, v in launches.items():
+            figs[name]["launches"] = figs[name].get("launches", 0) + v
+        return out, wall, launches
+
+    # 12. the exhaustive landscape: 400 injector positions, one npv batch
+    land, wall, launches = run("12", lambda: ht.npv_value(em, cfg, inj_xy=case.cells[:, None, :]))
+    assert land.shape == (B,) and torch.isfinite(land).all()
+    assert launches == {"pressure_pcg": cfg.nTime, "transport_upwind": cfg.nTime}, launches
+    land = land.double().cpu().numpy()
+    ref = case.landscape
+    arg, arg_ref = int(np.argmax(land)), int(np.argmax(ref))
+    cell = lambda i: (int(i % nx), int(i // nx))  # noqa: E731  (ix, iy); cells run x fastest
+    both = (land != 0) & (ref != 0)
+    rel = np.abs(land - ref)[both] / np.abs(ref[both])
+    gate = np.flatnonzero((land == 0) != (ref == 0))
+    log(f"[12] landscape, {B} injector positions in one npv batch: {wall:.3f} s; max "
+        f"{land[arg]:.4f} at cell {cell(arg)} (JAX float64: {ref[arg_ref]:.4f} at "
+        f"{cell(arg_ref)}); zeroed by the gate {int((land == 0).sum())} (JAX float64 "
+        f"{int((ref == 0).sum())}); over the {int(both.sum())} cells both accept, relative "
+        f"difference median {np.median(rel):.3e} max {rel.max():.3e}; launches {launches}")
+    log(f"[12] cells where the card's float32 and JAX's float64 disagree about the gate "
+        f"(card value, JAX value): " + ", ".join(
+            f"{cell(i)} ({land[i]:.2f}, {ref[i]:.2f})" for i in gate))
+    assert max(abs(a - b) for a, b in zip(cell(arg), cell(arg_ref))) <= 1
+    assert abs(land[arg] - ref[arg_ref]) <= 0.02 * abs(ref[arg_ref])
+
+    # 13. the bench's gd_scan_multi from the fixture's starts and draws
+    def obj(U):
+        return ht.npv_value(em, cfg, inj_xy=U.reshape(-1, 1, 2))
+
+    (paths, objs, info), wall, launches = run("13", lambda: ht.gd_scan_multi(
+        obj, case.U0, chol=EN_CHOL, nEns=EN_NENS, nIter=EN_ITERS, Z=case.Z))
+    objs = objs.double().cpu().numpy()
+    best = int(np.argmax(objs[:, -1]))
+    gap = land[arg] - objs[best, -1]
+    log(f"[13] gd_scan_multi, {len(objs)} starts x ({EN_NENS} perturbations + 8 trials), "
+        f"{EN_ITERS} iterations: {wall:.3f} s; nIter per start {info['nIter'].tolist()}; NPV "
+        f"start -> end {[f'{a:.3f} -> {b:.3f}' for a, b in objs[:, [0, -1]]]}; best {objs[best, -1]:.4f} "
+        f"at {[round(float(v), 3) for v in paths[best, -1]]}, gap to the landscape max "
+        f"{gap:.4f} ({gap / abs(land[arg]):.2%}); launches {launches}")
+    assert np.isfinite(objs).all() and paths.shape == (len(objs), EN_ITERS + 1, 2)
+    assert objs[best, -1] >= land[arg] - 0.02 * abs(land[arg])
+    assert (objs[:, -1] > objs[:, 0]).any()
+
+    # 14. robust EnOpt over a permeability ensemble: obj1(u, x) the NPV with
+    # the injector at u and permeability x; the robust objective its mean
+    # over the ensemble, so one trial batch is 8 x 31 members.
+    pre = ht.sample_prior_perm(gen, em.grid, ROBUST_N, r=0.8, device=dev)
+    X = 0.1 + torch.exp(5 * pre)  # (31, Nxy) permeability fields
+    rows = []
+
+    def obj1(U, Xb):
+        rows.append(len(U))
+        Kx = Xb.reshape(-1, nx, ny)
+        return ht.npv_value(em, cfg, inj_xy=U.reshape(-1, 1, 2), K=torch.stack([Kx, Kx], 1))
+
+    def obj_robust(U):
+        n = len(U)
+        J = obj1(U.repeat_interleave(ROBUST_N, 0), X.repeat(n, 1))
+        return J.reshape(n, ROBUST_N).mean(1)
+
+    u0 = torch.rand(2, generator=gen, device=dev) * torch.tensor([em.Lx, em.Ly], device=dev)
+    for strategy, n_iter in (("StoSAG", ROBUST_ITERS), ("Paired", ROBUST_SHORT_ITERS),
+                             ("Mean-model", ROBUST_SHORT_ITERS)):
+        rows.clear()
+        nabla = ht.EnGrad(chol=EN_CHOL, nEns=ROBUST_N, robustly=strategy, obj_ux=obj1, X=X)
+        (path, objs_r, info_r), wall, launches = run("14", lambda: ht.GD(
+            obj_robust, u0, nabla=nabla, nIter=n_iter, generator=gen))
+        objs_r = objs_r.double().cpu().numpy()
+        log(f"[14] robust {strategy}, {ROBUST_N} permeability fields, {n_iter} iterations: "
+            f"{wall:.3f} s; {info_r['cause']} after {info_r['nIter']} (accepted "
+            f"{len(objs_r) - 1}); J {objs_r[0]:.4f} -> {objs_r[-1]:.4f} at "
+            f"{[round(float(v), 3) for v in path[-1]]}; members per objective call "
+            f"{sorted(set(rows))} in {len(rows)} calls; launches {launches}")
+        assert np.isfinite(objs_r).all() and (np.diff(objs_r) > 0).all()
+        assert set(rows) <= {2 * ROBUST_N if strategy == "StoSAG" else ROBUST_N,
+                             ROBUST_N, 8 * ROBUST_N}, rows
+    return figs
 
 
 def main():
@@ -371,35 +633,11 @@ def main():
     wsat = s_end.reshape(N, -1)
     prof_kw = dict(dt=DT, nTime=10, keep_wsats=False, **dict(BASE, **LOOSE))
     ht.simulate(mm, wsat, **dict(prof_kw, nTime=1))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ht.simulate(mm, wsat, **prof_kw)
-    torch.cuda.synchronize()
-    wall_ms = 1e3 * (time.perf_counter() - t0) / 10
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        ht.simulate(mm, wsat, **prof_kw)
-        torch.cuda.synchronize()
-    stages = {"pressure_pcg": 0.0, "transport_upwind": 0.0, "torch ops": 0.0}
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:  # device activity only, each counted once
-            continue
-        us = getattr(ev, "self_device_time_total", None)
-        us = ev.self_cuda_time_total if us is None else us
-        key = next((k for k in _build.LAUNCHES if k in ev.key), "torch ops")
-        stages[key] += us / 1e3 / 10
-    busy = sum(stages.values())
+    stages, busy, wall_ms, acts = profile_steps(lambda: ht.simulate(mm, wsat, **prof_kw), 10)
     log(f"[7] profile, 10 loose-pass steps at N={N}: per step " + ", ".join(
         f"{k} {v:.3f} ms ({v / busy:.1%})" for k, v in stages.items())
         + f"; device busy {busy:.3f} ms of {wall_ms:.3f} ms unprofiled wall, idle "
-        f"{1 - busy / wall_ms:.1%}")
-    assert busy > 0, "the profiler saw no device time"
-    # The card cannot be busy longer than the wall. The profiled and the
-    # unprofiled run differ, but device times repeat to about 1% between
-    # runs, so beyond 5% the profile double-counts or its overhead leaks in.
-    assert busy <= 1.05 * wall_ms, f"device time {busy:.3f} ms exceeds the wall {wall_ms:.3f} ms"
+        f"{1 - busy / wall_ms:.1%}; {acts:.1f} device activities a step")
 
     # 8. the recook on the card against the recook around P's plain version,
     # on [6]'s inputs. The plan comes from shapes, so K is the same; float32
@@ -472,11 +710,14 @@ def main():
     assert torch.isfinite(post_ies).all() and post_ies.shape == prior.shape
     assert spread(post_ies) < spread(prior)
 
+    en = enopt_phases(dev, gen)
+
     def record(name, route, source, replaces, err, ms, plain_ms, bound_ms, by):
         return dict(name=name, route=route, source=source, replaces=replaces,
                     launches=launches[name], max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     bound_ms=bound_ms, bound_by=by, library_ms=None,
-                    share_of_bound=bound_ms / ms)
+                    share_of_bound=bound_ms / ms,
+                    **{f"enopt_20x20_{k}": v for k, v in en[name].items()})
 
     kernels = [
         record("transport_upwind", "cuda", "historymatching_tpu_torch/csrc/transport_upwind.cu",

@@ -1,8 +1,9 @@
 """historymatching_tpu_torch — the PyTorch/CUDA port of `historymatching_tpu`.
 
-Ensemble history matching on one NVIDIA GPU: the TPFA two-phase simulator
-run over an ensemble, the Gaussian-field prior, and the ES-MDA (plain or
-localized) and IES analyses.
+Ensemble history matching and production optimisation on one NVIDIA GPU:
+the TPFA two-phase simulator run over an ensemble, the Gaussian-field
+prior, the ES-MDA (plain or localized) and IES analyses, and EnOpt with
+its NPV objective (`opt`).
 The module layout and names mirror the JAX package. Plain tensor code is
 PyTorch; the two hot loops (the MG-PCG pressure solve and the CFL-substep
 transport) are hand-written CUDA kernels for sm_90a (`csrc/`), built on
@@ -34,9 +35,31 @@ from historymatching_tpu_torch.da.update import (  # noqa: E402
 )
 from historymatching_tpu_torch.da import localization  # noqa: E402
 from historymatching_tpu_torch.da.localization import bump, pairwise_distances  # noqa: E402
-from historymatching_tpu_torch.da.geostat import gaussian_fields_fft, sample_prior_perm  # noqa: E402
+from historymatching_tpu_torch.da.geostat import (  # noqa: E402
+    gaussian_fields,
+    gaussian_fields_dense,
+    gaussian_fields_fft,
+    sample_prior_perm,
+)
+from historymatching_tpu_torch.opt import (  # noqa: E402
+    GD,
+    Backtracker,
+    EnGrad,
+    NPVConfig,
+    accounting,
+    gd_scan,
+    gd_scan_multi,
+    npv,
+    npv_value,
+)
 from historymatching_tpu_torch.parallel.runner import forward_model, obs_ens_fn  # noqa: E402
-from historymatching_tpu_torch.utils import center, gaussian_noise, temporal_R, vect  # noqa: E402
+from historymatching_tpu_torch.utils import (  # noqa: E402
+    center,
+    gaussian_noise,
+    rinv,
+    temporal_R,
+    vect,
+)
 
 __all__ = [
     "Grid2D",
@@ -47,7 +70,18 @@ __all__ = [
     "forward_model",
     "obs_ens_fn",
     "sample_prior_perm",
+    "gaussian_fields",
+    "gaussian_fields_dense",
     "gaussian_fields_fft",
+    "NPVConfig",
+    "npv",
+    "npv_value",
+    "accounting",
+    "EnGrad",
+    "Backtracker",
+    "GD",
+    "gd_scan",
+    "gd_scan_multi",
     "localization",
     "bump",
     "pairwise_distances",
@@ -59,6 +93,7 @@ __all__ = [
     "mda_alphas",
     "gaussian_noise",
     "center",
+    "rinv",
     "temporal_R",
     "vect",
 ]

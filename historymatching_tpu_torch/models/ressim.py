@@ -7,7 +7,9 @@ follow, then explicit upwind saturation transport with CFL substepping
 (kernel K on the card). Quadratic Corey relative permeabilities.
 
 Members are a leading axis: a model whose `K` is (N, 2, Nx, Ny) simulates N
-members at once, sharing grid, fluid and wells. The time loop is a Python
+members at once, sharing grid and fluid. Wells and rates share that axis
+or carry their own (N, nWell, ...), so each member may place and drive its
+wells differently, as an EnOpt batch does. The time loop is a Python
 loop. Only the `scale_system=True`, `precond="mg"` path of the JAX package
 is ported. Of its solver strategy keys `simulate` takes the straggler
 recook's (`two_pass`, `twopass_j1`, `twopass_div`, `refine`), with the
@@ -31,6 +33,7 @@ from historymatching_tpu_torch.ops.stencil import (
     transmissibilities,
 )
 from historymatching_tpu_torch.ops.transport import transport_substeps
+from historymatching_tpu_torch.utils import as_float, atleast_2d
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,23 +46,12 @@ class Fluid:
     sor: float = 0.0
 
 
-def _f(x, dtype=None, device=None):
-    """A floating tensor; an existing floating dtype is kept unless `dtype`."""
-    t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.array(x))
-    if dtype is None and not t.is_floating_point():
-        dtype = torch.get_default_dtype()
-    return t.to(dtype=dtype or t.dtype, device=device)
-
-
-def _atleast_2d(t):
-    return t.reshape(1, -1) if t.ndim < 2 else t
-
-
 @dataclasses.dataclass(frozen=True)
 class ResSim:
     """Immutable reservoir model. Tensors: K (..., 2, Nx, Ny) direction
-    permeabilities, with an optional leading member axis; well coordinates
-    (nWell, 2); well rates (nWell, nT), nT == 1 meaning constant in time."""
+    permeabilities; well coordinates (..., nWell, 2); well rates
+    (..., nWell, nT), nT == 1 meaning constant in time. Each may carry a
+    leading member axis or share one set among the members."""
 
     K: torch.Tensor
     inj_xy: torch.Tensor
@@ -89,18 +81,19 @@ class ResSim:
         if prd_rates is None:
             n = len(np.atleast_2d(prd_xy))
             prd_rates = np.ones((n, 1)) / n
-        cv = lambda x: _f(x, dtype, device)  # noqa: E731
-        return cls(K=cv(K), inj_xy=_atleast_2d(cv(inj_xy)), prd_xy=_atleast_2d(cv(prd_xy)),
-                   inj_rates=_atleast_2d(cv(inj_rates)),
-                   prd_rates=_atleast_2d(cv(prd_rates)), grid=grid,
+        cv = lambda x: as_float(x, dtype, device)  # noqa: E731
+        return cls(K=cv(K), inj_xy=atleast_2d(cv(inj_xy)), prd_xy=atleast_2d(cv(prd_xy)),
+                   inj_rates=atleast_2d(cv(inj_rates)),
+                   prd_rates=atleast_2d(cv(prd_rates)), grid=grid,
                    fluid=fluid or Fluid(), name=name)
 
     def replace(self, **kw):
-        """Functional reconfiguration; arrays become tensors on K's device."""
+        """Functional reconfiguration; arrays become tensors on K's device.
+        A leading member axis of a well array is kept."""
         for k in ("K", "inj_xy", "prd_xy", "inj_rates", "prd_rates"):
             if k in kw:
-                v = _f(kw[k], device=self.K.device)
-                kw[k] = v if k == "K" else _atleast_2d(v)
+                v = as_float(kw[k], device=self.K.device)
+                kw[k] = v if k == "K" else atleast_2d(v)
         return dataclasses.replace(self, **kw)
 
     @property
@@ -137,11 +130,11 @@ class ResSim:
 
     @property
     def nInj(self):
-        return self.inj_xy.shape[0]
+        return self.inj_xy.shape[-2]
 
     @property
     def nPrd(self):
-        return self.prd_xy.shape[0]
+        return self.prd_xy.shape[-2]
 
     def sub2ind(self, ix, iy):
         return self.grid.sub2ind(ix, iy)
@@ -154,28 +147,36 @@ class ResSim:
         return simulate(self, wsat0, dt, nTime, **kw).wsats
 
     def validate(self):
-        """Raise on unbalanced rates or out-of-domain wells."""
-        inj = np.atleast_2d(self.inj_rates.cpu().numpy())
-        prd = np.atleast_2d(self.prd_rates.cpu().numpy())
-        ti, tp = inj.sum(0), prd.sum(0)
-        if not np.allclose(ti, tp.repeat(len(ti)) if tp.size == 1 else tp):
-            raise ValueError(f"Unbalanced rates: inj {ti} != prd {tp}")
+        """Raise on unbalanced rates or out-of-domain wells, naming the
+        first failing member where the wells carry a member axis."""
+        def where(bad):
+            i = tuple(int(v) for v in np.argwhere(bad)[0])
+            return i, (f" of member {i if len(i) > 1 else i[0]}" if i else "")
+
+        inj, prd = (np.atleast_2d(r.cpu().numpy()) for r in (self.inj_rates, self.prd_rates))
+        ti, tp = np.broadcast_arrays(inj.sum(-2), prd.sum(-2))
+        bad = ~np.isclose(ti, tp).all(-1)
+        if bad.any():
+            i, at = where(bad)
+            raise ValueError(f"Unbalanced rates{at}: inj {ti[i]} != prd {tp[i]}")
         for xy, lbl in ((self.inj_xy, "inj"), (self.prd_xy, "prd")):
             xy = xy.cpu().numpy()
-            ok = (xy[:, 0] >= 0) & (xy[:, 0] <= self.Lx) & (xy[:, 1] >= 0) & (xy[:, 1] <= self.Ly)
+            ok = (xy[..., 0] >= 0) & (xy[..., 0] <= self.Lx) & (xy[..., 1] >= 0) & (xy[..., 1] <= self.Ly)
             if not ok.all():
-                raise ValueError(f"{lbl}_xy outside domain: {xy[~ok]}")
+                i, at = where(~ok.all(-1))
+                raise ValueError(f"{lbl}_xy outside domain{at}: {xy[i][~ok[i]]}")
         return self
 
 
 class SimResult(NamedTuple):
-    """Outputs of `simulate`. Per-member fields carry the model's leading
-    member axis; the rate and validity fields describe the shared wells."""
+    """Outputs of `simulate`. Per-member fields carry the run's leading
+    member axis; the rate and validity fields carry the wells' and rates'
+    own (none where every member shares them)."""
 
     wsats: torch.Tensor  # (..., nTime+1, Nxy), or (..., 2, Nxy) without keep_wsats
-    actual_inj_rates: torch.Tensor  # (nInj, nTime)
-    actual_prd_rates: torch.Tensor  # (nPrd, nTime)
-    valid: torch.Tensor  # bool: rates balanced, wells in domain
+    actual_inj_rates: torch.Tensor  # (..., nInj, nTime)
+    actual_prd_rates: torch.Tensor  # (..., nPrd, nTime)
+    valid: torch.Tensor  # (...,) bool: rates balanced at every step, wells in domain
     cg_ok: torch.Tensor  # (...,) bool: every pressure solve accepted
     cg_iters: torch.Tensor  # (..., nTime) int32
     substeps: torch.Tensor  # (..., nTime) int32
@@ -195,25 +196,37 @@ def frac_flow(s, fluid: Fluid):
 
 
 def _rates_seq(rates, nTime):
-    """(nWell, nT) -> (nTime, nWell); nT == 1 broadcasts."""
-    rates = _atleast_2d(rates)
-    nT = rates.shape[1]
+    """(..., nWell, nT) -> (nTime, ..., nWell); nT == 1 broadcasts."""
+    rates = atleast_2d(rates)
+    nT = rates.shape[-1]
     if nT == 1:
-        return rates[:, 0].expand(nTime, rates.shape[0])
+        return rates[..., 0].expand(nTime, *rates.shape[:-1])
     if nT != nTime:
         raise ValueError(f"rates have {nT} steps; expected 1 or {nTime}")
-    return rates.T
+    return rates.movedim(-1, 0)
+
+
+def _well_inds(g: Grid2D, xy):
+    """Cell indices (..., nWell) of well coordinates (..., nWell, 2)."""
+    return g.xy2ind(xy[..., 0], xy[..., 1])
 
 
 def _source_field(model: ResSim, inj_t, prd_t):
-    """(Nx, Ny) source field for one step; wells in one cell add up."""
+    """(..., Nx, Ny) source field for one step, from rates (..., nWell) and
+    the model's wells, either with a member axis: one `index_add_` a side
+    into the flattened members' fields. Wells in one cell add up."""
     g = model.grid
-    q = torch.zeros(g.Nxy, dtype=inj_t.dtype, device=inj_t.device)
-    inj_ind = g.xy2ind(model.inj_xy[:, 0], model.inj_xy[:, 1]).to(q.device)
-    prd_ind = g.xy2ind(model.prd_xy[:, 0], model.prd_xy[:, 1]).to(q.device)
-    q.index_add_(0, inj_ind, inj_t)
-    q.index_add_(0, prd_ind, -prd_t)
-    return q.reshape(g.shape)
+    inj_ind, prd_ind = (_well_inds(g, xy).to(inj_t.device) for xy in (model.inj_xy, model.prd_xy))
+    lead = torch.broadcast_shapes(inj_t.shape[:-1], prd_t.shape[:-1], inj_ind.shape[:-1],
+                                  prd_ind.shape[:-1])
+    B = int(np.prod(lead))
+    base = torch.arange(B, device=inj_t.device).reshape(*lead, 1) * g.Nxy
+    q = torch.zeros(B * g.Nxy, dtype=inj_t.dtype, device=inj_t.device)
+    for ind, rate in ((inj_ind, inj_t), (prd_ind, -prd_t)):
+        n = ind.shape[-1]
+        q.index_add_(0, (base + ind).expand(*lead, n).reshape(-1),
+                     rate.expand(*lead, n).reshape(-1))
+    return q.reshape(*lead, *g.shape)
 
 
 def scaled_system(model: ResSim, s):
@@ -299,6 +312,8 @@ def simulate(model: ResSim, wsat0, dt, nTime, *, tol=None, tol_accept=None, maxi
              max_substeps=4096, patience_iters=96, two_pass=True, twopass_j1=64,
              twopass_div=4, refine=True, keep_wsats=True):
     """Run `nTime` steps of size `dt` from saturation `wsat0` (..., Nxy).
+    The members are the broadcast of the leading axes of `wsat0`, `K`, the
+    wells and the rates.
 
     Restartable: pass a previous run's last `wsats` row as `wsat0`. Solver
     defaults follow the dtype: tol 2e-3 / tol_accept 5e-2 / maxiter
@@ -310,7 +325,7 @@ def simulate(model: ResSim, wsat0, dt, nTime, *, tol=None, tol_accept=None, maxi
     """
     g = model.grid
     dev = model.K.device
-    wsat0 = _f(wsat0, device=dev)
+    wsat0 = as_float(wsat0, device=dev)
     dtype = wsat0.dtype
     f64 = dtype == torch.float64
     tol = (1e-10 if f64 else 2e-3) if tol is None else tol
@@ -318,28 +333,35 @@ def simulate(model: ResSim, wsat0, dt, nTime, *, tol=None, tol_accept=None, maxi
     maxiter = (g.Nxy if f64 else 4 * max(g.Nx, g.Ny)) if maxiter is None else maxiter
 
     model = model.replace(K=model.K.to(dtype))
-    lead = torch.broadcast_shapes(model.K.shape[:-3], wsat0.shape[:-1])
-    s0 = wsat0.reshape(*wsat0.shape[:-1], *g.shape).expand(*lead, *g.shape)
-    inj_seq = _rates_seq(model.inj_rates, nTime).to(dtype)
+    inj_seq = _rates_seq(model.inj_rates, nTime).to(dtype)  # (nTime, ..., nInj)
     prd_seq = _rates_seq(model.prd_rates, nTime).to(dtype)
+    wlead = torch.broadcast_shapes(inj_seq.shape[1:-1], prd_seq.shape[1:-1],
+                                   model.inj_xy.shape[:-2], model.prd_xy.shape[:-2])
+    lead = torch.broadcast_shapes(model.K.shape[:-3], wsat0.shape[:-1], wlead)
+    s0 = wsat0.reshape(*wsat0.shape[:-1], *g.shape).expand(*lead, *g.shape)
 
-    tot_i, tot_p = inj_seq.sum(1), prd_seq.sum(1)
+    # Validity per member of the wells' axis: balanced at every step, every
+    # well in the domain.
+    tot_i, tot_p = (r.sum(-1).movedim(0, -1) for r in (inj_seq, prd_seq))  # (..., nTime)
     scale = torch.clamp_min(tot_i.abs() + tot_p.abs(), 1e-30)
-    balanced = ((tot_i - tot_p).abs() <= 1e-6 * scale).all()
-    wells_ok = (g.in_domain(model.inj_xy[:, 0], model.inj_xy[:, 1]).all()
-                & g.in_domain(model.prd_xy[:, 0], model.prd_xy[:, 1]).all())
-    prd_idx = g.xy2ind(model.prd_xy[:, 0], model.prd_xy[:, 1]).to(dev)
+    balanced = ((tot_i - tot_p).abs() <= 1e-6 * scale).all(-1)
+    wells_ok = (g.in_domain(model.inj_xy[..., 0], model.inj_xy[..., 1]).all(-1)
+                & g.in_domain(model.prd_xy[..., 0], model.prd_xy[..., 1]).all(-1))
+    prd_idx = _well_inds(g, model.prd_xy).to(dev)
+    prd_idx = prd_idx.expand(*lead, prd_idx.shape[-1])
 
     s, p = s0, torch.zeros_like(s0)
     sats, sobs, iters, conv, subs, recs = [], [], [], [], [], []
     for t in range(nTime):
         q = _source_field(model, inj_seq[t], prd_seq[t])
+        if q.ndim > 2:  # wells of their own: one source field a member
+            q = q.expand(*lead, *g.shape)
         p, Fx, Fy, it, ok, rec = pressure_step(model, s, q, p, tol, maxiter, tol_accept,
                                                patience_iters, two_pass, twopass_j1,
                                                twopass_div, refine)
         s, n_sub = transport_step(model, s, Fx, Fy, q, dt, max_substeps)
         flat_s = s.reshape(*lead, -1)
-        sobs.append(flat_s[..., prd_idx])
+        sobs.append(torch.gather(flat_s, -1, prd_idx))
         iters.append(it)
         conv.append(ok)
         subs.append(n_sub)
@@ -350,8 +372,8 @@ def simulate(model: ResSim, wsat0, dt, nTime, *, tol=None, tol_accept=None, maxi
     wsats = torch.stack([first] + (sats if keep_wsats else [s.reshape(*lead, -1)]), dim=-2)
     return SimResult(
         wsats=wsats,
-        actual_inj_rates=inj_seq.T,
-        actual_prd_rates=prd_seq.T,
+        actual_inj_rates=inj_seq.movedim(0, -1),
+        actual_prd_rates=prd_seq.movedim(0, -1),
         valid=balanced & wells_ok.to(balanced.device),
         cg_ok=torch.stack(conv, -1).all(-1),
         cg_iters=torch.stack(iters, -1),

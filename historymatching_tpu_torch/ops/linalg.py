@@ -1,5 +1,6 @@
-"""SPD inverse and solve (PyTorch counterpart of `spd_inverse`/`spd_solve`
-in `historymatching_tpu.ops.linalg`).
+"""SPD inverse and solve, and the Tikhonov right pseudo-inverse (PyTorch
+counterpart of `spd_inverse`, `spd_solve` and `rinv_tikh` in
+`historymatching_tpu.ops.linalg`).
 
 The JAX package inverts by Newton-Schulz because its TPU backend has no
 LAPACK. Here the factorization is a batched Cholesky, under the same
@@ -32,3 +33,14 @@ def spd_inverse(A, jitter=0.0):
 def spd_solve(A, B, jitter=0.0):
     """Solve A X = B for SPD A (inverse, then one product, as in JAX)."""
     return spd_inverse(A, jitter=jitter) @ B
+
+
+def rinv_tikh(A, reg):
+    """Tikhonov-regularized right pseudo-inverse of (a batch of) A (m, n):
+    with reg' = reg * sigma_max(A), A' (A A' + reg'^2 I)^-1. sigma_max is
+    exact here (`matrix_norm`, an SVD); the JAX package estimates it by
+    power iteration."""
+    r = reg * torch.linalg.matrix_norm(A, ord=2)[..., None, None]
+    m = A.shape[-2]
+    G = A @ A.mT + (r * r) * torch.eye(m, dtype=A.dtype, device=A.device)
+    return spd_solve(G, A).mT

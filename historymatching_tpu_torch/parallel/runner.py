@@ -27,7 +27,7 @@ def set_perm(model: ResSim, log_perm_array, transf=perm_transf):
 
 def prod_inds(model: ResSim):
     """Producer cell indices: the observation operator's gather targets."""
-    return model.xy2ind(model.prd_xy[:, 0], model.prd_xy[:, 1])
+    return model.xy2ind(model.prd_xy[..., 0], model.prd_xy[..., 1])
 
 
 def forward_model(model, perm_ens, wsat0=None, dt=0.025, nTime=40, *, transf=perm_transf,

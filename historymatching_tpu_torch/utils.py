@@ -8,6 +8,18 @@ import numpy as np
 import torch
 
 
+def as_float(x, dtype=None, device=None):
+    """A floating tensor; an existing floating dtype is kept unless `dtype`."""
+    t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.array(x))
+    if dtype is None and not t.is_floating_point():
+        dtype = torch.get_default_dtype()
+    return t.to(dtype=dtype or t.dtype, device=device)
+
+
+def atleast_2d(t):
+    return t.reshape(1, -1) if t.ndim < 2 else t
+
+
 def center(E, dim=0):
     """Subtract the ensemble mean; return (anomalies, mean)."""
     x = E.mean(dim=dim, keepdim=True)
@@ -27,6 +39,37 @@ def gaussian_noise(N, M, L=1.0, generator=None, Z=None, dtype=None, device="cuda
     if isinstance(L, torch.Tensor) and L.ndim == 2:
         return Z @ L.T
     return Z * L
+
+
+def rinv(A, reg, tikh=True, nMax=None):
+    """Regularized or truncated SVD pseudo-inverse: the Tikhonov spectrum
+    s / (s^2 + (reg s_max)^2) with `tikh`, else 1/s above reg s_max and 0
+    below; `nMax` keeps only the leading singular values."""
+    U, s, VT = torch.linalg.svd(A, full_matrices=False)
+    reg = reg * s[..., :1]
+    if tikh:
+        s1 = s / (s**2 + reg**2)
+    else:
+        s1 = torch.where(s >= reg, 1.0 / torch.where(s == 0, 1.0, s), 0.0)
+    if nMax:
+        s1 = torch.where(torch.arange(s.shape[-1], device=s.device) < nMax, s1, 0.0)
+    return (VT.mT * s1[..., None, :]) @ U.mT
+
+
+def pCircle(degree, Lx, Ly, p=4, norm_val=0.87):
+    """(x, y) at angle `degree` on the p-norm circle, centred and scaled to
+    the domain: a well-placement helper (NumPy, rounded to 2 decimals)."""
+    radians = 2 * np.pi * degree / 360
+    c, s = np.cos(radians), np.sin(radians)
+    norm = (np.abs(c) ** p + np.abs(s) ** p) ** (1 / p)
+    x = Lx / 2 * (1 + norm_val / norm * c)
+    y = Ly / 2 * (1 + norm_val / norm * s)
+    return np.round(x, 2), np.round(y, 2)
+
+
+def mesh2list(*arrs, device="cuda"):
+    """Meshgrid arrays -> (nPts, nDim) list of points."""
+    return torch.stack([torch.as_tensor(a, device=device) for a in arrs], -1).reshape(-1, len(arrs))
 
 
 def vect(x, nTime=None, undo=False):

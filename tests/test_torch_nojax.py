@@ -2,7 +2,8 @@
 Checked in a subprocess with `jax` blocked at the finder level, like
 tests/test_packaging.py blocks the optional extras: every module of the
 package is imported, and the simulator (with the straggler recook
-engaged), the localized ES-MDA and IES run."""
+engaged), the localized ES-MDA, IES and EnOpt on the bench case's fixture
+run. chip_smoke.py imports nothing of JAX in any phase."""
 
 import os
 import subprocess
@@ -51,6 +52,26 @@ post = ht.es_mda(E0, lambda E: E @ G, obs, R12, ht.mda_alphas(2, dtype=torch.flo
 post_ies, _ = ht.ies(E0, lambda E: E @ G, obs, 0.1 * torch.randn(10, 6, generator=g,
                      dtype=torch.float64), torch.eye(6, dtype=torch.float64) * 10, iMax=2)
 assert bool(torch.isfinite(post).all() & torch.isfinite(post_ies).all())
+# EnOpt without JAX: the bench case's fixture loads, and a batch with one
+# injector a member, gd_scan_multi on the fixture's draws and robust GD
+# (StoSAG, its two halves one batch) run on it, at 2 of its 40 steps.
+from historymatching_tpu_torch.opt.cases import enopt_case
+case = enopt_case(torch.float64, "cpu")
+assert case.landscape.shape == (400,) and case.Z.shape == (4, 30, 10, 2)
+em, cfg = case.model, case.cfg.replace(nTime=2)
+obj = lambda U: ht.npv_value(em, cfg, inj_xy=U.reshape(-1, 1, 2))
+v = obj(case.cells[:3])
+assert v.shape == (3,) and bool(torch.isfinite(v).all())
+paths, objs, info = ht.gd_scan_multi(obj, case.U0[:2], chol=0.1, nEns=3, nIter=1,
+                                     xSteps=(0.5, 0.25), Z=case.Z[:2, :1, :3])
+assert paths.shape == (2, 2, 2) and bool(torch.isfinite(objs).all())
+X = 0.1 + torch.exp(5 * ht.sample_prior_perm(g, em.grid, 3, dtype=torch.float64, device="cpu"))
+obj1 = lambda U, Xb: ht.npv_value(em, cfg, inj_xy=U.reshape(-1, 1, 2),
+                                  K=Xb.reshape(-1, 1, 20, 20).expand(-1, 2, 20, 20))
+robust = lambda U: obj1(U.repeat_interleave(3, 0), X.repeat(len(U), 1)).reshape(-1, 3).mean(1)
+path, objs, info = ht.GD(robust, case.U0[0], nabla=ht.EnGrad(chol=0.1, nEns=3, robustly="StoSAG",
+                         obj_ux=obj1, X=X), nIter=1, generator=g)
+assert bool(torch.isfinite(objs).all()) and info["nEvals"] >= 1 + 6
 print('port-import-ok')
 """
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -58,6 +79,19 @@ print('port-import-ok')
                        env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert r.returncode == 0, r.stderr[-2000:]
     assert "port-import-ok" in r.stdout
+
+
+def test_chip_smoke_imports_no_jax():
+    """Every import statement of chip_smoke.py, the EnOpt phases' included,
+    names neither JAX nor the JAX package."""
+    import ast
+
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
+    assert "historymatching_tpu_torch.opt.cases" in names
+    assert not [m for m in names if m.split(".")[0] in ("jax", "jaxlib", "historymatching_tpu")]
 
 
 def test_chip_smoke_refuses_without_cuda_or_package(tmp_path):

@@ -124,3 +124,61 @@ def test_validate_and_validity_flag():
         m.replace(inj_xy=[[5.0, 0.5]]).validate()
     assert not bool(simulate(m.replace(inj_rates=[[2.0]]), _zeros(m), 0.01, 2).valid)
     assert not bool(simulate(m.replace(inj_xy=[[9.0, 0.5]]), _zeros(m), 0.01, 2).valid)
+
+
+def test_identical_wells_per_member_give_the_shared_result_bitwise():
+    mt = _model(12, 12)
+    mm = set_perm(mt, torch.as_tensor(perm_fields(3, 3, mt.Nxy)))
+    shared = simulate(mm, _zeros(mt), 0.025, 4)
+    per = mm.replace(inj_xy=mt.inj_xy.expand(3, -1, -1), prd_xy=mt.prd_xy.expand(3, -1, -1),
+                     inj_rates=mt.inj_rates.expand(3, -1, -1),
+                     prd_rates=mt.prd_rates.expand(3, -1, -1))
+    res = simulate(per, _zeros(mt), 0.025, 4)
+    for name in ("wsats", "prd_sats", "cg_iters", "substeps", "cg_ok"):
+        assert torch.equal(getattr(res, name), getattr(shared, name)), name
+    assert shared.valid.shape == () and shared.actual_inj_rates.shape == (1, 4)
+    assert res.valid.shape == (3,) and bool(res.valid.all())
+    assert torch.equal(res.actual_prd_rates, shared.actual_prd_rates.expand(3, -1, -1))
+
+
+def test_distinct_wells_per_member_match_single_runs_and_jax():
+    """Each member its own K, injector, producers and time-varying rates:
+    the batch equals each member run alone (1e-12) and JAX's vmap over the
+    members (1e-9, as test_simulate_matches_jax_f64)."""
+    mj = default_model(Nx=12, Ny=12)
+    perm = perm_fields(4, 3, mj.Nxy)
+    inj_xy = np.array([[[1.0, 0.5]], [[0.4, 0.3]], [[1.5, 0.7]]])
+    prd_xy = np.array(mj.prd_xy)[None].repeat(3, 0)
+    prd_xy[1, 2] = [0.9, 0.1]
+    rates = (1.0 + 0.3 * np.cos(np.arange(5)[None, :] + np.arange(3)[:, None]))[:, None, :]
+    prd_rates = np.repeat(rates / 4, 4, axis=1)
+    mt = set_perm(_model(12, 12), torch.as_tensor(perm)).replace(
+        inj_xy=inj_xy, prd_xy=prd_xy, inj_rates=rates, prd_rates=prd_rates)
+    res = simulate(mt, _zeros(mt), 0.025, 5)
+    assert res.actual_inj_rates.shape == (3, 1, 5) and res.prd_sats.shape == (3, 5, 4)
+    for b in range(3):
+        one = simulate(set_perm(_model(12, 12), torch.as_tensor(perm[b])).replace(
+            inj_xy=inj_xy[b], prd_xy=prd_xy[b], inj_rates=rates[b], prd_rates=prd_rates[b]),
+            _zeros(mt), 0.025, 5)
+        assert rel_err(res.wsats[b], one.wsats) < 1e-12
+        assert torch.equal(res.prd_sats[b], one.prd_sats)
+        assert torch.equal(res.cg_iters[b], one.cg_iters)
+    sim_j = jax.vmap(lambda p, a, b, r, q: simulate_j(
+        set_perm_j(mj, p).replace(inj_xy=a, prd_xy=b, inj_rates=r, prd_rates=q),
+        jnp.zeros(mj.Nxy), 0.025, 5))
+    res_j = sim_j(*(jnp.asarray(a) for a in (perm, inj_xy, prd_xy, rates, prd_rates)))
+    assert rel_err(res.wsats, res_j.wsats) < 1e-9
+    assert rel_err(res.prd_sats, res_j.prd_sats) < 1e-9
+    assert np.array_equal(res.cg_iters.numpy(), np.asarray(res_j.cg_iters))
+
+
+def test_validity_and_validate_per_member():
+    m = _model(8, 8)
+    bad_rate = m.replace(inj_rates=[[[1.0]], [[2.0]], [[1.0]]])
+    with pytest.raises(ValueError, match="Unbalanced rates of member 1"):
+        bad_rate.validate()
+    bad_xy = m.replace(inj_xy=[[[1.0, 0.5]], [[0.2, 0.2]], [[1.0, 1.5]]])
+    with pytest.raises(ValueError, match="inj_xy outside domain of member 2"):
+        bad_xy.validate()
+    assert simulate(bad_rate, _zeros(m), 0.01, 2).valid.tolist() == [True, False, True]
+    assert simulate(bad_xy, _zeros(m), 0.01, 2).valid.tolist() == [True, True, False]
