@@ -7,10 +7,12 @@ Phases, one printed line or more each; any failed check raises:
 1. device: require CUDA, print the card's name and power limit, TF32 off;
 2. build the hand-written kernels (historymatching_tpu_torch/csrc) with nvcc,
    one compiler per source, in parallel; print each kernel's registers,
-   local (spill) bytes, shared memory and resident blocks per SM;
+   local (spill) bytes, shared memory and resident blocks per SM, P in
+   both its smoother instantiations (damped Jacobi and Chebyshev);
 3. kernel K (transport) against its plain PyTorch version, float32;
 4. kernel P (pressure MG-PCG) against its plain version: (a) fixed work,
-   (b) the main path's solver settings;
+   (b) the main path's solver settings; (c) both for P's Chebyshev
+   instantiation at N=1000;
 5. the flagship workload: N=1000 members, 64x64, 40 steps, 4-pass ES-MDA
    (prior, truth simulation, observations, forward_model -> simulate ->
    es_mda) through the entry points' default device, on the reference's
@@ -34,7 +36,17 @@ Phases, one printed line or more each; any failed check raises:
 13. `gd_scan_multi`, the bench's EnOpt case: 4 starts, 10 perturbations,
     8 trial steps, 30 iterations, held to the bench's 2% criterion;
 14. robust EnOpt over a 31-member permeability ensemble: GD with StoSAG
-    gradients for 30 iterations, then Paired and Mean-model for 5 each.
+    gradients for 30 iterations, then Paired and Mean-model for 5 each;
+15. the flagship ES-MDA of [5] with the Chebyshev smoother (P's cheb
+    instantiation on every solve), on [5]'s data and draws, and P cheb's
+    time a launch against its plain version and its bound;
+16. ILES over 256 domains (4x4 cells, radius 1.2) at the flagship size,
+    10 Gauss-Newton iterations of step 0.4, with the GN step's time
+    against its bound, the domains whose pseudo-inverse took
+    `torch.linalg.pinv`, and the peak device memory;
+17. ES-MDA resume: a 4-pass run at N=200 against the same run stopped after
+    2 passes, checkpointed, loaded and resumed; the posteriors must be
+    equal.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a card, or without the package
@@ -45,6 +57,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -76,6 +89,20 @@ F32_FLOPS, HBM_BYTES = 67e12, 3.35e12
 # level (two sweeps down with the zero start folded, residual and
 # restriction, prolongation and two sweeps up).
 K_FLOPS_SUBSTEP, K_FLOPS_FOLD, P_FLOPS_FINE, P_FLOPS_VCYCLE = 21, 18, 22, 54
+# The Chebyshev V-cycle a cell of each smoothed level: Jacobi's, plus one
+# flop for the momentum term of the folded pre-smoothing sweep and three
+# for the second post-smoothing sweep's (1 + a) t - a x0 (its start x0
+# counted once, where the first sweep forms it).
+P_FLOPS_VCYCLE_CHEB = 58
+# The ILES Gauss-Newton step a weight matrix (N x N, p observations): LU
+# 2/3 N^3 and its solve 2 N^2 p, the two Gram-type products 2 N^2 p each,
+# Cholesky 1/3 N^3 and its solve on N right-hand sides 2 N^3.
+ILES_FLOPS = lambda n, p: 3 * n**3 + 6 * n**2 * p  # noqa: E731
+ILES_ITERS, RESUME_N = 10, 200
+# Device activities by kernel name, for the profiled stages.
+STAGE_OF = (("pressure_pcg_kernel", "pressure_pcg"),
+            ("transport_upwind_kernel", "transport_upwind"))
+JACOBI_KERNELS = ("transport_upwind", "pressure_pcg")  # the main path's
 # EnOpt (phases 11-14): the bench's gd_scan_multi (bench._enopt_fields) and
 # the reference's robust case (Optimise.py:833-875), each at its full size.
 EN_ITERS, EN_NENS, EN_CHOL, EN_SMALL_B = 30, 10, 0.1, 40
@@ -117,12 +144,12 @@ def flagship_model(torch):
                         dtype=torch.float32)
 
 
-def pressure_bound_ms(hier, Ainv, iters):
+def pressure_bound_ms(hier, Ainv, iters, vcycle_flops=P_FLOPS_VCYCLE):
     """Least time of a P launch: its flops (the iterations these members
     ran) at the float32 rate, or its bytes (hierarchy, coarse inverse, q,
     p0, w read once, p written once) at the memory rate."""
     cells = [lvl[2][0].numel() for lvl in hier]
-    per_iter = cells[0] * P_FLOPS_FINE + P_FLOPS_VCYCLE * sum(cells[:-1]) + 2 * cells[-1] ** 2
+    per_iter = cells[0] * P_FLOPS_FINE + vcycle_flops * sum(cells[:-1]) + 2 * cells[-1] ** 2
     flops = per_iter * float(iters.double().sum())
     nbytes = 4 * (sum(t.numel() for lvl in hier for t in lvl) + Ainv.numel()
                   + 4 * hier[0][2].numel() + 2 * iters.numel())
@@ -151,28 +178,21 @@ def sync():
 
 
 def device_stages(fn, steps):
-    """`fn` run under torch.profiler: (device ms a step by stage, device
-    activities a step). Stages are kernel P, kernel K and every other
-    device activity."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """`fn` traced by the port's `profiling.trace`, the Chrome trace summed
+    by `profiling.parse_trace`: (device ms a step by stage, device
+    activities a step). Stages are kernel P (either smoother), kernel K and
+    every other device activity (kernels, copies, memsets)."""
+    from historymatching_tpu_torch import profiling
 
-    from historymatching_tpu_torch.ops import _build
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        sync()
+    with tempfile.TemporaryDirectory() as d:
+        with profiling.trace(d):
+            fn()
+        totals = profiling.parse_trace(d)
     stages = {"pressure_pcg": 0.0, "transport_upwind": 0.0, "torch ops": 0.0}
-    count = 0
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:  # device activity only, each counted once
-            continue
-        us = getattr(ev, "self_device_time_total", None)
-        us = ev.self_cuda_time_total if us is None else us
-        key = next((k for k in _build.LAUNCHES if k in ev.key), "torch ops")
-        stages[key] += us / 1e3 / steps
-        count += ev.count
-    return stages, count / steps
+    for name, seconds in totals.device.items():
+        key = next((st for sub, st in STAGE_OF if sub in name), "torch ops")
+        stages[key] += 1e3 * seconds / steps
+    return stages, sum(totals.device_count.values()) / steps
 
 
 def profile_steps(fn, steps):
@@ -309,8 +329,9 @@ def enopt_phases(dev, gen):
         out = fn()
         sync()
         wall = time.perf_counter() - t0
-        launches = dict(_build.LAUNCHES)
+        launches = {k: _build.LAUNCHES[k] for k in JACOBI_KERNELS}
         assert all(v > 0 for v in launches.values()), (tag, launches)
+        assert _build.LAUNCHES["pressure_pcg_cheb"] == 0, tag
         for name, v in launches.items():
             figs[name]["launches"] = figs[name].get("launches", 0) + v
         return out, wall, launches
@@ -442,9 +463,12 @@ def main():
     log(f"[2] kernels built in {time.perf_counter() - t0:.1f} s "
         f"(compiled: {_build.build_info['built']}) -> {_build.build_info['paths']}")
     for stem, text in _build.build_info["ptxas"].items():
+        fn = ""
         for line in text.splitlines():
-            if "spill" in line and not line.strip().startswith("0 bytes stack frame, 0 bytes"):
-                log(f"[2] ptxas {stem}: {line.strip()}")
+            if "Function properties for" in line:
+                fn = line.split("Function properties for", 1)[1].strip()
+            elif "spill" in line and not line.strip().startswith("0 bytes stack frame, 0 bytes"):
+                log(f"[2] ptxas {stem} {fn}: {line.strip()}")
     for name in _build.LAUNCHES:
         for grid in _build.GRIDS:
             info = _build.kernel_info(name, *grid)
@@ -524,21 +548,64 @@ def main():
     assert bool((rel_k[only_t] < 0.13).all())
     assert abs(med_k - med_t) <= 8 and abs(mean_k - mean_t) <= 0.1 * mean_t
 
+    # 4c. P's Chebyshev instantiation against the plain version with the
+    # same smoother, as [4a] and [4b], on N=1000 prior fields drawn from a
+    # generator of their own (the later phases draw what they drew before).
+    gen_c = torch.Generator(device=dev).manual_seed(SEED + 100)
+    mm_c = set_perm(model, ht.sample_prior_perm(gen_c, model, N, r=0.8))
+    _, _, diag_c, sd_c, hier_c, Ainv_c = scaled_system(mm_c, torch.zeros(N, NX, NY, device=dev))
+    args_c = (hier_c, Ainv_c, (qf * sd_c).contiguous(), torch.zeros_like(sd_c),
+              (diag_c * sd_c).contiguous())
+    cheb = dict(smoother="cheb")
+    pc_k, _, _ = pressure_solve_cuda(*args_c, **fixed, **cheb)
+    pc_t, _, _ = pressure_solve_torch(*args_c, **fixed, **cheb)
+    dn, nt = (pc_k - pc_t).norm(dim=(-2, -1)), pc_t.norm(dim=(-2, -1))
+    pc_err = float(torch.where((dn == 0) & (nt == 0), 0.0, dn / nt).max())
+    pc_abs = float((pc_k - pc_t).abs().max())
+    log(f"[4c] P cheb vs plain cheb, N={N}, fixed work (one window): max rel |dp| = "
+        f"{pc_err:.3e} (tol {P_TOL}), max abs {pc_abs:.3e} of max |p| "
+        f"{float(pc_t.abs().max()):.3e}; {int((nt == 0).sum())} members kept their start")
+    assert torch.isfinite(pc_k).all() and pc_err <= P_TOL
+    _, itc_k, relc_k = pressure_solve_cuda(*args_c, **base1, **cheb)
+    _, itc_t, relc_t = pressure_solve_torch(*args_c, **base1, **cheb)
+    _, itj_k, relj_k = pressure_solve_cuda(*args_c, **base1)
+    acc_k, acc_t = relc_k <= 5e-2, relc_t <= 5e-2
+    med_k, med_t = int(itc_k.median()), int(itc_t.median())
+    mean_k, mean_t = float(itc_k.float().mean()), float(itc_t.float().mean())
+    only_t = acc_t & ~acc_k
+    log(f"[4c] P cheb vs plain cheb, bench settings, N={N}: accepted kernel "
+        f"{int(acc_k.sum())}/{N}, plain {int(acc_t.sum())}/{N}; iterations median {med_k} vs "
+        f"{med_t}, mean {mean_k:.1f} vs {mean_t:.1f}; within 8 for "
+        f"{float(((itc_k - itc_t).abs() <= 8).float().mean()):.1%}; accepted by the plain version "
+        f"only {int(only_t.sum())} (kernel rel {[round(float(v), 4) for v in relc_k[only_t]]}); "
+        f"P jacobi on the same fields: accepted {int((relj_k <= 5e-2).sum())}/{N}, iterations "
+        f"median {int(itj_k.median())} mean {float(itj_k.float().mean()):.1f}")
+    # Held by acceptance counts and iteration distributions. At N=1000 a
+    # member may stall at its start (weighted residual never below the
+    # initial one, rel 1.0) on one float32 path and converge on the other:
+    # the stall is the algorithm's, it occurs in float64 too (with either
+    # smoother), so a per-member bound as in [4b] does not hold here.
+    assert int(acc_k.sum()) >= int(acc_t.sum()) - max(1, N // 50)
+    assert abs(med_k - med_t) <= 8 and abs(mean_k - mean_t) <= 0.1 * mean_t
+
     # 5. the flagship workload
     _, R12 = ht.temporal_R(NTIME, model.nPrd, dtype=torch.float32)
     truth = ht.sample_prior_perm(gen, model, 1, r=0.8)[0]
     prior = ht.sample_prior_perm(gen, model, N, r=0.8)
     noise = R12 @ torch.randn(NTIME * model.nPrd, generator=gen, device=dev)
 
+    def p_count():  # P launches of either smoother
+        return _build.LAUNCHES["pressure_pcg"] + _build.LAUNCHES["pressure_pcg_cheb"]
+
     def make_fwd(kw, stats):
         def fwd(E):
             torch.cuda.synchronize()
-            t, p_before = time.perf_counter(), _build.LAUNCHES["pressure_pcg"]
+            t, p_before = time.perf_counter(), p_count()
             wsats, prods, res = ht.forward_model(model, E, dt=DT, nTime=NTIME,
                                                  keep_wsats=False, return_sim=True, **kw)
             torch.cuda.synchronize()
             stats.append(dict(seconds=time.perf_counter() - t, res=res, final=wsats,
-                              p_launches=_build.LAUNCHES["pressure_pcg"] - p_before))
+                              p_launches=p_count() - p_before))
             return prods.reshape(prods.shape[0], -1)
         return fwd
 
@@ -564,6 +631,7 @@ def main():
     kws = [dict(BASE, **ov) for ov in SCHED]
     stats = []
     fwds = [make_fwd(kw, stats) for kw in kws]
+    gen_state_5 = gen.get_state()  # [15] replays [5]'s draws
     _build.reset_launches()
     torch.cuda.synchronize()
     t_start = time.perf_counter()
@@ -581,7 +649,8 @@ def main():
     log(f"[5] rmse vs truth: prior {rmse(prior):.4f} -> posterior {rmse(post):.4f}; "
         f"spread prior {spread(prior):.4f} -> posterior {spread(post):.4f}")
     log(f"[5] kernel launches on the main path: {launches}")
-    assert all(v >= (1 + PASSES) * NTIME for v in launches.values()), launches
+    assert all(launches[k] >= (1 + PASSES) * NTIME for k in JACOBI_KERNELS), launches
+    assert launches["pressure_pcg_cheb"] == 0, launches
     # the recook engages on every pass of the schedule: three P launches a step
     assert all(st["p_launches"] == 3 * NTIME for st in stats), [st["p_launches"] for st in stats]
     check_states(stats)
@@ -679,7 +748,7 @@ def main():
         f"{rmse(post_loc):.4f}; spread {spread(prior):.4f} -> {spread(post_loc):.4f}; launches "
         f"{launches_loc}")
     assert domains.shape == (NX * NY // 16, 16) and obs.numel() <= N
-    assert all(v >= PASSES * NTIME for v in launches_loc.values()), launches_loc
+    assert all(launches_loc[k] >= PASSES * NTIME for k in JACOBI_KERNELS), launches_loc
     check_states(stats_loc)
     assert torch.isfinite(post_loc).all() and post_loc.shape == prior.shape
     assert spread(post_loc) < spread(prior)
@@ -705,12 +774,159 @@ def main():
         f"forward runs {wall - sum(st['seconds'] for st in stats_ies):.3f} s; pinv of the "
         f"{N}x{N} weights {pinv_ms:.3f} ms; rmse prior {rmse(prior):.4f} -> {rmse(post_ies):.4f}; "
         f"spread {spread(prior):.4f} -> {spread(post_ies):.4f}; launches {launches_ies}")
-    assert all(v >= IES_ITERS * NTIME for v in launches_ies.values()), launches_ies
+    assert all(launches_ies[k] >= IES_ITERS * NTIME for k in JACOBI_KERNELS), launches_ies
     check_states(stats_ies)
     assert torch.isfinite(post_ies).all() and post_ies.shape == prior.shape
     assert spread(post_ies) < spread(prior)
 
     en = enopt_phases(dev, gen)
+
+    # 15. the flagship ES-MDA with the Chebyshev smoother: [5]'s truth, data,
+    # prior, schedule and obs-error draws, P's cheb instantiation on every
+    # solve; then P cheb a launch on [6]'s inputs against its plain version.
+    kws_c = [dict(kw, smoother="cheb") for kw in kws]
+    stats_c = []
+    fwds = [make_fwd(kw, stats_c) for kw in kws_c]
+    gen_c = torch.Generator(device=dev)
+    gen_c.set_state(gen_state_5)
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ht.forward_model(model, truth[None], dt=DT, nTime=NTIME, keep_wsats=False, smoother="cheb",
+                     **BASE)
+    post_c = ht.es_mda(prior, fwds, obs, R12, ht.mda_alphas(PASSES), generator=gen_c)
+    torch.cuda.synchronize()
+    total_c = time.perf_counter() - t0
+    launches_c = dict(_build.LAUNCHES)
+    log_passes("15", stats_c, kws_c)
+    log(f"[15] N={N} {NX}x{NY} nTime={NTIME} {PASSES}-pass ES-MDA, Chebyshev smoother: total "
+        f"{total_c:.3f} s (damped Jacobi, [5]: {total:.3f} s); cg_iters summed over the members "
+        f"and steps per pass {[int(st['res'].cg_iters.sum()) for st in stats_c]} (Jacobi "
+        f"{[int(st['res'].cg_iters.sum()) for st in stats]}); rmse prior {rmse(prior):.4f} -> "
+        f"{rmse(post_c):.4f} (Jacobi {rmse(post):.4f}); spread {spread(prior):.4f} -> "
+        f"{spread(post_c):.4f} (Jacobi {spread(post):.4f}); launches {launches_c}")
+    assert launches_c["pressure_pcg"] == 0, launches_c
+    assert all(launches_c[k] >= (1 + PASSES) * NTIME
+               for k in ("pressure_pcg_cheb", "transport_upwind")), launches_c
+    check_states(stats_c)
+    assert torch.isfinite(post_c).all() and spread(post_c) < spread(prior)
+    p_kw = dict({k: final[k] for k in SOLVE_KEYS}, **cheb)  # [6]'s settings
+    pc_ms = cuda_ms(lambda: pressure_solve_cuda(*args, **p_kw), 3)
+    pc_plain_ms = cuda_ms(lambda: pressure_solve_torch(*args, **p_kw), 1)
+    pc_iters = pressure_solve_cuda(*args, **p_kw)[1]
+    pc_bound, pc_by = pressure_bound_ms(hier, Ainv, pc_iters, P_FLOPS_VCYCLE_CHEB)
+    log(f"[15] one step at N={N} {NX}x{NY} ([6]'s inputs): P cheb {pc_ms:.3f} ms vs plain "
+        f"{pc_plain_ms:.3f} ms, bound {pc_bound:.4f} ms ({pc_by}, {pc_bound / pc_ms:.1%}; cg_iters "
+        f"median {int(pc_iters.median())} mean {float(pc_iters.float().mean()):.1f}); P jacobi "
+        f"{p_ms:.3f} ms, cg_iters median {int(p_iters.median())} mean "
+        f"{float(p_iters.float().mean()):.1f}")
+
+    # 16. ILES over [9]'s 256 domains at the flagship size: [10]'s prior,
+    # data and perturbations, 10 Gauss-Newton iterations of step 0.4, one
+    # forward operator at the final pass's settings.
+    from historymatching_tpu_torch import profiling
+    from historymatching_tpu_torch.da.update import _iles_inner, _taper_weights
+
+    fin = dict(BASE, **FINAL)
+    stats_il, last, ends = [], {}, []
+
+    def keep_last(info):
+        last.update(info)
+        ends.append(info["elapsed_s"])
+
+    fwd_il = make_fwd(fin, stats_il)
+    dec = decorrelator(R12)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    post_il, st_il = ht.iles_domains(prior, fwd_il, obs, perturbs, dec, taper_dom, domains,
+                                     xStep=IES_STEP, iMax=ILES_ITERS, callback=keep_last)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_il = dict(_build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    outside = wall - sum(st["seconds"] for st in stats_il)
+    # An iteration's time outside its forward run (recompose, innovations
+    # and the GN step), from the callback's clock.
+    per_iter = [1e3 * (b - a - st["seconds"])
+                for a, b, st in zip([0.0] + ends[:-1], ends, stats_il)]
+    # One more GN step from the final state, timed and then profiled.
+    Eo_w = last["Eo"] @ dec
+    innov = (obs - last["Eo"] - perturbs) @ dec
+    w_dom = _taper_weights(taper_dom)
+    gn = lambda: _iles_inner(last["Ws"], Eo_w, innov, IES_STEP, w_dom)  # noqa: E731
+    gn_s, gn_first_s = profiling.timed(gn, repeats=2)
+    gn_ms, n_pinv_gn = 1e3 * gn_s, gn()[1]
+    with tempfile.TemporaryDirectory() as d:
+        with profiling.trace(d):
+            gn()
+        gn_dev = profiling.parse_trace(d).device
+    gn_busy = 1e3 * sum(gn_dev.values())
+    top = sorted(gn_dev.items(), key=lambda kv: -kv[1])[:6]
+    nDom, p_obs = domains.shape[0], obs.numel()
+    gn_bound, gn_by = bound(nDom * ILES_FLOPS(N, p_obs), 4 * 2 * nDom * N * N)
+    log_passes("16", stats_il, [fin] * ILES_ITERS)
+    log(f"[16] ILES, {nDom} domains of {domains.shape[1]} cells, N={N}, p={p_obs}, "
+        f"{ILES_ITERS} iterations, xStep {IES_STEP}: {wall:.3f} s, of which outside the forward "
+        f"runs {outside:.3f} s, per iteration (ms) {[round(v, 1) for v in per_iter]}; domains "
+        f"through pinv per iteration {st_il['pinv_domains'].tolist()}; peak device memory "
+        f"{peak_gb:.2f} GB; rmse prior {rmse(prior):.4f} -> {rmse(post_il):.4f}; spread "
+        f"{spread(prior):.4f} -> {spread(post_il):.4f}; launches {launches_il}")
+    log(f"[16] one more GN step from the final weights: {gn_ms:.1f} ms of wall (best of 2; first "
+        f"{1e3 * gn_first_s:.1f} ms; {n_pinv_gn} domains through pinv), the card busy "
+        f"{gn_busy:.1f} ms of it; bound {gn_bound:.2f} ms ({gn_by}, {gn_bound / gn_ms:.1%}); "
+        f"device time by activity (ms): "
+        + "; ".join(f"{name[:60]} {1e3 * sec:.1f}" for name, sec in top))
+    assert all(launches_il[k] >= ILES_ITERS * NTIME for k in JACOBI_KERNELS), launches_il
+    check_states(stats_il)
+    assert torch.isfinite(post_il).all() and post_il.shape == prior.shape
+    assert spread(post_il) < spread(prior)
+    del last, st_il
+
+    # 17. resume: a 4-pass ES-MDA at N=200 uninterrupted, then stopped after
+    # pass 2 by its callback, checkpointed, loaded and resumed at pass 2.
+    from historymatching_tpu_torch import checkpoint
+
+    prior_r = prior[:RESUME_N]
+    fwds_r = [make_fwd(kw, []) for kw in kws]
+    seed_r = SEED + 17
+    mda = lambda E, g, **k: ht.es_mda(E, fwds_r, obs, R12, ht.mda_alphas(PASSES),  # noqa: E731
+                                      generator=g, **k)
+    t0 = time.perf_counter()
+    ref_r = mda(prior_r, torch.Generator(device=dev).manual_seed(seed_r))
+    torch.cuda.synchronize()
+    t_full = time.perf_counter() - t0
+
+    class Stop(Exception):
+        pass
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "es_mda.npz")
+
+        def save(info):
+            if info["pass_"] == 2:
+                checkpoint.save_checkpoint(path, {"E": info["E"], "pass": info["pass_"],
+                                                  "gen": info["generator_state"]})
+                raise Stop
+
+        t0 = time.perf_counter()
+        try:
+            mda(prior_r, torch.Generator(device=dev).manual_seed(seed_r), callback=save)
+            raise AssertionError("the callback did not stop the run")
+        except Stop:
+            pass
+        st_r = checkpoint.load_checkpoint(path)
+        gen_r = torch.Generator(device=dev)
+        gen_r.set_state(torch.from_numpy(st_r["gen"]))
+        post_r = mda(torch.from_numpy(st_r["E"]).to(dev), gen_r, start_pass=st_r["pass"])
+        torch.cuda.synchronize()
+        t_resumed = time.perf_counter() - t0
+    same = bool(torch.equal(post_r, ref_r))
+    log(f"[17] ES-MDA resume, N={RESUME_N}, {PASSES} passes: uninterrupted {t_full:.3f} s; "
+        f"2 passes, checkpoint, load, 2 passes {t_resumed:.3f} s; posteriors equal bit for bit: "
+        f"{same} (max |d| {float((post_r - ref_r).abs().max()):.3e})")
+    assert same
 
     def record(name, route, source, replaces, err, ms, plain_ms, bound_ms, by):
         return dict(name=name, route=route, source=source, replaces=replaces,
@@ -726,6 +942,13 @@ def main():
         record("pressure_pcg", "cuda", "historymatching_tpu_torch/csrc/pressure_pcg.cu",
                "historymatching_tpu/ops/pressure_pallas.py:34", p_abs, p_ms, p_plain_ms,
                p_bound, p_by),
+        # smoother="cheb" of the same TPU kernel; its path is [15]
+        dict(name="pressure_pcg_cheb", route="cuda",
+             source="historymatching_tpu_torch/csrc/pressure_pcg.cu",
+             replaces="historymatching_tpu/ops/pressure_pallas.py:34",
+             launches=launches_c["pressure_pcg_cheb"], max_abs_err=pc_abs, ms=pc_ms,
+             plain_ms=pc_plain_ms, bound_ms=pc_bound, bound_by=pc_by, library_ms=None,
+             share_of_bound=pc_bound / pc_ms),
     ]
     log(card)
     log(json.dumps({"kernels": kernels}))

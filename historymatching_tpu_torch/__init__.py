@@ -2,8 +2,8 @@
 
 Ensemble history matching and production optimisation on one NVIDIA GPU:
 the TPFA two-phase simulator run over an ensemble, the Gaussian-field
-prior, the ES-MDA (plain or localized) and IES analyses, and EnOpt with
-its NPV objective (`opt`).
+prior, the ES-MDA (plain or localized, with resume), IES and ILES
+analyses, EnOpt with its NPV objective (`opt`), checkpoints and profiling.
 The module layout and names mirror the JAX package. Plain tensor code is
 PyTorch; the two hot loops (the MG-PCG pressure solve and the CFL-substep
 transport) are hand-written CUDA kernels for sm_90a (`csrc/`), built on
@@ -31,6 +31,8 @@ from historymatching_tpu_torch.da.update import (  # noqa: E402
     ens_update0_loc_domains,
     es_mda,
     ies,
+    iles,
+    iles_domains,
     mda_alphas,
 )
 from historymatching_tpu_torch.da import localization  # noqa: E402
@@ -52,11 +54,19 @@ from historymatching_tpu_torch.opt import (  # noqa: E402
     npv,
     npv_value,
 )
-from historymatching_tpu_torch.parallel.runner import forward_model, obs_ens_fn  # noqa: E402
+from historymatching_tpu_torch.parallel.runner import (  # noqa: E402
+    ensemble_simulate,
+    forward_model,
+    obs_ens_fn,
+)
+from historymatching_tpu_torch import checkpoint, profiling, utils  # noqa: E402
 from historymatching_tpu_torch.utils import (  # noqa: E402
     center,
+    corr,
+    cov,
     gaussian_noise,
     rinv,
+    svals,
     temporal_R,
     vect,
 )
@@ -68,6 +78,7 @@ __all__ = [
     "SimResult",
     "simulate",
     "forward_model",
+    "ensemble_simulate",
     "obs_ens_fn",
     "sample_prior_perm",
     "gaussian_fields",
@@ -89,11 +100,19 @@ __all__ = [
     "ens_update0_loc",
     "ens_update0_loc_domains",
     "ies",
+    "iles",
+    "iles_domains",
     "es_mda",
     "mda_alphas",
     "gaussian_noise",
     "center",
+    "cov",
+    "corr",
+    "svals",
     "rinv",
+    "checkpoint",
+    "profiling",
+    "utils",
     "temporal_R",
     "vect",
 ]

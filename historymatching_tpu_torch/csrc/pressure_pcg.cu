@@ -6,21 +6,24 @@
 //   layouts _batched and _packed, which compute the same per-member solve.
 //   The semantics are those of historymatching_tpu/ops/cg.py `pcg` (each
 //   member stops on its own), with the V-cycle of ops/multigrid.py
-//   `vcycle_apply`: nu = 2 damped-Jacobi sweeps (omega 0.7) before and
-//   after, 2x2 block-sum restriction, prolongation by injection times
-//   omega_c = 1.4, and a dense coarsest solve with the member's
-//   precomputed inverse. The system is the scaled one, so the fine
-//   diagonal is 1 (the contract of models/ressim.py `scaled_system`); the
-//   kernel takes that as given and never reads a fine diagonal.
+//   `vcycle_apply`: nu = 2 smoothing sweeps before and after, 2x2
+//   block-sum restriction, prolongation by injection times omega_c = 1.4,
+//   and a dense coarsest solve with the member's precomputed inverse. The
+//   smoother is a template parameter (CHEB): damped Jacobi (omega 0.7), or
+//   the degree-2 Chebyshev polynomial of `_cheb` (multigrid.py:167,
+//   CHEB_BOUNDS (0.5, 2.0)), the `smoother="cheb"` variant of the Pallas
+//   kernels. The system is the scaled one, so the fine diagonal is 1 (the
+//   contract of models/ressim.py `scaled_system`); the kernel takes that
+//   as given and never reads a fine diagonal.
 //
 // One thread block per member. The kernel is a template on the grid
-// (grids.cuh): every level's size, loop bound and neighbour offset is a
-// compile-time constant. Each thread owns whole 2x2 tiles of cells
-// (64x64: 256 threads, 4 fine tiles each), so restriction is local to a
-// thread and a tile's 12 edge neighbours come in as 2-float loads. Four
-// tiles a thread give each warp independent loads to overlap; on the H100
-// this layout beat 512 threads of 2 tiles, one 1024-thread block an SM, and
-// the 16x16 level on the warp.
+// (grids.cuh) and the smoother: every level's size, loop bound and
+// neighbour offset is a compile-time constant. Each thread owns whole 2x2
+// tiles of cells (64x64: 256 threads, 4 fine tiles each), so restriction
+// is local to a thread and a tile's 12 edge neighbours come in as 2-float
+// loads. Four tiles a thread give each warp independent loads to overlap;
+// on the H100 this layout beat 512 threads of 2 tiles, one 1024-thread
+// block an SM, and the 16x16 level on the warp.
 //
 // What bounds it on the H100: latency. A CG iteration at 64x64 is ~0.4
 // MFLOP of dependent stencil passes between block barriers, far below the
@@ -68,6 +71,20 @@ constexpr float kOmega = 0.7f;
 constexpr float kOmegaC = 1.4f;
 constexpr int kMaxLevels = 8;
 
+// Degree-2 Chebyshev on D^-1 A over [0.5, 2.0] (ops/multigrid.py `_cheb`,
+// coefficients from its three-term recurrence, in double, then rounded):
+// x1 = x0 + D^-1 (b - A x0) / theta, then
+// x2 = x1 + rho1 rho0 (x1 - x0) + (2 rho1 / delta) D^-1 (b - A x1).
+struct ChebCoef {
+  static constexpr double lmin = 0.5, lmax = 2.0;
+  static constexpr double theta = 0.5 * (lmax + lmin), delta = 0.5 * (lmax - lmin);
+  static constexpr double sigma = theta / delta, rho0 = 1.0 / sigma;
+  static constexpr double rho1 = 1.0 / (2.0 * sigma - rho0);
+};
+constexpr float kChebFirst = (float)(1.0 / ChebCoef::theta);
+constexpr float kChebMom = (float)(ChebCoef::rho1 * ChebCoef::rho0);
+constexpr float kChebStep = (float)(2.0 * ChebCoef::rho1 / ChebCoef::delta);
+
 __host__ __device__ constexpr int count_levels(int nx, int ny) {
   int n = 1;
   while (nx % 2 == 0 && ny % 2 == 0 && nx > 4 && ny > 4) {
@@ -80,10 +97,14 @@ __host__ __device__ constexpr int count_levels(int nx, int ny) {
 
 __host__ __device__ constexpr int r4(int v) { return (v + 3) / 4 * 4; }
 
-// Compile-time geometry and shared-memory layout (floats) of one grid; the
-// layout matches ops/pressure.py `smem_bytes`.
-template <int NX, int NY>
+// Compile-time geometry and shared-memory layout (floats) of one grid, and
+// the smoother; the layout matches ops/pressure.py `smem_bytes` for both
+// smoothers.
+template <int NX, int NY, bool CHEB = false>
 struct Geo {
+  static constexpr bool kCheb = CHEB;
+  // The first sweep's step: omega, or 1 / theta.
+  static constexpr float kFirst = CHEB ? kChebFirst : kOmega;
   static constexpr int L = count_levels(NX, NY);
   static constexpr int LC = L - 1;  // coarsest level: dense solve
   __host__ __device__ static constexpr int n(int l) { return NX >> l; }
@@ -239,8 +260,9 @@ __device__ __forceinline__ void own_rd(float* sh, int I, int J, float rd[4]) {
   }
 }
 
-// Pre-smoothing from x = 0: the first sweep, t = omega b / d, is folded
-// into the second one's reads, x = t + omega (b - A t) / d.
+// Pre-smoothing from x = 0: the first sweep, t = omega b / d (Chebyshev:
+// b / (theta d)), is folded into the second one's reads, x = t + omega
+// (b - A t) / d (Chebyshev: the recurrence with x0 = 0).
 template <class G, int l, int NW>
 __device__ __forceinline__ void smooth_down(float* sh, int w) {
   using V = Lvl<G, l>;
@@ -250,17 +272,22 @@ __device__ __forceinline__ void smooth_down(float* sh, int w) {
     Tile t;
     if constexpr (l == 0) {
 #pragma unroll
-      for (int c = 0; c < NTILE; ++c) t.v[c] = kOmega * b.v[c];
+      for (int c = 0; c < NTILE; ++c) t.v[c] = G::kFirst * b.v[c];
     } else {
       const Tile rd = gather<n, m>(V::RD(sh), I, J);
 #pragma unroll
-      for (int c = 0; c < NTILE; ++c) t.v[c] = kOmega * b.v[c] * rd.v[c];
+      for (int c = 0; c < NTILE; ++c) t.v[c] = G::kFirst * b.v[c] * rd.v[c];
     }
     float At[4], rd[4], x[4];
     stencil<n, m, l == 0>(V::TX(sh), V::TY(sh), V::D(sh), I, J, t, At);
     own_rd<G, l, m>(sh, I, J, rd);
 #pragma unroll
-    for (int c = 0; c < 4; ++c) x[c] = t.v[c] + kOmega * (b.v[c] - At[c]) * rd[c];
+    for (int c = 0; c < 4; ++c) {
+      if constexpr (G::kCheb)
+        x[c] = t.v[c] + (kChebMom * t.v[c] + kChebStep * (b.v[c] - At[c]) * rd[c]);
+      else
+        x[c] = t.v[c] + kOmega * (b.v[c] - At[c]) * rd[c];
+    }
     put<m>(V::X(sh), I, J, x);
   });
 }
@@ -298,7 +325,8 @@ __device__ __forceinline__ void coarse_solve(float* sh, int w) {
 
 // First post-smoothing sweep after the coarse correction: x + omega_c
 // e(parent) is formed at every cell read (prolongation by injection), and
-// t = x + omega (b - A x) / d goes to the level's temporary.
+// t = x + omega (b - A x) / d (Chebyshev: step 1 / theta) goes to the
+// level's temporary.
 template <class G, int l, int NW>
 __device__ __forceinline__ void smooth_up_first(float* sh, int w) {
   using V = Lvl<G, l>;
@@ -334,12 +362,17 @@ __device__ __forceinline__ void smooth_up_first(float* sh, int w) {
     own<m>(V::B(sh), I, J, b);
     own_rd<G, l, m>(sh, I, J, rd);
 #pragma unroll
-    for (int c = 0; c < 4; ++c) t[c] = x.v[c] + kOmega * (b[c] - Ax[c]) * rd[c];
+    for (int c = 0; c < 4; ++c) t[c] = x.v[c] + G::kFirst * (b[c] - Ax[c]) * rd[c];
     put<m>(V::T(sh), I, J, t);
   });
 }
 
-// Second post-smoothing sweep; out(k, I, J, x) receives the result.
+// Second post-smoothing sweep; out(k, I, J, x) receives the result. The
+// Chebyshev step also needs the sweep's start x0 = x + omega_c e(parent) on
+// the thread's own cells: the same thread owns the same tiles in both
+// sweeps and neither X nor the parent's iterate has been written since,
+// so it is formed again from them, which takes neither a shared array nor
+// registers held across the barrier.
 template <class G, int l, int NW, class Out>
 __device__ __forceinline__ void smooth_up_second(float* sh, int w, Out out) {
   using V = Lvl<G, l>;
@@ -350,8 +383,19 @@ __device__ __forceinline__ void smooth_up_second(float* sh, int w, Out out) {
     stencil<n, m, l == 0>(V::TX(sh), V::TY(sh), V::D(sh), I, J, t, At);
     own<m>(V::B(sh), I, J, b);
     own_rd<G, l, m>(sh, I, J, rd);
+    if constexpr (G::kCheb) {
+      float x0[4];
+      own<m>(V::X(sh), I, J, x0);
+      const float e = Lvl<G, l + 1>::X(sh)[I * (m / 2) + J];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) x[c] = t.v[c] + kOmega * (b[c] - At[c]) * rd[c];
+      for (int c = 0; c < 4; ++c) {
+        x0[c] = x0[c] + kOmegaC * e;
+        x[c] = t.v[c] + (kChebMom * (t.v[c] - x0[c]) + kChebStep * (b[c] - At[c]) * rd[c]);
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) x[c] = t.v[c] + kOmega * (b[c] - At[c]) * rd[c];
+    }
     out(k, I, J, x);
   });
 }
@@ -492,13 +536,13 @@ __device__ __forceinline__ void load_level(float* sh, const HierPtrs& h, int b) 
   }
 }
 
-template <int NX, int NY>
+template <int NX, int NY, bool CHEB>
 __global__ void __launch_bounds__(Geo<NX, NY>::THREADS, 2)
 pressure_pcg_kernel(HierPtrs h, const float* __restrict__ q_g, const float* __restrict__ p0_g,
                     const float* __restrict__ w_g, float* __restrict__ p_out,
                     int* __restrict__ it_out, float* __restrict__ rel_out, float tol, int maxiter,
                     int restart_every, int patience) {
-  using G = Geo<NX, NY>;
+  using G = Geo<NX, NY, CHEB>;
   using F = Lvl<G, 0>;
   constexpr int T = G::THREADS, TPT = G::TPT;
   extern __shared__ float4 sh4[];
@@ -652,11 +696,11 @@ pressure_pcg_kernel(HierPtrs h, const float* __restrict__ q_g, const float* __re
   }
 }
 
-template <int NX, int NY>
+template <int NX, int NY, bool CHEB>
 int launch(const float* const* lv, int n_levels, const float* ainv, const float* q,
            const float* p0, const float* w, float* p_out, int* it_out, float* rel_out, int B,
            float tol, int maxiter, int restart_every, int patience, cudaStream_t stream) {
-  using G = Geo<NX, NY>;
+  using G = Geo<NX, NY, CHEB>;
   if (n_levels != G::L) return (int)cudaErrorInvalidValue;
   HierPtrs h{};
   for (int l = 0; l < G::L; ++l) {
@@ -665,7 +709,7 @@ int launch(const float* const* lv, int n_levels, const float* ainv, const float*
     h.d[l] = lv[3 * l + 2];
   }
   h.ainv = ainv;
-  auto kern = pressure_pcg_kernel<NX, NY>;
+  auto kern = pressure_pcg_kernel<NX, NY, CHEB>;
   cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G::BYTES);
   if (e != cudaSuccess) return (int)e;
@@ -674,10 +718,10 @@ int launch(const float* const* lv, int n_levels, const float* ainv, const float*
   return (int)cudaGetLastError();
 }
 
-template <int NX, int NY>
+template <int NX, int NY, bool CHEB>
 int info(int* out) {
-  using G = Geo<NX, NY>;
-  auto kern = pressure_pcg_kernel<NX, NY>;
+  using G = Geo<NX, NY, CHEB>;
+  auto kern = pressure_pcg_kernel<NX, NY, CHEB>;
   cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G::BYTES);
   cudaFuncAttributes a{};
@@ -697,24 +741,29 @@ int info(int* out) {
 
 // lv: 3 * n_levels pointers, per level TX, TY, diag, each (B, ...) float32.
 // The level-0 diag is never read (the fine diagonal is 1) and may be null.
+// cheb: 0 for the damped-Jacobi smoother, 1 for the Chebyshev one.
 extern "C" int hm_pressure_solve(const float* const* lv, const float* ainv, const float* q,
                                  const float* p0, const float* w, float* p_out, int* it_out,
                                  float* rel_out, int B, int Nx, int Ny, int n_levels, float tol,
-                                 int maxiter, int restart_every, int patience, void* stream) {
-#define HM_CASE(a, b)                                                                       \
-  if (Nx == a && Ny == b)                                                                   \
-    return launch<a, b>(lv, n_levels, ainv, q, p0, w, p_out, it_out, rel_out, B, tol, maxiter, \
-                        restart_every, patience, (cudaStream_t)stream);
+                                 int maxiter, int restart_every, int patience, int cheb,
+                                 void* stream) {
+#define HM_ARGS                                                                             \
+  (lv, n_levels, ainv, q, p0, w, p_out, it_out, rel_out, B, tol, maxiter, restart_every,    \
+   patience, (cudaStream_t)stream)
+#define HM_CASE(a, b) \
+  if (Nx == a && Ny == b) return cheb ? launch<a, b, true> HM_ARGS : launch<a, b, false> HM_ARGS;
   HM_FOR_GRIDS(HM_CASE)
 #undef HM_CASE
+#undef HM_ARGS
   return (int)cudaErrorInvalidValue;
 }
 
 // out: registers a thread, local (stack and spill) bytes a thread, dynamic
-// shared bytes, threads a block, resident blocks an SM.
-extern "C" int hm_pressure_info(int Nx, int Ny, int* out) {
+// shared bytes, threads a block, resident blocks an SM, of the instantiation
+// for the grid and the smoother (cheb 0 or 1).
+extern "C" int hm_pressure_info(int Nx, int Ny, int cheb, int* out) {
 #define HM_CASE(a, b) \
-  if (Nx == a && Ny == b) return info<a, b>(out);
+  if (Nx == a && Ny == b) return cheb ? info<a, b, true>(out) : info<a, b, false>(out);
   HM_FOR_GRIDS(HM_CASE)
 #undef HM_CASE
   return (int)cudaErrorInvalidValue;

@@ -1,5 +1,5 @@
 """Distance-based localization: distances, the bump taper, domain
-partitioning (PyTorch counterpart of the analysis-side parts of
+partitioning and the taper-tuning dashboards (PyTorch counterpart of
 `historymatching_tpu.da.localization`).
 
 Distances and tapers are torch ops; the partitioning is static index sets
@@ -67,6 +67,82 @@ def dist_to_obs(grid, obs_inds, nTime=1, domain=None, dtype=torch.float64, devic
     xy_prm = _cell_xy(grid, np.arange(grid.Nxy))
     xy_obs = np.tile(_cell_xy(grid, obs_inds), (nTime, 1))
     return pairwise_distances(xy_prm, xy_obs, domain=domain, dtype=dtype, device=device)
+
+
+def dist_to_moving_obs(grid, xy_paths, domain=None, dtype=torch.float64, device=None):
+    """Distances (Nxy, nTime * nPrd) from every cell centre to observation
+    locations that move in time, `xy_paths` (nPrd, nTime, 2) as
+    `xy_max_corr` gives them, in `dist_to_obs`'s flat order (t * nPrd +
+    well). A tensor of paths keeps its device; host data goes to `device`,
+    by default the card. `bump(result / radius)` is a taper for
+    `da.update.ens_update0_loc`."""
+    xy_paths = _points(xy_paths, dtype, device)
+    nPrd, nTime, _ = xy_paths.shape
+    xy_prm = _points(_cell_xy(grid, np.arange(grid.Nxy)), xy_paths.dtype, xy_paths.device)
+    return pairwise_distances(xy_prm, xy_paths.transpose(0, 1).reshape(nTime * nPrd, 2),
+                              domain=domain)
+
+
+def xy_max_corr(grid, param_ens, prod_ens, t_min=6):
+    """Paths (nPrd, nTime, 2) of the correlation maxima: per producer and
+    time, the (x, y) of the cell whose parameter/production correlation
+    (`utils.corr`) is largest. Times before `t_min` take the `t_min`
+    location. `param_ens` (N, Nxy), `prod_ens` (N, nTime, nPrd); every
+    (time, well) field comes from one product over all the series. Float64
+    on the ensembles' device."""
+    from historymatching_tpu_torch.utils import corr
+
+    N, nTime, nPrd = prod_ens.shape
+    series = prod_ens[:, t_min:].reshape(N, -1)  # flat index (t - t_min) * nPrd + well
+    C = corr(param_ens, series)  # (Nxy, series)
+    xy = grid.ind2xy(C.argmax(0).cpu()).T.to(param_ens.device)
+    paths = xy.reshape(nTime - t_min, nPrd, 2).transpose(0, 1)
+    return torch.cat([paths[:, :1].expand(-1, t_min, -1), paths], dim=1)
+
+
+def corr_wells(prior, prod_prior, dists_to_obs, t, well, nPrd, N=None, radius=None,
+               sharpness=1.0, nan_mask=True):
+    """The tapered parameter/production correlation field (Nxy,), the
+    taper-tuning probe: corr(prior[:N], prod[:N, t, well]), times the bump
+    taper of `radius` and `sharpness` if a radius is given, with cells
+    below taper 1e-3 set to NaN under `nan_mask`. `dists_to_obs` as
+    `dist_to_obs` gives it."""
+    from historymatching_tpu_torch.utils import corr
+
+    C = corr(prior[:N], prod_prior[:N, t, well])
+    if radius is not None:
+        c = bump(dists_to_obs[:, well + nPrd * t] / radius, sharpness)
+        C = C * c
+        if nan_mask:
+            C = torch.where(c < 1e-3, torch.nan, C)
+    return C
+
+
+def suggest_taper_radius(prior, prod_prior, dists_to_obs, nPrd, n_small=20,
+                         radii=(0.4, 0.6, 0.8, 1.0, 1.2, 1.6, 2.0), sharps=(0.1, 1.0, 10.0),
+                         times=None, wells=None):
+    """The (radius, sharpness) whose tapered correlation fields of the first
+    `n_small` members come closest (mean RMS difference over probe (time,
+    well) pairs) to the whole ensemble's untapered fields. Returns
+    (best_radius, best_sharpness, scores {(radius, sharpness): float}).
+    Fields of a constant series (0/0) count as 0."""
+    nTime = prod_prior.shape[1]
+    if times is None:
+        times = range(max(1, nTime // 4), nTime, max(1, nTime // 4))
+    if wells is None:
+        wells = range(nPrd)
+    probes = [(t, w) for t in times for w in wells]
+    finite = lambda C: torch.nan_to_num(C, nan=0.0, posinf=0.0, neginf=0.0)  # noqa: E731
+    full = {tw: finite(corr_wells(prior, prod_prior, dists_to_obs, *tw, nPrd)) for tw in probes}
+    scores = {}
+    for radius in radii:
+        for sharp in sharps:
+            errs = [float(torch.sqrt(torch.mean((finite(corr_wells(
+                prior, prod_prior, dists_to_obs, *tw, nPrd, N=n_small, radius=radius,
+                sharpness=sharp, nan_mask=False)) - full[tw]) ** 2))) for tw in probes]
+            scores[(radius, sharp)] = float(np.mean(errs))
+    best = min(scores, key=scores.get)
+    return best[0], best[1], scores
 
 
 def domain_partition(grid, obs_inds, nTime=1, steps=(8, 8), radius=1.2, sharpness=1,

@@ -1,7 +1,8 @@
 """Ensemble analysis updates (PyTorch counterpart of
 `historymatching_tpu.da.update`): the stochastic ES update, its localized
 forms (per cell, and batched over domains), the iterative ensemble
-smoother (IES) and ES-MDA.
+smoother (IES), its localized form (ILES, per cell or per domain) and
+ES-MDA with resume.
 
 Rows are members. The Kalman term takes the observation-space form when
 p <= N and the ensemble-space (Woodbury) form otherwise. Products run in
@@ -161,13 +162,147 @@ def ies(prior_ens, obs_ens, obs, perturbs, decorr, xStep=1.0, iMax=4, callback=N
     return x0 + W @ X0, {k: torch.stack(v) for k, v in stats.items()}
 
 
+# Bytes of N x N work arrays one batch of ILES weight matrices may take
+# (about eight a matrix: factors, Gram matrix, gradient, step, new weights);
+# the domains are processed in batches of this size.
+ILES_BATCH_BYTES = 2 << 30
+
+
+def _pinv_times(W, S):
+    """pinv(W) @ S for a batch W (m, N, N) and S (N, p): a batched LU solve,
+    since pinv(W) = inv(W) for a nonsingular W. A matrix whose factorization
+    meets a zero pivot, or whose solve is not finite, goes through
+    `torch.linalg.pinv` alone, on W's device. Returns (X (m, N, p), the
+    number of matrices through pinv); finding them is one host sync."""
+    LU, piv, info = torch.linalg.lu_factor_ex(W)
+    X = torch.linalg.lu_solve(LU, piv, S.expand(W.shape[0], *S.shape))
+    bad = (info != 0) | ~torch.isfinite(X).all(dim=(-2, -1))
+    idx = bad.nonzero().squeeze(1)
+    if idx.numel():
+        X[idx] = torch.linalg.pinv(W[idx]) @ S
+    return X, idx.numel()
+
+
+def _iles_inner(Ws, Eo_w, obs_w_innov, xStep, weights):
+    """One ILES Gauss-Newton step of every weight matrix Ws (M, N, N), with
+    `obs_w_innov` = (obs - Eo - perturbs) @ decorr (N, p) and `weights` the
+    squared taper with cutoff (M, p). Returns (new Ws, the number of
+    matrices whose pseudo-inverse went through `torch.linalg.pinv`).
+
+    Per matrix Wi with taper w, as in the JAX package: B = center(pinv(Wi))
+    @ S, grad = (innov * w) B' + (N-1)(I - Wi), G = (B * w) B' + (N-1) I,
+    Wi + xStep grad G^-1. Computed in batches of matrices, never one by
+    one: centering rows commutes with the right product, so B =
+    center(pinv(Wi) @ S) and no N x N pseudo-inverse is formed
+    (`_pinv_times`); grad G^-1 is a batched Cholesky solve on grad', G
+    being symmetric. A matrix whose new weights are not finite or reach
+    1e3 keeps its old ones (the float32 safeguard), decided on the device."""
+    M, N = Ws.shape[:2]
+    S, _ = center(Eo_w)
+    c = N - 1.0
+    eye = torch.eye(N, dtype=Ws.dtype, device=Ws.device)
+    out = torch.empty((M, N, N), dtype=Ws.dtype, device=Ws.device)
+    per = max(1, ILES_BATCH_BYTES // (8 * N * N * Ws.element_size()))
+    n_pinv = 0
+    for lo in range(0, M, per):
+        W, w = Ws[lo:lo + per], weights[lo:lo + per, None, :]
+        B, n = _pinv_times(W, S)
+        n_pinv += n
+        B = B - B.mean(dim=-2, keepdim=True)
+        G = (B * w) @ B.mT
+        G = 0.5 * (G + G.mT) + c * eye
+        grad = (obs_w_innov * w) @ B.mT + c * (eye - W)
+        L, info = torch.linalg.cholesky_ex(G)
+        W_new = W + xStep * torch.cholesky_solve(grad.mT, L).mT
+        ok = ((info == 0) & torch.isfinite(W_new).all(dim=(-2, -1))
+              & (W_new.abs().amax(dim=(-2, -1)) < 1e3))
+        out[lo:lo + per] = torch.where(ok[:, None, None], W_new, W)
+    return out, n_pinv
+
+
+def _recompose(x0, X0, Ws):
+    """E[:, i] = x0[i] + Ws[i] @ X0[:, i]."""
+    return x0 + torch.einsum("mab,bm->am", Ws, X0)
+
+
+def _recompose_domains(x0, X0, Ws, domains):
+    """E[:, domains[d]] = x0[domains[d]] + Ws[d] @ X0[:, domains[d]], the
+    domains covering every cell once."""
+    N, M = X0.shape
+    Xd = X0[:, domains].permute(1, 0, 2)  # (nDom, N, k)
+    Ed = x0[domains][:, None, :] + Ws @ Xd
+    E = X0.new_zeros((N, M))
+    E[:, domains.reshape(-1)] = Ed.permute(1, 0, 2).reshape(N, -1)
+    return E
+
+
+def _iles_run(prior_ens, obs_ens, obs, perturbs, decorr, weights, recompose, xStep, iMax,
+              callback):
+    """The ILES iteration over one weight matrix a row of `weights`."""
+    N = prior_ens.shape[0]
+    X0, x0 = center(prior_ens)
+    Ws = torch.eye(N, dtype=prior_ens.dtype, device=prior_ens.device).expand(
+        weights.shape[0], N, N)
+    stats = {"E": [], "Eo": []}
+    n_pinv = []
+    t0 = time.perf_counter()
+    for itr in range(iMax):
+        E = recompose(x0, X0, Ws)
+        Eo = obs_ens(E).to(E.dtype)
+        stats["E"].append(E)
+        stats["Eo"].append(Eo)
+        innov = (obs - Eo - perturbs) @ decorr
+        Ws, n = _iles_inner(Ws, Eo @ decorr, innov, xStep, weights)
+        n_pinv.append(n)
+        if callback is not None:
+            if Ws.is_cuda:
+                torch.cuda.synchronize(Ws.device)
+            callback(dict(iter=itr + 1, iMax=iMax, elapsed_s=time.perf_counter() - t0,
+                          E=E, Eo=Eo, Ws=Ws))
+    stats = {k: torch.stack(v) for k, v in stats.items()}
+    stats["pinv_domains"] = torch.tensor(n_pinv)
+    return recompose(x0, X0, Ws), stats
+
+
+def iles(prior_ens, obs_ens, obs, perturbs, decorr, taper, xStep=1.0, iMax=4, callback=None):
+    """Localized iterative ensemble smoother: one N x N weight matrix per
+    state element, `taper` (M, p) weighting obs j for element i. `obs_ens`
+    is one callable E -> observed ensemble, run once an iteration. It holds
+    (M, N, N) weights, so it is for small M and N; `iles_domains` is the
+    form for the flagship scale.
+
+    Returns (posterior, stats): stats "E" (iMax, N, M) and "Eo" (iMax, N,
+    p), every iteration's ensemble and its observations, and
+    "pinv_domains" (iMax,), the weight matrices a step took through
+    `torch.linalg.pinv` (`_iles_inner`). `callback`, if given, is called
+    after each iteration with dict(iter, iMax, elapsed_s, E, Eo, Ws)."""
+    return _iles_run(prior_ens, obs_ens, obs, perturbs, decorr, _taper_weights(taper),
+                     _recompose, xStep, iMax, callback)
+
+
+def iles_domains(prior_ens, obs_ens, obs, perturbs, decorr, taper_dom, domains, xStep=1.0,
+                 iMax=4, callback=None):
+    """Domain-batched ILES: the cells of a domain share one weight matrix
+    and one taper row of `taper_dom` (nDom, p); `domains` (nDom, cells a
+    domain) covers every cell once (`localization.domain_partition`). The
+    state is (nDom, N, N): at N=1000 and 256 domains about 1 GB in float32.
+    With singleton domains (domains = arange(M)[:, None], taper_dom =
+    taper) it is `iles`. Same return contract and callback as `iles`."""
+    domains = torch.as_tensor(domains, dtype=torch.int64, device=prior_ens.device)
+    recompose = lambda x0, X0, Ws: _recompose_domains(x0, X0, Ws, domains)  # noqa: E731
+    return _iles_run(prior_ens, obs_ens, obs, perturbs, decorr,
+                     _taper_weights(taper_dom).to(prior_ens.dtype), recompose, xStep, iMax,
+                     callback)
+
+
 def mda_alphas(n, dtype=None, device="cuda"):
     """Constant MDA inflation: alpha_i = n, sum 1/alpha = 1."""
     return torch.full((n,), float(n), dtype=dtype or torch.get_default_dtype(), device=device)
 
 
 def es_mda(prior_ens, forward_obs, obs, R12, alphas, generator=None, noise=None,
-           noise_dtype=torch.float32, taper=None, domains=None, taper_dom=None):
+           noise_dtype=torch.float32, taper=None, domains=None, taper_dom=None, callback=None,
+           start_pass=0):
     """ES-MDA: per pass i, run the forward model and apply `ens_update0`
     with R inflated by alpha_i (perturbs * sqrt(alpha_i), decorr /
     sqrt(alpha_i)); with `domains` and `taper_dom`, the domain-batched
@@ -178,6 +313,15 @@ def es_mda(prior_ens, forward_obs, obs, R12, alphas, generator=None, noise=None,
     `noise_dtype`), or are given per pass as `noise`: a sequence of (N, p)
     draws already multiplied by R12, e.g. exactly what the JAX package
     draws for the same key.
+
+    `callback`, if given, is called after each pass with dict(pass_,
+    n_passes, alpha, elapsed_s, E, generator_state): `E` is the updated
+    ensemble and `generator_state` `generator.get_state()` after the
+    pass's draw (None when the draws are given or no generator is), which
+    is what a resume needs (`checkpoint.save_checkpoint` them). `start_pass`
+    skips the first passes without drawing: continuing from a pass-k
+    callback's `E` with its generator state restored and start_pass=k
+    matches the uninterrupted run bit for bit.
     """
     E = prior_ens
     dtype = E.dtype
@@ -190,7 +334,10 @@ def es_mda(prior_ens, forward_obs, obs, R12, alphas, generator=None, noise=None,
         raise ValueError(f"{len(fwd_per_pass)} forward operators for {len(alphas)} MDA passes")
     if noise is not None and len(noise) != len(alphas):
         raise ValueError(f"{len(noise)} noise draws for {len(alphas)} MDA passes")
+    t0 = time.perf_counter()
     for i, (a, fwd) in enumerate(zip(alphas, fwd_per_pass)):
+        if i < start_pass:
+            continue
         a = float(a)
         Eo = fwd(E).to(dtype)
         if noise is None:
@@ -207,4 +354,10 @@ def es_mda(prior_ens, forward_obs, obs, R12, alphas, generator=None, noise=None,
             E = ens_update0_loc(E, Eo, obs, perturbs, dec, taper)
         else:
             E = ens_update0(E, Eo, obs, perturbs, dec)
+        if callback is not None:
+            if E.is_cuda:
+                torch.cuda.synchronize(E.device)
+            state = generator.get_state() if noise is None and generator is not None else None
+            callback(dict(pass_=i + 1, n_passes=len(fwd_per_pass), alpha=a,
+                          elapsed_s=time.perf_counter() - t0, E=E, generator_state=state))
     return E

@@ -10,10 +10,13 @@ Members are a leading axis: a model whose `K` is (N, 2, Nx, Ny) simulates N
 members at once, sharing grid and fluid. Wells and rates share that axis
 or carry their own (N, nWell, ...), so each member may place and drive its
 wells differently, as an EnOpt batch does. The time loop is a Python
-loop. Only the `scale_system=True`, `precond="mg"` path of the JAX package
-is ported. Of its solver strategy keys `simulate` takes the straggler
-recook's (`two_pass`, `twopass_j1`, `twopass_div`, `refine`), with the
-reference's rule for where it engages (`ops.pressure.recook_plan`).
+loop. The `scale_system=True` path of the JAX package is ported, with the
+multigrid preconditioner (Jacobi or Chebyshev smoothing, kernel P on the
+card) or the plain Jacobi one (`precond="jacobi"`, torch ops). Of its
+solver strategy keys `simulate` takes the straggler recook's (`two_pass`,
+`twopass_j1`, `twopass_div`, `refine`), with the reference's rule for
+where it engages (`ops.pressure.recook_plan`), and the pressure warm
+starts `p_init` and `keep_pressures`.
 """
 
 from __future__ import annotations
@@ -25,11 +28,18 @@ import numpy as np
 import torch
 
 from historymatching_tpu_torch.grid import Grid2D
-from historymatching_tpu_torch.ops.multigrid import build_hierarchy_5pt, coarse_inverse, n_levels
+from historymatching_tpu_torch.ops.cg import pcg
+from historymatching_tpu_torch.ops.multigrid import (
+    SMOOTHERS,
+    build_hierarchy_5pt,
+    coarse_inverse,
+    n_levels,
+)
 from historymatching_tpu_torch.ops.pressure import pressure_solve_recook
 from historymatching_tpu_torch.ops.stencil import (
     face_fluxes,
     stencil_diag_nopin,
+    stencil_matvec,
     transmissibilities,
 )
 from historymatching_tpu_torch.ops.transport import transport_substeps
@@ -171,7 +181,9 @@ class ResSim:
 class SimResult(NamedTuple):
     """Outputs of `simulate`. Per-member fields carry the run's leading
     member axis; the rate and validity fields carry the wells' and rates'
-    own (none where every member shares them)."""
+    own (none where every member shares them). The fields the JAX
+    package's `SimResult` has come in its order, so a checkpoint of one
+    loads as the other."""
 
     wsats: torch.Tensor  # (..., nTime+1, Nxy), or (..., 2, Nxy) without keep_wsats
     actual_inj_rates: torch.Tensor  # (..., nInj, nTime)
@@ -180,8 +192,10 @@ class SimResult(NamedTuple):
     cg_ok: torch.Tensor  # (...,) bool: every pressure solve accepted
     cg_iters: torch.Tensor  # (..., nTime) int32
     substeps: torch.Tensor  # (..., nTime) int32
-    prd_sats: torch.Tensor  # (..., nTime, nPrd) producer-cell saturations
-    recooked: torch.Tensor  # (..., nTime) bool: the member's solve was recooked
+    # (..., nTime, Nxy) pressure trajectory with keep_pressures, else ()
+    pressures: torch.Tensor | tuple = ()
+    prd_sats: torch.Tensor | tuple = ()  # (..., nTime, nPrd) producer-cell saturations
+    recooked: torch.Tensor | tuple = ()  # (..., nTime) bool: the member's solve was recooked
 
 
 def relperm(s, fluid: Fluid):
@@ -229,15 +243,29 @@ def _source_field(model: ResSim, inj_t, prd_t):
     return q.reshape(*lead, *g.shape)
 
 
-def scaled_system(model: ResSim, s):
+PRECONDS = ("mg", "jacobi")
+
+
+def _check_solver(precond, smoother):
+    if precond not in PRECONDS:
+        raise ValueError(f"precond must be one of {PRECONDS}, got {precond!r}")
+    if smoother not in SMOOTHERS:
+        raise ValueError(f"smoother must be one of {SMOOTHERS}, got {smoother!r}")
+
+
+def scaled_system(model: ResSim, s, precond="mg"):
     """The Jacobi-scaled TPFA system of saturations `s` (..., Nx, Ny): the
     pinned operator's faces TX, TY and diagonal, sd = rsqrt(diag), and the
     scaled operator's multigrid hierarchy with its coarse inverse. The pin
-    is the mean of the unpinned diagonal, at cell (0, 0).
+    is the mean of the unpinned diagonal, at cell (0, 0). With
+    `precond="jacobi"` the hierarchy is the fine level alone and the
+    coarse inverse None.
 
     Contract: the scaled operator's diagonal is 1, so the hierarchy's fine
     diagonal is a broadcast view of ones. Kernel P (`ops/pressure.py`)
-    relies on this and does not read that diagonal."""
+    relies on this and does not read that diagonal. A grid without a
+    multigrid hierarchy is refused with either preconditioner: kernel K is
+    instantiated only for grids that have one."""
     g = model.grid
     if n_levels(g.Nx, g.Ny) < 2:
         raise NotImplementedError(f"grid {g.Nx}x{g.Ny} has no multigrid hierarchy")
@@ -250,29 +278,45 @@ def scaled_system(model: ResSim, s):
     sd = torch.rsqrt(diag)
     TXs = TX * sd[..., :-1, :] * sd[..., 1:, :]
     TYs = TY * sd[..., :, :-1] * sd[..., :, 1:]
-    hier = build_hierarchy_5pt(TXs, TYs, diag.new_ones(()).expand_as(diag))
+    ones = diag.new_ones(()).expand_as(diag)
+    if precond == "jacobi":
+        return TX, TY, diag, sd, [(TXs, TYs, ones)], None
+    hier = build_hierarchy_5pt(TXs, TYs, ones)
     return TX, TY, diag, sd, hier, coarse_inverse(hier)
 
 
 def pressure_step(model: ResSim, s, q, p0, tol, maxiter, tol_accept=None,
                   patience_iters=96, two_pass=True, twopass_j1=64, twopass_div=4,
-                  refine=True):
+                  refine=True, precond="mg", smoother="jacobi"):
     """Scaled TPFA pressure solve for saturations `s` (..., Nx, Ny).
     Returns (p, Fx, Fy, iters, accepted, recooked).
 
     Solves D^-1/2 A D^-1/2 y = D^-1/2 q, p = D^-1/2 y, stopping on the
     physical residual norm (metric weight sqrt(diag)); the fluxes use the
-    unscaled operator. The solve is the reference's straggler recook
-    (`ops.pressure.pressure_solve_recook`) where its rule engages, else
-    one pass; `recooked` marks the members it solved again."""
-    TX, TY, diag, sd, hier, Ainv = scaled_system(model, s)
+    unscaled operator. With `precond="mg"` the solve is the reference's
+    straggler recook (`ops.pressure.pressure_solve_recook`, kernel P on the
+    card) where its rule engages, else one pass, with the V-cycle smoother
+    `smoother` ("jacobi" or "cheb"); `recooked` marks the members it solved
+    again. With `precond="jacobi"`, the plain `pcg` preconditioned by the
+    scaled diagonal (which is 1) restarting every 64 iterations, in torch
+    ops on either device, as the JAX package computes it in XLA on every
+    backend; it never recooks."""
+    _check_solver(precond, smoother)
+    TX, TY, diag, sd, hier, Ainv = scaled_system(model, s, precond)
     mweight = diag * sd
     lead = diag.shape[:-2]
     flat = lambda t: t.expand(*lead, *t.shape[-2:]).reshape(-1, *t.shape[-2:])  # noqa: E731
     hier_b = [tuple(flat(t) for t in lvl) for lvl in hier]
-    y, iters, rel, recooked = pressure_solve_recook(
-        hier_b, flat(Ainv), flat(q * sd), flat(p0 * mweight), flat(mweight), tol, maxiter,
-        patience_iters, two_pass, twopass_j1, twopass_div, refine)
+    if precond == "jacobi":
+        TXs, TYs, ones = hier_b[0]
+        y, iters, rel = pcg(lambda x: stencil_matvec(TXs, TYs, ones, x), flat(q * sd),
+                            x0=flat(p0 * mweight), tol=tol, maxiter=maxiter, restart_every=64,
+                            patience_iters=patience_iters, metric_weight=flat(mweight))
+        recooked = torch.zeros_like(rel, dtype=torch.bool)
+    else:
+        y, iters, rel, recooked = pressure_solve_recook(
+            hier_b, flat(Ainv), flat(q * sd), flat(p0 * mweight), flat(mweight), tol, maxiter,
+            patience_iters, two_pass, twopass_j1, twopass_div, refine, smoother=smoother)
     p = y.reshape(diag.shape) * sd
     Fx, Fy = face_fluxes(TX, TY, p)
     accepted = rel.reshape(lead) <= (tol if tol_accept is None else tol_accept)
@@ -310,7 +354,8 @@ def transport_step(model: ResSim, s, Fx, Fy, q, dt, max_substeps=4096):
 
 def simulate(model: ResSim, wsat0, dt, nTime, *, tol=None, tol_accept=None, maxiter=None,
              max_substeps=4096, patience_iters=96, two_pass=True, twopass_j1=64,
-             twopass_div=4, refine=True, keep_wsats=True):
+             twopass_div=4, refine=True, keep_wsats=True, precond="mg", smoother="jacobi",
+             p_init=None, keep_pressures=False):
     """Run `nTime` steps of size `dt` from saturation `wsat0` (..., Nxy).
     The members are the broadcast of the leading axes of `wsat0`, `K`, the
     wells and the rates.
@@ -322,6 +367,17 @@ def simulate(model: ResSim, wsat0, dt, nTime, *, tol=None, tol_accept=None, maxi
     (`pressure_step`), with the JAX package's defaults. With
     `keep_wsats=False`, `wsats` holds only [initial, final]; `prd_sats`
     always holds the producer-cell series.
+
+    `precond`: "mg" (the multigrid V-cycle, kernel P on the card) or
+    "jacobi" (the scaled diagonal, torch ops; `pressure_step`); a grid
+    without a multigrid hierarchy is refused either way. `smoother`: the
+    V-cycle's, "jacobi" (damped, omega 0.7) or "cheb" (degree-2
+    Chebyshev); any other value of either raises.
+
+    `p_init` (..., nTime, Nxy): per-step pressure warm starts, e.g. a
+    previous pass's `pressures`, in place of the previous step's pressure.
+    With `keep_pressures`, `SimResult.pressures` holds the (..., nTime,
+    Nxy) pressure trajectory; otherwise it is ().
     """
     g = model.grid
     dev = model.K.device
@@ -350,15 +406,20 @@ def simulate(model: ResSim, wsat0, dt, nTime, *, tol=None, tol_accept=None, maxi
     prd_idx = _well_inds(g, model.prd_xy).to(dev)
     prd_idx = prd_idx.expand(*lead, prd_idx.shape[-1])
 
+    if p_init is not None:
+        p_init = as_float(p_init, dtype, dev)
+        p_init = p_init.reshape(*p_init.shape[:-2], nTime, *g.shape)
     s, p = s0, torch.zeros_like(s0)
-    sats, sobs, iters, conv, subs, recs = [], [], [], [], [], []
+    sats, sobs, iters, conv, subs, recs, press = [], [], [], [], [], [], []
     for t in range(nTime):
         q = _source_field(model, inj_seq[t], prd_seq[t])
         if q.ndim > 2:  # wells of their own: one source field a member
             q = q.expand(*lead, *g.shape)
-        p, Fx, Fy, it, ok, rec = pressure_step(model, s, q, p, tol, maxiter, tol_accept,
+        # Warm start: the previous step's pressure, or the given one.
+        p0 = p if p_init is None else p_init[..., t, :, :].expand(*lead, *g.shape)
+        p, Fx, Fy, it, ok, rec = pressure_step(model, s, q, p0, tol, maxiter, tol_accept,
                                                patience_iters, two_pass, twopass_j1,
-                                               twopass_div, refine)
+                                               twopass_div, refine, precond, smoother)
         s, n_sub = transport_step(model, s, Fx, Fy, q, dt, max_substeps)
         flat_s = s.reshape(*lead, -1)
         sobs.append(torch.gather(flat_s, -1, prd_idx))
@@ -368,6 +429,8 @@ def simulate(model: ResSim, wsat0, dt, nTime, *, tol=None, tol_accept=None, maxi
         recs.append(rec)
         if keep_wsats:
             sats.append(flat_s)
+        if keep_pressures:
+            press.append(p.reshape(*lead, -1))
     first = s0.reshape(*lead, -1)
     wsats = torch.stack([first] + (sats if keep_wsats else [s.reshape(*lead, -1)]), dim=-2)
     return SimResult(
@@ -378,6 +441,7 @@ def simulate(model: ResSim, wsat0, dt, nTime, *, tol=None, tol_accept=None, maxi
         cg_ok=torch.stack(conv, -1).all(-1),
         cg_iters=torch.stack(iters, -1),
         substeps=torch.stack(subs, -1),
+        pressures=torch.stack(press, dim=-2) if keep_pressures else (),
         prd_sats=torch.stack(sobs, dim=-2),
         recooked=torch.stack(recs, -1),
     )

@@ -33,7 +33,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # The grids every kernel is instantiated for (csrc/grids.cuh).
 GRIDS = ((16, 16), (20, 20), (32, 32), (64, 64))
 
-LAUNCHES = {"transport_upwind": 0, "pressure_pcg": 0}
+# Launches by kernel; P's Chebyshev instantiation counts on its own.
+LAUNCHES = {"transport_upwind": 0, "pressure_pcg": 0, "pressure_pcg_cheb": 0}
 
 _lib = None
 build_info = {}
@@ -48,9 +49,9 @@ _SIGNATURES = {
     },
     "pressure_pcg": {
         # level pointers, Ainv, q, p0, w, p_out, it_out, rel_out, B, Nx, Ny,
-        # n_levels, tol, maxiter, restart_every, patience, stream
-        "hm_pressure_solve": [P, P, P, P, P, P, P, P, I, I, I, I, F, I, I, I, P],
-        "hm_pressure_info": [I, I, P],
+        # n_levels, tol, maxiter, restart_every, patience, cheb, stream
+        "hm_pressure_solve": [P, P, P, P, P, P, P, P, I, I, I, I, F, I, I, I, I, P],
+        "hm_pressure_info": [I, I, I, P],
     },
 }
 
@@ -130,8 +131,10 @@ def kernel_info(kernel, Nx, Ny):
     bytes and threads a block, resident blocks an SM."""
     check_grid(kernel, Nx, Ny)
     out = (ctypes.c_int * 5)()
-    fn = {"pressure_pcg": "hm_pressure_info", "transport_upwind": "hm_transport_info"}[kernel]
-    check(getattr(lib(), fn)(Nx, Ny, out), kernel)
+    fn, extra = {"pressure_pcg": ("hm_pressure_info", (0,)),
+                 "pressure_pcg_cheb": ("hm_pressure_info", (1,)),
+                 "transport_upwind": ("hm_transport_info", ())}[kernel]
+    check(getattr(lib(), fn)(Nx, Ny, *extra, out), kernel)
     keys = ("registers", "local_bytes", "shared_bytes", "threads", "blocks_per_sm")
     return dict(zip(keys, out))
 

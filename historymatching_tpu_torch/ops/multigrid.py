@@ -2,8 +2,9 @@
 counterpart of the non-Mosaic parts of `historymatching_tpu.ops.multigrid`).
 
 Galerkin coarsening with constant 2x2 aggregates, damped-Jacobi smoothing
-(omega = 0.7), block-sum restriction, prolongation by injection with
-over-correction omega_c = 1.4, and an exact coarsest solve with a
+(omega = 0.7) or a degree-2 Chebyshev smoother, block-sum restriction,
+prolongation by injection with over-correction omega_c = 1.4, and an
+exact coarsest solve with a
 precomputed dense inverse. All functions take a leading member axis.
 This is the plain twin of the V-cycle inside the pressure kernel
 (`ops/pressure.py`, `csrc/pressure_pcg.cu`).
@@ -76,6 +77,45 @@ def _jacobi(TX, TY, diag, x, b, sweeps, omega=0.7):
     return x
 
 
+# Chebyshev smoothing interval, as fractions of the Gershgorin bound
+# lam_max(D^-1 A) <= 2 (every level is a diagonally dominant 5-point
+# operator). The lower edge targets the smoothing range; the coarse-grid
+# correction owns the low modes.
+CHEB_BOUNDS = (0.5, 2.0)
+SMOOTHERS = ("jacobi", "cheb")
+
+
+def _cheb(mv, diag, x, b, sweeps, bounds=CHEB_BOUNDS):
+    """`sweeps`-degree Chebyshev (first kind) smoother on D^-1 A, by the
+    three-term recurrence. The coefficients are Python floats, so the
+    smoother is a fixed polynomial in D^-1 A: the same polynomial before
+    and after the coarse correction keeps the V-cycle SPD. `diag` is the
+    level's own diagonal."""
+    lmin, lmax = bounds
+    theta = 0.5 * (lmax + lmin)
+    delta = 0.5 * (lmax - lmin)
+    sigma = theta / delta
+    rho = 1.0 / sigma
+    r = b - mv(x)
+    d = (r / diag) * (1.0 / theta)
+    x = x + d
+    for _ in range(sweeps - 1):
+        r = r - mv(d)
+        rho_new = 1.0 / (2.0 * sigma - rho)
+        d = (rho_new * rho) * d + (2.0 * rho_new / delta) * (r / diag)
+        x = x + d
+        rho = rho_new
+    return x
+
+
+def _smooth(TX, TY, diag, x, b, sweeps, omega, smoother):
+    if smoother == "cheb":
+        return _cheb(lambda v: stencil_matvec(TX, TY, diag, v), diag, x, b, sweeps)
+    if smoother == "jacobi":
+        return _jacobi(TX, TY, diag, x, b, sweeps, omega)
+    raise ValueError(f"smoother must be one of {SMOOTHERS}, got {smoother!r}")
+
+
 def _dense_coarse_matrix(TX, TY, diag):
     """The coarsest operator, materialized by applying it to the identity:
     (..., n, n) with n = Nc * Mc, row-major over the coarse grid."""
@@ -96,18 +136,19 @@ def coarse_inverse(hierarchy):
     return spd_inverse(Acoarse, jitter=eps)
 
 
-def vcycle_apply(hierarchy, Ainv, b, nu=2, omega=0.7, omega_c=1.4):
+def vcycle_apply(hierarchy, Ainv, b, nu=2, omega=0.7, omega_c=1.4, smoother="jacobi"):
     """One V-cycle from a zero initial guess: b -> approx A^{-1} b.
-    `Ainv` is the (..., n, n) coarse inverse."""
+    `Ainv` is the (..., n, n) coarse inverse. `smoother`: "jacobi" (damped,
+    `omega`) or "cheb" (degree-`nu` Chebyshev, `_cheb`)."""
 
     def cycle(b, lvl):
         TX, TY, diag = hierarchy[lvl]
         if lvl == len(hierarchy) - 1:
             return (Ainv @ b.reshape(*b.shape[:-2], -1, 1)).reshape(b.shape)
-        x = _jacobi(TX, TY, diag, torch.zeros_like(b), b, nu, omega)
+        x = _smooth(TX, TY, diag, torch.zeros_like(b), b, nu, omega, smoother)
         r = b - stencil_matvec(TX, TY, diag, x)
         ec = cycle(_restrict(r), lvl + 1)
         x = x + omega_c * _prolong(ec, b.shape)
-        return _jacobi(TX, TY, diag, x, b, nu, omega)
+        return _smooth(TX, TY, diag, x, b, nu, omega, smoother)
 
     return cycle(b, 0)

@@ -11,6 +11,10 @@ the per-member `pcg` (each member stops on its own), not of the TPU's
 lockstep `pcg_batched`. Beside it, `pressure_solve_torch` is the plain
 PyTorch version, built from the same two modules.
 
+The V-cycle's smoother is a compile-time choice of the kernel: damped
+Jacobi (launches counted as "pressure_pcg") or degree-2 Chebyshev
+("pressure_pcg_cheb"), both instantiated for every grid.
+
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor takes the
 kernel, which raises on what it does not take.
 """
@@ -23,19 +27,20 @@ import torch
 
 from historymatching_tpu_torch.ops import _build
 from historymatching_tpu_torch.ops.cg import pcg
-from historymatching_tpu_torch.ops.multigrid import n_levels, vcycle_apply
+from historymatching_tpu_torch.ops.multigrid import SMOOTHERS, n_levels, vcycle_apply
 from historymatching_tpu_torch.ops.stencil import stencil_matvec, stencil_residual_ds
 
 
 def pressure_solve_torch(hier, Ainv, q, p0, w, tol, maxiter, patience_iters=96,
-                         restart_every=8):
+                         restart_every=8, smoother="jacobi"):
     """Plain version. `hier` is the per-level list of (TX, TY, diag), each
-    (B, ...); `Ainv` (B, n, n) the coarse inverse; q, p0, w (B, Nx, Ny).
+    (B, ...); `Ainv` (B, n, n) the coarse inverse; q, p0, w (B, Nx, Ny);
+    `smoother` the V-cycle's ("jacobi" or "cheb").
     Returns (p, iters int32 (B,), rel (B,))."""
     TX, TY, diag = hier[0]
     return pcg(lambda x: stencil_matvec(TX, TY, diag, x), q, x0=p0,
-               Minv=lambda r: vcycle_apply(hier, Ainv, r), tol=tol, maxiter=maxiter,
-               restart_every=restart_every, patience_iters=patience_iters,
+               Minv=lambda r: vcycle_apply(hier, Ainv, r, smoother=smoother), tol=tol,
+               maxiter=maxiter, restart_every=restart_every, patience_iters=patience_iters,
                metric_weight=w)
 
 
@@ -66,12 +71,17 @@ def smem_bytes(Nx, Ny, levels):
     return 4 * floats
 
 
+KERNELS = {"jacobi": "pressure_pcg", "cheb": "pressure_pcg_cheb"}  # by smoother
+
+
 def pressure_solve_cuda(hier, Ainv, q, p0, w, tol, maxiter, patience_iters=96,
-                        restart_every=8):
+                        restart_every=8, smoother="jacobi"):
     """The hand kernel. Same arguments as the plain version, float32 on one
     CUDA device. The kernel takes the fine diagonal as 1, the contract of
     `models.ressim.scaled_system`, and does not read `hier[0][2]`."""
     B, Nx, Ny = q.shape
+    if smoother not in SMOOTHERS:
+        raise ValueError(f"smoother must be one of {SMOOTHERS}, got {smoother!r}")
     _build.check_grid("pressure", Nx, Ny)
     levels = len(hier)
     if levels != n_levels(Nx, Ny):
@@ -103,17 +113,18 @@ def pressure_solve_cuda(hier, Ainv, q, p0, w, tol, maxiter, patience_iters=96,
     code = _build.lib().hm_pressure_solve(
         ctypes.cast(ptrs, ctypes.c_void_p), Ainv.data_ptr(), q.data_ptr(), p0.data_ptr(),
         w.data_ptr(), p.data_ptr(), it.data_ptr(), rel.data_ptr(), B, Nx, Ny, levels,
-        float(tol), int(maxiter), int(restart_every), patience, _build.stream_ptr(q.device))
-    _build.check(code, "pressure_pcg")
-    _build.LAUNCHES["pressure_pcg"] += 1
+        float(tol), int(maxiter), int(restart_every), patience, int(smoother == "cheb"),
+        _build.stream_ptr(q.device))
+    _build.check(code, KERNELS[smoother])
+    _build.LAUNCHES[KERNELS[smoother]] += 1
     return p, it, rel
 
 
-def pressure_solve(hier, Ainv, q, p0, w, tol, maxiter, patience_iters=96):
+def pressure_solve(hier, Ainv, q, p0, w, tol, maxiter, patience_iters=96, smoother="jacobi"):
     """Solve every member's scaled TPFA system: the kernel on CUDA, the plain
     version on the CPU."""
     fn = pressure_solve_cuda if q.is_cuda else pressure_solve_torch
-    return fn(hier, Ainv, q, p0, w, tol, maxiter, patience_iters)
+    return fn(hier, Ainv, q, p0, w, tol, maxiter, patience_iters, smoother=smoother)
 
 
 REFINE_ITERS = 96  # the refinement pass's iteration cap (pressure_pallas.py:378)
@@ -142,9 +153,10 @@ def recook_plan(N, Ny, maxiter, two_pass=True, twopass_j1=64, twopass_div=4):
 
 def pressure_solve_recook(hier, Ainv, q, p0, w, tol, maxiter, patience_iters=96,
                           two_pass=True, twopass_j1=64, twopass_div=4, refine=True,
-                          solve=pressure_solve):
+                          solve=pressure_solve, smoother="jacobi"):
     """The reference's three-pass solve (pressure_pallas.py:336-397) around
-    `solve` (by default the dispatch above; on either device):
+    `solve` (by default the dispatch above; on either device), every pass
+    with the V-cycle smoother `smoother`:
 
     1. every member with the iteration cap `twopass_j1`;
     2. the K members with the largest pass-1 residual (`recook_plan`; the
@@ -162,21 +174,23 @@ def pressure_solve_recook(hier, Ainv, q, p0, w, tol, maxiter, patience_iters=96,
     B, _, Ny = q.shape
     plan = recook_plan(B, Ny, maxiter, two_pass, twopass_j1, twopass_div)
     if plan is None:
-        p, it, rel = solve(hier, Ainv, q, p0, w, tol, maxiter, patience_iters)
+        p, it, rel = solve(hier, Ainv, q, p0, w, tol, maxiter, patience_iters, smoother=smoother)
         return p, it, rel, torch.zeros(B, dtype=torch.bool, device=q.device)
     Nb, K = plan
-    p1, it1, rel1 = solve(hier, Ainv, q, p0, w, tol, twopass_j1, patience_iters)
+    p1, it1, rel1 = solve(hier, Ainv, q, p0, w, tol, twopass_j1, patience_iters,
+                          smoother=smoother)
     pad = torch.arange(Nb, device=q.device) % B
     top = torch.sort(rel1[pad], descending=True, stable=True).indices[:K]
     idx = pad[top]
     take = lambda t: t[idx]  # noqa: E731
     hier_k = [tuple(take(t) for t in lvl) for lvl in hier]
     Ainv_k, q_k, w_k = take(Ainv), take(q), take(w)
-    p2, it2, rel2 = solve(hier_k, Ainv_k, q_k, take(p1), w_k, tol, maxiter, patience_iters)
+    p2, it2, rel2 = solve(hier_k, Ainv_k, q_k, take(p1), w_k, tol, maxiter, patience_iters,
+                          smoother=smoother)
     if refine:
         r_ds = stencil_residual_ds(*hier_k[0], p2, q_k)
         d3, it3, rel3 = solve(hier_k, Ainv_k, r_ds, torch.zeros_like(r_ds), w_k, tol,
-                              REFINE_ITERS, patience_iters)
+                              REFINE_ITERS, patience_iters, smoother=smoother)
         p2 = p2 + d3
         it2 = it2 + it3
         num = (w_k * r_ds).reshape(K, -1).norm(dim=1)

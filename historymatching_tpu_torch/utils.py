@@ -26,6 +26,23 @@ def center(E, dim=0):
     return E - x, x.squeeze(dim)
 
 
+def cov(a, b):
+    """Cross-covariance of two samples sharing the leading (ensemble) axis."""
+    A, _ = center(a)
+    B, _ = center(b)
+    return A.T @ B / (B.shape[0] - 1)
+
+
+def corr(a, b):
+    """Correlation (M,) of the columns of `a` (N, M) with one series `b`
+    (N,), or (M, K) with each of K series (N, K), by `cov`, clipped to
+    +/-999 (an inf from a nearly constant series stays plottable)."""
+    C = cov(a, b)
+    sa = torch.std(a.T, dim=-1, correction=1)
+    sb = torch.std(b, dim=0, correction=1, keepdim=True)
+    return torch.clamp(C / (sa[:, None] if C.ndim == 2 else sa) / sb, -999, 999)
+
+
 def gaussian_noise(N, M, L=1.0, generator=None, Z=None, dtype=None, device="cuda"):
     """A 0-mean Gaussian ensemble (N, M): `Z @ L.T` for a Cholesky factor
     `L` (M, M), or `Z * L` for a scalar std-dev. `Z` is drawn from
@@ -54,6 +71,62 @@ def rinv(A, reg, tikh=True, nMax=None):
     if nMax:
         s1 = torch.where(torch.arange(s.shape[-1], device=s.device) < nMax, s1, 0.0)
     return (VT.mT * s1[..., None, :]) @ U.mT
+
+
+def svals(E, center_first=True):
+    """Singular values of an (anomaly) ensemble, the prior-spectrum
+    diagnostic."""
+    if center_first:
+        E, _ = center(E)
+    return torch.linalg.svdvals(E)
+
+
+def mnorm(x, axis=0):
+    """Mean-based L2 norm, sqrt(mean(x^2)) along `axis`."""
+    return torch.sqrt(torch.mean(x * x, axis))
+
+
+def rms(x):
+    """RMS over the last axis of the ensemble mean (over axis 1), per
+    leading index."""
+    return torch.sqrt(torch.mean(torch.mean(x, 1) ** 2, -1))
+
+
+def emph(text):
+    """Bold terminal text."""
+    return f"\033[1m{text}\033[0m"
+
+
+def split(arr, step):
+    """Split `arr` into segments of length `step` (one segment if 0)."""
+    if not step:
+        step = max(1, len(arr))
+    return [arr[i : i + step] for i in range(0, len(arr), step)]
+
+
+def _host(x):
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def print_RMSMs(series: dict, ref: str):
+    """Print, per series, the RMS error of its mean against `series[ref]`
+    and its RMS deviation from its mean; returns {name: (err, dev)}. A
+    host-side diagnostic (NumPy)."""
+    x = _host(series[ref])
+    if x.shape[0] != 1:
+        x = x[None, :]
+    header = "Series    rms err  rms dev"
+    print(header, "-" * len(header), sep="\n")
+    rows = {}
+    for k, y in series.items():
+        y = _host(y)
+        if y.ndim < x.ndim:
+            y = y[None, :]
+        err = float(np.sqrt(np.mean((x - y.mean(0)) ** 2)))
+        dev = float(np.sqrt(np.mean((y - y.mean(0)) ** 2)))
+        rows[k] = (err, dev)
+        print(f"{k:8}: {err:6.4f}   {dev:6.4f}")
+    return rows
 
 
 def pCircle(degree, Lx, Ly, p=4, norm_val=0.87):

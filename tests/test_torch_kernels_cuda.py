@@ -16,6 +16,7 @@ from historymatching_tpu_torch.models.ressim import ResSim, scaled_system
 from historymatching_tpu_torch.ops import _build
 from historymatching_tpu_torch.ops.multigrid import n_levels
 from historymatching_tpu_torch.ops.pressure import (
+    KERNELS,
     pressure_solve_cuda,
     pressure_solve_recook,
     pressure_solve_torch,
@@ -70,8 +71,10 @@ def test_transport_kernel_matches_plain(dev, Nx, Ny):
     assert float((out - ref).abs().max()) <= 1e-5
 
 
-@pytest.mark.parametrize("Nx,Ny", _build.GRIDS)
-def test_pressure_kernel_matches_plain(dev, Nx, Ny):
+def _pressure_vs_plain(dev, Nx, Ny, smoother):
+    """One launch of P's `smoother` instantiation against the plain version
+    with the same smoother, after fixed work; the launch counts on that
+    instantiation's own key."""
     g = torch.Generator(device=dev).manual_seed(1)
     m = _model(Nx, Ny, dev)
     B = 8
@@ -81,16 +84,29 @@ def test_pressure_kernel_matches_plain(dev, Nx, Ny):
     q = torch.zeros(Nx, Ny, device=dev)
     q[Nx // 2, Ny // 2], q[1, 1] = 1.0, -1.0
     args = (hier, Ainv, (q * sd).contiguous(), torch.zeros_like(s), (diag * sd).contiguous())
-    before = _build.LAUNCHES["pressure_pcg"]
-    p_k, it_k, rel_k = pressure_solve_cuda(*args, tol=0.0, maxiter=16, patience_iters=160)
+    fixed = dict(tol=0.0, maxiter=16, patience_iters=160, smoother=smoother)
+    name = KERNELS[smoother]
+    before = dict(_build.LAUNCHES)
+    p_k, it_k, rel_k = pressure_solve_cuda(*args, **fixed)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES["pressure_pcg"] == before + 1
-    p_t, it_t, rel_t = pressure_solve_torch(*args, tol=0.0, maxiter=16, patience_iters=160)
+    assert {k: v - before[k] for k, v in _build.LAUNCHES.items() if v != before[k]} == {name: 1}
+    p_t, it_t, rel_t = pressure_solve_torch(*args, **fixed)
     assert torch.equal(it_k, it_t)
     dn, nt = (p_k - p_t).norm(dim=(-2, -1)), p_t.norm(dim=(-2, -1))
     # zero from both: the member's weighted residual never improved on its start
     err = torch.where((dn == 0) & (nt == 0), 0.0, dn / nt)
     assert float(err.max()) <= 1e-3
+
+
+@pytest.mark.parametrize("Nx,Ny", _build.GRIDS)
+def test_pressure_kernel_matches_plain(dev, Nx, Ny):
+    _pressure_vs_plain(dev, Nx, Ny, "jacobi")
+
+
+@pytest.mark.parametrize("Nx,Ny", _build.GRIDS)
+def test_pressure_cheb_kernel_matches_plain(dev, Nx, Ny):
+    """The Chebyshev-smoothed instantiation of P, as the Jacobi one."""
+    _pressure_vs_plain(dev, Nx, Ny, "cheb")
 
 
 def test_pressure_members_leave_at_their_own_windows(dev):
@@ -179,10 +195,12 @@ def test_pressure_kernel_on_the_recook_passes(dev, Nx, Ny):
 @pytest.mark.parametrize("Nx,Ny", _build.GRIDS)
 def test_kernel_resources(dev, Nx, Ny):
     """What the runtime reports matches the wrapper's footprint formula, and
-    P keeps two blocks resident on an SM at the flagship grid."""
-    p = _build.kernel_info("pressure_pcg", Nx, Ny)
-    assert p["shared_bytes"] == smem_bytes(Nx, Ny, n_levels(Nx, Ny))
-    assert p["blocks_per_sm"] >= (2 if (Nx, Ny) == (64, 64) else 1)
+    P keeps two blocks resident on an SM at the flagship grid, with either
+    smoother."""
+    for name in ("pressure_pcg", "pressure_pcg_cheb"):
+        p = _build.kernel_info(name, Nx, Ny)
+        assert p["shared_bytes"] == smem_bytes(Nx, Ny, n_levels(Nx, Ny))
+        assert p["blocks_per_sm"] >= (2 if (Nx, Ny) == (64, 64) else 1)
     k = _build.kernel_info("transport_upwind", Nx, Ny)
     assert k["shared_bytes"] == 2 * 4 * Nx * Ny and k["blocks_per_sm"] >= 1
 
@@ -227,7 +245,7 @@ def test_npv_batch_with_wells_per_member(dev):
     v = npv_value(mm, cfg, inj_xy=xy)
     torch.cuda.synchronize()
     assert {k: _build.LAUNCHES[k] - before[k] for k in before} == {
-        "pressure_pcg": 6, "transport_upwind": 6}
+        "pressure_pcg": 6, "transport_upwind": 6, "pressure_pcg_cheb": 0}
     assert v.shape == (8,) and torch.isfinite(v).all() and bool((v != 0).any())
     for b in range(3):
         one = npv_value(mm, cfg, inj_xy=xy[b])

@@ -2,8 +2,10 @@
 Checked in a subprocess with `jax` blocked at the finder level, like
 tests/test_packaging.py blocks the optional extras: every module of the
 package is imported, and the simulator (with the straggler recook
-engaged), the localized ES-MDA, IES and EnOpt on the bench case's fixture
-run. chip_smoke.py imports nothing of JAX in any phase."""
+engaged, and with the Chebyshev smoother), the localized ES-MDA, IES,
+ILES-domains, EnOpt on the bench case's fixture, an ES-MDA resumed through
+a checkpoint and a profiler trace run. chip_smoke.py imports nothing of
+JAX in any phase."""
 
 import os
 import subprocess
@@ -72,6 +74,34 @@ robust = lambda U: obj1(U.repeat_interleave(3, 0), X.repeat(len(U), 1)).reshape(
 path, objs, info = ht.GD(robust, case.U0[0], nabla=ht.EnGrad(chol=0.1, nEns=3, robustly="StoSAG",
                          obj_ux=obj1, X=X), nIter=1, generator=g)
 assert bool(torch.isfinite(objs).all()) and info["nEvals"] >= 1 + 6
+# This slice's paths without JAX: a Chebyshev-smoothed simulation, an
+# iles_domains step, and an ES-MDA resumed through a checkpoint; the
+# checkpoint and profiling modules import (walk_packages above) and run.
+from historymatching_tpu_torch import checkpoint, profiling
+r = ht.simulate(set_perm(m, 0.3 * torch.randn(4, m.Nxy, generator=g, dtype=torch.float64)),
+                torch.zeros(m.Nxy, dtype=torch.float64), 0.01, 2, smoother="cheb")
+assert bool(r.cg_ok.all())
+post_il, st = ht.iles_domains(E0, lambda E: E @ G, obs, 0.1 * torch.randn(10, 6, generator=g,
+                              dtype=torch.float64), torch.eye(6, dtype=torch.float64) * 10,
+                              tap, dom, iMax=1)
+assert bool(torch.isfinite(post_il).all()) and st["pinv_domains"].tolist() == [0]
+import os, tempfile
+alphas = ht.mda_alphas(3, dtype=torch.float64, device="cpu")
+fwd = lambda E: E @ G
+ref = ht.es_mda(E0, fwd, obs, R12, alphas, generator=torch.Generator().manual_seed(1))
+path = os.path.join(tempfile.mkdtemp(), "mda.npz")
+def cb(info):
+    if info["pass_"] == 1:
+        checkpoint.save_checkpoint(path, {"E": info["E"], "gen": info["generator_state"]})
+ht.es_mda(E0, fwd, obs, R12, alphas, generator=torch.Generator().manual_seed(1), callback=cb)
+st = checkpoint.load_checkpoint(path)
+gen = torch.Generator()
+gen.set_state(torch.from_numpy(st["gen"]))
+assert torch.equal(ht.es_mda(torch.from_numpy(st["E"]), fwd, obs, R12, alphas, generator=gen,
+                             start_pass=1), ref)
+with profiling.trace(tempfile.mkdtemp()) as d:
+    E0.sum()
+assert profiling.parse_trace(d).host
 print('port-import-ok')
 """
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
