@@ -46,7 +46,25 @@ Phases, one printed line or more each; any failed check raises:
     `torch.linalg.pinv`, and the peak device memory;
 17. ES-MDA resume: a 4-pass run at N=200 against the same run stopped after
     2 passes, checkpointed, loaded and resumed; the posteriors must be
-    equal.
+    equal;
+18. kernel K's runtime-grid variant against its plain version at grids the
+    templates do not cover (15x15, 12x9, 10x10, 12x12, 24x16, 80x80), N=64,
+    on fields and fluxes of a real pressure step (bit for bit), each
+    timed; and at 64x64 on [6]'s inputs against the templated K;
+19. kernel P built for grids outside the main library (8x8, 10x10, 12x12,
+    24x16, 80x80), both smoothers, against its plain version after one
+    window, the acceptance counts at bench settings and its time a launch;
+    19b. P with an explicit fine diagonal (the unscaled system) at 20x20
+    and 64x64 the same way, its time at [6]'s shapes, and
+    `simulate(scale_system=False)` through the entry point;
+    19c. each new instantiation's resources, and the refusal of a 96x96
+    grid with the bytes its layout needs;
+20. one member of 64 whose coarse Cholesky fails: it gets the guarded
+    Newton-Schulz, the others keep their inverses, and P solves the batch;
+21. the port's two tutorial examples, `history_match` (20x20, N=40, every
+    method) and `optimise` (20x20, every case but `robust`; then --small,
+    12x12, inj_xy, rate and toys), with each run's wall, kernel launches
+    and headline numbers.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a card, or without the package
@@ -99,6 +117,32 @@ P_FLOPS_VCYCLE_CHEB = 58
 # Cholesky 1/3 N^3 and its solve on N right-hand sides 2 N^3.
 ILES_FLOPS = lambda n, p: 3 * n**3 + 6 * n**2 * p  # noqa: E731
 ILES_ITERS, RESUME_N = 10, 200
+# Grids of phases 18-19: K's runtime-grid variant, P built on first use,
+# P with an explicit fine diagonal; and the grid refused for its layout.
+K_RT_GRIDS = ((15, 15), (12, 9), (10, 10), (12, 12), (24, 16), (80, 80))
+P_NEW_GRIDS = ((8, 8), (10, 10), (12, 12), (24, 16), (80, 80))
+P_DIAG_GRIDS = ((20, 20), (64, 64))
+REFUSED_GRID, NEW_N, P_NEW_N = (96, 96), 64, 128
+# [19]'s fixed work: one restart window of 4 iterations. On grids of up to
+# 400 cells a window of 8 reaches float32's floor, where the plain version
+# in float32 and in float64 part by up to 1.5e-1 (PERF.md, Findings).
+WINDOW4 = dict(tol=0.0, maxiter=4, restart_every=4, patience_iters=160)
+# [19b] holds the unscaled system's P on fields of mild contrast (the prior
+# scaled by this): at the prior's own contrast float32 leaves the unscaled
+# system undetermined, the plain version in float32 and float64 parting by
+# O(1) after one iteration.
+MILD = 0.2
+# The unscaled system's extra flops a fine cell and CG iteration: the
+# matvec's and the V-cycle's products by the diagonal and its reciprocal.
+P_FLOPS_DIAG = 8
+# The examples of [21]: module, arguments, the kernels each must launch.
+OPT_DEFAULT = "inj_xy,x_only,two_inj,rate,multi_rate,time_rates,pareto,toys"
+EXAMPLES = (
+    ("history_match", [], ("transport_upwind", "pressure_pcg")),
+    ("optimise", ["--cases", OPT_DEFAULT], ("transport_upwind", "pressure_pcg")),
+    ("optimise", ["--small", "--cases", "inj_xy,rate,toys"],
+     ("transport_upwind_rt", "pressure_pcg")),
+)
 # Device activities by kernel name, for the profiled stages.
 STAGE_OF = (("pressure_pcg_kernel", "pressure_pcg"),
             ("transport_upwind_kernel", "transport_upwind"))
@@ -144,12 +188,13 @@ def flagship_model(torch):
                         dtype=torch.float32)
 
 
-def pressure_bound_ms(hier, Ainv, iters, vcycle_flops=P_FLOPS_VCYCLE):
+def pressure_bound_ms(hier, Ainv, iters, vcycle_flops=P_FLOPS_VCYCLE,
+                      fine_flops=P_FLOPS_FINE):
     """Least time of a P launch: its flops (the iterations these members
     ran) at the float32 rate, or its bytes (hierarchy, coarse inverse, q,
     p0, w read once, p written once) at the memory rate."""
     cells = [lvl[2][0].numel() for lvl in hier]
-    per_iter = cells[0] * P_FLOPS_FINE + vcycle_flops * sum(cells[:-1]) + 2 * cells[-1] ** 2
+    per_iter = cells[0] * fine_flops + vcycle_flops * sum(cells[:-1]) + 2 * cells[-1] ** 2
     flops = per_iter * float(iters.double().sum())
     nbytes = 4 * (sum(t.numel() for lvl in hier for t in lvl) + Ainv.numel()
                   + 4 * hier[0][2].numel() + 2 * iters.numel())
@@ -412,6 +457,321 @@ def enopt_phases(dev, gen):
     return figs
 
 
+def rel_err(p_k, p_t):
+    """Largest per-member relative difference; zero from both counts as
+    agreement (a member whose weighted residual never improved on its
+    start returns the start from both)."""
+    import torch
+
+    dn, nt = (p_k - p_t).norm(dim=(-2, -1)), p_t.norm(dim=(-2, -1))
+    return float(torch.where((dn == 0) & (nt == 0), 0.0, dn / nt).max())
+
+
+def grid_model(torch, Nx, Ny):
+    """The flagship geometry (2x1 domain, centre injector, 4 producers) on
+    an Nx x Ny grid."""
+    import numpy as np
+
+    from historymatching_tpu_torch import ResSim
+
+    near01 = np.array([0.12, 0.87])
+    prd_xy = [[x, y] for y in near01 for x in 2.0 * near01]
+    return ResSim.build(Nx=Nx, Ny=Ny, Lx=2.0, Ly=1.0, inj_xy=[[1.0, 0.5]], prd_xy=prd_xy,
+                        inj_rates=[[1.0]], prd_rates=np.ones((4, 1)) / 4, dtype=torch.float32)
+
+
+def new_grid_phases(dev, six):
+    """Phases 18-20. `six` holds [6]'s step at N=1000 64x64: the unscaled
+    model, states, the templated K's and the P kernels' times. Returns the
+    figures of the new instantiations for the kernels' record."""
+    import torch
+
+    import historymatching_tpu_torch as ht
+    from historymatching_tpu_torch.models.ressim import (
+        _source_field,
+        _tpfa,
+        cfl_substeps,
+        pressure_step,
+        scaled_system,
+    )
+    from historymatching_tpu_torch.ops import _build
+    from historymatching_tpu_torch.ops.multigrid import build_hierarchy, coarse_inverse
+    from historymatching_tpu_torch.ops.pressure import (
+        kernel_name,
+        pressure_solve_cuda,
+        pressure_solve_torch,
+    )
+    from historymatching_tpu_torch.ops.transport import (
+        transport_substeps_cuda,
+        transport_substeps_torch,
+    )
+    from historymatching_tpu_torch.parallel.runner import set_perm
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+
+    def system(mm, qf, unit):
+        """P's arguments for fields `mm` at s = 0: the scaled system, or the
+        unscaled one (`unit` False) with w = 1."""
+        B, (Nx, Ny) = mm.K.shape[0], mm.shape
+        s0 = torch.zeros(B, Nx, Ny, device=dev)
+        if unit:
+            _, _, diag, sd, hier, Ainv = scaled_system(mm, s0)
+            return (hier, Ainv, (qf * sd).contiguous(), torch.zeros_like(sd),
+                    (diag * sd).contiguous())
+        TX, TY, _, pin = _tpfa(mm, s0)
+        hier = build_hierarchy(TX, TY, pin)
+        q = qf.expand(B, Nx, Ny).contiguous()
+        return hier, coarse_inverse(hier), q, torch.zeros_like(q), torch.ones_like(q)
+
+    def one_window(tag, args, **kw):
+        """P against its plain version after `WINDOW4`, logged and held to
+        P_TOL. Returns (max rel, max abs) difference."""
+        p_k = pressure_solve_cuda(*args, **WINDOW4, **kw)[0]
+        p_t = pressure_solve_torch(*args, **WINDOW4, **kw)[0]
+        err = rel_err(p_k, p_t)
+        log(f"{tag}: one window of 4 iterations, max rel |dp| vs plain = {err:.3e} (tol {P_TOL})")
+        assert torch.isfinite(p_k).all() and err <= P_TOL
+        return err, float((p_k - p_t).abs().max())
+    figs = {"transport_upwind_rt": {"grids": {}}, "pressure_pcg": {"grids": {}},
+            "pressure_pcg_cheb": {"grids": {}}, "pressure_pcg_diag": {"grids": {}},
+            "pressure_pcg_cheb_diag": {"grids": {}}}
+    base1 = {k: BASE[k] for k in SOLVE_KEYS}
+
+    # 18. K's runtime-grid variant on a real step: 5 steps of simulate, then
+    # the sixth step's pressure solve and CFL counts.
+    k_errs = []
+    for Nx, Ny in K_RT_GRIDS:
+        m = grid_model(torch, Nx, Ny)
+        mm = set_perm(m, ht.sample_prior_perm(gen, m, NEW_N, r=0.8))
+        s5 = ht.simulate(mm, torch.zeros(m.Nxy, device=dev), DT, 5,
+                         keep_wsats=False).wsats[:, -1].reshape(NEW_N, Nx, Ny).contiguous()
+        q = _source_field(m, m.inj_rates[:, 0], m.prd_rates[:, 0])
+        _, Fx, Fy, it, ok, _ = pressure_step(mm, s5, q, torch.zeros_like(s5), 2e-3,
+                                             4 * max(Nx, Ny), 5e-2)
+        Fx, Fy = Fx.contiguous(), Fy.contiguous()
+        nsub, dtspv = cfl_substeps(mm, Fx, Fy, q, DT)
+        args = (s5, Fx, Fy, q[None].contiguous(), dtspv, nsub, fluid_of(m))
+        before = _build.LAUNCHES["transport_upwind_rt"]
+        s_k = transport_substeps_cuda(*args)
+        assert _build.LAUNCHES["transport_upwind_rt"] == before + 1
+        s_t = transport_substeps_torch(*args)
+        err = float((s_k - s_t).abs().max())
+        k_errs.append(err)
+        ms = cuda_ms(lambda: transport_substeps_cuda(*args), 5)
+        plain_ms = cuda_ms(lambda: transport_substeps_torch(*args), 1)
+        bnd, by = transport_bound_ms(s5, Fx, Fy, args[3], nsub)
+        figs["transport_upwind_rt"]["grids"][f"{Nx}x{Ny}"] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by, share_of_bound=bnd / ms,
+            max_abs_err=err)
+        log(f"[18] K runtime-grid {Nx}x{Ny}, N={NEW_N}, step 6 of a prior run (cg_iters median "
+            f"{int(it.median())}, accepted {int(ok.sum())}/{NEW_N}): max|ds| vs plain = {err:.3e} "
+            f"(tol {K_TOL}); substeps median {int(nsub.median())} max {int(nsub.max())}; "
+            f"{ms:.4f} ms a launch vs plain {plain_ms:.3f} ms, bound {bnd:.5f} ms ({by}, "
+            f"{bnd / ms:.1%})")
+        assert torch.isfinite(s_k).all() and err <= K_TOL
+    t_args = six["t_args"]
+    rt_ms = cuda_ms(lambda: transport_substeps_cuda(*t_args, runtime_grid=True), 5)
+    tpl_ms = cuda_ms(lambda: transport_substeps_cuda(*t_args), 5)
+    rt_err = float((transport_substeps_cuda(*t_args, runtime_grid=True)
+                    - transport_substeps_torch(*t_args)).abs().max())
+    bnd, by = transport_bound_ms(*t_args[:4], t_args[5])
+    log(f"[18] K at {NX}x{NY}, N={N}, [6]'s inputs: runtime-grid variant {rt_ms:.3f} ms, "
+        f"templated {tpl_ms:.3f} ms (at [6]: {six['t_ms']:.3f} ms), bound {bnd:.4f} ms ({by}); "
+        f"runtime-grid max|ds| vs plain {rt_err:.3e}")
+    assert rt_err <= K_TOL
+    figs["transport_upwind_rt"].update(max_abs_err=max(k_errs + [rt_err]), ms=rt_ms,
+                                       plain_ms=six["t_plain_ms"], bound_ms=bnd, bound_by=by,
+                                       templated_ms=tpl_ms)
+
+    # 19. P built for new grids, on scaled hierarchies of prior fields at s = 0
+    B = P_NEW_N
+    for Nx, Ny in P_NEW_GRIDS:
+        m = grid_model(torch, Nx, Ny)
+        mm = set_perm(m, ht.sample_prior_perm(gen, m, B, r=0.8))
+        qf = _source_field(m, m.inj_rates[:, 0], m.prd_rates[:, 0])
+        args = system(mm, qf, True)
+        hier, Ainv = args[:2]
+        for smoother in ("jacobi", "cheb"):
+            name = kernel_name(smoother)
+            err = one_window(f"[19] P {smoother} {Nx}x{Ny}, N={B}", args, smoother=smoother)[0]
+            _, it_k, rl_k = pressure_solve_cuda(*args, **base1, smoother=smoother)
+            _, it_t, rl_t = pressure_solve_torch(*args, **base1, smoother=smoother)
+            ms = cuda_ms(lambda: pressure_solve_cuda(*args, **base1, smoother=smoother), 3)
+            plain_ms = cuda_ms(lambda: pressure_solve_torch(*args, **base1, smoother=smoother),
+                               1)
+            vf = P_FLOPS_VCYCLE_CHEB if smoother == "cheb" else P_FLOPS_VCYCLE
+            bnd, by = pressure_bound_ms(hier, Ainv, it_k, vf)
+            figs[name]["grids"][f"{Nx}x{Ny}"] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by, share_of_bound=bnd / ms,
+                max_rel_err=err, accepted=int((rl_k <= 5e-2).sum()),
+                accepted_plain=int((rl_t <= 5e-2).sum()))
+            log(f"[19] P {smoother} {Nx}x{Ny}, N={B}: bench settings: accepted kernel "
+                f"{int((rl_k <= 5e-2).sum())}/{B}, plain {int((rl_t <= 5e-2).sum())}/{B}, "
+                f"iterations median {int(it_k.median())} vs {int(it_t.median())}; {ms:.3f} ms "
+                f"a launch vs plain {plain_ms:.3f} ms, bound {bnd:.5f} ms ({by}, {bnd / ms:.1%})")
+
+    # 19b. P with an explicit fine diagonal, on the unscaled system
+    for Nx, Ny in P_DIAG_GRIDS:
+        m = grid_model(torch, Nx, Ny)
+        pre = ht.sample_prior_perm(gen, m, B, r=0.8)
+        qf = _source_field(m, m.inj_rates[:, 0], m.prd_rates[:, 0])
+        args = system(set_perm(m, pre), qf, False)
+        mild = system(set_perm(m, MILD * pre), qf, False)
+        for smoother in ("jacobi", "cheb"):
+            kw = dict(smoother=smoother, unit_diag=False)
+            err, abs_err = one_window(f"[19b] P {smoother}, explicit fine diagonal, {Nx}x{Ny}, "
+                                      f"N={B}, the prior times {MILD}", mild, **kw)
+            name = kernel_name(smoother, False)
+            figs[name]["max_abs_err"] = max(figs[name].get("max_abs_err", 0.0), abs_err)
+            _, it_k, rl_k = pressure_solve_cuda(*args, **base1, **kw)
+            _, it_t, rl_t = pressure_solve_torch(*args, **base1, **kw)
+            figs[name]["grids"][f"{Nx}x{Ny}"] = dict(
+                max_rel_err=err, accepted=int((rl_k <= 5e-2).sum()),
+                accepted_plain=int((rl_t <= 5e-2).sum()))
+            log(f"[19b] P {smoother}, explicit fine diagonal, {Nx}x{Ny}, N={B}: bench settings: "
+                f"accepted kernel {int((rl_k <= 5e-2).sum())}/{B}, plain "
+                f"{int((rl_t <= 5e-2).sum())}/{B}, iterations median {int(it_k.median())} vs "
+                f"{int(it_t.median())}")
+    # ... at [6]'s shapes: the unscaled system of [6]'s states, N=1000 64x64
+    TX, TY, _, pin = _tpfa(six["mm"], six["s_end"])
+    hier = build_hierarchy(TX, TY, pin)
+    Ainv = coarse_inverse(hier)
+    q1 = six["q1"].expand(N, NX, NY).contiguous()
+    args = (hier, Ainv, q1, torch.zeros_like(q1), torch.ones_like(q1))
+    for smoother in ("jacobi", "cheb"):
+        kw = dict(six["kw"], smoother=smoother, unit_diag=False)
+        name = kernel_name(smoother, False)
+        ms = cuda_ms(lambda: pressure_solve_cuda(*args, **kw), 3)
+        plain_ms = cuda_ms(lambda: pressure_solve_torch(*args, **kw), 1)
+        it_k = pressure_solve_cuda(*args, **kw)[1]
+        vf = P_FLOPS_VCYCLE_CHEB if smoother == "cheb" else P_FLOPS_VCYCLE
+        bnd, by = pressure_bound_ms(hier, Ainv, it_k, vf, P_FLOPS_FINE + P_FLOPS_DIAG)
+        unit_ms = six["p_ms"][smoother]
+        figs[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by)
+        log(f"[19b] P {smoother}, explicit fine diagonal, N={N} {NX}x{NY} ([6]'s states, "
+            f"maxiter {kw['maxiter']}): {ms:.3f} ms a launch vs plain {plain_ms:.3f} ms, bound "
+            f"{bnd:.4f} ms ({by}, {bnd / ms:.1%}); cg_iters median {int(it_k.median())}; the "
+            f"scaled system's P {smoother} at [6]/[15]: {unit_ms:.3f} ms")
+    # ... and through the entry point: simulate(scale_system=False)
+    m = grid_model(torch, 20, 20)
+    mm = set_perm(m, ht.sample_prior_perm(gen, m, B, r=0.8))
+    for smoother in ("jacobi", "cheb"):
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        res = ht.simulate(mm, torch.zeros(m.Nxy, device=dev), DT, NTIME, smoother=smoother,
+                          scale_system=False)
+        sync()
+        wall = time.perf_counter() - t0
+        name = kernel_name(smoother, False)
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        figs[name]["launches"] = launches.get(name, 0)
+        log(f"[19b] simulate(scale_system=False, smoother={smoother!r}), N={B} 20x20, {NTIME} "
+            f"steps: {wall:.3f} s; cg_ok {float(res.cg_ok.float().mean()):.1%}, cg_iters median "
+            f"{int(res.cg_iters.median())}; launches {launches}")
+        assert launches == {name: NTIME, "transport_upwind": NTIME}, launches
+        assert torch.isfinite(res.wsats).all()
+
+    # 19c. resources of the new instantiations, and the refusal by bytes
+    for name in ("pressure_pcg", "pressure_pcg_cheb"):
+        for grid in P_NEW_GRIDS:
+            info = _build.kernel_info(name, *grid)
+            figs[name]["grids"][f"{grid[0]}x{grid[1]}"]["resources"] = info
+            log(f"[19c] {name} {grid[0]}x{grid[1]}: {info}")
+    for name in ("pressure_pcg_diag", "pressure_pcg_cheb_diag"):
+        for grid in P_DIAG_GRIDS + P_NEW_GRIDS:
+            info = _build.kernel_info(name, *grid)
+            figs[name]["grids"].setdefault(f"{grid[0]}x{grid[1]}", {})["resources"] = info
+            log(f"[19c] {name} {grid[0]}x{grid[1]}: {info}")
+    for grid in K_RT_GRIDS + ((NX, NY),):
+        info = _build.kernel_info("transport_upwind_rt", *grid)
+        figs["transport_upwind_rt"]["grids"].setdefault(f"{grid[0]}x{grid[1]}", {})[
+            "resources"] = info
+        log(f"[19c] transport_upwind_rt {grid[0]}x{grid[1]}: {info}")
+    big = grid_model(torch, *REFUSED_GRID)
+    try:
+        ht.simulate(set_perm(big, torch.zeros(2, big.Nxy, device=dev)),
+                    torch.zeros(big.Nxy, device=dev), DT, 1)
+        raise AssertionError(f"a {REFUSED_GRID} grid was not refused")
+    except ValueError as e:
+        log(f"[19c] simulate at {REFUSED_GRID[0]}x{REFUSED_GRID[1]} on the card: ValueError: {e}")
+        assert "257584 bytes" in str(e)
+
+    # 20. one member's coarse Cholesky fails: [4]'s geometry, N=64 prior
+    # fields, member 5's coarsest diagonal halved (no longer dominant, so
+    # indefinite)
+    m = grid_model(torch, NX, NY)
+    mm = set_perm(m, ht.sample_prior_perm(gen, m, NEW_N, r=0.8))
+    _, _, diag, sd, hier, Ainv = scaled_system(mm, torch.zeros(NEW_N, NX, NY, device=dev))
+    TXc, TYc, Dc = hier[-1]
+    Dc = Dc.clone()
+    Dc[5] = 0.5 * Dc[5]
+    hier_f = hier[:-1] + [(TXc, TYc, Dc)]
+    Ainv_f = coarse_inverse(hier_f)
+    keep = torch.arange(NEW_N, device=dev) != 5
+    qf = _source_field(m, m.inj_rates[:, 0], m.prd_rates[:, 0])
+    solve = lambda h, A: pressure_solve_cuda(h, A, (qf * sd).contiguous(),  # noqa: E731
+                                             torch.zeros_like(sd), (diag * sd).contiguous(),
+                                             **base1)
+    p_f, it_f, rel_f = solve(hier_f, Ainv_f)
+    p_0, it_0, rel_0 = solve(hier, Ainv)
+    same = bool(torch.equal(Ainv_f[keep], Ainv[keep]))
+    log(f"[20] member 5 of {NEW_N} with an indefinite coarse operator: inverse finite "
+        f"{bool(torch.isfinite(Ainv_f[5]).all())}; the other members' inverses equal the unforced "
+        f"run's: {same}; their solves equal: {bool(torch.equal(p_f[keep], p_0[keep]))}; member 5: "
+        f"{int(it_f[5])} iterations, rel {float(rel_f[5]):.3e} (unforced {int(it_0[5])}, "
+        f"{float(rel_0[5]):.3e})")
+    assert same and bool(torch.isfinite(Ainv_f).all()) and bool(torch.isfinite(p_f).all())
+    assert torch.equal(p_f[keep], p_0[keep])
+    return figs
+
+
+def fluid_of(model):
+    fl = model.fluid
+    return (fl.vw, fl.vo, fl.swc, fl.sor)
+
+
+def example_phases():
+    """Phase 21: the tutorial examples in this process, their output kept
+    for the headline numbers. Returns the launches of each run."""
+    import contextlib
+    import importlib
+    import io
+
+    import numpy as np
+
+    from historymatching_tpu_torch.ops import _build
+
+    runs = []
+    for name, argv, must in EXAMPLES:
+        mod = importlib.import_module(f"historymatching_tpu_torch.examples.{name}")
+        buf = io.StringIO()
+        _build.reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out = mod.main(argv)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        tag = f"{name} {' '.join(argv)}".strip()
+        log(f"[21] {tag}: {wall:.2f} s; kernel launches {launches}")
+        if name == "history_match":
+            rmse = {k: v[0] for k, v in out["param"].items()}
+            log("[21]   rmse vs truth: " + ", ".join(f"{k} {v:.4f}" for k, v in rmse.items()))
+            log("[21]   rmse vs future production: "
+                + ", ".join(f"{k} {v[0]:.4f}" for k, v in out["future"].items()))
+            post = [rmse[k] for k in ("ES", "LES", "IES", "ILES", "MDA")]
+            assert np.isfinite(post).all() and min(post) < rmse["Prior"], rmse
+        else:
+            for line in buf.getvalue().splitlines():
+                if line.startswith("[") and "] " in line:
+                    log(f"[21]   {line}")
+            assert "inj_xy" in out and np.isfinite(out["inj_xy"]["optimum"]), out
+        assert all(launches.get(k, 0) > 0 for k in must), (tag, launches)
+        runs.append(dict(run=tag, wall_s=wall, launches=launches))
+    return runs
+
+
 def main():
     try:
         import torch
@@ -459,7 +819,7 @@ def main():
 
     # 2. build
     t0 = time.perf_counter()
-    _build.lib()
+    _build.prebuild(P_NEW_GRIDS)
     log(f"[2] kernels built in {time.perf_counter() - t0:.1f} s "
         f"(compiled: {_build.build_info['built']}) -> {_build.build_info['paths']}")
     for stem, text in _build.build_info["ptxas"].items():
@@ -686,6 +1046,8 @@ def main():
         f"median {int(nsub.median())} max {int(nsub.max())}; max|ds| vs plain {t_err:.3e}, "
         f"tol {K_TOL})")
     assert t_err <= K_TOL
+    six = dict(t_args=(s_end, Fx, Fy, q1, dtspv, nsub, fluid), t_ms=t_ms, t_plain_ms=t_plain_ms,
+               mm=mm, s_end=s_end, q1=q1[0], kw=kw, p_ms={"jacobi": p_ms})
 
     # 6b. the recooked solve of that step: three P launches and the torch
     # ops between them, with the bound of the iterations all passes ran
@@ -815,6 +1177,7 @@ def main():
     pc_plain_ms = cuda_ms(lambda: pressure_solve_torch(*args, **p_kw), 1)
     pc_iters = pressure_solve_cuda(*args, **p_kw)[1]
     pc_bound, pc_by = pressure_bound_ms(hier, Ainv, pc_iters, P_FLOPS_VCYCLE_CHEB)
+    six["p_ms"]["cheb"] = pc_ms
     log(f"[15] one step at N={N} {NX}x{NY} ([6]'s inputs): P cheb {pc_ms:.3f} ms vs plain "
         f"{pc_plain_ms:.3f} ms, bound {pc_bound:.4f} ms ({pc_by}, {pc_bound / pc_ms:.1%}; cg_iters "
         f"median {int(pc_iters.median())} mean {float(pc_iters.float().mean()):.1f}); P jacobi "
@@ -928,6 +1291,9 @@ def main():
         f"{same} (max |d| {float((post_r - ref_r).abs().max()):.3e})")
     assert same
 
+    new = new_grid_phases(dev, six)
+    runs = example_phases()
+
     def record(name, route, source, replaces, err, ms, plain_ms, bound_ms, by):
         return dict(name=name, route=route, source=source, replaces=replaces,
                     launches=launches[name], max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -950,6 +1316,32 @@ def main():
              plain_ms=pc_plain_ms, bound_ms=pc_bound, bound_by=pc_by, library_ms=None,
              share_of_bound=pc_bound / pc_ms),
     ]
+    # The new grids of each kernel, and the launches of [21]'s example runs.
+    for rec in kernels:
+        rec["grids"] = new.get(rec["name"], {}).get("grids", {})
+        rec["launches_examples"] = {r["run"]: r["launches"].get(rec["name"], 0) for r in runs}
+    rt = new["transport_upwind_rt"]
+    # K's runtime-grid variant: its path is [21]'s optimise --small (12x12);
+    # timed at [6]'s inputs (64x64, against the templated K there).
+    kernels.append(dict(
+        name="transport_upwind_rt", route="cuda",
+        source="historymatching_tpu_torch/csrc/transport_upwind.cu",
+        replaces="historymatching_tpu/ops/transport_pallas.py:68",
+        launches=runs[-1]["launches"]["transport_upwind_rt"], max_abs_err=rt["max_abs_err"],
+        ms=rt["ms"], plain_ms=rt["plain_ms"], bound_ms=rt["bound_ms"], bound_by=rt["bound_by"],
+        library_ms=None, share_of_bound=rt["bound_ms"] / rt["ms"], templated_ms=rt["templated_ms"],
+        grids=rt["grids"],
+        launches_examples={r["run"]: r["launches"].get("transport_upwind_rt", 0) for r in runs}))
+    # P with an explicit fine diagonal: its path is [19b]'s
+    # simulate(scale_system=False); timed at [6]'s shapes.
+    for name in ("pressure_pcg_diag", "pressure_pcg_cheb_diag"):
+        d = new[name]
+        kernels.append(dict(
+            name=name, route="cuda", source="historymatching_tpu_torch/csrc/pressure_pcg.cu",
+            replaces="historymatching_tpu/ops/pressure_pallas.py:34", launches=d["launches"],
+            max_abs_err=d["max_abs_err"], ms=d["ms"], plain_ms=d["plain_ms"],
+            bound_ms=d["bound_ms"], bound_by=d["bound_by"], library_ms=None,
+            share_of_bound=d["bound_ms"] / d["ms"], grids=d["grids"]))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -35,7 +35,7 @@ from historymatching_tpu_torch.da.update import (  # noqa: E402
     iles_domains,
     mda_alphas,
 )
-from historymatching_tpu_torch.da import localization  # noqa: E402
+from historymatching_tpu_torch.da import geostat, localization  # noqa: E402
 from historymatching_tpu_torch.da.localization import bump, pairwise_distances  # noqa: E402
 from historymatching_tpu_torch.da.geostat import (  # noqa: E402
     gaussian_fields,
@@ -93,6 +93,7 @@ __all__ = [
     "GD",
     "gd_scan",
     "gd_scan_multi",
+    "geostat",
     "localization",
     "bump",
     "pairwise_distances",

@@ -12,13 +12,22 @@
 //   smoother is a template parameter (CHEB): damped Jacobi (omega 0.7), or
 //   the degree-2 Chebyshev polynomial of `_cheb` (multigrid.py:167,
 //   CHEB_BOUNDS (0.5, 2.0)), the `smoother="cheb"` variant of the Pallas
-//   kernels. The system is the scaled one, so the fine diagonal is 1 (the
-//   contract of models/ressim.py `scaled_system`); the kernel takes that
-//   as given and never reads a fine diagonal.
+//   kernels. On the scaled system the fine diagonal is 1 (the contract
+//   of models/ressim.py `scaled_system`): the UNIT instantiation takes that
+//   as given and never reads a fine diagonal. The other (UNIT = false)
+//   solves the unscaled system (`simulate(scale_system=False)`), whose
+//   fine level keeps its diagonal and reciprocal diagonal in shared memory
+//   as the coarse levels do.
 //
 // One thread block per member. The kernel is a template on the grid
-// (grids.cuh) and the smoother: every level's size, loop bound and
-// neighbour offset is a compile-time constant. Each thread owns whole 2x2
+// (grids.cuh; any other grid with a hierarchy is built into a library of
+// its own on first use, ops/_build.py), the smoother and the fine
+// diagonal: every level's size, loop bound and neighbour offset is a
+// compile-time constant. Any even grid works: a level's tiles are 2x2
+// cells, and every smoothed level has even sides (it is coarsened again);
+// the coarsest may have odd ones (10x10 -> 5x5), as it is solved densely.
+// Where the fine level has <= 64 cells (8x8) the block is one warp, and
+// the fine level runs on it as on a block. Each thread owns whole 2x2
 // tiles of cells (64x64: 256 threads, 4 fine tiles each), so restriction
 // is local to a thread and a tile's 12 edge neighbours come in as 2-float
 // loads. Four tiles a thread give each warp independent loads to overlap;
@@ -100,9 +109,10 @@ __host__ __device__ constexpr int r4(int v) { return (v + 3) / 4 * 4; }
 // Compile-time geometry and shared-memory layout (floats) of one grid, and
 // the smoother; the layout matches ops/pressure.py `smem_bytes` for both
 // smoothers.
-template <int NX, int NY, bool CHEB = false>
+template <int NX, int NY, bool CHEB = false, bool UNIT = true>
 struct Geo {
   static constexpr bool kCheb = CHEB;
+  static constexpr bool kUnit = UNIT;  // the fine diagonal is 1 and not stored
   // The first sweep's step: omega, or 1 / theta.
   static constexpr float kFirst = CHEB ? kChebFirst : kOmega;
   static constexpr int L = count_levels(NX, NY);
@@ -115,7 +125,8 @@ struct Geo {
     while (l < LC && cells(l) > 64) ++l;
     return l;
   }
-  static constexpr int LW = first_warp_level();  // levels LW.. run on warp 0
+  // Levels LW.. run on warp 0; the fine level always runs on the block.
+  static constexpr int LW = first_warp_level() > 1 ? first_warp_level() : 1;
   static constexpr int TILES0 = cells(0) / 4;
   static constexpr int THREADS = TILES0 > 256 ? 256 : (TILES0 + 31) / 32 * 32;
   static constexpr int WARPS = THREADS / 32;
@@ -123,7 +134,7 @@ struct Geo {
   __host__ __device__ static constexpr int vec(int l) { return r4(cells(l)); }
   __host__ __device__ static constexpr int faces(int l) { return r4((n(l) - 1) * m(l)); }
   __host__ __device__ static constexpr int level_size(int l) {
-    return l == 0 ? faces(0) + 4 * vec(0)                   // TX, TY, P, R, T
+    return l == 0 ? faces(0) + (UNIT ? 4 : 6) * vec(0)      // TX, TY, P, R, T[, D, 1/D]
            : l < LC ? faces(l) + 5 * vec(l)                 // TX, TY, D, 1/D, B, X
                     : 2 * vec(l) + r4(cells(l) * cells(l));  // B, X, inverse^T
   }
@@ -140,7 +151,10 @@ struct Geo {
   static constexpr int RED = base(L);
   static constexpr int FLOATS = RED + 4 * WARPS;
   static constexpr int BYTES = 4 * FLOATS;
-  static_assert(NX % 4 == 0 && NY % 4 == 0 && L >= 2 && LW >= 1 && L <= kMaxLevels,
+  // Two blocks an SM where two layouts fit the SM's 228 KB (1 KB of each
+  // block reserved), else one.
+  static constexpr int MIN_BLOCKS = 2 * (BYTES + 1024) <= 228 * 1024 ? 2 : 1;
+  static_assert(NX % 2 == 0 && NY % 2 == 0 && L >= 2 && L <= kMaxLevels,
                 "a tiled fine level and a coarse level");
   static_assert(t_offset(LC) <= vec(0), "coarse temporaries fit in the fine T vector");
 };
@@ -151,7 +165,10 @@ struct Lvl {
   static constexpr int n = G::n(l), m = G::m(l);
   __device__ static float* TX(float* sh) { return sh + G::base(l); }
   __device__ static float* TY(float* sh) { return TX(sh) + G::faces(l); }
-  __device__ static float* D(float* sh) { return TY(sh) + G::vec(l); }
+  __device__ static float* D(float* sh) {  // after T on the fine level
+    if constexpr (l == 0) return TY(sh) + 4 * G::vec(0);
+    else return TY(sh) + G::vec(l);
+  }
   __device__ static float* RD(float* sh) { return D(sh) + G::vec(l); }
   __device__ static float* B(float* sh) {
     if constexpr (l == 0) return TY(sh) + 2 * G::vec(0);  // R
@@ -253,7 +270,7 @@ __device__ __forceinline__ void tiles(int w, F f) {
 // Own-cell reciprocal diagonal of level l (1 on the unit fine level).
 template <class G, int l, int m>
 __device__ __forceinline__ void own_rd(float* sh, int I, int J, float rd[4]) {
-  if constexpr (l == 0) {
+  if constexpr (l == 0 && G::kUnit) {
     rd[0] = rd[1] = rd[2] = rd[3] = 1.0f;
   } else {
     own<m>(Lvl<G, l>::RD(sh), I, J, rd);
@@ -270,7 +287,7 @@ __device__ __forceinline__ void smooth_down(float* sh, int w) {
   tiles<n, m, NW>(w, [&](int, int I, int J) {
     const Tile b = gather<n, m>(V::B(sh), I, J);
     Tile t;
-    if constexpr (l == 0) {
+    if constexpr (l == 0 && G::kUnit) {
 #pragma unroll
       for (int c = 0; c < NTILE; ++c) t.v[c] = G::kFirst * b.v[c];
     } else {
@@ -279,7 +296,7 @@ __device__ __forceinline__ void smooth_down(float* sh, int w) {
       for (int c = 0; c < NTILE; ++c) t.v[c] = G::kFirst * b.v[c] * rd.v[c];
     }
     float At[4], rd[4], x[4];
-    stencil<n, m, l == 0>(V::TX(sh), V::TY(sh), V::D(sh), I, J, t, At);
+    stencil<n, m, l == 0 && G::kUnit>(V::TX(sh), V::TY(sh), V::D(sh), I, J, t, At);
     own_rd<G, l, m>(sh, I, J, rd);
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
@@ -302,7 +319,7 @@ __device__ __forceinline__ void restrict_residual(float* sh, int w) {
   tiles<n, m, NW>(w, [&](int, int I, int J) {
     const Tile x = gather<n, m>(V::X(sh), I, J);
     float Ax[4], b[4];
-    stencil<n, m, l == 0>(V::TX(sh), V::TY(sh), V::D(sh), I, J, x, Ax);
+    stencil<n, m, l == 0 && G::kUnit>(V::TX(sh), V::TY(sh), V::D(sh), I, J, x, Ax);
     own<m>(V::B(sh), I, J, b);
     Bc[I * (m / 2) + J] = ((b[0] - Ax[0]) + (b[1] - Ax[1])) + ((b[2] - Ax[2]) + (b[3] - Ax[3]));
   });
@@ -358,7 +375,7 @@ __device__ __forceinline__ void smooth_up_first(float* sh, int w) {
       x.v[R1] = x.v[R1] + kOmegaC * er;
     }
     float Ax[4], b[4], rd[4], t[4];
-    stencil<n, m, l == 0>(V::TX(sh), V::TY(sh), V::D(sh), I, J, x, Ax);
+    stencil<n, m, l == 0 && G::kUnit>(V::TX(sh), V::TY(sh), V::D(sh), I, J, x, Ax);
     own<m>(V::B(sh), I, J, b);
     own_rd<G, l, m>(sh, I, J, rd);
 #pragma unroll
@@ -380,7 +397,7 @@ __device__ __forceinline__ void smooth_up_second(float* sh, int w, Out out) {
   tiles<n, m, NW>(w, [&](int k, int I, int J) {
     const Tile t = gather<n, m>(V::T(sh), I, J);
     float At[4], b[4], rd[4], x[4];
-    stencil<n, m, l == 0>(V::TX(sh), V::TY(sh), V::D(sh), I, J, t, At);
+    stencil<n, m, l == 0 && G::kUnit>(V::TX(sh), V::TY(sh), V::D(sh), I, J, t, At);
     own<m>(V::B(sh), I, J, b);
     own_rd<G, l, m>(sh, I, J, rd);
     if constexpr (G::kCheb) {
@@ -516,7 +533,7 @@ __device__ __forceinline__ void load_level(float* sh, const HierPtrs& h, int b) 
       const int i = k / m, j = k - i * m;
       V::TY(sh)[k] = j < m - 1 ? ty[i * (m - 1) + j] : 0.0f;
     }
-    if constexpr (l > 0) {
+    if constexpr (l > 0 || !G::kUnit) {
       const float* d = h.d[l] + (size_t)b * n * m;
       for (int k = threadIdx.x; k < n * m; k += T) {
         const float v = d[k];
@@ -536,13 +553,14 @@ __device__ __forceinline__ void load_level(float* sh, const HierPtrs& h, int b) 
   }
 }
 
-template <int NX, int NY, bool CHEB>
-__global__ void __launch_bounds__(Geo<NX, NY>::THREADS, 2)
+template <int NX, int NY, bool CHEB, bool UNIT>
+__global__ void __launch_bounds__(Geo<NX, NY, CHEB, UNIT>::THREADS,
+                                  Geo<NX, NY, CHEB, UNIT>::MIN_BLOCKS)
 pressure_pcg_kernel(HierPtrs h, const float* __restrict__ q_g, const float* __restrict__ p0_g,
                     const float* __restrict__ w_g, float* __restrict__ p_out,
                     int* __restrict__ it_out, float* __restrict__ rel_out, float tol, int maxiter,
                     int restart_every, int patience) {
-  using G = Geo<NX, NY, CHEB>;
+  using G = Geo<NX, NY, CHEB, UNIT>;
   using F = Lvl<G, 0>;
   constexpr int T = G::THREADS, TPT = G::TPT;
   extern __shared__ float4 sh4[];
@@ -556,6 +574,7 @@ pressure_pcg_kernel(HierPtrs h, const float* __restrict__ q_g, const float* __re
   float* Tv = F::T(sh);
   const float* TX = F::TX(sh);
   const float* TY = F::TY(sh);
+  const float* Df = UNIT ? nullptr : F::D(sh);
   Reducer<G::WARPS> red{reinterpret_cast<float2*>(sh + G::RED), 0};
   auto fine = [&](auto f) { tiles<NX, NY, T>(tid, f); };
 
@@ -575,7 +594,7 @@ pressure_pcg_kernel(HierPtrs h, const float* __restrict__ q_g, const float* __re
     fine([&](int k, int I, int J) {
       const Tile xt = gather<NX, NY>(Tv, I, J);
       float Ax[4], qv[4], r[4];
-      stencil<NX, NY, true>(TX, TY, nullptr, I, J, xt, Ax);
+      stencil<NX, NY, UNIT>(TX, TY, Df, I, J, xt, Ax);
       own<NY>(q, I, J, qv);
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
@@ -632,7 +651,7 @@ pressure_pcg_kernel(HierPtrs h, const float* __restrict__ q_g, const float* __re
       float ppap = 0.0f;
       fine([&](int k, int I, int J) {
         const Tile pt = gather<NX, NY>(P, I, J);
-        stencil<NX, NY, true>(TX, TY, nullptr, I, J, pt, Ap[k]);
+        stencil<NX, NY, UNIT>(TX, TY, Df, I, J, pt, Ap[k]);
 #pragma unroll
         for (int c = 0; c < 4; ++c) ppap += p[k][c] * Ap[k][c];
       });
@@ -696,12 +715,12 @@ pressure_pcg_kernel(HierPtrs h, const float* __restrict__ q_g, const float* __re
   }
 }
 
-template <int NX, int NY, bool CHEB>
+template <int NX, int NY, bool CHEB, bool UNIT>
 int launch(const float* const* lv, int n_levels, const float* ainv, const float* q,
            const float* p0, const float* w, float* p_out, int* it_out, float* rel_out, int B,
            float tol, int maxiter, int restart_every, int patience, cudaStream_t stream) {
-  using G = Geo<NX, NY, CHEB>;
-  if (n_levels != G::L) return (int)cudaErrorInvalidValue;
+  using G = Geo<NX, NY, CHEB, UNIT>;
+  if (n_levels != G::L || (!UNIT && lv[2] == nullptr)) return (int)cudaErrorInvalidValue;
   HierPtrs h{};
   for (int l = 0; l < G::L; ++l) {
     h.tx[l] = lv[3 * l];
@@ -709,7 +728,7 @@ int launch(const float* const* lv, int n_levels, const float* ainv, const float*
     h.d[l] = lv[3 * l + 2];
   }
   h.ainv = ainv;
-  auto kern = pressure_pcg_kernel<NX, NY, CHEB>;
+  auto kern = pressure_pcg_kernel<NX, NY, CHEB, UNIT>;
   cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G::BYTES);
   if (e != cudaSuccess) return (int)e;
@@ -718,10 +737,10 @@ int launch(const float* const* lv, int n_levels, const float* ainv, const float*
   return (int)cudaGetLastError();
 }
 
-template <int NX, int NY, bool CHEB>
+template <int NX, int NY, bool CHEB, bool UNIT>
 int info(int* out) {
-  using G = Geo<NX, NY, CHEB>;
-  auto kern = pressure_pcg_kernel<NX, NY, CHEB>;
+  using G = Geo<NX, NY, CHEB, UNIT>;
+  auto kern = pressure_pcg_kernel<NX, NY, CHEB, UNIT>;
   cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G::BYTES);
   cudaFuncAttributes a{};
@@ -739,32 +758,42 @@ int info(int* out) {
 
 }  // namespace
 
+// The variants of one grid: smoother (cheb 0 or 1) by fine diagonal (unit
+// 1: the scaled system's, not read; 0: read from lv[2]).
+#define HM_VARIANTS(a, b, call)                                                   \
+  if (Nx == a && Ny == b) {                                                       \
+    if (cheb) return unit ? call(a, b, true, true) : call(a, b, true, false);    \
+    return unit ? call(a, b, false, true) : call(a, b, false, false);            \
+  }
+
 // lv: 3 * n_levels pointers, per level TX, TY, diag, each (B, ...) float32.
-// The level-0 diag is never read (the fine diagonal is 1) and may be null.
-// cheb: 0 for the damped-Jacobi smoother, 1 for the Chebyshev one.
+// The level-0 diag is read only where unit is 0 and may be null otherwise.
+// cheb: 0 for the damped-Jacobi smoother, 1 for the Chebyshev one. A grid
+// this library was not built for is refused.
 extern "C" int hm_pressure_solve(const float* const* lv, const float* ainv, const float* q,
                                  const float* p0, const float* w, float* p_out, int* it_out,
                                  float* rel_out, int B, int Nx, int Ny, int n_levels, float tol,
                                  int maxiter, int restart_every, int patience, int cheb,
-                                 void* stream) {
-#define HM_ARGS                                                                             \
-  (lv, n_levels, ainv, q, p0, w, p_out, it_out, rel_out, B, tol, maxiter, restart_every,    \
-   patience, (cudaStream_t)stream)
-#define HM_CASE(a, b) \
-  if (Nx == a && Ny == b) return cheb ? launch<a, b, true> HM_ARGS : launch<a, b, false> HM_ARGS;
+                                 int unit, void* stream) {
+#define HM_LAUNCH(a, b, c, u)                                                               \
+  launch<a, b, c, u>(lv, n_levels, ainv, q, p0, w, p_out, it_out, rel_out, B, tol, maxiter, \
+                     restart_every, patience, (cudaStream_t)stream)
+#define HM_CASE(a, b) HM_VARIANTS(a, b, HM_LAUNCH)
   HM_FOR_GRIDS(HM_CASE)
 #undef HM_CASE
-#undef HM_ARGS
+#undef HM_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 
 // out: registers a thread, local (stack and spill) bytes a thread, dynamic
 // shared bytes, threads a block, resident blocks an SM, of the instantiation
-// for the grid and the smoother (cheb 0 or 1).
-extern "C" int hm_pressure_info(int Nx, int Ny, int cheb, int* out) {
-#define HM_CASE(a, b) \
-  if (Nx == a && Ny == b) return cheb ? info<a, b, true>(out) : info<a, b, false>(out);
+// for the grid, the smoother (cheb 0 or 1) and the fine diagonal (unit 0 or
+// 1).
+extern "C" int hm_pressure_info(int Nx, int Ny, int cheb, int unit, int* out) {
+#define HM_INFO(a, b, c, u) info<a, b, c, u>(out)
+#define HM_CASE(a, b) HM_VARIANTS(a, b, HM_INFO)
   HM_FOR_GRIDS(HM_CASE)
 #undef HM_CASE
+#undef HM_INFO
   return (int)cudaErrorInvalidValue;
 }

@@ -74,6 +74,13 @@ class Grid2D:
         ind = _t(ind)
         return ind // self.Ny, ind % self.Ny
 
+    def sub2xy(self, ix, iy):
+        """Subscripts -> cell-centre (x, y) in float64, stacked on the last
+        axis."""
+        x = (_t(ix).to(torch.float64) + 0.5) * self.hx
+        y = (_t(iy).to(torch.float64) + 0.5) * self.hy
+        return torch.stack(torch.broadcast_tensors(x, y), dim=-1)
+
     def ind2xy(self, ind):
         """Flat index -> cell-centre (x, y) in float64, stacked on the first
         axis."""

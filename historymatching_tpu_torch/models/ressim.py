@@ -10,10 +10,12 @@ Members are a leading axis: a model whose `K` is (N, 2, Nx, Ny) simulates N
 members at once, sharing grid and fluid. Wells and rates share that axis
 or carry their own (N, nWell, ...), so each member may place and drive its
 wells differently, as an EnOpt batch does. The time loop is a Python
-loop. The `scale_system=True` path of the JAX package is ported, with the
-multigrid preconditioner (Jacobi or Chebyshev smoothing, kernel P on the
-card) or the plain Jacobi one (`precond="jacobi"`, torch ops). Of its
-solver strategy keys `simulate` takes the straggler recook's (`two_pass`,
+loop. The pressure system is solved Jacobi-scaled (`scale_system=True`,
+the default) or as it is, with the multigrid preconditioner (Jacobi or
+Chebyshev smoothing, kernel P on the card) or the plain Jacobi one
+(`precond="jacobi"`, torch ops); a grid without a multigrid hierarchy
+takes the plain Jacobi one whatever `precond` says, as in the JAX package.
+Of its solver strategy keys `simulate` takes the straggler recook's (`two_pass`,
 `twopass_j1`, `twopass_div`, `refine`), with the reference's rule for
 where it engages (`ops.pressure.recook_plan`), and the pressure warm
 starts `p_init` and `keep_pressures`.
@@ -31,15 +33,18 @@ from historymatching_tpu_torch.grid import Grid2D
 from historymatching_tpu_torch.ops.cg import pcg
 from historymatching_tpu_torch.ops.multigrid import (
     SMOOTHERS,
+    build_hierarchy,
     build_hierarchy_5pt,
     coarse_inverse,
     n_levels,
+    vcycle_apply,
 )
 from historymatching_tpu_torch.ops.pressure import pressure_solve_recook
 from historymatching_tpu_torch.ops.stencil import (
     face_fluxes,
     stencil_diag_nopin,
     stencil_matvec,
+    stencil_residual_ds,
     transmissibilities,
 )
 from historymatching_tpu_torch.ops.transport import transport_substeps
@@ -149,11 +154,19 @@ class ResSim:
     def sub2ind(self, ix, iy):
         return self.grid.sub2ind(ix, iy)
 
+    def ind2xy(self, ind):
+        return self.grid.ind2xy(ind)
+
     def xy2ind(self, x, y):
         return self.grid.xy2ind(x, y)
 
-    def sim(self, dt, nTime, wsat0, **kw):
-        """Saturations (nTime+1, Nxy), including the initial state."""
+    def sub2xy(self, ix, iy):
+        return self.grid.sub2xy(ix, iy)
+
+    def sim(self, dt, nTime, wsat0, pbar=None, **kw):
+        """Saturations (nTime+1, Nxy), including the initial state. `pbar` is
+        taken for the reference's signature and ignored."""
+        del pbar
         return simulate(self, wsat0, dt, nTime, **kw).wsats
 
     def validate(self):
@@ -253,33 +266,42 @@ def _check_solver(precond, smoother):
         raise ValueError(f"smoother must be one of {SMOOTHERS}, got {smoother!r}")
 
 
-def scaled_system(model: ResSim, s, precond="mg"):
-    """The Jacobi-scaled TPFA system of saturations `s` (..., Nx, Ny): the
-    pinned operator's faces TX, TY and diagonal, sd = rsqrt(diag), and the
-    scaled operator's multigrid hierarchy with its coarse inverse. The pin
-    is the mean of the unpinned diagonal, at cell (0, 0). With
-    `precond="jacobi"` the hierarchy is the fine level alone and the
-    coarse inverse None.
+def _uses_mg(g: Grid2D, precond):
+    """Whether the solve takes the multigrid V-cycle: asked for, and the
+    grid has a hierarchy; otherwise the plain Jacobi preconditioner."""
+    return precond == "mg" and n_levels(g.Nx, g.Ny) >= 2
 
-    Contract: the scaled operator's diagonal is 1, so the hierarchy's fine
-    diagonal is a broadcast view of ones. Kernel P (`ops/pressure.py`)
-    relies on this and does not read that diagonal. A grid without a
-    multigrid hierarchy is refused with either preconditioner: kernel K is
-    instantiated only for grids that have one."""
+
+def _tpfa(model: ResSim, s):
+    """The pinned TPFA operator of saturations `s`: faces TX, TY, diagonal,
+    and the pin (the mean of the unpinned diagonal, added at cell (0, 0))."""
     g = model.grid
-    if n_levels(g.Nx, g.Ny) < 2:
-        raise NotImplementedError(f"grid {g.Nx}x{g.Ny} has no multigrid hierarchy")
     Mw, Mo = relperm(s, model.fluid)
     mob = Mw + Mo
     TX, TY = transmissibilities(model.K[..., 0, :, :] * mob, model.K[..., 1, :, :] * mob,
                                 g.hx, g.hy)
     diag = stencil_diag_nopin(TX, TY)
-    diag[..., 0, 0] += diag.mean(dim=(-2, -1))
+    pin = diag.mean(dim=(-2, -1))
+    diag[..., 0, 0] += pin
+    return TX, TY, diag, pin
+
+
+def scaled_system(model: ResSim, s, precond="mg"):
+    """The Jacobi-scaled TPFA system of saturations `s` (..., Nx, Ny): the
+    pinned operator's faces TX, TY and diagonal, sd = rsqrt(diag), and the
+    scaled operator's multigrid hierarchy with its coarse inverse. Without
+    the V-cycle (`precond="jacobi"`, or a grid with no hierarchy) the
+    hierarchy is the fine level alone and the coarse inverse None.
+
+    Contract: the scaled operator's diagonal is 1, so the hierarchy's fine
+    diagonal is a broadcast view of ones. Kernel P (`ops/pressure.py`)
+    relies on this and does not read that diagonal."""
+    TX, TY, diag, _ = _tpfa(model, s)
     sd = torch.rsqrt(diag)
     TXs = TX * sd[..., :-1, :] * sd[..., 1:, :]
     TYs = TY * sd[..., :, :-1] * sd[..., :, 1:]
     ones = diag.new_ones(()).expand_as(diag)
-    if precond == "jacobi":
+    if not _uses_mg(model.grid, precond):
         return TX, TY, diag, sd, [(TXs, TYs, ones)], None
     hier = build_hierarchy_5pt(TXs, TYs, ones)
     return TX, TY, diag, sd, hier, coarse_inverse(hier)
@@ -287,37 +309,69 @@ def scaled_system(model: ResSim, s, precond="mg"):
 
 def pressure_step(model: ResSim, s, q, p0, tol, maxiter, tol_accept=None,
                   patience_iters=96, two_pass=True, twopass_j1=64, twopass_div=4,
-                  refine=True, precond="mg", smoother="jacobi"):
-    """Scaled TPFA pressure solve for saturations `s` (..., Nx, Ny).
+                  refine=True, precond="mg", smoother="jacobi", scale_system=True):
+    """TPFA pressure solve for saturations `s` (..., Nx, Ny).
     Returns (p, Fx, Fy, iters, accepted, recooked).
 
-    Solves D^-1/2 A D^-1/2 y = D^-1/2 q, p = D^-1/2 y, stopping on the
-    physical residual norm (metric weight sqrt(diag)); the fluxes use the
-    unscaled operator. With `precond="mg"` the solve is the reference's
-    straggler recook (`ops.pressure.pressure_solve_recook`, kernel P on the
-    card) where its rule engages, else one pass, with the V-cycle smoother
-    `smoother` ("jacobi" or "cheb"); `recooked` marks the members it solved
-    again. With `precond="jacobi"`, the plain `pcg` preconditioned by the
-    scaled diagonal (which is 1) restarting every 64 iterations, in torch
-    ops on either device, as the JAX package computes it in XLA on every
-    backend; it never recooks."""
+    With `scale_system` (the default) it solves D^-1/2 A D^-1/2 y =
+    D^-1/2 q, p = D^-1/2 y, stopping on the physical residual norm (metric
+    weight sqrt(diag)); otherwise A p = q as it is, stopping on the plain
+    residual norm. The fluxes use the unscaled operator.
+
+    With the V-cycle (`precond="mg"` on a grid with a hierarchy) the solve
+    is the reference's straggler recook (`ops.pressure.pressure_solve_recook`,
+    kernel P on the card) where its rule engages, else one pass, with the
+    V-cycle smoother `smoother` ("jacobi" or "cheb"); `recooked` marks the
+    members it solved again. The unscaled system on the CPU takes the JAX
+    package's XLA path instead: the plain `pcg` with the V-cycle,
+    restarting every 8 iterations, its true residuals compensated
+    (`stencil_residual_ds`); on the card kernel P solves it with its
+    explicit fine diagonal, as the TPU kernel does. Without the V-cycle
+    (`precond="jacobi"`, or a grid with no hierarchy) it is the plain `pcg`
+    preconditioned by the diagonal, restarting every 64 iterations (the
+    unscaled one with compensated residuals), in torch ops on either
+    device, as the JAX package computes it in XLA on every backend; it
+    never recooks."""
     _check_solver(precond, smoother)
-    TX, TY, diag, sd, hier, Ainv = scaled_system(model, s, precond)
-    mweight = diag * sd
+    mg = _uses_mg(model.grid, precond)
+    if scale_system:
+        TX, TY, diag, sd, hier, Ainv = scaled_system(model, s, precond)
+        mweight = diag * sd
+        q_s, p0_s = q * sd, p0 * mweight
+    else:
+        TX, TY, diag, pin = _tpfa(model, s)
+        hier = build_hierarchy(TX, TY, pin) if mg else [(TX, TY, diag)]
+        Ainv = coarse_inverse(hier) if mg else None
+        mweight, q_s, p0_s = None, q, p0
     lead = diag.shape[:-2]
     flat = lambda t: t.expand(*lead, *t.shape[-2:]).reshape(-1, *t.shape[-2:])  # noqa: E731
     hier_b = [tuple(flat(t) for t in lvl) for lvl in hier]
-    if precond == "jacobi":
-        TXs, TYs, ones = hier_b[0]
-        y, iters, rel = pcg(lambda x: stencil_matvec(TXs, TYs, ones, x), flat(q * sd),
-                            x0=flat(p0 * mweight), tol=tol, maxiter=maxiter, restart_every=64,
-                            patience_iters=patience_iters, metric_weight=flat(mweight))
-        recooked = torch.zeros_like(rel, dtype=torch.bool)
-    else:
+    q_s, p0_s = flat(q_s), flat(p0_s)
+    w = None if mweight is None else flat(mweight)
+    TXb, TYb, Db = hier_b[0]
+    matvec = lambda x: stencil_matvec(TXb, TYb, Db, x)  # noqa: E731
+    residual_fn = None if scale_system else (
+        lambda x: stencil_residual_ds(TXb, TYb, Db, x, q_s))
+    recooked = None
+    if not mg:
+        inv_d = 1.0 / Db  # ones on the scaled system
+        y, iters, rel = pcg(matvec, q_s, x0=p0_s, Minv=lambda r: inv_d * r, tol=tol,
+                            maxiter=maxiter, restart_every=64, patience_iters=patience_iters,
+                            metric_weight=w, residual_fn=residual_fn)
+    elif scale_system or q_s.is_cuda:
         y, iters, rel, recooked = pressure_solve_recook(
-            hier_b, flat(Ainv), flat(q * sd), flat(p0 * mweight), flat(mweight), tol, maxiter,
-            patience_iters, two_pass, twopass_j1, twopass_div, refine, smoother=smoother)
-    p = y.reshape(diag.shape) * sd
+            hier_b, flat(Ainv), q_s, p0_s, torch.ones_like(q_s) if w is None else w, tol,
+            maxiter, patience_iters, two_pass, twopass_j1, twopass_div, refine,
+            smoother=smoother, unit_diag=scale_system)
+    else:
+        Ainv_b = flat(Ainv)
+        y, iters, rel = pcg(matvec, q_s, x0=p0_s,
+                            Minv=lambda r: vcycle_apply(hier_b, Ainv_b, r, smoother=smoother),
+                            tol=tol, maxiter=maxiter, restart_every=8,
+                            patience_iters=patience_iters, residual_fn=residual_fn)
+    if recooked is None:
+        recooked = torch.zeros_like(rel, dtype=torch.bool)
+    p = y.reshape(diag.shape) * sd if scale_system else y.reshape(diag.shape)
     Fx, Fy = face_fluxes(TX, TY, p)
     accepted = rel.reshape(lead) <= (tol if tol_accept is None else tol_accept)
     return p, Fx, Fy, iters.reshape(lead), accepted, recooked.reshape(lead)
@@ -355,7 +409,7 @@ def transport_step(model: ResSim, s, Fx, Fy, q, dt, max_substeps=4096):
 def simulate(model: ResSim, wsat0, dt, nTime, *, tol=None, tol_accept=None, maxiter=None,
              max_substeps=4096, patience_iters=96, two_pass=True, twopass_j1=64,
              twopass_div=4, refine=True, keep_wsats=True, precond="mg", smoother="jacobi",
-             p_init=None, keep_pressures=False):
+             p_init=None, keep_pressures=False, scale_system=True):
     """Run `nTime` steps of size `dt` from saturation `wsat0` (..., Nxy).
     The members are the broadcast of the leading axes of `wsat0`, `K`, the
     wells and the rates.
@@ -369,8 +423,10 @@ def simulate(model: ResSim, wsat0, dt, nTime, *, tol=None, tol_accept=None, maxi
     always holds the producer-cell series.
 
     `precond`: "mg" (the multigrid V-cycle, kernel P on the card) or
-    "jacobi" (the scaled diagonal, torch ops; `pressure_step`); a grid
-    without a multigrid hierarchy is refused either way. `smoother`: the
+    "jacobi" (the diagonal, torch ops; `pressure_step`); a grid without a
+    multigrid hierarchy takes "jacobi" either way. `scale_system`: solve
+    the Jacobi-scaled system (default) or the unscaled one
+    (`pressure_step`). `smoother`: the
     V-cycle's, "jacobi" (damped, omega 0.7) or "cheb" (degree-2
     Chebyshev); any other value of either raises.
 
@@ -419,7 +475,8 @@ def simulate(model: ResSim, wsat0, dt, nTime, *, tol=None, tol_accept=None, maxi
         p0 = p if p_init is None else p_init[..., t, :, :].expand(*lead, *g.shape)
         p, Fx, Fy, it, ok, rec = pressure_step(model, s, q, p0, tol, maxiter, tol_accept,
                                                patience_iters, two_pass, twopass_j1,
-                                               twopass_div, refine, precond, smoother)
+                                               twopass_div, refine, precond, smoother,
+                                               scale_system)
         s, n_sub = transport_step(model, s, Fx, Fy, q, dt, max_substeps)
         flat_s = s.reshape(*lead, -1)
         sobs.append(torch.gather(flat_s, -1, prd_idx))

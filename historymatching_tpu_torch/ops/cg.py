@@ -5,8 +5,9 @@ The semantics are those of `jax.vmap(pcg)`, not of the lockstep
 `pcg_batched`: each member's outer loop stops on its own condition, a
 finished member's whole state is frozen, and the inner `restart_every`
 window is masked only by that member's `rr > tol2`. Kept from `pcg`:
-residual replacement at each window, the 100x divergence guard with a
-steepest-descent window after it, stagnation patience, the optional
+residual replacement at each window (optionally by a caller's residual,
+such as the compensated `stencil_residual_ds`), the 100x divergence guard
+with a steepest-descent window after it, stagnation patience, the optional
 metric weight, and the return of the best iterate.
 
 This is the plain twin of the pressure kernel (`ops/pressure.py`).
@@ -27,12 +28,13 @@ def _f(m):
 
 
 def pcg(matvec, b, x0=None, Minv=None, tol=1e-8, maxiter=1000, restart_every=64,
-        patience_iters=96, metric_weight=None):
+        patience_iters=96, metric_weight=None, residual_fn=None):
     """Solve A x = b for every member of the batch `b` (..., Nx, Ny).
 
-    `matvec` and `Minv` act on the whole batch. Returns (x, iters, rel_res)
-    with per-member `iters` (int32) and the best iterate's weighted
-    relative residual ||w (b - A x)|| / ||w b||.
+    `matvec` and `Minv` act on the whole batch; `residual_fn(x)`, if given,
+    replaces b - matvec(x) wherever the true residual is taken. Returns (x,
+    iters, rel_res) with per-member `iters` (int32) and the best iterate's
+    weighted relative residual ||w (b - A x)|| / ||w b||.
     """
     dtype = b.dtype
     tiny = torch.finfo(dtype).tiny
@@ -46,8 +48,7 @@ def pcg(matvec, b, x0=None, Minv=None, tol=1e-8, maxiter=1000, restart_every=64,
     bb = wdot(b, b)
     tol2 = (tol * tol) * torch.clamp_min(bb, tiny)
 
-    def resid(x):
-        return b - matvec(x)
+    resid = (lambda x: b - matvec(x)) if residual_fn is None else residual_fn  # noqa: E731
 
     def cg_steps(x, r, p, rz, beta_mask):
         rr = wdot(r, r)

@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from historymatching_tpu_torch.ops.linalg import spd_inverse
-from historymatching_tpu_torch.ops.stencil import stencil_matvec
+from historymatching_tpu_torch.ops.stencil import stencil_diag, stencil_matvec
 
 
 def n_levels(Nx, Ny, min_dim=4):
@@ -59,6 +59,13 @@ def build_hierarchy_5pt(TX, TY, diag, levels=None):
         TX, TY = _coarsen_faces(TX, TY)
         out.append((TX, TY, diag))
     return out
+
+
+def build_hierarchy(TX, TY, pin, levels=None):
+    """The hierarchy of the unscaled TPFA operator: its diagonal is the face
+    sums plus `pin` (per member) at cell (0, 0), which Galerkin coarsening
+    carries to every coarse (0, 0)."""
+    return build_hierarchy_5pt(TX, TY, stencil_diag(TX, TY, pin=pin), levels)
 
 
 def _restrict(r):

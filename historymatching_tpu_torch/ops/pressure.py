@@ -4,16 +4,22 @@ Replaces the TPU kernels of `historymatching_tpu/ops/pressure_pallas.py`
 (`pressure_solve_pallas`, `_batched`, `_packed`): on the card one thread
 block per member runs `ops.cg.pcg`'s algorithm with the V-cycle of
 `ops.multigrid.vcycle_apply` inside (`csrc/pressure_pcg.cu`, a template on
-the grid). The kernel solves the Jacobi-scaled system, whose fine diagonal
-is 1 (`models.ressim.scaled_system` states the contract); it takes that as
-given and does not read it. The semantics are those of
+the grid and built for any grid with a hierarchy, `_build.pressure_lib`).
+On the Jacobi-scaled system, whose fine diagonal is 1
+(`models.ressim.scaled_system` states the contract), the kernel takes that
+as given and does not read it; with `unit_diag=False` (the unscaled
+system) an instantiation that reads it runs. The semantics are those of
 the per-member `pcg` (each member stops on its own), not of the TPU's
 lockstep `pcg_batched`. Beside it, `pressure_solve_torch` is the plain
 PyTorch version, built from the same two modules.
 
 The V-cycle's smoother is a compile-time choice of the kernel: damped
 Jacobi (launches counted as "pressure_pcg") or degree-2 Chebyshev
-("pressure_pcg_cheb"), both instantiated for every grid.
+("pressure_pcg_cheb"), both instantiated for every grid; the instantiations
+that read the fine diagonal count as "pressure_pcg_diag" and
+"pressure_pcg_cheb_diag". A grid without a hierarchy, or whose layout
+exceeds one block's shared memory, is refused before any launch
+(`check_grid`).
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor takes the
 kernel, which raises on what it does not take.
@@ -32,10 +38,11 @@ from historymatching_tpu_torch.ops.stencil import stencil_matvec, stencil_residu
 
 
 def pressure_solve_torch(hier, Ainv, q, p0, w, tol, maxiter, patience_iters=96,
-                         restart_every=8, smoother="jacobi"):
+                         restart_every=8, smoother="jacobi", unit_diag=True):
     """Plain version. `hier` is the per-level list of (TX, TY, diag), each
     (B, ...); `Ainv` (B, n, n) the coarse inverse; q, p0, w (B, Nx, Ny);
-    `smoother` the V-cycle's ("jacobi" or "cheb").
+    `smoother` the V-cycle's ("jacobi" or "cheb"). It reads the fine
+    diagonal whatever `unit_diag` says.
     Returns (p, iters int32 (B,), rel (B,))."""
     TX, TY, diag = hier[0]
     return pcg(lambda x: stencil_matvec(TX, TY, diag, x), q, x0=p0,
@@ -55,10 +62,11 @@ def _kernel_threads(Nx, Ny):
     return 256 if tiles > 256 else -(-tiles // 32) * 32
 
 
-def smem_bytes(Nx, Ny, levels):
+def smem_bytes(Nx, Ny, levels, unit_diag=True):
     """Shared memory the kernel takes for one member (the layout of `Geo` in
     csrc/pressure_pcg.cu): the fine faces, TY padded to Ny wide, and the
-    vectors p, r and the smoothing temporary; per intermediate level its
+    vectors p, r and the smoothing temporary, and without `unit_diag` the
+    fine diagonal and its reciprocal; per intermediate level its
     faces, diagonal, reciprocal diagonal, right-hand side and iterate; the
     coarsest right-hand side, iterate and inverse; two reduction slots a
     warp. Every array is rounded up to 4 floats."""
@@ -66,23 +74,44 @@ def smem_bytes(Nx, Ny, levels):
     faces = [_r4(((Nx >> lvl) - 1) * (Ny >> lvl)) for lvl in range(levels)]
     vec = [_r4(c) for c in cells]
     lc = levels - 1
-    floats = (faces[0] + 4 * vec[0] + sum(faces[lvl] + 5 * vec[lvl] for lvl in range(1, lc))
-              + 2 * vec[lc] + _r4(cells[lc] ** 2) + 4 * (_kernel_threads(Nx, Ny) // 32))
+    floats = (faces[0] + (4 if unit_diag else 6) * vec[0]
+              + sum(faces[lvl] + 5 * vec[lvl] for lvl in range(1, lc)) + 2 * vec[lc]
+              + _r4(cells[lc] ** 2) + 4 * (_kernel_threads(Nx, Ny) // 32))
     return 4 * floats
 
 
 KERNELS = {"jacobi": "pressure_pcg", "cheb": "pressure_pcg_cheb"}  # by smoother
 
 
+def kernel_name(smoother, unit_diag=True):
+    """The launch counter of P's instantiation for a smoother and fine
+    diagonal."""
+    return KERNELS[smoother] + ("" if unit_diag else "_diag")
+
+
+def check_grid(Nx, Ny, unit_diag=True):
+    """Raise unless kernel P takes an Nx x Ny grid: it needs a multigrid
+    hierarchy, and the layout (`smem_bytes`) must fit one block's shared
+    memory."""
+    levels = n_levels(Nx, Ny)
+    if levels < 2:
+        raise ValueError(f"pressure kernel: a {Nx}x{Ny} grid has no multigrid hierarchy")
+    nbytes = smem_bytes(Nx, Ny, levels, unit_diag)
+    if nbytes > _build.SMEM_LIMIT:
+        raise ValueError(f"pressure kernel: a {Nx}x{Ny} grid needs {nbytes} bytes of shared "
+                         f"memory a member, over the {_build.SMEM_LIMIT} one thread block may take")
+
+
 def pressure_solve_cuda(hier, Ainv, q, p0, w, tol, maxiter, patience_iters=96,
-                        restart_every=8, smoother="jacobi"):
+                        restart_every=8, smoother="jacobi", unit_diag=True):
     """The hand kernel. Same arguments as the plain version, float32 on one
-    CUDA device. The kernel takes the fine diagonal as 1, the contract of
-    `models.ressim.scaled_system`, and does not read `hier[0][2]`."""
+    CUDA device. With `unit_diag` (the contract of
+    `models.ressim.scaled_system`) the kernel takes the fine diagonal as 1
+    and does not read `hier[0][2]`; without, it reads it."""
     B, Nx, Ny = q.shape
     if smoother not in SMOOTHERS:
         raise ValueError(f"smoother must be one of {SMOOTHERS}, got {smoother!r}")
-    _build.check_grid("pressure", Nx, Ny)
+    check_grid(Nx, Ny, unit_diag)
     levels = len(hier)
     if levels != n_levels(Nx, Ny):
         raise ValueError(f"pressure kernel: grid {Nx}x{Ny} takes {n_levels(Nx, Ny)} multigrid "
@@ -98,8 +127,9 @@ def pressure_solve_cuda(hier, Ainv, q, p0, w, tol, maxiter, patience_iters=96,
         if not t.is_cuda or t.dtype != torch.float32 or tuple(t.shape) != shape:
             raise ValueError(f"{name}: need float32 CUDA {shape}, got "
                              f"{t.dtype} {t.device} {tuple(t.shape)}")
-    # Per level TX, TY, diag; the fine diagonal is not read and goes as null.
-    levels_c = [hier[0][0].contiguous(), hier[0][1].contiguous(), None]
+    # Per level TX, TY, diag; a unit fine diagonal is not read and goes as null.
+    levels_c = [hier[0][0].contiguous(), hier[0][1].contiguous(),
+                None if unit_diag else hier[0][2].contiguous()]
     levels_c += [t.contiguous() for lvl in hier[1:] for t in lvl]
     Ainv, q, p0, w = (t.contiguous() for t in (Ainv, q, p0, w))
     ptrs = (ctypes.c_void_p * len(levels_c))(*[None if t is None else t.data_ptr()
@@ -110,21 +140,24 @@ def pressure_solve_cuda(hier, Ainv, q, p0, w, tol, maxiter, patience_iters=96,
     if B == 0:
         return p, it, rel
     patience = max(4, -(-patience_iters // restart_every))
-    code = _build.lib().hm_pressure_solve(
+    name = kernel_name(smoother, unit_diag)
+    code = _build.pressure_lib(Nx, Ny).hm_pressure_solve(
         ctypes.cast(ptrs, ctypes.c_void_p), Ainv.data_ptr(), q.data_ptr(), p0.data_ptr(),
         w.data_ptr(), p.data_ptr(), it.data_ptr(), rel.data_ptr(), B, Nx, Ny, levels,
         float(tol), int(maxiter), int(restart_every), patience, int(smoother == "cheb"),
-        _build.stream_ptr(q.device))
-    _build.check(code, KERNELS[smoother])
-    _build.LAUNCHES[KERNELS[smoother]] += 1
+        int(unit_diag), _build.stream_ptr(q.device))
+    _build.check(code, name)
+    _build.LAUNCHES[name] += 1
     return p, it, rel
 
 
-def pressure_solve(hier, Ainv, q, p0, w, tol, maxiter, patience_iters=96, smoother="jacobi"):
-    """Solve every member's scaled TPFA system: the kernel on CUDA, the plain
+def pressure_solve(hier, Ainv, q, p0, w, tol, maxiter, patience_iters=96, smoother="jacobi",
+                   unit_diag=True):
+    """Solve every member's TPFA system: the kernel on CUDA, the plain
     version on the CPU."""
     fn = pressure_solve_cuda if q.is_cuda else pressure_solve_torch
-    return fn(hier, Ainv, q, p0, w, tol, maxiter, patience_iters, smoother=smoother)
+    return fn(hier, Ainv, q, p0, w, tol, maxiter, patience_iters, smoother=smoother,
+              unit_diag=unit_diag)
 
 
 REFINE_ITERS = 96  # the refinement pass's iteration cap (pressure_pallas.py:378)
@@ -153,7 +186,7 @@ def recook_plan(N, Ny, maxiter, two_pass=True, twopass_j1=64, twopass_div=4):
 
 def pressure_solve_recook(hier, Ainv, q, p0, w, tol, maxiter, patience_iters=96,
                           two_pass=True, twopass_j1=64, twopass_div=4, refine=True,
-                          solve=pressure_solve, smoother="jacobi"):
+                          solve=pressure_solve, smoother="jacobi", unit_diag=True):
     """The reference's three-pass solve (pressure_pallas.py:336-397) around
     `solve` (by default the dispatch above; on either device), every pass
     with the V-cycle smoother `smoother`:
@@ -168,17 +201,20 @@ def pressure_solve_recook(hier, Ainv, q, p0, w, tol, maxiter, patience_iters=96,
        iterations on the same hierarchy, and `rel` rescaled to the
        refined iterate's.
 
+    `unit_diag` goes to `solve` (False for the unscaled system).
+
     Returns (p, iters, rel, recooked): iterations add up over the passes;
     `recooked` (B,) marks the members of passes 2 and 3. Nothing waits for
     the device: the plan comes from shapes, the indices stay on it."""
     B, _, Ny = q.shape
     plan = recook_plan(B, Ny, maxiter, two_pass, twopass_j1, twopass_div)
     if plan is None:
-        p, it, rel = solve(hier, Ainv, q, p0, w, tol, maxiter, patience_iters, smoother=smoother)
+        p, it, rel = solve(hier, Ainv, q, p0, w, tol, maxiter, patience_iters, smoother=smoother,
+                           unit_diag=unit_diag)
         return p, it, rel, torch.zeros(B, dtype=torch.bool, device=q.device)
     Nb, K = plan
     p1, it1, rel1 = solve(hier, Ainv, q, p0, w, tol, twopass_j1, patience_iters,
-                          smoother=smoother)
+                          smoother=smoother, unit_diag=unit_diag)
     pad = torch.arange(Nb, device=q.device) % B
     top = torch.sort(rel1[pad], descending=True, stable=True).indices[:K]
     idx = pad[top]
@@ -186,11 +222,12 @@ def pressure_solve_recook(hier, Ainv, q, p0, w, tol, maxiter, patience_iters=96,
     hier_k = [tuple(take(t) for t in lvl) for lvl in hier]
     Ainv_k, q_k, w_k = take(Ainv), take(q), take(w)
     p2, it2, rel2 = solve(hier_k, Ainv_k, q_k, take(p1), w_k, tol, maxiter, patience_iters,
-                          smoother=smoother)
+                          smoother=smoother, unit_diag=unit_diag)
     if refine:
         r_ds = stencil_residual_ds(*hier_k[0], p2, q_k)
         d3, it3, rel3 = solve(hier_k, Ainv_k, r_ds, torch.zeros_like(r_ds), w_k, tol,
-                              REFINE_ITERS, patience_iters, smoother=smoother)
+                              REFINE_ITERS, patience_iters, smoother=smoother,
+                              unit_diag=unit_diag)
         p2 = p2 + d3
         it2 = it2 + it3
         num = (w_k * r_ds).reshape(K, -1).norm(dim=1)

@@ -3,7 +3,9 @@
 Replaces the TPU kernels of `historymatching_tpu/ops/transport_pallas.py`
 (`transport_substeps_pallas`, `_batched`, `_packed`): on the card one
 thread block per member loops over that member's own substep count
-(`csrc/transport_upwind.cu`, a template on the grid). Beside it,
+(`csrc/transport_upwind.cu`: a template on the grid for the grids of
+`_build.GRIDS`, and a variant with the grid as a runtime argument for any
+other grid whose two fw tiles fit one block's shared memory). Beside it,
 `transport_substeps_torch` is the plain PyTorch version; it runs the batch
 to its largest count and freezes each member after its own, which gives
 the same per-member result.
@@ -18,6 +20,16 @@ import torch
 import torch.nn.functional as F
 
 from historymatching_tpu_torch.ops import _build
+
+
+def check_grid(Nx, Ny):
+    """Raise unless kernel K takes an Nx x Ny grid: a block holds two fw
+    tiles of the grid in shared memory."""
+    nbytes = 2 * 4 * Nx * Ny
+    if nbytes > _build.SMEM_LIMIT:
+        raise ValueError(f"transport kernel: a {Nx}x{Ny} grid needs {nbytes} bytes of shared "
+                         f"memory a member, over the {_build.SMEM_LIMIT} one thread block may take")
+
 
 def transport_substeps_torch(s, Fx, Fy, q, dts_pv, n_sub, fluid):
     """Plain version. s (B, Nx, Ny); Fx (B, Nx+1, Ny); Fy (B, Nx, Ny+1);
@@ -46,11 +58,14 @@ def transport_substeps_torch(s, Fx, Fy, q, dts_pv, n_sub, fluid):
     return s
 
 
-def transport_substeps_cuda(s, Fx, Fy, q, dts_pv, n_sub, fluid):
+def transport_substeps_cuda(s, Fx, Fy, q, dts_pv, n_sub, fluid, runtime_grid=None):
     """The hand kernel. Same arguments as the plain version, float32 on one
-    CUDA device; a `q` with one member is read by every member in place."""
+    CUDA device; a `q` with one member is read by every member in place.
+    The templated kernel runs the grids of `_build.GRIDS` and the
+    runtime-grid variant any other; `runtime_grid=True` takes the variant
+    at any grid (launches counted as "transport_upwind_rt")."""
     B, Nx, Ny = s.shape
-    _build.check_grid("transport", Nx, Ny)
+    check_grid(Nx, Ny)
     shapes = {"s": (s, (B, Nx, Ny)), "Fx": (Fx, (B, Nx + 1, Ny)),
               "Fy": (Fy, (B, Nx, Ny + 1)), "q": (q, (1 if q.shape[0] == 1 else B, Nx, Ny)),
               "dts_pv": (dts_pv, (B,))}
@@ -66,11 +81,14 @@ def transport_substeps_cuda(s, Fx, Fy, q, dts_pv, n_sub, fluid):
         return out
     vw, vo, swc, sor = (float(v) for v in fluid)
     q_stride = 0 if q.shape[0] == 1 else Nx * Ny
-    code = _build.lib().hm_transport_substeps(
-        s.data_ptr(), Fx.data_ptr(), Fy.data_ptr(), q.data_ptr(), q_stride, dts_pv.data_ptr(),
-        n_sub.data_ptr(), out.data_ptr(), B, Nx, Ny, vw, vo, swc, sor, _build.stream_ptr(s.device))
-    _build.check(code, "transport_upwind")
-    _build.LAUNCHES["transport_upwind"] += 1
+    rt = (Nx, Ny) not in _build.GRIDS if runtime_grid is None else runtime_grid
+    name = "transport_upwind_rt" if rt else "transport_upwind"
+    fn = _build.lib().hm_transport_substeps_rt if rt else _build.lib().hm_transport_substeps
+    code = fn(s.data_ptr(), Fx.data_ptr(), Fy.data_ptr(), q.data_ptr(), q_stride,
+              dts_pv.data_ptr(), n_sub.data_ptr(), out.data_ptr(), B, Nx, Ny, vw, vo, swc, sor,
+              _build.stream_ptr(s.device))
+    _build.check(code, name)
+    _build.LAUNCHES[name] += 1
     return out
 
 

@@ -12,11 +12,11 @@ import numpy as np
 import pytest
 import torch
 
-from historymatching_tpu_torch.models.ressim import ResSim, scaled_system
+from historymatching_tpu_torch.models.ressim import ResSim, _tpfa, scaled_system
 from historymatching_tpu_torch.ops import _build
-from historymatching_tpu_torch.ops.multigrid import n_levels
+from historymatching_tpu_torch.ops.multigrid import build_hierarchy, coarse_inverse, n_levels
 from historymatching_tpu_torch.ops.pressure import (
-    KERNELS,
+    kernel_name,
     pressure_solve_cuda,
     pressure_solve_recook,
     pressure_solve_torch,
@@ -26,6 +26,7 @@ from historymatching_tpu_torch.ops.pressure import (
 from historymatching_tpu_torch.ops.stencil import stencil_residual_ds
 from historymatching_tpu_torch.ops.transport import (
     transport_substeps,
+    transport_substeps_cuda,
     transport_substeps_torch,
 )
 from historymatching_tpu_torch.parallel.runner import set_perm
@@ -71,21 +72,37 @@ def test_transport_kernel_matches_plain(dev, Nx, Ny):
     assert float((out - ref).abs().max()) <= 1e-5
 
 
-def _pressure_vs_plain(dev, Nx, Ny, smoother):
+def _system(mm, q, unit_diag):
+    """P's arguments for fields `mm` at s = 0: the scaled system, or the
+    unscaled one (w = 1)."""
+    B, (Nx, Ny) = mm.K.shape[0], mm.shape
+    s = torch.zeros(B, Nx, Ny, device=mm.K.device)
+    if unit_diag:
+        _, _, diag, sd, hier, Ainv = scaled_system(mm, s)
+        return hier, Ainv, (q * sd).contiguous(), torch.zeros_like(s), (diag * sd).contiguous()
+    TX, TY, _, pin = _tpfa(mm, s)
+    hier = build_hierarchy(TX, TY, pin)
+    return (hier, coarse_inverse(hier), q.expand(B, Nx, Ny).contiguous(), torch.zeros_like(s),
+            torch.ones_like(s))
+
+
+def _pressure_vs_plain(dev, Nx, Ny, smoother, unit_diag=True, window=16, scale=1.0):
     """One launch of P's `smoother` instantiation against the plain version
-    with the same smoother, after fixed work; the launch counts on that
-    instantiation's own key."""
+    with the same smoother, after fixed work (one restart window of
+    `window` iterations, or two of 8 for 16); the launch counts on that
+    instantiation's own key. Without `unit_diag`, on the unscaled system
+    (the instantiation that reads the fine diagonal); `scale` multiplies
+    the pre-permeability fields."""
     g = torch.Generator(device=dev).manual_seed(1)
     m = _model(Nx, Ny, dev)
     B = 8
-    mm = set_perm(m, torch.randn(B, m.Nxy, generator=g, device=dev))
-    s = torch.zeros(B, Nx, Ny, device=dev)
-    _, _, diag, sd, hier, Ainv = scaled_system(mm, s)
+    mm = set_perm(m, scale * torch.randn(B, m.Nxy, generator=g, device=dev))
     q = torch.zeros(Nx, Ny, device=dev)
     q[Nx // 2, Ny // 2], q[1, 1] = 1.0, -1.0
-    args = (hier, Ainv, (q * sd).contiguous(), torch.zeros_like(s), (diag * sd).contiguous())
-    fixed = dict(tol=0.0, maxiter=16, patience_iters=160, smoother=smoother)
-    name = KERNELS[smoother]
+    args = _system(mm, q, unit_diag)
+    fixed = dict(tol=0.0, maxiter=window, restart_every=min(window, 8), patience_iters=160,
+                 smoother=smoother, unit_diag=unit_diag)
+    name = kernel_name(smoother, unit_diag)
     before = dict(_build.LAUNCHES)
     p_k, it_k, rel_k = pressure_solve_cuda(*args, **fixed)
     torch.cuda.synchronize()
@@ -107,6 +124,84 @@ def test_pressure_kernel_matches_plain(dev, Nx, Ny):
 def test_pressure_cheb_kernel_matches_plain(dev, Nx, Ny):
     """The Chebyshev-smoothed instantiation of P, as the Jacobi one."""
     _pressure_vs_plain(dev, Nx, Ny, "cheb")
+
+
+NEW_P_GRIDS = [(8, 8), (10, 10), (12, 12), (24, 16), (80, 80)]
+
+
+@pytest.mark.parametrize("smoother", ["jacobi", "cheb"])
+@pytest.mark.parametrize("Nx,Ny", NEW_P_GRIDS)
+def test_pressure_kernel_at_new_grids(dev, Nx, Ny, smoother):
+    """P built for grids outside `GRIDS` (its library built on first use):
+    a fine level of 64 cells (8x8), sides of 2 mod 4 (10x10), an odd
+    coarsest level (12x12: 3x3), a non-square grid, and one block an SM
+    (80x80). Fixed work is one restart window of 4 iterations: on grids of
+    up to 400 cells 8 iterations reach float32's floor, where two float32
+    summation orders, or float32 and float64, part by up to 1e-1."""
+    _pressure_vs_plain(dev, Nx, Ny, smoother, window=4)
+
+
+@pytest.mark.parametrize("smoother", ["jacobi", "cheb"])
+@pytest.mark.parametrize("Nx,Ny", [(20, 20), (64, 64), (12, 12)])
+def test_pressure_unscaled_kernel_matches_plain(dev, Nx, Ny, smoother):
+    """P with an explicit fine diagonal, on the unscaled system, after one
+    restart window of 4 iterations, on fields of mild contrast (the
+    pre-permeability times 0.2): at a contrast of e^10 and more float32
+    leaves the unscaled system undetermined, its plain version in float32
+    and float64 parting by O(1) after one iteration."""
+    _pressure_vs_plain(dev, Nx, Ny, smoother, unit_diag=False, window=4, scale=0.2)
+
+
+@pytest.mark.parametrize("Nx,Ny", [(15, 15), (12, 9), (10, 10), (12, 12), (24, 16), (80, 80),
+                                   (64, 64), (5, 3)])
+def test_transport_runtime_grid_matches_plain(dev, Nx, Ny):
+    """K's runtime-grid variant does the plain version's float32 operations
+    in its order, so it agrees bit for bit, at grids outside `GRIDS` and,
+    forced, at 64x64."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    B = 16
+    s = torch.rand(B, Nx, Ny, generator=g, device=dev)
+    Fx = 0.1 * torch.randn(B, Nx + 1, Ny, generator=g, device=dev)
+    Fy = 0.1 * torch.randn(B, Nx, Ny + 1, generator=g, device=dev)
+    Fx[:, 0] = Fx[:, -1] = 0
+    Fy[:, :, 0] = Fy[:, :, -1] = 0
+    q = torch.zeros(B, Nx, Ny, device=dev)
+    q[:, Nx // 2, Ny // 2], q[:, 0, 0] = 1.0, -1.0
+    n_sub = torch.randint(1, 200, (B,), generator=g, device=dev, dtype=torch.int32)
+    dts_pv = 0.3 / n_sub.float()
+    fluid = (1.0, 1.0, 0.0, 0.0)
+    before = _build.LAUNCHES["transport_upwind_rt"]
+    out = transport_substeps_cuda(s, Fx, Fy, q, dts_pv, n_sub, fluid,
+                                  runtime_grid=True if (Nx, Ny) in _build.GRIDS else None)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["transport_upwind_rt"] == before + 1
+    ref = transport_substeps_torch(s, Fx, Fy, q, dts_pv, n_sub, fluid)
+    assert torch.equal(out, ref)
+
+
+def test_failed_coarse_member_on_the_card(dev):
+    """One member of 64 with an indefinite coarsest operator: its inverse
+    comes from the guarded Newton-Schulz and is finite, the other members'
+    are the unforced run's, and P solves the batch."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    m = _model(64, 64, dev)
+    B = 64
+    mm = set_perm(m, 0.8 * torch.randn(B, m.Nxy, generator=g, device=dev))
+    _, _, diag, sd, hier, Ainv = scaled_system(mm, torch.zeros(B, 64, 64, device=dev))
+    TXc, TYc, Dc = hier[-1]
+    Dc = Dc.clone()
+    Dc[5] = 0.5 * Dc[5]  # no longer dominant: indefinite
+    hier_f = hier[:-1] + [(TXc, TYc, Dc)]
+    Ainv_f = coarse_inverse(hier_f)
+    keep = torch.arange(B, device=dev) != 5
+    assert torch.equal(Ainv_f[keep], Ainv[keep]) and torch.isfinite(Ainv_f).all()
+    q = torch.zeros(64, 64, device=dev)
+    q[32, 32], q[1, 1] = 1.0, -1.0
+    p, it, rel = pressure_solve_cuda(hier_f, Ainv_f, (q * sd).contiguous(), torch.zeros_like(sd),
+                                     (diag * sd).contiguous(), tol=2e-3, maxiter=128)
+    p0, _, _ = pressure_solve_cuda(hier, Ainv, (q * sd).contiguous(), torch.zeros_like(sd),
+                                   (diag * sd).contiguous(), tol=2e-3, maxiter=128)
+    assert torch.equal(p[keep], p0[keep]) and torch.isfinite(p).all()
 
 
 def test_pressure_members_leave_at_their_own_windows(dev):
@@ -205,6 +300,19 @@ def test_kernel_resources(dev, Nx, Ny):
     assert k["shared_bytes"] == 2 * 4 * Nx * Ny and k["blocks_per_sm"] >= 1
 
 
+@pytest.mark.parametrize("Nx,Ny", NEW_P_GRIDS + [(20, 20), (64, 64)])
+def test_new_kernel_resources(dev, Nx, Ny):
+    """The new instantiations' footprints: P at grids outside `GRIDS`, P
+    with an explicit fine diagonal, and K's runtime-grid variant."""
+    for name, unit in (("pressure_pcg", True), ("pressure_pcg_cheb", True),
+                       ("pressure_pcg_diag", False), ("pressure_pcg_cheb_diag", False)):
+        p = _build.kernel_info(name, Nx, Ny)
+        assert p["shared_bytes"] == smem_bytes(Nx, Ny, n_levels(Nx, Ny), unit)
+        assert p["blocks_per_sm"] >= 1
+    k = _build.kernel_info("transport_upwind_rt", Nx, Ny)
+    assert k["shared_bytes"] == 2 * 4 * Nx * Ny and k["blocks_per_sm"] >= 1
+
+
 def test_build_defaults_to_cuda(dev):
     assert ResSim.build(Nx=16, Ny=16).K.is_cuda
 
@@ -217,12 +325,13 @@ def test_kernels_refuse_what_they_do_not_take(dev):
                            torch.ones(2, dtype=torch.float64, device=dev),
                            torch.ones(2, dtype=torch.int32, device=dev), (1.0, 1.0, 0.0, 0.0))
     big = torch.zeros(1, 128, 128, device=dev)
-    with pytest.raises(ValueError, match="instantiated for the grids"):
-        transport_substeps(big, torch.zeros(1, 129, 128, device=dev),
-                           torch.zeros(1, 128, 129, device=dev), big,
+    huge = torch.zeros(1, 171, 171, device=dev)
+    with pytest.raises(ValueError, match="171x171 grid needs 233928 bytes"):
+        transport_substeps(huge, torch.zeros(1, 172, 171, device=dev),
+                           torch.zeros(1, 171, 172, device=dev), huge,
                            torch.ones(1, device=dev),
                            torch.ones(1, dtype=torch.int32, device=dev), (1.0, 1.0, 0.0, 0.0))
-    with pytest.raises(ValueError, match="instantiated for the grids"):
+    with pytest.raises(ValueError, match="128x128 grid needs 458528 bytes"):
         pressure_solve_cuda([], torch.zeros(1, 16, 16, device=dev), big, big, big, tol=1e-3,
                             maxiter=8)
 
@@ -244,8 +353,10 @@ def test_npv_batch_with_wells_per_member(dev):
     before = dict(_build.LAUNCHES)
     v = npv_value(mm, cfg, inj_xy=xy)
     torch.cuda.synchronize()
-    assert {k: _build.LAUNCHES[k] - before[k] for k in before} == {
+    assert {k: _build.LAUNCHES[k] - before[k] for k in before if k in (
+        "pressure_pcg", "transport_upwind", "pressure_pcg_cheb")} == {
         "pressure_pcg": 6, "transport_upwind": 6, "pressure_pcg_cheb": 0}
+    assert sum(_build.LAUNCHES.values()) - sum(before.values()) == 12
     assert v.shape == (8,) and torch.isfinite(v).all() and bool((v != 0).any())
     for b in range(3):
         one = npv_value(mm, cfg, inj_xy=xy[b])
