@@ -64,13 +64,22 @@ Phases, one printed line or more each; any failed check raises:
 21. the port's two tutorial examples, `history_match` (20x20, N=40, every
     method) and `optimise` (20x20, every case but `robust`; then --small,
     12x12, inj_xy, rate and toys), with each run's wall, kernel launches
-    and headline numbers.
+    and headline numbers;
+22. workload parity (`historymatching_tpu_torch.parity`, as `bench_gpu.py`
+    runs it): ES-MDA, localized ES-MDA and IES at N=192 and the ES-MDA
+    ladder at N=384, 768 and 1000, on the inputs the reference bench draws
+    for each seed (JAX's threefry draws, computed by the port), held to the
+    committed exact float64 oracle's posterior RMSE by each rung's gate;
+    every seed's prior RMSE must match its ref's. With `--parity-out DIR`
+    each rung's record is written there.
 
-The line before the last is the kernels' JSON record; the last line is
+The line before the last is the kernels' JSON record (with each kernel's
+launches in each rung of [22]); the last line is
 {"ok": true, "device": {...}}. Without a card, or without the package
 beside this script, it exits non-zero and prints no result.
 """
 
+import argparse
 import json
 import os
 import subprocess
@@ -772,7 +781,45 @@ def example_phases():
     return runs
 
 
-def main():
+def parity_phase(card, out_dir):
+    """Phase 22: every rung of `parity.RUNGS`; returns the records."""
+    from historymatching_tpu_torch import parity
+
+    t0 = time.perf_counter()
+    recs = []
+    for name, ref_file, method in parity.RUNGS:
+        rec = parity.run_rung(name, ref_file, method, card=card)
+        with open(os.path.join(ROOT, "parity", name.replace("GPU", "TPU") + ".json")) as f:
+            tpu = json.load(f)
+        fig = rec.get("replica0", rec)
+        extra = (f"; median over {rec['runs']} runs (seeds x replicas) "
+                 f"{rec['ratio_median_all']:.4f}, mean {rec['ratio_mean_all']:.4f}, per-seed "
+                 f"medians {[round(v, 4) for v in rec['seed_medians']]}; replica 0"
+                 if method == "ies" else "")
+        log(f"[22] {name} ({method}, N={rec['N']}, {len(rec['seeds'])} seeds){extra}: median "
+            f"{fig['ratio_median']:.4f} worst {fig['ratio_max']:.4f} (TPU: median "
+            f"{tpu['ratio_median']} worst {tpu['ratio_max']}); ratios "
+            f"{[round(v, 4) for v in fig.get('ratios', [r['ratios'][0] for r in rec['rows']])]}; "
+            f"direction {rec['improves_direction_matches']}; ok {rec['ok']}; wall "
+            f"{rec['wall_s']:.3f} s; prior rmse vs ref max rel {rec['prior_rel_err_max']:.1e}; "
+            f"launches {rec['launches']}")
+        if out_dir:
+            os.makedirs(out_dir, exist_ok=True)
+            with open(os.path.join(out_dir, name + ".json"), "w") as f:
+                json.dump(rec, f, indent=1)
+        recs.append(rec)
+    log(f"[22] {len(recs)} rungs in {time.perf_counter() - t0:.1f} s")
+    failed = [f"{r['name']}: {parity.check_record(r)}" for r in recs if parity.check_record(r)]
+    assert not failed, failed
+    assert all(r["launches"].get(k, 0) > 0 for r in recs for k in JACOBI_KERNELS)
+    return recs
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="Drive the port's main path once on one GPU.")
+    ap.add_argument("--parity-out", default="",
+                    help="write each parity rung's record of phase 22 to this directory")
+    opts = ap.parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -1293,6 +1340,7 @@ def main():
 
     new = new_grid_phases(dev, six)
     runs = example_phases()
+    par = parity_phase(card, opts.parity_out)
 
     def record(name, route, source, replaces, err, ms, plain_ms, bound_ms, by):
         return dict(name=name, route=route, source=source, replaces=replaces,
@@ -1342,6 +1390,8 @@ def main():
             max_abs_err=d["max_abs_err"], ms=d["ms"], plain_ms=d["plain_ms"],
             bound_ms=d["bound_ms"], bound_by=d["bound_by"], library_ms=None,
             share_of_bound=d["bound_ms"] / d["ms"], grids=d["grids"]))
+    for rec in kernels:
+        rec["launches_parity"] = {p["name"]: p["launches"].get(rec["name"], 0) for p in par}
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

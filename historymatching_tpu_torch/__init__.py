@@ -3,7 +3,9 @@
 Ensemble history matching and production optimisation on one NVIDIA GPU:
 the TPFA two-phase simulator run over an ensemble, the Gaussian-field
 prior, the ES-MDA (plain or localized, with resume), IES and ILES
-analyses, EnOpt with its NPV objective (`opt`), checkpoints and profiling.
+analyses, EnOpt with its NPV objective (`opt`), checkpoints and profiling,
+JAX's random draws (`prng`), the workload parity harness (`parity`) and
+plotting (`plotting`, matplotlib imported on use).
 The module layout and names mirror the JAX package. Plain tensor code is
 PyTorch; the two hot loops (the MG-PCG pressure solve and the CFL-substep
 transport) are hand-written CUDA kernels for sm_90a (`csrc/`), built on

@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from historymatching_tpu_torch import prng
 from historymatching_tpu_torch.utils import as_float
 
 
@@ -85,15 +86,18 @@ def _embedding_spectrum(Nx, Ny, hx, hy, r):
 
 
 def gaussian_fields_fft(grid, N=1, r=0.2, generator=None, noise=None, dtype=None,
-                        device="cuda"):
+                        device="cuda", key=None):
     """N unit-variance Gaussian fields on a regular `Grid2D`, flattened to
     (N, Nxy): Re(DFT2(sqrt(S/M) * (zr + i zi))) cropped to the grid.
 
-    The white noise (zr, zi), each (N, 2Nx, 2Ny) standard normal, is drawn
-    from `generator` unless given as `noise`."""
+    The white noise (zr, zi), each (N, 2Nx, 2Ny) standard normal, is given
+    as `noise`, or drawn from a `prng` `key` as the JAX package draws it
+    (split in two, one float32 normal each), or from `generator`."""
     dtype = dtype or torch.get_default_dtype()
     S, (Mx, My) = _embedding_spectrum(grid.Nx, grid.Ny, grid.hx, grid.hy, r)
     amp = torch.as_tensor(np.sqrt(S / (Mx * My)), dtype=dtype, device=device)
+    if noise is None and key is not None:
+        noise = tuple(prng.normal(k, (N, Mx, My)) for k in prng.split(key))
     if noise is None:
         zr = torch.randn((N, Mx, My), generator=generator, dtype=dtype, device=device)
         zi = torch.randn((N, Mx, My), generator=generator, dtype=dtype, device=device)

@@ -16,6 +16,7 @@ import time
 import numpy as np
 import torch
 
+from historymatching_tpu_torch import prng
 from historymatching_tpu_torch.ops.linalg import spd_solve
 from historymatching_tpu_torch.utils import center, gaussian_noise
 
@@ -302,26 +303,28 @@ def mda_alphas(n, dtype=None, device="cuda"):
 
 def es_mda(prior_ens, forward_obs, obs, R12, alphas, generator=None, noise=None,
            noise_dtype=torch.float32, taper=None, domains=None, taper_dom=None, callback=None,
-           start_pass=0):
+           start_pass=0, key=None):
     """ES-MDA: per pass i, run the forward model and apply `ens_update0`
     with R inflated by alpha_i (perturbs * sqrt(alpha_i), decorr /
     sqrt(alpha_i)); with `domains` and `taper_dom`, the domain-batched
     localized update instead, with `taper`, the per-cell one.
 
     `forward_obs` is one callable or a per-pass sequence of them. The
-    obs-error draws come from `generator` (`gaussian_noise(N, p, L=R12)` in
-    `noise_dtype`), or are given per pass as `noise`: a sequence of (N, p)
-    draws already multiplied by R12, e.g. exactly what the JAX package
-    draws for the same key.
+    obs-error draws (`gaussian_noise(N, p, L=R12)` in `noise_dtype`) come
+    from a `prng` `key`, split once a pass as the JAX package splits its
+    key (the JAX package's draws for the same key), or from `generator`;
+    or they are given per pass as `noise`: a sequence of (N, p) draws
+    already multiplied by R12.
 
     `callback`, if given, is called after each pass with dict(pass_,
-    n_passes, alpha, elapsed_s, E, generator_state): `E` is the updated
-    ensemble and `generator_state` `generator.get_state()` after the
-    pass's draw (None when the draws are given or no generator is), which
-    is what a resume needs (`checkpoint.save_checkpoint` them). `start_pass`
-    skips the first passes without drawing: continuing from a pass-k
-    callback's `E` with its generator state restored and start_pass=k
-    matches the uninterrupted run bit for bit.
+    n_passes, alpha, elapsed_s, E, generator_state, key): `E` is the
+    updated ensemble, `generator_state` `generator.get_state()` after the
+    pass's draw (None unless the draws come from a generator) and `key`
+    the key for the remaining passes (None without a key), which is what a
+    resume needs (`checkpoint.save_checkpoint` them). `start_pass` skips
+    the first passes without drawing: continuing from a pass-k callback's
+    `E` with its generator state or key and start_pass=k matches the
+    uninterrupted run bit for bit.
     """
     E = prior_ens
     dtype = E.dtype
@@ -340,7 +343,10 @@ def es_mda(prior_ens, forward_obs, obs, R12, alphas, generator=None, noise=None,
             continue
         a = float(a)
         Eo = fwd(E).to(dtype)
-        if noise is None:
+        if key is not None:
+            key, sub = prng.split(key)
+            draw = gaussian_noise(N, p, L=R12.to(noise_dtype), key=sub)
+        elif noise is None:
             draw = gaussian_noise(N, p, L=R12.to(noise_dtype), generator=generator)
         else:
             draw = noise[i]
@@ -357,7 +363,8 @@ def es_mda(prior_ens, forward_obs, obs, R12, alphas, generator=None, noise=None,
         if callback is not None:
             if E.is_cuda:
                 torch.cuda.synchronize(E.device)
-            state = generator.get_state() if noise is None and generator is not None else None
+            drawn = key is None and noise is None and generator is not None
             callback(dict(pass_=i + 1, n_passes=len(fwd_per_pass), alpha=a,
-                          elapsed_s=time.perf_counter() - t0, E=E, generator_state=state))
+                          elapsed_s=time.perf_counter() - t0, E=E, key=key,
+                          generator_state=generator.get_state() if drawn else None))
     return E

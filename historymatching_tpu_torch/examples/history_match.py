@@ -10,22 +10,28 @@ come from a `torch.Generator` seeded by `--seed`, so the numbers differ
 from the JAX example's, which draws with `jax.random`. It runs on the
 card unless `--cpu` is given; `--f64` runs float64.
 
-The JAX example's `--plot` waits for the port's plotting module, so this
-one writes no figures.
+With `--plot`, the figures of the JAX example go to `--outdir`: the
+posterior means, the past production, the correlation probe and the
+taper-radius sweep (needs matplotlib, which the card's host may lack).
 
-Run:  python -m historymatching_tpu_torch.examples.history_match [--small] [--cpu] [--f64]
+Run:  python -m historymatching_tpu_torch.examples.history_match [--small] [--cpu] [--f64] [--plot]
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
 import torch
 
 import historymatching_tpu_torch as ht
-from historymatching_tpu_torch.da.localization import dist_to_obs, suggest_taper_radius
+from historymatching_tpu_torch.da.localization import (
+    corr_wells,
+    dist_to_obs,
+    suggest_taper_radius,
+)
 from historymatching_tpu_torch.da.update import decorrelator
 from historymatching_tpu_torch.parallel.runner import obs_ens_fn, prod_inds
 
@@ -45,6 +51,8 @@ def main(argv=None):
     ap.add_argument("--f64", action="store_true", help="float64")
     ap.add_argument("--cpu", action="store_true", help="run on the CPU")
     ap.add_argument("--seed", type=int, default=1)
+    ap.add_argument("--plot", action="store_true", help="write figures to --outdir")
+    ap.add_argument("--outdir", default="figs")
     args = ap.parse_args(argv)
     dev = torch.device("cpu" if args.cpu else "cuda")
     dtype = torch.float64 if args.f64 else torch.float32
@@ -160,6 +168,23 @@ def main(argv=None):
     sv = ht.svals(prior).cpu().numpy()
     print(f"prior spectrum: s[0]={sv[0]:.2f}, s[-1]={sv[-1]:.3f}, "
           f"s[0]/s[-1]={sv[0] / max(sv[-1], 1e-12):.1f}")
+
+    if args.plot:
+        from historymatching_tpu_torch import plotting
+
+        os.makedirs(args.outdir, exist_ok=True)
+        save = lambda fig, name: fig.savefig(os.path.join(args.outdir, name), dpi=120)  # noqa: E731
+        means = {k: v.reshape(-1, model.Nxy).mean(0) for k, v in perm.items()}
+        save(plotting.fields(model, means, "pperm", "Posterior means")[0], "perm_means.png")
+        save(plotting.productions(prod, "Past production")[0], "productions.png")
+        save(plotting.fields(model, {"corr": C}, "corr", "Correlation probe")[0],
+             "correlation.png")
+        cw = {f"r={r}": corr_wells(prior, prod_prior, dists, nTime - 1, 0, nPrd,
+                                   N=max(4, N // 2), radius=r) for r in (0.4, best_r, 2.0)}
+        cw["full ens"] = corr_wells(prior, prod_prior, dists, nTime - 1, 0, nPrd)
+        save(plotting.fields(model, cw, "corr", "corr_wells taper tuning (well 0)")[0],
+             "corr_wells.png")
+        print(f"figures written to {args.outdir}/")
     return tables
 
 

@@ -13,15 +13,17 @@ landscape). Draws come from a `torch.Generator` seeded by `--seed`, so
 the numbers differ from the JAX example's. It runs on the card unless
 `--cpu` is given.
 
-The JAX example's `--plot` waits for the port's plotting module, so this
-one writes no figures.
+With `--plot`, the robust case's NPV densities go to `--outdir` (needs
+matplotlib and scipy, which the card's host may lack).
 
-Run:  python -m historymatching_tpu_torch.examples.optimise [--small] [--cpu] [--cases inj_xy,rate,...]
+Run:  python -m historymatching_tpu_torch.examples.optimise [--small] [--cpu] [--plot]
+          [--cases inj_xy,rate,...]
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -46,6 +48,8 @@ def main(argv=None):
     ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--cases", default=CASES)
     ap.add_argument("--seed", type=int, default=23)
+    ap.add_argument("--plot", action="store_true", help="write figures to --outdir")
+    ap.add_argument("--outdir", default="figs")
     args = ap.parse_args(argv)
     cases = set(args.cases.split(","))
     dev = torch.device("cpu" if args.cpu else "cuda")
@@ -241,6 +245,13 @@ def main(argv=None):
         print(f"[robust] Nominal: {npvs_condnl.mean():<6.3g}  {npvs_condnl.min():.3g}")
         out["robust"] = dict(robust_mean=float(npvs_robust.mean()),
                              nominal_mean=float(npvs_condnl.mean()), suboptimal=n_bad)
+        if args.plot:
+            from historymatching_tpu_torch import plotting
+
+            os.makedirs(args.outdir, exist_ok=True)
+            plotting.npv_kde(npvs_condnl, npvs_robust).savefig(
+                os.path.join(args.outdir, "npv_kde.png"), dpi=120)
+            print(f"[robust] KDE figure written to {args.outdir}/npv_kde.png")
 
     # ---- Multi-objective: Pareto sweep over inj price (reference :1069-1139) ---
     if "pareto" in cases:

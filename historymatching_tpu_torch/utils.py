@@ -1,11 +1,14 @@
 """Ensemble linear-algebra utilities (PyTorch counterpart of
 `historymatching_tpu.utils`). Rows are members; random draws come from an
-explicit `torch.Generator` or are handed in."""
+explicit `torch.Generator`, from a `prng` key (the JAX package's draws),
+or are handed in."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from historymatching_tpu_torch import prng
 
 
 def as_float(x, dtype=None, device=None):
@@ -43,14 +46,17 @@ def corr(a, b):
     return torch.clamp(C / (sa[:, None] if C.ndim == 2 else sa) / sb, -999, 999)
 
 
-def gaussian_noise(N, M, L=1.0, generator=None, Z=None, dtype=None, device="cuda"):
+def gaussian_noise(N, M, L=1.0, generator=None, Z=None, dtype=None, device="cuda", key=None):
     """A 0-mean Gaussian ensemble (N, M): `Z @ L.T` for a Cholesky factor
-    `L` (M, M), or `Z * L` for a scalar std-dev. `Z` is drawn from
-    `generator` on `device` unless the standard-normal draws are given. A
-    matrix factor sets the dtype and device."""
+    `L` (M, M), or `Z * L` for a scalar std-dev. The standard normals `Z`
+    are given, or drawn from a `prng` `key` as the JAX package draws them
+    (float32), or from `generator` on `device`. A matrix factor sets the
+    dtype and device."""
     if isinstance(L, torch.Tensor) and L.ndim == 2:
         dtype, device = L.dtype, L.device
     dtype = dtype or torch.get_default_dtype()
+    if Z is None and key is not None:
+        Z = prng.normal(key, (N, M)).to(dtype=dtype, device=device)
     if Z is None:
         Z = torch.randn((N, M), generator=generator, dtype=dtype, device=device)
     if isinstance(L, torch.Tensor) and L.ndim == 2:

@@ -2,7 +2,8 @@
 (`historymatching_tpu_torch/examples`), the counterparts of
 tests/test_examples.py: each runs in a subprocess at its `--small --cpu`
 configuration, with JAX and the JAX package blocked at the finder level,
-so a run also shows that the example imports no JAX. The same printed
+so a run also shows that the example imports no JAX. The history-matching
+run also writes its figures (`--plot`). The same printed
 tokens are asserted as for the JAX examples; the history-matching run's
 posterior RMSEs must be finite and at least one method must improve on
 the prior."""
@@ -46,8 +47,11 @@ def _table(out, title):
             for m in re.finditer(r"^(\w+)\s*:\s*(\S+)\s+\S+$", block, re.M)}
 
 
-def test_history_match_example_smoke():
-    out = _run("historymatching_tpu_torch.examples.history_match", "--small", "--cpu")
+def test_history_match_example_smoke(tmp_path):
+    out = _run("historymatching_tpu_torch.examples.history_match", "--small", "--cpu", "--plot",
+               "--outdir", str(tmp_path))
+    for name in ("perm_means", "productions", "correlation", "corr_wells"):
+        assert (tmp_path / f"{name}.png").stat().st_size > 0, name
     for token in ("Prior", "ES", "MDA", "taper tuning", "spectrum"):
         assert token in out, (token, out[-2000:])
     rmse = _table(out, "Accuracy wrt (supposedly unknown) parameter field")

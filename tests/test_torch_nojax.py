@@ -1,11 +1,13 @@
 """The PyTorch port imports no JAX: it must run on a host that has none.
-Checked in a subprocess with `jax` blocked at the finder level, like
-tests/test_packaging.py blocks the optional extras: every module of the
-package is imported, and the simulator (with the straggler recook
+Checked in a subprocess with `jax` (and matplotlib, which the card's
+host lacks) blocked at the finder level, like tests/test_packaging.py
+blocks the optional extras: every module of the package is imported, the
+port's JAX-keyed draws are made, and the simulator (with the straggler recook
 engaged, and with the Chebyshev smoother), the localized ES-MDA, IES,
 ILES-domains, EnOpt on the bench case's fixture, an ES-MDA resumed through
 a checkpoint and a profiler trace run. chip_smoke.py imports nothing of
-JAX in any phase."""
+JAX in any phase, nor does bench_gpu.py, which refuses to run without a
+card."""
 
 import os
 import subprocess
@@ -20,7 +22,7 @@ import sys
 
 class _Block:
     def find_spec(self, name, path=None, target=None):
-        if name.split('.')[0] in ('jax', 'jaxlib', 'historymatching_tpu'):
+        if name.split('.')[0] in ('jax', 'jaxlib', 'historymatching_tpu', 'matplotlib'):
             raise ImportError(name + ' must not be imported by the port')
         return None
 
@@ -29,6 +31,15 @@ import importlib, pkgutil
 import historymatching_tpu_torch as ht
 for mod in pkgutil.walk_packages(ht.__path__, 'historymatching_tpu_torch.'):
     importlib.import_module(mod.name)
+# matplotlib is hidden too (the card's host has none): plotting imports it
+# only where a function draws.
+from historymatching_tpu_torch import plotting
+assert plotting.ens_style("ES")["color"] == "C2"
+try:
+    plotting.spectrum([1.0, 0.5])
+    raise AssertionError("plotting drew without matplotlib")
+except ImportError as e:
+    assert "matplotlib" in str(e)
 import torch
 assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
 m = ht.ResSim.build(Nx=8, Ny=8, dtype=torch.float64, device="cpu")
@@ -102,6 +113,10 @@ assert torch.equal(ht.es_mda(torch.from_numpy(st["E"]), fwd, obs, R12, alphas, g
 with profiling.trace(tempfile.mkdtemp()) as d:
     E0.sum()
 assert profiling.parse_trace(d).host
+from historymatching_tpu_torch import prng, parity
+assert prng.split(prng.PRNGKey(0)).tolist() == [[1797259609, 2579123966], [928981903, 3453687069]]
+case = parity.build_case(1, 4, 8, 8, nTime=3, device="cpu")
+assert case["prior"].shape == (4, 64) and case["prior"].dtype == torch.float32
 print('port-import-ok')
 """
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -137,3 +152,21 @@ def test_chip_smoke_refuses_without_cuda_or_package(tmp_path):
                                     OMP_NUM_THREADS="1"))
         assert r.returncode != 0
         assert '"ok": true' not in r.stdout
+
+
+def test_bench_gpu_imports_no_jax_and_needs_a_card():
+    """bench_gpu.py imports neither JAX nor the JAX package, and raises
+    where there is no card (no CPU fallback)."""
+    import ast
+
+    with open(os.path.join(REPO, "bench_gpu.py")) as f:
+        tree = ast.parse(f.read())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
+    assert "historymatching_tpu_torch" in names
+    assert not [m for m in names if m.split(".")[0] in ("jax", "jaxlib", "historymatching_tpu")]
+    r = subprocess.run([sys.executable, "bench_gpu.py", "--out", "_no_card_"], cwd=REPO,
+                       capture_output=True, text=True, timeout=300,
+                       env=dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1"))
+    assert r.returncode != 0 and "CUDA device" in r.stderr
+    assert not os.path.exists(os.path.join(REPO, "_no_card_"))
