@@ -57,8 +57,8 @@ Phases, one printed line or more each; any failed check raises:
     19b. P with an explicit fine diagonal (the unscaled system) at 20x20
     and 64x64 the same way, its time at [6]'s shapes, and
     `simulate(scale_system=False)` through the entry point;
-    19c. each new instantiation's resources, and the refusal of a 96x96
-    grid with the bytes its layout needs;
+    19c. each new instantiation's resources, and a 96x96 grid, whose
+    layout exceeds one block's shared memory, simulated through P-gm;
 20. one member of 64 whose coarse Cholesky fails: it gets the guarded
     Newton-Schulz, the others keep their inverses, and P solves the batch;
 21. the port's two tutorial examples, `history_match` (20x20, N=40, every
@@ -71,7 +71,22 @@ Phases, one printed line or more each; any failed check raises:
     for each seed (JAX's threefry draws, computed by the port), held to the
     committed exact float64 oracle's posterior RMSE by each rung's gate;
     every seed's prior RMSE must match its ref's. With `--parity-out DIR`
-    each rung's record is written there.
+    each rung's record is written there;
+23. the device-memory variants at the grids whose layouts exceed one
+    block's shared memory (60x60, 88x88, 96x96, 100x100, 128x128, 60x220,
+    192x192, 256x256), N=64: P-gm in its four instantiations against its
+    plain version after one window, K-gm (and K's own route) bit for bit on
+    a real step, each timed against its bound; a few steps of `simulate`
+    at 128x128 through each P-gm instantiation and at 192x192 and 256x256
+    through K-gm; both variants forced at 64x64 on [6]'s inputs beside the
+    shared-memory kernels;
+24. the reference's bench case at 128x128 (`parity.build_case(seed=1,
+    N=1000, Nx=128, Ny=128)`): 40 steps and the 4-pass ES-MDA on the
+    reference's schedule, every step one P-gm and one K launch, the
+    saturations of every step kept on the card; wall, launches, cg
+    acceptance a pass, peak memory, RMSE, and 10 profiled steps;
+25. `forward_model(mesh=)` on a world of one over NCCL (`parallel.mesh`),
+    64x64, N=128, 5 steps, bit for bit against the run without a mesh.
 
 The line before the last is the kernels' JSON record (with each kernel's
 launches in each rung of [22]); the last line is
@@ -127,11 +142,19 @@ P_FLOPS_VCYCLE_CHEB = 58
 ILES_FLOPS = lambda n, p: 3 * n**3 + 6 * n**2 * p  # noqa: E731
 ILES_ITERS, RESUME_N = 10, 200
 # Grids of phases 18-19: K's runtime-grid variant, P built on first use,
-# P with an explicit fine diagonal; and the grid refused for its layout.
+# P with an explicit fine diagonal; and a grid over one block's shared
+# memory, simulated through P-gm.
 K_RT_GRIDS = ((15, 15), (12, 9), (10, 10), (12, 12), (24, 16), (80, 80))
 P_NEW_GRIDS = ((8, 8), (10, 10), (12, 12), (24, 16), (80, 80))
 P_DIAG_GRIDS = ((20, 20), (64, 64))
-REFUSED_GRID, NEW_N, P_NEW_N = (96, 96), 64, 128
+GM_GRID, NEW_N, P_NEW_N = (96, 96), 64, 128
+# [23]: the grids the JAX package simulates whose P layout exceeds one
+# block's shared memory, N=64 a grid; [24]: the bench case's grid;
+# [25]: the mesh run's members and steps.
+LARGE_GRIDS = ((60, 60), (88, 88), (96, 96), (100, 100), (128, 128), (60, 220), (192, 192),
+               (256, 256))
+LARGE_N, BIG, MESH_N, MESH_STEPS = 64, (128, 128), 128, 5
+P_GM = tuple((smoother, unit) for unit in (True, False) for smoother in ("jacobi", "cheb"))
 # [19]'s fixed work: one restart window of 4 iterations. On grids of up to
 # 400 cells a window of 8 reaches float32's floor, where the plain version
 # in float32 and in float64 part by up to 1.5e-1 (PERF.md, Findings).
@@ -153,8 +176,10 @@ EXAMPLES = (
      ("transport_upwind_rt", "pressure_pcg")),
 )
 # Device activities by kernel name, for the profiled stages.
-STAGE_OF = (("pressure_pcg_kernel", "pressure_pcg"),
-            ("transport_upwind_kernel", "transport_upwind"))
+STAGE_OF = (("pressure_pcg_kernel", "pressure_pcg"), ("pressure_pcg_gm_kernel", "pressure_pcg"),
+            ("transport_upwind_kernel", "transport_upwind"),
+            ("transport_upwind_rt_kernel", "transport_upwind"),
+            ("transport_upwind_gm_kernel", "transport_upwind"))
 JACOBI_KERNELS = ("transport_upwind", "pressure_pcg")  # the main path's
 # EnOpt (phases 11-14): the bench's gd_scan_multi (bench._enopt_fields) and
 # the reference's robust case (Optimise.py:833-875), each at its full size.
@@ -504,11 +529,12 @@ def new_grid_phases(dev, six):
         scaled_system,
     )
     from historymatching_tpu_torch.ops import _build
-    from historymatching_tpu_torch.ops.multigrid import build_hierarchy, coarse_inverse
+    from historymatching_tpu_torch.ops.multigrid import build_hierarchy, coarse_inverse, n_levels
     from historymatching_tpu_torch.ops.pressure import (
         kernel_name,
         pressure_solve_cuda,
         pressure_solve_torch,
+        smem_bytes,
     )
     from historymatching_tpu_torch.ops.transport import (
         transport_substeps_cuda,
@@ -579,9 +605,9 @@ def new_grid_phases(dev, six):
             f"{bnd / ms:.1%})")
         assert torch.isfinite(s_k).all() and err <= K_TOL
     t_args = six["t_args"]
-    rt_ms = cuda_ms(lambda: transport_substeps_cuda(*t_args, runtime_grid=True), 5)
+    rt_ms = cuda_ms(lambda: transport_substeps_cuda(*t_args, force="rt"), 5)
     tpl_ms = cuda_ms(lambda: transport_substeps_cuda(*t_args), 5)
-    rt_err = float((transport_substeps_cuda(*t_args, runtime_grid=True)
+    rt_err = float((transport_substeps_cuda(*t_args, force="rt")
                     - transport_substeps_torch(*t_args)).abs().max())
     bnd, by = transport_bound_ms(*t_args[:4], t_args[5])
     log(f"[18] K at {NX}x{NY}, N={N}, [6]'s inputs: runtime-grid variant {rt_ms:.3f} ms, "
@@ -696,14 +722,16 @@ def new_grid_phases(dev, six):
         figs["transport_upwind_rt"]["grids"].setdefault(f"{grid[0]}x{grid[1]}", {})[
             "resources"] = info
         log(f"[19c] transport_upwind_rt {grid[0]}x{grid[1]}: {info}")
-    big = grid_model(torch, *REFUSED_GRID)
-    try:
-        ht.simulate(set_perm(big, torch.zeros(2, big.Nxy, device=dev)),
-                    torch.zeros(big.Nxy, device=dev), DT, 1)
-        raise AssertionError(f"a {REFUSED_GRID} grid was not refused")
-    except ValueError as e:
-        log(f"[19c] simulate at {REFUSED_GRID[0]}x{REFUSED_GRID[1]} on the card: ValueError: {e}")
-        assert "257584 bytes" in str(e)
+    big = grid_model(torch, *GM_GRID)
+    _build.reset_launches()
+    res = ht.simulate(set_perm(big, torch.zeros(2, big.Nxy, device=dev)),
+                      torch.zeros(big.Nxy, device=dev), DT, 1)
+    sync()
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    log(f"[19c] simulate at {GM_GRID[0]}x{GM_GRID[1]} on the card (P's layout "
+        f"{smem_bytes(*GM_GRID, n_levels(*GM_GRID))} bytes): launches {launches}")
+    assert launches == {"pressure_pcg_gm": 1, "transport_upwind_rt": 1}, launches
+    assert torch.isfinite(res.wsats).all()
 
     # 20. one member's coarse Cholesky fails: [4]'s geometry, N=64 prior
     # fields, member 5's coarsest diagonal halved (no longer dominant, so
@@ -732,6 +760,307 @@ def new_grid_phases(dev, six):
     assert same and bool(torch.isfinite(Ainv_f).all()) and bool(torch.isfinite(p_f).all())
     assert torch.equal(p_f[keep], p_0[keep])
     return figs
+
+
+def large_grid_phases(dev, six):
+    """Phase 23. Returns the figures of the device-memory variants for the
+    kernels' record."""
+    import torch
+
+    import historymatching_tpu_torch as ht
+    from historymatching_tpu_torch.models.ressim import (
+        _source_field,
+        _tpfa,
+        cfl_substeps,
+        pressure_step,
+        scaled_system,
+    )
+    from historymatching_tpu_torch.ops import _build, pressure, transport
+    from historymatching_tpu_torch.ops.multigrid import build_hierarchy, coarse_inverse, n_levels
+    from historymatching_tpu_torch.ops.pressure import (
+        gm_bytes,
+        kernel_name,
+        pressure_solve_cuda,
+        pressure_solve_torch,
+        smem_bytes,
+    )
+    from historymatching_tpu_torch.ops.transport import (
+        transport_substeps_cuda,
+        transport_substeps_torch,
+    )
+    from historymatching_tpu_torch.parallel.runner import set_perm
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    base1 = {k: BASE[k] for k in SOLVE_KEYS}
+    names = [kernel_name(sm, unit, "gm") for sm, unit in P_GM] + ["transport_upwind_gm"]
+    figs = {name: {"grids": {}, "max_abs_err": 0.0} for name in names}
+
+    def system(mm, qf, unit):
+        """P's arguments at s = 0: the scaled system, or the unscaled one
+        (w = 1), as [19]."""
+        B, (Nx, Ny) = mm.K.shape[0], mm.shape
+        s0 = torch.zeros(B, Nx, Ny, device=dev)
+        if unit:
+            _, _, diag, sd, hier, Ainv = scaled_system(mm, s0)
+            return (hier, Ainv, (qf * sd).contiguous(), torch.zeros_like(sd),
+                    (diag * sd).contiguous())
+        TX, TY, _, pin = _tpfa(mm, s0)
+        hier = build_hierarchy(TX, TY, pin)
+        q = qf.expand(B, Nx, Ny).contiguous()
+        return hier, coarse_inverse(hier), q, torch.zeros_like(q), torch.ones_like(q)
+
+    def launched(fn):
+        """fn() and the launches it made, by kernel."""
+        before = dict(_build.LAUNCHES)
+        out = fn()
+        sync()
+        return out, {k: v - before[k] for k, v in _build.LAUNCHES.items() if v != before[k]}
+
+    for Nx, Ny in LARGE_GRIDS:
+        tag = f"{Nx}x{Ny}"
+        levels = n_levels(Nx, Ny)
+        assert pressure.route(Nx, Ny) == pressure.route(Nx, Ny, False) == "gm"
+        m = grid_model(torch, Nx, Ny)
+        pre = ht.sample_prior_perm(gen, m, LARGE_N, r=0.8)
+        qf = _source_field(m, m.inj_rates[:, 0], m.prd_rates[:, 0])
+        systems = {True: system(set_perm(m, pre), qf, True),
+                   False: system(set_perm(m, MILD * pre), qf, False)}
+        nc = systems[True][1].shape[-1]
+        said = []
+        for smoother, unit in P_GM:
+            name = kernel_name(smoother, unit, "gm")
+            args, kw = systems[unit], dict(smoother=smoother, unit_diag=unit)
+            (p_k, _, _), n = launched(lambda: pressure_solve_cuda(*args, **WINDOW4, **kw))
+            assert n == {name: 1}, n
+            p_t = pressure_solve_torch(*args, **WINDOW4, **kw)[0]
+            err, abs_err = rel_err(p_k, p_t), float((p_k - p_t).abs().max())
+            assert torch.isfinite(p_k).all() and err <= P_TOL, (tag, name, err)
+            _, it_k, rl_k = pressure_solve_cuda(*args, **base1, **kw)
+            ms = cuda_ms(lambda: pressure_solve_cuda(*args, **base1, **kw), 2)
+            vf = P_FLOPS_VCYCLE_CHEB if smoother == "cheb" else P_FLOPS_VCYCLE
+            bnd, by = pressure_bound_ms(args[0], args[1], it_k, vf,
+                                        P_FLOPS_FINE + (0 if unit else P_FLOPS_DIAG))
+            fig = dict(ms=ms, bound_ms=bnd, bound_by=by, share_of_bound=bnd / ms,
+                       max_rel_err=err, max_abs_err=abs_err, iters_median=int(it_k.median()),
+                       accepted=int((rl_k <= 5e-2).sum()))
+            if (Nx, Ny) == BIG:  # the plain version, at [24]'s grid
+                fig["plain_ms"] = cuda_ms(lambda: pressure_solve_torch(*args, **base1, **kw), 1)
+            figs[name]["grids"][tag] = fig
+            figs[name]["max_abs_err"] = max(figs[name]["max_abs_err"], abs_err)
+            said.append(f"{name} window rel {err:.2e}, {ms:.3f} ms a launch at bench settings "
+                        f"(iterations median {fig['iters_median']}, accepted "
+                        f"{fig['accepted']}/{LARGE_N}), bound {bnd:.4f} ms ({by}, "
+                        f"{bnd / ms:.1%})" + (f", plain {fig['plain_ms']:.3f} ms"
+                                              if "plain_ms" in fig else ""))
+        log(f"[23] P-gm {tag}, N={LARGE_N}, {levels} levels (coarsest {nc} cells), P layout "
+            f"{smem_bytes(Nx, Ny, levels)} shared bytes, P-gm workspace "
+            f"{gm_bytes(Nx, Ny, levels)} bytes a member: " + "; ".join(said))
+
+        # K on step 6 of a prior run: its own route and K-gm forced
+        mm = set_perm(m, pre)
+        (res5, n_sim) = launched(lambda: ht.simulate(mm, torch.zeros(m.Nxy, device=dev), DT, 5,
+                                                     keep_wsats=False))
+        assert n_sim.get("pressure_pcg_gm") == 5, n_sim
+        s5 = res5.wsats[:, -1].reshape(LARGE_N, Nx, Ny).contiguous()
+        _, Fx, Fy, it, ok, _ = pressure_step(mm, s5, qf, torch.zeros_like(s5), 2e-3,
+                                             4 * max(Nx, Ny), 5e-2)
+        Fx, Fy = Fx.contiguous(), Fy.contiguous()
+        nsub, dtspv = cfl_substeps(mm, Fx, Fy, qf, DT)
+        t_args = (s5, Fx, Fy, qf[None].contiguous(), dtspv, nsub, fluid_of(m))
+        s_t = transport_substeps_torch(*t_args)
+        k_route = transport.route(Nx, Ny)
+        k_fig = {}
+        for force in dict.fromkeys((k_route, "gm")):
+            s_k, n = launched(lambda: transport_substeps_cuda(*t_args, force=force))
+            assert n == {transport.NAMES[force]: 1} and torch.equal(s_k, s_t), (tag, force, n)
+            k_fig[force] = cuda_ms(lambda: transport_substeps_cuda(*t_args, force=force), 3)
+        bnd, by = transport_bound_ms(s5, Fx, Fy, t_args[3], nsub)
+        gm_fig = dict(ms=k_fig["gm"], bound_ms=bnd, bound_by=by, share_of_bound=bnd / k_fig["gm"],
+                      max_abs_err=0.0, route=k_route, route_ms=k_fig[k_route])
+        if k_route == "gm":
+            gm_fig["plain_ms"] = cuda_ms(lambda: transport_substeps_torch(*t_args), 1)
+            gm_fig["launches_simulate"] = n_sim.get("transport_upwind_gm", 0)
+            assert gm_fig["launches_simulate"] == 5, n_sim
+        figs["transport_upwind_gm"]["grids"][tag] = gm_fig
+        log(f"[23] K {tag}, N={LARGE_N}, step 6 of a prior run (simulate's launches {n_sim}; "
+            f"cg_iters median {int(it.median())}, accepted {int(ok.sum())}/{LARGE_N}): "
+            f"substeps median {int(nsub.median())} max {int(nsub.max())}; route {k_route!r} "
+            f"{k_fig[k_route]:.4f} ms, K-gm {k_fig['gm']:.4f} ms, both bit for bit with the "
+            f"plain version; bound {bnd:.5f} ms ({by}, K-gm {bnd / k_fig['gm']:.1%})"
+            + (f"; plain {gm_fig['plain_ms']:.3f} ms" if "plain_ms" in gm_fig else ""))
+
+    # simulate at [24]'s grid through each P-gm instantiation
+    m = grid_model(torch, *BIG)
+    mm = set_perm(m, ht.sample_prior_perm(gen, m, LARGE_N, r=0.8))
+    for smoother, unit in P_GM:
+        name = kernel_name(smoother, unit, "gm")
+        res, n = launched(lambda: ht.simulate(mm, torch.zeros(m.Nxy, device=dev), DT, 5,
+                                              smoother=smoother, scale_system=unit))
+        figs[name]["launches"] = n.get(name, 0)
+        log(f"[23] simulate(smoother={smoother!r}, scale_system={unit}) at {BIG[0]}x{BIG[1]}, "
+            f"N={LARGE_N}, 5 steps: launches {n}; cg_ok {float(res.cg_ok.float().mean()):.1%}")
+        assert n == {name: 5, "transport_upwind_rt": 5}, n
+        assert torch.isfinite(res.wsats).all()
+
+    # both variants forced at 64x64 on [6]'s inputs
+    args, kw = six["p_args"], six["kw"]
+    p_g = pressure_solve_cuda(*args, **WINDOW4, force="gm")[0]
+    p_s = pressure_solve_cuda(*args, **WINDOW4)[0]
+    p_t = pressure_solve_torch(*args, **WINDOW4)[0]
+    err_g, err_s = rel_err(p_g, p_t), rel_err(p_s, p_t)
+    assert err_g <= P_TOL, err_g
+    gm_ms = cuda_ms(lambda: pressure_solve_cuda(*args, **kw, force="gm"), 3)
+    sm_ms = cuda_ms(lambda: pressure_solve_cuda(*args, **kw), 3)
+    t_args = six["t_args"]
+    k_err = float((transport_substeps_cuda(*t_args, force="gm")
+                   - transport_substeps_torch(*t_args)).abs().max())
+    assert k_err == 0.0, k_err
+    kgm_ms = cuda_ms(lambda: transport_substeps_cuda(*t_args, force="gm"), 5)
+    k_ms = cuda_ms(lambda: transport_substeps_cuda(*t_args), 5)
+    figs["pressure_pcg_gm"]["forced_64x64"] = dict(ms=gm_ms, smem_ms=sm_ms, max_rel_err=err_g)
+    figs["transport_upwind_gm"]["forced_64x64"] = dict(ms=kgm_ms, templated_ms=k_ms)
+    log(f"[23] forced at {NX}x{NY}, N={N}, [6]'s inputs: P-gm {gm_ms:.3f} ms a launch vs P "
+        f"{sm_ms:.3f} ms (at [6]: {six['p_ms']['jacobi']:.3f} ms); one window max rel vs plain "
+        f"P-gm {err_g:.2e}, P {err_s:.2e}; K-gm {kgm_ms:.3f} ms vs K {k_ms:.3f} ms (at [6]: "
+        f"{six['t_ms']:.3f} ms), K-gm max|ds| vs plain {k_err:.1e}")
+    return figs
+
+
+def large_case_phase(dev):
+    """Phase 24: the reference's bench case at 128x128, N=1000. Returns its
+    figures."""
+    import torch
+
+    import historymatching_tpu_torch as ht
+    from historymatching_tpu_torch import parity
+    from historymatching_tpu_torch.ops import _build
+    from historymatching_tpu_torch.ops.pressure import recook_plan
+    from historymatching_tpu_torch.parallel.runner import set_perm
+
+    Nx, Ny = BIG
+    case = parity.build_case(SEED, N, Nx, Ny, NTIME)
+    model, truth, prior = case["model"], case["truth"], case["prior"]
+    fl = model.fluid
+    kws = [dict(BASE, **ov) for ov in SCHED]
+    assert all(recook_plan(N, Ny, kw["maxiter"], kw["two_pass"], kw["twopass_j1"],
+                           kw["twopass_div"]) is None for kw in kws + [BASE])
+    passes = []
+
+    def make_fwd(kw):
+        def fwd(E):
+            sync()
+            t, before = time.perf_counter(), dict(_build.LAUNCHES)
+            wsats, prods, res = ht.forward_model(model, E, dt=DT, nTime=NTIME, return_sim=True,
+                                                 **kw)
+            sync()
+            seconds = time.perf_counter() - t
+            assert wsats.shape == (N, NTIME + 1, Nx * Ny)
+            for x in (wsats, prods):
+                assert torch.isfinite(x).all()
+                assert float(x.min()) >= fl.swc and float(x.max()) <= 1.0 - fl.sor
+            passes.append(dict(seconds=seconds, cg_ok=float(res.cg_ok.float().mean()),
+                               iters_median=int(res.cg_iters.median()),
+                               iters_max=int(res.cg_iters.max()),
+                               substeps_median=int(res.substeps.median()),
+                               launches={k: v - before[k] for k, v in _build.LAUNCHES.items()
+                                         if v != before[k]},
+                               final=wsats[:, -1].clone()))
+            return prods.reshape(N, -1)
+        return fwd
+
+    _build.reset_launches()
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # by the earlier phases
+    t0 = time.perf_counter()
+    _, prod_truth = ht.forward_model(model, truth[None], dt=DT, nTime=NTIME, keep_wsats=False,
+                                     **BASE)
+    obs = torch.clamp(prod_truth[0].reshape(-1) + case["noise"], 0, 1)
+    post = ht.es_mda(prior, [make_fwd(kw) for kw in kws], obs, case["R12"],
+                     ht.mda_alphas(PASSES), key=case["key_mda"])
+    sync()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - held
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    for i, st in enumerate(passes):
+        log(f"[24] pass {i + 1}: {st['seconds']:.3f} s; cg_ok {st['cg_ok']:.1%}; cg_iters median "
+            f"{st['iters_median']} max {st['iters_max']}; substeps median "
+            f"{st['substeps_median']}; launches {st['launches']}")
+        assert st["launches"] == {"pressure_pcg_gm": NTIME, "transport_upwind_rt": NTIME}
+    r_prior, r_post = parity.rmse(prior, truth), parity.rmse(post, truth)
+    log(f"[24] bench case seed {SEED} at {Nx}x{Ny}, N={N}, nTime={NTIME}, {PASSES}-pass ES-MDA: "
+        f"{wall:.3f} s (truth sim + forward passes + analyses, synchronized); launches "
+        f"{launches}; peak device memory {peak / 2**30:.2f} GiB above the "
+        f"{held / 2**30:.2f} GiB the earlier phases hold; rmse vs truth prior "
+        f"{r_prior:.4f} -> posterior {r_post:.4f}")
+    assert launches == {"pressure_pcg_gm": (1 + PASSES) * NTIME,
+                        "transport_upwind_rt": (1 + PASSES) * NTIME}, launches
+    assert torch.isfinite(post).all() and post.shape == prior.shape
+
+    # 10 steps of a loose pass from the last pass's final states, profiled
+    mm = set_perm(model, post)
+    wsat = passes[-1]["final"]
+    prof_kw = dict(dt=DT, nTime=10, keep_wsats=False, **dict(BASE, **SCHED[0]))
+    ht.simulate(mm, wsat, **dict(prof_kw, nTime=1))
+    stages, busy, wall_ms, acts = profile_steps(lambda: ht.simulate(mm, wsat, **prof_kw), 10)
+    log(f"[24] profile, 10 loose-pass steps at N={N} {Nx}x{Ny}: per step " + ", ".join(
+        f"{k} {v:.3f} ms ({v / busy:.1%})" for k, v in stages.items())
+        + f"; device busy {busy:.3f} ms of {wall_ms:.3f} ms unprofiled wall, idle "
+        f"{1 - busy / wall_ms:.1%}; {acts:.1f} device activities a step")
+    return dict(wall_s=wall, launches=launches, peak_bytes=peak, held_bytes=held,
+                rmse_prior=r_prior,
+                rmse_post=r_post, stages_ms=stages, busy_ms=busy, step_wall_ms=wall_ms,
+                passes=[{k: v for k, v in st.items() if k != "final"} for st in passes])
+
+
+def mesh_phase(dev):
+    """Phase 25: `forward_model(mesh=)` on a world of one over NCCL."""
+    import torch
+    import torch.distributed as dist
+
+    import historymatching_tpu_torch as ht
+    from historymatching_tpu_torch.ops import _build
+    from historymatching_tpu_torch.parallel.mesh import replicate
+
+    mesh = ht.ens_mesh()
+    try:
+        assert dist.get_backend() == "nccl" and mesh.size() == 1
+        model = flagship_model(torch)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 25)
+        prior = ht.sample_prior_perm(gen, model, MESH_N, r=0.8)
+        kw = dict(dt=DT, nTime=MESH_STEPS, return_sim=True, **BASE)
+        w0 = torch.zeros(model.Nxy, device=dev)
+
+        def timed(fn):
+            sync()
+            t0 = time.perf_counter()
+            out = fn()
+            sync()
+            return out, time.perf_counter() - t0
+
+        sharded = lambda: ht.forward_model(model, ht.shard_ens(prior, mesh),  # noqa: E731
+                                           replicate(w0, mesh), mesh=mesh, **kw)
+        plain = lambda: ht.forward_model(model, prior, w0, **kw)  # noqa: E731
+        _build.reset_launches()
+        (w_m, p_m, r_m), first_m = timed(sharded)  # NCCL's communicator starts here
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        (w_u, p_u, r_u), wall_u = timed(plain)
+        wall_m = timed(sharded)[1]
+        o_m = ht.obs_ens_fn(model, DT, MESH_STEPS, mesh=mesh, **BASE)(prior)
+        same = {k: bool(torch.equal(a, b)) for k, a, b in (
+            ("wsats", w_m, w_u), ("prods", p_m, p_u), ("cg_iters", r_m.cg_iters, r_u.cg_iters),
+            ("recooked", r_m.recooked, r_u.recooked),
+            ("obs", o_m, p_u.reshape(MESH_N, -1)))}
+        log(f"[25] forward_model(mesh=) on a world of one over NCCL ({mesh}), {NX}x{NY}, "
+            f"N={MESH_N}, {MESH_STEPS} steps: {wall_m:.3f} s (without a mesh {wall_u:.3f} s; the "
+            f"first call, with NCCL's start, {first_m:.3f} s); "
+            f"launches {launches}; equal to the run without a mesh, bit for bit: {same}")
+        assert all(same.values()), same
+        assert launches["pressure_pcg"] >= MESH_STEPS and launches["transport_upwind"] == MESH_STEPS
+        return dict(wall_s=wall_m, wall_unsharded_s=wall_u, first_call_s=first_m,
+                    launches=launches, equal=same)
+    finally:
+        dist.destroy_process_group()
 
 
 def fluid_of(model):
@@ -1094,7 +1423,7 @@ def main(argv=None):
         f"tol {K_TOL})")
     assert t_err <= K_TOL
     six = dict(t_args=(s_end, Fx, Fy, q1, dtspv, nsub, fluid), t_ms=t_ms, t_plain_ms=t_plain_ms,
-               mm=mm, s_end=s_end, q1=q1[0], kw=kw, p_ms={"jacobi": p_ms})
+               mm=mm, s_end=s_end, q1=q1[0], kw=kw, p_ms={"jacobi": p_ms}, p_args=args)
 
     # 6b. the recooked solve of that step: three P launches and the torch
     # ops between them, with the bound of the iterations all passes ran
@@ -1341,6 +1670,9 @@ def main(argv=None):
     new = new_grid_phases(dev, six)
     runs = example_phases()
     par = parity_phase(card, opts.parity_out)
+    large = large_grid_phases(dev, six)
+    big = large_case_phase(dev)
+    mesh_run = mesh_phase(dev)
 
     def record(name, route, source, replaces, err, ms, plain_ms, bound_ms, by):
         return dict(name=name, route=route, source=source, replaces=replaces,
@@ -1390,8 +1722,31 @@ def main(argv=None):
             max_abs_err=d["max_abs_err"], ms=d["ms"], plain_ms=d["plain_ms"],
             bound_ms=d["bound_ms"], bound_by=d["bound_by"], library_ms=None,
             share_of_bound=d["bound_ms"] / d["ms"], grids=d["grids"]))
+    # The device-memory variants: P-gm's path is [24] (Jacobi, unit) and
+    # [23]'s simulate at 128x128 (the others), timed there at bench settings;
+    # K-gm's path is [23]'s simulate at 256x256, timed on its step 6.
+    for name, d in large.items():
+        at = "256x256" if name == "transport_upwind_gm" else f"{BIG[0]}x{BIG[1]}"
+        g = d["grids"][at]
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="historymatching_tpu_torch/csrc/" + (
+                "transport_upwind.cu" if name.startswith("transport") else "pressure_pcg_gm.cu"),
+            replaces=("historymatching_tpu/ops/transport_pallas.py:68"
+                      if name.startswith("transport")
+                      else "historymatching_tpu/ops/pressure_pallas.py:34"),
+            launches=(big["launches"][name] if name == "pressure_pcg_gm"
+                      else g["launches_simulate"] if name == "transport_upwind_gm"
+                      else d["launches"]),
+            max_abs_err=d["max_abs_err"], ms=g["ms"], plain_ms=g.get("plain_ms"),
+            bound_ms=g["bound_ms"], bound_by=g["bound_by"], library_ms=None,
+            share_of_bound=g["bound_ms"] / g["ms"], at_grid=at, grids=d["grids"],
+            **({"launches_simulate_128x128": d["launches"]} if "launches" in d else {}),
+            **({"forced_64x64": d["forced_64x64"]} if "forced_64x64" in d else {})))
     for rec in kernels:
         rec["launches_parity"] = {p["name"]: p["launches"].get(rec["name"], 0) for p in par}
+    log(f"[24] record: {json.dumps({k: v for k, v in big.items() if k != 'passes'})}")
+    log(f"[25] record: {json.dumps(mesh_run)}")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

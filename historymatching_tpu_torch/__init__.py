@@ -3,7 +3,8 @@
 Ensemble history matching and production optimisation on one NVIDIA GPU:
 the TPFA two-phase simulator run over an ensemble, the Gaussian-field
 prior, the ES-MDA (plain or localized, with resume), IES and ILES
-analyses, EnOpt with its NPV objective (`opt`), checkpoints and profiling,
+analyses, EnOpt with its NPV objective (`opt`), the ensemble split over
+devices (`parallel.mesh`, `forward_model(mesh=)`), checkpoints and profiling,
 JAX's random draws (`prng`), the workload parity harness (`parity`) and
 plotting (`plotting`, matplotlib imported on use).
 The module layout and names mirror the JAX package. Plain tensor code is
@@ -61,6 +62,7 @@ from historymatching_tpu_torch.parallel.runner import (  # noqa: E402
     forward_model,
     obs_ens_fn,
 )
+from historymatching_tpu_torch.parallel.mesh import ens_mesh, shard_ens  # noqa: E402
 from historymatching_tpu_torch import checkpoint, profiling, utils  # noqa: E402
 from historymatching_tpu_torch.utils import (  # noqa: E402
     center,
@@ -82,6 +84,8 @@ __all__ = [
     "forward_model",
     "ensemble_simulate",
     "obs_ens_fn",
+    "ens_mesh",
+    "shard_ens",
     "sample_prior_perm",
     "gaussian_fields",
     "gaussian_fields_dense",

@@ -5,7 +5,9 @@ C interface, for `sm_90a` (Hopper), on first use, into `_build/` beside
 the package; the compilers run in parallel. Kernel P is a template on the
 grid: the main library holds the grids of `GRIDS`, and any other grid is
 compiled on first use into a library of its own (`pressure_lib`);
-`prebuild` starts every compiler a run will need at once. A library's
+`prebuild` starts every compiler a run will need at once. The
+device-memory variants (P-gm in `pressure_pcg_gm.cu`, K-gm beside K) take
+the grid at run time, so one library serves every grid. A library's
 name carries a hash of its source, the shared headers and the flags, so an
 edited source rebuilds. The libraries are loaded with `ctypes`; each C
 entry point returns `cudaGetLastError()` after its launch, and `check`
@@ -38,10 +40,12 @@ GRIDS = ((16, 16), (20, 20), (32, 32), (64, 64))
 # Shared memory one thread block may opt into on the H100 (sm_90).
 SMEM_LIMIT = 232_448
 
-# Launches by kernel: K's templated and runtime-grid variants, and P by
-# smoother and by fine diagonal (unit, or read: the unscaled system).
-LAUNCHES = {"transport_upwind": 0, "transport_upwind_rt": 0, "pressure_pcg": 0,
-            "pressure_pcg_cheb": 0, "pressure_pcg_diag": 0, "pressure_pcg_cheb_diag": 0}
+# Launches by kernel: K's templated, runtime-grid and device-memory
+# variants, and P by smoother, by fine diagonal (unit, or read: the
+# unscaled system) and by route (shared memory, or "_gm": device memory).
+_P_NAMES = ("pressure_pcg", "pressure_pcg_cheb", "pressure_pcg_diag", "pressure_pcg_cheb_diag")
+LAUNCHES = dict.fromkeys(("transport_upwind", "transport_upwind_rt", *_P_NAMES,
+                          "transport_upwind_gm", *(n + "_gm" for n in _P_NAMES)), 0)
 
 _libs = {}
 build_info = {"paths": {}, "built": [], "ptxas": {}, "seconds": 0.0}
@@ -54,14 +58,24 @@ _SIGNATURES = {
         # s, Fx, Fy, q, q_stride, dts_pv, n_sub, out, B, Nx, Ny, vw, vo, swc, sor, stream
         "hm_transport_substeps": _TRANSPORT,
         "hm_transport_substeps_rt": _TRANSPORT,
+        # the same with the fw workspace after `out`
+        "hm_transport_substeps_gm": _TRANSPORT[:8] + [P] + _TRANSPORT[8:],
         "hm_transport_info": [I, I, P],
         "hm_transport_rt_info": [I, I, P],
+        "hm_transport_gm_info": [I, I, P],
     },
     "pressure_pcg": {
         # level pointers, Ainv, q, p0, w, p_out, it_out, rel_out, B, Nx, Ny,
         # n_levels, tol, maxiter, restart_every, patience, cheb, unit, stream
         "hm_pressure_solve": [P, P, P, P, P, P, P, P, I, I, I, I, F, I, I, I, I, I, P],
         "hm_pressure_info": [I, I, I, I, P],
+    },
+    "pressure_pcg_gm": {
+        # level pointers, Ainv, q, p0, w, p_out, it_out, rel_out, workspace,
+        # layout table, B, tol, maxiter, restart_every, patience, cheb, unit,
+        # stream
+        "hm_pressure_gm_solve": [P, P, P, P, P, P, P, P, P, P, I, F, I, I, I, I, I, P],
+        "hm_pressure_gm_info": [I, I, I, I, P],
     },
 }
 
@@ -132,12 +146,12 @@ def _load(specs):
 
 
 def lib():
-    """The main libraries' C entry points (K in both variants, P at
-    `GRIDS`), built first where their sources changed."""
+    """The main libraries' C entry points (K in its three variants, P at
+    `GRIDS`, P-gm), built first where their sources changed."""
     if "main" not in _libs:
         _load([_spec(stem) for stem in _SIGNATURES])
-        _libs["main"] = types.SimpleNamespace(**vars(_libs["transport_upwind"]),
-                                              **vars(_libs["pressure_pcg"]))
+        _libs["main"] = types.SimpleNamespace(**{k: v for stem in _SIGNATURES
+                                                 for k, v in vars(_libs[stem]).items()})
     return _libs["main"]
 
 
@@ -168,14 +182,19 @@ def kernel_info(kernel, Nx, Ny):
     """A kernel's resources at one grid, as the CUDA runtime reports them:
     registers and local (stack and spill) bytes a thread, dynamic shared
     bytes and threads a block, resident blocks an SM. `kernel` is a key of
-    `LAUNCHES`."""
+    `LAUNCHES`; a device-memory variant ("_gm") reports its static shared
+    bytes (its workspace is `ops.pressure.gm_bytes`, or K's two tiles)."""
     out = (ctypes.c_int * 5)()
     if kernel.startswith("transport"):
-        fn = lib().hm_transport_rt_info if kernel.endswith("_rt") else lib().hm_transport_info
+        fn = {"transport_upwind_rt": lib().hm_transport_rt_info,
+              "transport_upwind_gm": lib().hm_transport_gm_info}.get(kernel,
+                                                                     lib().hm_transport_info)
         code = fn(Nx, Ny, out)
     else:
-        code = pressure_lib(Nx, Ny).hm_pressure_info(Nx, Ny, int("cheb" in kernel),
-                                                     int(not kernel.endswith("_diag")), out)
+        cheb, unit = int("cheb" in kernel), int("_diag" not in kernel)
+        fn = (lib().hm_pressure_gm_info if kernel.endswith("_gm")
+              else pressure_lib(Nx, Ny).hm_pressure_info)
+        code = fn(Nx, Ny, cheb, unit, out)
     check(code, kernel)
     keys = ("registers", "local_bytes", "shared_bytes", "threads", "blocks_per_sm")
     return dict(zip(keys, out))

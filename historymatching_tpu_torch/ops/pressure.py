@@ -17,9 +17,16 @@ The V-cycle's smoother is a compile-time choice of the kernel: damped
 Jacobi (launches counted as "pressure_pcg") or degree-2 Chebyshev
 ("pressure_pcg_cheb"), both instantiated for every grid; the instantiations
 that read the fine diagonal count as "pressure_pcg_diag" and
-"pressure_pcg_cheb_diag". A grid without a hierarchy, or whose layout
-exceeds one block's shared memory, is refused before any launch
-(`check_grid`).
+"pressure_pcg_cheb_diag".
+
+Where a member's layout (`layout`, `smem_bytes`) exceeds one block's
+shared memory, the device-memory variant P-gm runs instead
+(`csrc/pressure_pcg_gm.cu`, one library for every grid): the same solve,
+with every level's arrays and the CG vectors in a per-member workspace
+that the wrapper allocates; its launches count under the same names with
+"_gm" appended. `route` says which a grid takes, and `force="gm"` takes
+P-gm at any grid. A grid without a hierarchy is refused before any launch
+(`check_grid`); `models.ressim` routes it to the plain Jacobi-PCG.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor takes the
 kernel, which raises on what it does not take.
@@ -62,56 +69,115 @@ def _kernel_threads(Nx, Ny):
     return 256 if tiles > 256 else -(-tiles // 32) * 32
 
 
-def smem_bytes(Nx, Ny, levels, unit_diag=True):
-    """Shared memory the kernel takes for one member (the layout of `Geo` in
-    csrc/pressure_pcg.cu): the fine faces, TY padded to Ny wide, and the
-    vectors p, r and the smoothing temporary, and without `unit_diag` the
-    fine diagonal and its reciprocal; per intermediate level its
-    faces, diagonal, reciprocal diagonal, right-hand side and iterate; the
-    coarsest right-hand side, iterate and inverse; two reduction slots a
-    warp. Every array is rounded up to 4 floats."""
-    cells = [(Nx >> lvl) * (Ny >> lvl) for lvl in range(levels)]
-    faces = [_r4(((Nx >> lvl) - 1) * (Ny >> lvl)) for lvl in range(levels)]
-    vec = [_r4(c) for c in cells]
+LEVEL_KEYS = ("n", "m", "TX", "TY", "D", "RD", "B", "X", "T")
+
+
+def layout(Nx, Ny, levels, unit_diag=True, gm=False):
+    """Kernel P's arrays for one member, in floats, each rounded up to 4:
+    (per level a dict of its sides `n`, `m` and the offsets of LEVEL_KEYS,
+    the offsets of the extra arrays, the total).
+
+    The fine level holds its faces TX, TY (padded to Ny wide), the vectors
+    P (p; the V-cycle's iterate X), R (r; its right-hand side B) and the
+    smoothing temporary T, and without `unit_diag` its diagonal D and
+    reciprocal diagonal RD; an intermediate level its faces, D, RD, B and
+    X, its temporary aliasing the fine T; the coarsest its B and X. In
+    shared memory (`gm` False: `Geo` in csrc/pressure_pcg.cu) the coarsest
+    inverse (transposed) and two reduction slots a warp follow. In P-gm's
+    device workspace (`gm`: csrc/pressure_pcg_gm.cu) the CG vectors x, p,
+    z and A p follow instead: its coarse solve reads the member's inverse
+    in place, and its reduction slots are in shared memory."""
+    sides = [(Nx >> lvl, Ny >> lvl) for lvl in range(levels)]
+    vec = [_r4(n * m) for n, m in sides]
     lc = levels - 1
-    floats = (faces[0] + (4 if unit_diag else 6) * vec[0]
-              + sum(faces[lvl] + 5 * vec[lvl] for lvl in range(1, lc)) + 2 * vec[lc]
-              + _r4(cells[lc] ** 2) + 4 * (_kernel_threads(Nx, Ny) // 32))
-    return 4 * floats
+    lv, o, t_off = [], 0, 0
+    for lvl, (n, m) in enumerate(sides):
+        d = dict(n=n, m=m, TX=0, TY=0, D=0, RD=0, B=o, X=o + vec[lvl], T=0)
+        if lvl < lc:
+            d["TX"], d["TY"] = o, o + _r4((n - 1) * m)
+            if lvl == 0:
+                d["X"], d["B"], d["T"] = (d["TY"] + k * vec[0] for k in (1, 2, 3))
+                d["D"] = d["TY"] + 4 * vec[0]
+                size = d["TY"] - o + (4 if unit_diag else 6) * vec[0]
+            else:
+                d["D"] = d["TY"] + vec[lvl]
+                d["B"] = d["D"] + 2 * vec[lvl]
+                d["X"] = d["B"] + vec[lvl]
+                d["T"] = lv[0]["T"] + t_off
+                t_off += vec[lvl]
+                size = d["TY"] - o + 5 * vec[lvl]
+            d["RD"] = d["D"] + vec[lvl]
+        else:
+            size = 2 * vec[lvl]
+        lv.append(d)
+        o += size
+    if gm:
+        extra = {k: o + i * vec[0] for i, k in enumerate(("x", "p", "z", "Ap"))}
+        o += 4 * vec[0]
+    else:
+        nc = sides[lc][0] * sides[lc][1]
+        extra = {"inverse": o, "reduction": o + _r4(nc * nc)}
+        o += _r4(nc * nc) + 4 * (_kernel_threads(Nx, Ny) // 32)
+    return lv, extra, o
+
+
+def smem_bytes(Nx, Ny, levels, unit_diag=True):
+    """Shared memory the shared-memory kernel takes for one member: its
+    `layout`."""
+    return 4 * layout(Nx, Ny, levels, unit_diag)[2]
+
+
+def gm_bytes(Nx, Ny, levels, unit_diag=True):
+    """Device memory P-gm's workspace takes for one member: its `layout`."""
+    return 4 * layout(Nx, Ny, levels, unit_diag, gm=True)[2]
+
+
+def gm_table(Nx, Ny, levels, unit_diag=True):
+    """P-gm's layout as the C entry takes it: levels, floats a member, the
+    offsets of x, p, z and A p, then per level its LEVEL_KEYS."""
+    lv, extra, floats = layout(Nx, Ny, levels, unit_diag, gm=True)
+    return [levels, floats, *extra.values()] + [d[k] for d in lv for k in LEVEL_KEYS]
 
 
 KERNELS = {"jacobi": "pressure_pcg", "cheb": "pressure_pcg_cheb"}  # by smoother
+ROUTES = ("smem", "gm")
 
 
-def kernel_name(smoother, unit_diag=True):
-    """The launch counter of P's instantiation for a smoother and fine
-    diagonal."""
-    return KERNELS[smoother] + ("" if unit_diag else "_diag")
+def kernel_name(smoother, unit_diag=True, route="smem"):
+    """The launch counter of P's instantiation for a smoother, fine
+    diagonal and route."""
+    return KERNELS[smoother] + ("" if unit_diag else "_diag") + ("_gm" if route == "gm" else "")
 
 
-def check_grid(Nx, Ny, unit_diag=True):
+def check_grid(Nx, Ny):
     """Raise unless kernel P takes an Nx x Ny grid: it needs a multigrid
-    hierarchy, and the layout (`smem_bytes`) must fit one block's shared
-    memory."""
-    levels = n_levels(Nx, Ny)
-    if levels < 2:
+    hierarchy."""
+    if n_levels(Nx, Ny) < 2:
         raise ValueError(f"pressure kernel: a {Nx}x{Ny} grid has no multigrid hierarchy")
-    nbytes = smem_bytes(Nx, Ny, levels, unit_diag)
-    if nbytes > _build.SMEM_LIMIT:
-        raise ValueError(f"pressure kernel: a {Nx}x{Ny} grid needs {nbytes} bytes of shared "
-                         f"memory a member, over the {_build.SMEM_LIMIT} one thread block may take")
+
+
+def route(Nx, Ny, unit_diag=True):
+    """Which kernel P takes a grid: "smem" where the layout fits one block's
+    shared memory (`_build.SMEM_LIMIT`), else "gm"."""
+    check_grid(Nx, Ny)
+    fits = smem_bytes(Nx, Ny, n_levels(Nx, Ny), unit_diag) <= _build.SMEM_LIMIT
+    return "smem" if fits else "gm"
 
 
 def pressure_solve_cuda(hier, Ainv, q, p0, w, tol, maxiter, patience_iters=96,
-                        restart_every=8, smoother="jacobi", unit_diag=True):
+                        restart_every=8, smoother="jacobi", unit_diag=True, force=None):
     """The hand kernel. Same arguments as the plain version, float32 on one
     CUDA device. With `unit_diag` (the contract of
     `models.ressim.scaled_system`) the kernel takes the fine diagonal as 1
-    and does not read `hier[0][2]`; without, it reads it."""
+    and does not read `hier[0][2]`; without, it reads it. The grid's
+    `route` picks the shared-memory kernel or P-gm; `force` ("smem" or
+    "gm") picks one at any grid."""
     B, Nx, Ny = q.shape
     if smoother not in SMOOTHERS:
         raise ValueError(f"smoother must be one of {SMOOTHERS}, got {smoother!r}")
-    check_grid(Nx, Ny, unit_diag)
+    if force not in (None, *ROUTES):
+        raise ValueError(f"force must be one of {ROUTES} or None, got {force!r}")
+    rt = route(Nx, Ny, unit_diag) if force is None else force
     levels = len(hier)
     if levels != n_levels(Nx, Ny):
         raise ValueError(f"pressure kernel: grid {Nx}x{Ny} takes {n_levels(Nx, Ny)} multigrid "
@@ -140,12 +206,19 @@ def pressure_solve_cuda(hier, Ainv, q, p0, w, tol, maxiter, patience_iters=96,
     if B == 0:
         return p, it, rel
     patience = max(4, -(-patience_iters // restart_every))
-    name = kernel_name(smoother, unit_diag)
-    code = _build.pressure_lib(Nx, Ny).hm_pressure_solve(
-        ctypes.cast(ptrs, ctypes.c_void_p), Ainv.data_ptr(), q.data_ptr(), p0.data_ptr(),
-        w.data_ptr(), p.data_ptr(), it.data_ptr(), rel.data_ptr(), B, Nx, Ny, levels,
-        float(tol), int(maxiter), int(restart_every), patience, int(smoother == "cheb"),
-        int(unit_diag), _build.stream_ptr(q.device))
+    name = kernel_name(smoother, unit_diag, rt)
+    solver = (int(maxiter), int(restart_every), patience, int(smoother == "cheb"),
+              int(unit_diag), _build.stream_ptr(q.device))
+    common = (ctypes.cast(ptrs, ctypes.c_void_p), Ainv.data_ptr(), q.data_ptr(), p0.data_ptr(),
+              w.data_ptr(), p.data_ptr(), it.data_ptr(), rel.data_ptr())
+    if rt == "gm":
+        table = gm_table(Nx, Ny, levels, unit_diag)
+        ws = torch.empty(B * table[1], dtype=torch.float32, device=q.device)
+        code = _build.lib().hm_pressure_gm_solve(
+            *common, ws.data_ptr(), (ctypes.c_int * len(table))(*table), B, float(tol), *solver)
+    else:
+        code = _build.pressure_lib(Nx, Ny).hm_pressure_solve(*common, B, Nx, Ny, levels,
+                                                             float(tol), *solver)
     _build.check(code, name)
     _build.LAUNCHES[name] += 1
     return p, it, rel

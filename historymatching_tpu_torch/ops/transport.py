@@ -4,8 +4,10 @@ Replaces the TPU kernels of `historymatching_tpu/ops/transport_pallas.py`
 (`transport_substeps_pallas`, `_batched`, `_packed`): on the card one
 thread block per member loops over that member's own substep count
 (`csrc/transport_upwind.cu`: a template on the grid for the grids of
-`_build.GRIDS`, and a variant with the grid as a runtime argument for any
-other grid whose two fw tiles fit one block's shared memory). Beside it,
+`_build.GRIDS`, a variant with the grid as a runtime argument for any
+other grid whose two fw tiles fit one block's shared memory, and K-gm,
+the runtime-grid variant with its fw tiles in device memory, for any
+larger grid; `route` says which a grid takes). Beside it,
 `transport_substeps_torch` is the plain PyTorch version; it runs the batch
 to its largest count and freezes each member after its own, which gives
 the same per-member result.
@@ -22,13 +24,32 @@ import torch.nn.functional as F
 from historymatching_tpu_torch.ops import _build
 
 
+ROUTES = ("templated", "rt", "gm")
+NAMES = {"templated": "transport_upwind", "rt": "transport_upwind_rt",
+         "gm": "transport_upwind_gm"}  # launch counters by route
+
+
+def smem_bytes(Nx, Ny):
+    """Shared memory K and its runtime-grid variant take for one member:
+    two fw tiles of the grid. K-gm puts the same tiles in device memory."""
+    return 2 * 4 * Nx * Ny
+
+
 def check_grid(Nx, Ny):
-    """Raise unless kernel K takes an Nx x Ny grid: a block holds two fw
-    tiles of the grid in shared memory."""
-    nbytes = 2 * 4 * Nx * Ny
-    if nbytes > _build.SMEM_LIMIT:
-        raise ValueError(f"transport kernel: a {Nx}x{Ny} grid needs {nbytes} bytes of shared "
-                         f"memory a member, over the {_build.SMEM_LIMIT} one thread block may take")
+    """Raise unless kernel K takes an Nx x Ny grid: any grid with a cell,
+    through one of its routes."""
+    if Nx < 1 or Ny < 1:
+        raise ValueError(f"transport kernel: a {Nx}x{Ny} grid has no cells")
+
+
+def route(Nx, Ny):
+    """Which kernel K takes a grid: "templated" at `_build.GRIDS`, "rt"
+    where the two fw tiles fit one block's shared memory
+    (`_build.SMEM_LIMIT`), else "gm"."""
+    check_grid(Nx, Ny)
+    if (Nx, Ny) in _build.GRIDS:
+        return "templated"
+    return "rt" if smem_bytes(Nx, Ny) <= _build.SMEM_LIMIT else "gm"
 
 
 def transport_substeps_torch(s, Fx, Fy, q, dts_pv, n_sub, fluid):
@@ -58,14 +79,15 @@ def transport_substeps_torch(s, Fx, Fy, q, dts_pv, n_sub, fluid):
     return s
 
 
-def transport_substeps_cuda(s, Fx, Fy, q, dts_pv, n_sub, fluid, runtime_grid=None):
+def transport_substeps_cuda(s, Fx, Fy, q, dts_pv, n_sub, fluid, force=None):
     """The hand kernel. Same arguments as the plain version, float32 on one
     CUDA device; a `q` with one member is read by every member in place.
-    The templated kernel runs the grids of `_build.GRIDS` and the
-    runtime-grid variant any other; `runtime_grid=True` takes the variant
-    at any grid (launches counted as "transport_upwind_rt")."""
+    The grid's `route` picks the templated kernel, the runtime-grid variant
+    or K-gm; `force` (one of `ROUTES`) picks one at any grid (the templated
+    kernel only at `_build.GRIDS`)."""
     B, Nx, Ny = s.shape
-    check_grid(Nx, Ny)
+    if force not in (None, *ROUTES):
+        raise ValueError(f"force must be one of {ROUTES} or None, got {force!r}")
     shapes = {"s": (s, (B, Nx, Ny)), "Fx": (Fx, (B, Nx + 1, Ny)),
               "Fy": (Fy, (B, Nx, Ny + 1)), "q": (q, (1 if q.shape[0] == 1 else B, Nx, Ny)),
               "dts_pv": (dts_pv, (B,))}
@@ -81,14 +103,19 @@ def transport_substeps_cuda(s, Fx, Fy, q, dts_pv, n_sub, fluid, runtime_grid=Non
         return out
     vw, vo, swc, sor = (float(v) for v in fluid)
     q_stride = 0 if q.shape[0] == 1 else Nx * Ny
-    rt = (Nx, Ny) not in _build.GRIDS if runtime_grid is None else runtime_grid
-    name = "transport_upwind_rt" if rt else "transport_upwind"
-    fn = _build.lib().hm_transport_substeps_rt if rt else _build.lib().hm_transport_substeps
-    code = fn(s.data_ptr(), Fx.data_ptr(), Fy.data_ptr(), q.data_ptr(), q_stride,
-              dts_pv.data_ptr(), n_sub.data_ptr(), out.data_ptr(), B, Nx, Ny, vw, vo, swc, sor,
-              _build.stream_ptr(s.device))
-    _build.check(code, name)
-    _build.LAUNCHES[name] += 1
+    rt = route(Nx, Ny) if force is None else force
+    lib = _build.lib()
+    args = (s.data_ptr(), Fx.data_ptr(), Fy.data_ptr(), q.data_ptr(), q_stride,
+            dts_pv.data_ptr(), n_sub.data_ptr(), out.data_ptr())
+    tail = (B, Nx, Ny, vw, vo, swc, sor, _build.stream_ptr(s.device))
+    if rt == "gm":
+        ws = torch.empty(B * smem_bytes(Nx, Ny) // 4, dtype=torch.float32, device=s.device)
+        code = lib.hm_transport_substeps_gm(*args, ws.data_ptr(), *tail)
+    else:
+        fn = lib.hm_transport_substeps_rt if rt == "rt" else lib.hm_transport_substeps
+        code = fn(*args, *tail)
+    _build.check(code, NAMES[rt])
+    _build.LAUNCHES[NAMES[rt]] += 1
     return out
 
 

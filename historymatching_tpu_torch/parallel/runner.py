@@ -1,9 +1,12 @@
 """Ensemble forward-model runner (PyTorch counterpart of
-`historymatching_tpu.parallel.runner`, single device).
+`historymatching_tpu.parallel.runner`).
 
 The member axis is the leading tensor axis all the way down: one
 `simulate` call advances every member, and each kernel launch covers the
-whole ensemble (one thread block per member).
+whole ensemble (one thread block per member). With a `mesh`
+(`parallel.mesh.ens_mesh`), each rank runs its block of members on its own
+device with no communication, as JAX's `shard_map` does, and the results
+are all-gathered in member order.
 """
 
 from __future__ import annotations
@@ -11,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from historymatching_tpu_torch.models.ressim import ResSim, SimResult, simulate
+from historymatching_tpu_torch.parallel.mesh import gather_members, local_members, whole
 
 
 def perm_transf(x):
@@ -31,8 +35,8 @@ def prod_inds(model: ResSim):
 
 
 def forward_model(model, perm_ens, wsat0=None, dt=0.025, nTime=40, *, transf=perm_transf,
-                  keep_wsats=True, p_init=None, keep_pressures=False, return_sim=False,
-                  chunk=None, **sim_kwargs):
+                  mesh=None, keep_wsats=True, p_init=None, keep_pressures=False,
+                  return_sim=False, chunk=None, **sim_kwargs):
     """Run the ensemble forward model on the device of `perm_ens`.
 
     `perm_ens` (N, Nxy) pre-permeability fields; `wsat0` one shared state
@@ -50,7 +54,21 @@ def forward_model(model, perm_ens, wsat0=None, dt=0.025, nTime=40, *, transf=per
     descending (a stable sort), so the hard ones share batches; the outputs
     come back in the input order. Each member's result is its own, so it
     equals the unchunked run's.
+
+    `mesh` (`parallel.mesh.ens_mesh`): the members are split over its
+    ranks (N must be divisible by the mesh size). `perm_ens`, and `wsat0`
+    and `p_init` where they carry a member axis, are member-sharded
+    DTensors (`shard_ens`) or tensors every rank holds whole; a shared
+    `wsat0` is replicated. Each rank runs its members as above, with no
+    communication; the outputs (and the `SimResult`'s member fields) are
+    all-gathered in member order, so every rank gets the whole ensemble's
+    results as plain tensors, equal to the run without a mesh.
     """
+    if mesh is not None:
+        return _forward_sharded(model, perm_ens, wsat0, dt, nTime, mesh, transf=transf,
+                                keep_wsats=keep_wsats, p_init=p_init,
+                                keep_pressures=keep_pressures, return_sim=return_sim,
+                                chunk=chunk, **sim_kwargs)
     perm_ens = perm_ens.reshape(1, -1) if perm_ens.ndim == 1 else perm_ens
     if wsat0 is None:
         wsat0 = torch.zeros(model.Nxy, dtype=perm_ens.dtype, device=perm_ens.device)
@@ -76,6 +94,29 @@ def forward_model(model, perm_ens, wsat0=None, dt=0.025, nTime=40, *, transf=per
     return out + (res,) if return_sim else out
 
 
+def _forward_sharded(model, perm_ens, wsat0, dt, nTime, mesh, p_init=None, **kw):
+    """`forward_model` on `mesh`: this rank's members, then every rank's
+    outputs gathered."""
+    perm_ens = perm_ens.reshape(1, -1) if perm_ens.ndim == 1 else perm_ens
+    N, n = perm_ens.shape[0], mesh.size()
+    if N % n:
+        raise ValueError(f"N={N} not divisible by mesh size {n}")
+    perm = local_members(perm_ens, mesh)
+    if wsat0 is not None:
+        wsat0 = local_members(wsat0, mesh) if wsat0.ndim == 2 else whole(wsat0)
+    if p_init is not None:
+        p_init = local_members(p_init, mesh)
+    out = forward_model(model, perm, wsat0, dt, nTime, p_init=p_init, **kw)
+
+    def gather(x):
+        if isinstance(x, SimResult):
+            return x._replace(**{k: gather_members(getattr(x, k), mesh) for k in _MEMBER_FIELDS
+                                 if isinstance(getattr(x, k), torch.Tensor)})
+        return gather_members(x, mesh)
+
+    return tuple(gather(x) for x in out)
+
+
 def _merge(parts, inv):
     """Chunks' outputs in the input order: tensors are joined on their
     member axis and reordered; a `SimResult` field by field, where the
@@ -98,13 +139,15 @@ def ensemble_simulate(model, perm_ens, wsat0=None, dt=0.025, nTime=40, **kw):
     return forward_model(model, perm_ens, wsat0, dt, nTime, **kw)
 
 
-def obs_ens_fn(model, dt, nTime, wsat0=None, nTime_axis_flat=True, **sim_kwargs):
+def obs_ens_fn(model, dt, nTime, wsat0=None, mesh=None, nTime_axis_flat=True, **sim_kwargs):
     """The `obs_ens` callable for ES-MDA: ensemble -> production series,
     flattened to (N, nTime * nPrd), or (N, nTime, nPrd) without
-    `nTime_axis_flat`."""
+    `nTime_axis_flat`; with `mesh`, the members split over its ranks
+    (`forward_model`)."""
 
     def fn(E):
-        _, prods = forward_model(model, E, wsat0, dt, nTime, keep_wsats=False, **sim_kwargs)
+        _, prods = forward_model(model, E, wsat0, dt, nTime, mesh=mesh, keep_wsats=False,
+                                 **sim_kwargs)
         return prods.reshape(prods.shape[0], -1) if nTime_axis_flat else prods
 
     return fn

@@ -2,8 +2,10 @@
 and model surface, float64 on the CPU.
 
 - `simulate` on grids without a multigrid hierarchy (15x15, 12x9: the
-  plain Jacobi-PCG fallback) and with one that no kernel used to be built
-  for (10x10, 12x12);
+  plain Jacobi-PCG fallback), with one that no kernel used to be built
+  for (10x10, 12x12), and with one whose kernel P layout exceeds one
+  block's shared memory (60x60; 60x220, one layer of the SPE10 model 2
+  grid, with its 15x55 = 825-cell coarse Cholesky);
 - the unscaled system (`scale_system=False`), with either preconditioner;
 - `forward_model(chunk=)`, `obs_ens_fn(nTime_axis_flat=False)`,
   `ind2xy`/`sub2xy`, `sim(pbar=)` and `geostat` at the package top.
@@ -42,9 +44,17 @@ def _pair(Nx, Ny):
     return m, convert.ressim_from_reference(m, dtype=F64, device="cpu")
 
 
-def _simulate_both(Nx, Ny, seed, nTime=3, **kw):
+# Solver settings of a grid's case. At 60x220 (cells 7.3 times longer
+# than wide) the V-cycle's point smoother leaves a residual plateau of more
+# than 96 iterations: with the default patience both packages stop there
+# (rel ~8e-3, cg_ok False) on iterates that rounding decides, so the case
+# gives both the patience to reach the f64 tol of 1e-10 (~700 iterations).
+GRID_KW = {(60, 220): dict(patience_iters=960)}
+
+
+def _simulate_both(Nx, Ny, seed, nTime=3, N=4, **kw):
     m, mt = _pair(Nx, Ny)
-    perm = perm_fields(seed, 4, m.Nxy)
+    perm = perm_fields(seed, N, m.Nxy)
     res_j = jax.vmap(lambda p: simulate_j(set_perm_j(m, p), jnp.zeros(m.Nxy), 0.025, nTime,
                                           **kw))(jnp.asarray(perm))
     res_t = simulate(set_perm(mt, torch.as_tensor(perm)), torch.zeros(mt.Nxy, dtype=F64), 0.025,
@@ -52,10 +62,11 @@ def _simulate_both(Nx, Ny, seed, nTime=3, **kw):
     return res_j, res_t
 
 
-@pytest.mark.parametrize("Nx,Ny", [(15, 15), (12, 9), (10, 10), (12, 12)])
+@pytest.mark.parametrize("Nx,Ny", [(15, 15), (12, 9), (10, 10), (12, 12), (60, 60), (60, 220)])
 def test_simulate_any_grid_matches_jax(Nx, Ny):
-    res_j, res_t = _simulate_both(Nx, Ny, seed=Nx + Ny)
-    assert res_t.wsats.shape == res_j.wsats.shape == (4, 4, Nx * Ny)
+    N = 2 if Nx * Ny > 1000 else 4
+    res_j, res_t = _simulate_both(Nx, Ny, seed=Nx + Ny, N=N, **GRID_KW.get((Nx, Ny), {}))
+    assert res_t.wsats.shape == res_j.wsats.shape == (N, 4, Nx * Ny)
     assert rel_err(res_t.wsats, res_j.wsats) < TOL
     assert rel_err(res_t.prd_sats, res_j.prd_sats) < TOL
     assert np.array_equal(res_t.cg_iters.numpy(), np.asarray(res_j.cg_iters))

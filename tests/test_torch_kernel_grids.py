@@ -1,7 +1,8 @@
 """What the CPU can check of the hand kernels' contract: the grids the
-main libraries instantiate, the grids the kernels take and refuse, and the
-device the port's entry points default to. The kernels themselves run
-only on the card (tests/test_torch_kernels_cuda.py)."""
+main libraries instantiate, the layout each kernel takes at a grid and the
+route (shared or device memory) that follows from it, the grids the
+kernels refuse, and the device the port's entry points default to. The
+kernels themselves run only on the card (tests/test_torch_kernels_cuda.py)."""
 
 import os
 import re
@@ -13,7 +14,14 @@ from historymatching_tpu_torch import ResSim
 from historymatching_tpu_torch.ops import pressure, transport
 from historymatching_tpu_torch.ops._build import CSRC, GRIDS, SMEM_LIMIT
 from historymatching_tpu_torch.ops.multigrid import build_hierarchy_5pt, n_levels
-from historymatching_tpu_torch.ops.pressure import pressure_solve_cuda, smem_bytes
+from historymatching_tpu_torch.ops.pressure import (
+    LEVEL_KEYS,
+    gm_bytes,
+    gm_table,
+    layout,
+    pressure_solve_cuda,
+    smem_bytes,
+)
 from historymatching_tpu_torch.ops.transport import transport_substeps_cuda
 
 
@@ -29,41 +37,47 @@ def test_grid_list_matches_the_cuda_header():
     assert tuple((int(a), int(b)) for a, b in pairs) == GRIDS
 
 
-def _call(kernel, Nx, Ny, unit_diag=True):
-    """The wrapper on CPU tensors of the right shapes: its grid check runs
-    first, then it refuses the CPU tensors."""
+def _call(kernel, Nx, Ny, unit_diag=True, force=None):
+    """The wrapper on CPU tensors of the right shapes: its grid check and
+    route run first, then it refuses the CPU tensors."""
     z = torch.zeros(2, Nx, Ny)
     if kernel == "pressure":
         hier = build_hierarchy_5pt(torch.zeros(2, Nx - 1, Ny), torch.zeros(2, Nx, Ny - 1), z)
         nc = hier[-1][2][0].numel()
         pressure_solve_cuda(hier, torch.zeros(2, nc, nc), z, z, z, tol=1e-3, maxiter=8,
-                            unit_diag=unit_diag)
+                            unit_diag=unit_diag, force=force)
     else:
         transport_substeps_cuda(z, torch.zeros(2, Nx + 1, Ny), torch.zeros(2, Nx, Ny + 1), z,
                                 torch.ones(2), torch.ones(2, dtype=torch.int32),
-                                (1.0, 1.0, 0.0, 0.0))
+                                (1.0, 1.0, 0.0, 0.0), force=force)
 
 
 def _need(kernel, Nx, Ny, unit_diag=True):
     if kernel == "transport":
-        return 8 * Nx * Ny
+        return transport.smem_bytes(Nx, Ny)
     return smem_bytes(Nx, Ny, n_levels(Nx, Ny), unit_diag)
+
+
+def _route(kernel, Nx, Ny, unit_diag=True):
+    return pressure.route(Nx, Ny, unit_diag) if kernel == "pressure" else transport.route(Nx, Ny)
+
+
+def _shared_route(kernel):
+    return "smem" if kernel == "pressure" else "rt"
 
 
 @pytest.mark.parametrize("kernel", ["pressure", "transport"])
 @pytest.mark.parametrize("Nx,Ny", [(24, 24), (64, 32), (128, 128)])
 def test_uninstantiated_grid_raises(kernel, Nx, Ny):
-    """A grid outside `GRIDS` is taken where its layout fits one block's
-    shared memory (the wrapper gets past its grid check to the CPU tensors'
-    refusal), and refused with the bytes it would need where it does not
-    (P at 128x128 needs 458,528 bytes)."""
+    """A grid outside `GRIDS` takes the shared-memory route where its layout
+    fits one block (P's per-grid library, K's runtime-grid variant) and the
+    device-memory variant where it does not (P at 128x128 needs 458,528
+    bytes); on either route the wrapper gets past its grid check to the CPU
+    tensors' refusal."""
     need = _need(kernel, Nx, Ny)
-    if need > SMEM_LIMIT:
-        with pytest.raises(ValueError, match=f"{Nx}x{Ny} grid needs {need} bytes of shared"):
-            _call(kernel, Nx, Ny)
-    else:
-        with pytest.raises(ValueError, match="need float32 CUDA"):
-            _call(kernel, Nx, Ny)
+    assert _route(kernel, Nx, Ny) == (_shared_route(kernel) if need <= SMEM_LIMIT else "gm")
+    with pytest.raises(ValueError, match="need float32 CUDA"):
+        _call(kernel, Nx, Ny)
 
 
 @pytest.mark.parametrize("kernel,Nx,Ny,unit_diag,need", [
@@ -75,25 +89,101 @@ def test_uninstantiated_grid_raises(kernel, Nx, Ny):
 ])
 def test_shared_memory_limit(kernel, Nx, Ny, unit_diag, need):
     """At and around the 232,448 bytes one block may take: the byte counts
-    of the layouts, and the refusal that names them."""
+    of the layouts, the route they choose (a layout at the limit still fits),
+    and a forced device-memory route, which every grid takes."""
     got = _need(kernel, Nx, Ny, unit_diag)
     if need is not None:
         assert got == need
-    if got > SMEM_LIMIT:
-        with pytest.raises(ValueError, match=f"needs {got} bytes"):
-            _call(kernel, Nx, Ny, unit_diag)
-    else:
+    expect = _shared_route(kernel) if got <= SMEM_LIMIT else "gm"
+    assert _route(kernel, Nx, Ny, unit_diag) == expect
+    for force in (None, "gm"):
         with pytest.raises(ValueError, match="need float32 CUDA"):
-            _call(kernel, Nx, Ny, unit_diag)
+            _call(kernel, Nx, Ny, unit_diag, force=force)
+
+
+# The grids the JAX package simulates and kernel P's shared-memory layout
+# does not fit: (P's shared bytes, P-gm's workspace bytes, K's shared bytes,
+# K's route), a member each.
+LARGE_GRIDS = {
+    (60, 60): (297_712, 152_672, 28_800, "rt"),
+    (88, 88): (272_048, 337_248, 61_952, "rt"),
+    (96, 96): (257_584, 404_576, 73_728, "rt"),
+    (100, 100): (1_827_072, 424_432, 80_000, "rt"),
+    (128, 128): (458_528, 719_520, 131_072, "rt"),
+    (60, 220): (3_071_152, 559_712, 105_600, "rt"),
+    (192, 192): (1_030_960, 1_620_320, 294_912, "gm"),
+    (256, 256): (1_833_760, 2_881_184, 524_288, "gm"),
+}
+
+
+@pytest.mark.parametrize("Nx,Ny", list(LARGE_GRIDS))
+def test_large_grid_layouts_and_routes(Nx, Ny):
+    """The layout count at each grid of the port's device-memory work: P's
+    shared bytes and P-gm's workspace, both from `layout`; P takes P-gm at
+    every one of them, K its runtime-grid variant until its two fw tiles
+    exceed one block (192x192 and up), then K-gm."""
+    p_smem, p_gm, k_smem, k_route = LARGE_GRIDS[(Nx, Ny)]
+    levels = n_levels(Nx, Ny)
+    assert smem_bytes(Nx, Ny, levels) == p_smem > SMEM_LIMIT
+    assert gm_bytes(Nx, Ny, levels) == p_gm
+    assert pressure.route(Nx, Ny) == pressure.route(Nx, Ny, False) == "gm"
+    assert transport.smem_bytes(Nx, Ny) == k_smem and transport.route(Nx, Ny) == k_route
+    for kernel in ("pressure", "transport"):
+        with pytest.raises(ValueError, match="need float32 CUDA"):
+            _call(kernel, Nx, Ny)
+
+
+def _spans(Nx, Ny, unit_diag, gm):
+    """Every array of `layout` that a kernel reads or writes, as (name,
+    start, end) in floats."""
+    lv, extra, floats = layout(Nx, Ny, n_levels(Nx, Ny), unit_diag, gm)
+    lc = len(lv) - 1
+    spans = []
+    for lvl, d in enumerate(lv):
+        n, m = d["n"], d["m"]
+        keys = ("B", "X") if lvl == lc else (
+            ("TX", "TY", "X", "B", "T") + (() if lvl == 0 and unit_diag else ("D", "RD")))
+        for k in keys:
+            size = (n - 1) * m if k == "TX" else n * m
+            spans.append(((k, lvl), d[k], d[k] + size))
+    nc = lv[lc]["n"] * lv[lc]["m"]
+    sizes = {"inverse": nc * nc, "reduction": floats - extra.get("reduction", 0)}
+    spans += [((k, None), o, o + sizes.get(k, Nx * Ny)) for k, o in extra.items()]
+    return spans, floats
+
+
+@pytest.mark.parametrize("unit_diag", [True, False])
+@pytest.mark.parametrize("gm", [False, True])
+@pytest.mark.parametrize("Nx,Ny", [(8, 8), (10, 10), (64, 64), (60, 220), (128, 128)])
+def test_layout_arrays_fit_and_do_not_overlap(Nx, Ny, gm, unit_diag):
+    """`layout` places every array inside the member's floats, 4-aligned
+    (the kernels load float pairs), and no two overlap, except that each
+    intermediate level's smoothing temporary lives inside the fine one (its
+    only use comes after the fine temporary's last read); P-gm's table
+    carries the same offsets."""
+    spans, floats = _spans(Nx, Ny, unit_diag, gm)
+    assert all(o % 4 == 0 and 0 <= o < e <= floats for _, o, e in spans)
+    coarse_t = lambda k: k[0] == "T" and k[1] > 0  # noqa: E731
+    own = sorted((o, e, k) for k, o, e in spans if not coarse_t(k))
+    assert all(e1 <= o2 for (_, e1, _), (o2, _, _) in zip(own, own[1:])), own
+    fine_t = next((o, e) for k, o, e in spans if k == ("T", 0))
+    assert all(fine_t[0] <= o and e <= fine_t[1] for k, o, e in spans if coarse_t(k))
+    if gm:
+        lv, extra, _ = layout(Nx, Ny, n_levels(Nx, Ny), unit_diag, gm=True)
+        assert gm_table(Nx, Ny, len(lv), unit_diag) == (
+            [len(lv), floats, *extra.values()] + [d[k] for d in lv for k in LEVEL_KEYS])
 
 
 @pytest.mark.parametrize("Nx,Ny", [(15, 15), (12, 9), (4, 4), (6, 5)])
 def test_pressure_kernel_needs_a_hierarchy(Nx, Ny):
     """Grids without a multigrid hierarchy take the plain Jacobi-PCG (in
-    torch ops on either device); kernel P refuses them, K takes them."""
+    torch ops on either device); kernel P refuses them on every route, K
+    takes them."""
     assert n_levels(Nx, Ny) < 2
     with pytest.raises(ValueError, match="has no multigrid hierarchy"):
         pressure.check_grid(Nx, Ny)
+    with pytest.raises(ValueError, match="has no multigrid hierarchy"):
+        pressure.route(Nx, Ny)
     transport.check_grid(Nx, Ny)
 
 

@@ -23,6 +23,7 @@ from historymatching_tpu_torch.ops.pressure import (
     recook_plan,
     smem_bytes,
 )
+from historymatching_tpu_torch.ops.pressure import route as pressure_route
 from historymatching_tpu_torch.ops.stencil import stencil_residual_ds
 from historymatching_tpu_torch.ops.transport import (
     transport_substeps,
@@ -86,13 +87,13 @@ def _system(mm, q, unit_diag):
             torch.ones_like(s))
 
 
-def _pressure_vs_plain(dev, Nx, Ny, smoother, unit_diag=True, window=16, scale=1.0):
+def _pressure_vs_plain(dev, Nx, Ny, smoother, unit_diag=True, window=16, scale=1.0, force=None):
     """One launch of P's `smoother` instantiation against the plain version
     with the same smoother, after fixed work (one restart window of
     `window` iterations, or two of 8 for 16); the launch counts on that
     instantiation's own key. Without `unit_diag`, on the unscaled system
     (the instantiation that reads the fine diagonal); `scale` multiplies
-    the pre-permeability fields."""
+    the pre-permeability fields; `force` the route (P-gm: "gm")."""
     g = torch.Generator(device=dev).manual_seed(1)
     m = _model(Nx, Ny, dev)
     B = 8
@@ -102,9 +103,10 @@ def _pressure_vs_plain(dev, Nx, Ny, smoother, unit_diag=True, window=16, scale=1
     args = _system(mm, q, unit_diag)
     fixed = dict(tol=0.0, maxiter=window, restart_every=min(window, 8), patience_iters=160,
                  smoother=smoother, unit_diag=unit_diag)
-    name = kernel_name(smoother, unit_diag)
+    route = force or pressure_route(Nx, Ny, unit_diag)
+    name = kernel_name(smoother, unit_diag, route)
     before = dict(_build.LAUNCHES)
-    p_k, it_k, rel_k = pressure_solve_cuda(*args, **fixed)
+    p_k, it_k, rel_k = pressure_solve_cuda(*args, **fixed, force=force)
     torch.cuda.synchronize()
     assert {k: v - before[k] for k, v in _build.LAUNCHES.items() if v != before[k]} == {name: 1}
     p_t, it_t, rel_t = pressure_solve_torch(*args, **fixed)
@@ -172,7 +174,7 @@ def test_transport_runtime_grid_matches_plain(dev, Nx, Ny):
     fluid = (1.0, 1.0, 0.0, 0.0)
     before = _build.LAUNCHES["transport_upwind_rt"]
     out = transport_substeps_cuda(s, Fx, Fy, q, dts_pv, n_sub, fluid,
-                                  runtime_grid=True if (Nx, Ny) in _build.GRIDS else None)
+                                  force="rt" if (Nx, Ny) in _build.GRIDS else None)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["transport_upwind_rt"] == before + 1
     ref = transport_substeps_torch(s, Fx, Fy, q, dts_pv, n_sub, fluid)
@@ -324,16 +326,49 @@ def test_kernels_refuse_what_they_do_not_take(dev):
                            torch.zeros(2, 8, 9, dtype=torch.float64, device=dev), s,
                            torch.ones(2, dtype=torch.float64, device=dev),
                            torch.ones(2, dtype=torch.int32, device=dev), (1.0, 1.0, 0.0, 0.0))
-    big = torch.zeros(1, 128, 128, device=dev)
-    huge = torch.zeros(1, 171, 171, device=dev)
-    with pytest.raises(ValueError, match="171x171 grid needs 233928 bytes"):
-        transport_substeps(huge, torch.zeros(1, 172, 171, device=dev),
-                           torch.zeros(1, 171, 172, device=dev), huge,
-                           torch.ones(1, device=dev),
-                           torch.ones(1, dtype=torch.int32, device=dev), (1.0, 1.0, 0.0, 0.0))
-    with pytest.raises(ValueError, match="128x128 grid needs 458528 bytes"):
-        pressure_solve_cuda([], torch.zeros(1, 16, 16, device=dev), big, big, big, tol=1e-3,
-                            maxiter=8)
+
+
+@pytest.mark.parametrize("Nx,Ny,force", [(128, 128, None), (60, 220, None), (64, 64, "gm")])
+@pytest.mark.parametrize("smoother", ["jacobi", "cheb"])
+def test_pressure_gm_matches_plain(dev, Nx, Ny, force, smoother):
+    """P-gm, where P's shared-memory layout does not fit (128x128 needs
+    458,528 bytes; 60x220 with its 825-cell coarse inverse) and forced at
+    64x64, against the plain version after one window of 4 iterations."""
+    _pressure_vs_plain(dev, Nx, Ny, smoother, window=4, force=force)
+
+
+@pytest.mark.parametrize("Nx,Ny,force", [(171, 171, None), (192, 192, None), (64, 64, "gm")])
+def test_transport_gm_matches_plain(dev, Nx, Ny, force):
+    """K-gm, where the two fw tiles do not fit one block (171x171 needs
+    233,928 bytes) and forced at 64x64: the plain version's operations in
+    its order, so bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    B = 8
+    s = torch.rand(B, Nx, Ny, generator=g, device=dev)
+    Fx = 0.1 * torch.randn(B, Nx + 1, Ny, generator=g, device=dev)
+    Fy = 0.1 * torch.randn(B, Nx, Ny + 1, generator=g, device=dev)
+    Fx[:, 0] = Fx[:, -1] = 0
+    Fy[:, :, 0] = Fy[:, :, -1] = 0
+    q = torch.zeros(B, Nx, Ny, device=dev)
+    q[:, Nx // 2, Ny // 2], q[:, 0, 0] = 1.0, -1.0
+    n_sub = torch.randint(0, 200, (B,), generator=g, device=dev, dtype=torch.int32)
+    dts_pv = 0.3 / n_sub.float().clamp_min(1.0)
+    fluid = (1.0, 1.0, 0.0, 0.0)
+    before = _build.LAUNCHES["transport_upwind_gm"]
+    out = transport_substeps_cuda(s, Fx, Fy, q, dts_pv, n_sub, fluid, force=force)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["transport_upwind_gm"] == before + 1
+    assert torch.equal(out, transport_substeps_torch(s, Fx, Fy, q, dts_pv, n_sub, fluid))
+
+
+@pytest.mark.parametrize("Nx,Ny", [(64, 64), (128, 128), (60, 220), (256, 256)])
+def test_gm_kernel_resources(dev, Nx, Ny):
+    """The device-memory variants' footprints: a few static shared bytes
+    (P-gm's reduction slots), no spills, resident blocks on an SM."""
+    for name in ("pressure_pcg_gm", "pressure_pcg_cheb_gm", "pressure_pcg_diag_gm",
+                 "pressure_pcg_cheb_diag_gm", "transport_upwind_gm"):
+        p = _build.kernel_info(name, Nx, Ny)
+        assert p["shared_bytes"] <= 1024 and p["local_bytes"] == 0 and p["blocks_per_sm"] >= 1
 
 
 def test_npv_batch_with_wells_per_member(dev):
