@@ -762,21 +762,45 @@ def new_grid_phases(dev, six):
     return figs
 
 
+def launched(fn):
+    """fn() and the launches it made, by kernel."""
+    from historymatching_tpu_torch.ops import _build
+
+    before = dict(_build.LAUNCHES)
+    out = fn()
+    sync()
+    return out, {k: v - before[k] for k, v in _build.LAUNCHES.items() if v != before[k]}
+
+
+def p_system(mm, qf, unit):
+    """P's arguments at s = 0 for the members of model `mm`: the scaled
+    system, or the unscaled one (w = 1), as [19]."""
+    import torch
+
+    from historymatching_tpu_torch.models.ressim import _tpfa, scaled_system
+    from historymatching_tpu_torch.ops.multigrid import build_hierarchy, coarse_inverse
+
+    B, (Nx, Ny) = mm.K.shape[0], mm.shape
+    s0 = torch.zeros(B, Nx, Ny, device=mm.K.device)
+    if unit:
+        _, _, diag, sd, hier, Ainv = scaled_system(mm, s0)
+        return (hier, Ainv, (qf * sd).contiguous(), torch.zeros_like(sd),
+                (diag * sd).contiguous())
+    TX, TY, _, pin = _tpfa(mm, s0)
+    hier = build_hierarchy(TX, TY, pin)
+    q = qf.expand(B, Nx, Ny).contiguous()
+    return hier, coarse_inverse(hier), q, torch.zeros_like(q), torch.ones_like(q)
+
+
 def large_grid_phases(dev, six):
     """Phase 23. Returns the figures of the device-memory variants for the
     kernels' record."""
     import torch
 
     import historymatching_tpu_torch as ht
-    from historymatching_tpu_torch.models.ressim import (
-        _source_field,
-        _tpfa,
-        cfl_substeps,
-        pressure_step,
-        scaled_system,
-    )
-    from historymatching_tpu_torch.ops import _build, pressure, transport
-    from historymatching_tpu_torch.ops.multigrid import build_hierarchy, coarse_inverse, n_levels
+    from historymatching_tpu_torch.models.ressim import _source_field, cfl_substeps, pressure_step
+    from historymatching_tpu_torch.ops import pressure, transport
+    from historymatching_tpu_torch.ops.multigrid import n_levels
     from historymatching_tpu_torch.ops.pressure import (
         gm_bytes,
         kernel_name,
@@ -795,27 +819,6 @@ def large_grid_phases(dev, six):
     names = [kernel_name(sm, unit, "gm") for sm, unit in P_GM] + ["transport_upwind_gm"]
     figs = {name: {"grids": {}, "max_abs_err": 0.0} for name in names}
 
-    def system(mm, qf, unit):
-        """P's arguments at s = 0: the scaled system, or the unscaled one
-        (w = 1), as [19]."""
-        B, (Nx, Ny) = mm.K.shape[0], mm.shape
-        s0 = torch.zeros(B, Nx, Ny, device=dev)
-        if unit:
-            _, _, diag, sd, hier, Ainv = scaled_system(mm, s0)
-            return (hier, Ainv, (qf * sd).contiguous(), torch.zeros_like(sd),
-                    (diag * sd).contiguous())
-        TX, TY, _, pin = _tpfa(mm, s0)
-        hier = build_hierarchy(TX, TY, pin)
-        q = qf.expand(B, Nx, Ny).contiguous()
-        return hier, coarse_inverse(hier), q, torch.zeros_like(q), torch.ones_like(q)
-
-    def launched(fn):
-        """fn() and the launches it made, by kernel."""
-        before = dict(_build.LAUNCHES)
-        out = fn()
-        sync()
-        return out, {k: v - before[k] for k, v in _build.LAUNCHES.items() if v != before[k]}
-
     for Nx, Ny in LARGE_GRIDS:
         tag = f"{Nx}x{Ny}"
         levels = n_levels(Nx, Ny)
@@ -823,8 +826,8 @@ def large_grid_phases(dev, six):
         m = grid_model(torch, Nx, Ny)
         pre = ht.sample_prior_perm(gen, m, LARGE_N, r=0.8)
         qf = _source_field(m, m.inj_rates[:, 0], m.prd_rates[:, 0])
-        systems = {True: system(set_perm(m, pre), qf, True),
-                   False: system(set_perm(m, MILD * pre), qf, False)}
+        systems = {True: p_system(set_perm(m, pre), qf, True),
+                   False: p_system(set_perm(m, MILD * pre), qf, False)}
         nc = systems[True][1].shape[-1]
         said = []
         for smoother, unit in P_GM:
@@ -997,6 +1000,7 @@ def large_case_phase(dev):
                         "transport_upwind_rt": (1 + PASSES) * NTIME}, launches
     assert torch.isfinite(post).all() and post.shape == prior.shape
 
+    pass_figs = [{k: v for k, v in st.items() if k != "final"} for st in passes]
     # 10 steps of a loose pass from the last pass's final states, profiled
     mm = set_perm(model, post)
     wsat = passes[-1]["final"]
@@ -1007,10 +1011,77 @@ def large_case_phase(dev):
         f"{k} {v:.3f} ms ({v / busy:.1%})" for k, v in stages.items())
         + f"; device busy {busy:.3f} ms of {wall_ms:.3f} ms unprofiled wall, idle "
         f"{1 - busy / wall_ms:.1%}; {acts:.1f} device activities a step")
+    del mm, wsat, passes[:]
+    kernels = large_case_kernels(model, prior)
     return dict(wall_s=wall, launches=launches, peak_bytes=peak, held_bytes=held,
-                rmse_prior=r_prior,
-                rmse_post=r_post, stages_ms=stages, busy_ms=busy, step_wall_ms=wall_ms,
-                passes=[{k: v for k, v in st.items() if k != "final"} for st in passes])
+                rmse_prior=r_prior, rmse_post=r_post, stages_ms=stages, busy_ms=busy,
+                step_wall_ms=wall_ms, kernels=kernels,
+                passes=[{k: v for k, v in st.items() if k != "final"} for st in pass_figs])
+
+
+def large_case_kernels(model, prior):
+    """[24]'s kernels at the shapes its path gives them: the bench case's
+    first step (N=1000, 128x128, s = 0). One P-gm launch after one window
+    held to the plain version within P_TOL, one K launch (its route at this
+    grid, the runtime-grid variant) bit for bit; each timed at the first
+    pass's settings beside its plain version and its bound. These launches
+    are not the path's: the caller has read its counts."""
+    import torch
+
+    from historymatching_tpu_torch.models.ressim import _source_field, cfl_substeps, pressure_step
+    from historymatching_tpu_torch.ops import transport
+    from historymatching_tpu_torch.ops.pressure import pressure_solve_cuda, pressure_solve_torch
+    from historymatching_tpu_torch.ops.transport import (
+        transport_substeps_cuda,
+        transport_substeps_torch,
+    )
+    from historymatching_tpu_torch.parallel.runner import set_perm
+
+    mm = set_perm(model, prior)
+    qf = _source_field(model, model.inj_rates[:, 0], model.prd_rates[:, 0])
+    first = dict(BASE, **SCHED[0])
+    kw1 = {k: first[k] for k in SOLVE_KEYS}
+    args = p_system(mm, qf, True)
+    (p_k, _, _), n = launched(lambda: pressure_solve_cuda(*args, **WINDOW4))
+    assert n == {"pressure_pcg_gm": 1}, n
+    p_t = pressure_solve_torch(*args, **WINDOW4)[0]
+    err, abs_err = rel_err(p_k, p_t), float((p_k - p_t).abs().max())
+    assert bool(torch.isfinite(p_k).all()) and err <= P_TOL, err
+    _, it_k, rl_k = pressure_solve_cuda(*args, **kw1)
+    ms = cuda_ms(lambda: pressure_solve_cuda(*args, **kw1), 2)
+    plain_ms = cuda_ms(lambda: pressure_solve_torch(*args, **kw1), 1)
+    bnd, by = pressure_bound_ms(args[0], args[1], it_k)
+    p_fig = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by, share_of_bound=bnd / ms,
+                 max_rel_err=err, max_abs_err=abs_err, iters_median=int(it_k.median()),
+                 accepted=int((rl_k <= 5e-2).sum()))
+    del args, p_k, p_t
+
+    s0 = torch.zeros(prior.shape[0], *model.shape, device=prior.device)
+    _, Fx, Fy, _, _, _ = pressure_step(mm, s0, qf, torch.zeros_like(s0), tol_accept=5e-2,
+                                     **first)
+    Fx, Fy = Fx.contiguous(), Fy.contiguous()
+    nsub, dtspv = cfl_substeps(mm, Fx, Fy, qf, DT)
+    t_args = (s0, Fx, Fy, qf[None].contiguous(), dtspv, nsub, fluid_of(model))
+    name = transport.NAMES[transport.route(*model.shape)]
+    s_k, n = launched(lambda: transport_substeps_cuda(*t_args))
+    s_t = transport_substeps_torch(*t_args)
+    assert n == {name: 1} and name == "transport_upwind_rt", n
+    k_err = float((s_k - s_t).abs().max())
+    assert torch.equal(s_k, s_t), k_err
+    k_ms = cuda_ms(lambda: transport_substeps_cuda(*t_args), 3)
+    k_plain_ms = cuda_ms(lambda: transport_substeps_torch(*t_args), 1)
+    k_bnd, k_by = transport_bound_ms(s0, Fx, Fy, t_args[3], nsub)
+    k_fig = dict(ms=k_ms, plain_ms=k_plain_ms, bound_ms=k_bnd, bound_by=k_by,
+                 share_of_bound=k_bnd / k_ms, max_abs_err=k_err,
+                 substeps_median=int(nsub.median()))
+    log(f"[24] kernels on the first step's system (N={prior.shape[0]}, {model.shape[0]}x"
+        f"{model.shape[1]}, the first pass's settings): pressure_pcg_gm window max rel "
+        f"{err:.2e} (abs {abs_err:.2e}), {ms:.3f} ms a launch (iterations median "
+        f"{p_fig['iters_median']}, accepted {p_fig['accepted']}), plain {plain_ms:.3f} ms, bound "
+        f"{bnd:.4f} ms ({by}, {bnd / ms:.1%}); {name} max|ds| {k_err:.1e} (bit for bit), "
+        f"{k_ms:.3f} ms a launch ({k_fig['substeps_median']} substeps median), plain "
+        f"{k_plain_ms:.3f} ms, bound {k_bnd:.5f} ms ({k_by}, {k_bnd / k_ms:.1%})")
+    return {"pressure_pcg_gm": p_fig, name: k_fig}
 
 
 def mesh_phase(dev):
@@ -1722,12 +1793,21 @@ def main(argv=None):
             max_abs_err=d["max_abs_err"], ms=d["ms"], plain_ms=d["plain_ms"],
             bound_ms=d["bound_ms"], bound_by=d["bound_by"], library_ms=None,
             share_of_bound=d["bound_ms"] / d["ms"], grids=d["grids"]))
-    # The device-memory variants: P-gm's path is [24] (Jacobi, unit) and
-    # [23]'s simulate at 128x128 (the others), timed there at bench settings;
-    # K-gm's path is [23]'s simulate at 256x256, timed on its step 6.
+    # [24]'s launches of K's runtime-grid variant, with its check and times
+    # at [24]'s first step.
+    next(r for r in kernels if r["name"] == "transport_upwind_rt")["large_case"] = dict(
+        big["kernels"]["transport_upwind_rt"], launches=big["launches"]["transport_upwind_rt"])
+    # The device-memory variants: P-gm's path is [24] (Jacobi, unit), checked
+    # and timed on [24]'s first step; the others' is [23]'s simulate at
+    # 128x128, timed there at bench settings; K-gm's path is [23]'s simulate
+    # at 256x256, timed on its step 6.
     for name, d in large.items():
         at = "256x256" if name == "transport_upwind_gm" else f"{BIG[0]}x{BIG[1]}"
         g = d["grids"][at]
+        err = d["max_abs_err"]
+        if name == "pressure_pcg_gm":
+            at, g = f"{BIG[0]}x{BIG[1]} N={N} ([24]'s first step)", big["kernels"][name]
+            err = g["max_abs_err"]
         kernels.append(dict(
             name=name, route="cuda",
             source="historymatching_tpu_torch/csrc/" + (
@@ -1738,7 +1818,7 @@ def main(argv=None):
             launches=(big["launches"][name] if name == "pressure_pcg_gm"
                       else g["launches_simulate"] if name == "transport_upwind_gm"
                       else d["launches"]),
-            max_abs_err=d["max_abs_err"], ms=g["ms"], plain_ms=g.get("plain_ms"),
+            max_abs_err=err, ms=g["ms"], plain_ms=g.get("plain_ms"),
             bound_ms=g["bound_ms"], bound_by=g["bound_by"], library_ms=None,
             share_of_bound=g["bound_ms"] / g["ms"], at_grid=at, grids=d["grids"],
             **({"launches_simulate_128x128": d["launches"]} if "launches" in d else {}),

@@ -48,7 +48,8 @@ def _pair(Nx, Ny):
 # than wide) the V-cycle's point smoother leaves a residual plateau of more
 # than 96 iterations: with the default patience both packages stop there
 # (rel ~8e-3, cg_ok False) on iterates that rounding decides, so the case
-# gives both the patience to reach the f64 tol of 1e-10 (~700 iterations).
+# gives both the patience to reach the f64 tol of 1e-10 (~700 iterations);
+# test_default_patience_60x220_within_rounding_spread holds the default.
 GRID_KW = {(60, 220): dict(patience_iters=960)}
 
 
@@ -72,6 +73,48 @@ def test_simulate_any_grid_matches_jax(Nx, Ny):
     assert np.array_equal(res_t.cg_iters.numpy(), np.asarray(res_j.cg_iters))
     assert np.array_equal(res_t.cg_ok.numpy(), np.asarray(res_j.cg_ok))
     assert bool(res_t.cg_ok.all())
+
+
+def rounding_spread(Nx=60, Ny=220, N=2, nTime=3):
+    """At the default patience, where the 60x220 solves stop on their
+    residual plateau: the port (on one thread) against JAX, each package
+    against itself with the prior scaled by 1 + 1e-15 ("*"), and the port
+    against itself on four threads (another reduction order, "4t").
+    Returns the relative errors on wsats and prd_sats by comparison, and
+    every run's cg_ok."""
+    m, mt = _pair(Nx, Ny)
+    perm = perm_fields(Nx + Ny, N, m.Nxy)
+    port = lambda p: simulate(set_perm(mt, torch.as_tensor(p)),  # noqa: E731
+                              torch.zeros(mt.Nxy, dtype=F64), 0.025, nTime)
+    threads, runs = torch.get_num_threads(), {}
+    try:
+        torch.set_num_threads(1)
+        for tag, p in (("", perm), ("*", perm * (1 + 1e-15))):
+            runs["jax" + tag] = jax.vmap(lambda q: simulate_j(set_perm_j(m, q), jnp.zeros(m.Nxy),
+                                                              0.025, nTime))(jnp.asarray(p))
+            runs["port" + tag] = port(p)
+        torch.set_num_threads(4)
+        runs["port 4t"] = port(perm)
+    finally:
+        torch.set_num_threads(threads)
+    errs = {f"{a} vs {b}": (rel_err(runs[a].wsats, runs[b].wsats),
+                            rel_err(runs[a].prd_sats, runs[b].prd_sats))
+            for a, b in (("port", "jax"), ("jax*", "jax"), ("port*", "port"),
+                         ("port 4t", "port"), ("port 4t", "jax"))}
+    return errs, {k: np.asarray(r.cg_ok) for k, r in runs.items()}
+
+
+def test_default_patience_60x220_within_rounding_spread():
+    """The 60x220 case at the default settings: every solve stops on the
+    plateau (cg_ok False) in both packages, and the port lies no farther
+    from JAX than twice the largest spread that rounding alone gives a
+    package against itself (the prior scaled by 1 + 1e-15, or the port on
+    four threads)."""
+    errs, ok = rounding_spread()
+    assert not any(v.any() for v in ok.values()), ok
+    spread = max(errs[k][0] for k in ("jax* vs jax", "port* vs port", "port 4t vs port"))
+    assert errs["port vs jax"][0] <= 2 * spread, errs
+    assert errs["port vs jax"][1] < TOL, errs
 
 
 @pytest.mark.parametrize("precond", ["mg", "jacobi"])
@@ -140,3 +183,12 @@ def test_geostat_at_package_top():
 
     assert ht.geostat is geostat and "geostat" in ht.__all__
     assert callable(ht.geostat.gaussian_fields_fft)
+
+
+if __name__ == "__main__":
+    # The spread at 60x220 and the default patience:
+    # python -m tests.test_torch_grids
+    import tests.conftest  # noqa: F401  (JAX on the CPU in float64)
+
+    for k, (w, p) in rounding_spread()[0].items():
+        print(f"{k}: wsats rel {w!r}, prd_sats rel {p!r}")
