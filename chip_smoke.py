@@ -6,7 +6,8 @@
 Phases, one printed line or more each; any failed check raises:
 1. device: require CUDA, print the card's name and power limit, TF32 off;
 2. build the hand-written kernels (historymatching_tpu_torch/csrc) with nvcc,
-   one compiler per source, in parallel; print each kernel's registers,
+   one compiler per source and per cluster library (each grid of [23] and
+   [18]), in parallel; print each kernel's registers,
    local (spill) bytes, shared memory and resident blocks per SM, P in
    both its smoother instantiations (damped Jacobi and Chebyshev);
 3. kernel K (transport) against its plain PyTorch version, float32;
@@ -58,7 +59,8 @@ Phases, one printed line or more each; any failed check raises:
     and 64x64 the same way, its time at [6]'s shapes, and
     `simulate(scale_system=False)` through the entry point;
     19c. each new instantiation's resources, and a 96x96 grid, whose
-    layout exceeds one block's shared memory, simulated through P-gm;
+    layout exceeds one block's shared memory, simulated through P-cl and
+    K-cl;
 20. one member of 64 whose coarse Cholesky fails: it gets the guarded
     Newton-Schulz, the others keep their inverses, and P solves the batch;
 21. the port's two tutorial examples, `history_match` (20x20, N=40, every
@@ -72,19 +74,25 @@ Phases, one printed line or more each; any failed check raises:
     committed exact float64 oracle's posterior RMSE by each rung's gate;
     every seed's prior RMSE must match its ref's. With `--parity-out DIR`
     each rung's record is written there;
-23. the device-memory variants at the grids whose layouts exceed one
-    block's shared memory (60x60, 88x88, 96x96, 100x100, 128x128, 60x220,
-    192x192, 256x256), N=64: P-gm in its four instantiations against its
-    plain version after one window, K-gm (and K's own route) bit for bit on
-    a real step, each timed against its bound; a few steps of `simulate`
-    at 128x128 through each P-gm instantiation and at 192x192 and 256x256
-    through K-gm; both variants forced at 64x64 on [6]'s inputs beside the
-    shared-memory kernels;
+23. the grids whose layouts exceed one block's shared memory (60x60,
+    88x88, 96x96, 100x100, 128x128, 60x220, 192x192, 256x256), N=64: P on
+    its route (P-cl, a thread-block cluster a member; P-gm for the
+    unscaled 60x220) and P-gm forced, in the four instantiations, each
+    against its plain version after one window and timed at bench
+    settings; K on its route (K-cl, or the runtime-grid variant at 60x60),
+    the runtime-grid variant where its tiles fit and K-gm forced, each bit
+    for bit on a real step and timed against its bound; a few steps of
+    `simulate` through each P-cl instantiation and K-cl at 128x128, and
+    through each P-gm instantiation and K-gm at 120x440 (a 60x220 layer
+    refined 2x2, past any cluster; N=16); P-gm and K-gm forced at 64x64 on [6]'s
+    inputs beside the shared-memory kernels;
 24. the reference's bench case at 128x128 (`parity.build_case(seed=1,
     N=1000, Nx=128, Ny=128)`): 40 steps and the 4-pass ES-MDA on the
-    reference's schedule, every step one P-gm and one K launch, the
+    reference's schedule, every step one P-cl and one K-cl launch, the
     saturations of every step kept on the card; wall, launches, cg
-    acceptance a pass, peak memory, RMSE, and 10 profiled steps;
+    acceptance a pass, peak memory, RMSE, and 10 profiled steps; on its
+    first step P-cl and K-cl against their plain versions and timed beside
+    P-gm, P-cl on the other cluster sizes, K-rt and K-gm, all forced;
 25. `forward_model(mesh=)` on a world of one over NCCL (`parallel.mesh`),
     64x64, N=128, 5 steps, bit for bit against the run without a mesh.
 
@@ -155,6 +163,9 @@ LARGE_GRIDS = ((60, 60), (88, 88), (96, 96), (100, 100), (128, 128), (60, 220), 
                (256, 256))
 LARGE_N, BIG, MESH_N, MESH_STEPS = 64, (128, 128), 128, 5
 P_GM = tuple((smoother, unit) for unit in (True, False) for smoother in ("jacobi", "cheb"))
+# [23]'s path through the device-memory variants: a 60x220 layer refined
+# 2x2, whose P and K layouts no cluster of up to 16 blocks holds, N=16.
+GM_PATH_GRID, GM_PATH_N = (120, 440), 16
 # [19]'s fixed work: one restart window of 4 iterations. On grids of up to
 # 400 cells a window of 8 reaches float32's floor, where the plain version
 # in float32 and in float64 part by up to 1.5e-1 (PERF.md, Findings).
@@ -177,9 +188,11 @@ EXAMPLES = (
 )
 # Device activities by kernel name, for the profiled stages.
 STAGE_OF = (("pressure_pcg_kernel", "pressure_pcg"), ("pressure_pcg_gm_kernel", "pressure_pcg"),
+            ("pressure_pcg_cl_kernel", "pressure_pcg"),
             ("transport_upwind_kernel", "transport_upwind"),
             ("transport_upwind_rt_kernel", "transport_upwind"),
-            ("transport_upwind_gm_kernel", "transport_upwind"))
+            ("transport_upwind_gm_kernel", "transport_upwind"),
+            ("transport_upwind_cl_kernel", "transport_upwind"))
 JACOBI_KERNELS = ("transport_upwind", "pressure_pcg")  # the main path's
 # EnOpt (phases 11-14): the bench's gd_scan_multi (bench._enopt_fields) and
 # the reference's robust case (Optimise.py:833-875), each at its full size.
@@ -587,12 +600,12 @@ def new_grid_phases(dev, six):
         nsub, dtspv = cfl_substeps(mm, Fx, Fy, q, DT)
         args = (s5, Fx, Fy, q[None].contiguous(), dtspv, nsub, fluid_of(m))
         before = _build.LAUNCHES["transport_upwind_rt"]
-        s_k = transport_substeps_cuda(*args)
+        s_k = transport_substeps_cuda(*args, force="rt")  # 80x80's own route is K-cl
         assert _build.LAUNCHES["transport_upwind_rt"] == before + 1
         s_t = transport_substeps_torch(*args)
         err = float((s_k - s_t).abs().max())
         k_errs.append(err)
-        ms = cuda_ms(lambda: transport_substeps_cuda(*args), 5)
+        ms = cuda_ms(lambda: transport_substeps_cuda(*args, force="rt"), 5)
         plain_ms = cuda_ms(lambda: transport_substeps_torch(*args), 1)
         bnd, by = transport_bound_ms(s5, Fx, Fy, args[3], nsub)
         figs["transport_upwind_rt"]["grids"][f"{Nx}x{Ny}"] = dict(
@@ -730,7 +743,7 @@ def new_grid_phases(dev, six):
     launches = {k: v for k, v in _build.LAUNCHES.items() if v}
     log(f"[19c] simulate at {GM_GRID[0]}x{GM_GRID[1]} on the card (P's layout "
         f"{smem_bytes(*GM_GRID, n_levels(*GM_GRID))} bytes): launches {launches}")
-    assert launches == {"pressure_pcg_gm": 1, "transport_upwind_rt": 1}, launches
+    assert launches == {"pressure_pcg_cl": 1, "transport_upwind_cl": 1}, launches
     assert torch.isfinite(res.wsats).all()
 
     # 20. one member's coarse Cholesky fails: [4]'s geometry, N=64 prior
@@ -793,15 +806,17 @@ def p_system(mm, qf, unit):
 
 
 def large_grid_phases(dev, six):
-    """Phase 23. Returns the figures of the device-memory variants for the
-    kernels' record."""
+    """Phase 23. Returns the figures of the cluster and device-memory
+    variants for the kernels' record."""
     import torch
 
     import historymatching_tpu_torch as ht
     from historymatching_tpu_torch.models.ressim import _source_field, cfl_substeps, pressure_step
-    from historymatching_tpu_torch.ops import pressure, transport
+    from historymatching_tpu_torch.ops import _build, pressure, transport
     from historymatching_tpu_torch.ops.multigrid import n_levels
     from historymatching_tpu_torch.ops.pressure import (
+        cl_bytes,
+        cl_plan,
         gm_bytes,
         kernel_name,
         pressure_solve_cuda,
@@ -816,13 +831,36 @@ def large_grid_phases(dev, six):
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 23)
     base1 = {k: BASE[k] for k in SOLVE_KEYS}
-    names = [kernel_name(sm, unit, "gm") for sm, unit in P_GM] + ["transport_upwind_gm"]
+    names = [kernel_name(sm, unit, rt) for rt in ("cl", "gm") for sm, unit in P_GM] + [
+        "transport_upwind_cl", "transport_upwind_gm"]
     figs = {name: {"grids": {}, "max_abs_err": 0.0} for name in names}
+
+    def p_run(tag, args, smoother, unit, force):
+        """One window against the plain version, then one launch at bench
+        settings timed; the route's figures."""
+        kw = dict(smoother=smoother, unit_diag=unit)
+        name = kernel_name(smoother, unit, force)
+        (p_k, _, _), n = launched(lambda: pressure_solve_cuda(*args, **WINDOW4, **kw,
+                                                             force=force))
+        assert n == {name: 1}, n
+        p_t = pressure_solve_torch(*args, **WINDOW4, **kw)[0]
+        err, abs_err = rel_err(p_k, p_t), float((p_k - p_t).abs().max())
+        assert torch.isfinite(p_k).all() and err <= P_TOL, (tag, name, err)
+        _, it_k, rl_k = pressure_solve_cuda(*args, **base1, **kw, force=force)
+        ms = cuda_ms(lambda: pressure_solve_cuda(*args, **base1, **kw, force=force), 2)
+        vf = P_FLOPS_VCYCLE_CHEB if smoother == "cheb" else P_FLOPS_VCYCLE
+        bnd, by = pressure_bound_ms(args[0], args[1], it_k, vf,
+                                    P_FLOPS_FINE + (0 if unit else P_FLOPS_DIAG))
+        fig = dict(ms=ms, bound_ms=bnd, bound_by=by, share_of_bound=bnd / ms, max_rel_err=err,
+                   max_abs_err=abs_err, iters_median=int(it_k.median()),
+                   accepted=int((rl_k <= 5e-2).sum()))
+        figs[name]["grids"][tag] = fig
+        figs[name]["max_abs_err"] = max(figs[name]["max_abs_err"], abs_err)
+        return name, fig
 
     for Nx, Ny in LARGE_GRIDS:
         tag = f"{Nx}x{Ny}"
         levels = n_levels(Nx, Ny)
-        assert pressure.route(Nx, Ny) == pressure.route(Nx, Ny, False) == "gm"
         m = grid_model(torch, Nx, Ny)
         pre = ht.sample_prior_perm(gen, m, LARGE_N, r=0.8)
         qf = _source_field(m, m.inj_rates[:, 0], m.prd_rates[:, 0])
@@ -831,39 +869,36 @@ def large_grid_phases(dev, six):
         nc = systems[True][1].shape[-1]
         said = []
         for smoother, unit in P_GM:
-            name = kernel_name(smoother, unit, "gm")
-            args, kw = systems[unit], dict(smoother=smoother, unit_diag=unit)
-            (p_k, _, _), n = launched(lambda: pressure_solve_cuda(*args, **WINDOW4, **kw))
-            assert n == {name: 1}, n
-            p_t = pressure_solve_torch(*args, **WINDOW4, **kw)[0]
-            err, abs_err = rel_err(p_k, p_t), float((p_k - p_t).abs().max())
-            assert torch.isfinite(p_k).all() and err <= P_TOL, (tag, name, err)
-            _, it_k, rl_k = pressure_solve_cuda(*args, **base1, **kw)
-            ms = cuda_ms(lambda: pressure_solve_cuda(*args, **base1, **kw), 2)
-            vf = P_FLOPS_VCYCLE_CHEB if smoother == "cheb" else P_FLOPS_VCYCLE
-            bnd, by = pressure_bound_ms(args[0], args[1], it_k, vf,
-                                        P_FLOPS_FINE + (0 if unit else P_FLOPS_DIAG))
-            fig = dict(ms=ms, bound_ms=bnd, bound_by=by, share_of_bound=bnd / ms,
-                       max_rel_err=err, max_abs_err=abs_err, iters_median=int(it_k.median()),
-                       accepted=int((rl_k <= 5e-2).sum()))
-            if (Nx, Ny) == BIG:  # the plain version, at [24]'s grid
-                fig["plain_ms"] = cuda_ms(lambda: pressure_solve_torch(*args, **base1, **kw), 1)
-            figs[name]["grids"][tag] = fig
-            figs[name]["max_abs_err"] = max(figs[name]["max_abs_err"], abs_err)
-            said.append(f"{name} window rel {err:.2e}, {ms:.3f} ms a launch at bench settings "
-                        f"(iterations median {fig['iters_median']}, accepted "
-                        f"{fig['accepted']}/{LARGE_N}), bound {bnd:.4f} ms ({by}, "
-                        f"{bnd / ms:.1%})" + (f", plain {fig['plain_ms']:.3f} ms"
-                                              if "plain_ms" in fig else ""))
-        log(f"[23] P-gm {tag}, N={LARGE_N}, {levels} levels (coarsest {nc} cells), P layout "
+            rt = pressure.route(Nx, Ny, unit)
+            assert rt == ("gm" if (Nx, Ny, unit) == (60, 220, False) else "cl"), (tag, unit, rt)
+            for force in dict.fromkeys((rt, "gm")):
+                name, fig = p_run(tag, systems[unit], smoother, unit, force)
+                if force == "cl":
+                    c, inv = cl_plan(Nx, Ny, unit)
+                    fig.update(cluster=c, inverse_in_shared=inv,
+                               rank_bytes=cl_bytes(Nx, Ny, levels, c, unit, inv),
+                               resources=_build.kernel_info(name, Nx, Ny))
+                if (Nx, Ny) == BIG:  # the plain version, at [24]'s grid
+                    fig["plain_ms"] = cuda_ms(lambda: pressure_solve_torch(
+                        *systems[unit], **base1, smoother=smoother, unit_diag=unit), 1)
+                said.append(f"{name} window rel {fig['max_rel_err']:.2e}, {fig['ms']:.3f} ms "
+                            f"(iterations median {fig['iters_median']}, accepted "
+                            f"{fig['accepted']}/{LARGE_N}), bound {fig['bound_ms']:.4f} ms "
+                            f"({fig['bound_by']}, {fig['share_of_bound']:.1%})"
+                            + (f", plain {fig['plain_ms']:.3f} ms" if "plain_ms" in fig else "")
+                            + (f", cluster {fig['cluster']} ({fig['rank_bytes']} bytes a rank; "
+                               f"{fig['resources']})" if "cluster" in fig else ""))
+        log(f"[23] P {tag}, N={LARGE_N}, {levels} levels (coarsest {nc} cells), P layout "
             f"{smem_bytes(Nx, Ny, levels)} shared bytes, P-gm workspace "
-            f"{gm_bytes(Nx, Ny, levels)} bytes a member: " + "; ".join(said))
+            f"{gm_bytes(Nx, Ny, levels)} bytes a member, at bench settings: " + "; ".join(said))
 
-        # K on step 6 of a prior run: its own route and K-gm forced
+        # K on step 6 of a prior run: its own route, the runtime-grid
+        # variant where its tiles fit one block, and K-gm, forced
         mm = set_perm(m, pre)
         (res5, n_sim) = launched(lambda: ht.simulate(mm, torch.zeros(m.Nxy, device=dev), DT, 5,
                                                      keep_wsats=False))
-        assert n_sim.get("pressure_pcg_gm") == 5, n_sim
+        k_route = transport.route(Nx, Ny)
+        assert n_sim == {"pressure_pcg_cl": 5, transport.NAMES[k_route]: 5}, n_sim
         s5 = res5.wsats[:, -1].reshape(LARGE_N, Nx, Ny).contiguous()
         _, Fx, Fy, it, ok, _ = pressure_step(mm, s5, qf, torch.zeros_like(s5), 2e-3,
                                              4 * max(Nx, Ny), 5e-2)
@@ -871,41 +906,57 @@ def large_grid_phases(dev, six):
         nsub, dtspv = cfl_substeps(mm, Fx, Fy, qf, DT)
         t_args = (s5, Fx, Fy, qf[None].contiguous(), dtspv, nsub, fluid_of(m))
         s_t = transport_substeps_torch(*t_args)
-        k_route = transport.route(Nx, Ny)
-        k_fig = {}
-        for force in dict.fromkeys((k_route, "gm")):
+        fits = transport.smem_bytes(Nx, Ny) <= _build.SMEM_LIMIT
+        k_ms = {}
+        for force in dict.fromkeys((k_route, "rt" if fits else "gm", "gm")):
             s_k, n = launched(lambda: transport_substeps_cuda(*t_args, force=force))
             assert n == {transport.NAMES[force]: 1} and torch.equal(s_k, s_t), (tag, force, n)
-            k_fig[force] = cuda_ms(lambda: transport_substeps_cuda(*t_args, force=force), 3)
+            k_ms[force] = cuda_ms(lambda: transport_substeps_cuda(*t_args, force=force), 3)
         bnd, by = transport_bound_ms(s5, Fx, Fy, t_args[3], nsub)
-        gm_fig = dict(ms=k_fig["gm"], bound_ms=bnd, bound_by=by, share_of_bound=bnd / k_fig["gm"],
-                      max_abs_err=0.0, route=k_route, route_ms=k_fig[k_route])
-        if k_route == "gm":
-            gm_fig["plain_ms"] = cuda_ms(lambda: transport_substeps_torch(*t_args), 1)
-            gm_fig["launches_simulate"] = n_sim.get("transport_upwind_gm", 0)
-            assert gm_fig["launches_simulate"] == 5, n_sim
-        figs["transport_upwind_gm"]["grids"][tag] = gm_fig
+        plain_ms = cuda_ms(lambda: transport_substeps_torch(*t_args), 1) if (
+            (Nx, Ny) in (BIG, (256, 256))) else None
+        for force in ("cl", "gm"):
+            if force in k_ms:
+                fig = dict(ms=k_ms[force], bound_ms=bnd, bound_by=by,
+                           share_of_bound=bnd / k_ms[force], max_abs_err=0.0, route=k_route,
+                           forced_ms=k_ms, plain_ms=plain_ms,
+                           substeps_median=int(nsub.median()))
+                if force == "cl":
+                    fig.update(cluster=transport.cl_shape(Nx, Ny),
+                               resources=_build.kernel_info("transport_upwind_cl", Nx, Ny))
+                figs[f"transport_upwind_{force}"]["grids"][tag] = fig
         log(f"[23] K {tag}, N={LARGE_N}, step 6 of a prior run (simulate's launches {n_sim}; "
             f"cg_iters median {int(it.median())}, accepted {int(ok.sum())}/{LARGE_N}): "
-            f"substeps median {int(nsub.median())} max {int(nsub.max())}; route {k_route!r} "
-            f"{k_fig[k_route]:.4f} ms, K-gm {k_fig['gm']:.4f} ms, both bit for bit with the "
-            f"plain version; bound {bnd:.5f} ms ({by}, K-gm {bnd / k_fig['gm']:.1%})"
-            + (f"; plain {gm_fig['plain_ms']:.3f} ms" if "plain_ms" in gm_fig else ""))
+            f"substeps median {int(nsub.median())} max {int(nsub.max())}; route {k_route!r}"
+            + (f" (cluster, strip {transport.cl_shape(Nx, Ny)})" if k_route == "cl" else "")
+            + "; ms " + ", ".join(f"{k} {v:.4f}" for k, v in k_ms.items())
+            + f", each bit for bit with the plain version; bound {bnd:.5f} ms ({by}, "
+            f"{k_route} {bnd / k_ms[k_route]:.1%})"
+            + (f"; plain {plain_ms:.3f} ms" if plain_ms else ""))
 
-    # simulate at [24]'s grid through each P-gm instantiation
-    m = grid_model(torch, *BIG)
-    mm = set_perm(m, ht.sample_prior_perm(gen, m, LARGE_N, r=0.8))
-    for smoother, unit in P_GM:
-        name = kernel_name(smoother, unit, "gm")
-        res, n = launched(lambda: ht.simulate(mm, torch.zeros(m.Nxy, device=dev), DT, 5,
-                                              smoother=smoother, scale_system=unit))
-        figs[name]["launches"] = n.get(name, 0)
-        log(f"[23] simulate(smoother={smoother!r}, scale_system={unit}) at {BIG[0]}x{BIG[1]}, "
-            f"N={LARGE_N}, 5 steps: launches {n}; cg_ok {float(res.cg_ok.float().mean()):.1%}")
-        assert n == {name: 5, "transport_upwind_rt": 5}, n
-        assert torch.isfinite(res.wsats).all()
+    # simulate through each instantiation: P-cl and K-cl at [24]'s grid;
+    # P-gm and K-gm at GM_PATH_GRID, past every cluster
+    for grid, rt, n_members in ((BIG, "cl", LARGE_N), (GM_PATH_GRID, "gm", GM_PATH_N)):
+        m = grid_model(torch, *grid)
+        mm = set_perm(m, ht.sample_prior_perm(gen, m, n_members, r=0.8))
+        k_name = transport.NAMES[transport.route(*grid)]
+        assert k_name == f"transport_upwind_{rt}", (grid, k_name)
+        for smoother, unit in P_GM:
+            name = kernel_name(smoother, unit, rt)
+            assert pressure.route(*grid, unit) == rt, (grid, unit)
+            t0 = time.perf_counter()
+            res, n = launched(lambda: ht.simulate(mm, torch.zeros(m.Nxy, device=dev), DT, 5,
+                                                  smoother=smoother, scale_system=unit))
+            figs[name][f"launches_simulate_{grid[0]}x{grid[1]}"] = n.get(name, 0)
+            figs[k_name][f"launches_simulate_{grid[0]}x{grid[1]}"] = (
+                figs[k_name].get(f"launches_simulate_{grid[0]}x{grid[1]}", 0) + n.get(k_name, 0))
+            log(f"[23] simulate(smoother={smoother!r}, scale_system={unit}) at {grid[0]}x"
+                f"{grid[1]}, N={n_members}, 5 steps: {time.perf_counter() - t0:.3f} s; launches "
+                f"{n}; cg_ok {float(res.cg_ok.float().mean()):.1%}")
+            assert n == {name: 5, k_name: 5}, n
+            assert torch.isfinite(res.wsats).all()
 
-    # both variants forced at 64x64 on [6]'s inputs
+    # both device-memory variants forced at 64x64 on [6]'s inputs
     args, kw = six["p_args"], six["kw"]
     p_g = pressure_solve_cuda(*args, **WINDOW4, force="gm")[0]
     p_s = pressure_solve_cuda(*args, **WINDOW4)[0]
@@ -989,15 +1040,15 @@ def large_case_phase(dev):
         log(f"[24] pass {i + 1}: {st['seconds']:.3f} s; cg_ok {st['cg_ok']:.1%}; cg_iters median "
             f"{st['iters_median']} max {st['iters_max']}; substeps median "
             f"{st['substeps_median']}; launches {st['launches']}")
-        assert st["launches"] == {"pressure_pcg_gm": NTIME, "transport_upwind_rt": NTIME}
+        assert st["launches"] == {"pressure_pcg_cl": NTIME, "transport_upwind_cl": NTIME}
     r_prior, r_post = parity.rmse(prior, truth), parity.rmse(post, truth)
     log(f"[24] bench case seed {SEED} at {Nx}x{Ny}, N={N}, nTime={NTIME}, {PASSES}-pass ES-MDA: "
         f"{wall:.3f} s (truth sim + forward passes + analyses, synchronized); launches "
         f"{launches}; peak device memory {peak / 2**30:.2f} GiB above the "
         f"{held / 2**30:.2f} GiB the earlier phases hold; rmse vs truth prior "
         f"{r_prior:.4f} -> posterior {r_post:.4f}")
-    assert launches == {"pressure_pcg_gm": (1 + PASSES) * NTIME,
-                        "transport_upwind_rt": (1 + PASSES) * NTIME}, launches
+    assert launches == {"pressure_pcg_cl": (1 + PASSES) * NTIME,
+                        "transport_upwind_cl": (1 + PASSES) * NTIME}, launches
     assert torch.isfinite(post).all() and post.shape == prior.shape
 
     pass_figs = [{k: v for k, v in st.items() if k != "final"} for st in passes]
@@ -1021,40 +1072,67 @@ def large_case_phase(dev):
 
 def large_case_kernels(model, prior):
     """[24]'s kernels at the shapes its path gives them: the bench case's
-    first step (N=1000, 128x128, s = 0). One P-gm launch after one window
-    held to the plain version within P_TOL, one K launch (its route at this
-    grid, the runtime-grid variant) bit for bit; each timed at the first
-    pass's settings beside its plain version and its bound. These launches
-    are not the path's: the caller has read its counts."""
+    first step (N=1000, 128x128, s = 0). P's route, P-cl: one launch after
+    one window held to the plain version within P_TOL, then timed at the
+    first pass's settings beside P-gm forced on the same inputs (held the
+    same way), P-cl on the other cluster sizes that hold the grid, the
+    plain version and the bound. K's route, K-cl: bit for bit, timed beside
+    the runtime-grid variant and K-gm forced (each bit for bit too). These
+    launches are not the path's: the caller has read its counts."""
     import torch
 
     from historymatching_tpu_torch.models.ressim import _source_field, cfl_substeps, pressure_step
-    from historymatching_tpu_torch.ops import transport
-    from historymatching_tpu_torch.ops.pressure import pressure_solve_cuda, pressure_solve_torch
+    from historymatching_tpu_torch.ops import pressure, transport
+    from historymatching_tpu_torch.ops.pressure import (
+        CLUSTERS,
+        cl_plan,
+        kernel_name,
+        pressure_solve_cuda,
+        pressure_solve_torch,
+    )
     from historymatching_tpu_torch.ops.transport import (
         transport_substeps_cuda,
         transport_substeps_torch,
     )
     from historymatching_tpu_torch.parallel.runner import set_perm
 
+    Nx, Ny = model.shape
     mm = set_perm(model, prior)
     qf = _source_field(model, model.inj_rates[:, 0], model.prd_rates[:, 0])
     first = dict(BASE, **SCHED[0])
     kw1 = {k: first[k] for k in SOLVE_KEYS}
     args = p_system(mm, qf, True)
-    (p_k, _, _), n = launched(lambda: pressure_solve_cuda(*args, **WINDOW4))
-    assert n == {"pressure_pcg_gm": 1}, n
+    assert pressure.route(Nx, Ny) == "cl"
+    c0 = cl_plan(Nx, Ny)[0]
+    variants = [("cl", None), ("gm", None)] + [("cl", c) for c in CLUSTERS
+                                               if c != c0 and cl_plan(Nx, Ny, True, c)]
     p_t = pressure_solve_torch(*args, **WINDOW4)[0]
-    err, abs_err = rel_err(p_k, p_t), float((p_k - p_t).abs().max())
-    assert bool(torch.isfinite(p_k).all()) and err <= P_TOL, err
-    _, it_k, rl_k = pressure_solve_cuda(*args, **kw1)
-    ms = cuda_ms(lambda: pressure_solve_cuda(*args, **kw1), 2)
+    p_figs, said = {}, []
+    for force, cluster in variants:
+        name = kernel_name("jacobi", True, force)
+        run = lambda kw: pressure_solve_cuda(*args, **kw, force=force,  # noqa: E731
+                                             cluster=cluster)
+        (p_k, _, _), n = launched(lambda: run(WINDOW4))
+        assert n == {name: 1}, n
+        err, abs_err = rel_err(p_k, p_t), float((p_k - p_t).abs().max())
+        assert bool(torch.isfinite(p_k).all()) and err <= P_TOL, (force, cluster, err)
+        _, it_k, rl_k = run(kw1)
+        ms = cuda_ms(lambda: run(kw1), 2)
+        bnd, by = pressure_bound_ms(args[0], args[1], it_k)
+        tag = f"{name}" + (f" c={cluster or c0}" if force == "cl" else "")
+        p_figs[tag] = dict(ms=ms, bound_ms=bnd, bound_by=by, share_of_bound=bnd / ms,
+                           max_rel_err=err, max_abs_err=abs_err, iters_median=int(it_k.median()),
+                           accepted=int((rl_k <= 5e-2).sum()),
+                           **({"cluster": cluster or c0} if force == "cl" else {}))
+        said.append(f"{tag} window max rel {err:.2e} (abs {abs_err:.2e}), {ms:.3f} ms a launch "
+                    f"(iterations median {p_figs[tag]['iters_median']}, accepted "
+                    f"{p_figs[tag]['accepted']}), bound {bnd:.4f} ms ({by}, {bnd / ms:.1%})")
     plain_ms = cuda_ms(lambda: pressure_solve_torch(*args, **kw1), 1)
-    bnd, by = pressure_bound_ms(args[0], args[1], it_k)
-    p_fig = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by, share_of_bound=bnd / ms,
-                 max_rel_err=err, max_abs_err=abs_err, iters_median=int(it_k.median()),
-                 accepted=int((rl_k <= 5e-2).sum()))
     del args, p_k, p_t
+    cl_fig = dict(p_figs[f"pressure_pcg_cl c={c0}"], plain_ms=plain_ms,
+                  gm_ms=p_figs["pressure_pcg_gm"]["ms"],
+                  clusters_ms={f["cluster"]: f["ms"] for f in p_figs.values() if "cluster" in f})
+    gm_fig = dict(p_figs["pressure_pcg_gm"], plain_ms=plain_ms)
 
     s0 = torch.zeros(prior.shape[0], *model.shape, device=prior.device)
     _, Fx, Fy, _, _, _ = pressure_step(mm, s0, qf, torch.zeros_like(s0), tol_accept=5e-2,
@@ -1062,26 +1140,29 @@ def large_case_kernels(model, prior):
     Fx, Fy = Fx.contiguous(), Fy.contiguous()
     nsub, dtspv = cfl_substeps(mm, Fx, Fy, qf, DT)
     t_args = (s0, Fx, Fy, qf[None].contiguous(), dtspv, nsub, fluid_of(model))
-    name = transport.NAMES[transport.route(*model.shape)]
-    s_k, n = launched(lambda: transport_substeps_cuda(*t_args))
+    assert transport.route(Nx, Ny) == "cl"
     s_t = transport_substeps_torch(*t_args)
-    assert n == {name: 1} and name == "transport_upwind_rt", n
-    k_err = float((s_k - s_t).abs().max())
-    assert torch.equal(s_k, s_t), k_err
-    k_ms = cuda_ms(lambda: transport_substeps_cuda(*t_args), 3)
+    k_ms = {}
+    for force in ("cl", "rt", "gm"):
+        s_k, n = launched(lambda: transport_substeps_cuda(*t_args, force=force))
+        assert n == {transport.NAMES[force]: 1}, n
+        assert torch.equal(s_k, s_t), (force, float((s_k - s_t).abs().max()))
+        k_ms[force] = cuda_ms(lambda: transport_substeps_cuda(*t_args, force=force), 3)
     k_plain_ms = cuda_ms(lambda: transport_substeps_torch(*t_args), 1)
     k_bnd, k_by = transport_bound_ms(s0, Fx, Fy, t_args[3], nsub)
-    k_fig = dict(ms=k_ms, plain_ms=k_plain_ms, bound_ms=k_bnd, bound_by=k_by,
-                 share_of_bound=k_bnd / k_ms, max_abs_err=k_err,
-                 substeps_median=int(nsub.median()))
-    log(f"[24] kernels on the first step's system (N={prior.shape[0]}, {model.shape[0]}x"
-        f"{model.shape[1]}, the first pass's settings): pressure_pcg_gm window max rel "
-        f"{err:.2e} (abs {abs_err:.2e}), {ms:.3f} ms a launch (iterations median "
-        f"{p_fig['iters_median']}, accepted {p_fig['accepted']}), plain {plain_ms:.3f} ms, bound "
-        f"{bnd:.4f} ms ({by}, {bnd / ms:.1%}); {name} max|ds| {k_err:.1e} (bit for bit), "
-        f"{k_ms:.3f} ms a launch ({k_fig['substeps_median']} substeps median), plain "
-        f"{k_plain_ms:.3f} ms, bound {k_bnd:.5f} ms ({k_by}, {k_bnd / k_ms:.1%})")
-    return {"pressure_pcg_gm": p_fig, name: k_fig}
+    k_figs = {transport.NAMES[f]: dict(ms=ms, plain_ms=k_plain_ms, bound_ms=k_bnd, bound_by=k_by,
+                                       share_of_bound=k_bnd / ms, max_abs_err=0.0,
+                                       substeps_median=int(nsub.median()))
+              for f, ms in k_ms.items()}
+    k_figs["transport_upwind_cl"].update(rt_ms=k_ms["rt"], gm_ms=k_ms["gm"],
+                                         cluster=transport.cl_shape(Nx, Ny))
+    log(f"[24] kernels on the first step's system (N={prior.shape[0]}, {Nx}x{Ny}, the first "
+        f"pass's settings): " + "; ".join(said) + f"; plain {plain_ms:.3f} ms; K (cluster, strip "
+        f"{transport.cl_shape(Nx, Ny)}; {int(nsub.median())} substeps median) max|ds| 0 on every "
+        f"route, ms " + ", ".join(f"{k} {v:.3f}" for k, v in k_ms.items())
+        + f", plain {k_plain_ms:.3f}, bound {k_bnd:.5f} ms ({k_by}, K-cl "
+        f"{k_bnd / k_ms['cl']:.1%})")
+    return {"pressure_pcg_cl": cl_fig, "pressure_pcg_gm": gm_fig, **k_figs}
 
 
 def mesh_phase(dev):
@@ -1266,7 +1347,8 @@ def main(argv=None):
 
     # 2. build
     t0 = time.perf_counter()
-    _build.prebuild(P_NEW_GRIDS)
+    _build.prebuild(P_NEW_GRIDS, cl_grids=LARGE_GRIDS + K_RT_GRIDS,
+                    cl_sizes=[(*BIG, c) for c in (4, 16)])  # [24]'s other clusters
     log(f"[2] kernels built in {time.perf_counter() - t0:.1f} s "
         f"(compiled: {_build.build_info['built']}) -> {_build.build_info['paths']}")
     for stem, text in _build.build_info["ptxas"].items():
@@ -1276,7 +1358,7 @@ def main(argv=None):
                 fn = line.split("Function properties for", 1)[1].strip()
             elif "spill" in line and not line.strip().startswith("0 bytes stack frame, 0 bytes"):
                 log(f"[2] ptxas {stem} {fn}: {line.strip()}")
-    for name in _build.LAUNCHES:
+    for name in (k for k in _build.LAUNCHES if not k.endswith("_cl")):  # clusters: [23]
         for grid in _build.GRIDS:
             info = _build.kernel_info(name, *grid)
             log(f"[2] {name} {grid[0]}x{grid[1]}: {info['registers']} registers, "
@@ -1793,35 +1875,40 @@ def main(argv=None):
             max_abs_err=d["max_abs_err"], ms=d["ms"], plain_ms=d["plain_ms"],
             bound_ms=d["bound_ms"], bound_by=d["bound_by"], library_ms=None,
             share_of_bound=d["bound_ms"] / d["ms"], grids=d["grids"]))
-    # [24]'s launches of K's runtime-grid variant, with its check and times
-    # at [24]'s first step.
+    # K's runtime-grid variant forced on [24]'s first step, beside K-cl.
     next(r for r in kernels if r["name"] == "transport_upwind_rt")["large_case"] = dict(
-        big["kernels"]["transport_upwind_rt"], launches=big["launches"]["transport_upwind_rt"])
-    # The device-memory variants: P-gm's path is [24] (Jacobi, unit), checked
-    # and timed on [24]'s first step; the others' is [23]'s simulate at
-    # 128x128, timed there at bench settings; K-gm's path is [23]'s simulate
-    # at 256x256, timed on its step 6.
+        big["kernels"]["transport_upwind_rt"], launches=big["launches"].get(
+            "transport_upwind_rt", 0), forced=True)
+    # The cluster variants: P-cl's and K-cl's path is [24], each checked and
+    # timed on [24]'s first step; the other P-cl instantiations' path is
+    # [23]'s simulate at 128x128, timed there at bench settings. The
+    # device-memory variants' path is [23]'s simulate at GM_PATH_GRID; P-gm
+    # is timed forced on [24]'s first step (Jacobi) and at 128x128 N=64
+    # (the others), K-gm forced at 256x256 N=64.
+    gm_at = f"{GM_PATH_GRID[0]}x{GM_PATH_GRID[1]}"
     for name, d in large.items():
+        route = name.rsplit("_", 1)[1]
         at = "256x256" if name == "transport_upwind_gm" else f"{BIG[0]}x{BIG[1]}"
-        g = d["grids"][at]
-        err = d["max_abs_err"]
-        if name == "pressure_pcg_gm":
+        g, err = d["grids"][at], d["max_abs_err"]
+        if name in big["kernels"]:
             at, g = f"{BIG[0]}x{BIG[1]} N={N} ([24]'s first step)", big["kernels"][name]
-            err = g["max_abs_err"]
+            err = max(err, g["max_abs_err"])
+        if route == "cl":
+            launches_path = (big["launches"][name] if name in big["launches"]
+                             else d[f"launches_simulate_{BIG[0]}x{BIG[1]}"])
+        else:
+            launches_path = d[f"launches_simulate_{gm_at}"]
+        source = ("transport_upwind.cu" if name.startswith("transport")
+                  else f"pressure_pcg_{route}.cu")
         kernels.append(dict(
-            name=name, route="cuda",
-            source="historymatching_tpu_torch/csrc/" + (
-                "transport_upwind.cu" if name.startswith("transport") else "pressure_pcg_gm.cu"),
+            name=name, route="cuda", source="historymatching_tpu_torch/csrc/" + source,
             replaces=("historymatching_tpu/ops/transport_pallas.py:68"
                       if name.startswith("transport")
                       else "historymatching_tpu/ops/pressure_pallas.py:34"),
-            launches=(big["launches"][name] if name == "pressure_pcg_gm"
-                      else g["launches_simulate"] if name == "transport_upwind_gm"
-                      else d["launches"]),
-            max_abs_err=err, ms=g["ms"], plain_ms=g.get("plain_ms"),
+            launches=launches_path, max_abs_err=err, ms=g["ms"], plain_ms=g.get("plain_ms"),
             bound_ms=g["bound_ms"], bound_by=g["bound_by"], library_ms=None,
             share_of_bound=g["bound_ms"] / g["ms"], at_grid=at, grids=d["grids"],
-            **({"launches_simulate_128x128": d["launches"]} if "launches" in d else {}),
+            **{k: v for k, v in d.items() if k.startswith("launches_simulate")},
             **({"forced_64x64": d["forced_64x64"]} if "forced_64x64" in d else {})))
     for rec in kernels:
         rec["launches_parity"] = {p["name"]: p["launches"].get(rec["name"], 0) for p in par}

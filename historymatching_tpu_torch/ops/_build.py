@@ -7,7 +7,11 @@ grid: the main library holds the grids of `GRIDS`, and any other grid is
 compiled on first use into a library of its own (`pressure_lib`);
 `prebuild` starts every compiler a run will need at once. The
 device-memory variants (P-gm in `pressure_pcg_gm.cu`, K-gm beside K) take
-the grid at run time, so one library serves every grid. A library's
+the grid at run time, so one library serves every grid. The cluster
+variants (P-cl in `pressure_pcg_cl.cu`, K-cl in `transport_upwind.cu`
+under `-DHM_KCL_*`) are templates on the grid and the cluster size, one
+library each, built on first use (`pressure_cl_lib`, `transport_cl_lib`).
+A library's
 name carries a hash of its source, the shared headers and the flags, so an
 edited source rebuilds. The libraries are loaded with `ctypes`; each C
 entry point returns `cudaGetLastError()` after its launch, and `check`
@@ -37,15 +41,20 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # The grids the main libraries instantiate (csrc/grids.cuh).
 GRIDS = ((16, 16), (20, 20), (32, 32), (64, 64))
-# Shared memory one thread block may opt into on the H100 (sm_90).
+# Shared memory one thread block may opt into on the H100 (sm_90), and the
+# most a block may take for two to be resident on an SM (228 KB an SM, 1 KB
+# of each block reserved).
 SMEM_LIMIT = 232_448
+SMEM_TWO_A_SM = 115_712
 
-# Launches by kernel: K's templated, runtime-grid and device-memory
-# variants, and P by smoother, by fine diagonal (unit, or read: the
-# unscaled system) and by route (shared memory, or "_gm": device memory).
+# Launches by kernel: K's templated, runtime-grid, device-memory and
+# cluster variants, and P by smoother, by fine diagonal (unit, or read:
+# the unscaled system) and by route (shared memory, "_gm": device memory,
+# "_cl": a thread-block cluster a member).
 _P_NAMES = ("pressure_pcg", "pressure_pcg_cheb", "pressure_pcg_diag", "pressure_pcg_cheb_diag")
 LAUNCHES = dict.fromkeys(("transport_upwind", "transport_upwind_rt", *_P_NAMES,
-                          "transport_upwind_gm", *(n + "_gm" for n in _P_NAMES)), 0)
+                          "transport_upwind_gm", *(n + "_gm" for n in _P_NAMES),
+                          "transport_upwind_cl", *(n + "_cl" for n in _P_NAMES)), 0)
 
 _libs = {}
 build_info = {"paths": {}, "built": [], "ptxas": {}, "seconds": 0.0}
@@ -53,6 +62,9 @@ build_info = {"paths": {}, "built": [], "ptxas": {}, "seconds": 0.0}
 P, I, F, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 # Per source file, its C entry points and their argument types.
 _TRANSPORT = [P, P, P, P, I, P, P, P, I, I, I, D, D, D, D, P]
+# level pointers, Ainv, q, p0, w, p_out, it_out, rel_out, B, Nx, Ny,
+# n_levels, tol, maxiter, restart_every, patience, cheb, unit, stream
+_PRESSURE = [P, P, P, P, P, P, P, P, I, I, I, I, F, I, I, I, I, I, P]
 _SIGNATURES = {
     "transport_upwind": {
         # s, Fx, Fy, q, q_stride, dts_pv, n_sub, out, B, Nx, Ny, vw, vo, swc, sor, stream
@@ -65,9 +77,7 @@ _SIGNATURES = {
         "hm_transport_gm_info": [I, I, P],
     },
     "pressure_pcg": {
-        # level pointers, Ainv, q, p0, w, p_out, it_out, rel_out, B, Nx, Ny,
-        # n_levels, tol, maxiter, restart_every, patience, cheb, unit, stream
-        "hm_pressure_solve": [P, P, P, P, P, P, P, P, I, I, I, I, F, I, I, I, I, I, P],
+        "hm_pressure_solve": _PRESSURE,
         "hm_pressure_info": [I, I, I, I, P],
     },
     "pressure_pcg_gm": {
@@ -78,6 +88,12 @@ _SIGNATURES = {
         "hm_pressure_gm_info": [I, I, I, I, P],
     },
 }
+_MAIN = tuple(_SIGNATURES)  # the main libraries' sources
+# The per-grid cluster libraries: P-cl's source, and K's under -DHM_KCL_*.
+_SIGNATURES["pressure_pcg_cl"] = {"hm_pressure_cl_solve": _PRESSURE,
+                                  "hm_pressure_cl_info": [I, I, I, I, P]}
+_SIGNATURES["transport_upwind_cl"] = {"hm_transport_substeps_cl": _TRANSPORT,
+                                      "hm_transport_cl_info": [I, I, P]}
 
 
 def reset_launches():
@@ -97,27 +113,44 @@ def _read(path):
         return f.read()
 
 
-def _spec(stem, grid=None):
-    """(key, stem, extra flags, library path) of a source, built for one
-    grid where `grid` is given."""
-    flags = [] if grid is None else [f"-DHM_GRID_NX={grid[0]}", f"-DHM_GRID_NY={grid[1]}"]
+def _spec(stem, grid=None, key=None, flags=None, sigs=None):
+    """(key, stem, extra flags, library path, signature set) of a source,
+    built for one grid where `grid` is given (with `-DHM_GRID_NX/NY`, or
+    the `flags` given)."""
+    if flags is None:
+        flags = [] if grid is None else [f"-DHM_GRID_NX={grid[0]}", f"-DHM_GRID_NY={grid[1]}"]
     headers = b"".join(os.path.basename(h).encode() + _read(h)
                        for h in sorted(glob.glob(os.path.join(CSRC, "*.cuh"))))
     src = os.path.join(CSRC, f"{stem}.cu")
     h = hashlib.sha256(" ".join(NVCC_FLAGS + flags).encode() + headers + _read(src)).hexdigest()
-    key = stem if grid is None else f"{stem}_{grid[0]}x{grid[1]}"
-    return key, stem, flags, os.path.join(BUILD_DIR, f"lib{key}_{h[:16]}.so")
+    key = key or (stem if grid is None else f"{stem}_{grid[0]}x{grid[1]}")
+    return key, stem, flags, os.path.join(BUILD_DIR, f"lib{key}_{h[:16]}.so"), sigs or stem
+
+
+def _cl_specs(Nx, Ny, pressure_plans=(), transport_shape=None):
+    """The cluster libraries of one grid: P-cl for each (c, inverse in
+    shared memory) plan, K-cl for a (c, strip) shape."""
+    specs = [_spec("pressure_pcg_cl", key=f"pressure_pcg_cl_{Nx}x{Ny}_c{c}{'s' if inv else 'g'}",
+                   flags=[f"-DHM_GRID_NX={Nx}", f"-DHM_GRID_NY={Ny}", f"-DHM_CL={c}",
+                          f"-DHM_CL_INV={int(inv)}"])
+             for c, inv in dict.fromkeys(pressure_plans)]
+    if transport_shape is not None:
+        c, strip = transport_shape
+        specs.append(_spec("transport_upwind", key=f"transport_upwind_cl_{Nx}x{Ny}_c{c}s{strip}",
+                           flags=[f"-DHM_KCL_NX={Nx}", f"-DHM_KCL_NY={Ny}", f"-DHM_KCL_C={c}",
+                                  f"-DHM_KCL_S={strip}"], sigs="transport_upwind_cl"))
+    return specs
 
 
 def _load(specs):
     """Build (all compilers at once) and load the libraries of `specs` not
     loaded yet; each becomes a namespace of its C entry points in `_libs`."""
-    specs = [sp for sp in specs if sp[0] not in _libs]
+    specs = list({sp[0]: sp for sp in specs if sp[0] not in _libs}.values())
     if not specs:
         return
     t0 = time.perf_counter()
     jobs = {}
-    for key, stem, flags, so in specs:
+    for key, stem, flags, so, _ in specs:
         if not os.path.exists(so):
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{so}.{os.getpid()}.tmp"
@@ -125,16 +158,20 @@ def _load(specs):
             jobs[key] = (so, tmp, subprocess.Popen(
                 [_nvcc(), *NVCC_FLAGS, *flags, "-o", tmp, src], stdout=subprocess.PIPE,
                 stderr=subprocess.PIPE, text=True))
+    failed = []
     for key, (so, tmp, proc) in jobs.items():
         _, err = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {key} ({proc.returncode}):\n{err[-8000:]}")
+            failed.append(f"nvcc failed on {key} ({proc.returncode}):\n{err[-4000:]}")
+            continue
         os.replace(tmp, so)
         build_info["ptxas"][key] = err
-    for key, stem, _, so in specs:
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    for key, _, _, so, sigs in specs:
         handle = ctypes.CDLL(so)
         fns = {}
-        for name, argtypes in _SIGNATURES[stem].items():
+        for name, argtypes in _SIGNATURES[sigs].items():
             fn = getattr(handle, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
@@ -149,8 +186,8 @@ def lib():
     """The main libraries' C entry points (K in its three variants, P at
     `GRIDS`, P-gm), built first where their sources changed."""
     if "main" not in _libs:
-        _load([_spec(stem) for stem in _SIGNATURES])
-        _libs["main"] = types.SimpleNamespace(**{k: v for stem in _SIGNATURES
+        _load([_spec(stem) for stem in _MAIN])
+        _libs["main"] = types.SimpleNamespace(**{k: v for stem in _MAIN
                                                  for k, v in vars(_libs[stem]).items()})
     return _libs["main"]
 
@@ -166,11 +203,49 @@ def pressure_lib(Nx, Ny):
     return _libs[key]
 
 
-def prebuild(pressure_grids=()):
-    """Build the main libraries and kernel P's libraries for
-    `pressure_grids` outside `GRIDS`, every compiler at once."""
+def pressure_cl_lib(Nx, Ny, c, inv_smem):
+    """P-cl's C entry points for one grid on clusters of `c` ranks, the
+    coarsest inverse in shared memory or read in place (`inv_smem`), built
+    on first use."""
+    key, *_ = spec = _cl_specs(Nx, Ny, [(c, inv_smem)])[0]
+    if key not in _libs:
+        _load([spec])
+    return _libs[key]
+
+
+def transport_cl_lib(Nx, Ny, c, strip):
+    """K-cl's C entry points for one grid on clusters of `c` ranks with
+    strips of `strip` cells, built on first use."""
+    key, *_ = spec = _cl_specs(Nx, Ny, transport_shape=(c, strip))[0]
+    if key not in _libs:
+        _load([spec])
+    return _libs[key]
+
+
+def _cl_grid_specs(Nx, Ny):
+    """The cluster libraries a grid's routes take: P-cl for both fine
+    diagonals, K-cl where K's route is the cluster."""
+    from historymatching_tpu_torch.ops import pressure, transport
+    from historymatching_tpu_torch.ops.multigrid import n_levels
+
+    plans = [pressure.cl_plan(Nx, Ny, unit) for unit in (True, False)
+             if n_levels(Nx, Ny) >= 2 and pressure.route(Nx, Ny, unit) == "cl"]
+    shape = transport.cl_shape(Nx, Ny) if transport.route(Nx, Ny) == "cl" else None
+    return _cl_specs(Nx, Ny, plans, shape)
+
+
+def prebuild(pressure_grids=(), cl_grids=(), cl_sizes=()):
+    """Build the main libraries, kernel P's libraries for `pressure_grids`
+    outside `GRIDS`, the cluster libraries of `cl_grids` and P-cl's for
+    `cl_sizes` ((Nx, Ny, c) on another cluster than its plan's), every
+    compiler at once."""
+    from historymatching_tpu_torch.ops import pressure
+
     extra = [g for g in dict.fromkeys(tuple(g) for g in pressure_grids) if g not in GRIDS]
-    _load([_spec(stem) for stem in _SIGNATURES] + [_spec("pressure_pcg", g) for g in extra])
+    _load([_spec(stem) for stem in _MAIN] + [_spec("pressure_pcg", g) for g in extra]
+          + [sp for g in cl_grids for sp in _cl_grid_specs(*g)]
+          + [sp for Nx, Ny, c in cl_sizes
+             for sp in _cl_specs(Nx, Ny, [pressure.cl_plan(Nx, Ny, True, c)])])
 
 
 def check(code, name):
@@ -183,20 +258,32 @@ def kernel_info(kernel, Nx, Ny):
     registers and local (stack and spill) bytes a thread, dynamic shared
     bytes and threads a block, resident blocks an SM. `kernel` is a key of
     `LAUNCHES`; a device-memory variant ("_gm") reports its static shared
-    bytes (its workspace is `ops.pressure.gm_bytes`, or K's two tiles)."""
-    out = (ctypes.c_int * 5)()
-    if kernel.startswith("transport"):
+    bytes (its workspace is `ops.pressure.gm_bytes`, or K's two tiles); a
+    cluster variant ("_cl", on its route's cluster) its bytes a rank, and
+    adds the ranks a cluster and the clusters the card holds at once."""
+    from historymatching_tpu_torch.ops import pressure, transport
+
+    out = (ctypes.c_int * 7)()
+    cheb, unit = int("cheb" in kernel), int("_diag" not in kernel)
+    if kernel == "transport_upwind_cl":
+        code = transport_cl_lib(Nx, Ny, *transport.cl_shape(Nx, Ny)).hm_transport_cl_info(
+            Nx, Ny, out)
+    elif kernel.startswith("transport"):
         fn = {"transport_upwind_rt": lib().hm_transport_rt_info,
               "transport_upwind_gm": lib().hm_transport_gm_info}.get(kernel,
                                                                      lib().hm_transport_info)
         code = fn(Nx, Ny, out)
+    elif kernel.endswith("_cl"):
+        plan = pressure.cl_plan(Nx, Ny, bool(unit))
+        code = pressure_cl_lib(Nx, Ny, *plan).hm_pressure_cl_info(Nx, Ny, cheb, unit, out)
     else:
-        cheb, unit = int("cheb" in kernel), int("_diag" not in kernel)
         fn = (lib().hm_pressure_gm_info if kernel.endswith("_gm")
               else pressure_lib(Nx, Ny).hm_pressure_info)
         code = fn(Nx, Ny, cheb, unit, out)
     check(code, kernel)
     keys = ("registers", "local_bytes", "shared_bytes", "threads", "blocks_per_sm")
+    if kernel.endswith("_cl"):
+        keys += ("cluster", "max_active_clusters")
     return dict(zip(keys, out))
 
 

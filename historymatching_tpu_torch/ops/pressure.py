@@ -20,13 +20,19 @@ that read the fine diagonal count as "pressure_pcg_diag" and
 "pressure_pcg_cheb_diag".
 
 Where a member's layout (`layout`, `smem_bytes`) exceeds one block's
-shared memory, the device-memory variant P-gm runs instead
-(`csrc/pressure_pcg_gm.cu`, one library for every grid): the same solve,
-with every level's arrays and the CG vectors in a per-member workspace
-that the wrapper allocates; its launches count under the same names with
-"_gm" appended. `route` says which a grid takes, and `force="gm"` takes
-P-gm at any grid. A grid without a hierarchy is refused before any launch
-(`check_grid`); `models.ressim` routes it to the plain Jacobi-PCG.
+shared memory, P-cl runs instead (`csrc/pressure_pcg_cl.cu`, one library
+a grid and cluster size): the same solve on a thread-block cluster of c
+blocks a member, each holding a band of rows of the split levels, the
+coarse levels gathered on the first block, in the cluster's distributed
+shared memory (`cl_layout` counts a block's share, `cl_plan` picks c).
+Where no cluster of up to 16 holds it, the device-memory variant P-gm
+runs (`csrc/pressure_pcg_gm.cu`, one library for every grid): the same
+solve, with every level's arrays and the CG vectors in a per-member
+workspace that the wrapper allocates. Their launches count under the
+same names with "_cl" or "_gm" appended. `route` says which a grid takes,
+and `force` ("cl", "gm") takes one at any grid it fits. A grid without a
+hierarchy is refused before any launch (`check_grid`); `models.ressim`
+routes it to the plain Jacobi-PCG.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor takes the
 kernel, which raises on what it does not take.
@@ -72,29 +78,70 @@ def _kernel_threads(Nx, Ny):
 LEVEL_KEYS = ("n", "m", "TX", "TY", "D", "RD", "B", "X", "T")
 
 
-def layout(Nx, Ny, levels, unit_diag=True, gm=False):
-    """Kernel P's arrays for one member, in floats, each rounded up to 4:
-    (per level a dict of its sides `n`, `m` and the offsets of LEVEL_KEYS,
-    the offsets of the extra arrays, the total).
+CLUSTERS = (2, 4, 8, 16)  # P-cl's cluster sizes, smallest first (16: non-portable)
+SPLIT_MIN_CELLS = 256  # P-cl gathers a level of <= 16x16 cells on its first rank
+
+
+def cl_split(Nx, Ny, levels, c):
+    """The levels a cluster of `c` splits into row bands, 0..LS-1: from the
+    fine level down while a band is an even number of rows (the 2x2 tiles
+    and the restriction stay inside a rank) and the level has more than
+    SPLIT_MIN_CELLS cells; the coarsest is never split. 0 where the fine
+    level does not split."""
+    ls = 0
+    while (ls < levels - 1 and (Nx >> ls) % (2 * c) == 0
+           and (Nx >> ls) * (Ny >> ls) > SPLIT_MIN_CELLS):
+        ls += 1
+    return ls
+
+
+def cl_threads(Nx, Ny, c):
+    """Threads of a P-cl rank: about one per four fine 2x2 tiles of its
+    band, in the nearest whole multiple of 128 (the granule the registers
+    are allocated in), from 128 to 1024."""
+    t = -(-((Nx // c) * Ny // 4) // 4)
+    return max(128, min(1024, (t + 64) // 128 * 128))
+
+
+def layout(Nx, Ny, levels, unit_diag=True, gm=False, cl=0, inv_smem=True):
+    """Kernel P's arrays for one member (one rank of a cluster of `cl` for
+    P-cl), in floats, each rounded up to 4: (per level a dict of its rows
+    `n`, its columns `m`, whether it is `split` and the offsets of
+    LEVEL_KEYS, the offsets of the extra arrays, the total).
 
     The fine level holds its faces TX, TY (padded to Ny wide), the vectors
     P (p; the V-cycle's iterate X), R (r; its right-hand side B) and the
     smoothing temporary T, and without `unit_diag` its diagonal D and
     reciprocal diagonal RD; an intermediate level its faces, D, RD, B and
-    X, its temporary aliasing the fine T; the coarsest its B and X. In
-    shared memory (`gm` False: `Geo` in csrc/pressure_pcg.cu) the coarsest
-    inverse (transposed) and two reduction slots a warp follow. In P-gm's
-    device workspace (`gm`: csrc/pressure_pcg_gm.cu) the CG vectors x, p,
-    z and A p follow instead: its coarse solve reads the member's inverse
-    in place, and its reduction slots are in shared memory."""
+    X, its temporary aliasing the fine T (while the temporaries fit there);
+    the coarsest its B and X. In shared memory (`gm` False: `Geo` in
+    csrc/pressure_pcg.cu) the coarsest inverse (transposed) and two
+    reduction slots a warp follow. In P-gm's device workspace (`gm`:
+    csrc/pressure_pcg_gm.cu) the CG vectors x, p, z and A p follow instead:
+    its coarse solve reads the member's inverse in place, and its reduction
+    slots are in shared memory.
+
+    With `cl` (P-cl, `Geo` in csrc/pressure_pcg_cl.cu) a rank holds a band
+    of Nx / cl rows of each split level (`cl_split`), each array with a
+    halo row above and below (the offsets are of the halo row above), its
+    TX one face row a cell row (zero past the grid's last face), and every
+    other level whole (used on the first rank; the others hold a copy of
+    the first gathered level's correction); the inverse follows where
+    `inv_smem`, else it is read in place from device memory; then two
+    reduction slots of the rank's warps and the cluster's totals."""
+    ls = cl_split(Nx, Ny, levels, cl) if cl else 0
     sides = [(Nx >> lvl, Ny >> lvl) for lvl in range(levels)]
-    vec = [_r4(n * m) for n, m in sides]
+    rows = [n // cl if lvl < ls else n for lvl, (n, _) in enumerate(sides)]
+    vec = [_r4((h + (2 if lvl < ls else 0)) * m)
+           for lvl, (h, (_, m)) in enumerate(zip(rows, sides))]
     lc = levels - 1
     lv, o, t_off = [], 0, 0
     for lvl, (n, m) in enumerate(sides):
-        d = dict(n=n, m=m, TX=0, TY=0, D=0, RD=0, B=o, X=o + vec[lvl], T=0)
+        d = dict(n=rows[lvl], m=m, split=lvl < ls, TX=0, TY=0, D=0, RD=0, B=o,
+                 X=o + vec[lvl], T=0)
         if lvl < lc:
-            d["TX"], d["TY"] = o, o + _r4((n - 1) * m)
+            d["TX"] = o
+            d["TY"] = o + (vec[lvl] if lvl < ls else _r4((n - 1) * m))
             if lvl == 0:
                 d["X"], d["B"], d["T"] = (d["TY"] + k * vec[0] for k in (1, 2, 3))
                 d["D"] = d["TY"] + 4 * vec[0]
@@ -103,21 +150,30 @@ def layout(Nx, Ny, levels, unit_diag=True, gm=False):
                 d["D"] = d["TY"] + vec[lvl]
                 d["B"] = d["D"] + 2 * vec[lvl]
                 d["X"] = d["B"] + vec[lvl]
-                d["T"] = lv[0]["T"] + t_off
-                t_off += vec[lvl]
                 size = d["TY"] - o + 5 * vec[lvl]
+                t_off += vec[lvl]
+                if t_off <= vec[0]:
+                    d["T"] = lv[0]["T"] + t_off - vec[lvl]
+                else:
+                    d["T"] = d["X"] + vec[lvl]
+                    size += vec[lvl]
             d["RD"] = d["D"] + vec[lvl]
         else:
             size = 2 * vec[lvl]
         lv.append(d)
         o += size
+    nc = sides[lc][0] * sides[lc][1]
     if gm:
         extra = {k: o + i * vec[0] for i, k in enumerate(("x", "p", "z", "Ap"))}
         o += 4 * vec[0]
     else:
-        nc = sides[lc][0] * sides[lc][1]
-        extra = {"inverse": o, "reduction": o + _r4(nc * nc)}
-        o += _r4(nc * nc) + 4 * (_kernel_threads(Nx, Ny) // 32)
+        extra = {}
+        if inv_smem:
+            extra["inverse"] = o
+            o += _r4(nc * nc)
+        extra["reduction"] = o
+        # two slots of a float pair a warp; P-cl's slots add one a rank
+        o += 4 * (cl_threads(Nx, Ny, cl) // 32 + cl) if cl else 4 * (_kernel_threads(Nx, Ny) // 32)
     return lv, extra, o
 
 
@@ -132,6 +188,32 @@ def gm_bytes(Nx, Ny, levels, unit_diag=True):
     return 4 * layout(Nx, Ny, levels, unit_diag, gm=True)[2]
 
 
+def cl_bytes(Nx, Ny, levels, c, unit_diag=True, inv_smem=True):
+    """Shared memory one rank of P-cl's cluster of `c` takes: its `layout`."""
+    return 4 * layout(Nx, Ny, levels, unit_diag, cl=c, inv_smem=inv_smem)[2]
+
+
+def cl_plan(Nx, Ny, unit_diag=True, cluster=None):
+    """P-cl's cluster for a grid: (c, inverse in shared memory). The
+    smallest c of CLUSTERS (or `cluster`) that splits the fine level and
+    whose rank leaves room for two blocks an SM (`_build.SMEM_TWO_A_SM`);
+    where none does, the smallest whose rank fits one block's shared
+    memory (`_build.SMEM_LIMIT`). At a given c the coarsest inverse sits
+    beside the bands where it fits, else it is read in place. None where
+    no cluster holds the grid. (At 128x128 c = 8, three blocks an SM, ran
+    P-cl in 54.9 ms against 77.8 at c = 4, one an SM, and 87.5 at c = 16:
+    PERF.md, PR 10.)"""
+    levels = n_levels(Nx, Ny)
+    sizes = [c for c in (CLUSTERS if cluster is None else (cluster,))
+             if levels >= 2 and cl_split(Nx, Ny, levels, c)]
+    for limit in (_build.SMEM_TWO_A_SM, _build.SMEM_LIMIT):
+        for c in sizes:
+            for inv in (True, False):
+                if cl_bytes(Nx, Ny, levels, c, unit_diag, inv) <= limit:
+                    return c, inv
+    return None
+
+
 def gm_table(Nx, Ny, levels, unit_diag=True):
     """P-gm's layout as the C entry takes it: levels, floats a member, the
     offsets of x, p, z and A p, then per level its LEVEL_KEYS."""
@@ -140,13 +222,14 @@ def gm_table(Nx, Ny, levels, unit_diag=True):
 
 
 KERNELS = {"jacobi": "pressure_pcg", "cheb": "pressure_pcg_cheb"}  # by smoother
-ROUTES = ("smem", "gm")
+ROUTES = ("smem", "cl", "gm")
 
 
 def kernel_name(smoother, unit_diag=True, route="smem"):
     """The launch counter of P's instantiation for a smoother, fine
     diagonal and route."""
-    return KERNELS[smoother] + ("" if unit_diag else "_diag") + ("_gm" if route == "gm" else "")
+    return KERNELS[smoother] + ("" if unit_diag else "_diag") + (
+        "" if route == "smem" else "_" + route)
 
 
 def check_grid(Nx, Ny):
@@ -157,27 +240,35 @@ def check_grid(Nx, Ny):
 
 
 def route(Nx, Ny, unit_diag=True):
-    """Which kernel P takes a grid: "smem" where the layout fits one block's
-    shared memory (`_build.SMEM_LIMIT`), else "gm"."""
+    """Which kernel P takes a grid, smallest footprint first: "smem" where
+    the layout fits one block's shared memory (`_build.SMEM_LIMIT`), "cl"
+    where a cluster's rank does (`cl_plan`), else "gm"."""
     check_grid(Nx, Ny)
-    fits = smem_bytes(Nx, Ny, n_levels(Nx, Ny), unit_diag) <= _build.SMEM_LIMIT
-    return "smem" if fits else "gm"
+    if smem_bytes(Nx, Ny, n_levels(Nx, Ny), unit_diag) <= _build.SMEM_LIMIT:
+        return "smem"
+    return "cl" if cl_plan(Nx, Ny, unit_diag) else "gm"
 
 
 def pressure_solve_cuda(hier, Ainv, q, p0, w, tol, maxiter, patience_iters=96,
-                        restart_every=8, smoother="jacobi", unit_diag=True, force=None):
+                        restart_every=8, smoother="jacobi", unit_diag=True, force=None,
+                        cluster=None):
     """The hand kernel. Same arguments as the plain version, float32 on one
     CUDA device. With `unit_diag` (the contract of
     `models.ressim.scaled_system`) the kernel takes the fine diagonal as 1
     and does not read `hier[0][2]`; without, it reads it. The grid's
-    `route` picks the shared-memory kernel or P-gm; `force` ("smem" or
-    "gm") picks one at any grid."""
+    `route` picks the shared-memory kernel, P-cl or P-gm; `force` (one of
+    ROUTES) picks one at any grid it fits, and `cluster` P-cl's cluster
+    size (`cl_plan` picks it by default)."""
     B, Nx, Ny = q.shape
     if smoother not in SMOOTHERS:
         raise ValueError(f"smoother must be one of {SMOOTHERS}, got {smoother!r}")
     if force not in (None, *ROUTES):
         raise ValueError(f"force must be one of {ROUTES} or None, got {force!r}")
-    rt = route(Nx, Ny, unit_diag) if force is None else force
+    rt = route(Nx, Ny, unit_diag) if force is None and cluster is None else force or "cl"
+    plan = cl_plan(Nx, Ny, unit_diag, cluster) if rt == "cl" else None
+    if rt == "cl" and plan is None:
+        raise ValueError(f"pressure kernel: no cluster of {cluster or CLUSTERS} holds the "
+                         f"{Nx}x{Ny} layout")
     levels = len(hier)
     if levels != n_levels(Nx, Ny):
         raise ValueError(f"pressure kernel: grid {Nx}x{Ny} takes {n_levels(Nx, Ny)} multigrid "
@@ -216,6 +307,9 @@ def pressure_solve_cuda(hier, Ainv, q, p0, w, tol, maxiter, patience_iters=96,
         ws = torch.empty(B * table[1], dtype=torch.float32, device=q.device)
         code = _build.lib().hm_pressure_gm_solve(
             *common, ws.data_ptr(), (ctypes.c_int * len(table))(*table), B, float(tol), *solver)
+    elif rt == "cl":
+        code = _build.pressure_cl_lib(Nx, Ny, *plan).hm_pressure_cl_solve(
+            *common, B, Nx, Ny, levels, float(tol), *solver)
     else:
         code = _build.pressure_lib(Nx, Ny).hm_pressure_solve(*common, B, Nx, Ny, levels,
                                                              float(tol), *solver)

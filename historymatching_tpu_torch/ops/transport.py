@@ -4,10 +4,12 @@ Replaces the TPU kernels of `historymatching_tpu/ops/transport_pallas.py`
 (`transport_substeps_pallas`, `_batched`, `_packed`): on the card one
 thread block per member loops over that member's own substep count
 (`csrc/transport_upwind.cu`: a template on the grid for the grids of
-`_build.GRIDS`, a variant with the grid as a runtime argument for any
-other grid whose two fw tiles fit one block's shared memory, and K-gm,
-the runtime-grid variant with its fw tiles in device memory, for any
-larger grid; `route` says which a grid takes). Beside it,
+`_build.GRIDS`; a variant with the grid as a runtime argument for any
+other grid of up to BAND_CELLS cells (or whose two fw tiles fit one
+block's shared memory and no cluster takes it); K-cl, a thread-block
+cluster a member, each block a band of rows (`cl_shape`), for larger
+grids; and K-gm, the runtime-grid variant with its fw tiles in device
+memory, for any grid left; `route` says which a grid takes). Beside it,
 `transport_substeps_torch` is the plain PyTorch version; it runs the batch
 to its largest count and freezes each member after its own, which gives
 the same per-member result.
@@ -24,9 +26,11 @@ import torch.nn.functional as F
 from historymatching_tpu_torch.ops import _build
 
 
-ROUTES = ("templated", "rt", "gm")
+ROUTES = ("templated", "rt", "cl", "gm")
 NAMES = {"templated": "transport_upwind", "rt": "transport_upwind_rt",
-         "gm": "transport_upwind_gm"}  # launch counters by route
+         "cl": "transport_upwind_cl", "gm": "transport_upwind_gm"}  # launch counters by route
+BAND_CELLS = 4096  # a K-cl rank's band at most: the templated 64x64 block's load
+MAX_THREADS, MIN_STRIP, MAX_STRIP = 1024, 4, 16
 
 
 def smem_bytes(Nx, Ny):
@@ -42,13 +46,34 @@ def check_grid(Nx, Ny):
         raise ValueError(f"transport kernel: a {Nx}x{Ny} grid has no cells")
 
 
+def cl_shape(Nx, Ny):
+    """K-cl's cluster for a grid: (c, strip), the smallest power of two c
+    up to 16 that divides Nx into bands of at most BAND_CELLS cells, and
+    the strip (cells a thread along i), the smallest divisor of the band's
+    rows from MIN_STRIP up (or the band's rows, where fewer) that keeps a
+    block at MAX_THREADS; None where no cluster takes the grid."""
+    for c in (2, 4, 8, 16):
+        h = Nx // c
+        if Nx % c or h * Ny > BAND_CELLS:
+            continue
+        for strip in range(min(MIN_STRIP, h), min(MAX_STRIP, h) + 1):
+            if h % strip == 0 and h // strip * Ny <= MAX_THREADS:
+                return c, strip
+    return None
+
+
 def route(Nx, Ny):
-    """Which kernel K takes a grid: "templated" at `_build.GRIDS`, "rt"
+    """Which kernel K takes a grid: "templated" at `_build.GRIDS`, "rt" up
+    to BAND_CELLS cells, "cl" where a cluster takes it (`cl_shape`), "rt"
     where the two fw tiles fit one block's shared memory
     (`_build.SMEM_LIMIT`), else "gm"."""
     check_grid(Nx, Ny)
     if (Nx, Ny) in _build.GRIDS:
         return "templated"
+    if Nx * Ny <= BAND_CELLS:
+        return "rt"
+    if cl_shape(Nx, Ny):
+        return "cl"
     return "rt" if smem_bytes(Nx, Ny) <= _build.SMEM_LIMIT else "gm"
 
 
@@ -82,12 +107,17 @@ def transport_substeps_torch(s, Fx, Fy, q, dts_pv, n_sub, fluid):
 def transport_substeps_cuda(s, Fx, Fy, q, dts_pv, n_sub, fluid, force=None):
     """The hand kernel. Same arguments as the plain version, float32 on one
     CUDA device; a `q` with one member is read by every member in place.
-    The grid's `route` picks the templated kernel, the runtime-grid variant
-    or K-gm; `force` (one of `ROUTES`) picks one at any grid (the templated
-    kernel only at `_build.GRIDS`)."""
+    The grid's `route` picks the templated kernel, the runtime-grid
+    variant, K-cl or K-gm; `force` (one of `ROUTES`) picks one at any grid
+    (the templated kernel only at `_build.GRIDS`, K-cl where `cl_shape`
+    gives a cluster)."""
     B, Nx, Ny = s.shape
     if force not in (None, *ROUTES):
         raise ValueError(f"force must be one of {ROUTES} or None, got {force!r}")
+    rt = route(Nx, Ny) if force is None else force
+    band = cl_shape(Nx, Ny) if rt == "cl" else None
+    if rt == "cl" and band is None:
+        raise ValueError(f"transport kernel: no cluster takes a {Nx}x{Ny} grid")
     shapes = {"s": (s, (B, Nx, Ny)), "Fx": (Fx, (B, Nx + 1, Ny)),
               "Fy": (Fy, (B, Nx, Ny + 1)), "q": (q, (1 if q.shape[0] == 1 else B, Nx, Ny)),
               "dts_pv": (dts_pv, (B,))}
@@ -103,15 +133,16 @@ def transport_substeps_cuda(s, Fx, Fy, q, dts_pv, n_sub, fluid, force=None):
         return out
     vw, vo, swc, sor = (float(v) for v in fluid)
     q_stride = 0 if q.shape[0] == 1 else Nx * Ny
-    rt = route(Nx, Ny) if force is None else force
-    lib = _build.lib()
     args = (s.data_ptr(), Fx.data_ptr(), Fy.data_ptr(), q.data_ptr(), q_stride,
             dts_pv.data_ptr(), n_sub.data_ptr(), out.data_ptr())
     tail = (B, Nx, Ny, vw, vo, swc, sor, _build.stream_ptr(s.device))
     if rt == "gm":
         ws = torch.empty(B * smem_bytes(Nx, Ny) // 4, dtype=torch.float32, device=s.device)
-        code = lib.hm_transport_substeps_gm(*args, ws.data_ptr(), *tail)
+        code = _build.lib().hm_transport_substeps_gm(*args, ws.data_ptr(), *tail)
+    elif rt == "cl":
+        code = _build.transport_cl_lib(Nx, Ny, *band).hm_transport_substeps_cl(*args, *tail)
     else:
+        lib = _build.lib()
         fn = lib.hm_transport_substeps_rt if rt == "rt" else lib.hm_transport_substeps
         code = fn(*args, *tail)
     _build.check(code, NAMES[rt])

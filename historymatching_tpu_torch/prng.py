@@ -62,9 +62,10 @@ def threefry2x32(k1, k2, x1, x2):
     return x1, x2
 
 
-def PRNGKey(seed, device="cpu"):
+def PRNGKey(seed, device="cuda"):
     """`jax.random.PRNGKey(seed)`: the words (seed >> 32, seed & 0xFFFFFFFF)
-    of a 64-bit seed."""
+    of a 64-bit seed, on `device` (the card unless the caller asks for the
+    CPU, as every entry point of the port); draws follow the key's device."""
     seed = int(seed) & 0xFFFFFFFFFFFFFFFF
     return torch.tensor([seed >> 32, seed & _MASK], dtype=torch.int64, device=device)
 

@@ -70,31 +70,35 @@ def _shared_route(kernel):
 @pytest.mark.parametrize("Nx,Ny", [(24, 24), (64, 32), (128, 128)])
 def test_uninstantiated_grid_raises(kernel, Nx, Ny):
     """A grid outside `GRIDS` takes the shared-memory route where its layout
-    fits one block (P's per-grid library, K's runtime-grid variant) and the
-    device-memory variant where it does not (P at 128x128 needs 458,528
-    bytes); on either route the wrapper gets past its grid check to the CPU
-    tensors' refusal."""
+    fits one block (P's per-grid library; K's runtime-grid variant up to
+    4,096 cells) and a thread-block cluster a member where it does not (P
+    at 128x128 needs 458,528 bytes, K has 16,384 cells); on either route
+    the wrapper gets past its grid check to the CPU tensors' refusal."""
     need = _need(kernel, Nx, Ny)
-    assert _route(kernel, Nx, Ny) == (_shared_route(kernel) if need <= SMEM_LIMIT else "gm")
+    big = need > SMEM_LIMIT or (kernel == "transport" and Nx * Ny > transport.BAND_CELLS)
+    assert _route(kernel, Nx, Ny) == ("cl" if big else _shared_route(kernel))
     with pytest.raises(ValueError, match="need float32 CUDA"):
         _call(kernel, Nx, Ny)
 
 
-@pytest.mark.parametrize("kernel,Nx,Ny,unit_diag,need", [
-    ("pressure", 96, 96, True, 257_584),
-    ("pressure", 80, 80, False, 231_872),
-    ("pressure", 96, 64, False, None),
-    ("transport", 171, 171, True, 233_928),
-    ("transport", 8, 3632, True, 232_448),
+@pytest.mark.parametrize("kernel,Nx,Ny,unit_diag,need,expect", [
+    ("pressure", 96, 96, True, 257_584, "cl"),
+    ("pressure", 80, 80, False, 231_872, "smem"),
+    ("pressure", 96, 64, False, None, "smem"),
+    ("transport", 171, 171, True, 233_928, "gm"),
+    ("transport", 8, 3632, True, 232_448, "rt"),
 ])
-def test_shared_memory_limit(kernel, Nx, Ny, unit_diag, need):
+def test_shared_memory_limit(kernel, Nx, Ny, unit_diag, need, expect):
     """At and around the 232,448 bytes one block may take: the byte counts
-    of the layouts, the route they choose (a layout at the limit still fits),
-    and a forced device-memory route, which every grid takes."""
+    of the layouts, the route they choose (a layout at the limit still
+    fits; past it a cluster where one holds the grid, else device memory:
+    no power of two splits 171 rows, and 8 rows of 3,632 cells leave no
+    band of 4,096 cells a block can hold), and a forced device-memory
+    route, which every grid takes."""
     got = _need(kernel, Nx, Ny, unit_diag)
     if need is not None:
         assert got == need
-    expect = _shared_route(kernel) if got <= SMEM_LIMIT else "gm"
+    assert (got <= SMEM_LIMIT) == (expect in ("smem", "rt"))
     assert _route(kernel, Nx, Ny, unit_diag) == expect
     for force in (None, "gm"):
         with pytest.raises(ValueError, match="need float32 CUDA"):
@@ -106,27 +110,29 @@ def test_shared_memory_limit(kernel, Nx, Ny, unit_diag, need):
 # K's route), a member each.
 LARGE_GRIDS = {
     (60, 60): (297_712, 152_672, 28_800, "rt"),
-    (88, 88): (272_048, 337_248, 61_952, "rt"),
-    (96, 96): (257_584, 404_576, 73_728, "rt"),
-    (100, 100): (1_827_072, 424_432, 80_000, "rt"),
-    (128, 128): (458_528, 719_520, 131_072, "rt"),
-    (60, 220): (3_071_152, 559_712, 105_600, "rt"),
-    (192, 192): (1_030_960, 1_620_320, 294_912, "gm"),
-    (256, 256): (1_833_760, 2_881_184, 524_288, "gm"),
+    (88, 88): (272_048, 337_248, 61_952, "cl"),
+    (96, 96): (257_584, 404_576, 73_728, "cl"),
+    (100, 100): (1_827_072, 424_432, 80_000, "cl"),
+    (128, 128): (458_528, 719_520, 131_072, "cl"),
+    (60, 220): (3_071_152, 559_712, 105_600, "cl"),
+    (192, 192): (1_030_960, 1_620_320, 294_912, "cl"),
+    (256, 256): (1_833_760, 2_881_184, 524_288, "cl"),
 }
 
 
 @pytest.mark.parametrize("Nx,Ny", list(LARGE_GRIDS))
 def test_large_grid_layouts_and_routes(Nx, Ny):
-    """The layout count at each grid of the port's device-memory work: P's
-    shared bytes and P-gm's workspace, both from `layout`; P takes P-gm at
-    every one of them, K its runtime-grid variant until its two fw tiles
-    exceed one block (192x192 and up), then K-gm."""
+    """The layout count at each grid past one block's shared memory: P's
+    shared bytes and P-gm's workspace, both from `layout`; P takes P-cl at
+    every one of them (the unscaled system at 60x220, whose rank would not
+    fit, P-gm), K its runtime-grid variant up to 4,096 cells (60x60) and
+    K-cl above."""
     p_smem, p_gm, k_smem, k_route = LARGE_GRIDS[(Nx, Ny)]
     levels = n_levels(Nx, Ny)
     assert smem_bytes(Nx, Ny, levels) == p_smem > SMEM_LIMIT
     assert gm_bytes(Nx, Ny, levels) == p_gm
-    assert pressure.route(Nx, Ny) == pressure.route(Nx, Ny, False) == "gm"
+    assert pressure.route(Nx, Ny) == "cl"
+    assert pressure.route(Nx, Ny, False) == ("gm" if (Nx, Ny) == (60, 220) else "cl")
     assert transport.smem_bytes(Nx, Ny) == k_smem and transport.route(Nx, Ny) == k_route
     for kernel in ("pressure", "transport"):
         with pytest.raises(ValueError, match="need float32 CUDA"):

@@ -30,6 +30,7 @@ from historymatching_tpu_torch.ops.transport import (
     transport_substeps_cuda,
     transport_substeps_torch,
 )
+from historymatching_tpu_torch.ops.transport import route as transport_route
 from historymatching_tpu_torch.parallel.runner import set_perm
 
 pytestmark = pytest.mark.cuda
@@ -87,13 +88,15 @@ def _system(mm, q, unit_diag):
             torch.ones_like(s))
 
 
-def _pressure_vs_plain(dev, Nx, Ny, smoother, unit_diag=True, window=16, scale=1.0, force=None):
+def _pressure_vs_plain(dev, Nx, Ny, smoother, unit_diag=True, window=16, scale=1.0, force=None,
+                       cluster=None):
     """One launch of P's `smoother` instantiation against the plain version
     with the same smoother, after fixed work (one restart window of
     `window` iterations, or two of 8 for 16); the launch counts on that
     instantiation's own key. Without `unit_diag`, on the unscaled system
     (the instantiation that reads the fine diagonal); `scale` multiplies
-    the pre-permeability fields; `force` the route (P-gm: "gm")."""
+    the pre-permeability fields; `force` the route (P-gm: "gm"), `cluster`
+    P-cl's cluster size."""
     g = torch.Generator(device=dev).manual_seed(1)
     m = _model(Nx, Ny, dev)
     B = 8
@@ -103,10 +106,10 @@ def _pressure_vs_plain(dev, Nx, Ny, smoother, unit_diag=True, window=16, scale=1
     args = _system(mm, q, unit_diag)
     fixed = dict(tol=0.0, maxiter=window, restart_every=min(window, 8), patience_iters=160,
                  smoother=smoother, unit_diag=unit_diag)
-    route = force or pressure_route(Nx, Ny, unit_diag)
+    route = force or ("cl" if cluster else pressure_route(Nx, Ny, unit_diag))
     name = kernel_name(smoother, unit_diag, route)
     before = dict(_build.LAUNCHES)
-    p_k, it_k, rel_k = pressure_solve_cuda(*args, **fixed, force=force)
+    p_k, it_k, rel_k = pressure_solve_cuda(*args, **fixed, force=force, cluster=cluster)
     torch.cuda.synchronize()
     assert {k: v - before[k] for k, v in _build.LAUNCHES.items() if v != before[k]} == {name: 1}
     p_t, it_t, rel_t = pressure_solve_torch(*args, **fixed)
@@ -328,22 +331,18 @@ def test_kernels_refuse_what_they_do_not_take(dev):
                            torch.ones(2, dtype=torch.int32, device=dev), (1.0, 1.0, 0.0, 0.0))
 
 
-@pytest.mark.parametrize("Nx,Ny,force", [(128, 128, None), (60, 220, None), (64, 64, "gm")])
+@pytest.mark.parametrize("Nx,Ny,force", [(128, 128, "gm"), (60, 220, "gm"), (64, 64, "gm")])
 @pytest.mark.parametrize("smoother", ["jacobi", "cheb"])
 def test_pressure_gm_matches_plain(dev, Nx, Ny, force, smoother):
-    """P-gm, where P's shared-memory layout does not fit (128x128 needs
-    458,528 bytes; 60x220 with its 825-cell coarse inverse) and forced at
-    64x64, against the plain version after one window of 4 iterations."""
+    """P-gm where P's shared-memory layout does not fit (128x128 needs
+    458,528 bytes; 60x220 with its 825-cell coarse inverse), forced there
+    since P-cl takes those grids, and forced at 64x64, against the plain
+    version after one window of 4 iterations."""
     _pressure_vs_plain(dev, Nx, Ny, smoother, window=4, force=force)
 
 
-@pytest.mark.parametrize("Nx,Ny,force", [(171, 171, None), (192, 192, None), (64, 64, "gm")])
-def test_transport_gm_matches_plain(dev, Nx, Ny, force):
-    """K-gm, where the two fw tiles do not fit one block (171x171 needs
-    233,928 bytes) and forced at 64x64: the plain version's operations in
-    its order, so bit for bit."""
-    g = torch.Generator(device=dev).manual_seed(7)
-    B = 8
+def _transport_inputs(dev, Nx, Ny, seed, B=8):
+    g = torch.Generator(device=dev).manual_seed(seed)
     s = torch.rand(B, Nx, Ny, generator=g, device=dev)
     Fx = 0.1 * torch.randn(B, Nx + 1, Ny, generator=g, device=dev)
     Fy = 0.1 * torch.randn(B, Nx, Ny + 1, generator=g, device=dev)
@@ -353,12 +352,21 @@ def test_transport_gm_matches_plain(dev, Nx, Ny, force):
     q[:, Nx // 2, Ny // 2], q[:, 0, 0] = 1.0, -1.0
     n_sub = torch.randint(0, 200, (B,), generator=g, device=dev, dtype=torch.int32)
     dts_pv = 0.3 / n_sub.float().clamp_min(1.0)
-    fluid = (1.0, 1.0, 0.0, 0.0)
+    return s, Fx, Fy, q, dts_pv, n_sub, (1.0, 1.0, 0.0, 0.0)
+
+
+@pytest.mark.parametrize("Nx,Ny,force", [(171, 171, None), (192, 192, "gm"), (64, 64, "gm")])
+def test_transport_gm_matches_plain(dev, Nx, Ny, force):
+    """K-gm, where the two fw tiles do not fit one block and no cluster
+    takes the grid (171x171 needs 233,928 bytes), forced at 192x192 (K-cl's
+    route) and at 64x64: the plain version's operations in its order, so
+    bit for bit."""
+    args = _transport_inputs(dev, Nx, Ny, 7)
     before = _build.LAUNCHES["transport_upwind_gm"]
-    out = transport_substeps_cuda(s, Fx, Fy, q, dts_pv, n_sub, fluid, force=force)
+    out = transport_substeps_cuda(*args, force=force)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["transport_upwind_gm"] == before + 1
-    assert torch.equal(out, transport_substeps_torch(s, Fx, Fy, q, dts_pv, n_sub, fluid))
+    assert torch.equal(out, transport_substeps_torch(*args))
 
 
 @pytest.mark.parametrize("Nx,Ny", [(64, 64), (128, 128), (60, 220), (256, 256)])
@@ -369,6 +377,75 @@ def test_gm_kernel_resources(dev, Nx, Ny):
                  "pressure_pcg_cheb_diag_gm", "transport_upwind_gm"):
         p = _build.kernel_info(name, Nx, Ny)
         assert p["shared_bytes"] <= 1024 and p["local_bytes"] == 0 and p["blocks_per_sm"] >= 1
+
+
+@pytest.mark.parametrize("unit_diag", [True, False])
+@pytest.mark.parametrize("smoother", ["jacobi", "cheb"])
+@pytest.mark.parametrize("Nx,Ny", [(60, 60), (88, 88), (96, 96), (128, 128), (60, 220)])
+def test_pressure_cl_matches_plain(dev, Nx, Ny, smoother, unit_diag):
+    """P-cl on its route, against the plain version after one window of 4
+    iterations: 60x60 (the inverse read in place, a 30x30 level gathered on
+    rank 0), 88x88 (its 11x11 inverse in place, over four ranks), 96x96 and
+    128x128 (the small coarse levels on rank 0's warp), 60x220 (its
+    825-cell inverse in place). The unscaled system on fields
+    of mild contrast, as the shared-memory P; at 60x220 it takes P-gm, so
+    that case runs the scaled system's P-cl on the same fields."""
+    scale = 1.0 if unit_diag else 0.2
+    if pressure_route(Nx, Ny, unit_diag) != "cl":
+        unit_diag = True
+    assert pressure_route(Nx, Ny, unit_diag) == "cl"
+    _pressure_vs_plain(dev, Nx, Ny, smoother, unit_diag=unit_diag, window=4, scale=scale)
+
+
+@pytest.mark.parametrize("cluster", [4, 8, 16])
+def test_pressure_cl_any_cluster_matches_plain(dev, cluster):
+    """P-cl at 128x128 on every cluster size that holds it, against the
+    plain version after one window."""
+    _pressure_vs_plain(dev, 128, 128, "jacobi", window=4, cluster=cluster)
+
+
+@pytest.mark.parametrize("Nx,Ny", [(80, 80), (128, 128), (60, 220), (192, 192), (100, 100)])
+def test_transport_cl_matches_plain(dev, Nx, Ny):
+    """K-cl on its route (clusters of 2, 4, 4, 16 and 4 ranks; bands of 40,
+    32, 15, 12 and 25 rows in strips of 4 or 5 cells): the plain version's
+    operations in its order, so bit for bit; a shared source field too."""
+    args = _transport_inputs(dev, Nx, Ny, 11)
+    before = _build.LAUNCHES["transport_upwind_cl"]
+    out = transport_substeps_cuda(*args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["transport_upwind_cl"] == before + 1
+    assert torch.equal(out, transport_substeps_torch(*args))
+    s, Fx, Fy, q, dts_pv, n_sub, fluid = args
+    q1 = q[:1].contiguous()
+    assert torch.equal(transport_substeps_cuda(s, Fx, Fy, q1, dts_pv, n_sub, fluid),
+                       transport_substeps_torch(s, Fx, Fy, q1, dts_pv, n_sub, fluid))
+
+
+@pytest.mark.parametrize("Nx,Ny", [(60, 60), (88, 88), (96, 96), (100, 100), (128, 128),
+                                   (60, 220), (192, 192), (256, 256)])
+def test_cl_kernel_resources(dev, Nx, Ny):
+    """The cluster variants' footprints: the bytes a rank that the layout
+    counts (`ops/pressure.layout` with `cl`), a block resident on an SM and
+    a cluster on the card, and no spills but a few words where a rank's
+    threads hold five fine tiles each under three blocks' (or 384
+    threads') 170-register cap: 96x96 and 60x220 spilled 16-24 bytes a
+    thread on the H100 (PERF.md, PR 10); the bench case's 128x128 none."""
+    from historymatching_tpu_torch.ops.pressure import cl_bytes, cl_plan
+
+    for name, unit in (("pressure_pcg_cl", True), ("pressure_pcg_cheb_cl", True),
+                       ("pressure_pcg_diag_cl", False), ("pressure_pcg_cheb_diag_cl", False)):
+        if pressure_route(Nx, Ny, unit) != "cl":
+            continue
+        c, inv = cl_plan(Nx, Ny, unit)
+        p = _build.kernel_info(name, Nx, Ny)
+        assert p["shared_bytes"] == cl_bytes(Nx, Ny, n_levels(Nx, Ny), c, unit, inv), (name, p)
+        tiles = -(-(Nx // c) * Ny // 4 // p["threads"])
+        assert p["cluster"] == c and p["local_bytes"] <= (32 if tiles > 4 else 0), (name, p)
+        assert p["blocks_per_sm"] >= 1 and p["max_active_clusters"] >= 1, (name, p)
+    if transport_route(Nx, Ny) == "cl":
+        k = _build.kernel_info("transport_upwind_cl", Nx, Ny)
+        assert k["local_bytes"] == 0 and k["blocks_per_sm"] >= 1, k
+        assert k["max_active_clusters"] >= 1, k
 
 
 def test_npv_batch_with_wells_per_member(dev):

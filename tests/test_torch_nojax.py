@@ -114,7 +114,7 @@ with profiling.trace(tempfile.mkdtemp()) as d:
     E0.sum()
 assert profiling.parse_trace(d).host
 from historymatching_tpu_torch import prng, parity
-assert prng.split(prng.PRNGKey(0)).tolist() == [[1797259609, 2579123966], [928981903, 3453687069]]
+assert prng.split(prng.PRNGKey(0, device="cpu")).tolist() == [[1797259609, 2579123966], [928981903, 3453687069]]
 case = parity.build_case(1, 4, 8, 8, nTime=3, device="cpu")
 assert case["prior"].shape == (4, 64) and case["prior"].dtype == torch.float32
 print('port-import-ok')

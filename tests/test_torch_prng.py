@@ -42,7 +42,7 @@ def _u32(t):
 
 @pytest.mark.parametrize("seed", SEEDS)
 def test_keys_and_bits_equal_jax(seed):
-    kj, kt = jax.random.PRNGKey(seed), prng.PRNGKey(seed)
+    kj, kt = jax.random.PRNGKey(seed), prng.PRNGKey(seed, device="cpu")
     assert np.array_equal(np.asarray(kj), _u32(kt))
     for n in (2, 3, 4, 7):
         assert np.array_equal(np.asarray(jax.random.split(kj, n)), _u32(prng.split(kt, n)))
@@ -62,7 +62,7 @@ def test_keys_and_bits_equal_jax(seed):
 
 @pytest.mark.parametrize("seed", SEEDS)
 def test_normal_within_one_ulp_of_jax(seed):
-    kj, kt = jax.random.PRNGKey(seed), prng.PRNGKey(seed)
+    kj, kt = jax.random.PRNGKey(seed), prng.PRNGKey(seed, device="cpu")
     for shape in SHAPES + ((8, 32, 32), (50_001,)):
         nj = np.asarray(jax.random.normal(kj, shape, jnp.float32))
         nt = prng.normal(kt, shape)
@@ -94,7 +94,7 @@ def test_es_mda_key_draws_equal_jax():
     key = jax.random.PRNGKey(9)
     post_j = hm.es_mda(jnp.asarray(E0), lambda E: E @ G, jnp.asarray(obs), R12,
                        hm.mda_alphas(passes), key)
-    draws, k, kt = [], key, prng.PRNGKey(9)
+    draws, k, kt = [], key, prng.PRNGKey(9, device="cpu")
     for _ in range(passes):
         k, sub = jax.random.split(k)
         kt, sub_t = prng.split(kt)
@@ -108,7 +108,7 @@ def test_es_mda_key_draws_equal_jax():
                                     torch.from_numpy(np.array(R12)),
                                     ht.mda_alphas(passes, dtype=torch.float64, device="cpu"), **kw)
     infos = []
-    post_k = run(torch.from_numpy(E0), key=prng.PRNGKey(9), callback=infos.append)
+    post_k = run(torch.from_numpy(E0), key=prng.PRNGKey(9, device="cpu"), callback=infos.append)
     post_d = run(torch.from_numpy(E0), noise=draws)
     np.testing.assert_allclose(post_k.numpy(), post_d.numpy(), rtol=0, atol=1e-7)
     np.testing.assert_allclose(post_k.numpy(), np.asarray(post_j), rtol=0, atol=1e-7)
