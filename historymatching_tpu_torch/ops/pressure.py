@@ -24,7 +24,7 @@ shared memory, P-cl runs instead (`csrc/pressure_pcg_cl.cu`, one library
 a grid and cluster size): the same solve on a thread-block cluster of c
 blocks a member, each holding a band of rows of the split levels, the
 coarse levels gathered on the first block, in the cluster's distributed
-shared memory (`cl_layout` counts a block's share, `cl_plan` picks c).
+shared memory (`layout` with `cl` counts a block's share, `cl_plan` picks c).
 Where no cluster of up to 16 holds it, the device-memory variant P-gm
 runs (`csrc/pressure_pcg_gm.cu`, one library for every grid): the same
 solve, with every level's arrays and the CG vectors in a per-member
