@@ -75,11 +75,11 @@ Phases, one printed line or more each; any failed check raises:
     every seed's prior RMSE must match its ref's. With `--parity-out DIR`
     each rung's record is written there;
 23. the grids whose layouts exceed one block's shared memory (60x60,
-    88x88, 96x96, 100x100, 128x128, 60x220, 192x192, 256x256), N=64: P on
-    its route (P-cl, a thread-block cluster a member; P-gm for the
-    unscaled 60x220) and P-gm forced, in the four instantiations, each
-    against its plain version after one window and timed at bench
-    settings; K on its route (K-cl, or the runtime-grid variant at 60x60),
+    88x88, 96x96, 100x100, 128x128, 60x220, 192x192, 256x256), N=64: P-cl
+    (a thread-block cluster a member) wherever a cluster holds the layout
+    and P-gm, on their routes or forced (P-gm's route at 100x100 and
+    60x220), in the four instantiations, each against its plain version
+    after one window and timed at bench settings; K on its route (K-cl, or the runtime-grid variant at 60x60),
     the runtime-grid variant where its tiles fit and K-gm forced, each bit
     for bit on a real step and timed against its bound; a few steps of
     `simulate` through each P-cl instantiation and K-cl at 128x128, and
@@ -92,7 +92,7 @@ Phases, one printed line or more each; any failed check raises:
     saturations of every step kept on the card; wall, launches, cg
     acceptance a pass, peak memory, RMSE, and 10 profiled steps; on its
     first step P-cl and K-cl against their plain versions and timed beside
-    P-gm, P-cl on the other cluster sizes, K-rt and K-gm, all forced;
+    P-gm, K-rt and K-gm, all forced;
 25. `forward_model(mesh=)` on a world of one over NCCL (`parallel.mesh`),
     64x64, N=128, 5 steps, bit for bit against the run without a mesh.
 
@@ -163,6 +163,9 @@ LARGE_GRIDS = ((60, 60), (88, 88), (96, 96), (100, 100), (128, 128), (60, 220), 
                (256, 256))
 LARGE_N, BIG, MESH_N, MESH_STEPS = 64, (128, 128), 128, 5
 P_GM = tuple((smoother, unit) for unit in (True, False) for smoother in ("jacobi", "cheb"))
+# [23]'s grids whose P route is P-gm (`ops/pressure.route`): a rank would
+# take a whole SM and read the coarsest inverse from device memory.
+P_GM_ROUTE = ((100, 100), (60, 220))
 # [23]'s path through the device-memory variants: a 60x220 layer refined
 # 2x2, whose P and K layouts no cluster of up to 16 blocks holds, N=16.
 GM_PATH_GRID, GM_PATH_N = (120, 440), 16
@@ -847,7 +850,7 @@ def large_grid_phases(dev, six):
         err, abs_err = rel_err(p_k, p_t), float((p_k - p_t).abs().max())
         assert torch.isfinite(p_k).all() and err <= P_TOL, (tag, name, err)
         _, it_k, rl_k = pressure_solve_cuda(*args, **base1, **kw, force=force)
-        ms = cuda_ms(lambda: pressure_solve_cuda(*args, **base1, **kw, force=force), 2)
+        ms = cuda_ms(lambda: pressure_solve_cuda(*args, **base1, **kw, force=force), 5)
         vf = P_FLOPS_VCYCLE_CHEB if smoother == "cheb" else P_FLOPS_VCYCLE
         bnd, by = pressure_bound_ms(args[0], args[1], it_k, vf,
                                     P_FLOPS_FINE + (0 if unit else P_FLOPS_DIAG))
@@ -870,8 +873,9 @@ def large_grid_phases(dev, six):
         said = []
         for smoother, unit in P_GM:
             rt = pressure.route(Nx, Ny, unit)
-            assert rt == ("gm" if (Nx, Ny, unit) == (60, 220, False) else "cl"), (tag, unit, rt)
-            for force in dict.fromkeys((rt, "gm")):
+            assert rt == ("gm" if (Nx, Ny) in P_GM_ROUTE else "cl"), (tag, unit, rt)
+            # P-cl wherever a cluster holds the layout, on its route or forced
+            for force in ("cl", "gm") if cl_plan(Nx, Ny, unit) else ("gm",):
                 name, fig = p_run(tag, systems[unit], smoother, unit, force)
                 if force == "cl":
                     c, inv = cl_plan(Nx, Ny, unit)
@@ -898,7 +902,8 @@ def large_grid_phases(dev, six):
         (res5, n_sim) = launched(lambda: ht.simulate(mm, torch.zeros(m.Nxy, device=dev), DT, 5,
                                                      keep_wsats=False))
         k_route = transport.route(Nx, Ny)
-        assert n_sim == {"pressure_pcg_cl": 5, transport.NAMES[k_route]: 5}, n_sim
+        assert n_sim == {kernel_name("jacobi", True, pressure.route(Nx, Ny)): 5,
+                         transport.NAMES[k_route]: 5}, n_sim
         s5 = res5.wsats[:, -1].reshape(LARGE_N, Nx, Ny).contiguous()
         _, Fx, Fy, it, ok, _ = pressure_step(mm, s5, qf, torch.zeros_like(s5), 2e-3,
                                              4 * max(Nx, Ny), 5e-2)
@@ -911,7 +916,8 @@ def large_grid_phases(dev, six):
         for force in dict.fromkeys((k_route, "rt" if fits else "gm", "gm")):
             s_k, n = launched(lambda: transport_substeps_cuda(*t_args, force=force))
             assert n == {transport.NAMES[force]: 1} and torch.equal(s_k, s_t), (tag, force, n)
-            k_ms[force] = cuda_ms(lambda: transport_substeps_cuda(*t_args, force=force), 3)
+            k_ms[force] = cuda_ms(lambda: transport_substeps_cuda(*t_args, force=force),
+                                  3 if force == "gm" else 10)
         bnd, by = transport_bound_ms(s5, Fx, Fy, t_args[3], nsub)
         plain_ms = cuda_ms(lambda: transport_substeps_torch(*t_args), 1) if (
             (Nx, Ny) in (BIG, (256, 256))) else None
@@ -1075,8 +1081,7 @@ def large_case_kernels(model, prior):
     first step (N=1000, 128x128, s = 0). P's route, P-cl: one launch after
     one window held to the plain version within P_TOL, then timed at the
     first pass's settings beside P-gm forced on the same inputs (held the
-    same way), P-cl on the other cluster sizes that hold the grid, the
-    plain version and the bound. K's route, K-cl: bit for bit, timed beside
+    same way), the plain version and the bound. K's route, K-cl: bit for bit, timed beside
     the runtime-grid variant and K-gm forced (each bit for bit too). These
     launches are not the path's: the caller has read its counts."""
     import torch
@@ -1084,7 +1089,6 @@ def large_case_kernels(model, prior):
     from historymatching_tpu_torch.models.ressim import _source_field, cfl_substeps, pressure_step
     from historymatching_tpu_torch.ops import pressure, transport
     from historymatching_tpu_torch.ops.pressure import (
-        CLUSTERS,
         cl_plan,
         kernel_name,
         pressure_solve_cuda,
@@ -1104,34 +1108,30 @@ def large_case_kernels(model, prior):
     args = p_system(mm, qf, True)
     assert pressure.route(Nx, Ny) == "cl"
     c0 = cl_plan(Nx, Ny)[0]
-    variants = [("cl", None), ("gm", None)] + [("cl", c) for c in CLUSTERS
-                                               if c != c0 and cl_plan(Nx, Ny, True, c)]
     p_t = pressure_solve_torch(*args, **WINDOW4)[0]
     p_figs, said = {}, []
-    for force, cluster in variants:
+    for force in ("cl", "gm"):
         name = kernel_name("jacobi", True, force)
-        run = lambda kw: pressure_solve_cuda(*args, **kw, force=force,  # noqa: E731
-                                             cluster=cluster)
+        run = lambda kw: pressure_solve_cuda(*args, **kw, force=force)  # noqa: E731
         (p_k, _, _), n = launched(lambda: run(WINDOW4))
         assert n == {name: 1}, n
         err, abs_err = rel_err(p_k, p_t), float((p_k - p_t).abs().max())
-        assert bool(torch.isfinite(p_k).all()) and err <= P_TOL, (force, cluster, err)
+        assert bool(torch.isfinite(p_k).all()) and err <= P_TOL, (force, err)
         _, it_k, rl_k = run(kw1)
         ms = cuda_ms(lambda: run(kw1), 2)
         bnd, by = pressure_bound_ms(args[0], args[1], it_k)
-        tag = f"{name}" + (f" c={cluster or c0}" if force == "cl" else "")
-        p_figs[tag] = dict(ms=ms, bound_ms=bnd, bound_by=by, share_of_bound=bnd / ms,
-                           max_rel_err=err, max_abs_err=abs_err, iters_median=int(it_k.median()),
-                           accepted=int((rl_k <= 5e-2).sum()),
-                           **({"cluster": cluster or c0} if force == "cl" else {}))
+        tag = f"{name}" + (f" c={c0}" if force == "cl" else "")
+        p_figs[name] = dict(ms=ms, bound_ms=bnd, bound_by=by, share_of_bound=bnd / ms,
+                            max_rel_err=err, max_abs_err=abs_err,
+                            iters_median=int(it_k.median()), accepted=int((rl_k <= 5e-2).sum()),
+                            **({"cluster": c0} if force == "cl" else {}))
         said.append(f"{tag} window max rel {err:.2e} (abs {abs_err:.2e}), {ms:.3f} ms a launch "
-                    f"(iterations median {p_figs[tag]['iters_median']}, accepted "
-                    f"{p_figs[tag]['accepted']}), bound {bnd:.4f} ms ({by}, {bnd / ms:.1%})")
+                    f"(iterations median {p_figs[name]['iters_median']}, accepted "
+                    f"{p_figs[name]['accepted']}), bound {bnd:.4f} ms ({by}, {bnd / ms:.1%})")
     plain_ms = cuda_ms(lambda: pressure_solve_torch(*args, **kw1), 1)
     del args, p_k, p_t
-    cl_fig = dict(p_figs[f"pressure_pcg_cl c={c0}"], plain_ms=plain_ms,
-                  gm_ms=p_figs["pressure_pcg_gm"]["ms"],
-                  clusters_ms={f["cluster"]: f["ms"] for f in p_figs.values() if "cluster" in f})
+    cl_fig = dict(p_figs["pressure_pcg_cl"], plain_ms=plain_ms,
+                  gm_ms=p_figs["pressure_pcg_gm"]["ms"])
     gm_fig = dict(p_figs["pressure_pcg_gm"], plain_ms=plain_ms)
 
     s0 = torch.zeros(prior.shape[0], *model.shape, device=prior.device)
@@ -1347,8 +1347,7 @@ def main(argv=None):
 
     # 2. build
     t0 = time.perf_counter()
-    _build.prebuild(P_NEW_GRIDS, cl_grids=LARGE_GRIDS + K_RT_GRIDS,
-                    cl_sizes=[(*BIG, c) for c in (4, 16)])  # [24]'s other clusters
+    _build.prebuild(P_NEW_GRIDS, cl_grids=LARGE_GRIDS + K_RT_GRIDS)
     log(f"[2] kernels built in {time.perf_counter() - t0:.1f} s "
         f"(compiled: {_build.build_info['built']}) -> {_build.build_info['paths']}")
     for stem, text in _build.build_info["ptxas"].items():

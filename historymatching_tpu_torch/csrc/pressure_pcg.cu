@@ -73,38 +73,9 @@
 #include <math.h>
 
 #include "grids.cuh"
+#include "pcg_tile.cuh"
 
 namespace {
-
-constexpr float kOmega = 0.7f;
-constexpr float kOmegaC = 1.4f;
-constexpr int kMaxLevels = 8;
-
-// Degree-2 Chebyshev on D^-1 A over [0.5, 2.0] (ops/multigrid.py `_cheb`,
-// coefficients from its three-term recurrence, in double, then rounded):
-// x1 = x0 + D^-1 (b - A x0) / theta, then
-// x2 = x1 + rho1 rho0 (x1 - x0) + (2 rho1 / delta) D^-1 (b - A x1).
-struct ChebCoef {
-  static constexpr double lmin = 0.5, lmax = 2.0;
-  static constexpr double theta = 0.5 * (lmax + lmin), delta = 0.5 * (lmax - lmin);
-  static constexpr double sigma = theta / delta, rho0 = 1.0 / sigma;
-  static constexpr double rho1 = 1.0 / (2.0 * sigma - rho0);
-};
-constexpr float kChebFirst = (float)(1.0 / ChebCoef::theta);
-constexpr float kChebMom = (float)(ChebCoef::rho1 * ChebCoef::rho0);
-constexpr float kChebStep = (float)(2.0 * ChebCoef::rho1 / ChebCoef::delta);
-
-__host__ __device__ constexpr int count_levels(int nx, int ny) {
-  int n = 1;
-  while (nx % 2 == 0 && ny % 2 == 0 && nx > 4 && ny > 4) {
-    nx /= 2;
-    ny /= 2;
-    ++n;
-  }
-  return n;
-}
-
-__host__ __device__ constexpr int r4(int v) { return (v + 3) / 4 * 4; }
 
 // Compile-time geometry and shared-memory layout (floats) of one grid, and
 // the smoother; the layout matches ops/pressure.py `smem_bytes` for both
@@ -113,8 +84,6 @@ template <int NX, int NY, bool CHEB = false, bool UNIT = true>
 struct Geo {
   static constexpr bool kCheb = CHEB;
   static constexpr bool kUnit = UNIT;  // the fine diagonal is 1 and not stored
-  // The first sweep's step: omega, or 1 / theta.
-  static constexpr float kFirst = CHEB ? kChebFirst : kOmega;
   static constexpr int L = count_levels(NX, NY);
   static constexpr int LC = L - 1;  // coarsest level: dense solve
   __host__ __device__ static constexpr int n(int l) { return NX >> l; }
@@ -184,16 +153,6 @@ struct Lvl {
   }
 };
 
-// A vector on a 2x2 tile (I, J) and its 8 edge neighbours, 0 outside the grid.
-enum { C0, C1, C2, C3, U0, U1, D0, D1, L0, L1, R0, R1, NTILE };
-struct Tile {
-  float v[NTILE];
-};
-
-__device__ __forceinline__ float2 ld2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-
 template <int m>
 __device__ __forceinline__ void own(const float* v, int I, int J, float out[4]) {
   const int o = 2 * I * m + 2 * J;
@@ -230,11 +189,8 @@ __device__ __forceinline__ Tile gather(const float* v, int I, int J) {
   return t;
 }
 
-// (A v) on the tile's four cells in the JAX package's term order
-// (ops/stencil.py): d v - TX[i] v[i+1] - TX[i-1] v[i-1] - TY[j] v[j+1] -
-// TY[j-1] v[j-1]. A face outside the grid has coefficient and value 0, so
-// its term subtracts an exact 0. TX is (n-1, m); TY is padded to (n, m)
-// with a zero last column.
+// (A v) on the tile's four cells (`tile_stencil`). TX is (n-1, m); TY is
+// padded to (n, m) with a zero last column.
 template <int n, int m, bool UNIT>
 __device__ __forceinline__ void stencil(const float* TX, const float* TY, const float* D, int I,
                                         int J, const Tile& t, float out[4]) {
@@ -248,11 +204,7 @@ __device__ __forceinline__ void stencil(const float* TX, const float* TY, const 
   const float yl1 = J > 0 ? TY[o + m - 1] : 0.0f;
   float d[4] = {1.0f, 1.0f, 1.0f, 1.0f};
   if constexpr (!UNIT) own<m>(D, I, J, d);
-  const float* v = t.v;
-  out[0] = d[0] * v[C0] - xc.x * v[C2] - xu.x * v[U0] - y0.x * v[C1] - yl0 * v[L0];
-  out[1] = d[1] * v[C1] - xc.y * v[C3] - xu.y * v[U1] - y0.y * v[R0] - y0.x * v[C0];
-  out[2] = d[2] * v[C2] - xd.x * v[D0] - xc.x * v[C0] - y1.x * v[C3] - yl1 * v[L1];
-  out[3] = d[3] * v[C3] - xd.y * v[D1] - xc.y * v[C1] - y1.y * v[R1] - y1.x * v[C2];
+  tile_stencil(d, xu, xc, xd, y0, y1, yl0, yl1, t, out);
 }
 
 // f(k, I, J) for each tile of an n x m level that worker w of NW owns:
@@ -277,34 +229,22 @@ __device__ __forceinline__ void own_rd(float* sh, int I, int J, float rd[4]) {
   }
 }
 
-// Pre-smoothing from x = 0: the first sweep, t = omega b / d (Chebyshev:
-// b / (theta d)), is folded into the second one's reads, x = t + omega
-// (b - A t) / d (Chebyshev: the recurrence with x0 = 0).
+// Pre-smoothing from x = 0: the first sweep is folded into the second
+// one's reads (`first_sweep`, `second_sweep_down`).
 template <class G, int l, int NW>
 __device__ __forceinline__ void smooth_down(float* sh, int w) {
   using V = Lvl<G, l>;
   constexpr int n = V::n, m = V::m;
+  constexpr bool unit = l == 0 && G::kUnit;
   tiles<n, m, NW>(w, [&](int, int I, int J) {
     const Tile b = gather<n, m>(V::B(sh), I, J);
-    Tile t;
-    if constexpr (l == 0 && G::kUnit) {
-#pragma unroll
-      for (int c = 0; c < NTILE; ++c) t.v[c] = G::kFirst * b.v[c];
-    } else {
-      const Tile rd = gather<n, m>(V::RD(sh), I, J);
-#pragma unroll
-      for (int c = 0; c < NTILE; ++c) t.v[c] = G::kFirst * b.v[c] * rd.v[c];
-    }
+    Tile rdt;
+    if constexpr (!unit) rdt = gather<n, m>(V::RD(sh), I, J);
+    const Tile t = first_sweep<G::kCheb, unit>(b, rdt);
     float At[4], rd[4], x[4];
-    stencil<n, m, l == 0 && G::kUnit>(V::TX(sh), V::TY(sh), V::D(sh), I, J, t, At);
+    stencil<n, m, unit>(V::TX(sh), V::TY(sh), V::D(sh), I, J, t, At);
     own_rd<G, l, m>(sh, I, J, rd);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      if constexpr (G::kCheb)
-        x[c] = t.v[c] + (kChebMom * t.v[c] + kChebStep * (b.v[c] - At[c]) * rd[c]);
-      else
-        x[c] = t.v[c] + kOmega * (b.v[c] - At[c]) * rd[c];
-    }
+    second_sweep_down<G::kCheb>(t, b, At, rd, x);
     put<m>(V::X(sh), I, J, x);
   });
 }
@@ -321,7 +261,7 @@ __device__ __forceinline__ void restrict_residual(float* sh, int w) {
     float Ax[4], b[4];
     stencil<n, m, l == 0 && G::kUnit>(V::TX(sh), V::TY(sh), V::D(sh), I, J, x, Ax);
     own<m>(V::B(sh), I, J, b);
-    Bc[I * (m / 2) + J] = ((b[0] - Ax[0]) + (b[1] - Ax[1])) + ((b[2] - Ax[2]) + (b[3] - Ax[3]));
+    Bc[I * (m / 2) + J] = restrict_tile(b, Ax);
   });
 }
 
@@ -341,9 +281,8 @@ __device__ __forceinline__ void coarse_solve(float* sh, int w) {
 }
 
 // First post-smoothing sweep after the coarse correction: x + omega_c
-// e(parent) is formed at every cell read (prolongation by injection), and
-// t = x + omega (b - A x) / d (Chebyshev: step 1 / theta) goes to the
-// level's temporary.
+// e(parent) is formed at every cell read (`prolong`), and the sweep's t
+// (`first_sweep_up`) goes to the level's temporary.
 template <class G, int l, int NW>
 __device__ __forceinline__ void smooth_up_first(float* sh, int w) {
   using V = Lvl<G, l>;
@@ -351,35 +290,13 @@ __device__ __forceinline__ void smooth_up_first(float* sh, int w) {
   const float* E = Lvl<G, l + 1>::X(sh);
   tiles<n, m, NW>(w, [&](int, int I, int J) {
     Tile x = gather<n, m>(V::X(sh), I, J);
-    const float e = E[I * mc + J];
-#pragma unroll
-    for (int c = C0; c <= C3; ++c) x.v[c] = x.v[c] + kOmegaC * e;
-    if (I > 0) {
-      const float eu = E[(I - 1) * mc + J];
-      x.v[U0] = x.v[U0] + kOmegaC * eu;
-      x.v[U1] = x.v[U1] + kOmegaC * eu;
-    }
-    if (I < n / 2 - 1) {
-      const float ed = E[(I + 1) * mc + J];
-      x.v[D0] = x.v[D0] + kOmegaC * ed;
-      x.v[D1] = x.v[D1] + kOmegaC * ed;
-    }
-    if (J > 0) {
-      const float el = E[I * mc + J - 1];
-      x.v[L0] = x.v[L0] + kOmegaC * el;
-      x.v[L1] = x.v[L1] + kOmegaC * el;
-    }
-    if (J < mc - 1) {
-      const float er = E[I * mc + J + 1];
-      x.v[R0] = x.v[R0] + kOmegaC * er;
-      x.v[R1] = x.v[R1] + kOmegaC * er;
-    }
+    prolong(x, [&](int dI, int dJ) { return E[(I + dI) * mc + J + dJ]; }, I > 0,
+            I < n / 2 - 1, J > 0, J < mc - 1);
     float Ax[4], b[4], rd[4], t[4];
     stencil<n, m, l == 0 && G::kUnit>(V::TX(sh), V::TY(sh), V::D(sh), I, J, x, Ax);
     own<m>(V::B(sh), I, J, b);
     own_rd<G, l, m>(sh, I, J, rd);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) t[c] = x.v[c] + G::kFirst * (b[c] - Ax[c]) * rd[c];
+    first_sweep_up<G::kCheb>(x, b, Ax, rd, t);
     put<m>(V::T(sh), I, J, t);
   });
 }
@@ -400,19 +317,12 @@ __device__ __forceinline__ void smooth_up_second(float* sh, int w, Out out) {
     stencil<n, m, l == 0 && G::kUnit>(V::TX(sh), V::TY(sh), V::D(sh), I, J, t, At);
     own<m>(V::B(sh), I, J, b);
     own_rd<G, l, m>(sh, I, J, rd);
+    float x0[4], e = 0.0f;
     if constexpr (G::kCheb) {
-      float x0[4];
       own<m>(V::X(sh), I, J, x0);
-      const float e = Lvl<G, l + 1>::X(sh)[I * (m / 2) + J];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        x0[c] = x0[c] + kOmegaC * e;
-        x[c] = t.v[c] + (kChebMom * (t.v[c] - x0[c]) + kChebStep * (b[c] - At[c]) * rd[c]);
-      }
-    } else {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) x[c] = t.v[c] + kOmega * (b[c] - At[c]) * rd[c];
+      e = Lvl<G, l + 1>::X(sh)[I * (m / 2) + J];
     }
+    second_sweep_up<G::kCheb>(t, b, At, rd, x0, e, x);
     out(k, I, J, x);
   });
 }
@@ -478,12 +388,6 @@ __device__ __forceinline__ void vcycle(float* sh, float (&z)[G::TPT][4]) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) z[k][c] = x[c];
   });
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 // Block sums of two values with one barrier: each warp writes its

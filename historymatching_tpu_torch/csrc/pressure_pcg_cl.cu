@@ -6,9 +6,10 @@
 //   layouts _batched and _packed, at the grids where kernel P's layout does
 //   not fit one block's shared memory and the TPU kernel keeps its
 //   hierarchy in VMEM with vmem_limit_bytes raised (pressure_pallas.py
-//   :163-166): 60x60, 88x88, 96x96, 100x100, 128x128, a 60x220 layer, and
-//   larger. It takes the route of P-gm (pressure_pcg_gm.cu), which stays for
-//   grids no cluster holds.
+//   :163-166): 60x60, 88x88, 96x96, 128x128 and larger (ops/pressure.py
+//   `route`). P-gm (pressure_pcg_gm.cu) keeps the grids no cluster holds and
+//   those where a rank would take a whole SM and read the coarsest inverse
+//   from device memory (100x100, a 60x220 layer), where it runs faster.
 //
 // It computes what P computes: the restarted MG-preconditioned CG of
 // ops/cg.py `pcg` on the Jacobi-scaled (UNIT) or unscaled TPFA system, with
@@ -26,7 +27,8 @@
 // so 2x2 tiles and the 2x2 restriction stay inside a rank): the levels from
 // the fine one down while a band has an even height and the level has more
 // than 256 cells (16x16). Inside its band a rank is kernel P's block: 2x2
-// tiles a thread, x, p, z and the metric weight w in registers, the best
+// tiles a thread, x, p, z and the metric weight w in registers (w read
+// from device memory where a thread holds more than four tiles), the best
 // iterate written to p_out, the coarse temporaries aliased into the fine one.
 // Every array of a split level has a halo row above and below the band.
 // A rank never reads another's shared memory to get them: whoever writes
@@ -35,8 +37,7 @@
 // is the same, so the neighbour's array sits at the same offset), before
 // the cluster barrier that orders it. A remote store does not stall the
 // thread that issues it, where a remote load stalls each band-edge tile
-// after every barrier (at 128x128 on 8 ranks, pulling the rows instead
-// took 69.5 ms a launch against 54.9: PERF.md, PR 10).
+// after every barrier (pulling the rows instead ran slower: PERF.md, PR 10).
 // The static halos (the face row above, the reciprocal diagonal's rows)
 // come from device memory with the band. The levels below the split ones
 // are gathered on rank 0: the last split level restricts its residual
@@ -79,6 +80,8 @@
 #include <float.h>
 #include <math.h>
 
+#include "pcg_tile.cuh"
+
 #ifndef HM_GRID_NX
 #error "pressure_pcg_cl.cu is built for one grid: -DHM_GRID_NX -DHM_GRID_NY -DHM_CL -DHM_CL_INV"
 #endif
@@ -87,35 +90,9 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr float kOmega = 0.7f;
-constexpr float kOmegaC = 1.4f;
-constexpr int kMaxLevels = 8;
 constexpr int kSmemLimit = 232448;    // shared bytes one block may opt into (sm_90)
 constexpr int kSmPerSm = 228 * 1024;  // an SM's shared memory; 1 KB of each block reserved
 constexpr int kSplitMinCells = 256;   // a level of <= 16x16 cells is gathered on rank 0
-
-// Degree-2 Chebyshev on D^-1 A over [0.5, 2.0], as in pressure_pcg.cu.
-struct ChebCoef {
-  static constexpr double lmin = 0.5, lmax = 2.0;
-  static constexpr double theta = 0.5 * (lmax + lmin), delta = 0.5 * (lmax - lmin);
-  static constexpr double sigma = theta / delta, rho0 = 1.0 / sigma;
-  static constexpr double rho1 = 1.0 / (2.0 * sigma - rho0);
-};
-constexpr float kChebFirst = (float)(1.0 / ChebCoef::theta);
-constexpr float kChebMom = (float)(ChebCoef::rho1 * ChebCoef::rho0);
-constexpr float kChebStep = (float)(2.0 * ChebCoef::rho1 / ChebCoef::delta);
-
-__host__ __device__ constexpr int count_levels(int nx, int ny) {
-  int n = 1;
-  while (nx % 2 == 0 && ny % 2 == 0 && nx > 4 && ny > 4) {
-    nx /= 2;
-    ny /= 2;
-    ++n;
-  }
-  return n;
-}
-
-__host__ __device__ constexpr int r4(int v) { return (v + 3) / 4 * 4; }
 
 // The per-rank geometry and shared-memory layout (floats) of one grid on a
 // cluster of C ranks; INV: the coarsest inverse (transposed) in rank 0's
@@ -127,7 +104,6 @@ struct Geo {
   static constexpr bool kUnit = UNIT;
   static constexpr bool kInv = INV;
   static constexpr int kC = C;
-  static constexpr float kFirst = CHEB ? kChebFirst : kOmega;
   static constexpr int L = count_levels(NX, NY);
   static constexpr int LC = L - 1;
   __host__ __device__ static constexpr int n(int l) { return NX >> l; }
@@ -182,6 +158,10 @@ struct Geo {
       THREADS_RAW < 128 ? 128 : THREADS_RAW > 1024 ? 1024 : THREADS_RAW;
   static constexpr int WARPS = THREADS / 32;
   static constexpr int TPT = (TILES0 + THREADS - 1) / THREADS;
+  // The metric weight w of a thread's tiles stays in registers up to four
+  // tiles a thread; past that (96x96, 100x100, 60x220, 192x192) it is read
+  // from device memory where used, so that x, p and z fit the registers.
+  static constexpr bool W_REGS = TPT <= 4;
   // Two reduction slots, each the warps' pairs and the ranks' totals.
   static constexpr int SLOT = WARPS + C;
   static constexpr int FLOATS = RED + 4 * SLOT;
@@ -272,15 +252,6 @@ __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
-enum { C0, C1, C2, C3, U0, U1, D0, D1, L0, L1, R0, R1, NTILE };
-struct Tile {
-  float v[NTILE];
-};
-
-__device__ __forceinline__ float2 ld2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-
 template <int m>
 __device__ __forceinline__ void own(const float* v, int I, int J, float out[4]) {
   const int o = 2 * I * m + 2 * J;
@@ -361,11 +332,7 @@ __device__ __forceinline__ void stencil(const float* TX, const float* TY, const 
   const float yl1 = J > 0 ? TY[o + m - 1] : 0.0f;
   float d[4] = {1.0f, 1.0f, 1.0f, 1.0f};
   if constexpr (!UNITL) own<m>(D, I, J, d);
-  const float* v = t.v;
-  out[0] = d[0] * v[C0] - xc.x * v[C2] - xu.x * v[U0] - y0.x * v[C1] - yl0 * v[L0];
-  out[1] = d[1] * v[C1] - xc.y * v[C3] - xu.y * v[U1] - y0.y * v[R0] - y0.x * v[C0];
-  out[2] = d[2] * v[C2] - xd.x * v[D0] - xc.x * v[C0] - y1.x * v[C3] - yl1 * v[L1];
-  out[3] = d[3] * v[C3] - xd.y * v[D1] - xc.y * v[C1] - y1.y * v[R1] - y1.x * v[C2];
+  tile_stencil(d, xu, xc, xd, y0, y1, yl0, yl1, t, out);
 }
 
 // f(k, I, J) for each tile of a rank's rows of level l that worker w of NW owns.
@@ -431,25 +398,13 @@ __device__ __forceinline__ void smooth_down(float* sh, int w, int r) {
   constexpr int m = V::m;
   tiles<G, l, NW>(w, [&](int, int I, int J) {
     const Tile b = gather<G, l>(V::B(sh), I, J, r);
-    Tile t;
-    if constexpr (unit_level<G, l>()) {
-#pragma unroll
-      for (int c = 0; c < NTILE; ++c) t.v[c] = G::kFirst * b.v[c];
-    } else {
-      const Tile rd = gather<G, l>(V::RD(sh), I, J, r);
-#pragma unroll
-      for (int c = 0; c < NTILE; ++c) t.v[c] = G::kFirst * b.v[c] * rd.v[c];
-    }
+    Tile rdt;
+    if constexpr (!unit_level<G, l>()) rdt = gather<G, l>(V::RD(sh), I, J, r);
+    const Tile t = first_sweep<G::kCheb, unit_level<G, l>()>(b, rdt);
     float At[4], rd[4], x[4];
     stencil<G, l, unit_level<G, l>()>(V::TX(sh), V::TY(sh), V::D(sh), I, J, r, t, At);
     own_rd<G, l, m>(sh, I, J, rd);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      if constexpr (G::kCheb)
-        x[c] = t.v[c] + (kChebMom * t.v[c] + kChebStep * (b.v[c] - At[c]) * rd[c]);
-      else
-        x[c] = t.v[c] + kOmega * (b.v[c] - At[c]) * rd[c];
-    }
+    second_sweep_down<G::kCheb>(t, b, At, rd, x);
     put_band<G, l>(V::X(sh), I, J, r, x);
   });
 }
@@ -466,8 +421,7 @@ __device__ __forceinline__ void restrict_residual(float* sh, int w, int r) {
     float Ax[4], b[4];
     stencil<G, l, unit_level<G, l>()>(V::TX(sh), V::TY(sh), V::D(sh), I, J, r, x, Ax);
     own<m>(V::B(sh), I, J, b);
-    Parent<G, l>::st(Bc, I, J, r,
-                     ((b[0] - Ax[0]) + (b[1] - Ax[1])) + ((b[2] - Ax[2]) + (b[3] - Ax[3])));
+    Parent<G, l>::st(Bc, I, J, r, restrict_tile(b, Ax));
   });
 }
 
@@ -485,12 +439,6 @@ __device__ __forceinline__ void coarse_solve(float* sh, int w) {
     for (int k = 0; k < nc; ++k) acc += At[k * nc + row] * b[k];
     V::X(sh)[row] = acc;
   }
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 // Coarsest level, inverse in device memory (row-major, read in place): each
@@ -542,35 +490,13 @@ __device__ __forceinline__ void smooth_up_first(float* sh, int w, int r) {
   const float* El = Lvl<G, l + 1>::X(sh);
   tiles<G, l, NW>(w, [&](int, int I, int J) {
     Tile x = gather<G, l>(V::X(sh), I, J, r);
-    const float e = E::ld(El, I, J, r);
-#pragma unroll
-    for (int c = C0; c <= C3; ++c) x.v[c] = x.v[c] + kOmegaC * e;
-    if (RW::up(I, r)) {
-      const float eu = E::ld(El, I - 1, J, r);
-      x.v[U0] = x.v[U0] + kOmegaC * eu;
-      x.v[U1] = x.v[U1] + kOmegaC * eu;
-    }
-    if (RW::dn(I, r)) {
-      const float ed = E::ld(El, I + 1, J, r);
-      x.v[D0] = x.v[D0] + kOmegaC * ed;
-      x.v[D1] = x.v[D1] + kOmegaC * ed;
-    }
-    if (J > 0) {
-      const float el = E::ld(El, I, J - 1, r);
-      x.v[L0] = x.v[L0] + kOmegaC * el;
-      x.v[L1] = x.v[L1] + kOmegaC * el;
-    }
-    if (J < mc - 1) {
-      const float er = E::ld(El, I, J + 1, r);
-      x.v[R0] = x.v[R0] + kOmegaC * er;
-      x.v[R1] = x.v[R1] + kOmegaC * er;
-    }
+    prolong(x, [&](int dI, int dJ) { return E::ld(El, I + dI, J + dJ, r); }, RW::up(I, r),
+            RW::dn(I, r), J > 0, J < mc - 1);
     float Ax[4], b[4], rd[4], t[4];
     stencil<G, l, unit_level<G, l>()>(V::TX(sh), V::TY(sh), V::D(sh), I, J, r, x, Ax);
     own<m>(V::B(sh), I, J, b);
     own_rd<G, l, m>(sh, I, J, rd);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) t[c] = x.v[c] + G::kFirst * (b[c] - Ax[c]) * rd[c];
+    first_sweep_up<G::kCheb>(x, b, Ax, rd, t);
     put_band<G, l>(V::T(sh), I, J, r, t);
   });
 }
@@ -587,19 +513,12 @@ __device__ __forceinline__ void smooth_up_second(float* sh, int w, int r, Out ou
     stencil<G, l, unit_level<G, l>()>(V::TX(sh), V::TY(sh), V::D(sh), I, J, r, t, At);
     own<m>(V::B(sh), I, J, b);
     own_rd<G, l, m>(sh, I, J, rd);
+    float x0[4], e = 0.0f;
     if constexpr (G::kCheb) {
-      float x0[4];
       own<m>(V::X(sh), I, J, x0);
-      const float e = Parent<G, l>::ld(Lvl<G, l + 1>::X(sh), I, J, r);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        x0[c] = x0[c] + kOmegaC * e;
-        x[c] = t.v[c] + (kChebMom * (t.v[c] - x0[c]) + kChebStep * (b[c] - At[c]) * rd[c]);
-      }
-    } else {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) x[c] = t.v[c] + kOmega * (b[c] - At[c]) * rd[c];
+      e = Parent<G, l>::ld(Lvl<G, l + 1>::X(sh), I, J, r);
     }
+    second_sweep_up<G::kCheb>(t, b, At, rd, x0, e, x);
     out(k, I, J, x);
   });
 }
@@ -841,27 +760,37 @@ pressure_pcg_cl_kernel(HierPtrs h, const float* __restrict__ q_g, const float* _
   cluster_sync();
 
   load_level<G, 0>(sh, h, b, r);
-  float x[TPT][4] = {}, p[TPT][4] = {}, w[TPT][4] = {}, z[TPT][4] = {};
+  float x[TPT][4] = {}, p[TPT][4] = {}, w[G::W_REGS ? TPT : 1][4] = {}, z[TPT][4] = {};
   fine([&](int k, int I, int J) {
     own<NY>(p0_g + off, I, J, x[k]);
-    own<NY>(w_g + off, I, J, w[k]);
+    if constexpr (G::W_REGS) own<NY>(w_g + off, I, J, w[k]);
     put<NY>(xb, I, J, x[k]);
     put_band<G, 0>(Tv, I, J, r, x[k]);
   });
   cluster_sync();
+  // The metric weight on tile k, (I, J) of the thread (`W_REGS`).
+  auto weight = [&](int k, int I, int J, float wv[4]) {
+    if constexpr (G::W_REGS) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) wv[c] = w[k][c];
+    } else {
+      own<NY>(w_g + off, I, J, wv);
+    }
+  };
 
   // r = q - A x from x in T, into R; adds the thread's (w r)^2 to wr2 and
   // (w q)^2 to wq2.
   auto residual = [&](float& wr2, float& wq2) {
     fine([&](int k, int I, int J) {
       const Tile xt = gather<G, 0>(Tv, I, J, r);
-      float Ax[4], qv[4], rv[4];
+      float Ax[4], qv[4], rv[4], wv[4];
       stencil<G, 0, UNIT>(TX, TY, Df, I, J, r, xt, Ax);
       own<NY>(q, I, J, qv);
+      weight(k, I, J, wv);
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         rv[c] = qv[c] - Ax[c];
-        const float wr = w[k][c] * rv[c], wq = w[k][c] * qv[c];
+        const float wr = wv[c] * rv[c], wq = wv[c] * qv[c];
         wr2 += wr * wr;
         wq2 += wq * wq;
       }
@@ -890,12 +819,13 @@ pressure_pcg_cl_kernel(HierPtrs h, const float* __restrict__ q_g, const float* _
     const bool restart = use_sd || first;
     float prz = 0.0f, prr = 0.0f;
     fine([&](int k, int I, int J) {
-      float rv[4];
+      float rv[4], wv[4];
       own<NY>(R, I, J, rv);
+      weight(k, I, J, wv);
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         prz += rv[c] * z[k][c];
-        const float wr = w[k][c] * rv[c];
+        const float wr = wv[c] * rv[c];
         prr += wr * wr;
         if (restart) p[k][c] = z[k][c];
       }
@@ -933,12 +863,13 @@ pressure_pcg_cl_kernel(HierPtrs h, const float* __restrict__ q_g, const float* _
       vcycle<G>(sh, Ainv, r, z);
       prz = prr = 0.0f;
       fine([&](int k, int I, int J) {
-        float rv[4];
+        float rv[4], wv[4];
         own<NY>(R, I, J, rv);
+        weight(k, I, J, wv);
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           prz += rv[c] * z[k][c];
-          const float wr = w[k][c] * rv[c];
+          const float wr = wv[c] * rv[c];
           prr += wr * wr;
         }
       });

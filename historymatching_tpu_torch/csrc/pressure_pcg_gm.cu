@@ -47,23 +47,11 @@
 #include <float.h>
 #include <math.h>
 
+#include "pcg_tile.cuh"
+
 namespace {
 
-constexpr float kOmega = 0.7f;
-constexpr float kOmegaC = 1.4f;
-constexpr int kMaxLevels = 8;
 constexpr int kMaxThreads = 512;
-
-// Degree-2 Chebyshev on D^-1 A over [0.5, 2.0], as in pressure_pcg.cu.
-struct ChebCoef {
-  static constexpr double lmin = 0.5, lmax = 2.0;
-  static constexpr double theta = 0.5 * (lmax + lmin), delta = 0.5 * (lmax - lmin);
-  static constexpr double sigma = theta / delta, rho0 = 1.0 / sigma;
-  static constexpr double rho1 = 1.0 / (2.0 * sigma - rho0);
-};
-constexpr float kChebFirst = (float)(1.0 / ChebCoef::theta);
-constexpr float kChebMom = (float)(ChebCoef::rho1 * ChebCoef::rho0);
-constexpr float kChebStep = (float)(2.0 * ChebCoef::rho1 / ChebCoef::delta);
 
 // A level: its sides and the offsets (floats) of its arrays in a member's
 // workspace, in the order of ops/pressure.py LEVEL_KEYS.
@@ -81,16 +69,6 @@ struct Args {
   const float* d[kMaxLevels];
   const float* ainv;  // (B, nc, nc)
 };
-
-// A vector on a 2x2 tile (I, J) and its 8 edge neighbours, 0 outside the grid.
-enum { C0, C1, C2, C3, U0, U1, D0, D1, L0, L1, R0, R1, NTILE };
-struct Tile {
-  float v[NTILE];
-};
-
-__device__ __forceinline__ float2 ld2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
 
 __device__ __forceinline__ void own(const float* v, int m, int I, int J, float out[4]) {
   const int o = 2 * I * m + 2 * J;
@@ -140,11 +118,7 @@ __device__ __forceinline__ void stencil(const float* TX, const float* TY, const 
   const float yl1 = J > 0 ? TY[o + m - 1] : 0.0f;
   float d[4] = {1.0f, 1.0f, 1.0f, 1.0f};
   if (!unit) own(D, m, I, J, d);
-  const float* v = t.v;
-  out[0] = d[0] * v[C0] - xc.x * v[C2] - xu.x * v[U0] - y0.x * v[C1] - yl0 * v[L0];
-  out[1] = d[1] * v[C1] - xc.y * v[C3] - xu.y * v[U1] - y0.y * v[R0] - y0.x * v[C0];
-  out[2] = d[2] * v[C2] - xd.x * v[D0] - xc.x * v[C0] - y1.x * v[C3] - yl1 * v[L1];
-  out[3] = d[3] * v[C3] - xd.y * v[D1] - xc.y * v[C1] - y1.y * v[R1] - y1.x * v[C2];
+  tile_stencil(d, xu, xc, xd, y0, y1, yl0, yl1, t, out);
 }
 
 // f(I, J) for each tile of an n x m level that this thread owns: tiles
@@ -182,8 +156,6 @@ struct View {
   }
 };
 
-constexpr float first_step(bool cheb) { return cheb ? kChebFirst : kOmega; }
-
 // Pre-smoothing from x = 0, the first sweep folded into the second one's
 // reads (pressure_pcg.cu `smooth_down`).
 template <bool CHEB, bool UNIT>
@@ -193,23 +165,14 @@ __device__ void smooth_down(const View<CHEB, UNIT>& V) {
     const Tile b = gather(V.B(), n, m, I, J);
     Tile t;
     if (V.unit()) {
-#pragma unroll
-      for (int c = 0; c < NTILE; ++c) t.v[c] = first_step(CHEB) * b.v[c];
+      t = first_sweep<CHEB, true>(b, b);
     } else {
-      const Tile rd = gather(V.RD(), n, m, I, J);
-#pragma unroll
-      for (int c = 0; c < NTILE; ++c) t.v[c] = first_step(CHEB) * b.v[c] * rd.v[c];
+      t = first_sweep<CHEB, false>(b, gather(V.RD(), n, m, I, J));
     }
     float At[4], rd[4], x[4];
     stencil(V.TX(), V.TY(), V.D(), V.unit(), n, m, I, J, t, At);
     V.own_rd(I, J, rd);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      if (CHEB)
-        x[c] = t.v[c] + (kChebMom * t.v[c] + kChebStep * (b.v[c] - At[c]) * rd[c]);
-      else
-        x[c] = t.v[c] + kOmega * (b.v[c] - At[c]) * rd[c];
-    }
+    second_sweep_down<CHEB>(t, b, At, rd, x);
     put(V.X(), m, I, J, x);
   });
 }
@@ -224,14 +187,8 @@ __device__ void restrict_residual(const View<CHEB, UNIT>& V, float* Bc) {
     float Ax[4], b[4];
     stencil(V.TX(), V.TY(), V.D(), V.unit(), n, m, I, J, x, Ax);
     own(V.B(), m, I, J, b);
-    Bc[I * (m / 2) + J] = ((b[0] - Ax[0]) + (b[1] - Ax[1])) + ((b[2] - Ax[2]) + (b[3] - Ax[3]));
+    Bc[I * (m / 2) + J] = restrict_tile(b, Ax);
   });
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 // Coarsest level: x = inverse @ b, a row a warp, the lanes along the row.
@@ -254,35 +211,13 @@ __device__ void smooth_up_first(const View<CHEB, UNIT>& V, const float* E) {
   const int n = V.g().n, m = V.g().m, mc = m / 2;
   tiles(n, m, [&](int I, int J) {
     Tile x = gather(V.X(), n, m, I, J);
-    const float e = E[I * mc + J];
-#pragma unroll
-    for (int c = C0; c <= C3; ++c) x.v[c] = x.v[c] + kOmegaC * e;
-    if (I > 0) {
-      const float eu = E[(I - 1) * mc + J];
-      x.v[U0] = x.v[U0] + kOmegaC * eu;
-      x.v[U1] = x.v[U1] + kOmegaC * eu;
-    }
-    if (I < n / 2 - 1) {
-      const float ed = E[(I + 1) * mc + J];
-      x.v[D0] = x.v[D0] + kOmegaC * ed;
-      x.v[D1] = x.v[D1] + kOmegaC * ed;
-    }
-    if (J > 0) {
-      const float el = E[I * mc + J - 1];
-      x.v[L0] = x.v[L0] + kOmegaC * el;
-      x.v[L1] = x.v[L1] + kOmegaC * el;
-    }
-    if (J < mc - 1) {
-      const float er = E[I * mc + J + 1];
-      x.v[R0] = x.v[R0] + kOmegaC * er;
-      x.v[R1] = x.v[R1] + kOmegaC * er;
-    }
+    prolong(x, [&](int dI, int dJ) { return E[(I + dI) * mc + J + dJ]; }, I > 0,
+            I < n / 2 - 1, J > 0, J < mc - 1);
     float Ax[4], b[4], rd[4], t[4];
     stencil(V.TX(), V.TY(), V.D(), V.unit(), n, m, I, J, x, Ax);
     own(V.B(), m, I, J, b);
     V.own_rd(I, J, rd);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) t[c] = x.v[c] + first_step(CHEB) * (b[c] - Ax[c]) * rd[c];
+    first_sweep_up<CHEB>(x, b, Ax, rd, t);
     put(V.T(), m, I, J, t);
   });
 }
@@ -299,19 +234,12 @@ __device__ void smooth_up_second(const View<CHEB, UNIT>& V, const float* E, floa
     stencil(V.TX(), V.TY(), V.D(), V.unit(), n, m, I, J, t, At);
     own(V.B(), m, I, J, b);
     V.own_rd(I, J, rd);
+    float x0[4], e = 0.0f;
     if (CHEB) {
-      float x0[4];
       own(V.X(), m, I, J, x0);
-      const float e = E[I * (m / 2) + J];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        x0[c] = x0[c] + kOmegaC * e;
-        x[c] = t.v[c] + (kChebMom * (t.v[c] - x0[c]) + kChebStep * (b[c] - At[c]) * rd[c]);
-      }
-    } else {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) x[c] = t.v[c] + kOmega * (b[c] - At[c]) * rd[c];
+      e = E[I * (m / 2) + J];
     }
+    second_sweep_up<CHEB>(t, b, At, rd, x0, e, x);
     put(out, m, I, J, x);
   });
 }

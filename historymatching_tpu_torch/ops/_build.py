@@ -223,29 +223,26 @@ def transport_cl_lib(Nx, Ny, c, strip):
 
 
 def _cl_grid_specs(Nx, Ny):
-    """The cluster libraries a grid's routes take: P-cl for both fine
-    diagonals, K-cl where K's route is the cluster."""
+    """The cluster libraries of a grid past one block: P-cl for both fine
+    diagonals wherever a cluster holds the layout (its route, or `force`),
+    K-cl where K's route is the cluster."""
     from historymatching_tpu_torch.ops import pressure, transport
     from historymatching_tpu_torch.ops.multigrid import n_levels
 
     plans = [pressure.cl_plan(Nx, Ny, unit) for unit in (True, False)
-             if n_levels(Nx, Ny) >= 2 and pressure.route(Nx, Ny, unit) == "cl"]
+             if n_levels(Nx, Ny) >= 2 and pressure.route(Nx, Ny, unit) != "smem"]
+    plans = [plan for plan in plans if plan]
     shape = transport.cl_shape(Nx, Ny) if transport.route(Nx, Ny) == "cl" else None
     return _cl_specs(Nx, Ny, plans, shape)
 
 
-def prebuild(pressure_grids=(), cl_grids=(), cl_sizes=()):
+def prebuild(pressure_grids=(), cl_grids=()):
     """Build the main libraries, kernel P's libraries for `pressure_grids`
-    outside `GRIDS`, the cluster libraries of `cl_grids` and P-cl's for
-    `cl_sizes` ((Nx, Ny, c) on another cluster than its plan's), every
+    outside `GRIDS` and the cluster libraries of `cl_grids`, every
     compiler at once."""
-    from historymatching_tpu_torch.ops import pressure
-
     extra = [g for g in dict.fromkeys(tuple(g) for g in pressure_grids) if g not in GRIDS]
     _load([_spec(stem) for stem in _MAIN] + [_spec("pressure_pcg", g) for g in extra]
-          + [sp for g in cl_grids for sp in _cl_grid_specs(*g)]
-          + [sp for Nx, Ny, c in cl_sizes
-             for sp in _cl_specs(Nx, Ny, [pressure.cl_plan(Nx, Ny, True, c)])])
+          + [sp for g in cl_grids for sp in _cl_grid_specs(*g)])
 
 
 def check(code, name):

@@ -25,10 +25,11 @@ a grid and cluster size): the same solve on a thread-block cluster of c
 blocks a member, each holding a band of rows of the split levels, the
 coarse levels gathered on the first block, in the cluster's distributed
 shared memory (`layout` with `cl` counts a block's share, `cl_plan` picks c).
-Where no cluster of up to 16 holds it, the device-memory variant P-gm
-runs (`csrc/pressure_pcg_gm.cu`, one library for every grid): the same
-solve, with every level's arrays and the CG vectors in a per-member
-workspace that the wrapper allocates. Their launches count under the
+Where no cluster of up to 16 holds it, or where a rank would take a
+whole SM and read the coarsest inverse from device memory (`route`),
+the device-memory variant P-gm runs (`csrc/pressure_pcg_gm.cu`, one
+library for every grid): the same solve, with every level's arrays and
+the CG vectors in a per-member workspace that the wrapper allocates. Their launches count under the
 same names with "_cl" or "_gm" appended. `route` says which a grid takes,
 and `force` ("cl", "gm") takes one at any grid it fits. A grid without a
 hierarchy is refused before any launch (`check_grid`); `models.ressim`
@@ -193,19 +194,18 @@ def cl_bytes(Nx, Ny, levels, c, unit_diag=True, inv_smem=True):
     return 4 * layout(Nx, Ny, levels, unit_diag, cl=c, inv_smem=inv_smem)[2]
 
 
-def cl_plan(Nx, Ny, unit_diag=True, cluster=None):
+def cl_plan(Nx, Ny, unit_diag=True):
     """P-cl's cluster for a grid: (c, inverse in shared memory). The
-    smallest c of CLUSTERS (or `cluster`) that splits the fine level and
-    whose rank leaves room for two blocks an SM (`_build.SMEM_TWO_A_SM`);
-    where none does, the smallest whose rank fits one block's shared
-    memory (`_build.SMEM_LIMIT`). At a given c the coarsest inverse sits
-    beside the bands where it fits, else it is read in place. None where
-    no cluster holds the grid. (At 128x128 c = 8, three blocks an SM, ran
-    P-cl in 54.9 ms against 77.8 at c = 4, one an SM, and 87.5 at c = 16:
-    PERF.md, PR 10.)"""
+    smallest c of CLUSTERS that splits the fine level and whose rank
+    leaves room for two blocks an SM (`_build.SMEM_TWO_A_SM`); where none
+    does, the smallest whose rank fits one block's shared memory
+    (`_build.SMEM_LIMIT`). At a given c the coarsest inverse sits beside
+    the bands where it fits, else it is read in place. None where no
+    cluster holds the grid. (At 128x128 c = 8, three blocks an SM, ran
+    the bench case's first step 1.4x faster than c = 4, one an SM, and
+    1.6x faster than c = 16: PERF.md, PR 10.)"""
     levels = n_levels(Nx, Ny)
-    sizes = [c for c in (CLUSTERS if cluster is None else (cluster,))
-             if levels >= 2 and cl_split(Nx, Ny, levels, c)]
+    sizes = [c for c in CLUSTERS if levels >= 2 and cl_split(Nx, Ny, levels, c)]
     for limit in (_build.SMEM_TWO_A_SM, _build.SMEM_LIMIT):
         for c in sizes:
             for inv in (True, False):
@@ -242,33 +242,41 @@ def check_grid(Nx, Ny):
 def route(Nx, Ny, unit_diag=True):
     """Which kernel P takes a grid, smallest footprint first: "smem" where
     the layout fits one block's shared memory (`_build.SMEM_LIMIT`), "cl"
-    where a cluster's rank does (`cl_plan`), else "gm"."""
+    where a cluster's rank does (`cl_plan`), else "gm". Also "gm" where
+    P-cl's rank would read the coarsest inverse from device memory and
+    leave no room for a second block on its SM (100x100, 60x220): both
+    variants then stream the inverse every V-cycle, and P-gm, a member an
+    SM, keeps twice the members in flight (at N=1000 it ran 1.58x and 1.2x
+    faster: `bench_routes.py`, PERF.md, PR 10)."""
     check_grid(Nx, Ny)
-    if smem_bytes(Nx, Ny, n_levels(Nx, Ny), unit_diag) <= _build.SMEM_LIMIT:
+    levels = n_levels(Nx, Ny)
+    if smem_bytes(Nx, Ny, levels, unit_diag) <= _build.SMEM_LIMIT:
         return "smem"
-    return "cl" if cl_plan(Nx, Ny, unit_diag) else "gm"
+    plan = cl_plan(Nx, Ny, unit_diag)
+    if plan is None:
+        return "gm"
+    c, inv = plan
+    one_an_sm = cl_bytes(Nx, Ny, levels, c, unit_diag, inv) > _build.SMEM_TWO_A_SM
+    return "gm" if one_an_sm and not inv else "cl"
 
 
 def pressure_solve_cuda(hier, Ainv, q, p0, w, tol, maxiter, patience_iters=96,
-                        restart_every=8, smoother="jacobi", unit_diag=True, force=None,
-                        cluster=None):
+                        restart_every=8, smoother="jacobi", unit_diag=True, force=None):
     """The hand kernel. Same arguments as the plain version, float32 on one
     CUDA device. With `unit_diag` (the contract of
     `models.ressim.scaled_system`) the kernel takes the fine diagonal as 1
     and does not read `hier[0][2]`; without, it reads it. The grid's
     `route` picks the shared-memory kernel, P-cl or P-gm; `force` (one of
-    ROUTES) picks one at any grid it fits, and `cluster` P-cl's cluster
-    size (`cl_plan` picks it by default)."""
+    ROUTES) picks one at any grid it fits."""
     B, Nx, Ny = q.shape
     if smoother not in SMOOTHERS:
         raise ValueError(f"smoother must be one of {SMOOTHERS}, got {smoother!r}")
     if force not in (None, *ROUTES):
         raise ValueError(f"force must be one of {ROUTES} or None, got {force!r}")
-    rt = route(Nx, Ny, unit_diag) if force is None and cluster is None else force or "cl"
-    plan = cl_plan(Nx, Ny, unit_diag, cluster) if rt == "cl" else None
+    rt = route(Nx, Ny, unit_diag) if force is None else force
+    plan = cl_plan(Nx, Ny, unit_diag) if rt == "cl" else None
     if rt == "cl" and plan is None:
-        raise ValueError(f"pressure kernel: no cluster of {cluster or CLUSTERS} holds the "
-                         f"{Nx}x{Ny} layout")
+        raise ValueError(f"pressure kernel: no cluster of {CLUSTERS} holds the {Nx}x{Ny} layout")
     levels = len(hier)
     if levels != n_levels(Nx, Ny):
         raise ValueError(f"pressure kernel: grid {Nx}x{Ny} takes {n_levels(Nx, Ny)} multigrid "

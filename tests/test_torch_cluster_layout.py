@@ -168,6 +168,32 @@ def test_transport_cluster_bands_and_strips(Nx, Ny):
     assert all(Nx % s or (Nx // s) * Ny > transport.BAND_CELLS for s in (2, 4, 8, 16) if s < c)
 
 
+# P's route past one block, by grid: P-gm where the rank would take a
+# whole SM and read the coarsest inverse from device memory (both fine
+# diagonals at 100x100, the scaled 60x220), or where no cluster holds the
+# layout (the unscaled 60x220).
+P_GM_GRIDS = {(100, 100), (60, 220)}
+
+
+@pytest.mark.parametrize("unit_diag", [True, False])
+@pytest.mark.parametrize("Nx,Ny", [g for g in CL_GRIDS if g != (80, 80)])
+def test_pressure_route_past_one_block(Nx, Ny, unit_diag):
+    """P takes P-cl past one block's shared memory unless its rank would
+    hold a whole SM (more than `SMEM_TWO_A_SM` bytes) with the coarsest
+    inverse read from device memory; there, and where no cluster holds the
+    layout, P-gm."""
+    levels = n_levels(Nx, Ny)
+    plan = cl_plan(Nx, Ny, unit_diag)
+    expect = "gm" if (Nx, Ny) in P_GM_GRIDS else "cl"
+    assert pressure.route(Nx, Ny, unit_diag) == expect
+    if expect == "gm" and plan is not None:
+        c, inv = plan
+        assert not inv and cl_bytes(Nx, Ny, levels, c, unit_diag, inv) > SMEM_TWO_A_SM
+    if expect == "cl":
+        c, inv = plan
+        assert inv or cl_bytes(Nx, Ny, levels, c, unit_diag, inv) <= SMEM_TWO_A_SM
+
+
 def test_routes_of_the_main_grids_unchanged():
     """The flagship and the other instantiated grids keep their kernels:
     P in shared memory, K templated; 80x80's P still fits one block, its K
@@ -207,14 +233,11 @@ def test_wrappers_refuse_cpu_tensors_on_every_route(Nx, Ny, force):
 
 def test_cluster_route_refused_where_no_cluster_holds_the_grid():
     """P-cl forced where no cluster's rank fits (the unscaled 60x220
-    system), or on a cluster that does not split the fine level (60 rows
-    on 8), and K-cl forced where no band fits (171 rows), raise before any
-    launch; P-gm and K-gm take them."""
+    system), and K-cl forced where no band fits (171 rows), raise before
+    any launch; P-gm and K-gm take them."""
     args = _p_args(60, 220)
     with pytest.raises(ValueError, match="no cluster"):
         pressure_solve_cuda(*args, tol=1e-3, maxiter=8, unit_diag=False, force="cl")
-    with pytest.raises(ValueError, match="no cluster"):
-        pressure_solve_cuda(*args, tol=1e-3, maxiter=8, cluster=8)
     with pytest.raises(ValueError, match="need float32 CUDA"):
         pressure_solve_cuda(*args, tol=1e-3, maxiter=8, unit_diag=False, force="gm")
     with pytest.raises(ValueError, match="no cluster"):

@@ -88,15 +88,13 @@ def _system(mm, q, unit_diag):
             torch.ones_like(s))
 
 
-def _pressure_vs_plain(dev, Nx, Ny, smoother, unit_diag=True, window=16, scale=1.0, force=None,
-                       cluster=None):
+def _pressure_vs_plain(dev, Nx, Ny, smoother, unit_diag=True, window=16, scale=1.0, force=None):
     """One launch of P's `smoother` instantiation against the plain version
     with the same smoother, after fixed work (one restart window of
     `window` iterations, or two of 8 for 16); the launch counts on that
     instantiation's own key. Without `unit_diag`, on the unscaled system
     (the instantiation that reads the fine diagonal); `scale` multiplies
-    the pre-permeability fields; `force` the route (P-gm: "gm"), `cluster`
-    P-cl's cluster size."""
+    the pre-permeability fields; `force` the route (P-gm: "gm")."""
     g = torch.Generator(device=dev).manual_seed(1)
     m = _model(Nx, Ny, dev)
     B = 8
@@ -106,10 +104,10 @@ def _pressure_vs_plain(dev, Nx, Ny, smoother, unit_diag=True, window=16, scale=1
     args = _system(mm, q, unit_diag)
     fixed = dict(tol=0.0, maxiter=window, restart_every=min(window, 8), patience_iters=160,
                  smoother=smoother, unit_diag=unit_diag)
-    route = force or ("cl" if cluster else pressure_route(Nx, Ny, unit_diag))
+    route = force or pressure_route(Nx, Ny, unit_diag)
     name = kernel_name(smoother, unit_diag, route)
     before = dict(_build.LAUNCHES)
-    p_k, it_k, rel_k = pressure_solve_cuda(*args, **fixed, force=force, cluster=cluster)
+    p_k, it_k, rel_k = pressure_solve_cuda(*args, **fixed, force=force)
     torch.cuda.synchronize()
     assert {k: v - before[k] for k, v in _build.LAUNCHES.items() if v != before[k]} == {name: 1}
     p_t, it_t, rel_t = pressure_solve_torch(*args, **fixed)
@@ -382,25 +380,20 @@ def test_gm_kernel_resources(dev, Nx, Ny):
 @pytest.mark.parametrize("smoother", ["jacobi", "cheb"])
 @pytest.mark.parametrize("Nx,Ny", [(60, 60), (88, 88), (96, 96), (128, 128), (60, 220)])
 def test_pressure_cl_matches_plain(dev, Nx, Ny, smoother, unit_diag):
-    """P-cl on its route, against the plain version after one window of 4
+    """P-cl forced, against the plain version after one window of 4
     iterations: 60x60 (the inverse read in place, a 30x30 level gathered on
     rank 0), 88x88 (its 11x11 inverse in place, over four ranks), 96x96 and
     128x128 (the small coarse levels on rank 0's warp), 60x220 (its
-    825-cell inverse in place). The unscaled system on fields
-    of mild contrast, as the shared-memory P; at 60x220 it takes P-gm, so
-    that case runs the scaled system's P-cl on the same fields."""
+    825-cell inverse in place; P-gm's route). The unscaled system on fields
+    of mild contrast, as the shared-memory P; at 60x220 no cluster holds
+    it, so that case runs the scaled system's P-cl on the same fields."""
+    from historymatching_tpu_torch.ops.pressure import cl_plan
+
     scale = 1.0 if unit_diag else 0.2
-    if pressure_route(Nx, Ny, unit_diag) != "cl":
+    if cl_plan(Nx, Ny, unit_diag) is None:
         unit_diag = True
-    assert pressure_route(Nx, Ny, unit_diag) == "cl"
-    _pressure_vs_plain(dev, Nx, Ny, smoother, unit_diag=unit_diag, window=4, scale=scale)
-
-
-@pytest.mark.parametrize("cluster", [4, 8, 16])
-def test_pressure_cl_any_cluster_matches_plain(dev, cluster):
-    """P-cl at 128x128 on every cluster size that holds it, against the
-    plain version after one window."""
-    _pressure_vs_plain(dev, 128, 128, "jacobi", window=4, cluster=cluster)
+    _pressure_vs_plain(dev, Nx, Ny, smoother, unit_diag=unit_diag, window=4, scale=scale,
+                       force="cl")
 
 
 @pytest.mark.parametrize("Nx,Ny", [(80, 80), (128, 128), (60, 220), (192, 192), (100, 100)])
@@ -424,22 +417,18 @@ def test_transport_cl_matches_plain(dev, Nx, Ny):
                                    (60, 220), (192, 192), (256, 256)])
 def test_cl_kernel_resources(dev, Nx, Ny):
     """The cluster variants' footprints: the bytes a rank that the layout
-    counts (`ops/pressure.layout` with `cl`), a block resident on an SM and
-    a cluster on the card, and no spills but a few words where a rank's
-    threads hold five fine tiles each under three blocks' (or 384
-    threads') 170-register cap: 96x96 and 60x220 spilled 16-24 bytes a
-    thread on the H100 (PERF.md, PR 10); the bench case's 128x128 none."""
+    counts (`ops/pressure.layout` with `cl`), no spills, a block resident
+    on an SM and a cluster on the card."""
     from historymatching_tpu_torch.ops.pressure import cl_bytes, cl_plan
 
     for name, unit in (("pressure_pcg_cl", True), ("pressure_pcg_cheb_cl", True),
                        ("pressure_pcg_diag_cl", False), ("pressure_pcg_cheb_diag_cl", False)):
-        if pressure_route(Nx, Ny, unit) != "cl":
+        if cl_plan(Nx, Ny, unit) is None:  # the unscaled 60x220: no cluster holds it
             continue
         c, inv = cl_plan(Nx, Ny, unit)
         p = _build.kernel_info(name, Nx, Ny)
         assert p["shared_bytes"] == cl_bytes(Nx, Ny, n_levels(Nx, Ny), c, unit, inv), (name, p)
-        tiles = -(-(Nx // c) * Ny // 4 // p["threads"])
-        assert p["cluster"] == c and p["local_bytes"] <= (32 if tiles > 4 else 0), (name, p)
+        assert p["cluster"] == c and p["local_bytes"] == 0, (name, p)
         assert p["blocks_per_sm"] >= 1 and p["max_active_clusters"] >= 1, (name, p)
     if transport_route(Nx, Ny) == "cl":
         k = _build.kernel_info("transport_upwind_cl", Nx, Ny)
