@@ -93,8 +93,14 @@ Phases, one printed line or more each; any failed check raises:
     acceptance a pass, peak memory, RMSE, and 10 profiled steps; on its
     first step P-cl and K-cl against their plain versions and timed beside
     P-gm, K-rt and K-gm, all forced;
-25. `forward_model(mesh=)` on a world of one over NCCL (`parallel.mesh`),
-    64x64, N=128, 5 steps, bit for bit against the run without a mesh.
+25. on a world of one over NCCL (`parallel.mesh`): `forward_model(mesh=)`
+    on a member-sharded prior, 64x64, N=128, 5 steps, bit for bit against
+    the run without a mesh; then [5]'s flagship ES-MDA (N=1000, 64x64, 40
+    steps, 4 passes, the reference's schedule with the recook), [10]'s IES
+    and [14]'s robust StoSAG GD (20x20, 31 fields) on member-sharded
+    inputs, each on its phase's inputs and draws, the wall of the sharded
+    and of the unsharded run, each P and K launch count equal to its
+    phase's, and each result equal to the unsharded run's bit for bit.
 
 The line before the last is the kernels' JSON record (with each kernel's
 launches in each rung of [22]); the last line is
@@ -483,18 +489,19 @@ def enopt_phases(dev, gen):
         Kx = Xb.reshape(-1, nx, ny)
         return ht.npv_value(em, cfg, inj_xy=U.reshape(-1, 1, 2), K=torch.stack([Kx, Kx], 1))
 
-    def obj_robust(U):
-        n = len(U)
-        J = obj1(U.repeat_interleave(ROBUST_N, 0), X.repeat(n, 1))
-        return J.reshape(n, ROBUST_N).mean(1)
-
+    obj_robust = ht.robust_mean(obj1, X)  # one npv call of len(U) x 31 members
     u0 = torch.rand(2, generator=gen, device=dev) * torch.tensor([em.Lx, em.Ly], device=dev)
+    robust = {}
     for strategy, n_iter in (("StoSAG", ROBUST_ITERS), ("Paired", ROBUST_SHORT_ITERS),
                              ("Mean-model", ROBUST_SHORT_ITERS)):
         rows.clear()
+        if strategy == "StoSAG":  # [25] replays this run on a mesh
+            robust = dict(obj_ux=obj1, X=X, u0=u0, gen_state=gen.get_state())
         nabla = ht.EnGrad(chol=EN_CHOL, nEns=ROBUST_N, robustly=strategy, obj_ux=obj1, X=X)
         (path, objs_r, info_r), wall, launches = run("14", lambda: ht.GD(
             obj_robust, u0, nabla=nabla, nIter=n_iter, generator=gen))
+        if strategy == "StoSAG":
+            robust.update(launches=launches, path=path, wall=wall)
         objs_r = objs_r.double().cpu().numpy()
         log(f"[14] robust {strategy}, {ROBUST_N} permeability fields, {n_iter} iterations: "
             f"{wall:.3f} s; {info_r['cause']} after {info_r['nIter']} (accepted "
@@ -504,7 +511,7 @@ def enopt_phases(dev, gen):
         assert np.isfinite(objs_r).all() and (np.diff(objs_r) > 0).all()
         assert set(rows) <= {2 * ROBUST_N if strategy == "StoSAG" else ROBUST_N,
                              ROBUST_N, 8 * ROBUST_N}, rows
-    return figs
+    return figs, robust
 
 
 def rel_err(p_k, p_t):
@@ -1165,8 +1172,10 @@ def large_case_kernels(model, prior):
     return {"pressure_pcg_cl": cl_fig, "pressure_pcg_gm": gm_fig, **k_figs}
 
 
-def mesh_phase(dev):
-    """Phase 25: `forward_model(mesh=)` on a world of one over NCCL."""
+def mesh_phase(dev, cases):
+    """Phase 25, on a world of one over NCCL: `forward_model(mesh=)`, then
+    [5]'s flagship ES-MDA, [10]'s IES and [14]'s robust StoSAG GD on
+    member-sharded inputs (`mesh_legs`)."""
     import torch
     import torch.distributed as dist
 
@@ -1183,13 +1192,6 @@ def mesh_phase(dev):
         kw = dict(dt=DT, nTime=MESH_STEPS, return_sim=True, **BASE)
         w0 = torch.zeros(model.Nxy, device=dev)
 
-        def timed(fn):
-            sync()
-            t0 = time.perf_counter()
-            out = fn()
-            sync()
-            return out, time.perf_counter() - t0
-
         sharded = lambda: ht.forward_model(model, ht.shard_ens(prior, mesh),  # noqa: E731
                                            replicate(w0, mesh), mesh=mesh, **kw)
         plain = lambda: ht.forward_model(model, prior, w0, **kw)  # noqa: E731
@@ -1198,21 +1200,123 @@ def mesh_phase(dev):
         launches = {k: v for k, v in _build.LAUNCHES.items() if v}
         (w_u, p_u, r_u), wall_u = timed(plain)
         wall_m = timed(sharded)[1]
-        o_m = ht.obs_ens_fn(model, DT, MESH_STEPS, mesh=mesh, **BASE)(prior)
-        same = {k: bool(torch.equal(a, b)) for k, a, b in (
+        o_m = ht.obs_ens_fn(model, DT, MESH_STEPS, mesh=mesh, **BASE)(ht.shard_ens(prior, mesh))
+        same = {k: bool(torch.equal(a.full_tensor(), b)) for k, a, b in (
             ("wsats", w_m, w_u), ("prods", p_m, p_u), ("cg_iters", r_m.cg_iters, r_u.cg_iters),
             ("recooked", r_m.recooked, r_u.recooked),
             ("obs", o_m, p_u.reshape(MESH_N, -1)))}
+        local = tuple(w_m.to_local().shape)
         log(f"[25] forward_model(mesh=) on a world of one over NCCL ({mesh}), {NX}x{NY}, "
             f"N={MESH_N}, {MESH_STEPS} steps: {wall_m:.3f} s (without a mesh {wall_u:.3f} s; the "
-            f"first call, with NCCL's start, {first_m:.3f} s); "
-            f"launches {launches}; equal to the run without a mesh, bit for bit: {same}")
+            f"first call, with NCCL's start, {first_m:.3f} s); member-sharded out, local "
+            f"{local}; launches {launches}; equal to the run without a mesh, bit for bit: {same}")
         assert all(same.values()), same
         assert launches["pressure_pcg"] >= MESH_STEPS and launches["transport_upwind"] == MESH_STEPS
-        return dict(wall_s=wall_m, wall_unsharded_s=wall_u, first_call_s=first_m,
-                    launches=launches, equal=same)
+        rec = dict(wall_s=wall_m, wall_unsharded_s=wall_u, first_call_s=first_m,
+                   launches=launches, equal=same)
+        rec["legs"] = mesh_legs(mesh, cases)
+        return rec
     finally:
         dist.destroy_process_group()
+
+
+def timed(fn):
+    """(fn(), its wall in seconds), the card synchronized around it."""
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t0
+
+
+def mesh_legs(mesh, cases):
+    """Phase 25's analysis legs: [5]'s flagship ES-MDA (its truth run, data,
+    prior, schedule and obs-error draws), [10]'s IES (its perturbations too)
+    and [14]'s robust StoSAG GD (its 31 fields, start and draws), each run
+    without a mesh, twice with the ensemble member-sharded on `mesh` (a
+    world of one) and again without. Every run must equal the first bit for
+    bit (a world of one does the unsharded run's operations in the same
+    order) and launch P and K as often as [5], [10] and [14]; where one
+    does not, the largest difference and the first callback at which the
+    runs part are printed, and the phase fails."""
+    import torch
+
+    import historymatching_tpu_torch as ht
+    from historymatching_tpu_torch.da.update import decorrelator
+    from historymatching_tpu_torch.ops import _build
+    from historymatching_tpu_torch.parallel.mesh import whole
+
+    f, rb = cases["flagship"], cases["robust"]
+    model = f["model"]
+
+    def gen_at(state, like):
+        """A generator on `like`'s device in the state a phase drew from."""
+        g = torch.Generator(device=like.device)
+        g.set_state(state)
+        return g
+
+    def es_mda(m):
+        E = f["prior"] if m is None else ht.shard_ens(f["prior"], m)
+        seen = []
+        ht.forward_model(model, f["truth"][None], dt=DT, nTime=NTIME, keep_wsats=False, **BASE)
+        fwds = [ht.obs_ens_fn(model, DT, NTIME, mesh=m, **dict(BASE, **ov)) for ov in SCHED]
+        post = ht.es_mda(E, fwds, f["obs"], f["R12"], ht.mda_alphas(PASSES),
+                         generator=gen_at(f["gen_state"], f["prior"]),
+                         callback=lambda info: seen.append(whole(info["E"])))
+        return post, seen
+
+    def ies(m):
+        sh = (lambda x: x) if m is None else (lambda x: ht.shard_ens(x, m))  # noqa: E731
+        seen = []
+        fwds = [ht.obs_ens_fn(model, DT, NTIME, mesh=m, **dict(BASE, **ov)) for ov in IES_SCHED]
+        post, _ = ht.ies(sh(f["prior"]), fwds, f["obs"], sh(f["perturbs"]),
+                         decorrelator(f["R12"]), xStep=IES_STEP, iMax=IES_ITERS,
+                         callback=lambda info: seen.append(whole(info["E"])))
+        return post, seen
+
+    def stosag(m):
+        X = rb["X"] if m is None else ht.shard_ens(rb["X"], m)
+        seen = []
+        nabla = ht.EnGrad(chol=EN_CHOL, nEns=ROBUST_N, robustly="StoSAG", obj_ux=rb["obj_ux"], X=X)
+        path, _, _ = ht.GD(ht.robust_mean(rb["obj_ux"], X), rb["u0"], nabla=nabla,
+                           nIter=ROBUST_ITERS, generator=gen_at(rb["gen_state"], rb["X"]),
+                           callback=lambda info: seen.append(info["u"].clone()))
+        return path, seen
+
+    out = {}
+    for name, fn, ref in (("es_mda", es_mda, f["launches"]), ("ies", ies, f["launches_ies"]),
+                          ("stosag_gd", stosag, rb["launches"])):
+        runs = []
+        for m in (None, mesh, mesh, None):  # unsharded first and last: the order shows in both
+            _build.reset_launches()
+            (res, seen), wall = timed(lambda: fn(m))
+            runs.append(dict(sharded=m is not None, res=res, seen=seen, wall=wall,
+                             launches={k: _build.LAUNCHES[k] for k in JACOBI_KERNELS}))
+        base = runs[0]
+        local = tuple(runs[1]["res"].to_local().shape) if name != "stosag_gd" else None
+        same = [bool(torch.equal(whole(r["res"]), base["res"])) for r in runs[1:]]
+        walls = {tag: [r["wall"] for r in runs if r["sharded"] == (tag == "sharded")]
+                 for tag in ("sharded", "unsharded")}
+        ref = {k: ref[k] for k in JACOBI_KERNELS}
+        log(f"[25] {name} on a world of one, runs unsharded, sharded, sharded, unsharded: walls "
+            f"sharded {[round(w, 3) for w in walls['sharded']]} s, unsharded "
+            f"{[round(w, 3) for w in walls['unsharded']]} s; launches each run "
+            f"{[r['launches'] for r in runs]}, the phase's own {ref}; local members {local}; "
+            f"equal to the first (unsharded) run, bit for bit: {same}")
+        for r, ok in zip(runs[1:], same):
+            if not ok:
+                got = whole(r["res"])
+                part = next((i + 1 for i, (a, b) in enumerate(zip(r["seen"], base["seen"]))
+                             if not torch.equal(a, b)), None)
+                log(f"[25] {name}: a {'sharded' if r['sharded'] else 'unsharded'} run is NOT "
+                    f"equal: max |d| {float((got - base['res']).abs().max()):.3e}; the runs part at "
+                    f"callback {part} of {len(base['seen'])} (None: only the final recomposition "
+                    f"differs)")
+        assert all(same), (name, same)
+        assert all(r["launches"] == ref for r in runs), (name, [r["launches"] for r in runs], ref)
+        out[name] = dict(walls_sharded_s=walls["sharded"], walls_unsharded_s=walls["unsharded"],
+                         launches=runs[1]["launches"], equal=same, local_shape=local)
+    return out
 
 
 def fluid_of(model):
@@ -1669,7 +1773,7 @@ def main(argv=None):
     assert torch.isfinite(post_ies).all() and post_ies.shape == prior.shape
     assert spread(post_ies) < spread(prior)
 
-    en = enopt_phases(dev, gen)
+    en, robust14 = enopt_phases(dev, gen)
 
     # 15. the flagship ES-MDA with the Chebyshev smoother: [5]'s truth, data,
     # prior, schedule and obs-error draws, P's cheb instantiation on every
@@ -1824,7 +1928,11 @@ def main(argv=None):
     par = parity_phase(card, opts.parity_out)
     large = large_grid_phases(dev, six)
     big = large_case_phase(dev)
-    mesh_run = mesh_phase(dev)
+    mesh_run = mesh_phase(dev, dict(
+        flagship=dict(model=model, truth=truth, prior=prior, obs=obs, R12=R12,
+                      gen_state=gen_state_5, launches=launches, perturbs=perturbs,
+                      launches_ies=launches_ies),
+        robust=robust14))
 
     def record(name, route, source, replaces, err, ms, plain_ms, bound_ms, by):
         return dict(name=name, route=route, source=source, replaces=replaces,

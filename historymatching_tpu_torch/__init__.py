@@ -3,8 +3,9 @@
 Ensemble history matching and production optimisation on one NVIDIA GPU:
 the TPFA two-phase simulator run over an ensemble, the Gaussian-field
 prior, the ES-MDA (plain or localized, with resume), IES and ILES
-analyses, EnOpt with its NPV objective (`opt`), the ensemble split over
-devices (`parallel.mesh`, `forward_model(mesh=)`), checkpoints and profiling,
+analyses, EnOpt with its NPV objective (`opt`), member-sharded ensembles
+over devices through the forward runs, the analyses and robust EnOpt
+(`parallel.mesh`), checkpoints and profiling,
 JAX's random draws (`prng`), the workload parity harness (`parity`) and
 plotting (`plotting`, matplotlib imported on use).
 The module layout and names mirror the JAX package. Plain tensor code is
@@ -56,6 +57,7 @@ from historymatching_tpu_torch.opt import (  # noqa: E402
     gd_scan_multi,
     npv,
     npv_value,
+    robust_mean,
 )
 from historymatching_tpu_torch.parallel.runner import (  # noqa: E402
     ensemble_simulate,
@@ -99,6 +101,7 @@ __all__ = [
     "GD",
     "gd_scan",
     "gd_scan_multi",
+    "robust_mean",
     "geostat",
     "localization",
     "bump",

@@ -7,6 +7,15 @@ ES-MDA with resume.
 Rows are members. The Kalman term takes the observation-space form when
 p <= N and the ensemble-space (Woodbury) form otherwise. Products run in
 full float32 (TF32 off, see the package's `__init__`).
+
+Every function takes member-sharded ensembles (`parallel.mesh`), as the
+JAX package's take sharded arrays, and returns them so: each rank keeps
+its N/world members, the ensemble moments (S'S, S'X, the means) are each
+rank's partial sums all-reduced over the mesh's group, and the small
+matrices (p x p, N x N) are the same on every rank. The iterative
+smoothers gather what their weights need: the prior anomalies once, the
+observed ensemble each iteration. One code path serves both: without a
+mesh the reductions are local.
 """
 
 from __future__ import annotations
@@ -18,6 +27,17 @@ import torch
 
 from historymatching_tpu_torch import prng
 from historymatching_tpu_torch.ops.linalg import spd_solve
+from historymatching_tpu_torch.parallel.mesh import (
+    as_members,
+    gather_members,
+    local_members,
+    member_mean,
+    member_mesh,
+    member_rows,
+    n_members,
+    reduce_members,
+    whole,
+)
 from historymatching_tpu_torch.utils import center, gaussian_noise
 
 
@@ -28,22 +48,37 @@ def decorrelator(R12):
     return torch.as_tensor(inv, dtype=R12.dtype, device=R12.device)
 
 
-def _kalman_term(S, D, X):
-    """D @ inv(S'S + (N-1) I) @ S' @ X."""
-    N, p = S.shape
+def _members(*xs):
+    """(mesh, each of `xs` as this rank's members): the mesh of the first
+    member-sharded one, None if none is."""
+    mesh = next((m for m in map(member_mesh, xs) if m is not None), None)
+    return mesh, tuple(local_members(x, mesh) for x in xs)
+
+
+def _kalman_term(S, D, X, mesh=None):
+    """D @ inv(S'S + (N-1) I) @ S' @ X on this rank's members of S, D, X.
+    Observation space (p <= N): S'S and S'X in one all-reduced product.
+    Ensemble space: S gathered, G = S S' + (N-1) I, and S' inv(G) X the
+    all-reduced sum over members of inv(G) S's rows times X's."""
+    N, p = n_members(S, mesh), S.shape[1]
     c = N - 1.0
     if p <= N:
-        C = S.T @ S + c * torch.eye(p, dtype=S.dtype, device=S.device)
-        return D @ spd_solve(C, S.T @ X)
-    G = S @ S.T + c * torch.eye(N, dtype=S.dtype, device=S.device)
-    return (D @ S.T) @ spd_solve(G, X)
+        SX = reduce_members(S.T @ torch.cat([S, X], 1), mesh)
+        C = SX[:, :p] + c * torch.eye(p, dtype=S.dtype, device=S.device)
+        return D @ spd_solve(C, SX[:, p:])
+    S_all = gather_members(S, mesh)
+    G = S_all @ S_all.T + c * torch.eye(N, dtype=S.dtype, device=S.device)
+    A = spd_solve(G, S_all)[member_rows(N, mesh)]
+    return D @ reduce_members(A.T @ X, mesh)
 
 
 def ens_update0(prior_ens, obs_ens, obs, perturbs, decorr):
     """Stochastic ES analysis: `obs_ens` (N, p), `obs` (p,), `perturbs`
-    (N, p) drawn with the obs-error law, `decorr` the whitening matrix."""
-    X, S, D = _innovation_terms(prior_ens, obs_ens, obs, perturbs, decorr)
-    return prior_ens + _kalman_term(S, D, X)
+    (N, p) drawn with the obs-error law, `decorr` the whitening matrix.
+    Member-sharded inputs give a member-sharded posterior."""
+    mesh, (E, Eo, pert) = _members(prior_ens, obs_ens, perturbs)
+    X, S, D = _innovation_terms(E, Eo, whole(obs), pert, decorr, mesh)
+    return as_members(E + _kalman_term(S, D, X, mesh), mesh)
 
 
 def _taper_weights(taper):
@@ -52,12 +87,13 @@ def _taper_weights(taper):
     return torch.where(taper > 1e-4, taper, 0.0)
 
 
-def _innovation_terms(prior_ens, obs_ens, obs, perturbs, decorr):
-    """(X, S, D): prior anomalies, whitened obs anomalies and whitened
-    innovations."""
-    X, _ = center(prior_ens)
-    Y, _ = center(obs_ens)
-    return X, Y @ decorr, (obs - obs_ens - perturbs) @ decorr
+def _innovation_terms(E, Eo, obs, perturbs, decorr, mesh=None):
+    """(X, S, D) of this rank's members: prior anomalies, whitened obs
+    anomalies and whitened innovations."""
+    Eo = Eo.to(E.dtype)
+    X = E - member_mean(E, mesh)
+    Y = Eo - member_mean(Eo, mesh)
+    return X, Y @ decorr, (obs - Eo - perturbs) @ decorr
 
 
 def ens_update0_loc(prior_ens, obs_ens, obs, perturbs, decorr, taper):
@@ -68,7 +104,7 @@ def ens_update0_loc(prior_ens, obs_ens, obs, perturbs, decorr, taper):
     is the one for the flagship scale."""
     M = prior_ens.shape[1]
     return ens_update0_loc_domains(prior_ens, obs_ens, obs, perturbs, decorr, taper,
-                                   torch.arange(M, device=prior_ens.device)[:, None])
+                                   torch.arange(M, device=taper.device)[:, None])
 
 
 def ens_update0_loc_domains(prior_ens, obs_ens, obs, perturbs, decorr, taper_dom, domains):
@@ -80,28 +116,32 @@ def ens_update0_loc_domains(prior_ens, obs_ens, obs, perturbs, decorr, taper_dom
 
     p <= N: the observation-space form, with c_d = sqrt(w_d) and
     S_d = S diag(c_d): dE_d = (D c_d) inv(S_d'S_d + (N-1) I) S_d' X_d,
-    p x p systems; otherwise the ensemble-space form of `ens_update0_loc`,
-    N x N systems."""
-    N = prior_ens.shape[0]
-    X, S, D = _innovation_terms(prior_ens, obs_ens, obs, perturbs, decorr)
+    p x p systems, every domain's S_d'S_d and S_d'X_d one all-reduced
+    product; otherwise the ensemble-space form of `ens_update0_loc`,
+    N x N systems on the gathered S."""
+    mesh, (E, Eo, pert) = _members(prior_ens, obs_ens, perturbs)
+    X, S, D = _innovation_terms(E, Eo, whole(obs), pert, decorr, mesh)
+    N, p = n_members(S, mesh), S.shape[1]
     W = _taper_weights(taper_dom).to(S.dtype)  # (nDom, p)
-    p = S.shape[1]
     c = N - 1.0
     domains = torch.as_tensor(domains, dtype=torch.int64, device=S.device)
-    Xd = X[:, domains].permute(1, 0, 2)  # (nDom, N, k)
+    Xd = X[:, domains].permute(1, 0, 2)  # (nDom, rows, k)
     if p <= N:
         cd = W.sqrt()
-        Sd = S * cd[:, None, :]  # (nDom, N, p)
-        G = Sd.mT @ Sd + c * torch.eye(p, dtype=S.dtype, device=S.device)
+        Sd = S * cd[:, None, :]  # (nDom, rows, p)
+        GR = reduce_members(Sd.mT @ torch.cat([Sd, Xd], -1), mesh)
+        G = GR[..., :p] + c * torch.eye(p, dtype=S.dtype, device=S.device)
         G = 0.5 * (G + G.mT)
-        dE = (D * cd[:, None, :]) @ spd_solve(G, Sd.mT @ Xd)
+        dE = (D * cd[:, None, :]) @ spd_solve(G, GR[..., p:])
     else:
-        G = (S * W[:, None, :]) @ S.T + c * torch.eye(N, dtype=S.dtype, device=S.device)
+        S_all = gather_members(S, mesh)
+        G = (S_all * W[:, None, :]) @ S_all.T + c * torch.eye(N, dtype=S.dtype, device=S.device)
         G = 0.5 * (G + G.mT)
-        dE = (D * W[:, None, :]) @ (S.T @ spd_solve(G, Xd))
-    E_new = prior_ens.clone()
-    E_new[:, domains] = prior_ens[:, domains] + dE.permute(1, 0, 2)
-    return E_new
+        A = spd_solve(G, S_all.expand(len(W), N, p))[:, member_rows(N, mesh)]
+        dE = (D * W[:, None, :]) @ reduce_members(A.mT @ Xd, mesh)
+    E_new = E.clone()
+    E_new[:, domains] = E[:, domains] + dE.permute(1, 0, 2)
+    return as_members(E_new, mesh)
 
 
 def _gn_covw(Y0, N):
@@ -138,29 +178,40 @@ def ies(prior_ens, obs_ens, obs, perturbs, decorr, xStep=1.0, iMax=4, callback=N
     the early iterations). Returns (posterior, {"E": (iMax, N, M), "Eo":
     (iMax, N, p)}), every iteration's ensemble and its observations.
     `callback`, if given, is called after each iteration with dict(iter,
-    iMax, elapsed_s, E, Eo, W)."""
+    iMax, elapsed_s, E, Eo, W).
+
+    A member-sharded prior stays so: the N x N weights W are the same on
+    every rank (each computes them from the gathered observations), the
+    prior anomalies are gathered once, and each rank forms its own rows of
+    E = x0 + W X0 and runs its members forward; E, Eo, the stats and the
+    posterior are member-sharded."""
     fwd_per_iter = (list(obs_ens) if isinstance(obs_ens, (list, tuple))
                     else [obs_ens] * iMax)
     if len(fwd_per_iter) != iMax:
         raise ValueError(f"{len(fwd_per_iter)} forward operators for {iMax} IES iterations")
-    y = obs @ decorr
-    D = perturbs @ decorr
+    mesh = member_mesh(prior_ens)
+    N = prior_ens.shape[0]
+    rows = member_rows(N, mesh)
+    y = whole(obs) @ decorr
+    D = whole(perturbs) @ decorr
     X0, x0 = center(prior_ens)
-    W = torch.eye(prior_ens.shape[0], dtype=prior_ens.dtype, device=prior_ens.device)
+    X0 = gather_members(local_members(X0, mesh), mesh)
+    W = torch.eye(N, dtype=X0.dtype, device=X0.device)
     stats = {"E": [], "Eo": []}
     t0 = time.perf_counter()
     for itr in range(iMax):
-        E = x0 + W @ X0
-        Eo = fwd_per_iter[itr](E).to(E.dtype)
+        E = x0 + W[rows] @ X0
+        Eo = local_members(fwd_per_iter[itr](as_members(E, mesh)), mesh).to(E.dtype)
         stats["E"].append(E)
         stats["Eo"].append(Eo)
-        W = _ies_inner(W, Eo @ decorr, y, D, xStep)
+        W = _ies_inner(W, gather_members(Eo, mesh) @ decorr, y, D, xStep)
         if callback is not None:
             if W.is_cuda:
                 torch.cuda.synchronize(W.device)
             callback(dict(iter=itr + 1, iMax=iMax, elapsed_s=time.perf_counter() - t0,
-                          E=E, Eo=Eo, W=W))
-    return x0 + W @ X0, {k: torch.stack(v) for k, v in stats.items()}
+                          E=as_members(E, mesh), Eo=as_members(Eo, mesh), W=W))
+    return (as_members(x0 + W[rows] @ X0, mesh),
+            {k: as_members(torch.stack(v), mesh, dim=1) for k, v in stats.items()})
 
 
 # Bytes of N x N work arrays one batch of ILES weight matrices may take
@@ -221,48 +272,55 @@ def _iles_inner(Ws, Eo_w, obs_w_innov, xStep, weights):
     return out, n_pinv
 
 
-def _recompose(x0, X0, Ws):
-    """E[:, i] = x0[i] + Ws[i] @ X0[:, i]."""
-    return x0 + torch.einsum("mab,bm->am", Ws, X0)
+def _recompose(x0, X0, Ws, rows=slice(None)):
+    """E[:, i] = x0[i] + Ws[i] @ X0[:, i], for the members `rows`."""
+    return x0 + torch.einsum("mab,bm->am", Ws[:, rows], X0)
 
 
-def _recompose_domains(x0, X0, Ws, domains):
+def _recompose_domains(x0, X0, Ws, domains, rows=slice(None)):
     """E[:, domains[d]] = x0[domains[d]] + Ws[d] @ X0[:, domains[d]], the
-    domains covering every cell once."""
-    N, M = X0.shape
+    domains covering every cell once, for the members `rows`."""
+    M = X0.shape[1]
     Xd = X0[:, domains].permute(1, 0, 2)  # (nDom, N, k)
-    Ed = x0[domains][:, None, :] + Ws @ Xd
-    E = X0.new_zeros((N, M))
-    E[:, domains.reshape(-1)] = Ed.permute(1, 0, 2).reshape(N, -1)
+    Ed = x0[domains][:, None, :] + Ws[:, rows] @ Xd
+    n = Ed.shape[1]
+    E = X0.new_zeros((n, M))
+    E[:, domains.reshape(-1)] = Ed.permute(1, 0, 2).reshape(n, -1)
     return E
 
 
 def _iles_run(prior_ens, obs_ens, obs, perturbs, decorr, weights, recompose, xStep, iMax,
               callback):
-    """The ILES iteration over one weight matrix a row of `weights`."""
+    """The ILES iteration over one weight matrix a row of `weights`. On a
+    mesh as `ies`: the weights on every rank, the prior anomalies gathered
+    once, the observations each iteration, each rank's own rows of E."""
+    mesh = member_mesh(prior_ens)
     N = prior_ens.shape[0]
+    rows = member_rows(N, mesh)
+    obs, perturbs = whole(obs), whole(perturbs)
     X0, x0 = center(prior_ens)
-    Ws = torch.eye(N, dtype=prior_ens.dtype, device=prior_ens.device).expand(
-        weights.shape[0], N, N)
+    X0 = gather_members(local_members(X0, mesh), mesh)
+    Ws = torch.eye(N, dtype=X0.dtype, device=X0.device).expand(weights.shape[0], N, N)
     stats = {"E": [], "Eo": []}
     n_pinv = []
     t0 = time.perf_counter()
     for itr in range(iMax):
-        E = recompose(x0, X0, Ws)
-        Eo = obs_ens(E).to(E.dtype)
+        E = recompose(x0, X0, Ws, rows)
+        Eo = local_members(obs_ens(as_members(E, mesh)), mesh).to(E.dtype)
         stats["E"].append(E)
         stats["Eo"].append(Eo)
-        innov = (obs - Eo - perturbs) @ decorr
-        Ws, n = _iles_inner(Ws, Eo @ decorr, innov, xStep, weights)
+        Eo_all = gather_members(Eo, mesh)
+        innov = (obs - Eo_all - perturbs) @ decorr
+        Ws, n = _iles_inner(Ws, Eo_all @ decorr, innov, xStep, weights)
         n_pinv.append(n)
         if callback is not None:
             if Ws.is_cuda:
                 torch.cuda.synchronize(Ws.device)
             callback(dict(iter=itr + 1, iMax=iMax, elapsed_s=time.perf_counter() - t0,
-                          E=E, Eo=Eo, Ws=Ws))
-    stats = {k: torch.stack(v) for k, v in stats.items()}
+                          E=as_members(E, mesh), Eo=as_members(Eo, mesh), Ws=Ws))
+    stats = {k: as_members(torch.stack(v), mesh, dim=1) for k, v in stats.items()}
     stats["pinv_domains"] = torch.tensor(n_pinv)
-    return recompose(x0, X0, Ws), stats
+    return as_members(recompose(x0, X0, Ws, rows), mesh), stats
 
 
 def iles(prior_ens, obs_ens, obs, perturbs, decorr, taper, xStep=1.0, iMax=4, callback=None):
@@ -276,7 +334,8 @@ def iles(prior_ens, obs_ens, obs, perturbs, decorr, taper, xStep=1.0, iMax=4, ca
     p), every iteration's ensemble and its observations, and
     "pinv_domains" (iMax,), the weight matrices a step took through
     `torch.linalg.pinv` (`_iles_inner`). `callback`, if given, is called
-    after each iteration with dict(iter, iMax, elapsed_s, E, Eo, Ws)."""
+    after each iteration with dict(iter, iMax, elapsed_s, E, Eo, Ws).
+    Member-sharded as `ies`."""
     return _iles_run(prior_ens, obs_ens, obs, perturbs, decorr, _taper_weights(taper),
                      _recompose, xStep, iMax, callback)
 
@@ -288,9 +347,11 @@ def iles_domains(prior_ens, obs_ens, obs, perturbs, decorr, taper_dom, domains, 
     domain) covers every cell once (`localization.domain_partition`). The
     state is (nDom, N, N): at N=1000 and 256 domains about 1 GB in float32.
     With singleton domains (domains = arange(M)[:, None], taper_dom =
-    taper) it is `iles`. Same return contract and callback as `iles`."""
-    domains = torch.as_tensor(domains, dtype=torch.int64, device=prior_ens.device)
-    recompose = lambda x0, X0, Ws: _recompose_domains(x0, X0, Ws, domains)  # noqa: E731
+    taper) it is `iles`. Same return contract, callback and sharding as
+    `iles`."""
+    domains = torch.as_tensor(domains, dtype=torch.int64, device=taper_dom.device)
+    recompose = lambda x0, X0, Ws, rows: _recompose_domains(x0, X0, Ws, domains,  # noqa: E731
+                                                            rows)
     return _iles_run(prior_ens, obs_ens, obs, perturbs, decorr,
                      _taper_weights(taper_dom).to(prior_ens.dtype), recompose, xStep, iMax,
                      callback)
@@ -324,11 +385,18 @@ def es_mda(prior_ens, forward_obs, obs, R12, alphas, generator=None, noise=None,
     resume needs (`checkpoint.save_checkpoint` them). `start_pass` skips
     the first passes without drawing: continuing from a pass-k callback's
     `E` with its generator state or key and start_pass=k matches the
-    uninterrupted run bit for bit.
+    uninterrupted run bit for bit. Without a key, a generator or `noise`
+    the draws come from `prng.PRNGKey(0)`.
+
+    A member-sharded prior stays so through every pass (the callback's
+    `E` and the posterior too): each rank draws every pass's whole (N, p)
+    block and keeps its own rows, so the draws are those of the run
+    without a mesh.
     """
+    mesh = member_mesh(prior_ens)
     E = prior_ens
     dtype = E.dtype
-    R12 = R12.to(dtype)
+    R12 = whole(R12).to(dtype)
     N, p = E.shape[0], R12.shape[0]
     dec0 = decorrelator(R12)
     fwd_per_pass = (list(forward_obs) if isinstance(forward_obs, (list, tuple))
@@ -337,22 +405,25 @@ def es_mda(prior_ens, forward_obs, obs, R12, alphas, generator=None, noise=None,
         raise ValueError(f"{len(fwd_per_pass)} forward operators for {len(alphas)} MDA passes")
     if noise is not None and len(noise) != len(alphas):
         raise ValueError(f"{len(noise)} noise draws for {len(alphas)} MDA passes")
+    if key is None and generator is None and noise is None:
+        key = prng.PRNGKey(0, device=R12.device)
     t0 = time.perf_counter()
     for i, (a, fwd) in enumerate(zip(alphas, fwd_per_pass)):
         if i < start_pass:
             continue
         a = float(a)
-        Eo = fwd(E).to(dtype)
+        Eo = fwd(E)
         if key is not None:
             key, sub = prng.split(key)
-            draw = gaussian_noise(N, p, L=R12.to(noise_dtype), key=sub)
+            draw = gaussian_noise(N, p, L=R12.to(noise_dtype), key=sub, mesh=mesh)
         elif noise is None:
-            draw = gaussian_noise(N, p, L=R12.to(noise_dtype), generator=generator)
+            draw = gaussian_noise(N, p, L=R12.to(noise_dtype), generator=generator, mesh=mesh)
         else:
             draw = noise[i]
             if not isinstance(draw, torch.Tensor):
                 draw = torch.from_numpy(np.array(draw))
-        perturbs = np.sqrt(a) * draw.to(device=E.device, dtype=dtype)
+        draw = local_members(draw, mesh).to(device=R12.device, dtype=dtype)
+        perturbs = as_members(np.sqrt(a) * draw, mesh)
         dec = dec0 / np.sqrt(a)
         if domains is not None:
             E = ens_update0_loc_domains(E, Eo, obs, perturbs, dec, taper_dom, domains)
@@ -361,8 +432,8 @@ def es_mda(prior_ens, forward_obs, obs, R12, alphas, generator=None, noise=None,
         else:
             E = ens_update0(E, Eo, obs, perturbs, dec)
         if callback is not None:
-            if E.is_cuda:
-                torch.cuda.synchronize(E.device)
+            if R12.is_cuda:
+                torch.cuda.synchronize(R12.device)
             drawn = key is None and noise is None and generator is not None
             callback(dict(pass_=i + 1, n_passes=len(fwd_per_pass), alpha=a,
                           elapsed_s=time.perf_counter() - t0, E=E, key=key,

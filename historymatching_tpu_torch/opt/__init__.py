@@ -6,6 +6,7 @@ from historymatching_tpu_torch.opt.enopt import (  # noqa: F401
     GD,
     gd_scan,
     gd_scan_multi,
+    robust_mean,
 )
 from historymatching_tpu_torch.opt.npv import (  # noqa: F401
     NPVConfig,

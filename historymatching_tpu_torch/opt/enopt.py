@@ -7,10 +7,17 @@ With the NPV objective one call is one `simulate` of B members, so every
 function here puts all the members it can into one call: an ensemble
 gradient's perturbations (both halves of StoSAG together), a line search's
 trial steps, and in `gd_scan_multi` every start's perturbations, then
-every start's trials. Random draws come from a `torch.Generator` or are
-given as the standard-normal `Z`; controls given as tensors keep their
-device, others go to `device` (the card unless the caller names another).
-The optimisation loops run on the host.
+every start's trials. Random draws come from a `prng` key, split as the
+JAX package splits its key and drawn as it draws (float32 normals, cast
+to the controls' dtype), `prng.PRNGKey(0)` when no source is named; or
+from a `torch.Generator`; or are given as the standard-normal `Z`.
+Controls given as tensors keep their device, others go to `device` (the
+card unless the caller names another). The optimisation loops run on the
+host.
+
+The robust strategies take a member-sharded uncertainty ensemble `X`
+(`parallel.mesh`): each rank evaluates the conditional objective on its
+own members, and `robust_mean` is the robust objective over them.
 """
 
 from __future__ import annotations
@@ -23,7 +30,15 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from historymatching_tpu_torch import prng
 from historymatching_tpu_torch.ops.linalg import rinv_tikh
+from historymatching_tpu_torch.parallel.mesh import (
+    gather_members,
+    local_members,
+    member_mean,
+    member_mesh,
+    reduce_members,
+)
 from historymatching_tpu_torch.utils import as_float, center
 
 XSTEPS = tuple(0.5 ** (i + 1) for i in range(8))
@@ -42,10 +57,25 @@ def _perturbations(Z, chol):
     return center(dU, dim=-2)[0]
 
 
-def _draws(shape, u, generator, Z):
-    if Z is None:
-        return torch.randn(shape, generator=generator, dtype=u.dtype, device=u.device)
-    return torch.as_tensor(Z, dtype=u.dtype, device=u.device)
+def _source(key, generator, Z, device):
+    """The draws' source: `key` (a `prng` key, or a `torch.Generator` in
+    the key's place), else `generator`, else `prng.PRNGKey(0)` on
+    `device` unless the draws `Z` are given."""
+    if isinstance(key, torch.Generator):
+        key, generator = None, key
+    if key is None and generator is None and Z is None:
+        key = prng.PRNGKey(0, device=device)
+    return key, generator
+
+
+def _draws(shape, u, rng, Z):
+    """Standard normals `shape` in u's dtype and device: `Z`, or drawn
+    from a `prng` key or a `torch.Generator`."""
+    if Z is not None:
+        return torch.as_tensor(Z, dtype=u.dtype, device=u.device)
+    if prng.is_key(rng):
+        return prng.normal(rng, shape).to(dtype=u.dtype, device=u.device)
+    return torch.randn(shape, generator=rng, dtype=u.dtype, device=u.device)
 
 
 def _gradient(dU, dJ, precond):
@@ -68,33 +98,60 @@ class EnGrad:
     precond: bool = False
     robustly: Optional[str] = None  # None | "naive" | "Paired" | "StoSAG" | "Mean-model" | "Fragile"
     obj_ux: Optional[Callable] = None  # conditional objective obj_ux(U, X)
-    X: Any = None  # uncertainty ensemble (nX, dx)
+    X: Any = None  # uncertainty ensemble (nX, dx), may be member-sharded
 
-    def __call__(self, obj, u, generator=None, Z=None):
-        """Gradient of `obj` at `u` (M,); `Z` (nEns, M) replaces the draws."""
+    def __call__(self, obj, u, key=None, generator=None, Z=None):
+        """Gradient of `obj` at `u` (M,), the perturbations drawn from a
+        `prng` `key` as the JAX package draws them (`prng.PRNGKey(0)`
+        unless a source is given), or from `generator`; `Z` (nEns, M)
+        replaces the draws. On a mesh every rank draws the same."""
+        key, generator = _source(key, generator, Z, u.device)
         chol = torch.as_tensor(self.chol, dtype=u.dtype, device=u.device)
-        dU = _perturbations(_draws((self.nEns, u.shape[0]), u, generator, Z), chol)
+        Zs = _draws((self.nEns, u.shape[0]), u, key if key is not None else generator, Z)
+        dU = _perturbations(Zs, chol)
         return _gradient(dU, self.ens_eval(obj, u, u + dU), self.precond)
 
     def ens_eval(self, obj, u, U):
         """Objective values of the perturbed controls `U` (nEns, d) under
         the robust strategy. Paired and StoSAG pair U's rows with X's, so
         they need len(X) == nEns; StoSAG subtracts obj_ux(u, X), its two
-        halves evaluated as one batch."""
+        halves evaluated as one batch. With a member-sharded X each rank
+        evaluates its own rows of U with its members, and the values are
+        gathered; Mean-model's mean of X is all-reduced."""
         if self.robustly in (None, "naive"):
             return obj(U)
         X = self.X
+        mesh = member_mesh(X)
         if self.robustly in ("Paired", "StoSAG") and len(X) != len(U):
             raise ValueError(f"{self.robustly} pairs members: len(X) = {len(X)} != nEns = "
                              f"{len(U)}")
-        if self.robustly == "Paired":
-            return self.obj_ux(U, X)
-        if self.robustly == "StoSAG":
-            J = self.obj_ux(torch.cat([U, u.expand_as(U)]), torch.cat([X, X]))
-            return J[: len(U)] - J[len(U):]
+        if self.robustly in ("Paired", "StoSAG"):
+            Xl, Ul = local_members(X, mesh), local_members(U, mesh)
+            if self.robustly == "Paired":
+                return gather_members(self.obj_ux(Ul, Xl), mesh)
+            J = self.obj_ux(torch.cat([Ul, u.expand_as(Ul)]), torch.cat([Xl, Xl]))
+            return gather_members(J[: len(Ul)] - J[len(Ul):], mesh)
         if self.robustly in ("Mean-model", "Fragile"):
-            return self.obj_ux(U, X.mean(0).expand(len(U), -1))
+            x_mean = member_mean(local_members(X, mesh), mesh)
+            return self.obj_ux(U, x_mean.expand(len(U), -1))
         raise ValueError(f"Unknown robust strategy {self.robustly!r}")
+
+
+def robust_mean(obj_ux, X):
+    """The robust objective over the uncertainty ensemble `X` (nX, dx):
+    U (B, d) -> (B,), the mean over X's members x of obj_ux(u, x) (the
+    JAX package's `vmap(obj_ux, in_axes=(None, 0))(u, X).mean()`), every
+    pair in one obj_ux call of B * nX rows. With a member-sharded X each
+    rank evaluates its own members and the sums are all-reduced."""
+    mesh = member_mesh(X)
+    Xl = local_members(X, mesh)
+
+    def obj(U):
+        n = len(U)
+        J = obj_ux(U.repeat_interleave(len(Xl), 0), Xl.repeat(n, 1)).reshape(n, len(Xl))
+        return reduce_members(J.sum(1), mesh) / len(X)
+
+    return obj
 
 
 @dataclasses.dataclass
@@ -128,28 +185,39 @@ class Backtracker:
         return U1[i], float(J1[i]), dict(nDeclined=i)
 
 
-def GD(objective, u, nabla=None, line_search=None, nrmlz=True, nIter=100, generator=None,
-       Z=None, callback=None, device="cuda"):
+def GD(objective, u, nabla=None, line_search=None, nrmlz=True, nIter=100, key=None, quiet=True,
+       callback=None, generator=None, Z=None, device="cuda"):
     """Gradient ascent or descent: per iteration one gradient batch
-    (`nabla`), then one line-search batch. `Z` (nIter, nEns, M) replaces
-    the draws of each iteration. Returns (path (n+1, d), objs (n+1,), info)
-    with info's `cause`, `nIter` and `nEvals` (objective evaluations: the
-    start, then nEns a gradient, twice that for StoSAG, and the trials of
-    each line search that ran). `callback` gets dict(iter, nIter, J, u,
-    elapsed_s, accepted) after each line search.
+    (`nabla`), then one line-search batch. The gradient's draws come from
+    `key`, split once an iteration as the JAX package splits it
+    (`prng.PRNGKey(0)` unless a source is given), or from `generator` (also
+    taken in the key's place); `Z` (nIter, nEns, M) replaces the draws of
+    each iteration. `quiet` is the JAX package's: there is no progress bar
+    either way. Returns (path (n+1, d), objs (n+1,), info) with info's
+    `cause`, `nIter` and `nEvals` (objective evaluations: the start, then
+    nEns a gradient, twice that for StoSAG, and the trials of each line
+    search that ran). `callback` gets dict(iter, nIter, J, u, elapsed_s,
+    accepted) after each line search.
 
     A zero gradient stops the run as converged; a non-finite one stops it
     with a cause of its own."""
     nabla = nabla if nabla is not None else EnGrad()
     line_search = line_search if line_search is not None else Backtracker()
     u = _control(u, device)
+    key, generator = _source(key, generator, Z, u.device)
     states = [[u, float(objective(u[None])[0]), {}]]
     info = {}
     itr = n_grad = n_search = 0
     t0 = time.perf_counter()
     for itr in range(nIter):
         u_cur, J, info = states[-1]
-        grad = nabla(objective, u_cur, generator=generator, Z=None if Z is None else Z[itr])
+        if Z is not None:
+            grad = nabla(objective, u_cur, Z=Z[itr])
+        elif key is not None:
+            key, sub = prng.split(key)
+            grad = nabla(objective, u_cur, sub)
+        else:
+            grad = nabla(objective, u_cur, generator=generator)
         n_grad += 1
         info["grad"] = grad
         if nrmlz:
@@ -183,33 +251,32 @@ def GD(objective, u, nabla=None, line_search=None, nrmlz=True, nIter=100, genera
     return path, objs, info
 
 
-def gd_scan_multi(objective, U0, *, chol=1.0, nEns=10, precond=False, nrmlz=True, nIter=100,
-                  sign=+1, xSteps=None, rtol=1e-8, generator=None, Z=None, device="cuda"):
-    """Multistart GD, every start advancing together: per iteration one
-    objective call for every start's nEns perturbations, one for every
-    start's trial steps. `U0` is (nStart, M); `Z` (nStart, nIter, nEns, M)
-    replaces the draws. A direction of zero norm (or a non-finite one) is
-    zero, so no trial is accepted.
-
-    A start with no acceptable trial is done and frozen; done starts leave
-    the batch, and the loop ends once every start is done. Returns (paths
-    (nStart, nIter+1, M), objs (nStart, nIter+1), info): rows past a
-    start's `nIter` repeat its final state, as the full trip count would
-    give; info's `nIter` and `nEvals` are per start."""
-    xSteps = XSTEPS if xSteps is None else tuple(xSteps)
-    U0 = _control(U0, device)
-    U0 = U0.reshape(1, -1) if U0.ndim < 2 else U0
+def _gd_starts(objective, U0, keys, *, chol, nEns, precond, nrmlz, nIter, sign, xSteps, rtol,
+               generator, Z):
+    """Multistart GD from the starts `U0` (nStart, M), start s drawing
+    from the chain of `keys[s]` (split once an iteration), or every start
+    from `generator`, or `Z` (nStart, nIter, nEns, M) given."""
     nS, M = U0.shape
     dt, dev = U0.dtype, U0.device
     chol = torch.as_tensor(chol, dtype=dt, device=dev)
     steps = torch.as_tensor(xSteps, dtype=dt, device=dev)
     search = Backtracker(sign=sign, xSteps=xSteps, rtol=rtol)
     Z = None if Z is None else torch.as_tensor(Z, dtype=dt, device=dev)
+    keys = None if keys is None else list(keys)
     u, J = U0, objective(U0)
     done = torch.zeros(nS, dtype=torch.bool, device=dev)
     paths, objs, dones = [u], [J], []
     for it in range(nIter):
-        Zi = _draws((nS, nEns, M), U0, generator, None if Z is None else Z[:, it])
+        if Z is not None:
+            Zi = Z[:, it]
+        elif keys is not None:
+            subs = []
+            for s in range(nS):
+                keys[s], sub = prng.split(keys[s])
+                subs.append(_draws((nEns, M), U0, sub, None))
+            Zi = torch.stack(subs)
+        else:
+            Zi = _draws((nS, nEns, M), U0, generator, None)
         act = torch.nonzero(~done)[:, 0]
         if act.numel() == 0:
             break
@@ -240,16 +307,46 @@ def gd_scan_multi(objective, U0, *, chol=1.0, nEns=10, precond=False, nrmlz=True
     return torch.stack(paths, 1), torch.stack(objs, 1), info
 
 
+def gd_scan_multi(objective, U0, *, chol=1.0, nEns=10, precond=False, nrmlz=True, nIter=100,
+                  sign=+1, xSteps=None, rtol=1e-8, key=None, generator=None, Z=None,
+                  device="cuda"):
+    """Multistart GD, every start advancing together: per iteration one
+    objective call for every start's nEns perturbations, one for every
+    start's trial steps. `U0` is (nStart, M). The draws: each start its own
+    key, `split(key, nStart)` as the JAX package splits it, then split once
+    an iteration (`key` defaults to `prng.PRNGKey(0)`); or from `generator`;
+    or `Z` (nStart, nIter, nEns, M) given. A direction of zero norm (or a
+    non-finite one) is zero, so no trial is accepted.
+
+    A start with no acceptable trial is done and frozen; done starts leave
+    the batch, and the loop ends once every start is done. Returns (paths
+    (nStart, nIter+1, M), objs (nStart, nIter+1), info): rows past a
+    start's `nIter` repeat its final state, as the full trip count would
+    give; info's `nIter` and `nEvals` are per start."""
+    U0 = _control(U0, device)
+    U0 = U0.reshape(1, -1) if U0.ndim < 2 else U0
+    key, generator = _source(key, generator, Z, U0.device)
+    keys = None if key is None else prng.split(key, U0.shape[0])
+    return _gd_starts(objective, U0, keys, chol=chol, nEns=nEns, precond=precond, nrmlz=nrmlz,
+                      nIter=nIter, sign=sign, xSteps=XSTEPS if xSteps is None else tuple(xSteps),
+                      rtol=rtol, generator=generator, Z=Z)
+
+
 def gd_scan(objective, u, *, chol=1.0, nEns=10, precond=False, nrmlz=True, nIter=100, sign=+1,
-            xSteps=None, rtol=1e-8, generator=None, Z=None, device="cuda"):
+            xSteps=None, rtol=1e-8, key=None, generator=None, Z=None, device="cuda"):
     """`gd_scan_multi` of one start: the iteration of `GD` with `EnGrad`
-    and `Backtracker` with the zero-direction guard. `Z` is (nIter, nEns,
-    M). Returns (path, objs, info) trimmed to the start and its accepted
-    steps, with info's `cause`, `nIter` and `nEvals`."""
-    paths, objs, info = gd_scan_multi(
-        objective, _control(u, device)[None], chol=chol, nEns=nEns, precond=precond,
-        nrmlz=nrmlz, nIter=nIter, sign=sign, xSteps=xSteps, rtol=rtol, generator=generator,
-        Z=None if Z is None else torch.as_tensor(Z)[None], device=device)
+    and `Backtracker` with the zero-direction guard, drawing from `key`
+    itself, split once an iteration (`prng.PRNGKey(0)` unless a source is
+    given), from `generator`, or `Z` (nIter, nEns, M) given. Returns
+    (path, objs, info) trimmed to the start and its accepted steps, with
+    info's `cause`, `nIter` and `nEvals`."""
+    u = _control(u, device)
+    key, generator = _source(key, generator, Z, u.device)
+    paths, objs, info = _gd_starts(
+        objective, u[None], None if key is None else [key], chol=chol, nEns=nEns,
+        precond=precond, nrmlz=nrmlz, nIter=nIter, sign=sign,
+        xSteps=XSTEPS if xSteps is None else tuple(xSteps), rtol=rtol, generator=generator,
+        Z=None if Z is None else torch.as_tensor(Z)[None])
     n = int(info["nIter"][0])
     return (paths[0, : n + 1], objs[0, : n + 1],
             dict(cause=info["cause"][0], nIter=n, nEvals=int(info["nEvals"][0])))

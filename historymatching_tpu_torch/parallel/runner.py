@@ -5,8 +5,9 @@ The member axis is the leading tensor axis all the way down: one
 `simulate` call advances every member, and each kernel launch covers the
 whole ensemble (one thread block per member). With a `mesh`
 (`parallel.mesh.ens_mesh`), each rank runs its block of members on its own
-device with no communication, as JAX's `shard_map` does, and the results
-are all-gathered in member order.
+device with no communication, as JAX's `shard_map` does. Members that came
+in member-sharded go out member-sharded, as the JAX package keeps them;
+members every rank holds whole come back all-gathered in member order.
 """
 
 from __future__ import annotations
@@ -14,7 +15,14 @@ from __future__ import annotations
 import torch
 
 from historymatching_tpu_torch.models.ressim import ResSim, SimResult, simulate
-from historymatching_tpu_torch.parallel.mesh import gather_members, local_members, whole
+from historymatching_tpu_torch.parallel.mesh import (
+    as_members,
+    gather_members,
+    local_members,
+    member_map,
+    member_mesh,
+    whole,
+)
 
 
 def perm_transf(x):
@@ -60,10 +68,13 @@ def forward_model(model, perm_ens, wsat0=None, dt=0.025, nTime=40, *, transf=per
     and `p_init` where they carry a member axis, are member-sharded
     DTensors (`shard_ens`) or tensors every rank holds whole; a shared
     `wsat0` is replicated. Each rank runs its members as above, with no
-    communication; the outputs (and the `SimResult`'s member fields) are
-    all-gathered in member order, so every rank gets the whole ensemble's
-    results as plain tensors, equal to the run without a mesh.
+    communication. A member-sharded `perm_ens` gives member-sharded
+    outputs (and `SimResult` member fields): each rank keeps its members'
+    results. A `perm_ens` every rank holds whole gives outputs all-gathered
+    in member order, plain tensors equal to the run without a mesh. A
+    member-sharded `perm_ens` without `mesh` runs on its own mesh.
     """
+    mesh = mesh if mesh is not None else member_mesh(perm_ens)
     if mesh is not None:
         return _forward_sharded(model, perm_ens, wsat0, dt, nTime, mesh, transf=transf,
                                 keep_wsats=keep_wsats, p_init=p_init,
@@ -95,8 +106,9 @@ def forward_model(model, perm_ens, wsat0=None, dt=0.025, nTime=40, *, transf=per
 
 
 def _forward_sharded(model, perm_ens, wsat0, dt, nTime, mesh, p_init=None, **kw):
-    """`forward_model` on `mesh`: this rank's members, then every rank's
-    outputs gathered."""
+    """`forward_model` on `mesh`: this rank's members, then the outputs
+    member-sharded if the members came in so, else gathered."""
+    keep = member_mesh(perm_ens) is not None
     perm_ens = perm_ens.reshape(1, -1) if perm_ens.ndim == 1 else perm_ens
     N, n = perm_ens.shape[0], mesh.size()
     if N % n:
@@ -108,13 +120,16 @@ def _forward_sharded(model, perm_ens, wsat0, dt, nTime, mesh, p_init=None, **kw)
         p_init = local_members(p_init, mesh)
     out = forward_model(model, perm, wsat0, dt, nTime, p_init=p_init, **kw)
 
-    def gather(x):
-        if isinstance(x, SimResult):
-            return x._replace(**{k: gather_members(getattr(x, k), mesh) for k in _MEMBER_FIELDS
-                                 if isinstance(getattr(x, k), torch.Tensor)})
-        return gather_members(x, mesh)
+    members = (lambda t: as_members(t, mesh)) if keep else (  # noqa: E731
+        lambda t: gather_members(t, mesh))
 
-    return tuple(gather(x) for x in out)
+    def join(x):
+        if isinstance(x, SimResult):
+            return x._replace(**{k: members(getattr(x, k)) for k in _MEMBER_FIELDS
+                                 if isinstance(getattr(x, k), torch.Tensor)})
+        return members(x)
+
+    return tuple(join(x) for x in out)
 
 
 def _merge(parts, inv):
@@ -142,12 +157,13 @@ def ensemble_simulate(model, perm_ens, wsat0=None, dt=0.025, nTime=40, **kw):
 def obs_ens_fn(model, dt, nTime, wsat0=None, mesh=None, nTime_axis_flat=True, **sim_kwargs):
     """The `obs_ens` callable for ES-MDA: ensemble -> production series,
     flattened to (N, nTime * nPrd), or (N, nTime, nPrd) without
-    `nTime_axis_flat`; with `mesh`, the members split over its ranks
-    (`forward_model`)."""
+    `nTime_axis_flat`; with `mesh`, or a member-sharded ensemble, the
+    members split over its ranks (`forward_model`)."""
 
     def fn(E):
         _, prods = forward_model(model, E, wsat0, dt, nTime, mesh=mesh, keep_wsats=False,
                                  **sim_kwargs)
-        return prods.reshape(prods.shape[0], -1) if nTime_axis_flat else prods
+        return member_map(lambda p: p.reshape(p.shape[0], -1), prods) if nTime_axis_flat \
+            else prods
 
     return fn

@@ -70,6 +70,11 @@ def PRNGKey(seed, device="cuda"):
     return torch.tensor([seed >> 32, seed & _MASK], dtype=torch.int64, device=device)
 
 
+def is_key(x):
+    """Whether `x` is a key of this module: an int64 tensor of shape (2,)."""
+    return isinstance(x, torch.Tensor) and x.dtype == torch.int64 and tuple(x.shape) == (2,)
+
+
 def _hash_counts(key, n):
     """The hash of the counters 0..n-1, as the 64-bit iota JAX splits
     into (hi, lo) words."""

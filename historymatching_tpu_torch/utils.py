@@ -1,14 +1,25 @@
 """Ensemble linear-algebra utilities (PyTorch counterpart of
-`historymatching_tpu.utils`). Rows are members; random draws come from an
-explicit `torch.Generator`, from a `prng` key (the JAX package's draws),
-or are handed in."""
+`historymatching_tpu.utils`). Rows are members; random draws come from a
+`prng` key (the JAX package's draws, `prng.PRNGKey(0)` unless another
+source is named), from an explicit `torch.Generator`, or are handed in.
+`center`, `cov` and `gaussian_noise` take member-sharded ensembles
+(`parallel.mesh`): their sums over members are all-reduced."""
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
 from historymatching_tpu_torch import prng
+from historymatching_tpu_torch.parallel.mesh import (
+    as_members,
+    local_members,
+    member_mesh,
+    member_rows,
+    reduce_members,
+)
 
 
 def as_float(x, dtype=None, device=None):
@@ -23,17 +34,32 @@ def atleast_2d(t):
     return t.reshape(1, -1) if t.ndim < 2 else t
 
 
-def center(E, dim=0):
-    """Subtract the ensemble mean; return (anomalies, mean)."""
-    x = E.mean(dim=dim, keepdim=True)
-    return E - x, x.squeeze(dim)
+def center(E, axis=0, rescale=False, dim=None):
+    """Subtract the ensemble mean along `axis` (`dim` is its alias); return
+    (anomalies, mean). With `rescale` the anomalies are multiplied by
+    sqrt(N/(N-1)), making up the variance lost to centering. The mean is
+    the sum over N; a member-sharded `E` takes the ranks' partial sums,
+    all-reduced, and gives member-sharded anomalies and the mean on every
+    rank."""
+    axis = (axis if dim is None else dim) % E.ndim
+    mesh = member_mesh(E)
+    local = E if mesh is None else E.to_local()
+    n = E.shape[axis]
+    part = local.sum(axis, keepdim=True)
+    x = (reduce_members(part, mesh) if axis == 0 else part) / n
+    X = local - x
+    if rescale:
+        X = X * math.sqrt(n / (n - 1))
+    x = x.squeeze(axis)
+    return as_members(X, mesh), x if axis == 0 else as_members(x, mesh)
 
 
 def cov(a, b):
-    """Cross-covariance of two samples sharing the leading (ensemble) axis."""
-    A, _ = center(a)
-    B, _ = center(b)
-    return A.T @ B / (B.shape[0] - 1)
+    """Cross-covariance of two samples sharing the leading (ensemble) axis;
+    with either member-sharded, each rank's partial product all-reduced."""
+    mesh = member_mesh(a) or member_mesh(b)
+    A, B = (local_members(center(x)[0], mesh) for x in (a, b))
+    return reduce_members(A.T @ B, mesh) / (b.shape[0] - 1)
 
 
 def corr(a, b):
@@ -46,22 +72,34 @@ def corr(a, b):
     return torch.clamp(C / (sa[:, None] if C.ndim == 2 else sa) / sb, -999, 999)
 
 
-def gaussian_noise(N, M, L=1.0, generator=None, Z=None, dtype=None, device="cuda", key=None):
+def gaussian_noise(N, M, L=1.0, generator=None, Z=None, dtype=None, device="cuda", key=None,
+                   mesh=None):
     """A 0-mean Gaussian ensemble (N, M): `Z @ L.T` for a Cholesky factor
     `L` (M, M), or `Z * L` for a scalar std-dev. The standard normals `Z`
     are given, or drawn from a `prng` `key` as the JAX package draws them
-    (float32), or from `generator` on `device`. A matrix factor sets the
-    dtype and device."""
+    (float32), or from `generator` on `device`; with none of these, from
+    `prng.PRNGKey(0)`. A matrix factor sets the dtype and device.
+
+    With a `mesh` (or a member-sharded `Z`) the result is member-sharded:
+    every rank draws the whole (N, M) block and keeps its own rows, so
+    the draws are those of the run without a mesh."""
     if isinstance(L, torch.Tensor) and L.ndim == 2:
         dtype, device = L.dtype, L.device
     dtype = dtype or torch.get_default_dtype()
-    if Z is None and key is not None:
-        Z = prng.normal(key, (N, M)).to(dtype=dtype, device=device)
+    mesh = mesh or member_mesh(Z)
     if Z is None:
-        Z = torch.randn((N, M), generator=generator, dtype=dtype, device=device)
+        if key is None and generator is None:
+            key = prng.PRNGKey(0, device=device)
+        if key is not None:
+            Z = prng.normal(key, (N, M)).to(dtype=dtype, device=device)
+        else:
+            Z = torch.randn((N, M), generator=generator, dtype=dtype, device=device)
+        Z = Z[member_rows(N, mesh)]
+    else:
+        Z = local_members(Z, mesh)
     if isinstance(L, torch.Tensor) and L.ndim == 2:
-        return Z @ L.T
-    return Z * L
+        return as_members(Z @ L.T, mesh)
+    return as_members(Z * L, mesh)
 
 
 def rinv(A, reg, tikh=True, nMax=None):

@@ -5,7 +5,8 @@ blocks the optional extras: every module of the package is imported, the
 port's JAX-keyed draws are made, and the simulator (with the straggler recook
 engaged, and with the Chebyshev smoother), the localized ES-MDA, IES,
 ILES-domains, EnOpt on the bench case's fixture, an ES-MDA resumed through
-a checkpoint and a profiler trace run. chip_smoke.py imports nothing of
+a checkpoint, a profiler trace, the member-sharded ES-MDA and IES on a
+gloo world of one and EnGrad with a key run. chip_smoke.py imports nothing of
 JAX in any phase, nor does bench_gpu.py, which refuses to run without a
 card."""
 
@@ -117,6 +118,31 @@ from historymatching_tpu_torch import prng, parity
 assert prng.split(prng.PRNGKey(0, device="cpu")).tolist() == [[1797259609, 2579123966], [928981903, 3453687069]]
 case = parity.build_case(1, 4, 8, 8, nTime=3, device="cpu")
 assert case["prior"].shape == (4, 64) and case["prior"].dtype == torch.float32
+# Member-sharded analyses on a gloo world of one (ens_mesh makes it): the
+# ensemble stays a DTensor, and the run does the unsharded run's operations
+# in the same order, so the posteriors are equal; EnGrad draws from a key.
+import torch.distributed as dist
+from historymatching_tpu_torch.parallel.mesh import ens_mesh, member_map, shard_ens
+mesh = ens_mesh(devices="cpu")
+try:
+    fwd_s = lambda E: member_map(lambda x: x @ G, E)
+    a2 = ht.mda_alphas(2, dtype=torch.float64, device="cpu")
+    k = prng.PRNGKey(2, device="cpu")
+    post_s = ht.es_mda(shard_ens(E0, mesh), fwd_s, obs, R12, a2, key=k, domains=dom,
+                       taper_dom=tap)
+    assert post_s.to_local().shape == E0.shape
+    assert torch.equal(post_s.full_tensor(), ht.es_mda(E0, fwd, obs, R12, a2, key=k, domains=dom,
+                                                       taper_dom=tap))
+    pert = 0.1 * torch.randn(10, 6, generator=g, dtype=torch.float64)
+    dec = torch.eye(6, dtype=torch.float64) * 10
+    ies_s, st_s = ht.ies(shard_ens(E0, mesh), fwd_s, obs, shard_ens(pert, mesh), dec, iMax=2)
+    assert torch.equal(ies_s.full_tensor(), ht.ies(E0, fwd, obs, pert, dec, iMax=2)[0])
+    gk = ht.EnGrad(chol=0.1, nEns=4)(lambda U: -(U * U).sum(-1),
+                                     torch.tensor([0.3, 0.2], dtype=torch.float64), k)
+    assert torch.equal(gk, ht.EnGrad(chol=0.1, nEns=4)(lambda U: -(U * U).sum(-1),
+                       torch.tensor([0.3, 0.2], dtype=torch.float64), key=k))
+finally:
+    dist.destroy_process_group()
 print('port-import-ok')
 """
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
