@@ -4,17 +4,23 @@
     python3 bench_routes.py [--out FILE]
 
 The evidence behind `ops/pressure.route` and `ops/transport.route` past one
-block: P-cl (a thread-block cluster a member) against P-gm (device memory),
-K-cl against K's runtime-grid variant, on `chip_smoke.py` [23]'s grids and
-its kind of inputs (the flagship geometry, a prior drawn for each grid from
+block: P-cl (a thread-block cluster a member, on the grid's `cl_plan`)
+against P-gm (device memory), and where that plan distributes the coarsest
+inverse over the ranks (P-cl/d: 100x100, 60x220) also against the plan
+that reads it in place from device memory on two ranks ("cl_device"); K-cl
+against K's runtime-grid variant; on `chip_smoke.py` [23]'s grids and its
+kind of inputs (the flagship geometry, a prior drawn for each grid from
 seed 1 + 23, the unscaled system on fields of mild contrast), at [23]'s
 N=64 and at the bench case's N=1000.
 P runs one launch at the bench settings (tol 2e-4, maxiter 768, patience
-256) and K the substeps of the first step. Each line gives both routes'
-milliseconds a launch (CUDA events, the mean of `--reps` after a warm-up)
-and P's iteration median and maximum, since a launch lasts as long as its
-slowest member. The card's name and power limit come first; `--out`
-writes the rows as JSON. Raises without CUDA.
+256) and K the substeps of the first step. Each line gives each variant's
+milliseconds a launch (CUDA events, the mean of `--reps` after a warm-up),
+P's iteration median and maximum (a launch lasts as long as its slowest
+member), P's bound (`chip_smoke.pressure_bound_ms` on that run's
+iterations) and, for a variant that reads the inverse from device memory
+every V-cycle, the floor that reading sets (its bytes an iteration of each
+member at the card's memory rate). The card's name and power limit come
+first; `--out` writes the rows as JSON. Raises without CUDA.
 """
 
 import argparse
@@ -27,14 +33,68 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import chip_smoke as cs  # noqa: E402
 
-# (grid, scaled system) of P, Jacobi; grids of K. The unscaled system at
-# 60x220 has no cluster and is left out.
+# (grid, scaled system) of P, Jacobi; grids of K.
 P_CASES = [((60, 60), True), ((88, 88), True), ((96, 96), True), ((100, 100), True),
            ((128, 128), True), ((60, 220), True),
-           ((60, 60), False), ((88, 88), False), ((96, 96), False), ((128, 128), False),
-           ((192, 192), False)]
+           ((60, 60), False), ((88, 88), False), ((96, 96), False), ((100, 100), False),
+           ((128, 128), False), ((60, 220), False), ((192, 192), False)]
 K_GRIDS = [(80, 80), (88, 88), (96, 96), (100, 100), (128, 128)]
 MEMBERS = (64, 1000)
+# P's cases whose route takes the batch (`ops/pressure.DIST_BATCH_MAX`),
+# timed at these batches too, between the two of MEMBERS.
+LADDER = {((100, 100), True): (128, 160, 192, 256)}
+
+
+def p_row(Nx, Ny, unit, n_members, reps, variants=None):
+    """One row of P at a grid, system and batch: each variant (by default
+    `p_variants`) timed."""
+    import torch
+
+    import historymatching_tpu_torch as ht
+    from historymatching_tpu_torch.models.ressim import _source_field
+    from historymatching_tpu_torch.ops import _build, pressure
+    from historymatching_tpu_torch.ops.pressure import pressure_solve_cuda
+    from historymatching_tpu_torch.parallel.runner import set_perm
+
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 23)
+    m = cs.grid_model(torch, Nx, Ny)
+    pre = ht.sample_prior_perm(gen, m, n_members, r=0.8)
+    qf = _source_field(m, m.inj_rates[:, 0], m.prd_rates[:, 0])
+    args = cs.p_system(set_perm(m, pre if unit else cs.MILD * pre), qf, unit)
+    solve = {k: cs.BASE[k] for k in cs.SOLVE_KEYS}
+    plan = pressure.cl_plan(Nx, Ny, unit)
+    row = dict(kernel="P", grid=f"{Nx}x{Ny}", N=n_members, unit_diag=unit,
+               route=pressure.route(Nx, Ny, unit, n_members), plan=plan,
+               clusters=_build.kernel_info(pressure.kernel_name("jacobi", unit, "cl"),
+                                           Nx, Ny)["max_active_clusters"])
+    for tag, kw in (variants or p_variants(Nx, Ny, unit)).items():
+        _, it, _ = pressure_solve_cuda(*args, **solve, unit_diag=unit, **kw)
+        row[f"{tag}_ms"] = cs.cuda_ms(lambda: pressure_solve_cuda(
+            *args, **solve, unit_diag=unit, **kw), reps)
+        row[f"{tag}_iters"] = (int(it.median()), int(it.max()))
+        row[f"{tag}_bound_ms"] = cs.pressure_bound_ms(
+            args[0], args[1], it,
+            fine_flops=cs.P_FLOPS_FINE + (0 if unit else cs.P_FLOPS_DIAG))[0]
+        if "force" in kw or kw["plan"][1] == "device":  # the inverse read every V-cycle
+            row[f"{tag}_inverse_floor_ms"] = (1e3 * 4 * args[1][0].numel()
+                                              * float(it.double().sum()) / cs.HBM_BYTES)
+    return row
+
+
+def p_variants(Nx, Ny, unit):
+    """P's variants at a grid: P-cl on the grid's plan ("cl") and P-gm
+    ("gm"); where the plan distributes the inverse, also the in-place plan
+    ("cl_device") and the distributed plan on 16 ranks ("cl_16")."""
+    from historymatching_tpu_torch.ops import pressure
+
+    plan = pressure.cl_plan(Nx, Ny, unit)
+    variants = {"cl": dict(plan=plan), "gm": dict(force="gm")}
+    if plan[1] == "distributed":
+        if pressure.cl_plan(Nx, Ny, unit, "device"):
+            variants["cl_device"] = dict(plan=pressure.cl_plan(Nx, Ny, unit, "device"))
+        if plan[0] < 16:
+            variants["cl_16"] = dict(plan=(16, "distributed"))
+    return variants
 
 
 def main(argv=None):
@@ -47,7 +107,6 @@ def main(argv=None):
     import historymatching_tpu_torch as ht
     from historymatching_tpu_torch.models.ressim import _source_field, cfl_substeps, pressure_step
     from historymatching_tpu_torch.ops import _build, pressure, transport
-    from historymatching_tpu_torch.ops.pressure import pressure_solve_cuda
     from historymatching_tpu_torch.ops.transport import transport_substeps_cuda
     from historymatching_tpu_torch.parallel.runner import set_perm
 
@@ -57,26 +116,19 @@ def main(argv=None):
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
     grids = sorted({g for g, _ in P_CASES} | set(K_GRIDS))
-    _build.prebuild(cl_grids=grids)
+    plans = {(*g, *kw["plan"]) for g, unit in P_CASES
+             for kw in p_variants(*g, unit).values() if "plan" in kw}
+    _build.prebuild(cl_grids=grids, cl_plans=plans)
     solve = {k: cs.BASE[k] for k in cs.SOLVE_KEYS}
     rows = []
+
+    def emit(row):
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+
     for n_members in MEMBERS:
         for (Nx, Ny), unit in P_CASES:
-            gen = torch.Generator(device=dev).manual_seed(cs.SEED + 23)
-            m = cs.grid_model(torch, Nx, Ny)
-            pre = ht.sample_prior_perm(gen, m, n_members, r=0.8)
-            qf = _source_field(m, m.inj_rates[:, 0], m.prd_rates[:, 0])
-            args = cs.p_system(set_perm(m, pre if unit else cs.MILD * pre), qf, unit)
-            row = dict(kernel="P", grid=f"{Nx}x{Ny}", N=n_members, unit_diag=unit,
-                       route=pressure.route(Nx, Ny, unit), plan=pressure.cl_plan(Nx, Ny, unit))
-            for force in ("cl", "gm"):
-                _, it, _ = pressure_solve_cuda(*args, **solve, unit_diag=unit, force=force)
-                row[f"{force}_ms"] = cs.cuda_ms(lambda: pressure_solve_cuda(
-                    *args, **solve, unit_diag=unit, force=force), opts.reps)
-                row[f"{force}_iters"] = (int(it.median()), int(it.max()))
-            rows.append(row)
-            print(json.dumps(row), flush=True)
-            del args
+            emit(p_row(Nx, Ny, unit, n_members, opts.reps))
         for Nx, Ny in K_GRIDS:
             gen = torch.Generator(device=dev).manual_seed(cs.SEED + 23)
             m = cs.grid_model(torch, Nx, Ny)
@@ -93,8 +145,11 @@ def main(argv=None):
             for force in ("cl", "rt"):
                 row[f"{force}_ms"] = cs.cuda_ms(
                     lambda: transport_substeps_cuda(*t_args, force=force), opts.reps)
-            rows.append(row)
-            print(json.dumps(row), flush=True)
+            emit(row)
+    for ((Nx, Ny), unit), batches in LADDER.items():
+        ladder = {"cl": dict(plan=pressure.cl_plan(Nx, Ny, unit)), "gm": dict(force="gm")}
+        for n_members in batches:
+            emit(p_row(Nx, Ny, unit, n_members, opts.reps, ladder))
     if opts.out:
         with open(opts.out, "w") as f:
             json.dump(rows, f, indent=1)

@@ -76,15 +76,19 @@ Phases, one printed line or more each; any failed check raises:
     each rung's record is written there;
 23. the grids whose layouts exceed one block's shared memory (60x60,
     88x88, 96x96, 100x100, 128x128, 60x220, 192x192, 256x256), N=64: P-cl
-    (a thread-block cluster a member) wherever a cluster holds the layout
-    and P-gm, on their routes or forced (P-gm's route at 100x100 and
-    60x220), in the four instantiations, each against its plain version
-    after one window and timed at bench settings; K on its route (K-cl, or the runtime-grid variant at 60x60),
-    the runtime-grid variant where its tiles fit and K-gm forced, each bit
-    for bit on a real step and timed against its bound; a few steps of
-    `simulate` through each P-cl instantiation and K-cl at 128x128, and
-    through each P-gm instantiation and K-gm at 120x440 (a 60x220 layer
-    refined 2x2, past any cluster; N=16); P-gm and K-gm forced at 64x64 on [6]'s
+    (a thread-block cluster a member; at 100x100 and 60x220 P-cl/d, the
+    coarsest inverse distributed over the ranks, beside the plan that reads
+    it in place on two ranks) on its route and P-gm forced, in the four
+    instantiations, each against its plain version after one window and
+    timed at bench settings, with its plan, bytes and inverse rows a rank,
+    resources and clusters resident; K on its route (K-cl, or the
+    runtime-grid variant at 60x60), the runtime-grid variant where its
+    tiles fit and K-gm forced, each bit for bit on a real step and timed
+    against its bound; a few steps of `simulate` through each P-cl
+    instantiation and K-cl at 128x128 and at 60x220 (P-cl/d), and through
+    each P-gm instantiation and K-gm at 120x440 (a 60x220 layer refined
+    2x2, past any cluster; N=16), where P-gm and K-gm are then timed a
+    launch each with their bounds; P-gm and K-gm forced at 64x64 on [6]'s
     inputs beside the shared-memory kernels;
 24. the reference's bench case at 128x128 (`parity.build_case(seed=1,
     N=1000, Nx=128, Ny=128)`): 40 steps and the 4-pass ES-MDA on the
@@ -93,6 +97,12 @@ Phases, one printed line or more each; any failed check raises:
     acceptance a pass, peak memory, RMSE, and 10 profiled steps; on its
     first step P-cl and K-cl against their plain versions and timed beside
     P-gm, K-rt and K-gm, all forced;
+    24b. the bench case's geometry at P-cl/d's grids, a 60x220 layer of
+    SPE10 model 2 and 100x100 (`parity.build_case(seed=1, N=1000, Nx, Ny)`):
+    5 steps of the first pass through `forward_model` and P's route (P-cl/d
+    at 60x220, P-gm at 100x100 for 1000 members), P's device time a step;
+    on the first step P-cl/d and P-gm forced, held to the plain version
+    after one window and timed side by side with their bounds;
 25. on a world of one over NCCL (`parallel.mesh`): `forward_model(mesh=)`
     on a member-sharded prior, 64x64, N=128, 5 steps, bit for bit against
     the run without a mesh; then [5]'s flagship ES-MDA (N=1000, 64x64, 40
@@ -169,9 +179,12 @@ LARGE_GRIDS = ((60, 60), (88, 88), (96, 96), (100, 100), (128, 128), (60, 220), 
                (256, 256))
 LARGE_N, BIG, MESH_N, MESH_STEPS = 64, (128, 128), 128, 5
 P_GM = tuple((smoother, unit) for unit in (True, False) for smoother in ("jacobi", "cheb"))
-# [23]'s grids whose P route is P-gm (`ops/pressure.route`): a rank would
-# take a whole SM and read the coarsest inverse from device memory.
-P_GM_ROUTE = ((100, 100), (60, 220))
+# (grid, scaled system) whose P route is P-gm past a batch, and the batch
+# (`ops/pressure.route`): P-cl/d keeps 9 members in flight there.
+P_GM_PAST = {(100, 100, True): 192}
+# [24b]: the bench case's geometry on P-cl/d's grids, a 60x220 layer of
+# SPE10 model 2 and 100x100, N=1000, 5 steps of the first pass.
+LAYER_GRIDS, LAYER_STEPS = ((60, 220), (100, 100)), 5
 # [23]'s path through the device-memory variants: a 60x220 layer refined
 # 2x2, whose P and K layouts no cluster of up to 16 blocks holds, N=16.
 GM_PATH_GRID, GM_PATH_N = (120, 440), 16
@@ -826,6 +839,7 @@ def large_grid_phases(dev, six):
     from historymatching_tpu_torch.ops.multigrid import n_levels
     from historymatching_tpu_torch.ops.pressure import (
         cl_bytes,
+        cl_inverse_rows,
         cl_plan,
         gm_bytes,
         kernel_name,
@@ -845,26 +859,34 @@ def large_grid_phases(dev, six):
         "transport_upwind_cl", "transport_upwind_gm"]
     figs = {name: {"grids": {}, "max_abs_err": 0.0} for name in names}
 
-    def p_run(tag, args, smoother, unit, force):
+    def p_run(tag, args, smoother, unit, force, plan=None):
         """One window against the plain version, then one launch at bench
-        settings timed; the route's figures."""
-        kw = dict(smoother=smoother, unit_diag=unit)
+        settings timed; the route's figures (P-cl on `plan`, else the
+        grid's)."""
+        kw = dict(smoother=smoother, unit_diag=unit, force=force, plan=plan)
         name = kernel_name(smoother, unit, force)
-        (p_k, _, _), n = launched(lambda: pressure_solve_cuda(*args, **WINDOW4, **kw,
-                                                             force=force))
+        (p_k, _, _), n = launched(lambda: pressure_solve_cuda(*args, **WINDOW4, **kw))
         assert n == {name: 1}, n
-        p_t = pressure_solve_torch(*args, **WINDOW4, **kw)[0]
+        p_t = pressure_solve_torch(*args, **WINDOW4, smoother=smoother, unit_diag=unit)[0]
         err, abs_err = rel_err(p_k, p_t), float((p_k - p_t).abs().max())
         assert torch.isfinite(p_k).all() and err <= P_TOL, (tag, name, err)
-        _, it_k, rl_k = pressure_solve_cuda(*args, **base1, **kw, force=force)
-        ms = cuda_ms(lambda: pressure_solve_cuda(*args, **base1, **kw, force=force), 5)
+        _, it_k, rl_k = pressure_solve_cuda(*args, **base1, **kw)
+        ms = cuda_ms(lambda: pressure_solve_cuda(*args, **base1, **kw), 5)
         vf = P_FLOPS_VCYCLE_CHEB if smoother == "cheb" else P_FLOPS_VCYCLE
         bnd, by = pressure_bound_ms(args[0], args[1], it_k, vf,
                                     P_FLOPS_FINE + (0 if unit else P_FLOPS_DIAG))
         fig = dict(ms=ms, bound_ms=bnd, bound_by=by, share_of_bound=bnd / ms, max_rel_err=err,
                    max_abs_err=abs_err, iters_median=int(it_k.median()),
                    accepted=int((rl_k <= 5e-2).sum()))
-        figs[name]["grids"][tag] = fig
+        if force == "cl":
+            c, place = plan or cl_plan(*args[2].shape[1:], unit)
+            rows = cl_inverse_rows(args[1].shape[-1], c)[0]
+            fig.update(cluster=c, inverse=place, rank_bytes=cl_bytes(
+                *args[2].shape[1:], len(args[0]), c, unit, place),
+                       inverse_rows=rows[1] - rows[0] if place == "distributed" else None,
+                       resources=_build.kernel_info(name, *args[2].shape[1:], (c, place)))
+        # the in-place plan beside P-cl/d is kept under its own key
+        figs[name]["grids"][tag if plan is None else f"{tag} c={plan[0]} {plan[1]}"] = fig
         figs[name]["max_abs_err"] = max(figs[name]["max_abs_err"], abs_err)
         return name, fig
 
@@ -879,26 +901,32 @@ def large_grid_phases(dev, six):
         nc = systems[True][1].shape[-1]
         said = []
         for smoother, unit in P_GM:
-            rt = pressure.route(Nx, Ny, unit)
-            assert rt == ("gm" if (Nx, Ny) in P_GM_ROUTE else "cl"), (tag, unit, rt)
-            # P-cl wherever a cluster holds the layout, on its route or forced
-            for force in ("cl", "gm") if cl_plan(Nx, Ny, unit) else ("gm",):
-                name, fig = p_run(tag, systems[unit], smoother, unit, force)
-                if force == "cl":
-                    c, inv = cl_plan(Nx, Ny, unit)
-                    fig.update(cluster=c, inverse_in_shared=inv,
-                               rank_bytes=cl_bytes(Nx, Ny, levels, c, unit, inv),
-                               resources=_build.kernel_info(name, Nx, Ny))
-                if (Nx, Ny) == BIG:  # the plain version, at [24]'s grid
+            rt = pressure.route(Nx, Ny, unit, LARGE_N)
+            limit = P_GM_PAST.get((Nx, Ny, unit))
+            assert rt == ("gm" if limit and LARGE_N > limit else "cl"), (tag, unit, rt)
+            # P-cl on the grid's plan, on its route or forced; beside P-cl/d
+            # the plan that reads the inverse in place; P-gm forced
+            plan = cl_plan(Nx, Ny, unit)
+            runs = [("cl", None)] if plan else []
+            if plan and plan[1] == "distributed" and cl_plan(Nx, Ny, unit, "device"):
+                runs.append(("cl", cl_plan(Nx, Ny, unit, "device")))
+            for force, plan_k in runs + [("gm", None)]:
+                name, fig = p_run(tag, systems[unit], smoother, unit, force, plan_k)
+                if force == "cl" and plan_k is None and ((Nx, Ny) == BIG or (
+                        (Nx, Ny) == LAYER_GRIDS[0] and (smoother, unit) != ("jacobi", True))):
+                    # the plain version, at [24]'s grid and at P-cl/d's path's
+                    # ([24b] times it for the Jacobi instantiation)
                     fig["plain_ms"] = cuda_ms(lambda: pressure_solve_torch(
                         *systems[unit], **base1, smoother=smoother, unit_diag=unit), 1)
-                said.append(f"{name} window rel {fig['max_rel_err']:.2e}, {fig['ms']:.3f} ms "
+                said.append(f"{name}{'' if plan_k is None else ' ' + str(plan_k)} window rel "
+                            f"{fig['max_rel_err']:.2e}, {fig['ms']:.3f} ms "
                             f"(iterations median {fig['iters_median']}, accepted "
                             f"{fig['accepted']}/{LARGE_N}), bound {fig['bound_ms']:.4f} ms "
                             f"({fig['bound_by']}, {fig['share_of_bound']:.1%})"
                             + (f", plain {fig['plain_ms']:.3f} ms" if "plain_ms" in fig else "")
-                            + (f", cluster {fig['cluster']} ({fig['rank_bytes']} bytes a rank; "
-                               f"{fig['resources']})" if "cluster" in fig else ""))
+                            + (f", cluster {fig['cluster']} (inverse {fig['inverse']}, "
+                               f"{fig['rank_bytes']} bytes a rank, {fig['inverse_rows']} inverse "
+                               f"rows a rank; {fig['resources']})" if "cluster" in fig else ""))
         log(f"[23] P {tag}, N={LARGE_N}, {levels} levels (coarsest {nc} cells), P layout "
             f"{smem_bytes(Nx, Ny, levels)} shared bytes, P-gm workspace "
             f"{gm_bytes(Nx, Ny, levels)} bytes a member, at bench settings: " + "; ".join(said))
@@ -909,7 +937,7 @@ def large_grid_phases(dev, six):
         (res5, n_sim) = launched(lambda: ht.simulate(mm, torch.zeros(m.Nxy, device=dev), DT, 5,
                                                      keep_wsats=False))
         k_route = transport.route(Nx, Ny)
-        assert n_sim == {kernel_name("jacobi", True, pressure.route(Nx, Ny)): 5,
+        assert n_sim == {kernel_name("jacobi", True, pressure.route(Nx, Ny, True, LARGE_N)): 5,
                          transport.NAMES[k_route]: 5}, n_sim
         s5 = res5.wsats[:, -1].reshape(LARGE_N, Nx, Ny).contiguous()
         _, Fx, Fy, it, ok, _ = pressure_step(mm, s5, qf, torch.zeros_like(s5), 2e-3,
@@ -947,16 +975,18 @@ def large_grid_phases(dev, six):
             f"{k_route} {bnd / k_ms[k_route]:.1%})"
             + (f"; plain {plain_ms:.3f} ms" if plain_ms else ""))
 
-    # simulate through each instantiation: P-cl and K-cl at [24]'s grid;
-    # P-gm and K-gm at GM_PATH_GRID, past every cluster
-    for grid, rt, n_members in ((BIG, "cl", LARGE_N), (GM_PATH_GRID, "gm", GM_PATH_N)):
+    # simulate through each instantiation: P-cl and K-cl at [24]'s grid,
+    # P-cl/d and K-cl at 60x220; P-gm and K-gm at GM_PATH_GRID, past every
+    # cluster
+    for grid, rt, n_members in ((BIG, "cl", LARGE_N), ((60, 220), "cl", LARGE_N),
+                                (GM_PATH_GRID, "gm", GM_PATH_N)):
         m = grid_model(torch, *grid)
         mm = set_perm(m, ht.sample_prior_perm(gen, m, n_members, r=0.8))
         k_name = transport.NAMES[transport.route(*grid)]
         assert k_name == f"transport_upwind_{rt}", (grid, k_name)
         for smoother, unit in P_GM:
             name = kernel_name(smoother, unit, rt)
-            assert pressure.route(*grid, unit) == rt, (grid, unit)
+            assert pressure.route(*grid, unit, n_members) == rt, (grid, unit)
             t0 = time.perf_counter()
             res, n = launched(lambda: ht.simulate(mm, torch.zeros(m.Nxy, device=dev), DT, 5,
                                                   smoother=smoother, scale_system=unit))
@@ -968,6 +998,8 @@ def large_grid_phases(dev, six):
                 f"{n}; cg_ok {float(res.cg_ok.float().mean()):.1%}")
             assert n == {name: 5, k_name: 5}, n
             assert torch.isfinite(res.wsats).all()
+        if rt == "gm":  # P-gm and K-gm a launch each on their path's shapes
+            gm_path_kernels(figs, mm, res.wsats[:, -1].reshape(n_members, *grid).contiguous())
 
     # both device-memory variants forced at 64x64 on [6]'s inputs
     args, kw = six["p_args"], six["kw"]
@@ -991,6 +1023,54 @@ def large_grid_phases(dev, six):
         f"P-gm {err_g:.2e}, P {err_s:.2e}; K-gm {kgm_ms:.3f} ms vs K {k_ms:.3f} ms (at [6]: "
         f"{six['t_ms']:.3f} ms), K-gm max|ds| vs plain {k_err:.1e}")
     return figs
+
+
+def gm_path_kernels(figs, mm, s5):
+    """[23]'s device-memory path (GM_PATH_GRID): P-gm on the first step's
+    system (s = 0), one window against the plain version, then a launch at
+    bench settings timed with its bound; K-gm on step 6 of the simulated
+    run, bit for bit and timed with its bound. Into `figs`' grids."""
+    import torch
+
+    from historymatching_tpu_torch.models.ressim import _source_field, cfl_substeps, pressure_step
+    from historymatching_tpu_torch.ops.pressure import pressure_solve_cuda, pressure_solve_torch
+    from historymatching_tpu_torch.ops.transport import (
+        transport_substeps_cuda,
+        transport_substeps_torch,
+    )
+
+    (Nx, Ny), tag = mm.shape, f"{mm.shape[0]}x{mm.shape[1]}"
+    qf = _source_field(mm, mm.inj_rates[:, 0], mm.prd_rates[:, 0])
+    args = p_system(mm, qf, True)
+    base1 = {k: BASE[k] for k in SOLVE_KEYS}
+    p_k = pressure_solve_cuda(*args, **WINDOW4, force="gm")[0]
+    p_t = pressure_solve_torch(*args, **WINDOW4)[0]
+    err = rel_err(p_k, p_t)
+    assert bool(torch.isfinite(p_k).all()) and err <= P_TOL, err
+    _, it, _ = pressure_solve_cuda(*args, **base1, force="gm")
+    p_ms = cuda_ms(lambda: pressure_solve_cuda(*args, **base1, force="gm"), 3)
+    p_bnd, p_by = pressure_bound_ms(args[0], args[1], it)
+    figs["pressure_pcg_gm"]["grids"][tag] = dict(
+        ms=p_ms, bound_ms=p_bnd, bound_by=p_by, share_of_bound=p_bnd / p_ms, max_rel_err=err,
+        max_abs_err=float((p_k - p_t).abs().max()), iters_median=int(it.median()))
+    _, Fx, Fy, _, _, _ = pressure_step(mm, s5, qf, torch.zeros_like(s5), 2e-3, 4 * max(Nx, Ny),
+                                       5e-2)
+    Fx, Fy = Fx.contiguous(), Fy.contiguous()
+    nsub, dtspv = cfl_substeps(mm, Fx, Fy, qf, DT)
+    t_args = (s5, Fx, Fy, qf[None].contiguous(), dtspv, nsub, fluid_of(mm))
+    assert torch.equal(transport_substeps_cuda(*t_args, force="gm"),
+                       transport_substeps_torch(*t_args))
+    k_ms = cuda_ms(lambda: transport_substeps_cuda(*t_args, force="gm"), 3)
+    k_plain_ms = cuda_ms(lambda: transport_substeps_torch(*t_args), 1)
+    k_bnd, k_by = transport_bound_ms(s5, Fx, Fy, t_args[3], nsub)
+    figs["transport_upwind_gm"]["grids"][tag] = dict(
+        ms=k_ms, bound_ms=k_bnd, bound_by=k_by, share_of_bound=k_bnd / k_ms, max_abs_err=0.0,
+        plain_ms=k_plain_ms, substeps_median=int(nsub.median()))
+    log(f"[23] on the device-memory path at {tag}, N={s5.shape[0]}: P-gm window rel {err:.2e}, "
+        f"{p_ms:.3f} ms a launch at bench settings (iterations median {int(it.median())}), bound "
+        f"{p_bnd:.4f} ms ({p_by}, {p_bnd / p_ms:.1%}); K-gm on step 6 max|ds| 0, {k_ms:.3f} ms "
+        f"({int(nsub.median())} substeps median), plain {k_plain_ms:.3f} ms, bound "
+        f"{k_bnd:.5f} ms ({k_by}, {k_bnd / k_ms:.1%})")
 
 
 def large_case_phase(dev):
@@ -1081,6 +1161,91 @@ def large_case_phase(dev):
                 rmse_prior=r_prior, rmse_post=r_post, stages_ms=stages, busy_ms=busy,
                 step_wall_ms=wall_ms, kernels=kernels,
                 passes=[{k: v for k, v in st.items() if k != "final"} for st in pass_figs])
+
+
+def layer_case_phase():
+    """Phase 24b: the reference's bench case (`parity.build_case(seed=1,
+    N=1000)`) on P-cl/d's grids, a 60x220 layer of SPE10 model 2 and
+    100x100: 5 steps of the first pass through `forward_model` and P's
+    route (P-cl/d at 60x220, P-gm at 100x100 past `P_GM_PAST`'s batch), each
+    step one P and one K launch, P's device time a step from a profile; on
+    the first step's system P-cl/d and P-gm forced, each held to the plain
+    version after one window and timed at the first pass's settings beside
+    its bound (the plain version's time at 60x220, P-cl/d's path). Returns
+    per grid its figures."""
+    import torch
+
+    import historymatching_tpu_torch as ht
+    from historymatching_tpu_torch import parity
+    from historymatching_tpu_torch.models.ressim import _source_field
+    from historymatching_tpu_torch.ops import _build, pressure, transport
+    from historymatching_tpu_torch.ops.pressure import (
+        cl_plan,
+        kernel_name,
+        pressure_solve_cuda,
+        pressure_solve_torch,
+    )
+    from historymatching_tpu_torch.parallel.runner import set_perm
+
+    first = dict(BASE, **SCHED[0])
+    kw1 = {k: first[k] for k in SOLVE_KEYS}
+    out = {}
+    for Nx, Ny in LAYER_GRIDS:
+        tag = f"{Nx}x{Ny}"
+        case = parity.build_case(SEED, N, Nx, Ny, NTIME)
+        model, prior = case["model"], case["prior"]
+        limit = P_GM_PAST.get((Nx, Ny, True))
+        rt = pressure.route(Nx, Ny, True, N)
+        assert rt == ("gm" if limit and N > limit else "cl"), (tag, rt)
+        run = lambda: ht.forward_model(model, prior, dt=DT, nTime=LAYER_STEPS,  # noqa: E731
+                                       keep_wsats=False, **first)
+        _build.reset_launches()
+        wsats, prods = run()
+        sync()
+        n = {k: v for k, v in _build.LAUNCHES.items() if v}
+        names = {"pressure": kernel_name("jacobi", True, rt),
+                 "transport": transport.NAMES[transport.route(Nx, Ny)]}
+        assert n == {names["pressure"]: LAYER_STEPS, names["transport"]: LAYER_STEPS}, n
+        for x in (wsats, prods):
+            assert bool(torch.isfinite(x).all())
+            assert float(x.min()) >= model.fluid.swc and float(x.max()) <= 1.0 - model.fluid.sor
+        stages, busy, wall_ms, _ = profile_steps(run, LAYER_STEPS)
+
+        # the first step's system, each variant forced
+        mm = set_perm(model, prior)
+        args = p_system(mm, _source_field(model, model.inj_rates[:, 0], model.prd_rates[:, 0]),
+                        True)
+        p_t = pressure_solve_torch(*args, **WINDOW4)[0]
+        plan = cl_plan(Nx, Ny)
+        figs, said = {}, []
+        for force in ("cl", "gm"):
+            solve = lambda kw: pressure_solve_cuda(*args, **kw, force=force)  # noqa: E731
+            p_k = solve(WINDOW4)[0]
+            err = rel_err(p_k, p_t)
+            assert bool(torch.isfinite(p_k).all()) and err <= P_TOL, (tag, force, err)
+            _, it, rl = solve(kw1)
+            ms = cuda_ms(lambda: solve(kw1), 2)
+            bnd, by = pressure_bound_ms(args[0], args[1], it)
+            figs[force] = dict(ms=ms, bound_ms=bnd, bound_by=by, share_of_bound=bnd / ms,
+                               max_rel_err=err, max_abs_err=float((p_k - p_t).abs().max()),
+                               iters_median=int(it.median()), iters_max=int(it.max()),
+                               accepted=int((rl <= 5e-2).sum()))
+            said.append(f"{'P-cl/d ' + str(plan) if force == 'cl' else 'P-gm'} window max rel "
+                        f"{err:.2e}, {ms:.3f} ms (iterations median {int(it.median())} max "
+                        f"{int(it.max())}, accepted {figs[force]['accepted']}), bound {bnd:.4f} "
+                        f"ms ({by}, {bnd / ms:.1%})")
+        if (Nx, Ny) == LAYER_GRIDS[0]:
+            figs["cl"]["plain_ms"] = cuda_ms(lambda: pressure_solve_torch(*args, **kw1), 1)
+            said.append(f"plain {figs['cl']['plain_ms']:.3f} ms")
+        del args, p_k, p_t
+        out[tag] = dict(route=rt, plan=plan, launches=n, stages_ms=stages, busy_ms=busy,
+                        step_wall_ms=wall_ms, kernels=figs)
+        log(f"[24b] bench case seed {SEED} at {tag}, N={N}, {LAYER_STEPS} steps of the first pass "
+            f"through the route ({rt}): launches {n}; per step " + ", ".join(
+                f"{k} {v:.3f} ms" for k, v in stages.items())
+            + f"; device busy {busy:.3f} ms of {wall_ms:.3f} ms wall, idle "
+            f"{1 - busy / wall_ms:.1%}; first step forced: " + "; ".join(said))
+    return out
 
 
 def large_case_kernels(model, prior):
@@ -1451,7 +1616,11 @@ def main(argv=None):
 
     # 2. build
     t0 = time.perf_counter()
-    _build.prebuild(P_NEW_GRIDS, cl_grids=LARGE_GRIDS + K_RT_GRIDS)
+    from historymatching_tpu_torch.ops.pressure import cl_plan
+
+    # and the in-place plans [23] times beside P-cl/d
+    _build.prebuild(P_NEW_GRIDS, cl_grids=LARGE_GRIDS + K_RT_GRIDS,
+                    cl_plans=[(*g, *cl_plan(*g, True, "device")) for g in LAYER_GRIDS])
     log(f"[2] kernels built in {time.perf_counter() - t0:.1f} s "
         f"(compiled: {_build.build_info['built']}) -> {_build.build_info['paths']}")
     for stem, text in _build.build_info["ptxas"].items():
@@ -1928,6 +2097,7 @@ def main(argv=None):
     par = parity_phase(card, opts.parity_out)
     large = large_grid_phases(dev, six)
     big = large_case_phase(dev)
+    layer = layer_case_phase()
     mesh_run = mesh_phase(dev, dict(
         flagship=dict(model=model, truth=truth, prior=prior, obs=obs, R12=R12,
                       gen_state=gen_state_5, launches=launches, perturbs=perturbs,
@@ -1991,11 +2161,11 @@ def main(argv=None):
     # [23]'s simulate at 128x128, timed there at bench settings. The
     # device-memory variants' path is [23]'s simulate at GM_PATH_GRID; P-gm
     # is timed forced on [24]'s first step (Jacobi) and at 128x128 N=64
-    # (the others), K-gm forced at 256x256 N=64.
+    # (the others), K-gm on its path at GM_PATH_GRID.
     gm_at = f"{GM_PATH_GRID[0]}x{GM_PATH_GRID[1]}"
     for name, d in large.items():
         route = name.rsplit("_", 1)[1]
-        at = "256x256" if name == "transport_upwind_gm" else f"{BIG[0]}x{BIG[1]}"
+        at = gm_at if name == "transport_upwind_gm" else f"{BIG[0]}x{BIG[1]}"
         g, err = d["grids"][at], d["max_abs_err"]
         if name in big["kernels"]:
             at, g = f"{BIG[0]}x{BIG[1]} N={N} ([24]'s first step)", big["kernels"][name]
@@ -2017,9 +2187,36 @@ def main(argv=None):
             share_of_bound=g["bound_ms"] / g["ms"], at_grid=at, grids=d["grids"],
             **{k: v for k, v in d.items() if k.startswith("launches_simulate")},
             **({"forced_64x64": d["forced_64x64"]} if "forced_64x64" in d else {})))
+    # P-cl/d, under its P-cl counters: the Jacobi instantiation's path is
+    # [24b] at 60x220, checked and timed on its first step; the others' is
+    # [23]'s simulate at 60x220, timed there at bench settings (N=64).
+    from historymatching_tpu_torch.ops.pressure import kernel_name
+
+    lay_at = f"{LAYER_GRIDS[0][0]}x{LAYER_GRIDS[0][1]}"
+    lay = layer[lay_at]
+    for smoother, unit in P_GM:
+        name = kernel_name(smoother, unit, "cl")
+        d = large[name]
+        dist = {t: g for t, g in d["grids"].items() if g.get("inverse") == "distributed"}
+        if (smoother, unit) == ("jacobi", True):
+            g, at = lay["kernels"]["cl"], f"{lay_at} N={N} ([24b]'s first step)"
+            launches_path, gm_ms = lay["launches"][name], lay["kernels"]["gm"]["ms"]
+        else:
+            g, at = dist[lay_at], f"{lay_at} N={LARGE_N}"
+            launches_path, gm_ms = d[f"launches_simulate_{lay_at}"], None
+        kernels.append(dict(
+            name=name + "/d", counter=name, route="cuda",
+            source="historymatching_tpu_torch/csrc/pressure_pcg_cl.cu",
+            replaces="historymatching_tpu/ops/pressure_pallas.py:34", launches=launches_path,
+            max_abs_err=max([g["max_abs_err"]] + [x["max_abs_err"] for x in dist.values()]),
+            ms=g["ms"], plain_ms=g.get("plain_ms"), bound_ms=g["bound_ms"],
+            bound_by=g["bound_by"], library_ms=None, share_of_bound=g["bound_ms"] / g["ms"],
+            at_grid=at, gm_ms=gm_ms, grids=dist))
     for rec in kernels:
-        rec["launches_parity"] = {p["name"]: p["launches"].get(rec["name"], 0) for p in par}
+        rec["launches_parity"] = {p["name"]: p["launches"].get(rec.get("counter", rec["name"]), 0)
+                                  for p in par}
     log(f"[24] record: {json.dumps({k: v for k, v in big.items() if k != 'passes'})}")
+    log(f"[24b] record: {json.dumps(layer)}")
     log(f"[25] record: {json.dumps(mesh_run)}")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -6,10 +6,9 @@
 //   layouts _batched and _packed, at the grids where kernel P's layout does
 //   not fit one block's shared memory and the TPU kernel keeps its
 //   hierarchy in VMEM with vmem_limit_bytes raised (pressure_pallas.py
-//   :163-166): 60x60, 88x88, 96x96, 128x128 and larger (ops/pressure.py
-//   `route`). P-gm (pressure_pcg_gm.cu) keeps the grids no cluster holds and
-//   those where a rank would take a whole SM and read the coarsest inverse
-//   from device memory (100x100, a 60x220 layer), where it runs faster.
+//   :163-166): 60x60, 88x88, 96x96, 100x100, 128x128, a 60x220 layer and
+//   larger (ops/pressure.py `route`). P-gm (pressure_pcg_gm.cu) keeps the
+//   grids no cluster holds.
 //
 // It computes what P computes: the restarted MG-preconditioned CG of
 // ops/cg.py `pcg` on the Jacobi-scaled (UNIT) or unscaled TPFA system, with
@@ -23,10 +22,13 @@
 //
 // Partition. One cluster of C blocks (ranks) per member, launched with
 // cudaLaunchKernelEx and a cluster dimension, the grid B C blocks. Rank r
-// owns rows [r h, (r + 1) h) of every level that is split (h = n / C, even,
-// so 2x2 tiles and the 2x2 restriction stay inside a rank): the levels from
-// the fine one down while a band has an even height and the level has more
-// than 256 cells (16x16). Inside its band a rank is kernel P's block: 2x2
+// owns a band of rows of every level that is split, its height even on
+// each (so 2x2 tiles and the 2x2 restriction stay inside a rank): equal
+// bands n / C (the levels from the fine one down while a band has an even
+// height and the level has more than 256 cells, 16x16), or, where the
+// inverse is distributed, bands of unequal even heights on every level but
+// the coarsest (`Geo::band`; every rank's layout makes room for the
+// largest, and ranks past the rows hold none). Inside its band a rank is kernel P's block: 2x2
 // tiles a thread, x, p, z and the metric weight w in registers (w read
 // from device memory where a thread holds more than four tiles), the best
 // iterate written to p_out, the coarse temporaries aliased into the fine one.
@@ -46,13 +48,23 @@
 // the coarse solve on warp 0) while the other ranks wait at one cluster
 // barrier, then stores each rank's rows of the correction into that
 // rank's copy of the level. Where the coarsest inverse does not fit beside
-// the bands (60x60, 100x100, 60x220) it stays in device memory, read in
-// place a row a warp, the rows split over every rank's warps (each rank
-// first copies the coarse right-hand side from rank 0), as P-gm's
-// `coarse_solve` reads it. The grid, the cluster size and the inverse's
-// place are compile-time constants (ops/_build.py builds one library a
-// grid and cluster), and ops/pressure.py `layout` (with `cl`) counts the same
-// per-rank layout that `Geo` below places.
+// the bands it stays in device memory (60x60, 88x88), read in place a row a
+// warp, the rows split over every rank's warps (each rank first copies the
+// coarse right-hand side from rank 0), as P-gm's `coarse_solve` reads it.
+// Where it fits neither rank 0 nor beside a whole SM's two blocks (100x100,
+// 625 cells, 1.56 MB; a 60x220 layer, 825 cells, 2.72 MB) it is
+// distributed: rank r holds rows [r KR, (r + 1) KR) of it in its shared
+// memory, loaded once a launch by one bulk asynchronous copy that runs
+// under the prologue; the last split level's restriction stores each
+// coarse right-hand side value into every rank, each rank multiplies its
+// rows, and stores each result into the ranks whose bands read it: the
+// coarse solve costs no cluster barrier beyond the one before the
+// prolongation, and device memory sees the inverse once a launch, where
+// P-gm and the in-place variant read it every V-cycle. The grid, the
+// cluster size and the inverse's place are compile-time constants
+// (ops/_build.py builds one library a grid and cluster), and
+// ops/pressure.py `layout` (with `cl`) counts the same per-rank layout
+// that `Geo` below places.
 //
 // Agreement across the cluster. Every barrier of P becomes a cluster
 // barrier (barrier.cluster arrive.release / wait.acquire), which orders
@@ -73,7 +85,10 @@
 // load of P's 64x64 block, every array in shared memory, so device memory
 // sees one read of the hierarchy, p0 and w, q at window ends and the write
 // of the best iterate. The cost is the cluster barriers (16 an iteration,
-// as P's block barriers) and the stores of the band-edge rows.
+// as P's block barriers) and the stores of the band-edge rows. With the
+// inverse distributed a rank takes a whole SM and a cluster of 9-16 most
+// of a GPC, so about a tenth of the members P-gm keeps in flight run at
+// once; each runs its V-cycles from shared memory only.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -93,30 +108,62 @@ namespace {
 constexpr int kSmemLimit = 232448;    // shared bytes one block may opt into (sm_90)
 constexpr int kSmPerSm = 228 * 1024;  // an SM's shared memory; 1 KB of each block reserved
 constexpr int kSplitMinCells = 256;   // a level of <= 16x16 cells is gathered on rank 0
+// Where the coarsest inverse lives (ops/pressure.py INV_PLACES): read in
+// place from device memory, whole (transposed) in rank 0's shared memory,
+// or a block of its rows in each rank's shared memory.
+constexpr int kInvDevice = 0, kInvShared = 1, kInvDistributed = 2;
 
 // The per-rank geometry and shared-memory layout (floats) of one grid on a
-// cluster of C ranks; INV: the coarsest inverse (transposed) in rank 0's
-// shared memory, else read in place from device memory. Matches
-// ops/pressure.py `layout` with `cl`.
-template <int NX, int NY, int C, bool INV, bool CHEB = false, bool UNIT = true>
+// cluster of C ranks, the coarsest inverse at INV. Matches ops/pressure.py
+// `layout` with `cl`.
+template <int NX, int NY, int C, int INV, bool CHEB = false, bool UNIT = true>
 struct Geo {
   static constexpr bool kCheb = CHEB;
   static constexpr bool kUnit = UNIT;
-  static constexpr bool kInv = INV;
+  static constexpr bool kShared = INV == kInvShared;
+  static constexpr bool kDist = INV == kInvDistributed;
   static constexpr int kC = C;
   static constexpr int L = count_levels(NX, NY);
   static constexpr int LC = L - 1;
   __host__ __device__ static constexpr int n(int l) { return NX >> l; }
   __host__ __device__ static constexpr int m(int l) { return NY >> l; }
   __host__ __device__ static constexpr int cells(int l) { return n(l) * m(l); }
+  // Equal bands while they stay even; with the inverse distributed, every
+  // level but the coarsest (ops/pressure.py `cl_split`).
   __host__ __device__ static constexpr int split_levels() {
+    if (kDist) return LC;
     int l = 0;
     while (l < LC && n(l) % (2 * C) == 0 && cells(l) > kSplitMinCells) ++l;
     return l;
   }
   static constexpr int LS = split_levels();  // levels 0..LS-1 are split in bands
   __host__ __device__ static constexpr bool split(int l) { return l < LS; }
-  __host__ __device__ static constexpr int rows(int l) { return split(l) ? n(l) / C : n(l); }
+  // Bands (ops/pressure.py `cl_bands`): units of 2^LS fine rows, U of them;
+  // rank q holds UB units and one more where q < UX, so every rank's rows
+  // stay even down to level LS-1. Ranks past the units (UB = 0) hold none
+  // and come last: RANKS of them hold rows.
+  static constexpr int U = NX >> LS, UB = U / C, UX = U % C;
+  static constexpr bool kEqual = UX == 0;
+  static constexpr int RANKS = UB > 0 ? C : UX;
+  __host__ __device__ static constexpr int unit(int l) { return 1 << (LS - l); }
+  // Rank q's rows of level l <= LS, and its first row.
+  __host__ __device__ static constexpr int band(int q, int l) {
+    return (kEqual ? UB : UB + (q < UX ? 1 : 0)) * unit(l);
+  }
+  __host__ __device__ static constexpr int first(int q, int l) {
+    return (kEqual ? q * UB : q * UB + (q < UX ? q : UX)) * unit(l);
+  }
+  // Whether the rank below q holds rows of a split level (rank q - 1,
+  // above, does whenever q does).
+  __host__ __device__ static constexpr bool below(int q) { return q < RANKS - 1; }
+  // A split level's rows: the largest band (every rank's layout holds it),
+  // and rank q's own; a gathered level's: all of them.
+  __host__ __device__ static constexpr int rows(int l) {
+    return split(l) ? (UB + (UX > 0 ? 1 : 0)) * unit(l) : n(l);
+  }
+  __host__ __device__ static constexpr int rows_of(int q, int l) {
+    return split(l) ? band(q, l) : n(l);
+  }
   // A split level's arrays start with a halo row, and end with one.
   __host__ __device__ static constexpr int halo(int l) { return split(l) ? m(l) : 0; }
   __host__ __device__ static constexpr int vec(int l) {
@@ -148,14 +195,22 @@ struct Geo {
     return o;
   }
   static constexpr int NC = cells(LC);
+  // Rows of the inverse a rank holds where it is distributed (ops/pressure.py
+  // `cl_inverse_rows`): a block of KR, from row r KR, the last ones shorter.
+  static constexpr int KR = (NC + C - 1) / C;
   static constexpr int INVERSE = base(L);
-  static constexpr int RED = INVERSE + (INV ? r4(NC * NC) : 0);
-  // Threads a rank: about one per four fine tiles of the band, in the
-  // nearest multiple of 128 (the granule registers are allocated in).
+  // The distributed block is placed 0-3 floats in, so that it has its
+  // source's 16-byte alignment (the bulk copy's); its copy's barrier follows.
+  static constexpr int BAR = INVERSE + (kShared ? r4(NC * NC) : kDist ? r4(KR * NC) + 4 : 0);
+  static constexpr int RED = BAR + (kDist ? 4 : 0);
+  // Threads a rank: about one per four fine tiles of the largest band, in
+  // the nearest multiple of 128 (the granule registers are allocated in);
+  // with the inverse distributed at least 256, 8 warps for its rows.
   static constexpr int TILES0 = rows(0) * m(0) / 4;
   static constexpr int THREADS_RAW = ((TILES0 + 3) / 4 + 64) / 128 * 128;
-  static constexpr int THREADS =
+  static constexpr int THREADS_BAND =
       THREADS_RAW < 128 ? 128 : THREADS_RAW > 1024 ? 1024 : THREADS_RAW;
+  static constexpr int THREADS = kDist && THREADS_BAND < 256 ? 256 : THREADS_BAND;
   static constexpr int WARPS = THREADS / 32;
   static constexpr int TPT = (TILES0 + THREADS - 1) / THREADS;
   // The metric weight w of a thread's tiles stays in registers up to four
@@ -181,11 +236,11 @@ struct Geo {
     while (l < LC && cells(l) > 64) ++l;
     return l;
   }
-  static constexpr bool WARP_TAIL = INV && NC <= 64;
+  static constexpr bool WARP_TAIL = kShared && NC <= 64;
   static constexpr int LW = WARP_TAIL ? first_warp_level() : LC;
   static_assert(NX % 2 == 0 && NY % 2 == 0 && L >= 2 && L <= kMaxLevels,
                 "a tiled fine level and a coarse level");
-  static_assert(C >= 2 && C <= 16 && LS >= 1, "the cluster splits the fine level");
+  static_assert(C >= 2 && C <= 16 && LS >= 1 && RANKS >= 1, "the cluster splits the fine level");
 };
 
 // The arrays of level l in a rank's shared memory (the same offsets on
@@ -274,22 +329,24 @@ __device__ __forceinline__ void put(float* v, int I, int J, const float x[4]) {
 // neighbours' edge rows).
 template <class G, int l>
 struct Rows {
-  static constexpr int h = G::rows(l), m = G::m(l), TI = h / 2;
+  static constexpr int m = G::m(l);
   static constexpr bool kSplit = G::split(l);
+  __device__ static int TI(int r) { return G::rows_of(r, l) / 2; }
   __device__ static bool up(int I, int r) { return I > 0 || (kSplit && r > 0); }
-  __device__ static bool dn(int I, int r) { return I < TI - 1 || (kSplit && r < G::kC - 1); }
+  __device__ static bool dn(int I, int r) { return I < TI(r) - 1 || (kSplit && G::below(r)); }
 };
 
 // put, and on a split level the band's first row into the rank above's
-// lower halo and its last into the rank below's upper one.
+// lower halo (after that rank's own rows) and its last into the rank
+// below's upper one.
 template <class G, int l>
 __device__ __forceinline__ void put_band(float* v, int I, int J, int r, const float x[4]) {
   using RW = Rows<G, l>;
   constexpr int m = RW::m;
   put<m>(v, I, J, x);
   if constexpr (RW::kSplit) {
-    if (I == 0 && r > 0) st2_rank(v + RW::h * m + 2 * J, r - 1, x[0], x[1]);
-    if (I == RW::TI - 1 && r < G::kC - 1) st2_rank(v - m + 2 * J, r + 1, x[2], x[3]);
+    if (I == 0 && r > 0) st2_rank(v + G::band(r - 1, l) * m + 2 * J, r - 1, x[0], x[1]);
+    if (I == RW::TI(r) - 1 && G::below(r)) st2_rank(v - m + 2 * J, r + 1, x[2], x[3]);
   }
 }
 
@@ -335,14 +392,17 @@ __device__ __forceinline__ void stencil(const float* TX, const float* TY, const 
   tile_stencil(d, xu, xc, xd, y0, y1, yl0, yl1, t, out);
 }
 
-// f(k, I, J) for each tile of a rank's rows of level l that worker w of NW owns.
+// f(k, I, J) for each tile of rank r's rows of level l that worker w of NW
+// owns; k counts the largest band's tiles (the registers' index).
 template <class G, int l, int NW, class F>
-__device__ __forceinline__ void tiles(int w, F f) {
+__device__ __forceinline__ void tiles(int w, int r, F f) {
   constexpr int TJ = G::m(l) / 2, NT = (G::rows(l) / 2) * TJ;
+  constexpr bool kSame = G::kEqual || !G::split(l);  // every rank the same rows
+  const int nt = kSame ? NT : (G::rows_of(r, l) / 2) * TJ;
 #pragma unroll
   for (int k = 0; k < (NT + NW - 1) / NW; ++k) {
     const int T = w + k * NW;
-    if (NT % NW == 0 || T < NT) f(k, T / TJ, T % TJ);
+    if ((kSame && NT % NW == 0) || T < nt) f(k, T / TJ, T % TJ);
   }
 }
 
@@ -365,26 +425,30 @@ __device__ __forceinline__ void own_rd(float* sh, int I, int J, float rd[4]) {
 // beyond) where level l+1 is split, or level l is gathered; the rank's
 // copy of the whole gathered level, from this band's first coarse row,
 // where level l is split and level l+1 gathered (its right-hand side is
-// rank 0's, its correction copied to every rank).
+// rank 0's, or every rank's where the inverse is distributed; its
+// correction is copied to every rank).
 template <class G, int l>
 struct Parent {
   static constexpr bool kSplit = G::split(l + 1);
   static constexpr bool kGathered = G::split(l) && !kSplit;
-  static constexpr int mc = G::m(l) / 2, TI = G::rows(l) / 2;
+  static constexpr int mc = G::m(l) / 2;
   __device__ static int at(int I, int J, int r) {
-    return ((kGathered ? r * TI : 0) + I) * mc + J;
+    return ((kGathered ? G::first(r, l) / 2 : 0) + I) * mc + J;
   }
   __device__ static float ld(const float* p, int I, int J, int r) { return p[at(I, J, r)]; }
   // A restricted value into the right-hand side, and into the neighbour's
   // halo where it is a band's first or last coarse row.
   __device__ static void st(float* p, int I, int J, int r, float v) {
-    if constexpr (kGathered) {
+    if constexpr (kGathered && G::kDist) {
+#pragma unroll
+      for (int q = 0; q < G::kC; ++q) st_rank(p + at(I, J, r), q, v);
+    } else if constexpr (kGathered) {
       st_rank(p + at(I, J, r), 0, v);
     } else {
       p[at(I, J, r)] = v;
       if constexpr (kSplit) {
-        if (I == 0 && r > 0) st_rank(p + TI * mc + J, r - 1, v);
-        if (I == TI - 1 && r < G::kC - 1) st_rank(p - mc + J, r + 1, v);
+        if (I == 0 && r > 0) st_rank(p + G::band(r - 1, l + 1) * mc + J, r - 1, v);
+        if (I == G::rows_of(r, l) / 2 - 1 && G::below(r)) st_rank(p - mc + J, r + 1, v);
       }
     }
   }
@@ -396,7 +460,7 @@ template <class G, int l, int NW>
 __device__ __forceinline__ void smooth_down(float* sh, int w, int r) {
   using V = Lvl<G, l>;
   constexpr int m = V::m;
-  tiles<G, l, NW>(w, [&](int, int I, int J) {
+  tiles<G, l, NW>(w, r, [&](int, int I, int J) {
     const Tile b = gather<G, l>(V::B(sh), I, J, r);
     Tile rdt;
     if constexpr (!unit_level<G, l>()) rdt = gather<G, l>(V::RD(sh), I, J, r);
@@ -416,7 +480,7 @@ __device__ __forceinline__ void restrict_residual(float* sh, int w, int r) {
   using V = Lvl<G, l>;
   constexpr int m = V::m;
   float* Bc = Lvl<G, l + 1>::B(sh);
-  tiles<G, l, NW>(w, [&](int, int I, int J) {
+  tiles<G, l, NW>(w, r, [&](int, int I, int J) {
     const Tile x = gather<G, l>(V::X(sh), I, J, r);
     float Ax[4], b[4];
     stencil<G, l, unit_level<G, l>()>(V::TX(sh), V::TY(sh), V::D(sh), I, J, r, x, Ax);
@@ -465,15 +529,42 @@ __device__ __forceinline__ void coarse_solve_cluster(float* sh, const float* A, 
   }
 }
 
+// Coarsest level, inverse distributed: rank r multiplies its block of rows
+// (from row r KR, in its own shared memory at A) by b, which the last
+// split level's restriction stored into every rank; a row a warp, the
+// lanes along the row (as coarse_solve_cluster), and lane q stores the
+// result into rank q where rank q's band reads that coarse row (its own
+// rows and the halo row above and below). Between two cluster barriers.
+template <class G>
+__device__ __forceinline__ void coarse_product(float* sh, const float* A, int r) {
+  using V = Lvl<G, G::LC>;
+  constexpr int nc = G::NC, KR = G::KR, mc = G::m(G::LC);
+  const float* b = V::B(sh);
+  float* x = V::X(sh);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int k0 = r * KR, k1 = k0 + KR < nc ? k0 + KR : nc;
+  const int f = G::first(lane, G::LC), t = G::band(lane, G::LC);  // lane's rank's coarse rows
+  for (int row = k0 + warp; row < k1; row += G::WARPS) {
+    const float* a = A + (row - k0) * nc;
+    float acc = 0.0f;
+#pragma unroll 4
+    for (int k = lane; k < nc; k += 32) acc += a[k] * b[k];
+    acc = warp_sum(acc);
+    const int i = row / mc;
+    if (lane < G::kC && t > 0 && i >= f - 1 && i <= f + t) st_rank(x + row, lane, acc);
+  }
+}
+
 // Rank 0, once its whole correction of the first gathered level is in
 // place: each other rank's rows of it (its band's coarse rows and the one
 // above and below) into that rank's copy.
 template <class G>
 __device__ __forceinline__ void spread_correction(float* sh) {
-  constexpr int l = G::LS - 1, TI = G::rows(l) / 2, mc = G::m(l) / 2, nc = G::n(l + 1);
+  constexpr int l = G::LS - 1, mc = G::m(l) / 2, nc = G::n(l + 1);
   float* E = Lvl<G, l + 1>::X(sh);
-  for (int q = 1; q < G::kC; ++q) {
-    const int lo = q * TI - 1, hi = q * TI + TI < nc ? q * TI + TI : nc - 1;
+  for (int q = 1; q < G::RANKS; ++q) {
+    const int f = G::first(q, l) / 2, t = G::band(q, l) / 2;
+    const int lo = f - 1, hi = f + t < nc ? f + t : nc - 1;
     for (int k = lo * mc + threadIdx.x; k <= hi * mc + mc - 1; k += G::THREADS)
       st_rank(E + k, q, E[k]);
   }
@@ -488,7 +579,7 @@ __device__ __forceinline__ void smooth_up_first(float* sh, int w, int r) {
   using E = Parent<G, l>;
   constexpr int m = V::m, mc = m / 2;
   const float* El = Lvl<G, l + 1>::X(sh);
-  tiles<G, l, NW>(w, [&](int, int I, int J) {
+  tiles<G, l, NW>(w, r, [&](int, int I, int J) {
     Tile x = gather<G, l>(V::X(sh), I, J, r);
     prolong(x, [&](int dI, int dJ) { return E::ld(El, I + dI, J + dJ, r); }, RW::up(I, r),
             RW::dn(I, r), J > 0, J < mc - 1);
@@ -507,7 +598,7 @@ template <class G, int l, int NW, class Out>
 __device__ __forceinline__ void smooth_up_second(float* sh, int w, int r, Out out) {
   using V = Lvl<G, l>;
   constexpr int m = V::m;
-  tiles<G, l, NW>(w, [&](int k, int I, int J) {
+  tiles<G, l, NW>(w, r, [&](int k, int I, int J) {
     const Tile t = gather<G, l>(V::T(sh), I, J, r);
     float At[4], b[4], rd[4], x[4];
     stencil<G, l, unit_level<G, l>()>(V::TX(sh), V::TY(sh), V::D(sh), I, J, r, t, At);
@@ -599,12 +690,16 @@ __device__ __forceinline__ void up_split(float* sh, int r) {
 }
 
 // z = V-cycle(r) from a zero initial guess; the fine R vector is its
-// right-hand side, z lands in the owning threads' registers.
+// right-hand side, z lands in the owning threads' registers. Ainv: the
+// member's inverse in device memory, or the rank's block of its rows in
+// shared memory where it is distributed.
 template <class G>
 __device__ __forceinline__ void vcycle(float* sh, const float* Ainv, int r,
                                        float (&z)[G::TPT][4]) {
   down_split<G, 0>(sh, r);
-  if constexpr (G::kInv) {
+  if constexpr (G::kDist) {
+    coarse_product<G>(sh, Ainv, r);  // every level above the coarsest is split
+  } else if constexpr (G::kShared) {
     if (r == 0) {
       down_gathered<G, G::LS>(sh);
       if constexpr (G::WARP_TAIL) {
@@ -694,8 +789,8 @@ __device__ __forceinline__ void load_level(float* sh, const HierPtrs& h, int b, 
   constexpr int n = G::n(l), m = G::m(l), T = G::THREADS;
   if constexpr (l < G::LC) {
     if (G::split(l) || r == 0) {
-      constexpr int rows = G::rows(l), hal = G::split(l) ? 1 : 0;
-      const int i0 = G::split(l) ? r * rows : 0;
+      constexpr int hal = G::split(l) ? 1 : 0;
+      const int rows = G::rows_of(r, l), i0 = G::split(l) ? G::first(r, l) : 0;
       const float* tx = h.tx[l] + (size_t)b * (n - 1) * m;
       for (int k = threadIdx.x; k < (rows + hal - (G::split(l) ? 0 : 1)) * m; k += T) {
         const int g = (i0 - hal) * m + k;  // from the face above the band
@@ -718,7 +813,7 @@ __device__ __forceinline__ void load_level(float* sh, const HierPtrs& h, int b, 
       }
     }
     load_level<G, l + 1>(sh, h, b, r);
-  } else if constexpr (G::kInv) {
+  } else if constexpr (G::kShared) {
     if (r == 0) {
       constexpr int nc = G::NC;
       const float* a = h.ainv + (size_t)b * nc * nc;
@@ -731,7 +826,58 @@ __device__ __forceinline__ void load_level(float* sh, const HierPtrs& h, int b, 
   }
 }
 
-template <int NX, int NY, int C, bool INV, bool CHEB, bool UNIT>
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// Rank r's block of member b's inverse (rows r KR on, row-major as in
+// device memory) into its shared memory with one bulk asynchronous copy
+// (TMA), completing on the barrier at BAR, which thread 0 has initialised
+// for one arrival. The copy moves 16-byte-aligned bytes between 16-byte-
+// aligned addresses: the block lands 0-3 floats into its region so that it
+// keeps its source's alignment, and the unaligned first and last floats
+// (at most three each) go by plain loads. Returns where the block starts.
+template <class G>
+__device__ __forceinline__ const float* load_inverse(float* sh, const float* ainv, int b, int r) {
+  constexpr int nc = G::NC, KR = G::KR;
+  const int k0 = r * KR, rows = k0 >= nc ? 0 : k0 + KR < nc ? KR : nc - k0;
+  const float* src = ainv + (size_t)b * nc * nc + (size_t)k0 * nc;
+  const int phase = (int)((reinterpret_cast<size_t>(src) >> 2) & 3);
+  float* dst = sh + G::INVERSE + phase;
+  const int n = rows * nc, lead = (4 - phase) & 3, head = lead < n ? lead : n;
+  const int mid = (n - head) / 4 * 4, tail = n - head - mid;
+  const int t = threadIdx.x;
+  if (t < head) dst[t] = src[t];
+  if (t >= 32 && t < 32 + tail) dst[head + mid + t - 32] = src[head + mid + t - 32];
+  if (t == 0) {
+    const unsigned bar = smem_addr(sh + G::BAR), bytes = 4u * (unsigned)mid;
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+                 : "memory");
+    if (bytes > 0)
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+          "[%3];" ::"r"(smem_addr(dst + head)),
+          "l"(src + head), "r"(bytes), "r"(bar)
+          : "memory");
+  }
+  return dst;
+}
+
+// Every thread waits for load_inverse's copy (the barrier's first phase).
+template <class G>
+__device__ __forceinline__ void wait_inverse(float* sh) {
+  const unsigned bar = smem_addr(sh + G::BAR);
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(bar)
+        : "memory");
+}
+
+template <int NX, int NY, int C, int INV, bool CHEB, bool UNIT>
 __global__ void __launch_bounds__(Geo<NX, NY, C, INV, CHEB, UNIT>::THREADS,
                                   Geo<NX, NY, C, INV, CHEB, UNIT>::MIN_BLOCKS)
 pressure_pcg_cl_kernel(HierPtrs h, const float* __restrict__ q_g, const float* __restrict__ p0_g,
@@ -740,11 +886,11 @@ pressure_pcg_cl_kernel(HierPtrs h, const float* __restrict__ q_g, const float* _
                        int maxiter, int restart_every, int patience) {
   using G = Geo<NX, NY, C, INV, CHEB, UNIT>;
   using F = Lvl<G, 0>;
-  constexpr int T = G::THREADS, TPT = G::TPT, H = G::rows(0);
+  constexpr int T = G::THREADS, TPT = G::TPT;
   extern __shared__ float4 sh4[];
   float* sh = reinterpret_cast<float*>(sh4);
   const int r = (int)cluster_rank(), b = blockIdx.x / C, tid = threadIdx.x;
-  const size_t off = (size_t)b * NX * NY + (size_t)r * H * NY;  // the band's first cell
+  const size_t off = (size_t)b * NX * NY + (size_t)G::first(r, 0) * NY;  // the band's first cell
   const float* q = q_g + off;
   const float* Ainv = h.ainv + (size_t)b * G::NC * G::NC;
   float* xb = p_out + off;  // the best iterate lives here
@@ -755,10 +901,19 @@ pressure_pcg_cl_kernel(HierPtrs h, const float* __restrict__ q_g, const float* _
   const float* TY = F::TY(sh);
   const float* Df = UNIT ? nullptr : F::D(sh);
   Reducer<G::WARPS, C> red{reinterpret_cast<float2*>(sh + G::RED), 0};
-  auto fine = [&](auto f) { tiles<G, 0, T>(tid, f); };
+  auto fine = [&](auto f) { tiles<G, 0, T>(tid, r, f); };
+  if constexpr (G::kDist) {
+    if (tid == 0) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(sh + G::BAR))
+                   : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+  }
   // every rank running before any stores into another's shared memory
   cluster_sync();
 
+  // the inverse's rows arrive while the hierarchy loads and the residual runs
+  if constexpr (G::kDist) Ainv = load_inverse<G>(sh, h.ainv, b, r);
   load_level<G, 0>(sh, h, b, r);
   float x[TPT][4] = {}, p[TPT][4] = {}, w[G::W_REGS ? TPT : 1][4] = {}, z[TPT][4] = {};
   fine([&](int k, int I, int J) {
@@ -804,6 +959,7 @@ pressure_pcg_cl_kernel(HierPtrs h, const float* __restrict__ q_g, const float* _
   const float bb = s0.x;
   float rr_best = s0.y;
   const float tol2 = (tol * tol) * fmaxf(bb, FLT_MIN);
+  if constexpr (G::kDist) wait_inverse<G>(sh);  // also where no iteration runs
 
   bool use_sd = false, r_valid = true, first = true;
   int n_bad = 0, kk = 0;
@@ -910,13 +1066,13 @@ pressure_pcg_cl_kernel(HierPtrs h, const float* __restrict__ q_g, const float* _
 }
 
 template <bool CHEB, bool UNIT>
-using GridGeo = Geo<HM_GRID_NX, HM_GRID_NY, HM_CL, (bool)HM_CL_INV, CHEB, UNIT>;
+using GridGeo = Geo<HM_GRID_NX, HM_GRID_NY, HM_CL, HM_CL_INV, CHEB, UNIT>;
 
 template <bool CHEB, bool UNIT>
 cudaError_t configure(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int B,
                       cudaStream_t stream) {
   using G = GridGeo<CHEB, UNIT>;
-  auto kern = pressure_pcg_cl_kernel<HM_GRID_NX, HM_GRID_NY, HM_CL, (bool)HM_CL_INV, CHEB, UNIT>;
+  auto kern = pressure_pcg_cl_kernel<HM_GRID_NX, HM_GRID_NY, HM_CL, HM_CL_INV, CHEB, UNIT>;
   cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G::BYTES);
   if (e == cudaSuccess && G::kC > 8)
@@ -952,7 +1108,7 @@ int launch(const float* const* lv, int n_levels, const float* ainv, const float*
     }
     h.ainv = ainv;
     auto kern =
-        pressure_pcg_cl_kernel<HM_GRID_NX, HM_GRID_NY, HM_CL, (bool)HM_CL_INV, CHEB, UNIT>;
+        pressure_pcg_cl_kernel<HM_GRID_NX, HM_GRID_NY, HM_CL, HM_CL_INV, CHEB, UNIT>;
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr[1];
     cudaError_t e = configure<CHEB, UNIT>(&cfg, attr, B, stream);
@@ -978,7 +1134,7 @@ int info(int* out) {
     return (int)cudaErrorInvalidValue;
   } else {
     auto kern =
-        pressure_pcg_cl_kernel<HM_GRID_NX, HM_GRID_NY, HM_CL, (bool)HM_CL_INV, CHEB, UNIT>;
+        pressure_pcg_cl_kernel<HM_GRID_NX, HM_GRID_NY, HM_CL, HM_CL_INV, CHEB, UNIT>;
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr[1];
     cudaError_t e = configure<CHEB, UNIT>(&cfg, attr, 1, nullptr);

@@ -9,8 +9,9 @@ compiled on first use into a library of its own (`pressure_lib`);
 device-memory variants (P-gm in `pressure_pcg_gm.cu`, K-gm beside K) take
 the grid at run time, so one library serves every grid. The cluster
 variants (P-cl in `pressure_pcg_cl.cu`, K-cl in `transport_upwind.cu`
-under `-DHM_KCL_*`) are templates on the grid and the cluster size, one
-library each, built on first use (`pressure_cl_lib`, `transport_cl_lib`).
+under `-DHM_KCL_*`) are templates on the grid and the cluster size (and
+P-cl on the coarsest inverse's place), one library each, built on first
+use (`pressure_cl_lib`, `transport_cl_lib`).
 A library's
 name carries a hash of its source, the shared headers and the flags, so an
 edited source rebuilds. The libraries are loaded with `ctypes`; each C
@@ -128,12 +129,15 @@ def _spec(stem, grid=None, key=None, flags=None, sigs=None):
 
 
 def _cl_specs(Nx, Ny, pressure_plans=(), transport_shape=None):
-    """The cluster libraries of one grid: P-cl for each (c, inverse in
-    shared memory) plan, K-cl for a (c, strip) shape."""
-    specs = [_spec("pressure_pcg_cl", key=f"pressure_pcg_cl_{Nx}x{Ny}_c{c}{'s' if inv else 'g'}",
+    """The cluster libraries of one grid: P-cl for each (c, place of the
+    inverse) plan, K-cl for a (c, strip) shape."""
+    from historymatching_tpu_torch.ops.pressure import INV_PLACES
+
+    tag = {"shared": "s", "device": "g", "distributed": "d"}
+    specs = [_spec("pressure_pcg_cl", key=f"pressure_pcg_cl_{Nx}x{Ny}_c{c}{tag[place]}",
                    flags=[f"-DHM_GRID_NX={Nx}", f"-DHM_GRID_NY={Ny}", f"-DHM_CL={c}",
-                          f"-DHM_CL_INV={int(inv)}"])
-             for c, inv in dict.fromkeys(pressure_plans)]
+                          f"-DHM_CL_INV={INV_PLACES[place]}"])
+             for c, place in dict.fromkeys(pressure_plans)]
     if transport_shape is not None:
         c, strip = transport_shape
         specs.append(_spec("transport_upwind", key=f"transport_upwind_cl_{Nx}x{Ny}_c{c}s{strip}",
@@ -203,11 +207,11 @@ def pressure_lib(Nx, Ny):
     return _libs[key]
 
 
-def pressure_cl_lib(Nx, Ny, c, inv_smem):
+def pressure_cl_lib(Nx, Ny, c, place):
     """P-cl's C entry points for one grid on clusters of `c` ranks, the
-    coarsest inverse in shared memory or read in place (`inv_smem`), built
-    on first use."""
-    key, *_ = spec = _cl_specs(Nx, Ny, [(c, inv_smem)])[0]
+    coarsest inverse at `place` (`ops.pressure.INV_PLACES`), built on first
+    use."""
+    key, *_ = spec = _cl_specs(Nx, Ny, [(c, place)])[0]
     if key not in _libs:
         _load([spec])
     return _libs[key]
@@ -236,13 +240,14 @@ def _cl_grid_specs(Nx, Ny):
     return _cl_specs(Nx, Ny, plans, shape)
 
 
-def prebuild(pressure_grids=(), cl_grids=()):
+def prebuild(pressure_grids=(), cl_grids=(), cl_plans=()):
     """Build the main libraries, kernel P's libraries for `pressure_grids`
-    outside `GRIDS` and the cluster libraries of `cl_grids`, every
-    compiler at once."""
+    outside `GRIDS`, the cluster libraries of `cl_grids` and P-cl's for
+    each (Nx, Ny, c, place) of `cl_plans`, every compiler at once."""
     extra = [g for g in dict.fromkeys(tuple(g) for g in pressure_grids) if g not in GRIDS]
     _load([_spec(stem) for stem in _MAIN] + [_spec("pressure_pcg", g) for g in extra]
-          + [sp for g in cl_grids for sp in _cl_grid_specs(*g)])
+          + [sp for g in cl_grids for sp in _cl_grid_specs(*g)]
+          + [_cl_specs(Nx, Ny, [(c, place)])[0] for Nx, Ny, c, place in cl_plans])
 
 
 def check(code, name):
@@ -250,14 +255,15 @@ def check(code, name):
         raise RuntimeError(f"{name}: CUDA error {code} at launch")
 
 
-def kernel_info(kernel, Nx, Ny):
+def kernel_info(kernel, Nx, Ny, plan=None):
     """A kernel's resources at one grid, as the CUDA runtime reports them:
     registers and local (stack and spill) bytes a thread, dynamic shared
     bytes and threads a block, resident blocks an SM. `kernel` is a key of
     `LAUNCHES`; a device-memory variant ("_gm") reports its static shared
     bytes (its workspace is `ops.pressure.gm_bytes`, or K's two tiles); a
-    cluster variant ("_cl", on its route's cluster) its bytes a rank, and
-    adds the ranks a cluster and the clusters the card holds at once."""
+    cluster variant ("_cl", on its route's cluster or P-cl's `plan`) its
+    bytes a rank, and adds the ranks a cluster and the clusters the card
+    holds at once."""
     from historymatching_tpu_torch.ops import pressure, transport
 
     out = (ctypes.c_int * 7)()
@@ -271,7 +277,7 @@ def kernel_info(kernel, Nx, Ny):
                                                                      lib().hm_transport_info)
         code = fn(Nx, Ny, out)
     elif kernel.endswith("_cl"):
-        plan = pressure.cl_plan(Nx, Ny, bool(unit))
+        plan = plan or pressure.cl_plan(Nx, Ny, bool(unit))
         code = pressure_cl_lib(Nx, Ny, *plan).hm_pressure_cl_info(Nx, Ny, cheb, unit, out)
     else:
         fn = (lib().hm_pressure_gm_info if kernel.endswith("_gm")

@@ -21,17 +21,20 @@ that read the fine diagonal count as "pressure_pcg_diag" and
 
 Where a member's layout (`layout`, `smem_bytes`) exceeds one block's
 shared memory, P-cl runs instead (`csrc/pressure_pcg_cl.cu`, one library
-a grid and cluster size): the same solve on a thread-block cluster of c
-blocks a member, each holding a band of rows of the split levels, the
-coarse levels gathered on the first block, in the cluster's distributed
-shared memory (`layout` with `cl` counts a block's share, `cl_plan` picks c).
-Where no cluster of up to 16 holds it, or where a rank would take a
-whole SM and read the coarsest inverse from device memory (`route`),
-the device-memory variant P-gm runs (`csrc/pressure_pcg_gm.cu`, one
-library for every grid): the same solve, with every level's arrays and
-the CG vectors in a per-member workspace that the wrapper allocates. Their launches count under the
-same names with "_cl" or "_gm" appended. `route` says which a grid takes,
-and `force` ("cl", "gm") takes one at any grid it fits. A grid without a
+a grid, cluster size and place of the coarsest inverse): the same solve on
+a thread-block cluster of c blocks a member, each holding a band of rows
+of the split levels, the coarse levels gathered on the first block, in
+the cluster's distributed shared memory (`layout` with `cl` counts a
+block's share, `cl_plan` picks c and the inverse's place: whole on the
+first block, read in place from device memory, or, where neither leaves
+room (100x100, a 60x220 layer), a block of its rows on each rank: P-cl/d,
+`cl_bands`, `cl_inverse_rows`). Where no cluster of up to 16 holds it, the
+device-memory variant P-gm runs (`csrc/pressure_pcg_gm.cu`, one library
+for every grid): the same solve, with every level's arrays and the CG
+vectors in a per-member workspace that the wrapper allocates. Their
+launches count under the same names with "_cl" or "_gm" appended. `route`
+says which a grid takes, `force` ("cl", "gm") takes one at any grid it
+fits, and `plan` a cluster other than `cl_plan`'s. A grid without a
 hierarchy is refused before any launch (`check_grid`); `models.ressim`
 routes it to the plain Jacobi-PCG.
 
@@ -79,16 +82,25 @@ def _kernel_threads(Nx, Ny):
 LEVEL_KEYS = ("n", "m", "TX", "TY", "D", "RD", "B", "X", "T")
 
 
-CLUSTERS = (2, 4, 8, 16)  # P-cl's cluster sizes, smallest first (16: non-portable)
+CLUSTERS = (2, 4, 8, 16)  # P-cl's equal-band cluster sizes, smallest first (16: non-portable)
+DIST_CLUSTERS = tuple(range(2, 17))  # with the inverse distributed: any size up to 16
 SPLIT_MIN_CELLS = 256  # P-cl gathers a level of <= 16x16 cells on its first rank
+# Where P-cl keeps a member's coarsest inverse: read in place from device
+# memory, whole in the first rank's shared memory, or a block of its rows in
+# each rank's shared memory; the value is the kernel's -DHM_CL_INV.
+INV_PLACES = {"device": 0, "shared": 1, "distributed": 2}
 
 
-def cl_split(Nx, Ny, levels, c):
-    """The levels a cluster of `c` splits into row bands, 0..LS-1: from the
-    fine level down while a band is an even number of rows (the 2x2 tiles
-    and the restriction stay inside a rank) and the level has more than
-    SPLIT_MIN_CELLS cells; the coarsest is never split. 0 where the fine
-    level does not split."""
+def cl_split(Nx, Ny, levels, c, place="shared"):
+    """The levels a cluster of `c` splits into row bands, 0..LS-1. With the
+    inverse shared or in device memory, the bands are equal: from the fine
+    level down while a band is an even number of rows (the 2x2 tiles and
+    the restriction stay inside a rank) and the level has more than
+    SPLIT_MIN_CELLS cells; the coarsest is never split; 0 where the fine
+    level does not split. With the inverse distributed, every level but
+    the coarsest (`cl_bands`)."""
+    if place == "distributed":
+        return levels - 1
     ls = 0
     while (ls < levels - 1 and (Nx >> ls) % (2 * c) == 0
            and (Nx >> ls) * (Ny >> ls) > SPLIT_MIN_CELLS):
@@ -96,15 +108,38 @@ def cl_split(Nx, Ny, levels, c):
     return ls
 
 
-def cl_threads(Nx, Ny, c):
+def cl_bands(Nx, Ny, levels, c, place="shared"):
+    """Each rank's band of fine rows, (first row, rows): units of 2**LS
+    rows (LS = `cl_split`, so a band stays even down every split level),
+    the first (Nx >> LS) % c ranks one unit more than the others. Equal
+    bands where the inverse is shared or in device memory; with it
+    distributed, unequal ones, and a rank past the units holds no rows."""
+    ls = cl_split(Nx, Ny, levels, c, place)
+    base, extra = divmod(Nx >> ls, c)
+    rows = [(base + (q < extra)) << ls for q in range(c)]
+    return [(sum(rows[:q]), h) for q, h in enumerate(rows)]
+
+
+def cl_inverse_rows(nc, c):
+    """The rows [start, stop) of the coarsest inverse that each rank of a
+    cluster of `c` holds where it is distributed: blocks of ceil(nc / c) rows,
+    the last ones shorter or empty."""
+    k = -(-nc // c)
+    return [(min(nc, q * k), min(nc, (q + 1) * k)) for q in range(c)]
+
+
+def cl_threads(Nx, Ny, c, place="shared"):
     """Threads of a P-cl rank: about one per four fine 2x2 tiles of its
-    band, in the nearest whole multiple of 128 (the granule the registers
-    are allocated in), from 128 to 1024."""
-    t = -(-((Nx // c) * Ny // 4) // 4)
-    return max(128, min(1024, (t + 64) // 128 * 128))
+    largest band, in the nearest whole multiple of 128 (the granule the
+    registers are allocated in), from 128 to 1024; with the inverse
+    distributed at least 256, eight warps for the coarse product's rows."""
+    h = max(rows for _, rows in cl_bands(Nx, Ny, n_levels(Nx, Ny), c, place))
+    t = -(-(h * Ny // 4) // 4)
+    t = max(128, min(1024, (t + 64) // 128 * 128))
+    return max(t, 256) if place == "distributed" else t
 
 
-def layout(Nx, Ny, levels, unit_diag=True, gm=False, cl=0, inv_smem=True):
+def layout(Nx, Ny, levels, unit_diag=True, gm=False, cl=0, place="shared"):
     """Kernel P's arrays for one member (one rank of a cluster of `cl` for
     P-cl), in floats, each rounded up to 4: (per level a dict of its rows
     `n`, its columns `m`, whether it is `split` and the offsets of
@@ -123,16 +158,21 @@ def layout(Nx, Ny, levels, unit_diag=True, gm=False, cl=0, inv_smem=True):
     slots are in shared memory.
 
     With `cl` (P-cl, `Geo` in csrc/pressure_pcg_cl.cu) a rank holds a band
-    of Nx / cl rows of each split level (`cl_split`), each array with a
-    halo row above and below (the offsets are of the halo row above), its
-    TX one face row a cell row (zero past the grid's last face), and every
-    other level whole (used on the first rank; the others hold a copy of
-    the first gathered level's correction); the inverse follows where
-    `inv_smem`, else it is read in place from device memory; then two
-    reduction slots of the rank's warps and the cluster's totals."""
-    ls = cl_split(Nx, Ny, levels, cl) if cl else 0
+    of rows of each split level (`cl_split`, `cl_bands`; `n` is the
+    largest band, which every rank's layout makes room for), each array
+    with a halo row above and below (the offsets are of the halo row above;
+    the one below follows the rank's own rows), its TX one face row a cell
+    row (zero past the grid's last face), and every other level whole
+    (used on the first rank; the others hold a copy of the first gathered
+    level's correction). `place` puts the coarsest inverse (`INV_PLACES`):
+    "shared" whole, "device" nowhere (read in place), "distributed" a block of
+    `cl_inverse_rows` and four floats for its alignment, then the bulk
+    copy's barrier; then two reduction slots of the rank's warps and the
+    cluster's totals."""
+    ls = cl_split(Nx, Ny, levels, cl, place) if cl else 0
+    hmax = max(h for _, h in cl_bands(Nx, Ny, levels, cl, place)) if cl else Nx
     sides = [(Nx >> lvl, Ny >> lvl) for lvl in range(levels)]
-    rows = [n // cl if lvl < ls else n for lvl, (n, _) in enumerate(sides)]
+    rows = [hmax >> lvl if lvl < ls else n for lvl, (n, _) in enumerate(sides)]
     vec = [_r4((h + (2 if lvl < ls else 0)) * m)
            for lvl, (h, (_, m)) in enumerate(zip(rows, sides))]
     lc = levels - 1
@@ -169,12 +209,19 @@ def layout(Nx, Ny, levels, unit_diag=True, gm=False, cl=0, inv_smem=True):
         o += 4 * vec[0]
     else:
         extra = {}
-        if inv_smem:
+        if place == "shared" or not cl:
             extra["inverse"] = o
             o += _r4(nc * nc)
+        elif place == "distributed":
+            start, stop = cl_inverse_rows(nc, cl)[0]
+            extra["inverse"] = o
+            o += _r4((stop - start) * nc) + 4
+            extra["barrier"] = o
+            o += 4
         extra["reduction"] = o
         # two slots of a float pair a warp; P-cl's slots add one a rank
-        o += 4 * (cl_threads(Nx, Ny, cl) // 32 + cl) if cl else 4 * (_kernel_threads(Nx, Ny) // 32)
+        o += (4 * (cl_threads(Nx, Ny, cl, place) // 32 + cl) if cl
+              else 4 * (_kernel_threads(Nx, Ny) // 32))
     return lv, extra, o
 
 
@@ -189,29 +236,42 @@ def gm_bytes(Nx, Ny, levels, unit_diag=True):
     return 4 * layout(Nx, Ny, levels, unit_diag, gm=True)[2]
 
 
-def cl_bytes(Nx, Ny, levels, c, unit_diag=True, inv_smem=True):
+def cl_bytes(Nx, Ny, levels, c, unit_diag=True, place="shared"):
     """Shared memory one rank of P-cl's cluster of `c` takes: its `layout`."""
-    return 4 * layout(Nx, Ny, levels, unit_diag, cl=c, inv_smem=inv_smem)[2]
+    return 4 * layout(Nx, Ny, levels, unit_diag, cl=c, place=place)[2]
 
 
-def cl_plan(Nx, Ny, unit_diag=True):
-    """P-cl's cluster for a grid: (c, inverse in shared memory). The
-    smallest c of CLUSTERS that splits the fine level and whose rank
-    leaves room for two blocks an SM (`_build.SMEM_TWO_A_SM`); where none
-    does, the smallest whose rank fits one block's shared memory
-    (`_build.SMEM_LIMIT`). At a given c the coarsest inverse sits beside
-    the bands where it fits, else it is read in place. None where no
-    cluster holds the grid. (At 128x128 c = 8, three blocks an SM, ran
-    the bench case's first step 1.4x faster than c = 4, one an SM, and
-    1.6x faster than c = 16: PERF.md, PR 10.)"""
+def cl_fits(Nx, Ny, c, place, unit_diag=True, limit=None):
+    """Whether a cluster of `c` with the inverse at `place` splits the grid
+    and its rank fits `limit` bytes (by default one block's shared memory)."""
     levels = n_levels(Nx, Ny)
-    sizes = [c for c in CLUSTERS if levels >= 2 and cl_split(Nx, Ny, levels, c)]
-    for limit in (_build.SMEM_TWO_A_SM, _build.SMEM_LIMIT):
-        for c in sizes:
-            for inv in (True, False):
-                if cl_bytes(Nx, Ny, levels, c, unit_diag, inv) <= limit:
-                    return c, inv
-    return None
+    return (levels >= 2 and cl_split(Nx, Ny, levels, c, place) >= 1
+            and cl_bytes(Nx, Ny, levels, c, unit_diag, place)
+            <= (_build.SMEM_LIMIT if limit is None else limit))
+
+
+def cl_plan(Nx, Ny, unit_diag=True, place=None):
+    """P-cl's cluster for a grid: (c, place of the coarsest inverse). First
+    the smallest c of CLUSTERS whose rank, the inverse shared or else in
+    device memory, leaves room for two blocks an SM
+    (`_build.SMEM_TWO_A_SM`); then the smallest whose rank fits one block
+    (`_build.SMEM_LIMIT`) with the inverse shared; then the smallest c of
+    DIST_CLUSTERS whose rank fits with the inverse spread over the
+    ranks. None where none does. With `place`, the smallest c that fits
+    one block with the inverse there. (On an H100 at 128x128, c = 8, three
+    blocks an SM, ran the bench case's first step 1.4x faster than c = 4,
+    one an SM, and 1.6x faster than c = 16: chip_smoke.py [24]. A rank
+    that reads the inverse from device memory and holds a whole SM lost to
+    P-gm at 100x100 and 60x220 (bench_routes.py), so those grids
+    distribute it. PERF.md keeps the figures.)"""
+    if place is not None:
+        sizes = DIST_CLUSTERS if place == "distributed" else CLUSTERS
+        return next(((c, place) for c in sizes if cl_fits(Nx, Ny, c, place, unit_diag)), None)
+    tiers = [(c, place, _build.SMEM_TWO_A_SM) for c in CLUSTERS for place in ("shared", "device")]
+    tiers += [(c, "shared", None) for c in CLUSTERS]
+    tiers += [(c, "distributed", None) for c in DIST_CLUSTERS]
+    return next(((c, place) for c, place, limit in tiers
+                 if cl_fits(Nx, Ny, c, place, unit_diag, limit)), None)
 
 
 def gm_table(Nx, Ny, levels, unit_diag=True):
@@ -239,44 +299,57 @@ def check_grid(Nx, Ny):
         raise ValueError(f"pressure kernel: a {Nx}x{Ny} grid has no multigrid hierarchy")
 
 
-def route(Nx, Ny, unit_diag=True):
-    """Which kernel P takes a grid, smallest footprint first: "smem" where
-    the layout fits one block's shared memory (`_build.SMEM_LIMIT`), "cl"
-    where a cluster's rank does (`cl_plan`), else "gm". Also "gm" where
-    P-cl's rank would read the coarsest inverse from device memory and
-    leave no room for a second block on its SM (100x100, 60x220): both
-    variants then stream the inverse every V-cycle, and P-gm, a member an
-    SM, keeps twice the members in flight (at N=1000 it ran 1.58x and 1.2x
-    faster: `bench_routes.py`, PERF.md, PR 10)."""
+# P-cl/d keeps one member on a cluster of 9-16 SMs, 7-9 members in flight
+# where P-gm keeps 132, and its member's iteration runs faster. Where P-gm
+# won at N=1000 all the same, the largest batch P-cl/d takes, by (Nx, Ny,
+# unit_diag); P-gm takes larger ones. The scaled 100x100: P-cl/d ran 2.5x
+# faster at N=64 and 1.22x at 192, even at 256, 1.13x slower at 1000
+# (bench_routes.py on an H100; PERF.md keeps the figures).
+DIST_BATCH_MAX = {(100, 100, True): 192}
+
+
+def route(Nx, Ny, unit_diag=True, batch=None):
+    """Which kernel P takes a grid for a launch of `batch` members (None:
+    any batch, so past every limit), smallest footprint first: "smem"
+    where the layout fits one block's shared memory (`_build.SMEM_LIMIT`),
+    "cl" where a cluster's rank does (`cl_plan`), else "gm"; and "gm" where
+    the plan distributes the inverse and the batch exceeds the grid's
+    `DIST_BATCH_MAX`."""
     check_grid(Nx, Ny)
-    levels = n_levels(Nx, Ny)
-    if smem_bytes(Nx, Ny, levels, unit_diag) <= _build.SMEM_LIMIT:
+    if smem_bytes(Nx, Ny, n_levels(Nx, Ny), unit_diag) <= _build.SMEM_LIMIT:
         return "smem"
     plan = cl_plan(Nx, Ny, unit_diag)
     if plan is None:
         return "gm"
-    c, inv = plan
-    one_an_sm = cl_bytes(Nx, Ny, levels, c, unit_diag, inv) > _build.SMEM_TWO_A_SM
-    return "gm" if one_an_sm and not inv else "cl"
+    limit = DIST_BATCH_MAX.get((Nx, Ny, unit_diag))
+    if plan[1] == "distributed" and limit is not None and (batch is None or batch > limit):
+        return "gm"
+    return "cl"
 
 
 def pressure_solve_cuda(hier, Ainv, q, p0, w, tol, maxiter, patience_iters=96,
-                        restart_every=8, smoother="jacobi", unit_diag=True, force=None):
+                        restart_every=8, smoother="jacobi", unit_diag=True, force=None,
+                        plan=None):
     """The hand kernel. Same arguments as the plain version, float32 on one
     CUDA device. With `unit_diag` (the contract of
     `models.ressim.scaled_system`) the kernel takes the fine diagonal as 1
     and does not read `hier[0][2]`; without, it reads it. The grid's
-    `route` picks the shared-memory kernel, P-cl or P-gm; `force` (one of
-    ROUTES) picks one at any grid it fits."""
+    `route` for these B members picks the shared-memory kernel, P-cl or
+    P-gm; `force` (one of ROUTES) picks one at any grid it fits, and `plan`
+    ((c, place), as `cl_plan` gives it) a cluster for P-cl other than the
+    grid's."""
     B, Nx, Ny = q.shape
     if smoother not in SMOOTHERS:
         raise ValueError(f"smoother must be one of {SMOOTHERS}, got {smoother!r}")
-    if force not in (None, *ROUTES):
-        raise ValueError(f"force must be one of {ROUTES} or None, got {force!r}")
-    rt = route(Nx, Ny, unit_diag) if force is None else force
-    plan = cl_plan(Nx, Ny, unit_diag) if rt == "cl" else None
-    if rt == "cl" and plan is None:
-        raise ValueError(f"pressure kernel: no cluster of {CLUSTERS} holds the {Nx}x{Ny} layout")
+    if force not in (None, *ROUTES) or (plan is not None and force not in (None, "cl")):
+        raise ValueError(f"force must be one of {ROUTES} or None (\"cl\" with a plan), "
+                         f"got {force!r}")
+    rt = "cl" if plan is not None else route(Nx, Ny, unit_diag, B) if force is None else force
+    if rt == "cl":
+        plan = plan or cl_plan(Nx, Ny, unit_diag)
+        if plan is None or plan[1] not in INV_PLACES or not cl_fits(Nx, Ny, *plan, unit_diag):
+            raise ValueError(f"pressure kernel: no cluster holds the {Nx}x{Ny} layout"
+                             + (f" as {plan}" if plan else ""))
     levels = len(hier)
     if levels != n_levels(Nx, Ny):
         raise ValueError(f"pressure kernel: grid {Nx}x{Ny} takes {n_levels(Nx, Ny)} multigrid "

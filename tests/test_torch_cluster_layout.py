@@ -1,9 +1,11 @@
 """What the CPU can check of the cluster variants P-cl and K-cl: the
 cluster each grid takes, a rank's layout (`ops/pressure.layout` with
 `cl`), the row bands of the split levels and the levels gathered on the
-first rank, the coarsest inverse's place, K-cl's bands and strips, the
-routes that follow, and the wrappers' refusal of CPU tensors. The kernels
-run only on the card (tests/test_torch_kernels_cuda.py, chip_smoke.py)."""
+first rank, the coarsest inverse's place (P-cl/d: its rows distributed
+over the ranks), K-cl's bands and strips, the routes that follow (by batch
+where P-cl/d lost at N=1000), and the wrappers' refusal of CPU tensors.
+The kernels run only on the card (tests/test_torch_kernels_cuda.py,
+chip_smoke.py)."""
 
 import pytest
 import torch
@@ -13,7 +15,12 @@ from historymatching_tpu_torch.ops._build import GRIDS, SMEM_LIMIT, SMEM_TWO_A_S
 from historymatching_tpu_torch.ops.multigrid import build_hierarchy_5pt, n_levels
 from historymatching_tpu_torch.ops.pressure import (
     CLUSTERS,
+    DIST_BATCH_MAX,
+    DIST_CLUSTERS,
+    cl_bands,
     cl_bytes,
+    cl_fits,
+    cl_inverse_rows,
     cl_plan,
     cl_split,
     cl_threads,
@@ -23,18 +30,26 @@ from historymatching_tpu_torch.ops.pressure import (
 from historymatching_tpu_torch.ops.transport import transport_substeps_cuda
 
 # The grids past one block's shared memory (P) or one band (K), with the
-# cluster each kernel takes: (P-cl's c, split levels, inverse in shared
-# memory), K-cl's (c, strip) or None.
+# cluster each kernel takes: (P-cl's c, split levels, the inverse's place),
+# K-cl's (c, strip) or None. The grids of equal bands keep their plans.
 CL_GRIDS = {
-    (60, 60): ((2, 1, False), None),
-    (80, 80): ((2, 3, True), (2, 4)),
-    (88, 88): ((4, 1, False), (2, 4)),
-    (96, 96): ((4, 3, True), (4, 4)),
-    (100, 100): ((2, 1, False), (4, 5)),
-    (128, 128): ((8, 3, True), (4, 4)),
-    (60, 220): ((2, 1, False), (4, 5)),
-    (192, 192): ((8, 3, True), (16, 4)),
-    (256, 256): ((16, 4, True), (16, 4)),
+    (60, 60): ((2, 1, "device"), None),
+    (80, 80): ((2, 3, "shared"), (2, 4)),
+    (88, 88): ((4, 1, "device"), (2, 4)),
+    (96, 96): ((4, 3, "shared"), (4, 4)),
+    (100, 100): ((9, 2, "distributed"), (4, 5)),
+    (128, 128): ((8, 3, "shared"), (4, 4)),
+    (60, 220): ((15, 2, "distributed"), (4, 5)),
+    (192, 192): ((8, 3, "shared"), (16, 4)),
+    (256, 256): ((16, 4, "shared"), (16, 4)),
+}
+# P-cl/d's grids: scaled and unscaled, the plan (c, bytes a rank) and each
+# rank's fine rows.
+DIST_GRIDS = {
+    (100, 100, True): (9, 217_936, [12] * 7 + [8] * 2),
+    (100, 100, False): (9, 229_136, [12] * 7 + [8] * 2),
+    (60, 220, True): (15, 225_488, [4] * 15),
+    (60, 220, False): (16, 226_160, [4] * 15 + [0]),
 }
 
 
@@ -47,28 +62,27 @@ def _one_thread():
 @pytest.mark.parametrize("Nx,Ny", list(CL_GRIDS))
 def test_pressure_cluster_plan_fits(Nx, Ny, unit_diag):
     """P-cl's cluster is the smallest power of two up to 16 that splits the
-    fine level and whose rank leaves room for two blocks an SM, else the
-    smallest whose rank fits one block's shared memory; at that size the
-    coarsest inverse sits beside the bands where it fits. The unscaled
-    system's rank at 60x220 (its fine diagonal and reciprocal beside the
-    band) fits none."""
+    fine level in equal bands and whose rank leaves room for two blocks an
+    SM, the inverse shared or else in device memory; else the smallest
+    whose rank fits one block's shared memory with the inverse shared;
+    else the smallest cluster of up to 16 whose rank fits one block with
+    the inverse distributed (100x100, 60x220)."""
     levels = n_levels(Nx, Ny)
-    plan = cl_plan(Nx, Ny, unit_diag)
-    sizes = [c for c in CLUSTERS if cl_split(Nx, Ny, levels, c)]
-    fit = lambda c, limit: min(cl_bytes(Nx, Ny, levels, c, unit_diag, inv)  # noqa: E731
-                               for inv in (True, False)) <= limit
-    if (Nx, Ny) == (60, 220) and not unit_diag:
-        assert plan is None and not any(fit(c, SMEM_LIMIT) for c in sizes)
-        return
-    c, inv = plan
+    c, place = cl_plan(Nx, Ny, unit_diag)
     if unit_diag:
-        assert (c, cl_split(Nx, Ny, levels, c), inv) == CL_GRIDS[(Nx, Ny)][0]
-    assert c in sizes and c & (c - 1) == 0 and c <= 16
-    limit = SMEM_TWO_A_SM if any(fit(s, SMEM_TWO_A_SM) for s in sizes) else SMEM_LIMIT
-    assert cl_bytes(Nx, Ny, levels, c, unit_diag, inv) <= limit
-    assert not any(fit(s, limit) for s in sizes if s < c)
-    if not inv:
-        assert cl_bytes(Nx, Ny, levels, c, unit_diag, True) > limit
+        assert (c, cl_split(Nx, Ny, levels, c, place), place) == CL_GRIDS[(Nx, Ny)][0]
+    sizes = [s for s in CLUSTERS if cl_split(Nx, Ny, levels, s)]
+    two = [(s, pl) for s in sizes for pl in ("shared", "device")
+           if cl_fits(Nx, Ny, s, pl, unit_diag, SMEM_TWO_A_SM)]
+    one = [(s, "shared") for s in sizes if cl_fits(Nx, Ny, s, "shared", unit_diag)]
+    dist = [(s, "distributed") for s in DIST_CLUSTERS if cl_fits(Nx, Ny, s, "distributed",
+                                                                 unit_diag)]
+    assert (c, place) == (two or one or dist)[0]
+    assert cl_bytes(Nx, Ny, levels, c, unit_diag, place) <= (
+        SMEM_TWO_A_SM if two else SMEM_LIMIT)
+    if place == "distributed":
+        assert c == DIST_GRIDS[(Nx, Ny, unit_diag)][0]
+        assert cl_plan(Nx, Ny, unit_diag, place) == (c, place)
 
 
 @pytest.mark.parametrize("Nx,Ny", list(CL_GRIDS))
@@ -79,56 +93,60 @@ def test_pressure_cluster_bands_cover_the_levels(Nx, Ny):
     levels below are whole on the first rank: the first level of <= 256
     cells or of an odd band, and every coarser one."""
     levels = n_levels(Nx, Ny)
-    c, inv = cl_plan(Nx, Ny)
-    lv, extra, floats = layout(Nx, Ny, levels, cl=c, inv_smem=inv)
-    ls = cl_split(Nx, Ny, levels, c)
+    c, place = cl_plan(Nx, Ny)
+    lv, extra, floats = layout(Nx, Ny, levels, cl=c, place=place)
+    ls = cl_split(Nx, Ny, levels, c, place)
     assert 1 <= ls < levels
+    bands = cl_bands(Nx, Ny, levels, c, place)
     for lvl, d in enumerate(lv):
         n, m = Nx >> lvl, Ny >> lvl
         assert d["m"] == m and d["split"] == (lvl < ls)
         if d["split"]:
-            h = d["n"]
-            assert h * c == n and h % 2 == 0 and h >= 2
-            bands = [range(r * h, (r + 1) * h) for r in range(c)]
-            assert sorted(i for b in bands for i in b) == list(range(n))
+            rows = [range(f >> lvl, (f + h) >> lvl) for f, h in bands]
+            assert all(len(b) % 2 == 0 for b in rows)
+            assert [i for b in rows for i in b] == list(range(n))
+            assert d["n"] == max(len(b) for b in rows) >= 2
+            if place != "distributed":
+                assert all(len(b) * c == n for b in rows)
             if lvl > 0:
-                assert 2 * h == lv[lvl - 1]["n"]
+                assert 2 * d["n"] == lv[lvl - 1]["n"]
         else:
             assert d["n"] == n
     first_n = Nx >> ls
     assert (first_n * (Ny >> ls) <= 256 or first_n % (2 * c) or ls == levels - 1)
-    assert ("inverse" in extra) == inv
+    assert ("inverse" in extra) == (place != "device")
     nc = lv[-1]["n"] * lv[-1]["m"]
-    if inv:
+    if place == "shared":
         assert extra["reduction"] - extra["inverse"] >= nc * nc
-    assert floats - extra["reduction"] == 4 * (cl_threads(Nx, Ny, c) // 32 + c)
+    assert floats - extra["reduction"] == 4 * (cl_threads(Nx, Ny, c, place) // 32 + c)
 
 
-@pytest.mark.parametrize("Nx,Ny,place", [(60, 220, "device"), (100, 100, "device"),
+@pytest.mark.parametrize("Nx,Ny,place", [(60, 220, "distributed"), (100, 100, "distributed"),
                                          (60, 60, "device"), (88, 88, "device"),
                                          (128, 128, "shared"), (96, 96, "shared"),
                                          (256, 256, "shared")])
 def test_pressure_cluster_inverse_place(Nx, Ny, place):
-    """The coarsest inverse of 60x220 (825^2 floats, 2.7 MB), 100x100 (625^2)
-    and 60x60 (225^2) is read in place from device memory, and 88x88's
-    (121^2), whose rank then fits two blocks an SM; 4x4's and 3x3's sit in
-    the first rank's shared memory."""
-    assert cl_plan(Nx, Ny)[1] == (place == "shared")
+    """The coarsest inverse of 60x220 (825^2 floats, 2.7 MB) and 100x100
+    (625^2, 1.56 MB) is distributed over the ranks' shared memory; 60x60's
+    (225^2) is read in place from device memory, and 88x88's (121^2), whose
+    rank then fits two blocks an SM; 4x4's and 3x3's sit in the first
+    rank's shared memory."""
+    assert cl_plan(Nx, Ny)[1] == place
 
 
 @pytest.mark.parametrize("Nx,Ny,unit_diag", [
     (Nx, Ny, unit) for Nx, Ny in [(60, 60), (96, 96), (100, 100), (128, 128), (60, 220),
                                   (256, 256)]
-    for unit in (True, False) if (Nx, Ny, unit) != (60, 220, False)])
+    for unit in (True, False)])
 def test_pressure_cluster_layout_arrays_fit_and_do_not_overlap(Nx, Ny, unit_diag):
     """A rank's arrays, a split level's with their halo rows, lie inside
     its floats, 4-aligned (the kernel loads float pairs), and no two
     overlap, except that a coarse level's temporary lives inside the fine
-    one while they all fit there (the unscaled 60x220 system has no
-    cluster: it takes P-gm)."""
+    one while they all fit there; a distributed inverse's block (with 3
+    floats of slack for its alignment) and its copy's barrier too."""
     levels = n_levels(Nx, Ny)
-    c, inv = cl_plan(Nx, Ny, unit_diag)
-    lv, extra, floats = layout(Nx, Ny, levels, unit_diag, cl=c, inv_smem=inv)
+    c, place = cl_plan(Nx, Ny, unit_diag)
+    lv, extra, floats = layout(Nx, Ny, levels, unit_diag, cl=c, place=place)
     lc = levels - 1
     spans = []
     for lvl, d in enumerate(lv):
@@ -139,15 +157,20 @@ def test_pressure_cluster_layout_arrays_fit_and_do_not_overlap(Nx, Ny, unit_diag
             size = (h + 2) * m if d["split"] else (h - 1) * m if k == "TX" else h * m
             spans.append(((k, lvl), d[k], d[k] + size))
     nc = lv[lc]["n"] * lv[lc]["m"]
-    if inv:
+    if place == "shared":
         spans.append((("inverse", None), extra["inverse"], extra["inverse"] + nc * nc))
+    if place == "distributed":
+        start, stop = cl_inverse_rows(nc, c)[0]
+        spans.append((("inverse", None), extra["inverse"],
+                      extra["inverse"] + 3 + (stop - start) * nc))
+        spans.append((("barrier", None), extra["barrier"], extra["barrier"] + 2))
     spans.append((("reduction", None), extra["reduction"], floats))
     assert all(o % 4 == 0 and 0 <= o < e <= floats for _, o, e in spans)
     fine_t = next((o, e) for k, o, e in spans if k == ("T", 0))
     own = sorted((o, e, k) for k, o, e in spans
                  if not (k[0] == "T" and k[1] > 0 and fine_t[0] <= o and e <= fine_t[1]))
     assert all(e1 <= o2 for (_, e1, _), (o2, _, _) in zip(own, own[1:])), own
-    assert 4 * floats == cl_bytes(Nx, Ny, levels, c, unit_diag, inv) <= SMEM_LIMIT
+    assert 4 * floats == cl_bytes(Nx, Ny, levels, c, unit_diag, place) <= SMEM_LIMIT
 
 
 @pytest.mark.parametrize("Nx,Ny", list(CL_GRIDS))
@@ -168,30 +191,92 @@ def test_transport_cluster_bands_and_strips(Nx, Ny):
     assert all(Nx % s or (Nx // s) * Ny > transport.BAND_CELLS for s in (2, 4, 8, 16) if s < c)
 
 
-# P's route past one block, by grid: P-gm where the rank would take a
-# whole SM and read the coarsest inverse from device memory (both fine
-# diagonals at 100x100, the scaled 60x220), or where no cluster holds the
-# layout (the unscaled 60x220).
-P_GM_GRIDS = {(100, 100), (60, 220)}
+# P's route past one block, by grid, fine diagonal and batch: P-cl on
+# every grid a cluster holds; at the scaled 100x100 P-cl/d only up to 192
+# members, P-gm past them (and for a batch not given).
+P_GM_PAST = {(100, 100, True): 192}
+
+
+@pytest.mark.parametrize("batch", [None, 64, 192, 193, 1000])
+@pytest.mark.parametrize("unit_diag", [True, False])
+@pytest.mark.parametrize("Nx,Ny", [g for g in CL_GRIDS if g != (80, 80)])
+def test_pressure_route_past_one_block(Nx, Ny, unit_diag, batch):
+    """P takes P-cl past one block's shared memory wherever a cluster holds
+    the layout; where the plan distributes the inverse and P-gm won at
+    N=1000 (the scaled 100x100), only up to the batch where P-cl/d still
+    won (`DIST_BATCH_MAX`), P-gm beyond it."""
+    plan = cl_plan(Nx, Ny, unit_diag)
+    limit = P_GM_PAST.get((Nx, Ny, unit_diag))
+    expect = "gm" if limit is not None and (batch is None or batch > limit) else "cl"
+    assert pressure.route(Nx, Ny, unit_diag, batch) == expect
+    assert DIST_BATCH_MAX == P_GM_PAST and (limit is None or plan[1] == "distributed")
+
+
+# The plans (c, place, bytes a rank) on the grids of equal bands, scaled
+# and unscaled, as they were before the inverse could be distributed; the
+# rule that adds P-cl/d leaves them so.
+EQUAL_BAND_PLANS = {
+    (60, 60): ((2, "device", 61_808), (2, "device", 77_168)),
+    (88, 88): ((4, "device", 103_120), (2, "shared", 209_952)),
+    (96, 96): ((4, "shared", 75_472), (4, "shared", 95_440)),
+    (128, 128): ((8, "shared", 74_976), (8, "shared", 93_408)),
+    (192, 192): ((8, "shared", 159_984), (8, "shared", 199_920)),
+    (256, 256): ((16, "shared", 144_288), (16, "shared", 181_152)),
+}
 
 
 @pytest.mark.parametrize("unit_diag", [True, False])
-@pytest.mark.parametrize("Nx,Ny", [g for g in CL_GRIDS if g != (80, 80)])
-def test_pressure_route_past_one_block(Nx, Ny, unit_diag):
-    """P takes P-cl past one block's shared memory unless its rank would
-    hold a whole SM (more than `SMEM_TWO_A_SM` bytes) with the coarsest
-    inverse read from device memory; there, and where no cluster holds the
-    layout, P-gm."""
+@pytest.mark.parametrize("Nx,Ny", list(EQUAL_BAND_PLANS))
+def test_pressure_equal_band_plans_unchanged(Nx, Ny, unit_diag):
+    """Every grid that a cluster of equal bands held keeps its plan, its
+    split and its bytes a rank."""
+    c, place, nbytes = EQUAL_BAND_PLANS[(Nx, Ny)][0 if unit_diag else 1]
     levels = n_levels(Nx, Ny)
-    plan = cl_plan(Nx, Ny, unit_diag)
-    expect = "gm" if (Nx, Ny) in P_GM_GRIDS else "cl"
-    assert pressure.route(Nx, Ny, unit_diag) == expect
-    if expect == "gm" and plan is not None:
-        c, inv = plan
-        assert not inv and cl_bytes(Nx, Ny, levels, c, unit_diag, inv) > SMEM_TWO_A_SM
-    if expect == "cl":
-        c, inv = plan
-        assert inv or cl_bytes(Nx, Ny, levels, c, unit_diag, inv) <= SMEM_TWO_A_SM
+    assert cl_plan(Nx, Ny, unit_diag) == (c, place)
+    assert cl_bytes(Nx, Ny, levels, c, unit_diag, place) == nbytes
+    assert [h for _, h in cl_bands(Nx, Ny, levels, c, place)] == [Nx // c] * c
+
+
+@pytest.mark.parametrize("Nx,Ny,unit_diag", list(DIST_GRIDS))
+def test_pressure_dist_bands_cover_every_row_once(Nx, Ny, unit_diag):
+    """P-cl/d's bands, scaled and unscaled: on every level but the
+    coarsest, the ranks' bands cover every row once, in order, each an
+    even count (a rank past the rows holds none), the largest first."""
+    c, nbytes, rows = DIST_GRIDS[(Nx, Ny, unit_diag)]
+    levels = n_levels(Nx, Ny)
+    bands = cl_bands(Nx, Ny, levels, c, "distributed")
+    assert [h for _, h in bands] == rows
+    assert cl_split(Nx, Ny, levels, c, "distributed") == levels - 1
+    for lvl in range(levels - 1):
+        cover = [i for f, h in bands for i in range(f >> lvl, (f + h) >> lvl)]
+        assert cover == list(range(Nx >> lvl))
+        assert all((h >> lvl) % 2 == 0 for _, h in bands)
+
+
+@pytest.mark.parametrize("Nx,Ny,unit_diag", list(DIST_GRIDS))
+def test_pressure_dist_inverse_rows_partition(Nx, Ny, unit_diag):
+    """The ranks' blocks of the coarsest inverse's rows partition 0..nc-1 in
+    order, none longer than the block every rank's layout holds."""
+    c = DIST_GRIDS[(Nx, Ny, unit_diag)][0]
+    levels = n_levels(Nx, Ny)
+    nc = (Nx >> (levels - 1)) * (Ny >> (levels - 1))
+    blocks = cl_inverse_rows(nc, c)
+    assert len(blocks) == c and [i for a, b in blocks for i in range(a, b)] == list(range(nc))
+    assert max(b - a for a, b in blocks) == blocks[0][1] == -(-nc // c)
+
+
+@pytest.mark.parametrize("Nx,Ny,unit_diag", list(DIST_GRIDS))
+def test_pressure_dist_rank_fits_one_block(Nx, Ny, unit_diag):
+    """A P-cl/d rank's bytes (bands, halos, the coarsest level, its block of
+    the inverse, the copy's barrier and the reduction slots) fit one
+    block's shared memory but leave no room for a second on its SM; one
+    rank fewer does not fit."""
+    c, nbytes, _ = DIST_GRIDS[(Nx, Ny, unit_diag)]
+    levels = n_levels(Nx, Ny)
+    assert cl_bytes(Nx, Ny, levels, c, unit_diag, "distributed") == nbytes
+    assert SMEM_TWO_A_SM < nbytes <= SMEM_LIMIT
+    assert not cl_fits(Nx, Ny, c - 1, "distributed", unit_diag)
+    assert cl_threads(Nx, Ny, c, "distributed") == 256
 
 
 def test_routes_of_the_main_grids_unchanged():
@@ -232,14 +317,21 @@ def test_wrappers_refuse_cpu_tensors_on_every_route(Nx, Ny, force):
 
 
 def test_cluster_route_refused_where_no_cluster_holds_the_grid():
-    """P-cl forced where no cluster's rank fits (the unscaled 60x220
-    system), and K-cl forced where no band fits (171 rows), raise before
-    any launch; P-gm and K-gm take them."""
-    args = _p_args(60, 220)
+    """P-cl forced where no cluster's rank fits (a 60x220 layer refined 2x2,
+    120x440, either system), or on a plan that does not fit, and K-cl
+    forced where no band fits (171 rows), raise before any launch; P-gm and
+    K-gm take them."""
+    args = _p_args(120, 440)
+    for unit in (True, False):
+        with pytest.raises(ValueError, match="no cluster"):
+            pressure_solve_cuda(*args, tol=1e-3, maxiter=8, unit_diag=unit, force="cl")
+        with pytest.raises(ValueError, match="need float32 CUDA"):
+            pressure_solve_cuda(*args, tol=1e-3, maxiter=8, unit_diag=unit, force="gm")
     with pytest.raises(ValueError, match="no cluster"):
-        pressure_solve_cuda(*args, tol=1e-3, maxiter=8, unit_diag=False, force="cl")
-    with pytest.raises(ValueError, match="need float32 CUDA"):
-        pressure_solve_cuda(*args, tol=1e-3, maxiter=8, unit_diag=False, force="gm")
+        pressure_solve_cuda(*_p_args(100, 100), tol=1e-3, maxiter=8, plan=(8, "distributed"))
+    with pytest.raises(ValueError, match="force must be"):
+        pressure_solve_cuda(*_p_args(100, 100), tol=1e-3, maxiter=8, plan=(9, "distributed"),
+                            force="gm")
     with pytest.raises(ValueError, match="no cluster"):
         transport_substeps_cuda(*_k_args(171, 171), force="cl")
     with pytest.raises(ValueError, match="need float32 CUDA"):

@@ -124,16 +124,17 @@ LARGE_GRIDS = {
 def test_large_grid_layouts_and_routes(Nx, Ny):
     """The layout count at each grid past one block's shared memory: P's
     shared bytes and P-gm's workspace, both from `layout`; P takes P-cl
-    but at 100x100 and 60x220, where a rank would take a whole SM and read
-    the coarsest inverse from device memory (the unscaled system at 60x220
-    has no cluster at all), and P-gm takes those; K its runtime-grid
-    variant up to 4,096 cells (60x60) and K-cl above."""
+    everywhere but on the scaled 100x100 past 192 members (or for a batch
+    not given), where its coarsest inverse is distributed over 9 ranks and
+    P-gm, 132 members in flight, takes it; K its runtime-grid variant up to
+    4,096 cells (60x60) and K-cl above."""
     p_smem, p_gm, k_smem, k_route = LARGE_GRIDS[(Nx, Ny)]
     levels = n_levels(Nx, Ny)
     assert smem_bytes(Nx, Ny, levels) == p_smem > SMEM_LIMIT
     assert gm_bytes(Nx, Ny, levels) == p_gm
-    p_route = "gm" if (Nx, Ny) in ((100, 100), (60, 220)) else "cl"
-    assert pressure.route(Nx, Ny) == pressure.route(Nx, Ny, False) == p_route
+    p_route = "gm" if (Nx, Ny) == (100, 100) else "cl"
+    assert pressure.route(Nx, Ny) == pressure.route(Nx, Ny, True, 1000) == p_route
+    assert pressure.route(Nx, Ny, True, 64) == pressure.route(Nx, Ny, False) == "cl"
     assert transport.smem_bytes(Nx, Ny) == k_smem and transport.route(Nx, Ny) == k_route
     for kernel in ("pressure", "transport"):
         with pytest.raises(ValueError, match="need float32 CUDA"):

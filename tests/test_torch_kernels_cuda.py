@@ -88,26 +88,27 @@ def _system(mm, q, unit_diag):
             torch.ones_like(s))
 
 
-def _pressure_vs_plain(dev, Nx, Ny, smoother, unit_diag=True, window=16, scale=1.0, force=None):
+def _pressure_vs_plain(dev, Nx, Ny, smoother, unit_diag=True, window=16, scale=1.0, force=None,
+                       plan=None, B=8):
     """One launch of P's `smoother` instantiation against the plain version
     with the same smoother, after fixed work (one restart window of
     `window` iterations, or two of 8 for 16); the launch counts on that
     instantiation's own key. Without `unit_diag`, on the unscaled system
     (the instantiation that reads the fine diagonal); `scale` multiplies
-    the pre-permeability fields; `force` the route (P-gm: "gm")."""
+    the pre-permeability fields; `force` the route (P-gm: "gm"), `plan`
+    P-cl's cluster; B members."""
     g = torch.Generator(device=dev).manual_seed(1)
     m = _model(Nx, Ny, dev)
-    B = 8
     mm = set_perm(m, scale * torch.randn(B, m.Nxy, generator=g, device=dev))
     q = torch.zeros(Nx, Ny, device=dev)
     q[Nx // 2, Ny // 2], q[1, 1] = 1.0, -1.0
     args = _system(mm, q, unit_diag)
     fixed = dict(tol=0.0, maxiter=window, restart_every=min(window, 8), patience_iters=160,
                  smoother=smoother, unit_diag=unit_diag)
-    route = force or pressure_route(Nx, Ny, unit_diag)
+    route = "cl" if plan else force or pressure_route(Nx, Ny, unit_diag)
     name = kernel_name(smoother, unit_diag, route)
     before = dict(_build.LAUNCHES)
-    p_k, it_k, rel_k = pressure_solve_cuda(*args, **fixed, force=force)
+    p_k, it_k, rel_k = pressure_solve_cuda(*args, **fixed, force=force, plan=plan)
     torch.cuda.synchronize()
     assert {k: v - before[k] for k, v in _build.LAUNCHES.items() if v != before[k]} == {name: 1}
     p_t, it_t, rel_t = pressure_solve_torch(*args, **fixed)
@@ -384,16 +385,36 @@ def test_pressure_cl_matches_plain(dev, Nx, Ny, smoother, unit_diag):
     iterations: 60x60 (the inverse read in place, a 30x30 level gathered on
     rank 0), 88x88 (its 11x11 inverse in place, over four ranks), 96x96 and
     128x128 (the small coarse levels on rank 0's warp), 60x220 (its
-    825-cell inverse in place; P-gm's route). The unscaled system on fields
-    of mild contrast, as the shared-memory P; at 60x220 no cluster holds
-    it, so that case runs the scaled system's P-cl on the same fields."""
+    825-cell inverse distributed over 15 or 16 ranks, P-cl/d). The unscaled
+    system on fields of mild contrast, as the shared-memory P."""
+    _pressure_vs_plain(dev, Nx, Ny, smoother, unit_diag=unit_diag, window=4,
+                       scale=1.0 if unit_diag else 0.2, force="cl")
+
+
+# P-cl/d's grids with their plans (c ranks, the inverse distributed), and
+# the inverse read in place on two ranks (P-cl's plan there before P-cl/d;
+# the unscaled 60x220 has none).
+CL_D_CASES = [((Nx, Ny), unit, place) for Nx, Ny in ((100, 100), (60, 220))
+              for unit in (True, False) for place in ("distributed", "device")
+              if (Nx, Ny, unit, place) != (60, 220, False, "device")]
+
+
+@pytest.mark.parametrize("smoother", ["jacobi", "cheb"])
+@pytest.mark.parametrize("grid,unit_diag,place", CL_D_CASES)
+def test_pressure_cl_distributed_matches_plain(dev, grid, unit_diag, place, smoother):
+    """P-cl/d at 100x100 (9 ranks, bands of 12 and 8 rows, 70 rows of the
+    625-row inverse a rank) and 60x220 (15 ranks scaled, 16 unscaled with
+    the last holding no rows; bands of 4 rows, 55 or 52 rows of the 825-row
+    inverse), and the in-place plan on two ranks, against the plain version
+    after one window of 4 iterations, on 4 members (each member's inverse
+    block starts at another 16-byte phase: the bulk copy's aligned middle
+    and plain ends)."""
     from historymatching_tpu_torch.ops.pressure import cl_plan
 
-    scale = 1.0 if unit_diag else 0.2
-    if cl_plan(Nx, Ny, unit_diag) is None:
-        unit_diag = True
-    _pressure_vs_plain(dev, Nx, Ny, smoother, unit_diag=unit_diag, window=4, scale=scale,
-                       force="cl")
+    plan = cl_plan(*grid, unit_diag, place)
+    assert place == "device" or plan == cl_plan(*grid, unit_diag)
+    _pressure_vs_plain(dev, *grid, smoother, unit_diag=unit_diag, window=4,
+                       scale=1.0 if unit_diag else 0.2, plan=plan, B=4)
 
 
 @pytest.mark.parametrize("Nx,Ny", [(80, 80), (128, 128), (60, 220), (192, 192), (100, 100)])
@@ -423,13 +444,16 @@ def test_cl_kernel_resources(dev, Nx, Ny):
 
     for name, unit in (("pressure_pcg_cl", True), ("pressure_pcg_cheb_cl", True),
                        ("pressure_pcg_diag_cl", False), ("pressure_pcg_cheb_diag_cl", False)):
-        if cl_plan(Nx, Ny, unit) is None:  # the unscaled 60x220: no cluster holds it
-            continue
-        c, inv = cl_plan(Nx, Ny, unit)
-        p = _build.kernel_info(name, Nx, Ny)
-        assert p["shared_bytes"] == cl_bytes(Nx, Ny, n_levels(Nx, Ny), c, unit, inv), (name, p)
-        assert p["cluster"] == c and p["local_bytes"] == 0, (name, p)
-        assert p["blocks_per_sm"] >= 1 and p["max_active_clusters"] >= 1, (name, p)
+        # the route's plan, and where it distributes the inverse the in-place one
+        plans = {cl_plan(Nx, Ny, unit)}
+        if cl_plan(Nx, Ny, unit)[1] == "distributed":
+            plans.add(cl_plan(Nx, Ny, unit, "device"))
+        for c, place in plans - {None}:
+            p = _build.kernel_info(name, Nx, Ny, (c, place))
+            assert p["shared_bytes"] == cl_bytes(Nx, Ny, n_levels(Nx, Ny), c, unit, place), (
+                name, p)
+            assert p["cluster"] == c and p["local_bytes"] == 0, (name, place, p)
+            assert p["blocks_per_sm"] >= 1 and p["max_active_clusters"] >= 1, (name, place, p)
     if transport_route(Nx, Ny) == "cl":
         k = _build.kernel_info("transport_upwind_cl", Nx, Ny)
         assert k["local_bytes"] == 0 and k["blocks_per_sm"] >= 1, k
