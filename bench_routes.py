@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
 """Time each route of kernels P and K against the others on one NVIDIA GPU.
 
-    python3 bench_routes.py [--out FILE]
+    python3 bench_routes.py [--out FILE] [--kernel P|K]
 
 The evidence behind `ops/pressure.route` and `ops/transport.route` past one
 block: P-cl (a thread-block cluster a member, on the grid's `cl_plan`)
 against P-gm (device memory), and where that plan distributes the coarsest
 inverse over the ranks (P-cl/d: 100x100, 60x220) also against the plan
 that reads it in place from device memory on two ranks ("cl_device"); K-cl
-against K's runtime-grid variant; on `chip_smoke.py` [23]'s grids and its
-kind of inputs (the flagship geometry, a prior drawn for each grid from
-seed 1 + 23, the unscaled system on fields of mild contrast), at [23]'s
-N=64 and at the bench case's N=1000.
+against K's runtime-grid variant and K-gm (a member over co-resident
+blocks a band of rows); on `chip_smoke.py` [23]'s grids and its kind of
+inputs (the flagship geometry, a prior drawn for each grid from seed 1 +
+23, the unscaled system on fields of mild contrast), at [23]'s N=64 and
+at the bench case's N=1000; and on the grids no cluster takes (120x440,
+171x171) K-gm against K-gm1 (one block a member) at N=16, 64 and 1000.
 P runs one launch at the bench settings (tol 2e-4, maxiter 768, patience
 256) and K the substeps of the first step. Each line gives each variant's
 milliseconds a launch (CUDA events, the mean of `--reps` after a warm-up),
@@ -40,6 +42,8 @@ P_CASES = [((60, 60), True), ((88, 88), True), ((96, 96), True), ((100, 100), Tr
            ((128, 128), False), ((60, 220), False), ((192, 192), False)]
 K_GRIDS = [(80, 80), (88, 88), (96, 96), (100, 100), (128, 128)]
 MEMBERS = (64, 1000)
+# K's grids that no cluster takes, and their batches.
+K_GM_GRIDS, K_GM_MEMBERS = [(120, 440), (171, 171)], (16, 64, 1000)
 # P's cases whose route takes the batch (`ops/pressure.DIST_BATCH_MAX`),
 # timed at these batches too, between the two of MEMBERS.
 LADDER = {((100, 100), True): (128, 160, 192, 256)}
@@ -97,29 +101,68 @@ def p_variants(Nx, Ny, unit):
     return variants
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--reps", type=int, default=5)
-    ap.add_argument("--out", default="")
-    opts = ap.parse_args(argv)
+def k_row(Nx, Ny, n_members, reps):
+    """One row of K at a grid and batch, on the substeps of the first step:
+    each variant that takes the grid (K-cl, the runtime-grid variant where
+    its tiles fit one block, K-gm where `gm_bands` splits it, and K-gm1
+    where no cluster does) timed, each held to the first bit for bit."""
     import torch
 
     import historymatching_tpu_torch as ht
     from historymatching_tpu_torch.models.ressim import _source_field, cfl_substeps, pressure_step
-    from historymatching_tpu_torch.ops import _build, pressure, transport
+    from historymatching_tpu_torch.ops import _build, transport
     from historymatching_tpu_torch.ops.transport import transport_substeps_cuda
     from historymatching_tpu_torch.parallel.runner import set_perm
 
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 23)
+    m = cs.grid_model(torch, Nx, Ny)
+    mm = set_perm(m, ht.sample_prior_perm(gen, m, n_members, r=0.8))
+    qf = _source_field(m, m.inj_rates[:, 0], m.prd_rates[:, 0])
+    s0 = torch.zeros(n_members, Nx, Ny, device=dev)
+    solve = {k: cs.BASE[k] for k in cs.SOLVE_KEYS}
+    _, Fx, Fy, _, _, _ = pressure_step(mm, s0, qf, torch.zeros_like(s0), tol_accept=5e-2,
+                                       **solve)
+    Fx, Fy = Fx.contiguous(), Fy.contiguous()
+    nsub, dtspv = cfl_substeps(mm, Fx, Fy, qf, cs.DT)
+    t_args = (s0, Fx, Fy, qf[None].contiguous(), dtspv, nsub, cs.fluid_of(m))
+    row = dict(kernel="K", grid=f"{Nx}x{Ny}", N=n_members, route=transport.route(Nx, Ny),
+               shape=transport.cl_shape(Nx, Ny), substeps=int(nsub.median()),
+               bound_ms=cs.transport_bound_ms(s0, Fx, Fy, t_args[3], nsub)[0])
+    forces = (["cl"] if transport.cl_shape(Nx, Ny) else ["gm1"]) + (
+        ["rt"] if transport.smem_bytes(Nx, Ny) <= _build.SMEM_LIMIT else []) + ["gm"]
+    first = None
+    for force in forces:
+        out = transport_substeps_cuda(*t_args, force=force)
+        first = out if first is None else first
+        assert torch.equal(out, first), (Nx, Ny, force)
+        row[f"{force}_ms"] = cs.cuda_ms(
+            lambda: transport_substeps_cuda(*t_args, force=force), reps)
+    gm = _build.kernel_info("transport_upwind_gm", Nx, Ny)
+    row.update(gm_bands=gm["bands"], gm_groups_resident=gm["groups_resident"])
+    return row
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--out", default="")
+    ap.add_argument("--kernel", choices=("P", "K"), default=None,
+                    help="time one kernel's routes only (default: both)")
+    opts = ap.parse_args(argv)
+    do_p, do_k = opts.kernel in (None, "P"), opts.kernel in (None, "K")
+    import torch
+
+    from historymatching_tpu_torch.ops import _build, pressure
+
     if not torch.cuda.is_available():
         raise RuntimeError("bench_routes.py runs on a CUDA device only")
-    dev = torch.device("cuda")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
     grids = sorted({g for g, _ in P_CASES} | set(K_GRIDS))
     plans = {(*g, *kw["plan"]) for g, unit in P_CASES
              for kw in p_variants(*g, unit).values() if "plan" in kw}
     _build.prebuild(cl_grids=grids, cl_plans=plans)
-    solve = {k: cs.BASE[k] for k in cs.SOLVE_KEYS}
     rows = []
 
     def emit(row):
@@ -127,26 +170,14 @@ def main(argv=None):
         print(json.dumps(row), flush=True)
 
     for n_members in MEMBERS:
-        for (Nx, Ny), unit in P_CASES:
+        for (Nx, Ny), unit in P_CASES if do_p else ():
             emit(p_row(Nx, Ny, unit, n_members, opts.reps))
-        for Nx, Ny in K_GRIDS:
-            gen = torch.Generator(device=dev).manual_seed(cs.SEED + 23)
-            m = cs.grid_model(torch, Nx, Ny)
-            mm = set_perm(m, ht.sample_prior_perm(gen, m, n_members, r=0.8))
-            qf = _source_field(m, m.inj_rates[:, 0], m.prd_rates[:, 0])
-            s0 = torch.zeros(n_members, Nx, Ny, device=dev)
-            _, Fx, Fy, _, _, _ = pressure_step(mm, s0, qf, torch.zeros_like(s0), tol_accept=5e-2,
-                                               **solve)
-            Fx, Fy = Fx.contiguous(), Fy.contiguous()
-            nsub, dtspv = cfl_substeps(mm, Fx, Fy, qf, cs.DT)
-            t_args = (s0, Fx, Fy, qf[None].contiguous(), dtspv, nsub, cs.fluid_of(m))
-            row = dict(kernel="K", grid=f"{Nx}x{Ny}", N=n_members, route=transport.route(Nx, Ny),
-                       shape=transport.cl_shape(Nx, Ny), substeps=int(nsub.median()))
-            for force in ("cl", "rt"):
-                row[f"{force}_ms"] = cs.cuda_ms(
-                    lambda: transport_substeps_cuda(*t_args, force=force), opts.reps)
-            emit(row)
-    for ((Nx, Ny), unit), batches in LADDER.items():
+        for Nx, Ny in K_GRIDS if do_k else ():
+            emit(k_row(Nx, Ny, n_members, opts.reps))
+    for n_members in K_GM_MEMBERS if do_k else ():
+        for Nx, Ny in K_GM_GRIDS:
+            emit(k_row(Nx, Ny, n_members, opts.reps))
+    for ((Nx, Ny), unit), batches in LADDER.items() if do_p else ():
         ladder = {"cl": dict(plan=pressure.cl_plan(Nx, Ny, unit)), "gm": dict(force="gm")}
         for n_members in batches:
             emit(p_row(Nx, Ny, unit, n_members, opts.reps, ladder))

@@ -84,12 +84,16 @@ Phases, one printed line or more each; any failed check raises:
     resources and clusters resident; K on its route (K-cl, or the
     runtime-grid variant at 60x60), the runtime-grid variant where its
     tiles fit and K-gm forced, each bit for bit on a real step and timed
-    against its bound; a few steps of `simulate` through each P-cl
-    instantiation and K-cl at 128x128 and at 60x220 (P-cl/d), and through
-    each P-gm instantiation and K-gm at 120x440 (a 60x220 layer refined
-    2x2, past any cluster; N=16), where P-gm and K-gm are then timed a
-    launch each with their bounds; P-gm and K-gm forced at 64x64 on [6]'s
-    inputs beside the shared-memory kernels;
+    against its bound (K-gm, a member over co-resident blocks a band of
+    rows, with its bands and members in flight); a few steps of `simulate`
+    through each P-cl instantiation and K-cl at 128x128 and at 60x220
+    (P-cl/d), and through each P-gm instantiation and K-gm at 120x440 (a
+    60x220 layer refined 2x2, past any cluster; N=16), where P-gm and K-gm
+    are then timed a launch each with their bounds, K-gm beside K-gm1 (one
+    block a member, its fw tiles in device memory); `simulate` at 32x1088
+    (N=4), past K-gm's capacity (a row wider than a block), through K-gm1,
+    then timed on its step 6; P-gm, K-gm and K-gm1 forced at 64x64 on
+    [6]'s inputs beside the shared-memory kernels;
 24. the reference's bench case at 128x128 (`parity.build_case(seed=1,
     N=1000, Nx=128, Ny=128)`): 40 steps and the 4-pass ES-MDA on the
     reference's schedule, every step one P-cl and one K-cl launch, the
@@ -188,6 +192,9 @@ LAYER_GRIDS, LAYER_STEPS = ((60, 220), (100, 100)), 5
 # [23]'s path through the device-memory variants: a 60x220 layer refined
 # 2x2, whose P and K layouts no cluster of up to 16 blocks holds, N=16.
 GM_PATH_GRID, GM_PATH_N = (120, 440), 16
+# [23]'s path past K-gm's capacity, through K-gm1: a grid whose 1,088
+# columns exceed one block's row, N=4.
+GM1_PATH_GRID, GM1_PATH_N = (32, 1088), 4
 # [19]'s fixed work: one restart window of 4 iterations. On grids of up to
 # 400 cells a window of 8 reaches float32's floor, where the plain version
 # in float32 and in float64 part by up to 1.5e-1 (PERF.md, Findings).
@@ -214,6 +221,7 @@ STAGE_OF = (("pressure_pcg_kernel", "pressure_pcg"), ("pressure_pcg_gm_kernel", 
             ("transport_upwind_kernel", "transport_upwind"),
             ("transport_upwind_rt_kernel", "transport_upwind"),
             ("transport_upwind_gm_kernel", "transport_upwind"),
+            ("transport_upwind_gm1_kernel", "transport_upwind"),
             ("transport_upwind_cl_kernel", "transport_upwind"))
 JACOBI_KERNELS = ("transport_upwind", "pressure_pcg")  # the main path's
 # EnOpt (phases 11-14): the bench's gd_scan_multi (bench._enopt_fields) and
@@ -856,7 +864,7 @@ def large_grid_phases(dev, six):
     gen = torch.Generator(device=dev).manual_seed(SEED + 23)
     base1 = {k: BASE[k] for k in SOLVE_KEYS}
     names = [kernel_name(sm, unit, rt) for rt in ("cl", "gm") for sm, unit in P_GM] + [
-        "transport_upwind_cl", "transport_upwind_gm"]
+        "transport_upwind_cl", "transport_upwind_gm", "transport_upwind_gm1"]
     figs = {name: {"grids": {}, "max_abs_err": 0.0} for name in names}
 
     def p_run(tag, args, smoother, unit, force, plan=None):
@@ -952,7 +960,7 @@ def large_grid_phases(dev, six):
             s_k, n = launched(lambda: transport_substeps_cuda(*t_args, force=force))
             assert n == {transport.NAMES[force]: 1} and torch.equal(s_k, s_t), (tag, force, n)
             k_ms[force] = cuda_ms(lambda: transport_substeps_cuda(*t_args, force=force),
-                                  3 if force == "gm" else 10)
+                                  5 if force == "gm" else 10)
         bnd, by = transport_bound_ms(s5, Fx, Fy, t_args[3], nsub)
         plain_ms = cuda_ms(lambda: transport_substeps_torch(*t_args), 1) if (
             (Nx, Ny) in (BIG, (256, 256))) else None
@@ -965,6 +973,8 @@ def large_grid_phases(dev, six):
                 if force == "cl":
                     fig.update(cluster=transport.cl_shape(Nx, Ny),
                                resources=_build.kernel_info("transport_upwind_cl", Nx, Ny))
+                else:
+                    fig.update(resources=_build.kernel_info("transport_upwind_gm", Nx, Ny))
                 figs[f"transport_upwind_{force}"]["grids"][tag] = fig
         log(f"[23] K {tag}, N={LARGE_N}, step 6 of a prior run (simulate's launches {n_sim}; "
             f"cg_iters median {int(it.median())}, accepted {int(ok.sum())}/{LARGE_N}): "
@@ -972,7 +982,8 @@ def large_grid_phases(dev, six):
             + (f" (cluster, strip {transport.cl_shape(Nx, Ny)})" if k_route == "cl" else "")
             + "; ms " + ", ".join(f"{k} {v:.4f}" for k, v in k_ms.items())
             + f", each bit for bit with the plain version; bound {bnd:.5f} ms ({by}, "
-            f"{k_route} {bnd / k_ms[k_route]:.1%})"
+            f"{k_route} {bnd / k_ms[k_route]:.1%}, gm {bnd / k_ms['gm']:.1%}); K-gm "
+            f"{figs['transport_upwind_gm']['grids'][tag]['resources']}"
             + (f"; plain {plain_ms:.3f} ms" if plain_ms else ""))
 
     # simulate through each instantiation: P-cl and K-cl at [24]'s grid,
@@ -1000,6 +1011,7 @@ def large_grid_phases(dev, six):
             assert torch.isfinite(res.wsats).all()
         if rt == "gm":  # P-gm and K-gm a launch each on their path's shapes
             gm_path_kernels(figs, mm, res.wsats[:, -1].reshape(n_members, *grid).contiguous())
+    gm1_path(figs, gen)
 
     # both device-memory variants forced at 64x64 on [6]'s inputs
     args, kw = six["p_args"], six["kw"]
@@ -1014,14 +1026,19 @@ def large_grid_phases(dev, six):
     k_err = float((transport_substeps_cuda(*t_args, force="gm")
                    - transport_substeps_torch(*t_args)).abs().max())
     assert k_err == 0.0, k_err
+    assert torch.equal(transport_substeps_cuda(*t_args, force="gm1"),
+                       transport_substeps_torch(*t_args))
     kgm_ms = cuda_ms(lambda: transport_substeps_cuda(*t_args, force="gm"), 5)
+    kgm1_ms = cuda_ms(lambda: transport_substeps_cuda(*t_args, force="gm1"), 5)
     k_ms = cuda_ms(lambda: transport_substeps_cuda(*t_args), 5)
     figs["pressure_pcg_gm"]["forced_64x64"] = dict(ms=gm_ms, smem_ms=sm_ms, max_rel_err=err_g)
     figs["transport_upwind_gm"]["forced_64x64"] = dict(ms=kgm_ms, templated_ms=k_ms)
+    figs["transport_upwind_gm1"]["forced_64x64"] = dict(ms=kgm1_ms, templated_ms=k_ms)
     log(f"[23] forced at {NX}x{NY}, N={N}, [6]'s inputs: P-gm {gm_ms:.3f} ms a launch vs P "
         f"{sm_ms:.3f} ms (at [6]: {six['p_ms']['jacobi']:.3f} ms); one window max rel vs plain "
-        f"P-gm {err_g:.2e}, P {err_s:.2e}; K-gm {kgm_ms:.3f} ms vs K {k_ms:.3f} ms (at [6]: "
-        f"{six['t_ms']:.3f} ms), K-gm max|ds| vs plain {k_err:.1e}")
+        f"P-gm {err_g:.2e}, P {err_s:.2e}; K-gm {kgm_ms:.3f} ms and K-gm1 {kgm1_ms:.3f} ms vs "
+        f"K {k_ms:.3f} ms (at [6]: {six['t_ms']:.3f} ms), K-gm max|ds| vs plain {k_err:.1e}, "
+        f"K-gm1 0")
     return figs
 
 
@@ -1033,6 +1050,7 @@ def gm_path_kernels(figs, mm, s5):
     import torch
 
     from historymatching_tpu_torch.models.ressim import _source_field, cfl_substeps, pressure_step
+    from historymatching_tpu_torch.ops import _build
     from historymatching_tpu_torch.ops.pressure import pressure_solve_cuda, pressure_solve_torch
     from historymatching_tpu_torch.ops.transport import (
         transport_substeps_cuda,
@@ -1058,19 +1076,75 @@ def gm_path_kernels(figs, mm, s5):
     Fx, Fy = Fx.contiguous(), Fy.contiguous()
     nsub, dtspv = cfl_substeps(mm, Fx, Fy, qf, DT)
     t_args = (s5, Fx, Fy, qf[None].contiguous(), dtspv, nsub, fluid_of(mm))
-    assert torch.equal(transport_substeps_cuda(*t_args, force="gm"),
-                       transport_substeps_torch(*t_args))
-    k_ms = cuda_ms(lambda: transport_substeps_cuda(*t_args, force="gm"), 3)
+    s_t = transport_substeps_torch(*t_args)
+    for force in ("gm", "gm1"):  # K-gm on its route, beside K-gm1
+        assert torch.equal(transport_substeps_cuda(*t_args, force=force), s_t), force
+    k_ms = cuda_ms(lambda: transport_substeps_cuda(*t_args, force="gm"), 5)
+    k1_ms = cuda_ms(lambda: transport_substeps_cuda(*t_args, force="gm1"), 3)
     k_plain_ms = cuda_ms(lambda: transport_substeps_torch(*t_args), 1)
     k_bnd, k_by = transport_bound_ms(s5, Fx, Fy, t_args[3], nsub)
+    res = _build.kernel_info("transport_upwind_gm", Nx, Ny)
     figs["transport_upwind_gm"]["grids"][tag] = dict(
         ms=k_ms, bound_ms=k_bnd, bound_by=k_by, share_of_bound=k_bnd / k_ms, max_abs_err=0.0,
-        plain_ms=k_plain_ms, substeps_median=int(nsub.median()))
+        plain_ms=k_plain_ms, substeps_median=int(nsub.median()), gm1_ms=k1_ms, resources=res)
     log(f"[23] on the device-memory path at {tag}, N={s5.shape[0]}: P-gm window rel {err:.2e}, "
         f"{p_ms:.3f} ms a launch at bench settings (iterations median {int(it.median())}), bound "
         f"{p_bnd:.4f} ms ({p_by}, {p_bnd / p_ms:.1%}); K-gm on step 6 max|ds| 0, {k_ms:.3f} ms "
-        f"({int(nsub.median())} substeps median), plain {k_plain_ms:.3f} ms, bound "
-        f"{k_bnd:.5f} ms ({k_by}, {k_bnd / k_ms:.1%})")
+        f"({int(nsub.median())} substeps median; {res}), K-gm1 {k1_ms:.3f} ms (max|ds| 0), "
+        f"plain {k_plain_ms:.3f} ms, bound {k_bnd:.5f} ms ({k_by}, K-gm {k_bnd / k_ms:.1%}, "
+        f"K-gm1 {k_bnd / k1_ms:.1%})")
+
+
+def gm1_path(figs, gen):
+    """[23]'s path past K-gm's capacity: `simulate` at GM1_PATH_GRID, 5
+    steps through P's route (P-gm) and K-gm1, counted; then K-gm1 on step 6
+    of that run, bit for bit and timed with its bound and the plain
+    version. Into `figs`."""
+    import torch
+
+    import historymatching_tpu_torch as ht
+    from historymatching_tpu_torch.models.ressim import _source_field, cfl_substeps, pressure_step
+    from historymatching_tpu_torch.ops import _build, pressure, transport
+    from historymatching_tpu_torch.ops.transport import (
+        transport_substeps_cuda,
+        transport_substeps_torch,
+    )
+    from historymatching_tpu_torch.parallel.runner import set_perm
+
+    (Nx, Ny), n = GM1_PATH_GRID, GM1_PATH_N
+    tag = f"{Nx}x{Ny}"
+    assert transport.route(Nx, Ny) == "gm1" and transport.gm_bands(Nx, Ny) is None
+    p_name = f"pressure_pcg_{pressure.route(Nx, Ny, True, n)}"
+    m = grid_model(torch, Nx, Ny)
+    mm = set_perm(m, ht.sample_prior_perm(gen, m, n, r=0.8))
+    t0 = time.perf_counter()
+    res, launches = launched(lambda: ht.simulate(mm, torch.zeros(m.Nxy, device=mm.K.device), DT,
+                                                 5, keep_wsats=False))
+    wall = time.perf_counter() - t0
+    assert launches == {p_name: 5, "transport_upwind_gm1": 5}, launches
+    assert bool(torch.isfinite(res.wsats).all())
+    s5 = res.wsats[:, -1].reshape(n, Nx, Ny).contiguous()
+    qf = _source_field(mm, mm.inj_rates[:, 0], mm.prd_rates[:, 0])
+    _, Fx, Fy, _, _, _ = pressure_step(mm, s5, qf, torch.zeros_like(s5), 2e-3, 4 * max(Nx, Ny),
+                                       5e-2)
+    Fx, Fy = Fx.contiguous(), Fy.contiguous()
+    nsub, dtspv = cfl_substeps(mm, Fx, Fy, qf, DT)
+    t_args = (s5, Fx, Fy, qf[None].contiguous(), dtspv, nsub, fluid_of(mm))
+    assert torch.equal(transport_substeps_cuda(*t_args), transport_substeps_torch(*t_args))
+    k_ms = cuda_ms(lambda: transport_substeps_cuda(*t_args), 3)
+    k_plain_ms = cuda_ms(lambda: transport_substeps_torch(*t_args), 1)
+    k_bnd, k_by = transport_bound_ms(s5, Fx, Fy, t_args[3], nsub)
+    d = figs["transport_upwind_gm1"]
+    d[f"launches_simulate_{tag}"] = launches["transport_upwind_gm1"]
+    d["grids"][tag] = dict(ms=k_ms, bound_ms=k_bnd, bound_by=k_by, share_of_bound=k_bnd / k_ms,
+                           max_abs_err=0.0, plain_ms=k_plain_ms,
+                           substeps_median=int(nsub.median()),
+                           resources=_build.kernel_info("transport_upwind_gm1", Nx, Ny))
+    log(f"[23] past K-gm's capacity at {tag}, N={n}: simulate 5 steps {wall:.3f} s, launches "
+        f"{launches}, cg_ok {float(res.cg_ok.float().mean()):.1%}; K-gm1 on step 6 max|ds| 0, "
+        f"{k_ms:.3f} ms ({int(nsub.median())} substeps median; "
+        f"{d['grids'][tag]['resources']}), plain {k_plain_ms:.3f} ms, bound {k_bnd:.5f} ms "
+        f"({k_by}, {k_bnd / k_ms:.1%})")
 
 
 def large_case_phase(dev):
@@ -2161,20 +2235,26 @@ def main(argv=None):
     # [23]'s simulate at 128x128, timed there at bench settings. The
     # device-memory variants' path is [23]'s simulate at GM_PATH_GRID; P-gm
     # is timed forced on [24]'s first step (Jacobi) and at 128x128 N=64
-    # (the others), K-gm on its path at GM_PATH_GRID.
+    # (the others), K-gm on its path at GM_PATH_GRID (its time forced on
+    # [24]'s first step kept as `large_case`); K-gm1's path is [23]'s
+    # simulate at GM1_PATH_GRID, timed there.
     gm_at = f"{GM_PATH_GRID[0]}x{GM_PATH_GRID[1]}"
+    k_path = {"transport_upwind_gm": gm_at,
+              "transport_upwind_gm1": f"{GM1_PATH_GRID[0]}x{GM1_PATH_GRID[1]}"}
     for name, d in large.items():
         route = name.rsplit("_", 1)[1]
-        at = gm_at if name == "transport_upwind_gm" else f"{BIG[0]}x{BIG[1]}"
+        at = k_path.get(name, f"{BIG[0]}x{BIG[1]}")
         g, err = d["grids"][at], d["max_abs_err"]
-        if name in big["kernels"]:
+        if name in big["kernels"] and name not in k_path:
             at, g = f"{BIG[0]}x{BIG[1]} N={N} ([24]'s first step)", big["kernels"][name]
             err = max(err, g["max_abs_err"])
+        if name in k_path:
+            d["large_case"] = big["kernels"].get(name)
         if route == "cl":
             launches_path = (big["launches"][name] if name in big["launches"]
                              else d[f"launches_simulate_{BIG[0]}x{BIG[1]}"])
         else:
-            launches_path = d[f"launches_simulate_{gm_at}"]
+            launches_path = d[f"launches_simulate_{k_path.get(name, gm_at)}"]
         source = ("transport_upwind.cu" if name.startswith("transport")
                   else f"pressure_pcg_{route}.cu")
         kernels.append(dict(
@@ -2186,7 +2266,7 @@ def main(argv=None):
             bound_ms=g["bound_ms"], bound_by=g["bound_by"], library_ms=None,
             share_of_bound=g["bound_ms"] / g["ms"], at_grid=at, grids=d["grids"],
             **{k: v for k, v in d.items() if k.startswith("launches_simulate")},
-            **({"forced_64x64": d["forced_64x64"]} if "forced_64x64" in d else {})))
+            **{k: d[k] for k in ("forced_64x64", "large_case") if k in d}))
     # P-cl/d, under its P-cl counters: the Jacobi instantiation's path is
     # [24b] at 60x220, checked and timed on its first step; the others' is
     # [23]'s simulate at 60x220, timed there at bench settings (N=64).
@@ -2215,6 +2295,9 @@ def main(argv=None):
     for rec in kernels:
         rec["launches_parity"] = {p["name"]: p["launches"].get(rec.get("counter", rec["name"]), 0)
                                   for p in par}
+    # every kernel in the record was launched on its path
+    assert all(rec["launches"] > 0 for rec in kernels), [
+        (rec["name"], rec["launches"]) for rec in kernels if not rec["launches"] > 0]
     log(f"[24] record: {json.dumps({k: v for k, v in big.items() if k != 'passes'})}")
     log(f"[24b] record: {json.dumps(layer)}")
     log(f"[25] record: {json.dumps(mesh_run)}")

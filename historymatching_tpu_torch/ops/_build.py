@@ -6,9 +6,9 @@ the package; the compilers run in parallel. Kernel P is a template on the
 grid: the main library holds the grids of `GRIDS`, and any other grid is
 compiled on first use into a library of its own (`pressure_lib`);
 `prebuild` starts every compiler a run will need at once. The
-device-memory variants (P-gm in `pressure_pcg_gm.cu`, K-gm beside K) take
-the grid at run time, so one library serves every grid. The cluster
-variants (P-cl in `pressure_pcg_cl.cu`, K-cl in `transport_upwind.cu`
+device-memory variants (P-gm in `pressure_pcg_gm.cu`, K-gm and K-gm1
+beside K) take the grid at run time, so one library serves every grid.
+The cluster variants (P-cl in `pressure_pcg_cl.cu`, K-cl in `transport_upwind.cu`
 under `-DHM_KCL_*`) are templates on the grid and the cluster size (and
 P-cl on the coarsest inverse's place), one library each, built on first
 use (`pressure_cl_lib`, `transport_cl_lib`).
@@ -54,7 +54,8 @@ SMEM_TWO_A_SM = 115_712
 # "_cl": a thread-block cluster a member).
 _P_NAMES = ("pressure_pcg", "pressure_pcg_cheb", "pressure_pcg_diag", "pressure_pcg_cheb_diag")
 LAUNCHES = dict.fromkeys(("transport_upwind", "transport_upwind_rt", *_P_NAMES,
-                          "transport_upwind_gm", *(n + "_gm" for n in _P_NAMES),
+                          "transport_upwind_gm", "transport_upwind_gm1",
+                          *(n + "_gm" for n in _P_NAMES),
                           "transport_upwind_cl", *(n + "_cl" for n in _P_NAMES)), 0)
 
 _libs = {}
@@ -71,11 +72,15 @@ _SIGNATURES = {
         # s, Fx, Fy, q, q_stride, dts_pv, n_sub, out, B, Nx, Ny, vw, vo, swc, sor, stream
         "hm_transport_substeps": _TRANSPORT,
         "hm_transport_substeps_rt": _TRANSPORT,
+        # the same with the halo and the flags after `out`, the bands after Ny
+        "hm_transport_substeps_gm": _TRANSPORT[:8] + [P, P] + _TRANSPORT[8:11] + [I]
+        + _TRANSPORT[11:],
         # the same with the fw workspace after `out`
-        "hm_transport_substeps_gm": _TRANSPORT[:8] + [P] + _TRANSPORT[8:],
+        "hm_transport_substeps_gm1": _TRANSPORT[:8] + [P] + _TRANSPORT[8:],
         "hm_transport_info": [I, I, P],
         "hm_transport_rt_info": [I, I, P],
-        "hm_transport_gm_info": [I, I, P],
+        "hm_transport_gm_info": [I, I, I, P],
+        "hm_transport_gm1_info": [I, I, P],
     },
     "pressure_pcg": {
         "hm_pressure_solve": _PRESSURE,
@@ -187,7 +192,7 @@ def _load(specs):
 
 
 def lib():
-    """The main libraries' C entry points (K in its three variants, P at
+    """The main libraries' C entry points (K in its four variants, P at
     `GRIDS`, P-gm), built first where their sources changed."""
     if "main" not in _libs:
         _load([_spec(stem) for stem in _MAIN])
@@ -259,22 +264,32 @@ def kernel_info(kernel, Nx, Ny, plan=None):
     """A kernel's resources at one grid, as the CUDA runtime reports them:
     registers and local (stack and spill) bytes a thread, dynamic shared
     bytes and threads a block, resident blocks an SM. `kernel` is a key of
-    `LAUNCHES`; a device-memory variant ("_gm") reports its static shared
-    bytes (its workspace is `ops.pressure.gm_bytes`, or K's two tiles); a
-    cluster variant ("_cl", on its route's cluster or P-cl's `plan`) its
-    bytes a rank, and adds the ranks a cluster and the clusters the card
-    holds at once."""
+    `LAUNCHES`; a device-memory variant ("_gm", K-gm1) reports its static
+    shared bytes (its workspace is `ops.pressure.gm_bytes`, or K's two
+    tiles); K-gm its shared bytes (two fw tiles, each thread's faces and
+    sources), and adds its bands a member (`ops.transport.gm_bands`) and
+    the groups of bands (members in flight) the card holds at once; a
+    cluster variant ("_cl", on its route's
+    cluster or P-cl's `plan`) its bytes a rank, and adds the ranks a cluster
+    and the clusters the card holds at once."""
     from historymatching_tpu_torch.ops import pressure, transport
 
     out = (ctypes.c_int * 7)()
     cheb, unit = int("cheb" in kernel), int("_diag" not in kernel)
+    keys = ("registers", "local_bytes", "shared_bytes", "threads", "blocks_per_sm")
     if kernel == "transport_upwind_cl":
         code = transport_cl_lib(Nx, Ny, *transport.cl_shape(Nx, Ny)).hm_transport_cl_info(
             Nx, Ny, out)
+    elif kernel == "transport_upwind_gm":
+        bands = transport.gm_bands(Nx, Ny)
+        if bands is None:
+            raise ValueError(f"{kernel}: no band plan takes a {Nx}x{Ny} grid")
+        code = lib().hm_transport_gm_info(Nx, Ny, len(bands), out)
+        keys += ("bands", "groups_resident")
     elif kernel.startswith("transport"):
         fn = {"transport_upwind_rt": lib().hm_transport_rt_info,
-              "transport_upwind_gm": lib().hm_transport_gm_info}.get(kernel,
-                                                                     lib().hm_transport_info)
+              "transport_upwind_gm1": lib().hm_transport_gm1_info}.get(kernel,
+                                                                       lib().hm_transport_info)
         code = fn(Nx, Ny, out)
     elif kernel.endswith("_cl"):
         plan = plan or pressure.cl_plan(Nx, Ny, bool(unit))
@@ -284,7 +299,6 @@ def kernel_info(kernel, Nx, Ny, plan=None):
               else pressure_lib(Nx, Ny).hm_pressure_info)
         code = fn(Nx, Ny, cheb, unit, out)
     check(code, kernel)
-    keys = ("registers", "local_bytes", "shared_bytes", "threads", "blocks_per_sm")
     if kernel.endswith("_cl"):
         keys += ("cluster", "max_active_clusters")
     return dict(zip(keys, out))

@@ -8,8 +8,11 @@ thread block per member loops over that member's own substep count
 other grid of up to BAND_CELLS cells (or whose two fw tiles fit one
 block's shared memory and no cluster takes it); K-cl, a thread-block
 cluster a member, each block a band of rows (`cl_shape`), for larger
-grids; and K-gm, the runtime-grid variant with its fw tiles in device
-memory, for any grid left; `route` says which a grid takes). Beside it,
+grids; K-gm, a member over co-resident blocks, each a band of rows
+(`gm_bands`), the bands' edge rows exchanged through L2, for the grids
+left; and past K-gm's capacity K-gm1, the runtime-grid variant with its fw
+tiles in device memory, one block a member; `route` says which a grid
+takes). Beside it,
 `transport_substeps_torch` is the plain PyTorch version; it runs the batch
 to its largest count and freezes each member after its own, which gives
 the same per-member result.
@@ -26,11 +29,16 @@ import torch.nn.functional as F
 from historymatching_tpu_torch.ops import _build
 
 
-ROUTES = ("templated", "rt", "cl", "gm")
+ROUTES = ("templated", "rt", "cl", "gm", "gm1")
 NAMES = {"templated": "transport_upwind", "rt": "transport_upwind_rt",
-         "cl": "transport_upwind_cl", "gm": "transport_upwind_gm"}  # launch counters by route
+         "cl": "transport_upwind_cl", "gm": "transport_upwind_gm",
+         "gm1": "transport_upwind_gm1"}  # launch counters by route
 BAND_CELLS = 4096  # a K-cl rank's band at most: the templated 64x64 block's load
 MAX_THREADS, MIN_STRIP, MAX_STRIP = 1024, 4, 16
+# K-gm: rows a thread's strip (csrc `kStrip`), threads a block at most
+# (`kGmThreads`), and bands a member at most: the H100's SMs, so that one
+# member's blocks, one an SM, are resident at once.
+GM_STRIP, GM_THREADS, GM_MAX_BANDS = 4, 1024, 132
 
 
 def smem_bytes(Nx, Ny):
@@ -62,11 +70,29 @@ def cl_shape(Nx, Ny):
     return None
 
 
+def gm_bands(Nx, Ny):
+    """K-gm's bands of a member: [(first row, rows)] of the G bands, G the
+    fewest whose largest band (ceil(Nx / G) rows) a block of GM_THREADS
+    threads holds in strips of GM_STRIP rows, one column a thread (at most
+    GM_STRIP * (GM_THREADS // Ny) rows); the first Nx mod G bands take one
+    row more. None past K-gm's capacity: a row wider than a block
+    (Ny > GM_THREADS), or more than GM_MAX_BANDS bands."""
+    check_grid(Nx, Ny)
+    rows = GM_STRIP * (GM_THREADS // Ny)
+    if rows == 0 or -(-Nx // rows) > GM_MAX_BANDS:
+        return None
+    G = -(-Nx // rows)
+    h, rem = divmod(Nx, G)
+    sizes = [h + 1] * rem + [h] * (G - rem)
+    return [(sum(sizes[:r]), sizes[r]) for r in range(G)]
+
+
 def route(Nx, Ny):
     """Which kernel K takes a grid: "templated" at `_build.GRIDS`, "rt" up
     to BAND_CELLS cells, "cl" where a cluster takes it (`cl_shape`), "rt"
     where the two fw tiles fit one block's shared memory
-    (`_build.SMEM_LIMIT`), else "gm"."""
+    (`_build.SMEM_LIMIT`), else "gm" where `gm_bands` gives a plan and
+    "gm1" past it."""
     check_grid(Nx, Ny)
     if (Nx, Ny) in _build.GRIDS:
         return "templated"
@@ -74,7 +100,9 @@ def route(Nx, Ny):
         return "rt"
     if cl_shape(Nx, Ny):
         return "cl"
-    return "rt" if smem_bytes(Nx, Ny) <= _build.SMEM_LIMIT else "gm"
+    if smem_bytes(Nx, Ny) <= _build.SMEM_LIMIT:
+        return "rt"
+    return "gm" if gm_bands(Nx, Ny) else "gm1"
 
 
 def transport_substeps_torch(s, Fx, Fy, q, dts_pv, n_sub, fluid):
@@ -108,9 +136,9 @@ def transport_substeps_cuda(s, Fx, Fy, q, dts_pv, n_sub, fluid, force=None):
     """The hand kernel. Same arguments as the plain version, float32 on one
     CUDA device; a `q` with one member is read by every member in place.
     The grid's `route` picks the templated kernel, the runtime-grid
-    variant, K-cl or K-gm; `force` (one of `ROUTES`) picks one at any grid
-    (the templated kernel only at `_build.GRIDS`, K-cl where `cl_shape`
-    gives a cluster)."""
+    variant, K-cl, K-gm or K-gm1; `force` (one of `ROUTES`) picks one at
+    any grid (the templated kernel only at `_build.GRIDS`, K-cl where
+    `cl_shape` gives a cluster, K-gm where `gm_bands` gives bands)."""
     B, Nx, Ny = s.shape
     if force not in (None, *ROUTES):
         raise ValueError(f"force must be one of {ROUTES} or None, got {force!r}")
@@ -118,6 +146,9 @@ def transport_substeps_cuda(s, Fx, Fy, q, dts_pv, n_sub, fluid, force=None):
     band = cl_shape(Nx, Ny) if rt == "cl" else None
     if rt == "cl" and band is None:
         raise ValueError(f"transport kernel: no cluster takes a {Nx}x{Ny} grid")
+    bands = gm_bands(Nx, Ny) if rt == "gm" else None
+    if rt == "gm" and bands is None:
+        raise ValueError(f"transport kernel: no band plan of K-gm takes a {Nx}x{Ny} grid")
     shapes = {"s": (s, (B, Nx, Ny)), "Fx": (Fx, (B, Nx + 1, Ny)),
               "Fy": (Fy, (B, Nx, Ny + 1)), "q": (q, (1 if q.shape[0] == 1 else B, Nx, Ny)),
               "dts_pv": (dts_pv, (B,))}
@@ -136,9 +167,15 @@ def transport_substeps_cuda(s, Fx, Fy, q, dts_pv, n_sub, fluid, force=None):
     args = (s.data_ptr(), Fx.data_ptr(), Fy.data_ptr(), q.data_ptr(), q_stride,
             dts_pv.data_ptr(), n_sub.data_ptr(), out.data_ptr())
     tail = (B, Nx, Ny, vw, vo, swc, sor, _build.stream_ptr(s.device))
-    if rt == "gm":
+    if rt == "gm":  # each band's edge rows in two slots, and the substeps it published
+        G = len(bands)
+        halo = torch.empty(B * G * 4 * Ny, dtype=torch.float32, device=s.device)
+        flags = torch.zeros(B * G, dtype=torch.int32, device=s.device)
+        code = _build.lib().hm_transport_substeps_gm(
+            *args, halo.data_ptr(), flags.data_ptr(), B, Nx, Ny, G, *tail[3:])
+    elif rt == "gm1":
         ws = torch.empty(B * smem_bytes(Nx, Ny) // 4, dtype=torch.float32, device=s.device)
-        code = _build.lib().hm_transport_substeps_gm(*args, ws.data_ptr(), *tail)
+        code = _build.lib().hm_transport_substeps_gm1(*args, ws.data_ptr(), *tail)
     elif rt == "cl":
         code = _build.transport_cl_lib(Nx, Ny, *band).hm_transport_substeps_cl(*args, *tail)
     else:

@@ -304,14 +304,15 @@ def _k_args(Nx, Ny):
             torch.ones(2, dtype=torch.int32), (1.0, 1.0, 0.0, 0.0))
 
 
-@pytest.mark.parametrize("force", [None, "cl", "gm"])
+@pytest.mark.parametrize("force", [None, "cl", "gm", "gm1"])
 @pytest.mark.parametrize("Nx,Ny", [(128, 128), (60, 220)])
 def test_wrappers_refuse_cpu_tensors_on_every_route(Nx, Ny, force):
     """On the cluster route, and forced to it or to the device-memory
-    variants, the wrappers get past their route to the CPU tensors'
-    refusal: nothing falls back to the plain version."""
-    with pytest.raises(ValueError, match="need float32 CUDA"):
-        pressure_solve_cuda(*_p_args(Nx, Ny), tol=1e-3, maxiter=8, force=force)
+    variants (K: K-gm and K-gm1), the wrappers get past their route to the
+    CPU tensors' refusal: nothing falls back to the plain version."""
+    if force != "gm1":  # K's alone
+        with pytest.raises(ValueError, match="need float32 CUDA"):
+            pressure_solve_cuda(*_p_args(Nx, Ny), tol=1e-3, maxiter=8, force=force)
     with pytest.raises(ValueError, match="need float32 CUDA"):
         transport_substeps_cuda(*_k_args(Nx, Ny), force=force)
 

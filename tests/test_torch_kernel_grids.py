@@ -94,13 +94,16 @@ def test_shared_memory_limit(kernel, Nx, Ny, unit_diag, need, expect):
     fits; past it a cluster where one holds the grid, else device memory:
     no power of two splits 171 rows, and 8 rows of 3,632 cells leave no
     band of 4,096 cells a block can hold), and a forced device-memory
-    route, which every grid takes."""
+    route, which every grid takes (K: K-gm1, and K-gm where `gm_bands`
+    splits the grid; 3,632 columns exceed one block's row)."""
     got = _need(kernel, Nx, Ny, unit_diag)
     if need is not None:
         assert got == need
     assert (got <= SMEM_LIMIT) == (expect in ("smem", "rt"))
     assert _route(kernel, Nx, Ny, unit_diag) == expect
-    for force in (None, "gm"):
+    forces = (None, "gm") if kernel == "pressure" else (
+        None, "gm1", *(("gm",) if transport.gm_bands(Nx, Ny) else ()))
+    for force in forces:
         with pytest.raises(ValueError, match="need float32 CUDA"):
             _call(kernel, Nx, Ny, unit_diag, force=force)
 

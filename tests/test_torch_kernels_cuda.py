@@ -353,28 +353,79 @@ def _transport_inputs(dev, Nx, Ny, seed, B=8):
     return s, Fx, Fy, q, dts_pv, n_sub, (1.0, 1.0, 0.0, 0.0)
 
 
-@pytest.mark.parametrize("Nx,Ny,force", [(171, 171, None), (192, 192, "gm"), (64, 64, "gm")])
-def test_transport_gm_matches_plain(dev, Nx, Ny, force):
-    """K-gm, where the two fw tiles do not fit one block and no cluster
-    takes the grid (171x171 needs 233,928 bytes), forced at 192x192 (K-cl's
-    route) and at 64x64: the plain version's operations in its order, so
-    bit for bit."""
-    args = _transport_inputs(dev, Nx, Ny, 7)
+@pytest.mark.parametrize("Nx,Ny,force,B", [(171, 171, None, 8), (120, 440, None, 16),
+                                           (120, 440, None, 64), (192, 192, "gm", 8),
+                                           (64, 64, "gm", 8)])
+def test_transport_gm_matches_plain(dev, Nx, Ny, force, B):
+    """K-gm, a member over co-resident blocks a band of rows, where the two
+    fw tiles do not fit one block and no cluster takes the grid (171x171
+    needs 233,928 bytes: 9 bands of 19 rows; 120x440: 15 bands of 8),
+    forced at 192x192 (K-cl's route; 10 bands of 20 and 19 rows) and at
+    64x64 (one band): the plain version's operations in its order, so bit
+    for bit. At 120x440, 64 members exceed the 8 groups of 15 bands the
+    card holds at once; each batch has a member with no substep."""
+    s, Fx, Fy, q, dts_pv, n_sub, fluid = _transport_inputs(dev, Nx, Ny, 7, B)
+    n_sub[1] = 0
     before = _build.LAUNCHES["transport_upwind_gm"]
-    out = transport_substeps_cuda(*args, force=force)
+    out = transport_substeps_cuda(s, Fx, Fy, q, dts_pv, n_sub, fluid, force=force)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["transport_upwind_gm"] == before + 1
+    assert torch.equal(out, transport_substeps_torch(s, Fx, Fy, q, dts_pv, n_sub, fluid))
+    q1 = q[:1].contiguous()
+    assert torch.equal(transport_substeps_cuda(s, Fx, Fy, q1, dts_pv, n_sub, fluid, force=force),
+                       transport_substeps_torch(s, Fx, Fy, q1, dts_pv, n_sub, fluid))
+    if B == 64:  # more members than groups of bands the card holds at once
+        assert B > _build.kernel_info("transport_upwind_gm", Nx, Ny)["groups_resident"]
+
+
+def test_transport_gm_refused_launch_raises(dev, monkeypatch):
+    """A K-gm launch whose bands the card cannot hold at once (133 bands of
+    one 1,024-column row, one block an SM on 132 SMs) is refused by the
+    cooperative launch; the wrapper raises and counts no launch."""
+    from historymatching_tpu_torch.ops import transport
+
+    Nx, Ny = 133, 1024
+    monkeypatch.setattr(transport, "gm_bands", lambda Nx, Ny: [(i, 1) for i in range(Nx)])
+    before = _build.LAUNCHES["transport_upwind_gm"]
+    with pytest.raises(RuntimeError, match="transport_upwind_gm: CUDA error"):
+        transport_substeps_cuda(*_transport_inputs(dev, Nx, Ny, 7, B=2), force="gm")
+    assert _build.LAUNCHES["transport_upwind_gm"] == before
+
+
+@pytest.mark.parametrize("Nx,Ny,force", [(32, 1088, None), (171, 171, "gm1"), (64, 64, "gm1")])
+def test_transport_gm1_matches_plain(dev, Nx, Ny, force):
+    """K-gm1, one block a member with its fw tiles in device memory, on its
+    route past K-gm's capacity (1,088 columns exceed one block's row) and
+    forced at 171x171 and 64x64: bit for bit."""
+    args = _transport_inputs(dev, Nx, Ny, 7)
+    before = _build.LAUNCHES["transport_upwind_gm1"]
+    out = transport_substeps_cuda(*args, force=force)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["transport_upwind_gm1"] == before + 1
     assert torch.equal(out, transport_substeps_torch(*args))
 
 
-@pytest.mark.parametrize("Nx,Ny", [(64, 64), (128, 128), (60, 220), (256, 256)])
+@pytest.mark.parametrize("Nx,Ny", [(64, 64), (128, 128), (60, 220), (256, 256), (120, 440)])
 def test_gm_kernel_resources(dev, Nx, Ny):
-    """The device-memory variants' footprints: a few static shared bytes
-    (P-gm's reduction slots), no spills, resident blocks on an SM."""
+    """The device-memory variants' footprints: P-gm's and K-gm1's few static
+    shared bytes (P-gm's reduction slots), K-gm's two fw tiles of its
+    largest band and each thread's 17 faces and sources; no spills;
+    resident blocks on an SM; K-gm's bands and the members in flight
+    (groups of bands resident at once)."""
+    from historymatching_tpu_torch.ops.transport import gm_bands
+
     for name in ("pressure_pcg_gm", "pressure_pcg_cheb_gm", "pressure_pcg_diag_gm",
-                 "pressure_pcg_cheb_diag_gm", "transport_upwind_gm"):
+                 "pressure_pcg_cheb_diag_gm", "transport_upwind_gm1"):
         p = _build.kernel_info(name, Nx, Ny)
         assert p["shared_bytes"] <= 1024 and p["local_bytes"] == 0 and p["blocks_per_sm"] >= 1
+    k = _build.kernel_info("transport_upwind_gm", Nx, Ny)
+    bands = gm_bands(Nx, Ny)
+    rows = max(h for _, h in bands)
+    print(f"K-gm {Nx}x{Ny}: {k}")
+    assert k["local_bytes"] == 0 and k["blocks_per_sm"] >= 1, k
+    assert k["bands"] == len(bands) and k["groups_resident"] >= 1, k
+    threads = -(-rows // 4) * Ny
+    assert k["threads"] == threads and k["shared_bytes"] == 4 * (2 * rows * Ny + 17 * threads), k
 
 
 @pytest.mark.parametrize("unit_diag", [True, False])

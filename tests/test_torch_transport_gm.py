@@ -1,0 +1,286 @@
+"""What the CPU can check of K-gm, kernel K on a member spread over a band
+of co-resident blocks (csrc/transport_upwind.cu `transport_upwind_gm_kernel`):
+its band plan (`ops/transport.gm_bands`), the routes around it, the
+capacity past which K-gm1 (one block a member) takes a grid, and the halo
+protocol between bands, in a plain emulation held to the plain version and
+to the JAX package's Pallas kernel.
+
+The emulation (`banded_substeps`) runs each band of a member as its own
+coroutine: a band sees only its own rows, computes their fw, writes its
+first and last fw rows into the member's halo buffer at the kernel's
+offsets (slot k & 1), publishes k + 1 on its flag, and reads a
+neighbour's edge row only once the neighbour's flag has passed k. A seeded
+scheduler interleaves the bands as far as those waits allow, so a band may
+run a substep ahead of its neighbours and overwrite a slot they have not
+yet read if the protocol let it. The halo starts as NaN, so a read of a
+slot nobody wrote shows.
+
+Tolerances: float64 against `transport_substeps_torch` bit for bit (the
+same operations in the same order); float32 against
+`transport_substeps_pallas` in interpret mode at atol 1e-6, the tolerance
+tests/test_torch_transport.py holds the plain version to. The kernel runs
+only on the card (tests/test_torch_kernels_cuda.py, chip_smoke.py)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from historymatching_tpu.ops.transport_pallas import transport_substeps_pallas
+from historymatching_tpu_torch.ops import transport
+from historymatching_tpu_torch.ops.transport import (
+    BAND_CELLS,
+    GM_MAX_BANDS,
+    GM_STRIP,
+    GM_THREADS,
+    gm_bands,
+    transport_substeps_cuda,
+    transport_substeps_torch,
+)
+from tests.test_sim import default_model
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+# Grids past one block (K-gm's own and K-cl's, where K-gm is forced), small
+# grids (one band), and grids at the edge of the plan.
+PLAN_GRIDS = [(120, 440), (171, 171), (130, 440), (192, 192), (256, 256), (128, 128),
+              (60, 220), (64, 64), (5000, 8), (97, 300), (1056, 440), (528, 1024), (7, 1)]
+
+
+@pytest.mark.parametrize("Nx,Ny", PLAN_GRIDS)
+def test_gm_bands_cover_every_row_once(Nx, Ny):
+    """The bands cover every row once, in order; none exceeds a block (its
+    strips of GM_STRIP rows, one column a thread, at most GM_THREADS threads;
+    so at most BAND_CELLS cells); the first Nx mod G take one row more; G is
+    the fewest that fit, and at most GM_MAX_BANDS."""
+    bands = gm_bands(Nx, Ny)
+    G = len(bands)
+    assert [i for f, h in bands for i in range(f, f + h)] == list(range(Nx))
+    rows = [h for _, h in bands]
+    assert rows == sorted(rows, reverse=True) and rows[0] - rows[-1] <= 1
+    assert rows.count(rows[-1] + 1) == Nx % G
+    assert -(-rows[0] // GM_STRIP) * Ny <= GM_THREADS and rows[0] * Ny <= BAND_CELLS
+    assert G <= GM_MAX_BANDS and G <= Nx
+    assert G == 1 or -(-(-(-Nx // (G - 1))) // GM_STRIP) * Ny > GM_THREADS
+
+
+def test_plan_constants_match_the_cuda_source():
+    """`gm_bands` plans with the kernel's strip and thread limit."""
+    import os
+    import re
+
+    from historymatching_tpu_torch.ops._build import CSRC
+
+    with open(os.path.join(CSRC, "transport_upwind.cu")) as f:
+        text = f.read()
+    assert int(re.search(r"constexpr int kStrip = (\d+);", text).group(1)) == GM_STRIP
+    assert int(re.search(r"constexpr int kGmThreads = (\d+);", text).group(1)) == GM_THREADS
+
+
+# (grid, bands, rows of each). 120x440 and 171x171, the grids the route
+# sends to K-gm, split evenly (15 bands of 8 rows, 880 threads; 9 of 19,
+# 855 threads); 130x440 and 192x192 unequally.
+BAND_PLANS = {
+    (120, 440): [8] * 15,
+    (171, 171): [19] * 9,
+    (130, 440): [8] * 11 + [7] * 6,
+    (192, 192): [20] * 2 + [19] * 8,
+    (256, 256): [16] * 16,
+}
+
+
+@pytest.mark.parametrize("grid", list(BAND_PLANS))
+def test_gm_band_plans(grid):
+    assert [h for _, h in gm_bands(*grid)] == BAND_PLANS[grid]
+
+
+# K's route at chip_smoke.py's grids ([18]'s K_RT_GRIDS, [23]'s LARGE_GRIDS
+# and its device-memory path 120x440) and at 171x171, as they were before K-gm's redesign.
+ROUTES = {
+    (15, 15): "rt", (12, 9): "rt", (10, 10): "rt", (12, 12): "rt", (24, 16): "rt",
+    (80, 80): "cl", (60, 60): "rt", (88, 88): "cl", (96, 96): "cl", (100, 100): "cl",
+    (128, 128): "cl", (60, 220): "cl", (192, 192): "cl", (256, 256): "cl",
+    (120, 440): "gm", (171, 171): "gm",
+}
+
+
+@pytest.mark.parametrize("grid", list(ROUTES))
+def test_transport_route_unchanged(grid):
+    """K-gm's redesign moves no grid between routes: the runtime-grid
+    variant and K-cl keep theirs, K-gm keeps 120x440 and 171x171."""
+    assert transport.route(*grid) == ROUTES[grid]
+
+
+# Past K-gm's capacity (a row wider than a block; more than GM_MAX_BANDS
+# bands), and at its edge.
+CAPACITY = {
+    (32, 1088): "gm1",   # Ny > GM_THREADS
+    (8, 5000): "gm1",
+    (600, 600): "gm1",   # 150 bands of 4 rows
+    (1000, 1000): "gm1",
+    (1056, 440): "gm",   # 132 bands of 8 rows
+    (1057, 440): "gm1",  # 133
+    (528, 1024): "gm",   # 132 bands of 4 rows of 1,024 columns
+}
+
+
+@pytest.mark.parametrize("grid", list(CAPACITY))
+def test_capacity_route(grid):
+    """Past its capacity `gm_bands` gives no plan and the route takes K-gm1
+    before any launch; K-gm forced there is refused, K-gm1 forced anywhere
+    reaches the wrappers' refusal of CPU tensors (nothing falls back)."""
+    Nx, Ny = grid
+    assert transport.route(Nx, Ny) == CAPACITY[grid]
+    assert (gm_bands(Nx, Ny) is None) == (CAPACITY[grid] == "gm1")
+    z = torch.zeros(1, Nx, Ny)
+    args = (z, torch.zeros(1, Nx + 1, Ny), torch.zeros(1, Nx, Ny + 1), z, torch.ones(1),
+            torch.ones(1, dtype=torch.int32), (1.0, 1.0, 0.0, 0.0))
+    if CAPACITY[grid] == "gm1":
+        with pytest.raises(ValueError, match="no band plan"):
+            transport_substeps_cuda(*args, force="gm")
+    for force in (None, "gm1"):
+        with pytest.raises(ValueError, match="need float32 CUDA"):
+            transport_substeps_cuda(*args, force=force)
+    assert transport.NAMES["gm1"] == "transport_upwind_gm1"
+
+
+def banded_substeps(s, Fx, Fy, q, dts_pv, n_sub, fluid, sizes, seed=0):
+    """K-gm's schedule in plain torch: each member's rows in bands of
+    `sizes` rows, strips of GM_STRIP rows inside a band (the last may hold
+    fewer), the bands run as coroutines interleaved at random (`seed`) as
+    far as their waits allow. Same arguments as `transport_substeps_torch`,
+    `q` with one member or B."""
+    vw, vo, swc, sor = fluid
+    B, Nx, Ny = s.shape
+    G = len(sizes)
+    firsts = [sum(sizes[:r]) for r in range(G)]
+    rng = np.random.default_rng(seed)
+    out = s.clone()
+    for b in range(B):
+        halo = torch.full((G * 4 * Ny,), float("nan"), dtype=s.dtype)  # [band][slot][first, last]
+        flags = [0] * G
+        qb = q[b if q.shape[0] > 1 else 0]
+
+        def band(r):
+            """Band r of member b: yields at its publication and while it
+            waits; its rows' new saturations go to `out` at the end."""
+            first, h = firsts[r], sizes[r]
+            sb = s[b, first:first + h]
+            fx = Fx[b, first:first + h + 1]
+            xp, xn = fx.clamp_min(0.0), fx.clamp_max(0.0)
+            yp, yn = Fy[b, first:first + h].clamp_min(0.0), Fy[b, first:first + h].clamp_max(0.0)
+            fi, fp = qb[first:first + h].clamp_min(0.0), qb[first:first + h].clamp_max(0.0)
+            for k in range(int(n_sub[b])):
+                S = (sb - swc) / (1.0 - swc - sor)
+                Mw = S * S / vw
+                Mo = (1.0 - S) * (1.0 - S) / vo
+                fw = Mw / (Mw + Mo)
+                slot = ((r * 4) + (k & 1) * 2) * Ny
+                if r > 0:
+                    halo[slot:slot + Ny] = fw[0]
+                if r < G - 1:
+                    halo[slot + Ny:slot + 2 * Ny] = fw[h - 1]
+                flags[r] = k + 1
+                yield
+                new = torch.empty_like(sb)
+                for i0 in range(0, h, GM_STRIP):
+                    hs = min(GM_STRIP, h - i0)
+                    g0 = first + i0
+                    top, bot = i0 == 0 and r > 0, i0 + hs == h and r < G - 1
+                    if g0 == 0:
+                        f_up = torch.zeros(Ny, dtype=s.dtype)
+                    elif top:
+                        while flags[r - 1] <= k:
+                            yield
+                        f_up = halo[slot - 3 * Ny:slot - 2 * Ny]
+                    else:
+                        f_up = fw[i0 - 1]
+                    if g0 + hs == Nx:
+                        f_dn = torch.zeros(Ny, dtype=s.dtype)
+                    elif bot:
+                        while flags[r + 1] <= k:
+                            yield
+                        f_dn = halo[slot + 4 * Ny:slot + 5 * Ny]
+                    else:
+                        f_dn = fw[i0 + hs]
+                    st = slice(i0, i0 + hs)
+                    fws = fw[st]
+                    fwx = torch.cat([f_up[None], fws, f_dn[None]])
+                    Fw_x = xp[i0:i0 + hs + 1] * fwx[:-1] + xn[i0:i0 + hs + 1] * fwx[1:]
+                    Fw_y = yp[st] * F.pad(fws, (1, 0)) + yn[st] * F.pad(fws, (0, 1))
+                    div = (Fw_x[1:] - Fw_x[:-1]) + (Fw_y[:, 1:] - Fw_y[:, :-1])
+                    new[st] = torch.clamp(sb[st] + dts_pv[b] * (fi[st] + fp[st] * fws - div),
+                                          swc, 1.0 - sor)
+                sb = new
+            out[b, first:first + h] = sb
+
+        running = [band(r) for r in range(G)]
+        while running:
+            co = running[rng.integers(len(running))]
+            try:
+                next(co)
+            except StopIteration:
+                running.remove(co)
+    return out
+
+
+def _inputs(seed, B, Nx, Ny, dtype):
+    rng = np.random.default_rng(seed)
+    s = np.clip(0.4 + 0.2 * rng.normal(size=(B, Nx, Ny)), 0, 1)
+    Fx = 0.1 * rng.normal(size=(B, Nx + 1, Ny))
+    Fx[:, 0] = Fx[:, -1] = 0
+    Fy = 0.1 * rng.normal(size=(B, Nx, Ny + 1))
+    Fy[:, :, 0] = Fy[:, :, -1] = 0
+    q = np.zeros((Nx, Ny))
+    q[Nx // 2, Ny // 2] = 1.0
+    q[1, 1] = -1.0
+    dts_pv = np.linspace(0.005, 0.02, B)
+    n_sub = np.array([7, 0, 12, 1], np.int32)[:B]  # ragged, one member none
+    return tuple(x.astype(dtype) for x in (s, Fx, Fy, q, dts_pv)) + (n_sub,)
+
+
+# (grid, band rows): 3 bands with one of a single row, and 4 bands as
+# gm_bands splits (the first Nx mod 4 one row more); bands past a strip's
+# rows (5, 6) hold a partial strip.
+SPLITS = [((12, 10), [5, 1, 6]), ((12, 10), [3, 3, 3, 3]), ((12, 10), [6, 2, 2, 2]),
+          ((9, 7), [1, 6, 2]), ((9, 7), [3, 2, 2, 2])]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("grid,sizes", SPLITS)
+def test_banded_schedule_matches_plain_f64(grid, sizes, seed):
+    """Float64: the bands, each seeing only its rows and its neighbours'
+    published edge rows, give the plain version's saturations bit for bit,
+    however the scheduler interleaves them."""
+    Nx, Ny = grid
+    s, Fx, Fy, q, dts_pv, n_sub = map(torch.as_tensor, _inputs(3, 4, Nx, Ny, np.float64))
+    fluid = (0.3, 3.0, 0.1, 0.2)
+    ref = transport_substeps_torch(s, Fx, Fy, q[None], dts_pv, n_sub, fluid)
+    got = banded_substeps(s, Fx, Fy, q[None], dts_pv, n_sub, fluid, sizes, seed)
+    assert torch.equal(got, ref)
+    assert not torch.equal(ref, s)
+
+
+@pytest.mark.parametrize("grid,sizes", SPLITS)
+def test_banded_schedule_matches_pallas_interpret_f32(grid, sizes):
+    """Float32: the bands against the JAX package's Pallas kernel in
+    interpret mode (atol 1e-6), member by member, on the fluid of the JAX
+    package's default model; and bit for bit against the plain version."""
+    Nx, Ny = grid
+    fl = default_model(Nx=Nx, Ny=Ny).fluid
+    fluid = (fl.vw, fl.vo, fl.swc, fl.sor)
+    arrays = _inputs(4, 4, Nx, Ny, np.float32)
+    s, Fx, Fy, q, dts_pv, n_sub = map(torch.as_tensor, arrays)
+    got = banded_substeps(s, Fx, Fy, q[None], dts_pv, n_sub, fluid, sizes, seed=2)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, transport_substeps_torch(s, Fx, Fy, q[None], dts_pv, n_sub, fluid))
+    for b in range(4):
+        ref = transport_substeps_pallas(*(jnp.asarray(x[b]) for x in arrays[:3]),
+                                        jnp.asarray(arrays[3]), arrays[4][b], arrays[5][b],
+                                        fluid, interpret=True)
+        assert np.allclose(got[b].numpy(), np.asarray(ref), atol=1e-6), b
