@@ -5,9 +5,12 @@
 
 The evidence behind `ops/pressure.route` and `ops/transport.route` past one
 block: P-cl (a thread-block cluster a member, on the grid's `cl_plan`)
-against P-gm (device memory), and where that plan distributes the coarsest
-inverse over the ranks (P-cl/d: 100x100, 60x220) also against the plan
-that reads it in place from device memory on two ranks ("cl_device"); K-cl
+against P-gm (a member over co-resident blocks, on the grid's `gm_plan`)
+and P-gm1 (one block a member, its arrays in device memory), and where
+that plan distributes the coarsest inverse over the ranks (P-cl/d: 100x100,
+60x220) also against the plan that reads it in place from device memory on
+two ranks ("cl_device"); P-gm against P-gm1 at 120x440 (no cluster holds
+it) at N=16, 64 and 1000; K-cl
 against K's runtime-grid variant and K-gm (a member over co-resident
 blocks a band of rows); on `chip_smoke.py` [23]'s grids and its kind of
 inputs (the flagship geometry, a prior drawn for each grid from seed 1 +
@@ -37,16 +40,18 @@ import chip_smoke as cs  # noqa: E402
 
 # (grid, scaled system) of P, Jacobi; grids of K.
 P_CASES = [((60, 60), True), ((88, 88), True), ((96, 96), True), ((100, 100), True),
-           ((128, 128), True), ((60, 220), True),
+           ((128, 128), True), ((60, 220), True), ((120, 440), True),
            ((60, 60), False), ((88, 88), False), ((96, 96), False), ((100, 100), False),
-           ((128, 128), False), ((60, 220), False), ((192, 192), False)]
+           ((128, 128), False), ((60, 220), False), ((192, 192), False), ((120, 440), False)]
 K_GRIDS = [(80, 80), (88, 88), (96, 96), (100, 100), (128, 128)]
 MEMBERS = (64, 1000)
 # K's grids that no cluster takes, and their batches.
 K_GM_GRIDS, K_GM_MEMBERS = [(120, 440), (171, 171)], (16, 64, 1000)
-# P's cases whose route takes the batch (`ops/pressure.DIST_BATCH_MAX`),
-# timed at these batches too, between the two of MEMBERS.
-LADDER = {((100, 100), True): (128, 160, 192, 256)}
+# P's cases whose route takes the batch (`ops/pressure.DIST_BATCH_MAX`,
+# `GM_BATCH_MAX`), timed at these batches too, between the two of MEMBERS
+# (120x440 also at [23]'s N=16).
+LADDER = {((100, 100), True): (128, 192, 256, 512), ((120, 440), True): (16, 96, 128, 192),
+          ((120, 440), False): (16, 96, 128, 192, 256)}
 
 
 def p_row(Nx, Ny, unit, n_members, reps, variants=None):
@@ -66,11 +71,13 @@ def p_row(Nx, Ny, unit, n_members, reps, variants=None):
     qf = _source_field(m, m.inj_rates[:, 0], m.prd_rates[:, 0])
     args = cs.p_system(set_perm(m, pre if unit else cs.MILD * pre), qf, unit)
     solve = {k: cs.BASE[k] for k in cs.SOLVE_KEYS}
-    plan = pressure.cl_plan(Nx, Ny, unit)
+    plan, gplan = pressure.cl_plan(Nx, Ny, unit), pressure.gm_plan(Nx, Ny, unit)
     row = dict(kernel="P", grid=f"{Nx}x{Ny}", N=n_members, unit_diag=unit,
-               route=pressure.route(Nx, Ny, unit, n_members), plan=plan,
-               clusters=_build.kernel_info(pressure.kernel_name("jacobi", unit, "cl"),
-                                           Nx, Ny)["max_active_clusters"])
+               route=pressure.route(Nx, Ny, unit, n_members), plan=plan, gm_plan=gplan,
+               clusters=plan and _build.kernel_info(pressure.kernel_name("jacobi", unit, "cl"),
+                                                    Nx, Ny)["max_active_clusters"],
+               gm_groups=gplan and _build.kernel_info(pressure.kernel_name("jacobi", unit, "gm"),
+                                                      Nx, Ny)["groups_resident"])
     for tag, kw in (variants or p_variants(Nx, Ny, unit)).items():
         _, it, _ = pressure_solve_cuda(*args, **solve, unit_diag=unit, **kw)
         row[f"{tag}_ms"] = cs.cuda_ms(lambda: pressure_solve_cuda(
@@ -79,21 +86,27 @@ def p_row(Nx, Ny, unit, n_members, reps, variants=None):
         row[f"{tag}_bound_ms"] = cs.pressure_bound_ms(
             args[0], args[1], it,
             fine_flops=cs.P_FLOPS_FINE + (0 if unit else cs.P_FLOPS_DIAG))[0]
-        if "force" in kw or kw["plan"][1] == "device":  # the inverse read every V-cycle
+        if kw.get("force") == "gm1" or kw.get("plan", (0, ""))[1] == "device":
+            # the inverse read every V-cycle
             row[f"{tag}_inverse_floor_ms"] = (1e3 * 4 * args[1][0].numel()
                                               * float(it.double().sum()) / cs.HBM_BYTES)
     return row
 
 
-def p_variants(Nx, Ny, unit):
-    """P's variants at a grid: P-cl on the grid's plan ("cl") and P-gm
-    ("gm"); where the plan distributes the inverse, also the in-place plan
-    ("cl_device") and the distributed plan on 16 ranks ("cl_16")."""
+def p_variants(Nx, Ny, unit, extra=True):
+    """P's variants at a grid: P-cl on the grid's plan ("cl", where a
+    cluster holds it), P-gm ("gm", where `gm_plan` cuts it) and P-gm1
+    ("gm1"); with `extra`, where the plan distributes the inverse, also the
+    in-place plan ("cl_device") and the distributed plan on 16 ranks
+    ("cl_16")."""
     from historymatching_tpu_torch.ops import pressure
 
     plan = pressure.cl_plan(Nx, Ny, unit)
-    variants = {"cl": dict(plan=plan), "gm": dict(force="gm")}
-    if plan[1] == "distributed":
+    variants = {"cl": dict(plan=plan)} if plan else {}
+    if pressure.gm_plan(Nx, Ny, unit):
+        variants["gm"] = dict(force="gm")
+    variants["gm1"] = dict(force="gm1")
+    if extra and plan and plan[1] == "distributed":
         if pressure.cl_plan(Nx, Ny, unit, "device"):
             variants["cl_device"] = dict(plan=pressure.cl_plan(Nx, Ny, unit, "device"))
         if plan[0] < 16:
@@ -153,7 +166,7 @@ def main(argv=None):
     do_p, do_k = opts.kernel in (None, "P"), opts.kernel in (None, "K")
     import torch
 
-    from historymatching_tpu_torch.ops import _build, pressure
+    from historymatching_tpu_torch.ops import _build
 
     if not torch.cuda.is_available():
         raise RuntimeError("bench_routes.py runs on a CUDA device only")
@@ -162,7 +175,7 @@ def main(argv=None):
     grids = sorted({g for g, _ in P_CASES} | set(K_GRIDS))
     plans = {(*g, *kw["plan"]) for g, unit in P_CASES
              for kw in p_variants(*g, unit).values() if "plan" in kw}
-    _build.prebuild(cl_grids=grids, cl_plans=plans)
+    _build.prebuild(cl_grids=grids, cl_plans=plans, gm_grids=[g for g, _ in P_CASES])
     rows = []
 
     def emit(row):
@@ -178,9 +191,8 @@ def main(argv=None):
         for Nx, Ny in K_GM_GRIDS:
             emit(k_row(Nx, Ny, n_members, opts.reps))
     for ((Nx, Ny), unit), batches in LADDER.items() if do_p else ():
-        ladder = {"cl": dict(plan=pressure.cl_plan(Nx, Ny, unit)), "gm": dict(force="gm")}
         for n_members in batches:
-            emit(p_row(Nx, Ny, unit, n_members, opts.reps, ladder))
+            emit(p_row(Nx, Ny, unit, n_members, opts.reps, p_variants(Nx, Ny, unit, False)))
     if opts.out:
         with open(opts.out, "w") as f:
             json.dump(rows, f, indent=1)

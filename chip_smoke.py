@@ -78,7 +78,8 @@ Phases, one printed line or more each; any failed check raises:
     88x88, 96x96, 100x100, 128x128, 60x220, 192x192, 256x256), N=64: P-cl
     (a thread-block cluster a member; at 100x100 and 60x220 P-cl/d, the
     coarsest inverse distributed over the ranks, beside the plan that reads
-    it in place on two ranks) on its route and P-gm forced, in the four
+    it in place on two ranks) on its route, P-gm1 forced and at 100x100
+    P-gm forced, in the four
     instantiations, each against its plain version after one window and
     timed at bench settings, with its plan, bytes and inverse rows a rank,
     resources and clusters resident; K on its route (K-cl, or the
@@ -87,26 +88,32 @@ Phases, one printed line or more each; any failed check raises:
     against its bound (K-gm, a member over co-resident blocks a band of
     rows, with its bands and members in flight); a few steps of `simulate`
     through each P-cl instantiation and K-cl at 128x128 and at 60x220
-    (P-cl/d), and through each P-gm instantiation and K-gm at 120x440 (a
-    60x220 layer refined 2x2, past any cluster; N=16), where P-gm and K-gm
-    are then timed a launch each with their bounds, K-gm beside K-gm1 (one
-    block a member, its fw tiles in device memory); `simulate` at 32x1088
-    (N=4), past K-gm's capacity (a row wider than a block), through K-gm1,
-    then timed on its step 6; P-gm, K-gm and K-gm1 forced at 64x64 on
-    [6]'s inputs beside the shared-memory kernels;
+    (P-cl/d), and through each P-gm instantiation (a member over
+    co-resident blocks, bands of rows and the coarsest inverse's rows in
+    their shared memory) and K-gm at 120x440 (a 60x220 layer refined 2x2,
+    past any cluster; N=16), where each P-gm instantiation is then held to
+    its plain version and timed with its bound, its plain version and P-gm1
+    (one block a member, its arrays in device memory) beside it, with its
+    registers, spills, blocks and members in flight, and K-gm beside K-gm1
+    (one block a member, its fw tiles in device memory); `simulate` at
+    32x1088 (N=4), past K-gm's and P-gm's capacity (a row wider than a
+    block), through K-gm1 and each P-gm1 instantiation, then K-gm1 timed on
+    its step 6 and P-gm1 on the first step's system; P-gm1, K-gm and K-gm1
+    forced at 64x64 on [6]'s inputs beside the shared-memory kernels;
 24. the reference's bench case at 128x128 (`parity.build_case(seed=1,
     N=1000, Nx=128, Ny=128)`): 40 steps and the 4-pass ES-MDA on the
     reference's schedule, every step one P-cl and one K-cl launch, the
     saturations of every step kept on the card; wall, launches, cg
     acceptance a pass, peak memory, RMSE, and 10 profiled steps; on its
     first step P-cl and K-cl against their plain versions and timed beside
-    P-gm, K-rt and K-gm, all forced;
+    P-gm1, K-rt and K-gm, all forced;
     24b. the bench case's geometry at P-cl/d's grids, a 60x220 layer of
     SPE10 model 2 and 100x100 (`parity.build_case(seed=1, N=1000, Nx, Ny)`):
     5 steps of the first pass through `forward_model` and P's route (P-cl/d
-    at 60x220, P-gm at 100x100 for 1000 members), P's device time a step;
-    on the first step P-cl/d and P-gm forced, held to the plain version
-    after one window and timed side by side with their bounds;
+    at 60x220, P-gm1 at 100x100 for 1000 members), P's device time a step;
+    on the first step P-cl/d and P-gm1 (and at 100x100 P-gm) forced, held
+    to the plain version after one window and timed side by side with their
+    bounds;
 25. on a world of one over NCCL (`parallel.mesh`): `forward_model(mesh=)`
     on a member-sharded prior, 64x64, N=128, 5 steps, bit for bit against
     the run without a mesh; then [5]'s flagship ES-MDA (N=1000, 64x64, 40
@@ -171,7 +178,7 @@ ILES_FLOPS = lambda n, p: 3 * n**3 + 6 * n**2 * p  # noqa: E731
 ILES_ITERS, RESUME_N = 10, 200
 # Grids of phases 18-19: K's runtime-grid variant, P built on first use,
 # P with an explicit fine diagonal; and a grid over one block's shared
-# memory, simulated through P-gm.
+# memory, simulated through its route (P-cl since PR 10).
 K_RT_GRIDS = ((15, 15), (12, 9), (10, 10), (12, 12), (24, 16), (80, 80))
 P_NEW_GRIDS = ((8, 8), (10, 10), (12, 12), (24, 16), (80, 80))
 P_DIAG_GRIDS = ((20, 20), (64, 64))
@@ -183,17 +190,19 @@ LARGE_GRIDS = ((60, 60), (88, 88), (96, 96), (100, 100), (128, 128), (60, 220), 
                (256, 256))
 LARGE_N, BIG, MESH_N, MESH_STEPS = 64, (128, 128), 128, 5
 P_GM = tuple((smoother, unit) for unit in (True, False) for smoother in ("jacobi", "cheb"))
-# (grid, scaled system) whose P route is P-gm past a batch, and the batch
-# (`ops/pressure.route`): P-cl/d keeps 9 members in flight there.
+# (grid, scaled system) whose P route is the device-memory one (P-gm1) past
+# a batch, and the batch (`ops/pressure.route`): P-cl/d keeps 9 members in
+# flight there.
 P_GM_PAST = {(100, 100, True): 192}
 # [24b]: the bench case's geometry on P-cl/d's grids, a 60x220 layer of
 # SPE10 model 2 and 100x100, N=1000, 5 steps of the first pass.
 LAYER_GRIDS, LAYER_STEPS = ((60, 220), (100, 100)), 5
-# [23]'s path through the device-memory variants: a 60x220 layer refined
-# 2x2, whose P and K layouts no cluster of up to 16 blocks holds, N=16.
+# [23]'s path through P-gm and K-gm: a 60x220 layer refined 2x2, whose P
+# and K layouts no cluster of up to 16 blocks holds, N=16.
 GM_PATH_GRID, GM_PATH_N = (120, 440), 16
-# [23]'s path past K-gm's capacity, through K-gm1: a grid whose 1,088
-# columns exceed one block's row, N=4.
+# [23]'s path past K-gm's and P-gm's capacity, through K-gm1 and P-gm1: a
+# grid whose 1,088 columns exceed one block's row (and whose band of 8 rows
+# exceeds P-gm's block), N=4.
 GM1_PATH_GRID, GM1_PATH_N = (32, 1088), 4
 # [19]'s fixed work: one restart window of 4 iterations. On grids of up to
 # 400 cells a window of 8 reaches float32's floor, where the plain version
@@ -217,7 +226,7 @@ EXAMPLES = (
 )
 # Device activities by kernel name, for the profiled stages.
 STAGE_OF = (("pressure_pcg_kernel", "pressure_pcg"), ("pressure_pcg_gm_kernel", "pressure_pcg"),
-            ("pressure_pcg_cl_kernel", "pressure_pcg"),
+            ("pressure_pcg_gm1_kernel", "pressure_pcg"), ("pressure_pcg_cl_kernel", "pressure_pcg"),
             ("transport_upwind_kernel", "transport_upwind"),
             ("transport_upwind_rt_kernel", "transport_upwind"),
             ("transport_upwind_gm_kernel", "transport_upwind"),
@@ -230,15 +239,24 @@ EN_ITERS, EN_NENS, EN_CHOL, EN_SMALL_B = 30, 10, 0.1, 40
 ROBUST_N, ROBUST_ITERS, ROBUST_SHORT_ITERS = 31, 30, 5
 
 
+_T0 = time.perf_counter()
+PHASE_AT = {}  # seconds from the start to each phase's first line
+
+
 def log(*a):
+    tag = str(a[0]).split(" ", 1)[0] if a else ""
+    if tag.startswith("[") and tag not in PHASE_AT:
+        PHASE_AT[tag] = round(time.perf_counter() - _T0, 1)
     print(*a, flush=True)
 
 
-def cuda_ms(fn, reps):
-    """Mean milliseconds of `fn` on the card over `reps` runs, after a warm-up."""
+def cuda_ms(fn, reps, warm=True):
+    """Mean milliseconds of `fn` on the card over `reps` runs, after a
+    warm-up (none where `warm` is False: `fn` ran just before)."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -849,7 +867,8 @@ def large_grid_phases(dev, six):
         cl_bytes,
         cl_inverse_rows,
         cl_plan,
-        gm_bytes,
+        gm1_bytes,
+        gm_plan,
         kernel_name,
         pressure_solve_cuda,
         pressure_solve_torch,
@@ -863,7 +882,7 @@ def large_grid_phases(dev, six):
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 23)
     base1 = {k: BASE[k] for k in SOLVE_KEYS}
-    names = [kernel_name(sm, unit, rt) for rt in ("cl", "gm") for sm, unit in P_GM] + [
+    names = [kernel_name(sm, unit, rt) for rt in ("cl", "gm", "gm1") for sm, unit in P_GM] + [
         "transport_upwind_cl", "transport_upwind_gm", "transport_upwind_gm1"]
     figs = {name: {"grids": {}, "max_abs_err": 0.0} for name in names}
 
@@ -911,14 +930,18 @@ def large_grid_phases(dev, six):
         for smoother, unit in P_GM:
             rt = pressure.route(Nx, Ny, unit, LARGE_N)
             limit = P_GM_PAST.get((Nx, Ny, unit))
-            assert rt == ("gm" if limit and LARGE_N > limit else "cl"), (tag, unit, rt)
+            assert rt == ("gm1" if limit and LARGE_N > limit else "cl"), (tag, unit, rt)
             # P-cl on the grid's plan, on its route or forced; beside P-cl/d
-            # the plan that reads the inverse in place; P-gm forced
+            # the plan that reads the inverse in place; P-gm1 forced, and
+            # P-gm at the grid whose route takes the batch
             plan = cl_plan(Nx, Ny, unit)
             runs = [("cl", None)] if plan else []
             if plan and plan[1] == "distributed" and cl_plan(Nx, Ny, unit, "device"):
                 runs.append(("cl", cl_plan(Nx, Ny, unit, "device")))
-            for force, plan_k in runs + [("gm", None)]:
+            runs.append(("gm1", None))
+            if (Nx, Ny, True) in P_GM_PAST:
+                runs.append(("gm", None))
+            for force, plan_k in runs:
                 name, fig = p_run(tag, systems[unit], smoother, unit, force, plan_k)
                 if force == "cl" and plan_k is None and ((Nx, Ny) == BIG or (
                         (Nx, Ny) == LAYER_GRIDS[0] and (smoother, unit) != ("jacobi", True))):
@@ -936,8 +959,9 @@ def large_grid_phases(dev, six):
                                f"{fig['rank_bytes']} bytes a rank, {fig['inverse_rows']} inverse "
                                f"rows a rank; {fig['resources']})" if "cluster" in fig else ""))
         log(f"[23] P {tag}, N={LARGE_N}, {levels} levels (coarsest {nc} cells), P layout "
-            f"{smem_bytes(Nx, Ny, levels)} shared bytes, P-gm workspace "
-            f"{gm_bytes(Nx, Ny, levels)} bytes a member, at bench settings: " + "; ".join(said))
+            f"{smem_bytes(Nx, Ny, levels)} shared bytes, P-gm plan {gm_plan(Nx, Ny)}, P-gm1 "
+            f"workspace {gm1_bytes(Nx, Ny, levels)} bytes a member, at bench settings: "
+            + "; ".join(said))
 
         # K on step 6 of a prior run: its own route, the runtime-grid
         # variant where its tiles fit one block, and K-gm, forced
@@ -992,7 +1016,8 @@ def large_grid_phases(dev, six):
     for grid, rt, n_members in ((BIG, "cl", LARGE_N), ((60, 220), "cl", LARGE_N),
                                 (GM_PATH_GRID, "gm", GM_PATH_N)):
         m = grid_model(torch, *grid)
-        mm = set_perm(m, ht.sample_prior_perm(gen, m, n_members, r=0.8))
+        pre = ht.sample_prior_perm(gen, m, n_members, r=0.8)
+        mm = set_perm(m, pre)
         k_name = transport.NAMES[transport.route(*grid)]
         assert k_name == f"transport_upwind_{rt}", (grid, k_name)
         for smoother, unit in P_GM:
@@ -1010,17 +1035,18 @@ def large_grid_phases(dev, six):
             assert n == {name: 5, k_name: 5}, n
             assert torch.isfinite(res.wsats).all()
         if rt == "gm":  # P-gm and K-gm a launch each on their path's shapes
-            gm_path_kernels(figs, mm, res.wsats[:, -1].reshape(n_members, *grid).contiguous())
+            gm_path_kernels(figs, m, pre, res.wsats[:, -1].reshape(n_members, *grid).contiguous())
     gm1_path(figs, gen)
 
-    # both device-memory variants forced at 64x64 on [6]'s inputs
+    # the device-memory variants of PR 9's form forced at 64x64 on [6]'s
+    # inputs (P-gm there, one block a member, is a card test's)
     args, kw = six["p_args"], six["kw"]
-    p_g = pressure_solve_cuda(*args, **WINDOW4, force="gm")[0]
+    p_g1 = pressure_solve_cuda(*args, **WINDOW4, force="gm1")[0]
     p_s = pressure_solve_cuda(*args, **WINDOW4)[0]
     p_t = pressure_solve_torch(*args, **WINDOW4)[0]
-    err_g, err_s = rel_err(p_g, p_t), rel_err(p_s, p_t)
-    assert err_g <= P_TOL, err_g
-    gm_ms = cuda_ms(lambda: pressure_solve_cuda(*args, **kw, force="gm"), 3)
+    err_g1, err_s = rel_err(p_g1, p_t), rel_err(p_s, p_t)
+    assert err_g1 <= P_TOL, err_g1
+    gm1_ms = cuda_ms(lambda: pressure_solve_cuda(*args, **kw, force="gm1"), 3)
     sm_ms = cuda_ms(lambda: pressure_solve_cuda(*args, **kw), 3)
     t_args = six["t_args"]
     k_err = float((transport_substeps_cuda(*t_args, force="gm")
@@ -1031,46 +1057,87 @@ def large_grid_phases(dev, six):
     kgm_ms = cuda_ms(lambda: transport_substeps_cuda(*t_args, force="gm"), 5)
     kgm1_ms = cuda_ms(lambda: transport_substeps_cuda(*t_args, force="gm1"), 5)
     k_ms = cuda_ms(lambda: transport_substeps_cuda(*t_args), 5)
-    figs["pressure_pcg_gm"]["forced_64x64"] = dict(ms=gm_ms, smem_ms=sm_ms, max_rel_err=err_g)
+    figs["pressure_pcg_gm1"]["forced_64x64"] = dict(ms=gm1_ms, smem_ms=sm_ms, max_rel_err=err_g1)
     figs["transport_upwind_gm"]["forced_64x64"] = dict(ms=kgm_ms, templated_ms=k_ms)
     figs["transport_upwind_gm1"]["forced_64x64"] = dict(ms=kgm1_ms, templated_ms=k_ms)
-    log(f"[23] forced at {NX}x{NY}, N={N}, [6]'s inputs: P-gm {gm_ms:.3f} ms a launch vs P "
+    log(f"[23] forced at {NX}x{NY}, N={N}, [6]'s inputs: P-gm1 {gm1_ms:.3f} ms a launch vs P "
         f"{sm_ms:.3f} ms (at [6]: {six['p_ms']['jacobi']:.3f} ms); one window max rel vs plain "
-        f"P-gm {err_g:.2e}, P {err_s:.2e}; K-gm {kgm_ms:.3f} ms and K-gm1 {kgm1_ms:.3f} ms vs "
+        f"P-gm1 {err_g1:.2e}, P {err_s:.2e}; K-gm "
+        f"{kgm_ms:.3f} ms and K-gm1 {kgm1_ms:.3f} ms vs "
         f"K {k_ms:.3f} ms (at [6]: {six['t_ms']:.3f} ms), K-gm max|ds| vs plain {k_err:.1e}, "
         f"K-gm1 0")
     return figs
 
 
-def gm_path_kernels(figs, mm, s5):
-    """[23]'s device-memory path (GM_PATH_GRID): P-gm on the first step's
-    system (s = 0), one window against the plain version, then a launch at
-    bench settings timed with its bound; K-gm on step 6 of the simulated
-    run, bit for bit and timed with its bound. Into `figs`' grids."""
+def gm_path_kernels(figs, m, pre, s5):
+    """[23]'s path through P-gm and K-gm (GM_PATH_GRID): on the first step's
+    system (s = 0; the unscaled one on the prior scaled by MILD) each P-gm
+    instantiation on its route one window against the plain version, then a
+    launch at bench settings timed with its bound, the plain version's time
+    and P-gm1's (forced, held to the plain version the same way) beside it,
+    and its resources (registers, spills, blocks a member, members in
+    flight); K-gm on step 6 of the simulated run, bit for bit and timed
+    with its bound. Into `figs`' grids."""
     import torch
 
     from historymatching_tpu_torch.models.ressim import _source_field, cfl_substeps, pressure_step
-    from historymatching_tpu_torch.ops import _build
-    from historymatching_tpu_torch.ops.pressure import pressure_solve_cuda, pressure_solve_torch
+    from historymatching_tpu_torch.ops import _build, pressure
+    from historymatching_tpu_torch.ops.pressure import (
+        kernel_name,
+        pressure_solve_cuda,
+        pressure_solve_torch,
+    )
     from historymatching_tpu_torch.ops.transport import (
         transport_substeps_cuda,
         transport_substeps_torch,
     )
+    from historymatching_tpu_torch.parallel.runner import set_perm
 
-    (Nx, Ny), tag = mm.shape, f"{mm.shape[0]}x{mm.shape[1]}"
+    mm = set_perm(m, pre)
+    (Nx, Ny), tag, n = mm.shape, f"{mm.shape[0]}x{mm.shape[1]}", pre.shape[0]
     qf = _source_field(mm, mm.inj_rates[:, 0], mm.prd_rates[:, 0])
-    args = p_system(mm, qf, True)
+    systems = {True: p_system(mm, qf, True), False: p_system(set_perm(m, MILD * pre), qf, False)}
     base1 = {k: BASE[k] for k in SOLVE_KEYS}
-    p_k = pressure_solve_cuda(*args, **WINDOW4, force="gm")[0]
-    p_t = pressure_solve_torch(*args, **WINDOW4)[0]
-    err = rel_err(p_k, p_t)
-    assert bool(torch.isfinite(p_k).all()) and err <= P_TOL, err
-    _, it, _ = pressure_solve_cuda(*args, **base1, force="gm")
-    p_ms = cuda_ms(lambda: pressure_solve_cuda(*args, **base1, force="gm"), 3)
-    p_bnd, p_by = pressure_bound_ms(args[0], args[1], it)
-    figs["pressure_pcg_gm"]["grids"][tag] = dict(
-        ms=p_ms, bound_ms=p_bnd, bound_by=p_by, share_of_bound=p_bnd / p_ms, max_rel_err=err,
-        max_abs_err=float((p_k - p_t).abs().max()), iters_median=int(it.median()))
+    said = []
+    for smoother, unit in P_GM:
+        args, kw = systems[unit], dict(smoother=smoother, unit_diag=unit)
+        name, name1 = (kernel_name(smoother, unit, rt) for rt in ("gm", "gm1"))
+        assert pressure.route(Nx, Ny, unit, n) == "gm", (tag, unit)
+        p_t = pressure_solve_torch(*args, **WINDOW4, **kw)[0]
+        (p_k, _, _), nl = launched(lambda: pressure_solve_cuda(*args, **WINDOW4, **kw))
+        assert nl == {name: 1}, nl
+        p_k1 = pressure_solve_cuda(*args, **WINDOW4, **kw, force="gm1")[0]
+        err, err1 = rel_err(p_k, p_t), rel_err(p_k1, p_t)
+        assert bool(torch.isfinite(p_k).all()) and err <= P_TOL and err1 <= P_TOL, (
+            name, err, err1)
+        _, it, rl = pressure_solve_cuda(*args, **base1, **kw)
+        ms = cuda_ms(lambda: pressure_solve_cuda(*args, **base1, **kw), 3)
+        ms1 = cuda_ms(lambda: pressure_solve_cuda(*args, **base1, **kw, force="gm1"), 2)
+        plain_ms = cuda_ms(lambda: pressure_solve_torch(*args, **base1, **kw), 1, warm=False)
+        vf = P_FLOPS_VCYCLE_CHEB if smoother == "cheb" else P_FLOPS_VCYCLE
+        bnd, by = pressure_bound_ms(args[0], args[1], it, vf,
+                                    P_FLOPS_FINE + (0 if unit else P_FLOPS_DIAG))
+        res = _build.kernel_info(name, Nx, Ny)
+        assert res["local_bytes"] == 0, (name, res)  # no spills on the path
+        common = dict(bound_ms=bnd, bound_by=by, plain_ms=plain_ms, iters_median=int(it.median()),
+                      accepted=int((rl <= 5e-2).sum()))
+        figs[name]["grids"][tag] = dict(
+            common, ms=ms, share_of_bound=bnd / ms, max_rel_err=err,
+            max_abs_err=float((p_k - p_t).abs().max()), gm1_ms=ms1, resources=res)
+        figs[name]["max_abs_err"] = max(figs[name]["max_abs_err"],
+                                        figs[name]["grids"][tag]["max_abs_err"])
+        figs[name1]["grids"][tag] = dict(
+            common, ms=ms1, share_of_bound=bnd / ms1, max_rel_err=err1,
+            max_abs_err=float((p_k1 - p_t).abs().max()), forced=True)
+        figs[name1]["max_abs_err"] = max(figs[name1]["max_abs_err"],
+                                         figs[name1]["grids"][tag]["max_abs_err"])
+        said.append(f"{name} window rel {err:.2e} (P-gm1 {err1:.2e}), {ms:.3f} ms a launch "
+                    f"against P-gm1's {ms1:.3f} (iterations median {int(it.median())}), bound "
+                    f"{bnd:.4f} ms ({by}, {bnd / ms:.1%}; P-gm1 {bnd / ms1:.1%}), plain "
+                    f"{plain_ms:.3f} ms; {res}")
+    log(f"[23] P on its device-memory path at {tag}, N={n}, the first step's system at bench "
+        f"settings: " + "; ".join(said))
+    mm = set_perm(m, pre)
     _, Fx, Fy, _, _, _ = pressure_step(mm, s5, qf, torch.zeros_like(s5), 2e-3, 4 * max(Nx, Ny),
                                        5e-2)
     Fx, Fy = Fx.contiguous(), Fy.contiguous()
@@ -1087,24 +1154,28 @@ def gm_path_kernels(figs, mm, s5):
     figs["transport_upwind_gm"]["grids"][tag] = dict(
         ms=k_ms, bound_ms=k_bnd, bound_by=k_by, share_of_bound=k_bnd / k_ms, max_abs_err=0.0,
         plain_ms=k_plain_ms, substeps_median=int(nsub.median()), gm1_ms=k1_ms, resources=res)
-    log(f"[23] on the device-memory path at {tag}, N={s5.shape[0]}: P-gm window rel {err:.2e}, "
-        f"{p_ms:.3f} ms a launch at bench settings (iterations median {int(it.median())}), bound "
-        f"{p_bnd:.4f} ms ({p_by}, {p_bnd / p_ms:.1%}); K-gm on step 6 max|ds| 0, {k_ms:.3f} ms "
+    log(f"[23] K on its device-memory path at {tag}, N={s5.shape[0]}: K-gm on step 6 max|ds| 0, "
+        f"{k_ms:.3f} ms "
         f"({int(nsub.median())} substeps median; {res}), K-gm1 {k1_ms:.3f} ms (max|ds| 0), "
         f"plain {k_plain_ms:.3f} ms, bound {k_bnd:.5f} ms ({k_by}, K-gm {k_bnd / k_ms:.1%}, "
         f"K-gm1 {k_bnd / k1_ms:.1%})")
 
 
 def gm1_path(figs, gen):
-    """[23]'s path past K-gm's capacity: `simulate` at GM1_PATH_GRID, 5
-    steps through P's route (P-gm) and K-gm1, counted; then K-gm1 on step 6
-    of that run, bit for bit and timed with its bound and the plain
-    version. Into `figs`."""
+    """[23]'s path past K-gm's and P-gm's capacity: `simulate` at
+    GM1_PATH_GRID, 5 steps through P's route (P-gm1) in each instantiation
+    and K-gm1, counted; then K-gm1 on step 6 of the first run, bit for bit
+    and timed with its bound and the plain version, and each P-gm1
+    instantiation on the first step's system (the unscaled one on the prior
+    scaled by MILD), one window against the plain version and a launch at
+    bench settings timed with its bound and the plain version's time. Into
+    `figs`."""
     import torch
 
     import historymatching_tpu_torch as ht
     from historymatching_tpu_torch.models.ressim import _source_field, cfl_substeps, pressure_step
     from historymatching_tpu_torch.ops import _build, pressure, transport
+    from historymatching_tpu_torch.ops.pressure import pressure_solve_cuda, pressure_solve_torch
     from historymatching_tpu_torch.ops.transport import (
         transport_substeps_cuda,
         transport_substeps_torch,
@@ -1115,8 +1186,10 @@ def gm1_path(figs, gen):
     tag = f"{Nx}x{Ny}"
     assert transport.route(Nx, Ny) == "gm1" and transport.gm_bands(Nx, Ny) is None
     p_name = f"pressure_pcg_{pressure.route(Nx, Ny, True, n)}"
+    assert p_name == "pressure_pcg_gm1" and pressure.gm_plan(Nx, Ny) is None
     m = grid_model(torch, Nx, Ny)
-    mm = set_perm(m, ht.sample_prior_perm(gen, m, n, r=0.8))
+    pre = ht.sample_prior_perm(gen, m, n, r=0.8)
+    mm = set_perm(m, pre)
     t0 = time.perf_counter()
     res, launches = launched(lambda: ht.simulate(mm, torch.zeros(m.Nxy, device=mm.K.device), DT,
                                                  5, keep_wsats=False))
@@ -1136,6 +1209,41 @@ def gm1_path(figs, gen):
     k_bnd, k_by = transport_bound_ms(s5, Fx, Fy, t_args[3], nsub)
     d = figs["transport_upwind_gm1"]
     d[f"launches_simulate_{tag}"] = launches["transport_upwind_gm1"]
+    figs[p_name][f"launches_simulate_{tag}"] = launches[p_name]
+    base1 = {k: BASE[k] for k in SOLVE_KEYS}
+    systems = {True: p_system(mm, qf, True), False: p_system(set_perm(m, MILD * pre), qf, False)}
+    said = []
+    for smoother, unit in P_GM:
+        name = pressure.kernel_name(smoother, unit, "gm1")
+        if name != p_name:  # simulate through the other instantiations
+            res_i, n_i = launched(lambda: ht.simulate(
+                mm, torch.zeros(m.Nxy, device=mm.K.device), DT, 5, keep_wsats=False,
+                smoother=smoother, scale_system=unit))
+            assert n_i == {name: 5, "transport_upwind_gm1": 5}, n_i
+            assert bool(torch.isfinite(res_i.wsats).all())
+            figs[name][f"launches_simulate_{tag}"] = n_i[name]
+        args, kw = systems[unit], dict(smoother=smoother, unit_diag=unit)
+        p_t = pressure_solve_torch(*args, **WINDOW4, **kw)[0]
+        p_k = pressure_solve_cuda(*args, **WINDOW4, **kw)[0]
+        err = rel_err(p_k, p_t)
+        assert bool(torch.isfinite(p_k).all()) and err <= P_TOL, (name, err)
+        _, it, _ = pressure_solve_cuda(*args, **base1, **kw)
+        ms = cuda_ms(lambda: pressure_solve_cuda(*args, **base1, **kw), 3)
+        plain_ms = cuda_ms(lambda: pressure_solve_torch(*args, **base1, **kw), 1, warm=False)
+        vf = P_FLOPS_VCYCLE_CHEB if smoother == "cheb" else P_FLOPS_VCYCLE
+        bnd, by = pressure_bound_ms(args[0], args[1], it, vf,
+                                    P_FLOPS_FINE + (0 if unit else P_FLOPS_DIAG))
+        figs[name]["grids"][tag] = dict(
+            ms=ms, bound_ms=bnd, bound_by=by, share_of_bound=bnd / ms, max_rel_err=err,
+            max_abs_err=float((p_k - p_t).abs().max()), plain_ms=plain_ms,
+            iters_median=int(it.median()), resources=_build.kernel_info(name, Nx, Ny))
+        figs[name]["max_abs_err"] = max(figs[name]["max_abs_err"],
+                                        figs[name]["grids"][tag]["max_abs_err"])
+        said.append(f"{name} window rel {err:.2e}, {ms:.3f} ms a launch (iterations median "
+                    f"{int(it.median())}), bound {bnd:.4f} ms ({by}, {bnd / ms:.1%}), plain "
+                    f"{plain_ms:.3f} ms")
+    log(f"[23] P-gm1 on its path at {tag}, N={n}: 5 steps of simulate through each "
+        f"instantiation; the first step's system at bench settings: " + "; ".join(said))
     d["grids"][tag] = dict(ms=k_ms, bound_ms=k_bnd, bound_by=k_by, share_of_bound=k_bnd / k_ms,
                            max_abs_err=0.0, plain_ms=k_plain_ms,
                            substeps_median=int(nsub.median()),
@@ -1241,12 +1349,12 @@ def layer_case_phase():
     """Phase 24b: the reference's bench case (`parity.build_case(seed=1,
     N=1000)`) on P-cl/d's grids, a 60x220 layer of SPE10 model 2 and
     100x100: 5 steps of the first pass through `forward_model` and P's
-    route (P-cl/d at 60x220, P-gm at 100x100 past `P_GM_PAST`'s batch), each
-    step one P and one K launch, P's device time a step from a profile; on
-    the first step's system P-cl/d and P-gm forced, each held to the plain
-    version after one window and timed at the first pass's settings beside
-    its bound (the plain version's time at 60x220, P-cl/d's path). Returns
-    per grid its figures."""
+    route (P-cl/d at 60x220, P-gm1 at 100x100 past `P_GM_PAST`'s batch),
+    each step one P and one K launch, P's device time a step from a
+    profile; on the first step's system P-cl/d and P-gm1 (and at 100x100
+    P-gm) forced, each held to the plain version after one window and timed
+    at the first pass's settings beside its bound (the plain version's time
+    at 60x220, P-cl/d's path). Returns per grid its figures."""
     import torch
 
     import historymatching_tpu_torch as ht
@@ -1255,6 +1363,7 @@ def layer_case_phase():
     from historymatching_tpu_torch.ops import _build, pressure, transport
     from historymatching_tpu_torch.ops.pressure import (
         cl_plan,
+        gm_plan,
         kernel_name,
         pressure_solve_cuda,
         pressure_solve_torch,
@@ -1270,7 +1379,8 @@ def layer_case_phase():
         model, prior = case["model"], case["prior"]
         limit = P_GM_PAST.get((Nx, Ny, True))
         rt = pressure.route(Nx, Ny, True, N)
-        assert rt == ("gm" if limit and N > limit else "cl"), (tag, rt)
+        # past the batch, P-gm1: it beat P-gm there (`GM_BATCH_MAX`)
+        assert rt == ("gm1" if limit and N > limit else "cl"), (tag, rt)
         run = lambda: ht.forward_model(model, prior, dt=DT, nTime=LAYER_STEPS,  # noqa: E731
                                        keep_wsats=False, **first)
         _build.reset_launches()
@@ -1292,7 +1402,8 @@ def layer_case_phase():
         p_t = pressure_solve_torch(*args, **WINDOW4)[0]
         plan = cl_plan(Nx, Ny)
         figs, said = {}, []
-        for force in ("cl", "gm"):
+        # P-gm beside them where the route takes the batch
+        for force in ("cl", "gm1") + (("gm",) if limit else ()):
             solve = lambda kw: pressure_solve_cuda(*args, **kw, force=force)  # noqa: E731
             p_k = solve(WINDOW4)[0]
             err = rel_err(p_k, p_t)
@@ -1304,7 +1415,8 @@ def layer_case_phase():
                                max_rel_err=err, max_abs_err=float((p_k - p_t).abs().max()),
                                iters_median=int(it.median()), iters_max=int(it.max()),
                                accepted=int((rl <= 5e-2).sum()))
-            said.append(f"{'P-cl/d ' + str(plan) if force == 'cl' else 'P-gm'} window max rel "
+            who = dict(cl=f"P-cl/d {plan}", gm=f"P-gm {gm_plan(Nx, Ny)}", gm1="P-gm1")[force]
+            said.append(f"{who} window max rel "
                         f"{err:.2e}, {ms:.3f} ms (iterations median {int(it.median())} max "
                         f"{int(it.max())}, accepted {figs[force]['accepted']}), bound {bnd:.4f} "
                         f"ms ({by}, {bnd / ms:.1%})")
@@ -1326,7 +1438,7 @@ def large_case_kernels(model, prior):
     """[24]'s kernels at the shapes its path gives them: the bench case's
     first step (N=1000, 128x128, s = 0). P's route, P-cl: one launch after
     one window held to the plain version within P_TOL, then timed at the
-    first pass's settings beside P-gm forced on the same inputs (held the
+    first pass's settings beside P-gm1 forced on the same inputs (held the
     same way), the plain version and the bound. K's route, K-cl: bit for bit, timed beside
     the runtime-grid variant and K-gm forced (each bit for bit too). These
     launches are not the path's: the caller has read its counts."""
@@ -1356,7 +1468,7 @@ def large_case_kernels(model, prior):
     c0 = cl_plan(Nx, Ny)[0]
     p_t = pressure_solve_torch(*args, **WINDOW4)[0]
     p_figs, said = {}, []
-    for force in ("cl", "gm"):
+    for force in ("cl", "gm1"):
         name = kernel_name("jacobi", True, force)
         run = lambda kw: pressure_solve_cuda(*args, **kw, force=force)  # noqa: E731
         (p_k, _, _), n = launched(lambda: run(WINDOW4))
@@ -1377,8 +1489,8 @@ def large_case_kernels(model, prior):
     plain_ms = cuda_ms(lambda: pressure_solve_torch(*args, **kw1), 1)
     del args, p_k, p_t
     cl_fig = dict(p_figs["pressure_pcg_cl"], plain_ms=plain_ms,
-                  gm_ms=p_figs["pressure_pcg_gm"]["ms"])
-    gm_fig = dict(p_figs["pressure_pcg_gm"], plain_ms=plain_ms)
+                  gm1_ms=p_figs["pressure_pcg_gm1"]["ms"])
+    gm1_fig = dict(p_figs["pressure_pcg_gm1"], plain_ms=plain_ms)
 
     s0 = torch.zeros(prior.shape[0], *model.shape, device=prior.device)
     _, Fx, Fy, _, _, _ = pressure_step(mm, s0, qf, torch.zeros_like(s0), tol_accept=5e-2,
@@ -1408,7 +1520,7 @@ def large_case_kernels(model, prior):
         f"route, ms " + ", ".join(f"{k} {v:.3f}" for k, v in k_ms.items())
         + f", plain {k_plain_ms:.3f}, bound {k_bnd:.5f} ms ({k_by}, K-cl "
         f"{k_bnd / k_ms['cl']:.1%})")
-    return {"pressure_pcg_cl": cl_fig, "pressure_pcg_gm": gm_fig, **k_figs}
+    return {"pressure_pcg_cl": cl_fig, "pressure_pcg_gm1": gm1_fig, **k_figs}
 
 
 def mesh_phase(dev, cases):
@@ -1694,7 +1806,8 @@ def main(argv=None):
 
     # and the in-place plans [23] times beside P-cl/d
     _build.prebuild(P_NEW_GRIDS, cl_grids=LARGE_GRIDS + K_RT_GRIDS,
-                    cl_plans=[(*g, *cl_plan(*g, True, "device")) for g in LAYER_GRIDS])
+                    cl_plans=[(*g, *cl_plan(*g, True, "device")) for g in LAYER_GRIDS],
+                    gm_grids=(GM_PATH_GRID,) + LAYER_GRIDS[1:])
     log(f"[2] kernels built in {time.perf_counter() - t0:.1f} s "
         f"(compiled: {_build.build_info['built']}) -> {_build.build_info['paths']}")
     for stem, text in _build.build_info["ptxas"].items():
@@ -2232,15 +2345,15 @@ def main(argv=None):
             "transport_upwind_rt", 0), forced=True)
     # The cluster variants: P-cl's and K-cl's path is [24], each checked and
     # timed on [24]'s first step; the other P-cl instantiations' path is
-    # [23]'s simulate at 128x128, timed there at bench settings. The
-    # device-memory variants' path is [23]'s simulate at GM_PATH_GRID; P-gm
-    # is timed forced on [24]'s first step (Jacobi) and at 128x128 N=64
-    # (the others), K-gm on its path at GM_PATH_GRID (its time forced on
-    # [24]'s first step kept as `large_case`); K-gm1's path is [23]'s
-    # simulate at GM1_PATH_GRID, timed there.
+    # [23]'s simulate at 128x128, timed there at bench settings. P-gm's and
+    # K-gm's path is [23]'s simulate at GM_PATH_GRID, each timed there (P-gm
+    # in its four instantiations, on the first step's system), P-gm1's and
+    # K-gm1's [23]'s simulate at GM1_PATH_GRID, timed there; their times
+    # forced on [24]'s first step are kept as `large_case`.
     gm_at = f"{GM_PATH_GRID[0]}x{GM_PATH_GRID[1]}"
-    k_path = {"transport_upwind_gm": gm_at,
-              "transport_upwind_gm1": f"{GM1_PATH_GRID[0]}x{GM1_PATH_GRID[1]}"}
+    gm1_at = f"{GM1_PATH_GRID[0]}x{GM1_PATH_GRID[1]}"
+    k_path = {name: gm_at if name.endswith("_gm") else gm1_at
+              for name in large if name.endswith(("_gm", "_gm1"))}
     for name, d in large.items():
         route = name.rsplit("_", 1)[1]
         at = k_path.get(name, f"{BIG[0]}x{BIG[1]}")
@@ -2254,7 +2367,7 @@ def main(argv=None):
             launches_path = (big["launches"][name] if name in big["launches"]
                              else d[f"launches_simulate_{BIG[0]}x{BIG[1]}"])
         else:
-            launches_path = d[f"launches_simulate_{k_path.get(name, gm_at)}"]
+            launches_path = d[f"launches_simulate_{k_path[name]}"]
         source = ("transport_upwind.cu" if name.startswith("transport")
                   else f"pressure_pcg_{route}.cu")
         kernels.append(dict(
@@ -2280,10 +2393,10 @@ def main(argv=None):
         dist = {t: g for t, g in d["grids"].items() if g.get("inverse") == "distributed"}
         if (smoother, unit) == ("jacobi", True):
             g, at = lay["kernels"]["cl"], f"{lay_at} N={N} ([24b]'s first step)"
-            launches_path, gm_ms = lay["launches"][name], lay["kernels"]["gm"]["ms"]
+            launches_path, gm1_ms = lay["launches"][name], lay["kernels"]["gm1"]["ms"]
         else:
             g, at = dist[lay_at], f"{lay_at} N={LARGE_N}"
-            launches_path, gm_ms = d[f"launches_simulate_{lay_at}"], None
+            launches_path, gm1_ms = d[f"launches_simulate_{lay_at}"], None
         kernels.append(dict(
             name=name + "/d", counter=name, route="cuda",
             source="historymatching_tpu_torch/csrc/pressure_pcg_cl.cu",
@@ -2291,7 +2404,7 @@ def main(argv=None):
             max_abs_err=max([g["max_abs_err"]] + [x["max_abs_err"] for x in dist.values()]),
             ms=g["ms"], plain_ms=g.get("plain_ms"), bound_ms=g["bound_ms"],
             bound_by=g["bound_by"], library_ms=None, share_of_bound=g["bound_ms"] / g["ms"],
-            at_grid=at, gm_ms=gm_ms, grids=dist))
+            at_grid=at, gm1_ms=gm1_ms, grids=dist))
     for rec in kernels:
         rec["launches_parity"] = {p["name"]: p["launches"].get(rec.get("counter", rec["name"]), 0)
                                   for p in par}
@@ -2301,6 +2414,7 @@ def main(argv=None):
     log(f"[24] record: {json.dumps({k: v for k, v in big.items() if k != 'passes'})}")
     log(f"[24b] record: {json.dumps(layer)}")
     log(f"[25] record: {json.dumps(mesh_run)}")
+    log(f"[walls] seconds from the start to each phase's first line: {json.dumps(PHASE_AT)}")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

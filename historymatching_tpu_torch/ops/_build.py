@@ -6,8 +6,10 @@ the package; the compilers run in parallel. Kernel P is a template on the
 grid: the main library holds the grids of `GRIDS`, and any other grid is
 compiled on first use into a library of its own (`pressure_lib`);
 `prebuild` starts every compiler a run will need at once. The
-device-memory variants (P-gm in `pressure_pcg_gm.cu`, K-gm and K-gm1
-beside K) take the grid at run time, so one library serves every grid.
+device-memory variants P-gm1 (`pressure_pcg_gm1.cu`), K-gm and K-gm1
+(beside K) take the grid at run time, so one library serves every grid;
+P-gm (`pressure_pcg_gm.cu`) is a template on the grid and its plan, one
+library each, built on first use (`pressure_gm_lib`).
 The cluster variants (P-cl in `pressure_pcg_cl.cu`, K-cl in `transport_upwind.cu`
 under `-DHM_KCL_*`) are templates on the grid and the cluster size (and
 P-cl on the coarsest inverse's place), one library each, built on first
@@ -47,15 +49,17 @@ GRIDS = ((16, 16), (20, 20), (32, 32), (64, 64))
 # of each block reserved).
 SMEM_LIMIT = 232_448
 SMEM_TWO_A_SM = 115_712
+SMEM_PER_SM = 228 * 1024  # an SM's shared memory, 1 KB of it reserved for each block
 
 # Launches by kernel: K's templated, runtime-grid, device-memory and
 # cluster variants, and P by smoother, by fine diagonal (unit, or read:
-# the unscaled system) and by route (shared memory, "_gm": device memory,
-# "_cl": a thread-block cluster a member).
+# the unscaled system) and by route (shared memory, "_gm": co-resident
+# blocks a member, "_gm1": device memory, one block a member, "_cl": a
+# thread-block cluster a member).
 _P_NAMES = ("pressure_pcg", "pressure_pcg_cheb", "pressure_pcg_diag", "pressure_pcg_cheb_diag")
 LAUNCHES = dict.fromkeys(("transport_upwind", "transport_upwind_rt", *_P_NAMES,
                           "transport_upwind_gm", "transport_upwind_gm1",
-                          *(n + "_gm" for n in _P_NAMES),
+                          *(n + "_gm" for n in _P_NAMES), *(n + "_gm1" for n in _P_NAMES),
                           "transport_upwind_cl", *(n + "_cl" for n in _P_NAMES)), 0)
 
 _libs = {}
@@ -86,16 +90,20 @@ _SIGNATURES = {
         "hm_pressure_solve": _PRESSURE,
         "hm_pressure_info": [I, I, I, I, P],
     },
-    "pressure_pcg_gm": {
+    "pressure_pcg_gm1": {
         # level pointers, Ainv, q, p0, w, p_out, it_out, rel_out, workspace,
         # layout table, B, tol, maxiter, restart_every, patience, cheb, unit,
         # stream
-        "hm_pressure_gm_solve": [P, P, P, P, P, P, P, P, P, P, I, F, I, I, I, I, I, P],
-        "hm_pressure_gm_info": [I, I, I, I, P],
+        "hm_pressure_gm1_solve": [P, P, P, P, P, P, P, P, P, P, I, F, I, I, I, I, I, P],
+        "hm_pressure_gm1_info": [I, I, I, I, P],
     },
 }
 _MAIN = tuple(_SIGNATURES)  # the main libraries' sources
-# The per-grid cluster libraries: P-cl's source, and K's under -DHM_KCL_*.
+# The per-grid libraries: P-gm (the arguments of P with the groups'
+# exchange, their flags and the groups they hold after rel_out), P-cl's
+# source, and K's under -DHM_KCL_*.
+_SIGNATURES["pressure_pcg_gm"] = {"hm_pressure_gm_solve": _PRESSURE[:8] + [P, P, I] + _PRESSURE[8:],
+                                  "hm_pressure_gm_info": [I, I, I, I, P]}
 _SIGNATURES["pressure_pcg_cl"] = {"hm_pressure_cl_solve": _PRESSURE,
                                   "hm_pressure_cl_info": [I, I, I, I, P]}
 _SIGNATURES["transport_upwind_cl"] = {"hm_transport_substeps_cl": _TRANSPORT,
@@ -192,8 +200,8 @@ def _load(specs):
 
 
 def lib():
-    """The main libraries' C entry points (K in its four variants, P at
-    `GRIDS`, P-gm), built first where their sources changed."""
+    """The main libraries' C entry points (K in its five variants, P at
+    `GRIDS`, P-gm1), built first where their sources changed."""
     if "main" not in _libs:
         _load([_spec(stem) for stem in _MAIN])
         _libs["main"] = types.SimpleNamespace(**{k: v for stem in _MAIN
@@ -222,6 +230,22 @@ def pressure_cl_lib(Nx, Ny, c, place):
     return _libs[key]
 
 
+def _gm_spec(Nx, Ny, G, kb):
+    return _spec("pressure_pcg_gm", key=f"pressure_pcg_gm_{Nx}x{Ny}_g{G}k{kb}",
+                 flags=[f"-DHM_GRID_NX={Nx}", f"-DHM_GRID_NY={Ny}", f"-DHM_GM_G={G}",
+                        f"-DHM_GM_KB={kb}"])
+
+
+def pressure_gm_lib(Nx, Ny, G, kb):
+    """P-gm's C entry points for one grid on G blocks a member with `kb`
+    inverse rows a banded block (`ops.pressure.gm_plan`), built on first
+    use."""
+    key, *_ = spec = _gm_spec(Nx, Ny, G, kb)
+    if key not in _libs:
+        _load([spec])
+    return _libs[key]
+
+
 def transport_cl_lib(Nx, Ny, c, strip):
     """K-cl's C entry points for one grid on clusters of `c` ranks with
     strips of `strip` cells, built on first use."""
@@ -245,14 +269,20 @@ def _cl_grid_specs(Nx, Ny):
     return _cl_specs(Nx, Ny, plans, shape)
 
 
-def prebuild(pressure_grids=(), cl_grids=(), cl_plans=()):
+def prebuild(pressure_grids=(), cl_grids=(), cl_plans=(), gm_grids=()):
     """Build the main libraries, kernel P's libraries for `pressure_grids`
-    outside `GRIDS`, the cluster libraries of `cl_grids` and P-cl's for
-    each (Nx, Ny, c, place) of `cl_plans`, every compiler at once."""
+    outside `GRIDS`, the cluster libraries of `cl_grids`, P-cl's for each
+    (Nx, Ny, c, place) of `cl_plans` and P-gm's for both fine diagonals'
+    plans of each grid of `gm_grids`, every compiler at once."""
+    from historymatching_tpu_torch.ops.pressure import gm_plan
+
     extra = [g for g in dict.fromkeys(tuple(g) for g in pressure_grids) if g not in GRIDS]
+    gm = [(*g, *plan) for g in gm_grids for plan in (gm_plan(*g, True), gm_plan(*g, False))
+          if plan]
     _load([_spec(stem) for stem in _MAIN] + [_spec("pressure_pcg", g) for g in extra]
           + [sp for g in cl_grids for sp in _cl_grid_specs(*g)]
-          + [_cl_specs(Nx, Ny, [(c, place)])[0] for Nx, Ny, c, place in cl_plans])
+          + [_cl_specs(Nx, Ny, [(c, place)])[0] for Nx, Ny, c, place in cl_plans]
+          + [_gm_spec(*args) for args in dict.fromkeys(gm)])
 
 
 def check(code, name):
@@ -264,11 +294,13 @@ def kernel_info(kernel, Nx, Ny, plan=None):
     """A kernel's resources at one grid, as the CUDA runtime reports them:
     registers and local (stack and spill) bytes a thread, dynamic shared
     bytes and threads a block, resident blocks an SM. `kernel` is a key of
-    `LAUNCHES`; a device-memory variant ("_gm", K-gm1) reports its static
-    shared bytes (its workspace is `ops.pressure.gm_bytes`, or K's two
+    `LAUNCHES`; a device-memory variant ("_gm1", K-gm1) reports its static
+    shared bytes (its workspace is `ops.pressure.gm1_bytes`, or K's two
     tiles); K-gm its shared bytes (two fw tiles, each thread's faces and
     sources), and adds its bands a member (`ops.transport.gm_bands`) and
-    the groups of bands (members in flight) the card holds at once; a
+    the groups of bands (members in flight) the card holds at once; P-gm
+    ("_gm", on its grid's `gm_plan`) its bytes a block, and adds its blocks
+    a member and the groups (members in flight) the card holds at once; a
     cluster variant ("_cl", on its route's
     cluster or P-cl's `plan`) its bytes a rank, and adds the ranks a cluster
     and the clusters the card holds at once."""
@@ -294,8 +326,14 @@ def kernel_info(kernel, Nx, Ny, plan=None):
     elif kernel.endswith("_cl"):
         plan = plan or pressure.cl_plan(Nx, Ny, bool(unit))
         code = pressure_cl_lib(Nx, Ny, *plan).hm_pressure_cl_info(Nx, Ny, cheb, unit, out)
+    elif kernel.endswith("_gm"):
+        plan = pressure.gm_plan(Nx, Ny, bool(unit))
+        if plan is None:
+            raise ValueError(f"{kernel}: no plan of P-gm fits a {Nx}x{Ny} grid")
+        code = pressure_gm_lib(Nx, Ny, *plan).hm_pressure_gm_info(Nx, Ny, cheb, unit, out)
+        keys += ("blocks", "groups_resident")
     else:
-        fn = (lib().hm_pressure_gm_info if kernel.endswith("_gm")
+        fn = (lib().hm_pressure_gm1_info if kernel.endswith("_gm1")
               else pressure_lib(Nx, Ny).hm_pressure_info)
         code = fn(Nx, Ny, cheb, unit, out)
     check(code, kernel)

@@ -28,12 +28,19 @@ the cluster's distributed shared memory (`layout` with `cl` counts a
 block's share, `cl_plan` picks c and the inverse's place: whole on the
 first block, read in place from device memory, or, where neither leaves
 room (100x100, a 60x220 layer), a block of its rows on each rank: P-cl/d,
-`cl_bands`, `cl_inverse_rows`). Where no cluster of up to 16 holds it, the
-device-memory variant P-gm runs (`csrc/pressure_pcg_gm.cu`, one library
-for every grid): the same solve, with every level's arrays and the CG
-vectors in a per-member workspace that the wrapper allocates. Their
-launches count under the same names with "_cl" or "_gm" appended. `route`
-says which a grid takes, `force` ("cl", "gm") takes one at any grid it
+`cl_bands`, `cl_inverse_rows`). Where no cluster of up to 16 holds it, or
+the batch is past the grid's `DIST_BATCH_MAX`, P-gm runs
+(`csrc/pressure_pcg_gm.cu`, one library a grid and plan): the same solve
+on a member spread over G co-resident blocks, each holding a band of rows
+of every level but the coarsest and a block of the coarsest inverse's
+rows in its shared memory, band edges, the coarse solve's vectors and the
+reductions exchanged through L2 (`gm_plan`, `gm_layout`). Where no plan
+fits the card (a band wider than one block holds), P-gm1 runs
+(`csrc/pressure_pcg_gm1.cu`, one library for every grid): one block a
+member, every level's arrays and the CG vectors in a per-member workspace
+that the wrapper allocates (`layout` with `gm1`). Their launches count
+under the same names with "_cl", "_gm" or "_gm1" appended. `route` says
+which a grid takes, `force` ("cl", "gm", "gm1") takes one at any grid it
 fits, and `plan` a cluster other than `cl_plan`'s. A grid without a
 hierarchy is refused before any launch (`check_grid`); `models.ressim`
 routes it to the plain Jacobi-PCG.
@@ -45,6 +52,7 @@ kernel, which raises on what it does not take.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -139,7 +147,7 @@ def cl_threads(Nx, Ny, c, place="shared"):
     return max(t, 256) if place == "distributed" else t
 
 
-def layout(Nx, Ny, levels, unit_diag=True, gm=False, cl=0, place="shared"):
+def layout(Nx, Ny, levels, unit_diag=True, gm1=False, cl=0, place="shared"):
     """Kernel P's arrays for one member (one rank of a cluster of `cl` for
     P-cl), in floats, each rounded up to 4: (per level a dict of its rows
     `n`, its columns `m`, whether it is `split` and the offsets of
@@ -150,10 +158,10 @@ def layout(Nx, Ny, levels, unit_diag=True, gm=False, cl=0, place="shared"):
     smoothing temporary T, and without `unit_diag` its diagonal D and
     reciprocal diagonal RD; an intermediate level its faces, D, RD, B and
     X, its temporary aliasing the fine T (while the temporaries fit there);
-    the coarsest its B and X. In shared memory (`gm` False: `Geo` in
+    the coarsest its B and X. In shared memory (`gm1` False: `Geo` in
     csrc/pressure_pcg.cu) the coarsest inverse (transposed) and two
-    reduction slots a warp follow. In P-gm's device workspace (`gm`:
-    csrc/pressure_pcg_gm.cu) the CG vectors x, p, z and A p follow instead:
+    reduction slots a warp follow. In P-gm1's device workspace (`gm1`:
+    csrc/pressure_pcg_gm1.cu) the CG vectors x, p, z and A p follow instead:
     its coarse solve reads the member's inverse in place, and its reduction
     slots are in shared memory.
 
@@ -204,7 +212,7 @@ def layout(Nx, Ny, levels, unit_diag=True, gm=False, cl=0, place="shared"):
         lv.append(d)
         o += size
     nc = sides[lc][0] * sides[lc][1]
-    if gm:
+    if gm1:
         extra = {k: o + i * vec[0] for i, k in enumerate(("x", "p", "z", "Ap"))}
         o += 4 * vec[0]
     else:
@@ -231,9 +239,9 @@ def smem_bytes(Nx, Ny, levels, unit_diag=True):
     return 4 * layout(Nx, Ny, levels, unit_diag)[2]
 
 
-def gm_bytes(Nx, Ny, levels, unit_diag=True):
-    """Device memory P-gm's workspace takes for one member: its `layout`."""
-    return 4 * layout(Nx, Ny, levels, unit_diag, gm=True)[2]
+def gm1_bytes(Nx, Ny, levels, unit_diag=True):
+    """Device memory P-gm1's workspace takes for one member: its `layout`."""
+    return 4 * layout(Nx, Ny, levels, unit_diag, gm1=True)[2]
 
 
 def cl_bytes(Nx, Ny, levels, c, unit_diag=True, place="shared"):
@@ -274,15 +282,137 @@ def cl_plan(Nx, Ny, unit_diag=True, place=None):
                  if cl_fits(Nx, Ny, c, place, unit_diag, limit)), None)
 
 
-def gm_table(Nx, Ny, levels, unit_diag=True):
-    """P-gm's layout as the C entry takes it: levels, floats a member, the
+def gm1_table(Nx, Ny, levels, unit_diag=True):
+    """P-gm1's layout as the C entry takes it: levels, floats a member, the
     offsets of x, p, z and A p, then per level its LEVEL_KEYS."""
-    lv, extra, floats = layout(Nx, Ny, levels, unit_diag, gm=True)
+    lv, extra, floats = layout(Nx, Ny, levels, unit_diag, gm1=True)
     return [levels, floats, *extra.values()] + [d[k] for d in lv for k in LEVEL_KEYS]
 
 
+# P-gm: a member's blocks at most (the H100's SMs: one block an SM, all
+# resident at once), and a block's threads (csrc/pressure_pcg_gm.cu
+# `kTilesAThread`, `kMinThreads`, `kMaxThreads`).
+GM_MAX_BLOCKS = 132
+GM_TILES_A_THREAD, GM_MIN_THREADS, GM_MAX_THREADS = 4, 256, 1024
+
+
+def gm_bands(Nx, Ny, G):
+    """P-gm's band of fine rows on each of G blocks, (first row, rows):
+    every level but the coarsest is split, in units of 2**(levels - 1)
+    rows; P-cl/d's `cl_bands` over the blocks, the blocks past the units
+    holding none."""
+    return cl_bands(Nx, Ny, n_levels(Nx, Ny), G, "distributed")
+
+
+def gm_threads(Nx, Ny, G):
+    """Threads of a P-gm block: about one per GM_TILES_A_THREAD fine 2x2
+    tiles of its largest band, in the nearest multiple of 128 (the granule
+    registers are allocated in), from GM_MIN_THREADS to GM_MAX_THREADS."""
+    h = max(rows for _, rows in gm_bands(Nx, Ny, G))
+    t = (-(-(h * Ny // 4) // GM_TILES_A_THREAD) + 64) // 128 * 128
+    return max(GM_MIN_THREADS, min(GM_MAX_THREADS, t))
+
+
+def gm_inverse_rows(nc, G, ranks, kb):
+    """The rows [start, stop) of the coarsest inverse on each of G blocks:
+    `kb` on each of the first `ranks` (the banded blocks), the rest spread
+    over the others in blocks of ceil(rest / (G - ranks)); the last ones
+    shorter or empty."""
+    kn = -(-(nc - ranks * kb) // (G - ranks)) if G > ranks else 0
+    starts = [q * kb if q < ranks else ranks * kb + (q - ranks) * kn for q in range(G)]
+    sizes = [kb if q < ranks else kn for q in range(G)]
+    return [(min(nc, a), min(nc, a + k)) for a, k in zip(starts, sizes)]
+
+
+def gm_layout(Nx, Ny, levels, G, kb, unit_diag=True):
+    """A P-gm block's shared memory in floats (`Geo` in
+    csrc/pressure_pcg_gm.cu): (per level a dict of its rows `n` (the largest
+    band's, or the coarsest level's all), its columns `m`, whether it is
+    `split` and the offsets of LEVEL_KEYS, the offsets of the extra arrays,
+    the total). The head holds the coarsest level's right-hand side and
+    correction (whole, on every block), the warps' partial sums and the
+    bulk copy's barrier; then the split levels, laid out as a P-cl/d rank's
+    (`layout` with `cl`), then a banded block's `kb` rows of the inverse
+    ("inverse"); a block without a band puts its rows right after the head
+    ("inverse_only"). Each block of rows takes four floats more (its
+    placement keeps its source's 16-byte alignment). The total is the
+    larger of the two kinds of block."""
+    lv_cl, _, _ = layout(Nx, Ny, levels, unit_diag, cl=G, place="distributed")
+    lc = levels - 1
+    nc = (Nx >> lc) * (Ny >> lc)
+    ranks = sum(1 for _, h in gm_bands(Nx, Ny, G) if h)
+    warps = gm_threads(Nx, Ny, G) // 32
+    extra = {"coarse_B": 0, "coarse_X": _r4(nc), "reduction": 2 * _r4(nc)}
+    extra["barrier"] = extra["reduction"] + _r4(2 * warps)
+    base = extra["barrier"] + 4
+    lv = []
+    for lvl, d in enumerate(lv_cl):
+        d = dict(d)
+        if lvl < lc:
+            for k in LEVEL_KEYS[2:]:
+                d[k] += base
+        else:
+            d.update(TX=0, TY=0, D=0, RD=0, T=0, B=extra["coarse_B"], X=extra["coarse_X"])
+        lv.append(d)
+    extra["inverse"] = base + lv_cl[lc]["B"]
+    floats = extra["inverse"] + _r4(kb * nc) + 4
+    if G > ranks:
+        kn = max(b - a for a, b in gm_inverse_rows(nc, G, ranks, kb))
+        extra["inverse_only"] = base
+        floats = max(floats, base + _r4(kn * nc) + 4)
+    return lv, extra, floats
+
+
+def gm_bytes(Nx, Ny, levels, G, kb, unit_diag=True):
+    """Shared memory one P-gm block takes on G blocks with `kb` inverse rows
+    a banded block: its `gm_layout`."""
+    return 4 * gm_layout(Nx, Ny, levels, G, kb, unit_diag)[2]
+
+
+def gm_net_floats(Nx, Ny, G):
+    """P-gm's exchange in device memory for one group (one member in flight),
+    in floats: per block two slots of a band's first and last rows and two
+    totals (a float pair each), then the coarse right-hand side and
+    correction."""
+    levels = n_levels(Nx, Ny)
+    nc = (Nx >> (levels - 1)) * (Ny >> (levels - 1))
+    return _r4(G * 4 * Ny) + _r4(4 * G) + 2 * _r4(nc)
+
+
+@functools.lru_cache(maxsize=None)
+def gm_plan(Nx, Ny, unit_diag=True):
+    """P-gm's plan for a grid: (G, kb), the fewest blocks a member whose every
+    block fits one block's shared memory (`_build.SMEM_LIMIT`), and the rows
+    of the coarsest inverse on each banded block: ceil(nc / G) where every
+    block holds a band, else as many as fit beside the band (at most ceil(nc
+    / G)), the rest on the blocks without one (`gm_inverse_rows`). None
+    where no G up to GM_MAX_BLOCKS fits (a band of 2**(levels - 1) rows
+    wider than a block holds, as at 32x1088) or the grid has no
+    hierarchy."""
+    levels = n_levels(Nx, Ny)
+    if levels < 2:
+        return None
+    nc = (Nx >> (levels - 1)) * (Ny >> (levels - 1))
+    limit = _build.SMEM_LIMIT
+    for G in range(1, GM_MAX_BLOCKS + 1):
+        ranks = sum(1 for _, h in gm_bands(Nx, Ny, G) if h)
+        even = -(-nc // G)
+        if G == ranks:
+            if gm_bytes(Nx, Ny, levels, G, even, unit_diag) <= limit:
+                return G, even
+            continue
+        # the most rows beside the band, then the rest on the other blocks
+        start = gm_layout(Nx, Ny, levels, G, 0, unit_diag)[1]["inverse"]
+        kb = min(even, max(0, (limit // 4 - 4 - start) // nc))
+        while kb > 0 and start + _r4(kb * nc) + 4 > limit // 4:
+            kb -= 1
+        if start + 4 <= limit // 4 and gm_bytes(Nx, Ny, levels, G, kb, unit_diag) <= limit:
+            return G, kb
+    return None
+
+
 KERNELS = {"jacobi": "pressure_pcg", "cheb": "pressure_pcg_cheb"}  # by smoother
-ROUTES = ("smem", "cl", "gm")
+ROUTES = ("smem", "cl", "gm", "gm1")
 
 
 def kernel_name(smoother, unit_diag=True, route="smem"):
@@ -300,31 +430,46 @@ def check_grid(Nx, Ny):
 
 
 # P-cl/d keeps one member on a cluster of 9-16 SMs, 7-9 members in flight
-# where P-gm keeps 132, and its member's iteration runs faster. Where P-gm
+# where P-gm1 keeps 132, and its member's iteration runs faster. Where P-gm1
 # won at N=1000 all the same, the largest batch P-cl/d takes, by (Nx, Ny,
-# unit_diag); P-gm takes larger ones. The scaled 100x100: P-cl/d ran 2.5x
-# faster at N=64 and 1.22x at 192, even at 256, 1.13x slower at 1000
-# (bench_routes.py on an H100; PERF.md keeps the figures).
+# unit_diag); the device-memory route takes larger ones. The scaled 100x100:
+# P-cl/d ran 2.5x faster at N=64 and 1.22x at 192, even at 256, 1.13x
+# slower at 1000 (bench_routes.py on an H100; PERF.md keeps the figures).
 DIST_BATCH_MAX = {(100, 100, True): 192}
+# P-gm keeps 132 // G members in flight (6 at the scaled 120x440, 14 at
+# 100x100) where P-gm1 keeps 132, and its member runs 3x faster at
+# 120x440. The largest batch P-gm takes on the device-memory route, by (Nx,
+# Ny, unit_diag): the largest batch timed where it beat P-gm1. P-gm1 takes
+# larger ones (and any batch not given). The scaled 120x440: P-gm 3.0x
+# faster at N=16, 1.16x at 64, 1.09x slower at 96, 1.31x at 1000; unscaled
+# 2.9x at 16, 1.7x at 96, even at 128, 1.16x slower at 192. At the scaled
+# 100x100 past DIST_BATCH_MAX P-gm lost to P-gm1 at every batch timed
+# (256, 512, 1000), so none there (bench_routes.py on an H100; PERF.md
+# keeps the figures). A grid not listed takes P-gm at any batch where it
+# has a plan.
+GM_BATCH_MAX = {(120, 440, True): 64, (120, 440, False): 128, (100, 100, True): 0}
 
 
 def route(Nx, Ny, unit_diag=True, batch=None):
     """Which kernel P takes a grid for a launch of `batch` members (None:
     any batch, so past every limit), smallest footprint first: "smem"
     where the layout fits one block's shared memory (`_build.SMEM_LIMIT`),
-    "cl" where a cluster's rank does (`cl_plan`), else "gm"; and "gm" where
-    the plan distributes the inverse and the batch exceeds the grid's
-    `DIST_BATCH_MAX`."""
+    "cl" where a cluster's rank does (`cl_plan`), else the device-memory
+    route; and the device-memory route where the cluster's plan distributes
+    the inverse and the batch exceeds the grid's `DIST_BATCH_MAX`. That
+    route is "gm" where `gm_plan` gives a plan and the batch is within the
+    grid's `GM_BATCH_MAX`, else "gm1"."""
     check_grid(Nx, Ny)
     if smem_bytes(Nx, Ny, n_levels(Nx, Ny), unit_diag) <= _build.SMEM_LIMIT:
         return "smem"
     plan = cl_plan(Nx, Ny, unit_diag)
-    if plan is None:
-        return "gm"
     limit = DIST_BATCH_MAX.get((Nx, Ny, unit_diag))
-    if plan[1] == "distributed" and limit is not None and (batch is None or batch > limit):
-        return "gm"
-    return "cl"
+    past = limit is not None and (batch is None or batch > limit)
+    if plan is not None and not (plan[1] == "distributed" and past):
+        return "cl"
+    gm_max = GM_BATCH_MAX.get((Nx, Ny, unit_diag))
+    within = gm_max is None or (batch is not None and batch <= gm_max)
+    return "gm" if within and gm_plan(Nx, Ny, unit_diag) else "gm1"
 
 
 def pressure_solve_cuda(hier, Ainv, q, p0, w, tol, maxiter, patience_iters=96,
@@ -350,6 +495,9 @@ def pressure_solve_cuda(hier, Ainv, q, p0, w, tol, maxiter, patience_iters=96,
         if plan is None or plan[1] not in INV_PLACES or not cl_fits(Nx, Ny, *plan, unit_diag):
             raise ValueError(f"pressure kernel: no cluster holds the {Nx}x{Ny} layout"
                              + (f" as {plan}" if plan else ""))
+    gplan = gm_plan(Nx, Ny, unit_diag) if rt == "gm" else None
+    if rt == "gm" and gplan is None:
+        raise ValueError(f"pressure kernel: no plan of P-gm fits the {Nx}x{Ny} layout")
     levels = len(hier)
     if levels != n_levels(Nx, Ny):
         raise ValueError(f"pressure kernel: grid {Nx}x{Ny} takes {n_levels(Nx, Ny)} multigrid "
@@ -383,10 +531,20 @@ def pressure_solve_cuda(hier, Ainv, q, p0, w, tol, maxiter, patience_iters=96,
               int(unit_diag), _build.stream_ptr(q.device))
     common = (ctypes.cast(ptrs, ctypes.c_void_p), Ainv.data_ptr(), q.data_ptr(), p0.data_ptr(),
               w.data_ptr(), p.data_ptr(), it.data_ptr(), rel.data_ptr())
-    if rt == "gm":
-        table = gm_table(Nx, Ny, levels, unit_diag)
+    if rt == "gm":  # the groups' exchange and flags, for as many groups as can be in flight
+        G = gplan[0]
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        per_sm = max(1, _build.SMEM_PER_SM // (gm_bytes(Nx, Ny, levels, *gplan, unit_diag) + 1024))
+        cap = max(1, min(B, sms * per_sm // G))
+        net = torch.empty(cap * gm_net_floats(Nx, Ny, G), dtype=torch.float32, device=q.device)
+        flags = torch.zeros(cap * G, dtype=torch.int32, device=q.device)
+        code = _build.pressure_gm_lib(Nx, Ny, *gplan).hm_pressure_gm_solve(
+            *common, net.data_ptr(), flags.data_ptr(), cap, B, Nx, Ny, levels, float(tol),
+            *solver)
+    elif rt == "gm1":
+        table = gm1_table(Nx, Ny, levels, unit_diag)
         ws = torch.empty(B * table[1], dtype=torch.float32, device=q.device)
-        code = _build.lib().hm_pressure_gm_solve(
+        code = _build.lib().hm_pressure_gm1_solve(
             *common, ws.data_ptr(), (ctypes.c_int * len(table))(*table), B, float(tol), *solver)
     elif rt == "cl":
         code = _build.pressure_cl_lib(Nx, Ny, *plan).hm_pressure_cl_solve(

@@ -16,8 +16,8 @@ from historymatching_tpu_torch.ops._build import CSRC, GRIDS, SMEM_LIMIT
 from historymatching_tpu_torch.ops.multigrid import build_hierarchy_5pt, n_levels
 from historymatching_tpu_torch.ops.pressure import (
     LEVEL_KEYS,
-    gm_bytes,
-    gm_table,
+    gm1_bytes,
+    gm1_table,
     layout,
     pressure_solve_cuda,
     smem_bytes,
@@ -94,23 +94,24 @@ def test_shared_memory_limit(kernel, Nx, Ny, unit_diag, need, expect):
     fits; past it a cluster where one holds the grid, else device memory:
     no power of two splits 171 rows, and 8 rows of 3,632 cells leave no
     band of 4,096 cells a block can hold), and a forced device-memory
-    route, which every grid takes (K: K-gm1, and K-gm where `gm_bands`
-    splits the grid; 3,632 columns exceed one block's row)."""
+    route, which every grid takes (P: P-gm1, and P-gm where `gm_plan` cuts
+    the grid; K: K-gm1, and K-gm where `gm_bands` splits the grid; 3,632
+    columns exceed one block's row)."""
     got = _need(kernel, Nx, Ny, unit_diag)
     if need is not None:
         assert got == need
     assert (got <= SMEM_LIMIT) == (expect in ("smem", "rt"))
     assert _route(kernel, Nx, Ny, unit_diag) == expect
-    forces = (None, "gm") if kernel == "pressure" else (
-        None, "gm1", *(("gm",) if transport.gm_bands(Nx, Ny) else ()))
+    forces = (None, "gm1", *(("gm",) if pressure.gm_plan(Nx, Ny, unit_diag) else ())) if (
+        kernel == "pressure") else (None, "gm1", *(("gm",) if transport.gm_bands(Nx, Ny) else ()))
     for force in forces:
         with pytest.raises(ValueError, match="need float32 CUDA"):
             _call(kernel, Nx, Ny, unit_diag, force=force)
 
 
 # The grids the JAX package simulates and kernel P's shared-memory layout
-# does not fit: (P's shared bytes, P-gm's workspace bytes, K's shared bytes,
-# K's route), a member each.
+# does not fit: (P's shared bytes, P-gm1's workspace bytes, K's shared
+# bytes, K's route), a member each.
 LARGE_GRIDS = {
     (60, 60): (297_712, 152_672, 28_800, "rt"),
     (88, 88): (272_048, 337_248, 61_952, "cl"),
@@ -126,16 +127,17 @@ LARGE_GRIDS = {
 @pytest.mark.parametrize("Nx,Ny", list(LARGE_GRIDS))
 def test_large_grid_layouts_and_routes(Nx, Ny):
     """The layout count at each grid past one block's shared memory: P's
-    shared bytes and P-gm's workspace, both from `layout`; P takes P-cl
+    shared bytes and P-gm1's workspace, both from `layout`; P takes P-cl
     everywhere but on the scaled 100x100 past 192 members (or for a batch
     not given), where its coarsest inverse is distributed over 9 ranks and
-    P-gm, 132 members in flight, takes it; K its runtime-grid variant up to
-    4,096 cells (60x60) and K-cl above."""
+    P-gm1 (132 members in flight; P-gm, 14 in flight, lost to it there)
+    takes it; K its runtime-grid variant up to 4,096 cells (60x60) and K-cl
+    above."""
     p_smem, p_gm, k_smem, k_route = LARGE_GRIDS[(Nx, Ny)]
     levels = n_levels(Nx, Ny)
     assert smem_bytes(Nx, Ny, levels) == p_smem > SMEM_LIMIT
-    assert gm_bytes(Nx, Ny, levels) == p_gm
-    p_route = "gm" if (Nx, Ny) == (100, 100) else "cl"
+    assert gm1_bytes(Nx, Ny, levels) == p_gm
+    p_route = "gm1" if (Nx, Ny) == (100, 100) else "cl"
     assert pressure.route(Nx, Ny) == pressure.route(Nx, Ny, True, 1000) == p_route
     assert pressure.route(Nx, Ny, True, 64) == pressure.route(Nx, Ny, False) == "cl"
     assert transport.smem_bytes(Nx, Ny) == k_smem and transport.route(Nx, Ny) == k_route
@@ -144,10 +146,10 @@ def test_large_grid_layouts_and_routes(Nx, Ny):
             _call(kernel, Nx, Ny)
 
 
-def _spans(Nx, Ny, unit_diag, gm):
+def _spans(Nx, Ny, unit_diag, gm1):
     """Every array of `layout` that a kernel reads or writes, as (name,
     start, end) in floats."""
-    lv, extra, floats = layout(Nx, Ny, n_levels(Nx, Ny), unit_diag, gm)
+    lv, extra, floats = layout(Nx, Ny, n_levels(Nx, Ny), unit_diag, gm1)
     lc = len(lv) - 1
     spans = []
     for lvl, d in enumerate(lv):
@@ -164,24 +166,24 @@ def _spans(Nx, Ny, unit_diag, gm):
 
 
 @pytest.mark.parametrize("unit_diag", [True, False])
-@pytest.mark.parametrize("gm", [False, True])
+@pytest.mark.parametrize("gm1", [False, True])
 @pytest.mark.parametrize("Nx,Ny", [(8, 8), (10, 10), (64, 64), (60, 220), (128, 128)])
-def test_layout_arrays_fit_and_do_not_overlap(Nx, Ny, gm, unit_diag):
+def test_layout_arrays_fit_and_do_not_overlap(Nx, Ny, gm1, unit_diag):
     """`layout` places every array inside the member's floats, 4-aligned
     (the kernels load float pairs), and no two overlap, except that each
     intermediate level's smoothing temporary lives inside the fine one (its
-    only use comes after the fine temporary's last read); P-gm's table
+    only use comes after the fine temporary's last read); P-gm1's table
     carries the same offsets."""
-    spans, floats = _spans(Nx, Ny, unit_diag, gm)
+    spans, floats = _spans(Nx, Ny, unit_diag, gm1)
     assert all(o % 4 == 0 and 0 <= o < e <= floats for _, o, e in spans)
     coarse_t = lambda k: k[0] == "T" and k[1] > 0  # noqa: E731
     own = sorted((o, e, k) for k, o, e in spans if not coarse_t(k))
     assert all(e1 <= o2 for (_, e1, _), (o2, _, _) in zip(own, own[1:])), own
     fine_t = next((o, e) for k, o, e in spans if k == ("T", 0))
     assert all(fine_t[0] <= o and e <= fine_t[1] for k, o, e in spans if coarse_t(k))
-    if gm:
-        lv, extra, _ = layout(Nx, Ny, n_levels(Nx, Ny), unit_diag, gm=True)
-        assert gm_table(Nx, Ny, len(lv), unit_diag) == (
+    if gm1:
+        lv, extra, _ = layout(Nx, Ny, n_levels(Nx, Ny), unit_diag, gm1=True)
+        assert gm1_table(Nx, Ny, len(lv), unit_diag) == (
             [len(lv), floats, *extra.values()] + [d[k] for d in lv for k in LEVEL_KEYS])
 
 

@@ -95,8 +95,8 @@ def _pressure_vs_plain(dev, Nx, Ny, smoother, unit_diag=True, window=16, scale=1
     `window` iterations, or two of 8 for 16); the launch counts on that
     instantiation's own key. Without `unit_diag`, on the unscaled system
     (the instantiation that reads the fine diagonal); `scale` multiplies
-    the pre-permeability fields; `force` the route (P-gm: "gm"), `plan`
-    P-cl's cluster; B members."""
+    the pre-permeability fields; `force` the route (P-gm: "gm", P-gm1:
+    "gm1"), `plan` P-cl's cluster; B members."""
     g = torch.Generator(device=dev).manual_seed(1)
     m = _model(Nx, Ny, dev)
     mm = set_perm(m, scale * torch.randn(B, m.Nxy, generator=g, device=dev))
@@ -105,7 +105,7 @@ def _pressure_vs_plain(dev, Nx, Ny, smoother, unit_diag=True, window=16, scale=1
     args = _system(mm, q, unit_diag)
     fixed = dict(tol=0.0, maxiter=window, restart_every=min(window, 8), patience_iters=160,
                  smoother=smoother, unit_diag=unit_diag)
-    route = "cl" if plan else force or pressure_route(Nx, Ny, unit_diag)
+    route = "cl" if plan else force or pressure_route(Nx, Ny, unit_diag, B)
     name = kernel_name(smoother, unit_diag, route)
     before = dict(_build.LAUNCHES)
     p_k, it_k, rel_k = pressure_solve_cuda(*args, **fixed, force=force, plan=plan)
@@ -334,9 +334,58 @@ def test_kernels_refuse_what_they_do_not_take(dev):
 def test_pressure_gm_matches_plain(dev, Nx, Ny, force, smoother):
     """P-gm where P's shared-memory layout does not fit (128x128 needs
     458,528 bytes; 60x220 with its 825-cell coarse inverse), forced there
-    since P-cl takes those grids, and forced at 64x64, against the plain
-    version after one window of 4 iterations."""
+    since P-cl takes those grids, and forced at 64x64 (one block a member),
+    against the plain version after one window of 4 iterations."""
     _pressure_vs_plain(dev, Nx, Ny, smoother, window=4, force=force)
+
+
+# P-gm's points: its route at 120x440 (no cluster holds it; 15 banded
+# blocks and 6 or 9 with inverse rows only), the scaled 100x100 forced (9
+# banded blocks, P-cl/d's route at this batch) and 64x64 forced (one block).
+GM_POINTS = [(120, 440, None, 2), (100, 100, "gm", 8), (64, 64, "gm", 8)]
+
+
+@pytest.mark.parametrize("unit_diag", [True, False])
+@pytest.mark.parametrize("smoother", ["jacobi", "cheb"])
+@pytest.mark.parametrize("Nx,Ny,force,B", GM_POINTS)
+def test_pressure_gm_blocks_match_plain(dev, Nx, Ny, force, B, smoother, unit_diag):
+    """P-gm, a member over co-resident blocks, in its four instantiations,
+    against the plain version after one window of 4 iterations (the
+    unscaled system on fields of mild contrast), counted on its own key."""
+    kw = {} if unit_diag else dict(unit_diag=False, scale=0.2)
+    _pressure_vs_plain(dev, Nx, Ny, smoother, window=4, force=force, B=B, **kw)
+
+
+@pytest.mark.parametrize("unit_diag", [True, False])
+@pytest.mark.parametrize("smoother", ["jacobi", "cheb"])
+@pytest.mark.parametrize("Nx,Ny,B", [(120, 440, 2), (100, 100, 8), (64, 64, 8), (32, 1088, 2)])
+def test_pressure_gm1_matches_plain(dev, Nx, Ny, B, smoother, unit_diag):
+    """P-gm1, one block a member with its arrays in device memory, forced at
+    P-gm's points and on its own route at 32x1088 (a band of 8 rows of
+    1,088 cells fits no block), as P-gm."""
+    kw = {} if unit_diag else dict(unit_diag=False, scale=0.2)
+    force = None if (Nx, Ny) == (32, 1088) else "gm1"
+    assert pressure_route(Nx, Ny, unit_diag, B) == "gm1" or force == "gm1"
+    _pressure_vs_plain(dev, Nx, Ny, smoother, window=4, force=force, B=B, **kw)
+
+
+def test_pressure_gm_refused_launch_raises(dev, monkeypatch):
+    """A P-gm launch whose blocks the card cannot hold at once (a plan of
+    1,100 blocks a member) is refused by the cooperative launch; the wrapper
+    raises and counts no launch."""
+    from historymatching_tpu_torch.ops import pressure
+
+    Nx, Ny = 100, 100
+    monkeypatch.setattr(pressure, "gm_plan", lambda Nx, Ny, unit_diag=True: (1100, 1))
+    m = _model(Nx, Ny, dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    mm = set_perm(m, torch.randn(2, m.Nxy, generator=g, device=dev))
+    q = torch.zeros(Nx, Ny, device=dev)
+    q[Nx // 2, Ny // 2], q[1, 1] = 1.0, -1.0
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(RuntimeError, match="pressure_pcg_gm: CUDA error"):
+        pressure_solve_cuda(*_system(mm, q, True), tol=0.0, maxiter=4, force="gm")
+    assert _build.LAUNCHES == before
 
 
 def _transport_inputs(dev, Nx, Ny, seed, B=8):
@@ -407,17 +456,30 @@ def test_transport_gm1_matches_plain(dev, Nx, Ny, force):
 
 @pytest.mark.parametrize("Nx,Ny", [(64, 64), (128, 128), (60, 220), (256, 256), (120, 440)])
 def test_gm_kernel_resources(dev, Nx, Ny):
-    """The device-memory variants' footprints: P-gm's and K-gm1's few static
-    shared bytes (P-gm's reduction slots), K-gm's two fw tiles of its
+    """The device-memory variants' footprints: P-gm1's and K-gm1's few static
+    shared bytes (P-gm1's reduction slots), K-gm's two fw tiles of its
     largest band and each thread's 17 faces and sources; no spills;
     resident blocks on an SM; K-gm's bands and the members in flight
-    (groups of bands resident at once)."""
+    (groups of bands resident at once). P-gm, where `gm_plan` cuts the grid
+    (not 256x256): its bytes a block as `gm_layout` counts them, its
+    blocks a member, no spills, and at least one member in flight."""
+    from historymatching_tpu_torch.ops.pressure import gm_bytes, gm_plan
     from historymatching_tpu_torch.ops.transport import gm_bands
 
-    for name in ("pressure_pcg_gm", "pressure_pcg_cheb_gm", "pressure_pcg_diag_gm",
-                 "pressure_pcg_cheb_diag_gm", "transport_upwind_gm1"):
+    for name in ("pressure_pcg_gm1", "pressure_pcg_cheb_gm1", "pressure_pcg_diag_gm1",
+                 "pressure_pcg_cheb_diag_gm1", "transport_upwind_gm1"):
         p = _build.kernel_info(name, Nx, Ny)
         assert p["shared_bytes"] <= 1024 and p["local_bytes"] == 0 and p["blocks_per_sm"] >= 1
+    for name in ("pressure_pcg_gm", "pressure_pcg_cheb_gm", "pressure_pcg_diag_gm",
+                 "pressure_pcg_cheb_diag_gm"):
+        unit = "_diag" not in name
+        plan = gm_plan(Nx, Ny, unit)
+        if plan is None:
+            continue
+        p = _build.kernel_info(name, Nx, Ny)
+        print(f"{name} {Nx}x{Ny}: {p}")
+        assert p["shared_bytes"] == gm_bytes(Nx, Ny, n_levels(Nx, Ny), *plan, unit), p
+        assert p["local_bytes"] == 0 and p["blocks"] == plan[0] and p["groups_resident"] >= 1, p
     k = _build.kernel_info("transport_upwind_gm", Nx, Ny)
     bands = gm_bands(Nx, Ny)
     rows = max(h for _, h in bands)
