@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time each route of kernels P and K against the others on one NVIDIA GPU.
 
-    python3 bench_routes.py [--out FILE] [--kernel P|K]
+    python3 bench_routes.py [--out FILE] [--kernel P|K] [--grids 15x15,60x60,...]
 
 The evidence behind `ops/pressure.route` and `ops/transport.route` past one
 block: P-cl (a thread-block cluster a member, on the grid's `cl_plan`)
@@ -15,8 +15,15 @@ against K's runtime-grid variant and K-gm (a member over co-resident
 blocks a band of rows); on `chip_smoke.py` [23]'s grids and its kind of
 inputs (the flagship geometry, a prior drawn for each grid from seed 1 +
 23, the unscaled system on fields of mild contrast), at [23]'s N=64 and
-at the bench case's N=1000; and on the grids no cluster takes (120x440,
-171x171) K-gm against K-gm1 (one block a member) at N=16, 64 and 1000.
+at the bench case's N=1000; on the grids no cluster takes (120x440,
+171x171) K-gm against K-gm1 (one block a member) at N=16, 64 and 1000;
+K-rt (the strip body built for the grid) against K-rt1 (the runtime-grid
+body) on `chip_smoke.py` [18]'s grids, 60x60 and 75x75 at N=64 and 1000;
+and K-gm on its widened plans against K-gm1 at 32x1088 and 600x600 at
+N=4 to 1000, 1057x440 and 1000x1000 (their step solved by the diagonally
+preconditioned `pcg` in torch ops: P's coarse inverse at 600x600 is 126
+MB a member, at 1000x1000 1 GB; 1057x440 has no hierarchy) at N=4, 64
+and (1057x440) 1000.
 P runs one launch at the bench settings (tol 2e-4, maxiter 768, patience
 256) and K the substeps of the first step. Each line gives each variant's
 milliseconds a launch (CUDA events, the mean of `--reps` after a warm-up),
@@ -25,7 +32,8 @@ member), P's bound (`chip_smoke.pressure_bound_ms` on that run's
 iterations) and, for a variant that reads the inverse from device memory
 every V-cycle, the floor that reading sets (its bytes an iteration of each
 member at the card's memory rate). The card's name and power limit come
-first; `--out` writes the rows as JSON. Raises without CUDA.
+first; `--out` writes the rows as JSON; `--grids` keeps the rows of those
+grids only. Raises without CUDA.
 """
 
 import argparse
@@ -47,6 +55,16 @@ K_GRIDS = [(80, 80), (88, 88), (96, 96), (100, 100), (128, 128)]
 MEMBERS = (64, 1000)
 # K's grids that no cluster takes, and their batches.
 K_GM_GRIDS, K_GM_MEMBERS = [(120, 440), (171, 171)], (16, 64, 1000)
+# K's grids whose route moved to K-rt (the strip body built for the grid,
+# from K-rt1) and to K-gm's widened plans (from K-gm1), by the pressure
+# step's preconditioner.
+K_RT_ROWS = [(15, 15), (12, 9), (10, 10), (12, 12), (24, 16), (80, 80), (60, 60), (75, 75),
+             (28, 28), (30, 30), (36, 36), (40, 40), (48, 48)]
+# (pressure step's preconditioner, batches): K-gm keeps 16 members in
+# flight at 32x1088 and 1 at the others.
+K_LADDER = (4, 16, 32, 64, 128, 256, 1000)
+K_WIDE_ROWS = {(32, 1088): ("mg", K_LADDER), (600, 600): ("jacobi", K_LADDER),
+               (1057, 440): ("jacobi", (4, 64, 1000)), (1000, 1000): ("jacobi", (4, 64))}
 # P's cases whose route takes the batch (`ops/pressure.DIST_BATCH_MAX`,
 # `GM_BATCH_MAX`), timed at these batches too, between the two of MEMBERS
 # (120x440 also at [23]'s N=16).
@@ -114,11 +132,13 @@ def p_variants(Nx, Ny, unit, extra=True):
     return variants
 
 
-def k_row(Nx, Ny, n_members, reps):
-    """One row of K at a grid and batch, on the substeps of the first step:
-    each variant that takes the grid (K-cl, the runtime-grid variant where
-    its tiles fit one block, K-gm where `gm_bands` splits it, and K-gm1
-    where no cluster does) timed, each held to the first bit for bit."""
+def k_row(Nx, Ny, n_members, reps, forces=None, precond="mg"):
+    """One row of K at a grid and batch, on the substeps of the first step
+    (its pressure step with `precond`): each variant of `forces`, by
+    default each that takes the grid (K-cl, K-rt1 where its tiles fit one
+    block, K-rt where a strip plan fits, K-gm where `gm_plan` splits it,
+    and K-gm1 where no cluster does), timed, each held to the first bit
+    for bit."""
     import torch
 
     import historymatching_tpu_torch as ht
@@ -135,15 +155,21 @@ def k_row(Nx, Ny, n_members, reps):
     s0 = torch.zeros(n_members, Nx, Ny, device=dev)
     solve = {k: cs.BASE[k] for k in cs.SOLVE_KEYS}
     _, Fx, Fy, _, _, _ = pressure_step(mm, s0, qf, torch.zeros_like(s0), tol_accept=5e-2,
-                                       **solve)
+                                       precond=precond, **solve)
     Fx, Fy = Fx.contiguous(), Fy.contiguous()
     nsub, dtspv = cfl_substeps(mm, Fx, Fy, qf, cs.DT)
     t_args = (s0, Fx, Fy, qf[None].contiguous(), dtspv, nsub, cs.fluid_of(m))
-    row = dict(kernel="K", grid=f"{Nx}x{Ny}", N=n_members, route=transport.route(Nx, Ny),
-               shape=transport.cl_shape(Nx, Ny), substeps=int(nsub.median()),
-               bound_ms=cs.transport_bound_ms(s0, Fx, Fy, t_args[3], nsub)[0])
-    forces = (["cl"] if transport.cl_shape(Nx, Ny) else ["gm1"]) + (
-        ["rt"] if transport.smem_bytes(Nx, Ny) <= _build.SMEM_LIMIT else []) + ["gm"]
+    plan = transport.gm_plan(Nx, Ny)
+    row = dict(kernel="K", grid=f"{Nx}x{Ny}", N=n_members,
+               route=transport.route(Nx, Ny, n_members),
+               shape=transport.cl_shape(Nx, Ny), rt_plan=transport.rt_plan(Nx, Ny),
+               gm_plan=plan and (len(plan[0]), *plan[1:]), substeps=int(nsub.median()),
+               precond=precond, bound_ms=cs.transport_bound_ms(s0, Fx, Fy, t_args[3], nsub)[0])
+    fits = transport.smem_bytes(Nx, Ny) <= _build.SMEM_LIMIT
+    forces = forces or ((["cl"] if transport.cl_shape(Nx, Ny) else ["gm1"])
+                        + (["rt1"] if fits else [])
+                        + (["rt"] if fits and transport.rt_plan(Nx, Ny) else [])
+                        + (["gm"] if plan else []))
     first = None
     for force in forces:
         out = transport_substeps_cuda(*t_args, force=force)
@@ -151,8 +177,10 @@ def k_row(Nx, Ny, n_members, reps):
         assert torch.equal(out, first), (Nx, Ny, force)
         row[f"{force}_ms"] = cs.cuda_ms(
             lambda: transport_substeps_cuda(*t_args, force=force), reps)
-    gm = _build.kernel_info("transport_upwind_gm", Nx, Ny)
-    row.update(gm_bands=gm["bands"], gm_groups_resident=gm["groups_resident"])
+    if plan and "gm" in forces:
+        gm = _build.kernel_info("transport_upwind_gm", Nx, Ny)
+        row.update(gm_bands=gm["bands"], gm_groups_resident=gm["groups_resident"],
+                   gm_registers=gm["registers"], gm_blocks_per_sm=gm["blocks_per_sm"])
     return row
 
 
@@ -162,37 +190,53 @@ def main(argv=None):
     ap.add_argument("--out", default="")
     ap.add_argument("--kernel", choices=("P", "K"), default=None,
                     help="time one kernel's routes only (default: both)")
+    ap.add_argument("--grids", default="",
+                    help="comma-separated NXxNY: time the rows of these grids only")
     opts = ap.parse_args(argv)
+    keep = {tuple(map(int, g.split("x"))) for g in opts.grids.split(",") if g}
     do_p, do_k = opts.kernel in (None, "P"), opts.kernel in (None, "K")
     import torch
 
-    from historymatching_tpu_torch.ops import _build
+    from historymatching_tpu_torch.ops import _build, transport
 
     if not torch.cuda.is_available():
         raise RuntimeError("bench_routes.py runs on a CUDA device only")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
-    grids = sorted({g for g, _ in P_CASES} | set(K_GRIDS))
-    plans = {(*g, *kw["plan"]) for g, unit in P_CASES
+    kept = lambda gs: [g for g in gs if not keep or g in keep]  # noqa: E731
+    p_grids = kept(g for g, _ in P_CASES) if do_p else []
+    k_grids = kept(K_GRIDS + K_RT_ROWS + list(K_WIDE_ROWS)) if do_k else []
+    plans = {(*g, *kw["plan"]) for g, unit in P_CASES if g in p_grids
              for kw in p_variants(*g, unit).values() if "plan" in kw}
-    _build.prebuild(cl_grids=grids, cl_plans=plans, gm_grids=[g for g, _ in P_CASES])
+    _build.prebuild(cl_grids=sorted(set(p_grids) | set(k_grids)), cl_plans=plans,
+                    gm_grids=p_grids, k_grids=k_grids)
     rows = []
 
-    def emit(row):
+    def emit(row_fn, Nx, Ny, *args):
+        if keep and (Nx, Ny) not in keep:
+            return
+        row = row_fn(Nx, Ny, *args)
         rows.append(row)
         print(json.dumps(row), flush=True)
 
     for n_members in MEMBERS:
         for (Nx, Ny), unit in P_CASES if do_p else ():
-            emit(p_row(Nx, Ny, unit, n_members, opts.reps))
+            emit(p_row, Nx, Ny, unit, n_members, opts.reps)
         for Nx, Ny in K_GRIDS if do_k else ():
-            emit(k_row(Nx, Ny, n_members, opts.reps))
+            emit(k_row, Nx, Ny, n_members, opts.reps)
     for n_members in K_GM_MEMBERS if do_k else ():
         for Nx, Ny in K_GM_GRIDS:
-            emit(k_row(Nx, Ny, n_members, opts.reps))
+            emit(k_row, Nx, Ny, n_members, opts.reps)
+    for n_members in MEMBERS if do_k else ():
+        for Nx, Ny in K_RT_ROWS:
+            emit(k_row, Nx, Ny, n_members, opts.reps,
+                 ["rt", "rt1"] + (["cl"] if transport.cl_shape(Nx, Ny) else []))
+    for (Nx, Ny), (precond, batches) in K_WIDE_ROWS.items() if do_k else ():
+        for n_members in batches:
+            emit(k_row, Nx, Ny, n_members, opts.reps, ["gm", "gm1"], precond)
     for ((Nx, Ny), unit), batches in LADDER.items() if do_p else ():
         for n_members in batches:
-            emit(p_row(Nx, Ny, unit, n_members, opts.reps, p_variants(Nx, Ny, unit, False)))
+            emit(p_row, Nx, Ny, unit, n_members, opts.reps, p_variants(Nx, Ny, unit, False))
     if opts.out:
         with open(opts.out, "w") as f:
             json.dump(rows, f, indent=1)

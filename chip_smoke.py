@@ -48,17 +48,21 @@ Phases, one printed line or more each; any failed check raises:
 17. ES-MDA resume: a 4-pass run at N=200 against the same run stopped after
     2 passes, checkpointed, loaded and resumed; the posteriors must be
     equal;
-18. kernel K's runtime-grid variant against its plain version at grids the
-    templates do not cover (15x15, 12x9, 10x10, 12x12, 24x16, 80x80), N=64,
-    on fields and fluxes of a real pressure step (bit for bit), each
-    timed; and at 64x64 on [6]'s inputs against the templated K;
+18. K-rt, kernel K's strip body built for each grid the main library does
+    not cover (15x15, 12x9, 10x10, 12x12, 24x16, 80x80; one library a
+    grid), forced, against its plain version at N=64 on fields and fluxes
+    of a real pressure step (bit for bit), each timed beside K-rt1 (the
+    runtime-grid body, these small grids' route; bit for bit too) and its
+    bound; and built for 64x64 on [6]'s inputs against the templated K and
+    K-rt1;
 19. kernel P built for grids outside the main library (8x8, 10x10, 12x12,
     24x16, 80x80), both smoothers, against its plain version after one
     window, the acceptance counts at bench settings and its time a launch;
     19b. P with an explicit fine diagonal (the unscaled system) at 20x20
     and 64x64 the same way, its time at [6]'s shapes, and
     `simulate(scale_system=False)` through the entry point;
-    19c. each new instantiation's resources, and a 96x96 grid, whose
+    19c. each new instantiation's resources (K-rt's and K-rt1's at [18]'s
+    grids and 64x64), and a 96x96 grid, whose
     layout exceeds one block's shared memory, simulated through P-cl and
     K-cl;
 20. one member of 64 whose coarse Cholesky fails: it gets the guarded
@@ -82,11 +86,11 @@ Phases, one printed line or more each; any failed check raises:
     P-gm forced, in the four
     instantiations, each against its plain version after one window and
     timed at bench settings, with its plan, bytes and inverse rows a rank,
-    resources and clusters resident; K on its route (K-cl, or the
-    runtime-grid variant at 60x60), the runtime-grid variant where its
-    tiles fit and K-gm forced, each bit for bit on a real step and timed
-    against its bound (K-gm, a member over co-resident blocks a band of
-    rows, with its bands and members in flight); a few steps of `simulate`
+    resources and clusters resident; K on its route (K-cl, or K-rt at
+    60x60), K-rt1 where its tiles fit, K-rt where a strip plan fits and
+    K-gm forced, each bit for bit on a real step and timed against its
+    bound (K-gm, a member over co-resident blocks a band of rows, with its
+    bands and members in flight); a few steps of `simulate`
     through each P-cl instantiation and K-cl at 128x128 and at 60x220
     (P-cl/d), and through each P-gm instantiation (a member over
     co-resident blocks, bands of rows and the coarsest inverse's rows in
@@ -96,17 +100,25 @@ Phases, one printed line or more each; any failed check raises:
     (one block a member, its arrays in device memory) beside it, with its
     registers, spills, blocks and members in flight, and K-gm beside K-gm1
     (one block a member, its fw tiles in device memory); `simulate` at
-    32x1088 (N=4), past K-gm's and P-gm's capacity (a row wider than a
-    block), through K-gm1 and each P-gm1 instantiation, then K-gm1 timed on
-    its step 6 and P-gm1 on the first step's system; P-gm1, K-gm and K-gm1
-    forced at 64x64 on [6]'s inputs beside the shared-memory kernels;
+    32x1088 (N=4), past P-gm's capacity and K-gm's first plan (a row wider
+    than a block), through each P-gm1 instantiation and K-gm on its widened
+    plan (strips of 4 rows and 2 columns a thread), then K-gm timed on its
+    step 6 beside K-gm1 and P-gm1 on the first step's system; `simulate` at
+    4x1100 through K-rt1 (a row wider than a block of the strip body) and
+    at 5x6000 through K-gm1 (past K-gm's capacity), N=4, each timed on its
+    step 6; P-gm1, K-gm and K-gm1 forced at 64x64 on [6]'s inputs beside
+    the shared-memory kernels;
+    23c. K at 600x600, N=4, past K-gm's first plan (150 bands of 4 rows)
+    with rows under 1,024 cells: on the first step's inputs K-gm on its
+    widened plan (120 bands, strips of 5 rows) bit for bit, timed beside
+    K-gm1, the plain version and the bound, with the phase's wall;
 24. the reference's bench case at 128x128 (`parity.build_case(seed=1,
     N=1000, Nx=128, Ny=128)`): 40 steps and the 4-pass ES-MDA on the
     reference's schedule, every step one P-cl and one K-cl launch, the
     saturations of every step kept on the card; wall, launches, cg
     acceptance a pass, peak memory, RMSE, and 10 profiled steps; on its
     first step P-cl and K-cl against their plain versions and timed beside
-    P-gm1, K-rt and K-gm, all forced;
+    P-gm1, K-rt1 and K-gm, all forced;
     24b. the bench case's geometry at P-cl/d's grids, a 60x220 layer of
     SPE10 model 2 and 100x100 (`parity.build_case(seed=1, N=1000, Nx, Ny)`):
     5 steps of the first pass through `forward_model` and P's route (P-cl/d
@@ -204,6 +216,11 @@ GM_PATH_GRID, GM_PATH_N = (120, 440), 16
 # grid whose 1,088 columns exceed one block's row (and whose band of 8 rows
 # exceeds P-gm's block), N=4.
 GM1_PATH_GRID, GM1_PATH_N = (32, 1088), 4
+# [23]'s paths of K-rt1 (a row wider than a block of the strip body) and
+# K-gm1 (past K-gm's capacity), N=4; [23c]'s grid past K-gm's first plan
+# with rows under 1,024 cells, N=4.
+ROUTE_PATHS, ROUTE_PATH_N = {"rt1": (4, 1100), "gm1": (5, 6000)}, 4
+CAPACITY_GRID, CAPACITY_N = (600, 600), 4
 # [19]'s fixed work: one restart window of 4 iterations. On grids of up to
 # 400 cells a window of 8 reaches float32's floor, where the plain version
 # in float32 and in float64 part by up to 1.5e-1 (PERF.md, Findings).
@@ -222,13 +239,13 @@ EXAMPLES = (
     ("history_match", [], ("transport_upwind", "pressure_pcg")),
     ("optimise", ["--cases", OPT_DEFAULT], ("transport_upwind", "pressure_pcg")),
     ("optimise", ["--small", "--cases", "inj_xy,rate,toys"],
-     ("transport_upwind_rt", "pressure_pcg")),
+     ("transport_upwind_rt1", "pressure_pcg")),
 )
 # Device activities by kernel name, for the profiled stages.
 STAGE_OF = (("pressure_pcg_kernel", "pressure_pcg"), ("pressure_pcg_gm_kernel", "pressure_pcg"),
             ("pressure_pcg_gm1_kernel", "pressure_pcg"), ("pressure_pcg_cl_kernel", "pressure_pcg"),
             ("transport_upwind_kernel", "transport_upwind"),
-            ("transport_upwind_rt_kernel", "transport_upwind"),
+            ("transport_upwind_rt1_kernel", "transport_upwind"),
             ("transport_upwind_gm_kernel", "transport_upwind"),
             ("transport_upwind_gm1_kernel", "transport_upwind"),
             ("transport_upwind_cl_kernel", "transport_upwind"))
@@ -599,6 +616,7 @@ def new_grid_phases(dev, six):
         smem_bytes,
     )
     from historymatching_tpu_torch.ops.transport import (
+        rt_plan,
         transport_substeps_cuda,
         transport_substeps_torch,
     )
@@ -629,14 +647,15 @@ def new_grid_phases(dev, six):
         log(f"{tag}: one window of 4 iterations, max rel |dp| vs plain = {err:.3e} (tol {P_TOL})")
         assert torch.isfinite(p_k).all() and err <= P_TOL
         return err, float((p_k - p_t).abs().max())
-    figs = {"transport_upwind_rt": {"grids": {}}, "pressure_pcg": {"grids": {}},
+    figs = {"transport_upwind_rt": {"grids": {}}, "transport_upwind_rt1": {"grids": {}},
+            "pressure_pcg": {"grids": {}},
             "pressure_pcg_cheb": {"grids": {}}, "pressure_pcg_diag": {"grids": {}},
             "pressure_pcg_cheb_diag": {"grids": {}}}
     base1 = {k: BASE[k] for k in SOLVE_KEYS}
 
-    # 18. K's runtime-grid variant on a real step: 5 steps of simulate, then
-    # the sixth step's pressure solve and CFL counts.
-    k_errs = []
+    # 18. K-rt, the strip body built for each grid, on a real step: 5 steps
+    # of simulate, then the sixth step's pressure solve and CFL counts; K-rt1
+    # (the runtime-grid body K-rt was before) forced beside it.
     for Nx, Ny in K_RT_GRIDS:
         m = grid_model(torch, Nx, Ny)
         mm = set_perm(m, ht.sample_prior_perm(gen, m, NEW_N, r=0.8))
@@ -648,37 +667,45 @@ def new_grid_phases(dev, six):
         Fx, Fy = Fx.contiguous(), Fy.contiguous()
         nsub, dtspv = cfl_substeps(mm, Fx, Fy, q, DT)
         args = (s5, Fx, Fy, q[None].contiguous(), dtspv, nsub, fluid_of(m))
-        before = _build.LAUNCHES["transport_upwind_rt"]
-        s_k = transport_substeps_cuda(*args, force="rt")  # 80x80's own route is K-cl
-        assert _build.LAUNCHES["transport_upwind_rt"] == before + 1
+        s_k, n = launched(lambda: transport_substeps_cuda(*args, force="rt"))  # 80x80's route: K-cl
+        assert n == {"transport_upwind_rt": 1}, n
         s_t = transport_substeps_torch(*args)
         err = float((s_k - s_t).abs().max())
-        k_errs.append(err)
+        assert torch.equal(s_k, s_t), (Nx, Ny, err)
+        assert torch.equal(transport_substeps_cuda(*args, force="rt1"), s_t), (Nx, Ny)
         ms = cuda_ms(lambda: transport_substeps_cuda(*args, force="rt"), 5)
+        rt1_ms = cuda_ms(lambda: transport_substeps_cuda(*args, force="rt1"), 5)
         plain_ms = cuda_ms(lambda: transport_substeps_torch(*args), 1)
         bnd, by = transport_bound_ms(s5, Fx, Fy, args[3], nsub)
+        plan = rt_plan(Nx, Ny)
         figs["transport_upwind_rt"]["grids"][f"{Nx}x{Ny}"] = dict(
-            ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by, share_of_bound=bnd / ms,
-            max_abs_err=err)
-        log(f"[18] K runtime-grid {Nx}x{Ny}, N={NEW_N}, step 6 of a prior run (cg_iters median "
-            f"{int(it.median())}, accepted {int(ok.sum())}/{NEW_N}): max|ds| vs plain = {err:.3e} "
-            f"(tol {K_TOL}); substeps median {int(nsub.median())} max {int(nsub.max())}; "
-            f"{ms:.4f} ms a launch vs plain {plain_ms:.3f} ms, bound {bnd:.5f} ms ({by}, "
-            f"{bnd / ms:.1%})")
-        assert torch.isfinite(s_k).all() and err <= K_TOL
+            ms=ms, rt1_ms=rt1_ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+            share_of_bound=bnd / ms, max_abs_err=err, plan=plan)
+        figs["transport_upwind_rt1"]["grids"][f"{Nx}x{Ny}"] = dict(
+            ms=rt1_ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by, share_of_bound=bnd / rt1_ms,
+            max_abs_err=0.0, forced=True)
+        log(f"[18] K-rt {Nx}x{Ny} (strips of {plan[0]} rows, faces in {plan[1]}), N={NEW_N}, step "
+            f"6 of a prior run (cg_iters median {int(it.median())}, accepted {int(ok.sum())}/"
+            f"{NEW_N}): max|ds| vs plain = {err:.3e} (K-rt1 too); substeps median "
+            f"{int(nsub.median())} max {int(nsub.max())}; {ms:.4f} ms a launch against K-rt1's "
+            f"{rt1_ms:.4f} ms ({rt1_ms / ms:.2f}x), plain {plain_ms:.3f} ms, bound {bnd:.5f} ms "
+            f"({by}, K-rt {bnd / ms:.1%}, K-rt1 {bnd / rt1_ms:.1%})")
     t_args = six["t_args"]
+    s_t = transport_substeps_torch(*t_args)
+    for force in ("rt", "rt1"):  # K-rt built for 64x64, forced
+        assert torch.equal(transport_substeps_cuda(*t_args, force=force), s_t), force
     rt_ms = cuda_ms(lambda: transport_substeps_cuda(*t_args, force="rt"), 5)
+    rt1_ms = cuda_ms(lambda: transport_substeps_cuda(*t_args, force="rt1"), 5)
     tpl_ms = cuda_ms(lambda: transport_substeps_cuda(*t_args), 5)
-    rt_err = float((transport_substeps_cuda(*t_args, force="rt")
-                    - transport_substeps_torch(*t_args)).abs().max())
     bnd, by = transport_bound_ms(*t_args[:4], t_args[5])
-    log(f"[18] K at {NX}x{NY}, N={N}, [6]'s inputs: runtime-grid variant {rt_ms:.3f} ms, "
-        f"templated {tpl_ms:.3f} ms (at [6]: {six['t_ms']:.3f} ms), bound {bnd:.4f} ms ({by}); "
-        f"runtime-grid max|ds| vs plain {rt_err:.3e}")
-    assert rt_err <= K_TOL
-    figs["transport_upwind_rt"].update(max_abs_err=max(k_errs + [rt_err]), ms=rt_ms,
-                                       plain_ms=six["t_plain_ms"], bound_ms=bnd, bound_by=by,
-                                       templated_ms=tpl_ms)
+    log(f"[18] K at {NX}x{NY}, N={N}, [6]'s inputs: K-rt built for the grid {rt_ms:.3f} ms, "
+        f"K-rt1 {rt1_ms:.3f} ms, templated {tpl_ms:.3f} ms (at [6]: {six['t_ms']:.3f} ms), bound "
+        f"{bnd:.4f} ms ({by}; K-rt {bnd / rt_ms:.1%}); K-rt and K-rt1 max|ds| vs plain 0")
+    figs["transport_upwind_rt"].update(max_abs_err=0.0, ms=rt_ms, plain_ms=six["t_plain_ms"],
+                                       bound_ms=bnd, bound_by=by, templated_ms=tpl_ms,
+                                       rt1_ms=rt1_ms)
+    figs["transport_upwind_rt1"]["forced_64x64"] = dict(ms=rt1_ms, rt_ms=rt_ms,
+                                                        templated_ms=tpl_ms)
 
     # 19. P built for new grids, on scaled hierarchies of prior fields at s = 0
     B = P_NEW_N
@@ -780,10 +807,11 @@ def new_grid_phases(dev, six):
             figs[name]["grids"].setdefault(f"{grid[0]}x{grid[1]}", {})["resources"] = info
             log(f"[19c] {name} {grid[0]}x{grid[1]}: {info}")
     for grid in K_RT_GRIDS + ((NX, NY),):
-        info = _build.kernel_info("transport_upwind_rt", *grid)
-        figs["transport_upwind_rt"]["grids"].setdefault(f"{grid[0]}x{grid[1]}", {})[
-            "resources"] = info
-        log(f"[19c] transport_upwind_rt {grid[0]}x{grid[1]}: {info}")
+        for name in ("transport_upwind_rt", "transport_upwind_rt1"):
+            info = _build.kernel_info(name, *grid)
+            figs[name]["grids"].setdefault(f"{grid[0]}x{grid[1]}", {})["resources"] = info
+            log(f"[19c] {name} {grid[0]}x{grid[1]}: {info}")
+            assert name != "transport_upwind_rt" or info["local_bytes"] == 0, (grid, info)
     big = grid_model(torch, *GM_GRID)
     _build.reset_launches()
     res = ht.simulate(set_perm(big, torch.zeros(2, big.Nxy, device=dev)),
@@ -883,7 +911,8 @@ def large_grid_phases(dev, six):
     gen = torch.Generator(device=dev).manual_seed(SEED + 23)
     base1 = {k: BASE[k] for k in SOLVE_KEYS}
     names = [kernel_name(sm, unit, rt) for rt in ("cl", "gm", "gm1") for sm, unit in P_GM] + [
-        "transport_upwind_cl", "transport_upwind_gm", "transport_upwind_gm1"]
+        "transport_upwind_cl", "transport_upwind_gm", "transport_upwind_gm1",
+        "transport_upwind_rt", "transport_upwind_rt1"]
     figs = {name: {"grids": {}, "max_abs_err": 0.0} for name in names}
 
     def p_run(tag, args, smoother, unit, force, plan=None):
@@ -971,6 +1000,8 @@ def large_grid_phases(dev, six):
         k_route = transport.route(Nx, Ny)
         assert n_sim == {kernel_name("jacobi", True, pressure.route(Nx, Ny, True, LARGE_N)): 5,
                          transport.NAMES[k_route]: 5}, n_sim
+        if k_route == "rt":  # K-rt's path: 60x60
+            figs["transport_upwind_rt"][f"launches_simulate_{tag}"] = n_sim["transport_upwind_rt"]
         s5 = res5.wsats[:, -1].reshape(LARGE_N, Nx, Ny).contiguous()
         _, Fx, Fy, it, ok, _ = pressure_step(mm, s5, qf, torch.zeros_like(s5), 2e-3,
                                              4 * max(Nx, Ny), 5e-2)
@@ -980,7 +1011,10 @@ def large_grid_phases(dev, six):
         s_t = transport_substeps_torch(*t_args)
         fits = transport.smem_bytes(Nx, Ny) <= _build.SMEM_LIMIT
         k_ms = {}
-        for force in dict.fromkeys((k_route, "rt" if fits else "gm", "gm")):
+        # the route; where the two fw tiles fit, K-rt1 and (on a strip plan) K-rt
+        for force in dict.fromkeys((k_route, *(("rt1",) if fits else ()),
+                                    *(("rt",) if fits and transport.rt_plan(Nx, Ny) else ()),
+                                    "gm")):
             s_k, n = launched(lambda: transport_substeps_cuda(*t_args, force=force))
             assert n == {transport.NAMES[force]: 1} and torch.equal(s_k, s_t), (tag, force, n)
             k_ms[force] = cuda_ms(lambda: transport_substeps_cuda(*t_args, force=force),
@@ -1037,6 +1071,8 @@ def large_grid_phases(dev, six):
         if rt == "gm":  # P-gm and K-gm a launch each on their path's shapes
             gm_path_kernels(figs, m, pre, res.wsats[:, -1].reshape(n_members, *grid).contiguous())
     gm1_path(figs, gen)
+    route_paths(figs, gen)
+    capacity_check(figs, gen)
 
     # the device-memory variants of PR 9's form forced at 64x64 on [6]'s
     # inputs (P-gm there, one block a member, is a card test's)
@@ -1162,14 +1198,15 @@ def gm_path_kernels(figs, m, pre, s5):
 
 
 def gm1_path(figs, gen):
-    """[23]'s path past K-gm's and P-gm's capacity: `simulate` at
+    """[23]'s path past P-gm's capacity and K-gm's first plan: `simulate` at
     GM1_PATH_GRID, 5 steps through P's route (P-gm1) in each instantiation
-    and K-gm1, counted; then K-gm1 on step 6 of the first run, bit for bit
-    and timed with its bound and the plain version, and each P-gm1
-    instantiation on the first step's system (the unscaled one on the prior
-    scaled by MILD), one window against the plain version and a launch at
-    bench settings timed with its bound and the plain version's time. Into
-    `figs`."""
+    and K's (K-gm on its widened plan: strips of 4 rows and 2 columns a
+    thread), counted; then K-gm on step 6 of the first run, bit for bit and
+    timed with its bound, the plain version and K-gm1 (forced, bit for bit
+    too) beside it, and each P-gm1 instantiation on the first step's system
+    (the unscaled one on the prior scaled by MILD), one window against the
+    plain version and a launch at bench settings timed with its bound and
+    the plain version's time. Into `figs`."""
     import torch
 
     import historymatching_tpu_torch as ht
@@ -1184,7 +1221,8 @@ def gm1_path(figs, gen):
 
     (Nx, Ny), n = GM1_PATH_GRID, GM1_PATH_N
     tag = f"{Nx}x{Ny}"
-    assert transport.route(Nx, Ny) == "gm1" and transport.gm_bands(Nx, Ny) is None
+    bands, strip, cols = transport.gm_plan(Nx, Ny)
+    assert transport.route(Nx, Ny) == "gm" and transport.gm_bands(Nx, Ny) is None
     p_name = f"pressure_pcg_{pressure.route(Nx, Ny, True, n)}"
     assert p_name == "pressure_pcg_gm1" and pressure.gm_plan(Nx, Ny) is None
     m = grid_model(torch, Nx, Ny)
@@ -1194,7 +1232,7 @@ def gm1_path(figs, gen):
     res, launches = launched(lambda: ht.simulate(mm, torch.zeros(m.Nxy, device=mm.K.device), DT,
                                                  5, keep_wsats=False))
     wall = time.perf_counter() - t0
-    assert launches == {p_name: 5, "transport_upwind_gm1": 5}, launches
+    assert launches == {p_name: 5, "transport_upwind_gm": 5}, launches
     assert bool(torch.isfinite(res.wsats).all())
     s5 = res.wsats[:, -1].reshape(n, Nx, Ny).contiguous()
     qf = _source_field(mm, mm.inj_rates[:, 0], mm.prd_rates[:, 0])
@@ -1203,12 +1241,14 @@ def gm1_path(figs, gen):
     Fx, Fy = Fx.contiguous(), Fy.contiguous()
     nsub, dtspv = cfl_substeps(mm, Fx, Fy, qf, DT)
     t_args = (s5, Fx, Fy, qf[None].contiguous(), dtspv, nsub, fluid_of(mm))
-    assert torch.equal(transport_substeps_cuda(*t_args), transport_substeps_torch(*t_args))
-    k_ms = cuda_ms(lambda: transport_substeps_cuda(*t_args), 3)
+    s_t = transport_substeps_torch(*t_args)
+    for force in (None, "gm1"):  # K-gm on its route, beside K-gm1
+        assert torch.equal(transport_substeps_cuda(*t_args, force=force), s_t), force
+    k_ms = cuda_ms(lambda: transport_substeps_cuda(*t_args), 5)
+    k1_ms = cuda_ms(lambda: transport_substeps_cuda(*t_args, force="gm1"), 3)
     k_plain_ms = cuda_ms(lambda: transport_substeps_torch(*t_args), 1)
     k_bnd, k_by = transport_bound_ms(s5, Fx, Fy, t_args[3], nsub)
-    d = figs["transport_upwind_gm1"]
-    d[f"launches_simulate_{tag}"] = launches["transport_upwind_gm1"]
+    figs["transport_upwind_gm"][f"launches_simulate_{tag}"] = launches["transport_upwind_gm"]
     figs[p_name][f"launches_simulate_{tag}"] = launches[p_name]
     base1 = {k: BASE[k] for k in SOLVE_KEYS}
     systems = {True: p_system(mm, qf, True), False: p_system(set_perm(m, MILD * pre), qf, False)}
@@ -1219,7 +1259,7 @@ def gm1_path(figs, gen):
             res_i, n_i = launched(lambda: ht.simulate(
                 mm, torch.zeros(m.Nxy, device=mm.K.device), DT, 5, keep_wsats=False,
                 smoother=smoother, scale_system=unit))
-            assert n_i == {name: 5, "transport_upwind_gm1": 5}, n_i
+            assert n_i == {name: 5, "transport_upwind_gm": 5}, n_i
             assert bool(torch.isfinite(res_i.wsats).all())
             figs[name][f"launches_simulate_{tag}"] = n_i[name]
         args, kw = systems[unit], dict(smoother=smoother, unit_diag=unit)
@@ -1244,15 +1284,141 @@ def gm1_path(figs, gen):
                     f"{plain_ms:.3f} ms")
     log(f"[23] P-gm1 on its path at {tag}, N={n}: 5 steps of simulate through each "
         f"instantiation; the first step's system at bench settings: " + "; ".join(said))
-    d["grids"][tag] = dict(ms=k_ms, bound_ms=k_bnd, bound_by=k_by, share_of_bound=k_bnd / k_ms,
-                           max_abs_err=0.0, plain_ms=k_plain_ms,
-                           substeps_median=int(nsub.median()),
-                           resources=_build.kernel_info("transport_upwind_gm1", Nx, Ny))
-    log(f"[23] past K-gm's capacity at {tag}, N={n}: simulate 5 steps {wall:.3f} s, launches "
-        f"{launches}, cg_ok {float(res.cg_ok.float().mean()):.1%}; K-gm1 on step 6 max|ds| 0, "
-        f"{k_ms:.3f} ms ({int(nsub.median())} substeps median; "
-        f"{d['grids'][tag]['resources']}), plain {k_plain_ms:.3f} ms, bound {k_bnd:.5f} ms "
-        f"({k_by}, {k_bnd / k_ms:.1%})")
+    res_gm = _build.kernel_info("transport_upwind_gm", Nx, Ny)
+    assert res_gm["local_bytes"] == 0, res_gm
+    common = dict(bound_ms=k_bnd, bound_by=k_by, max_abs_err=0.0, plain_ms=k_plain_ms,
+                  substeps_median=int(nsub.median()))
+    figs["transport_upwind_gm"]["grids"][tag] = dict(
+        common, ms=k_ms, share_of_bound=k_bnd / k_ms, gm1_ms=k1_ms, resources=res_gm)
+    figs["transport_upwind_gm1"]["grids"][tag] = dict(
+        common, ms=k1_ms, share_of_bound=k_bnd / k1_ms, forced=True,
+        resources=_build.kernel_info("transport_upwind_gm1", Nx, Ny))
+    log(f"[23] K past K-gm's first plan at {tag}, N={n}: simulate 5 steps {wall:.3f} s, launches "
+        f"{launches}, cg_ok {float(res.cg_ok.float().mean()):.1%}; K-gm ({len(bands)} bands, "
+        f"strips of {strip} rows and {cols} columns a thread) on step 6 max|ds| 0, {k_ms:.3f} ms "
+        f"({int(nsub.median())} substeps median; {res_gm}) against K-gm1's {k1_ms:.3f} ms "
+        f"({k1_ms / k_ms:.2f}x; max|ds| 0), plain {k_plain_ms:.3f} ms, bound {k_bnd:.5f} ms "
+        f"({k_by}, K-gm {k_bnd / k_ms:.1%}, K-gm1 {k_bnd / k1_ms:.1%})")
+
+
+def route_paths(figs, gen):
+    """[23]'s paths of the bodies K keeps for the grids no newer plan takes,
+    `simulate` at each grid of ROUTE_PATHS (N=4, 5 steps; grids without a
+    multigrid hierarchy, so P is the plain Jacobi-PCG in torch ops): K-rt1
+    at 4x1100 (a row wider than a block of the strip body) and K-gm1 at
+    5x6000 (30,000 cells, two fw tiles past a block, a band of 4 rows past
+    K-gm's), counted; then each on step 6, bit for bit and timed with its
+    bound and the plain version. Into `figs`."""
+    import torch
+
+    import historymatching_tpu_torch as ht
+    from historymatching_tpu_torch.models.ressim import _source_field, cfl_substeps, pressure_step
+    from historymatching_tpu_torch.ops import _build, transport
+    from historymatching_tpu_torch.ops.multigrid import n_levels
+    from historymatching_tpu_torch.ops.transport import (
+        transport_substeps_cuda,
+        transport_substeps_torch,
+    )
+    from historymatching_tpu_torch.parallel.runner import set_perm
+
+    for rt, (Nx, Ny) in ROUTE_PATHS.items():
+        name, tag, n = transport.NAMES[rt], f"{Nx}x{Ny}", ROUTE_PATH_N
+        assert transport.route(Nx, Ny) == rt and n_levels(Nx, Ny) < 2, (tag, rt)
+        m = grid_model(torch, Nx, Ny)
+        mm = set_perm(m, ht.sample_prior_perm(gen, m, n, r=0.8))
+        t0 = time.perf_counter()
+        res, launches = launched(lambda: ht.simulate(mm, torch.zeros(m.Nxy, device=mm.K.device),
+                                                     DT, 5, keep_wsats=False))
+        wall = time.perf_counter() - t0
+        assert launches == {name: 5}, launches
+        assert bool(torch.isfinite(res.wsats).all())
+        s5 = res.wsats[:, -1].reshape(n, Nx, Ny).contiguous()
+        qf = _source_field(mm, mm.inj_rates[:, 0], mm.prd_rates[:, 0])
+        _, Fx, Fy, _, _, _ = pressure_step(mm, s5, qf, torch.zeros_like(s5), 2e-3,
+                                           4 * max(Nx, Ny), 5e-2)
+        Fx, Fy = Fx.contiguous(), Fy.contiguous()
+        nsub, dtspv = cfl_substeps(mm, Fx, Fy, qf, DT)
+        t_args = (s5, Fx, Fy, qf[None].contiguous(), dtspv, nsub, fluid_of(mm))
+        assert torch.equal(transport_substeps_cuda(*t_args), transport_substeps_torch(*t_args))
+        ms = cuda_ms(lambda: transport_substeps_cuda(*t_args), 5)
+        plain_ms = cuda_ms(lambda: transport_substeps_torch(*t_args), 1)
+        bnd, by = transport_bound_ms(s5, Fx, Fy, t_args[3], nsub)
+        figs[name][f"launches_simulate_{tag}"] = launches[name]
+        figs[name]["grids"][tag] = dict(ms=ms, bound_ms=bnd, bound_by=by, share_of_bound=bnd / ms,
+                                        max_abs_err=0.0, plain_ms=plain_ms,
+                                        substeps_median=int(nsub.median()),
+                                        resources=_build.kernel_info(name, Nx, Ny))
+        log(f"[23] {name} on its route at {tag}, N={n}: simulate 5 steps {wall:.3f} s, launches "
+            f"{launches}; on step 6 max|ds| 0, {ms:.3f} ms ({int(nsub.median())} substeps "
+            f"median; {figs[name]['grids'][tag]['resources']}), plain {plain_ms:.3f} ms, bound "
+            f"{bnd:.5f} ms ({by}, {bnd / ms:.1%})")
+
+
+def capacity_check(figs, gen):
+    """[23c]: K at a grid past K-gm's first plan's capacity with rows under
+    1,024 cells, CAPACITY_GRID (N=4): the first step's inputs (s = 0, one
+    pressure step of a prior field at the first pass's settings, solved by
+    the diagonally preconditioned `pcg` in torch ops: P's route there,
+    P-gm1, reads the 126 MB coarse inverse every V-cycle), K-gm on its
+    route (120 bands, strips of 5 rows) bit for bit, timed beside K-gm1
+    (forced, bit for bit too), the plain version and the bound, with the
+    phase's wall. Into `figs`."""
+    import torch
+
+    import historymatching_tpu_torch as ht
+    from historymatching_tpu_torch.models.ressim import _source_field, cfl_substeps, pressure_step
+    from historymatching_tpu_torch.ops import _build, transport
+    from historymatching_tpu_torch.ops.transport import (
+        transport_substeps_cuda,
+        transport_substeps_torch,
+    )
+    from historymatching_tpu_torch.parallel.runner import set_perm
+
+    t0 = time.perf_counter()
+    (Nx, Ny), n = CAPACITY_GRID, CAPACITY_N
+    tag = f"{Nx}x{Ny}"
+    bands, strip, cols = transport.gm_plan(Nx, Ny)
+    assert transport.route(Nx, Ny) == "gm" and transport.gm_bands(Nx, Ny) is None
+    m = grid_model(torch, Nx, Ny)
+    mm = set_perm(m, ht.sample_prior_perm(gen, m, n, r=0.8))
+    qf = _source_field(m, m.inj_rates[:, 0], m.prd_rates[:, 0])
+    s0 = torch.zeros(n, Nx, Ny, device=mm.K.device)
+    first = dict(BASE, **SCHED[0])
+    _, Fx, Fy, it, ok, _ = pressure_step(mm, s0, qf, torch.zeros_like(s0), first["tol"],
+                                         first["maxiter"], 5e-2,
+                                         patience_iters=first["patience_iters"],
+                                         precond="jacobi")
+    Fx, Fy = Fx.contiguous(), Fy.contiguous()
+    nsub, dtspv = cfl_substeps(mm, Fx, Fy, qf, DT)
+    t_args = (s0, Fx, Fy, qf[None].contiguous(), dtspv, nsub, fluid_of(m))
+    s_k, n_k = launched(lambda: transport_substeps_cuda(*t_args))
+    assert n_k == {"transport_upwind_gm": 1}, n_k
+    s_t = transport_substeps_torch(*t_args)
+    err = float((s_k - s_t).abs().max())
+    assert torch.equal(s_k, s_t), err
+    s_1 = transport_substeps_cuda(*t_args, force="gm1")
+    assert torch.equal(s_1, s_t)
+    k1_ms = cuda_ms(lambda: transport_substeps_cuda(*t_args, force="gm1"), 1, warm=False)
+    k_ms = cuda_ms(lambda: transport_substeps_cuda(*t_args), 3)
+    plain_ms = cuda_ms(lambda: transport_substeps_torch(*t_args), 1, warm=False)
+    bnd, by = transport_bound_ms(s0, Fx, Fy, t_args[3], nsub)
+    res = _build.kernel_info("transport_upwind_gm", Nx, Ny)
+    assert res["local_bytes"] == 0, res
+    wall = time.perf_counter() - t0
+    figs["transport_upwind_gm"]["grids"][tag] = dict(
+        ms=k_ms, gm1_ms=k1_ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+        share_of_bound=bnd / k_ms, max_abs_err=err, substeps_median=int(nsub.median()),
+        resources=res, first_step=True, wall_s=wall)
+    figs["transport_upwind_gm1"]["grids"][tag] = dict(
+        ms=k1_ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by, share_of_bound=bnd / k1_ms,
+        max_abs_err=0.0, forced=True, first_step=True)
+    log(f"[23c] K past K-gm's first plan at {tag}, N={n}, the first step (Jacobi-PCG "
+        f"iterations median {int(it.median())}, accepted {int(ok.sum())}/{n}; substeps median "
+        f"{int(nsub.median())} max {int(nsub.max())}): K-gm ({len(bands)} bands, strips of "
+        f"{strip} rows and {cols} columns a thread; {res}) max|ds| vs plain {err:.1e}, "
+        f"{k_ms:.3f} ms a launch against K-gm1's {k1_ms:.3f} ms ({k1_ms / k_ms:.2f}x; max|ds| "
+        f"0), plain {plain_ms:.3f} ms, bound {bnd:.5f} ms ({by}, K-gm {bnd / k_ms:.1%}, K-gm1 "
+        f"{bnd / k1_ms:.1%}); the phase's wall {wall:.1f} s")
 
 
 def large_case_phase(dev):
@@ -1501,7 +1667,7 @@ def large_case_kernels(model, prior):
     assert transport.route(Nx, Ny) == "cl"
     s_t = transport_substeps_torch(*t_args)
     k_ms = {}
-    for force in ("cl", "rt", "gm"):
+    for force in ("cl", "rt1", "gm"):
         s_k, n = launched(lambda: transport_substeps_cuda(*t_args, force=force))
         assert n == {transport.NAMES[force]: 1}, n
         assert torch.equal(s_k, s_t), (force, float((s_k - s_t).abs().max()))
@@ -1512,7 +1678,7 @@ def large_case_kernels(model, prior):
                                        share_of_bound=k_bnd / ms, max_abs_err=0.0,
                                        substeps_median=int(nsub.median()))
               for f, ms in k_ms.items()}
-    k_figs["transport_upwind_cl"].update(rt_ms=k_ms["rt"], gm_ms=k_ms["gm"],
+    k_figs["transport_upwind_cl"].update(rt1_ms=k_ms["rt1"], gm_ms=k_ms["gm"],
                                          cluster=transport.cl_shape(Nx, Ny))
     log(f"[24] kernels on the first step's system (N={prior.shape[0]}, {Nx}x{Ny}, the first "
         f"pass's settings): " + "; ".join(said) + f"; plain {plain_ms:.3f} ms; K (cluster, strip "
@@ -1807,7 +1973,8 @@ def main(argv=None):
     # and the in-place plans [23] times beside P-cl/d
     _build.prebuild(P_NEW_GRIDS, cl_grids=LARGE_GRIDS + K_RT_GRIDS,
                     cl_plans=[(*g, *cl_plan(*g, True, "device")) for g in LAYER_GRIDS],
-                    gm_grids=(GM_PATH_GRID,) + LAYER_GRIDS[1:])
+                    gm_grids=(GM_PATH_GRID,) + LAYER_GRIDS[1:] + _build.GRIDS,  # [2]'s table
+                    k_grids=K_RT_GRIDS + ((NX, NY), GM1_PATH_GRID, CAPACITY_GRID) + LARGE_GRIDS)
     log(f"[2] kernels built in {time.perf_counter() - t0:.1f} s "
         f"(compiled: {_build.build_info['built']}) -> {_build.build_info['paths']}")
     for stem, text in _build.build_info["ptxas"].items():
@@ -1817,7 +1984,9 @@ def main(argv=None):
                 fn = line.split("Function properties for", 1)[1].strip()
             elif "spill" in line and not line.strip().startswith("0 bytes stack frame, 0 bytes"):
                 log(f"[2] ptxas {stem} {fn}: {line.strip()}")
-    for name in (k for k in _build.LAUNCHES if not k.endswith("_cl")):  # clusters: [23]
+    # clusters: [23]; K-rt, built per grid: [19c]
+    for name in (k for k in _build.LAUNCHES if not k.endswith("_cl")
+                 and k != "transport_upwind_rt"):
         for grid in _build.GRIDS:
             info = _build.kernel_info(name, *grid)
             log(f"[2] {name} {grid[0]}x{grid[1]}: {info['registers']} registers, "
@@ -2317,18 +2486,36 @@ def main(argv=None):
     for rec in kernels:
         rec["grids"] = new.get(rec["name"], {}).get("grids", {})
         rec["launches_examples"] = {r["run"]: r["launches"].get(rec["name"], 0) for r in runs}
-    rt = new["transport_upwind_rt"]
-    # K's runtime-grid variant: its path is [21]'s optimise --small (12x12);
-    # timed at [6]'s inputs (64x64, against the templated K there).
+    rt, rt_large = new["transport_upwind_rt"], large.pop("transport_upwind_rt")
+    # K-rt, the strip body built for a grid outside GRIDS: its path is
+    # [23]'s simulate at 60x60; timed at [6]'s inputs (64x64, built for it
+    # and forced, against the templated K and K-rt1 there), and at [18]'s
+    # grids beside K-rt1.
     kernels.append(dict(
         name="transport_upwind_rt", route="cuda",
         source="historymatching_tpu_torch/csrc/transport_upwind.cu",
         replaces="historymatching_tpu/ops/transport_pallas.py:68",
-        launches=runs[-1]["launches"]["transport_upwind_rt"], max_abs_err=rt["max_abs_err"],
+        launches=rt_large["launches_simulate_60x60"], max_abs_err=rt["max_abs_err"],
         ms=rt["ms"], plain_ms=rt["plain_ms"], bound_ms=rt["bound_ms"], bound_by=rt["bound_by"],
         library_ms=None, share_of_bound=rt["bound_ms"] / rt["ms"], templated_ms=rt["templated_ms"],
-        grids=rt["grids"],
+        rt1_ms=rt["rt1_ms"], grids=rt["grids"],
         launches_examples={r["run"]: r["launches"].get("transport_upwind_rt", 0) for r in runs}))
+    # K-rt1, the runtime-grid body: its path is [23]'s simulate at
+    # ROUTE_PATHS' grid, timed there, and [21]'s optimise --small (12x12);
+    # forced at [18]'s grids, at [6]'s inputs and on [24]'s first step.
+    rt1, rt1_at = large.pop("transport_upwind_rt1"), "x".join(map(str, ROUTE_PATHS["rt1"]))
+    g = rt1["grids"][rt1_at]
+    kernels.append(dict(
+        name="transport_upwind_rt1", route="cuda",
+        source="historymatching_tpu_torch/csrc/transport_upwind.cu",
+        replaces="historymatching_tpu/ops/transport_pallas.py:68",
+        launches=rt1[f"launches_simulate_{rt1_at}"], max_abs_err=g["max_abs_err"], ms=g["ms"],
+        plain_ms=g["plain_ms"], bound_ms=g["bound_ms"], bound_by=g["bound_by"], library_ms=None,
+        share_of_bound=g["share_of_bound"], at_grid=rt1_at,
+        grids=dict(new["transport_upwind_rt1"]["grids"], **rt1["grids"]),
+        forced_64x64=new["transport_upwind_rt1"]["forced_64x64"],
+        large_case=dict(big["kernels"]["transport_upwind_rt1"], forced=True),
+        launches_examples={r["run"]: r["launches"].get("transport_upwind_rt1", 0) for r in runs}))
     # P with an explicit fine diagonal: its path is [19b]'s
     # simulate(scale_system=False); timed at [6]'s shapes.
     for name in ("pressure_pcg_diag", "pressure_pcg_cheb_diag"):
@@ -2339,21 +2526,20 @@ def main(argv=None):
             max_abs_err=d["max_abs_err"], ms=d["ms"], plain_ms=d["plain_ms"],
             bound_ms=d["bound_ms"], bound_by=d["bound_by"], library_ms=None,
             share_of_bound=d["bound_ms"] / d["ms"], grids=d["grids"]))
-    # K's runtime-grid variant forced on [24]'s first step, beside K-cl.
-    next(r for r in kernels if r["name"] == "transport_upwind_rt")["large_case"] = dict(
-        big["kernels"]["transport_upwind_rt"], launches=big["launches"].get(
-            "transport_upwind_rt", 0), forced=True)
     # The cluster variants: P-cl's and K-cl's path is [24], each checked and
     # timed on [24]'s first step; the other P-cl instantiations' path is
     # [23]'s simulate at 128x128, timed there at bench settings. P-gm's and
     # K-gm's path is [23]'s simulate at GM_PATH_GRID, each timed there (P-gm
-    # in its four instantiations, on the first step's system), P-gm1's and
-    # K-gm1's [23]'s simulate at GM1_PATH_GRID, timed there; their times
-    # forced on [24]'s first step are kept as `large_case`.
+    # in its four instantiations, on the first step's system; K-gm's
+    # widened plan at GM1_PATH_GRID and CAPACITY_GRID in its grids), P-gm1's
+    # [23]'s simulate at GM1_PATH_GRID and K-gm1's at ROUTE_PATHS' grid,
+    # timed there; their times forced on [24]'s first step are kept as
+    # `large_case`.
     gm_at = f"{GM_PATH_GRID[0]}x{GM_PATH_GRID[1]}"
     gm1_at = f"{GM1_PATH_GRID[0]}x{GM1_PATH_GRID[1]}"
     k_path = {name: gm_at if name.endswith("_gm") else gm1_at
               for name in large if name.endswith(("_gm", "_gm1"))}
+    k_path["transport_upwind_gm1"] = "x".join(map(str, ROUTE_PATHS["gm1"]))
     for name, d in large.items():
         route = name.rsplit("_", 1)[1]
         at = k_path.get(name, f"{BIG[0]}x{BIG[1]}")

@@ -5,11 +5,15 @@ C interface, for `sm_90a` (Hopper), on first use, into `_build/` beside
 the package; the compilers run in parallel. Kernel P is a template on the
 grid: the main library holds the grids of `GRIDS`, and any other grid is
 compiled on first use into a library of its own (`pressure_lib`);
-`prebuild` starts every compiler a run will need at once. The
-device-memory variants P-gm1 (`pressure_pcg_gm1.cu`), K-gm and K-gm1
-(beside K) take the grid at run time, so one library serves every grid;
-P-gm (`pressure_pcg_gm.cu`) is a template on the grid and its plan, one
-library each, built on first use (`pressure_gm_lib`).
+`prebuild` starts every compiler a run will need at once. Kernel K's
+strip body is compiled likewise for any other grid whose strips fit one
+block (K-rt, `transport_rt_lib`). The device-memory variants P-gm1
+(`pressure_pcg_gm1.cu`), K-rt1, K-gm and K-gm1 (beside K) take the grid at
+run time, so one library serves every grid; K-gm's plans other than its
+first (strips of 4 rows, one column a thread) get one library each
+(`transport_gm_lib`); P-gm (`pressure_pcg_gm.cu`) is a template on the
+grid and its plan, one library each, built on first use
+(`pressure_gm_lib`).
 The cluster variants (P-cl in `pressure_pcg_cl.cu`, K-cl in `transport_upwind.cu`
 under `-DHM_KCL_*`) are templates on the grid and the cluster size (and
 P-cl on the coarsest inverse's place), one library each, built on first
@@ -51,18 +55,21 @@ SMEM_LIMIT = 232_448
 SMEM_TWO_A_SM = 115_712
 SMEM_PER_SM = 228 * 1024  # an SM's shared memory, 1 KB of it reserved for each block
 
-# Launches by kernel: K's templated, runtime-grid, device-memory and
+# Launches by kernel: K's templated body, K-rt (the same body built for
+# another grid), K-rt1 (the runtime-grid body), the device-memory and
 # cluster variants, and P by smoother, by fine diagonal (unit, or read:
 # the unscaled system) and by route (shared memory, "_gm": co-resident
 # blocks a member, "_gm1": device memory, one block a member, "_cl": a
 # thread-block cluster a member).
 _P_NAMES = ("pressure_pcg", "pressure_pcg_cheb", "pressure_pcg_diag", "pressure_pcg_cheb_diag")
-LAUNCHES = dict.fromkeys(("transport_upwind", "transport_upwind_rt", *_P_NAMES,
+LAUNCHES = dict.fromkeys(("transport_upwind", "transport_upwind_rt", "transport_upwind_rt1",
+                          *_P_NAMES,
                           "transport_upwind_gm", "transport_upwind_gm1",
                           *(n + "_gm" for n in _P_NAMES), *(n + "_gm1" for n in _P_NAMES),
                           "transport_upwind_cl", *(n + "_cl" for n in _P_NAMES)), 0)
 
 _libs = {}
+_keys = {}  # (spec maker, its arguments) -> library key
 build_info = {"paths": {}, "built": [], "ptxas": {}, "seconds": 0.0}
 
 P, I, F, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
@@ -75,14 +82,14 @@ _SIGNATURES = {
     "transport_upwind": {
         # s, Fx, Fy, q, q_stride, dts_pv, n_sub, out, B, Nx, Ny, vw, vo, swc, sor, stream
         "hm_transport_substeps": _TRANSPORT,
-        "hm_transport_substeps_rt": _TRANSPORT,
+        "hm_transport_substeps_rt1": _TRANSPORT,
         # the same with the halo and the flags after `out`, the bands after Ny
         "hm_transport_substeps_gm": _TRANSPORT[:8] + [P, P] + _TRANSPORT[8:11] + [I]
         + _TRANSPORT[11:],
         # the same with the fw workspace after `out`
         "hm_transport_substeps_gm1": _TRANSPORT[:8] + [P] + _TRANSPORT[8:],
         "hm_transport_info": [I, I, P],
-        "hm_transport_rt_info": [I, I, P],
+        "hm_transport_rt1_info": [I, I, P],
         "hm_transport_gm_info": [I, I, I, P],
         "hm_transport_gm1_info": [I, I, P],
     },
@@ -101,13 +108,19 @@ _SIGNATURES = {
 _MAIN = tuple(_SIGNATURES)  # the main libraries' sources
 # The per-grid libraries: P-gm (the arguments of P with the groups'
 # exchange, their flags and the groups they hold after rel_out), P-cl's
-# source, and K's under -DHM_KCL_*.
+# source, and K's under -DHM_KCL_* (K-cl), -DHM_KRT_* (K-rt) and, per plan,
+# -DHM_KGM_* (K-gm).
 _SIGNATURES["pressure_pcg_gm"] = {"hm_pressure_gm_solve": _PRESSURE[:8] + [P, P, I] + _PRESSURE[8:],
                                   "hm_pressure_gm_info": [I, I, I, I, P]}
 _SIGNATURES["pressure_pcg_cl"] = {"hm_pressure_cl_solve": _PRESSURE,
                                   "hm_pressure_cl_info": [I, I, I, I, P]}
 _SIGNATURES["transport_upwind_cl"] = {"hm_transport_substeps_cl": _TRANSPORT,
                                       "hm_transport_cl_info": [I, I, P]}
+_SIGNATURES["transport_upwind_rt"] = {"hm_transport_substeps_rt": _TRANSPORT,
+                                      "hm_transport_rt_info": [I, I, P]}
+_SIGNATURES["transport_upwind_gm"] = {
+    k: _SIGNATURES["transport_upwind"][k] for k in ("hm_transport_substeps_gm",
+                                                    "hm_transport_gm_info")}
 
 
 def reset_launches():
@@ -200,8 +213,9 @@ def _load(specs):
 
 
 def lib():
-    """The main libraries' C entry points (K in its five variants, P at
-    `GRIDS`, P-gm1), built first where their sources changed."""
+    """The main libraries' C entry points (K at `GRIDS`, K-rt1, K-gm's first
+    plan, K-gm1, P at `GRIDS`, P-gm1), built first where their sources
+    changed."""
     if "main" not in _libs:
         _load([_spec(stem) for stem in _MAIN])
         _libs["main"] = types.SimpleNamespace(**{k: v for stem in _MAIN
@@ -220,14 +234,28 @@ def pressure_lib(Nx, Ny):
     return _libs[key]
 
 
+def _get(make_spec, *args):
+    """The library of the spec `make_spec(*args)`, built on first use. A
+    spec hashes the sources (~0.5 ms), so it is made once for each
+    argument tuple and a launch after it only looks its key up."""
+    key = _keys.get((make_spec, args))
+    if key is None:
+        key, *_ = spec = make_spec(*args)
+        if key not in _libs:
+            _load([spec])
+        _keys[make_spec, args] = key
+    return _libs[key]
+
+
+def _pcl_spec(Nx, Ny, c, place):
+    return _cl_specs(Nx, Ny, [(c, place)])[0]
+
+
 def pressure_cl_lib(Nx, Ny, c, place):
     """P-cl's C entry points for one grid on clusters of `c` ranks, the
     coarsest inverse at `place` (`ops.pressure.INV_PLACES`), built on first
     use."""
-    key, *_ = spec = _cl_specs(Nx, Ny, [(c, place)])[0]
-    if key not in _libs:
-        _load([spec])
-    return _libs[key]
+    return _get(_pcl_spec, Nx, Ny, c, place)
 
 
 def _gm_spec(Nx, Ny, G, kb):
@@ -240,19 +268,72 @@ def pressure_gm_lib(Nx, Ny, G, kb):
     """P-gm's C entry points for one grid on G blocks a member with `kb`
     inverse rows a banded block (`ops.pressure.gm_plan`), built on first
     use."""
-    key, *_ = spec = _gm_spec(Nx, Ny, G, kb)
-    if key not in _libs:
-        _load([spec])
-    return _libs[key]
+    return _get(_gm_spec, Nx, Ny, G, kb)
+
+
+def _kcl_spec(Nx, Ny, c, strip):
+    return _cl_specs(Nx, Ny, transport_shape=(c, strip))[0]
 
 
 def transport_cl_lib(Nx, Ny, c, strip):
     """K-cl's C entry points for one grid on clusters of `c` ranks with
     strips of `strip` cells, built on first use."""
-    key, *_ = spec = _cl_specs(Nx, Ny, transport_shape=(c, strip))[0]
-    if key not in _libs:
-        _load([spec])
-    return _libs[key]
+    return _get(_kcl_spec, Nx, Ny, c, strip)
+
+
+def _rt_spec(Nx, Ny, strip, place):
+    return _spec("transport_upwind", key=f"transport_upwind_rt_{Nx}x{Ny}_s{strip}{place[0]}",
+                 flags=[f"-DHM_KRT_NX={Nx}", f"-DHM_KRT_NY={Ny}", f"-DHM_KRT_S={strip}",
+                        f"-DHM_KRT_SHARED={int(place == 'shared')}"], sigs="transport_upwind_rt")
+
+
+def transport_rt_lib(Nx, Ny, strip, place):
+    """K-rt's C entry points: the strip body for one grid on strips of
+    `strip` rows, the faces in "registers" or "shared" memory
+    (`ops.transport.rt_plan`), built on first use."""
+    return _get(_rt_spec, Nx, Ny, strip, place)
+
+
+def _gm_threads(threads):
+    """A K-gm library's thread bound: a block's threads in whole warps."""
+    return -(-threads // 32) * 32
+
+
+def _kgm_spec(strip, cols, threads):
+    t = _gm_threads(threads)
+    return _spec("transport_upwind", key=f"transport_upwind_gm_s{strip}w{cols}t{t}",
+                 flags=[f"-DHM_KGM_S={strip}", f"-DHM_KGM_W={cols}", f"-DHM_KGM_T={t}"],
+                 sigs="transport_upwind_gm")
+
+
+def transport_gm_lib(strip, cols, threads):
+    """K-gm's C entry points for strips of `strip` rows and `cols` columns a
+    thread in blocks of `threads` threads (`ops.transport.gm_plan`): the
+    main library's on the first plan (strips of 4 rows, one column), else a
+    library of its own, built on first use."""
+    from historymatching_tpu_torch.ops.transport import GM_STRIP
+
+    if (strip, cols) == (GM_STRIP, 1):
+        return lib()
+    return _get(_kgm_spec, strip, cols, _gm_threads(threads))
+
+
+def _k_specs(Nx, Ny):
+    """K's libraries of its own for a grid: K-rt where `rt_plan` gives a
+    plan (its route, or `force`), K-gm where `gm_plan` gives one other than
+    the first."""
+    from historymatching_tpu_torch.ops import transport
+
+    specs = []
+    plan = transport.rt_plan(Nx, Ny)
+    if plan:
+        specs.append(_rt_spec(Nx, Ny, *plan))
+    plan = transport.gm_plan(Nx, Ny)
+    if plan and plan[1:] != (transport.GM_STRIP, 1):
+        bands, strip, cols = plan
+        specs.append(_kgm_spec(strip, cols, transport.gm_threads(
+            Ny, max(h for _, h in bands), strip, cols)))
+    return specs
 
 
 def _cl_grid_specs(Nx, Ny):
@@ -269,11 +350,12 @@ def _cl_grid_specs(Nx, Ny):
     return _cl_specs(Nx, Ny, plans, shape)
 
 
-def prebuild(pressure_grids=(), cl_grids=(), cl_plans=(), gm_grids=()):
+def prebuild(pressure_grids=(), cl_grids=(), cl_plans=(), gm_grids=(), k_grids=()):
     """Build the main libraries, kernel P's libraries for `pressure_grids`
     outside `GRIDS`, the cluster libraries of `cl_grids`, P-cl's for each
-    (Nx, Ny, c, place) of `cl_plans` and P-gm's for both fine diagonals'
-    plans of each grid of `gm_grids`, every compiler at once."""
+    (Nx, Ny, c, place) of `cl_plans`, P-gm's for both fine diagonals'
+    plans of each grid of `gm_grids` and K's own libraries of each grid of
+    `k_grids` (`_k_specs`), every compiler at once."""
     from historymatching_tpu_torch.ops.pressure import gm_plan
 
     extra = [g for g in dict.fromkeys(tuple(g) for g in pressure_grids) if g not in GRIDS]
@@ -282,7 +364,8 @@ def prebuild(pressure_grids=(), cl_grids=(), cl_plans=(), gm_grids=()):
     _load([_spec(stem) for stem in _MAIN] + [_spec("pressure_pcg", g) for g in extra]
           + [sp for g in cl_grids for sp in _cl_grid_specs(*g)]
           + [_cl_specs(Nx, Ny, [(c, place)])[0] for Nx, Ny, c, place in cl_plans]
-          + [_gm_spec(*args) for args in dict.fromkeys(gm)])
+          + [_gm_spec(*args) for args in dict.fromkeys(gm)]
+          + [sp for g in k_grids for sp in _k_specs(*g)])
 
 
 def check(code, name):
@@ -294,11 +377,14 @@ def kernel_info(kernel, Nx, Ny, plan=None):
     """A kernel's resources at one grid, as the CUDA runtime reports them:
     registers and local (stack and spill) bytes a thread, dynamic shared
     bytes and threads a block, resident blocks an SM. `kernel` is a key of
-    `LAUNCHES`; a device-memory variant ("_gm1", K-gm1) reports its static
+    `LAUNCHES`; K-rt reports its grid's library (`ops.transport.rt_plan`),
+    and adds its strip's rows and the place of its faces; a device-memory
+    variant ("_gm1", K-gm1) reports its static
     shared bytes (its workspace is `ops.pressure.gm1_bytes`, or K's two
     tiles); K-gm its shared bytes (two fw tiles, each thread's faces and
-    sources), and adds its bands a member (`ops.transport.gm_bands`) and
-    the groups of bands (members in flight) the card holds at once; P-gm
+    sources), and adds its bands a member, the groups of bands (members in
+    flight) the card holds at once, and its strip's rows and columns a
+    thread (`ops.transport.gm_plan`); P-gm
     ("_gm", on its grid's `gm_plan`) its bytes a block, and adds its blocks
     a member and the groups (members in flight) the card holds at once; a
     cluster variant ("_cl", on its route's
@@ -307,19 +393,30 @@ def kernel_info(kernel, Nx, Ny, plan=None):
     from historymatching_tpu_torch.ops import pressure, transport
 
     out = (ctypes.c_int * 7)()
+    extra = {}
     cheb, unit = int("cheb" in kernel), int("_diag" not in kernel)
     keys = ("registers", "local_bytes", "shared_bytes", "threads", "blocks_per_sm")
     if kernel == "transport_upwind_cl":
         code = transport_cl_lib(Nx, Ny, *transport.cl_shape(Nx, Ny)).hm_transport_cl_info(
             Nx, Ny, out)
     elif kernel == "transport_upwind_gm":
-        bands = transport.gm_bands(Nx, Ny)
-        if bands is None:
+        plan = transport.gm_plan(Nx, Ny)
+        if plan is None:
             raise ValueError(f"{kernel}: no band plan takes a {Nx}x{Ny} grid")
-        code = lib().hm_transport_gm_info(Nx, Ny, len(bands), out)
+        bands, strip, cols = plan
+        threads = transport.gm_threads(Ny, max(h for _, h in bands), strip, cols)
+        code = transport_gm_lib(strip, cols, threads).hm_transport_gm_info(Nx, Ny, len(bands),
+                                                                          out)
         keys += ("bands", "groups_resident")
+        extra = dict(strip=strip, cols=cols)
+    elif kernel == "transport_upwind_rt":
+        plan = transport.rt_plan(Nx, Ny)
+        if plan is None:
+            raise ValueError(f"{kernel}: no strip plan takes a {Nx}x{Ny} grid")
+        code = transport_rt_lib(Nx, Ny, *plan).hm_transport_rt_info(Nx, Ny, out)
+        extra = dict(strip=plan[0], faces=plan[1])
     elif kernel.startswith("transport"):
-        fn = {"transport_upwind_rt": lib().hm_transport_rt_info,
+        fn = {"transport_upwind_rt1": lib().hm_transport_rt1_info,
               "transport_upwind_gm1": lib().hm_transport_gm1_info}.get(kernel,
                                                                        lib().hm_transport_info)
         code = fn(Nx, Ny, out)
@@ -339,7 +436,7 @@ def kernel_info(kernel, Nx, Ny, plan=None):
     check(code, kernel)
     if kernel.endswith("_cl"):
         keys += ("cluster", "max_active_clusters")
-    return dict(zip(keys, out))
+    return dict(zip(keys, out), **extra)
 
 
 def stream_ptr(device):

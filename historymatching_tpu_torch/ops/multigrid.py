@@ -159,3 +159,14 @@ def vcycle_apply(hierarchy, Ainv, b, nu=2, omega=0.7, omega_c=1.4, smoother="jac
         return _smooth(TX, TY, diag, x, b, nu, omega, smoother)
 
     return cycle(b, 0)
+
+
+def vcycle_solver(hierarchy, nu=2, omega=0.7, omega_c=1.4, Ainv=None, smoother="jacobi"):
+    """M_inv: b -> one V-cycle from a zero start (`vcycle_apply`), a fixed
+    SPD preconditioner for `ops.cg.pcg`'s `Minv`. `Ainv`, where given, is
+    the coarse inverse to use (e.g. one kept for a pass); else it is
+    computed here once (`coarse_inverse`)."""
+    if Ainv is None:
+        Ainv = coarse_inverse(hierarchy)
+    return lambda b: vcycle_apply(hierarchy, Ainv, b, nu, omega, omega_c=omega_c,
+                                  smoother=smoother)

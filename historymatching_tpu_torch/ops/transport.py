@@ -1,21 +1,28 @@
 """Kernel K: all CFL substeps of one outer transport step, for every member.
 
 Replaces the TPU kernels of `historymatching_tpu/ops/transport_pallas.py`
-(`transport_substeps_pallas`, `_batched`, `_packed`): on the card one
-thread block per member loops over that member's own substep count
-(`csrc/transport_upwind.cu`: a template on the grid for the grids of
-`_build.GRIDS`; a variant with the grid as a runtime argument for any
-other grid of up to BAND_CELLS cells (or whose two fw tiles fit one
-block's shared memory and no cluster takes it); K-cl, a thread-block
-cluster a member, each block a band of rows (`cl_shape`), for larger
-grids; K-gm, a member over co-resident blocks, each a band of rows
-(`gm_bands`), the bands' edge rows exchanged through L2, for the grids
-left; and past K-gm's capacity K-gm1, the runtime-grid variant with its fw
-tiles in device memory, one block a member; `route` says which a grid
-takes). Beside it,
-`transport_substeps_torch` is the plain PyTorch version; it runs the batch
-to its largest count and freezes each member after its own, which gives
-the same per-member result.
+(`transport_substeps_pallas`, `_batched`, `_packed`): on the card each
+member loops over its own substep count (`csrc/transport_upwind.cu`).
+`route` says which body a grid takes:
+- "templated": the strip body (one block a member, column strips of 4
+  cells a thread) in the main library, at the grids of `_build.GRIDS`;
+- "rt" (K-rt): the same body compiled for any other grid whose strips
+  fit one block (`rt_plan`: strips of S rows, the faces in registers or
+  in shared memory), one library a grid, built on first use, but where
+  K-rt1 ran faster (`RT1_CELLS`, `RT1_BATCH_CELLS`);
+- "cl" (K-cl): a thread-block cluster a member, each block a band of rows
+  (`cl_shape`), past 4,096 cells where a cluster takes the grid;
+- "rt1" (K-rt1): the runtime-grid body K-rt had before, where the two fw
+  tiles fit one block but no strip plan does, and on small grids at small
+  batches;
+- "gm" (K-gm): a member over co-resident blocks, each a band of rows in
+  strips of S rows and W columns a thread (`gm_plan`), the bands' edge rows
+  exchanged through L2, for the grids left;
+- "gm1" (K-gm1): past K-gm's capacity, K-rt1's body with its fw tiles in
+  device memory, one block a member.
+Beside it, `transport_substeps_torch` is the plain PyTorch version; it runs
+the batch to its largest count and freezes each member after its own, which
+gives the same per-member result.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor takes the
 kernel, which raises on what it does not take.
@@ -29,21 +36,52 @@ import torch.nn.functional as F
 from historymatching_tpu_torch.ops import _build
 
 
-ROUTES = ("templated", "rt", "cl", "gm", "gm1")
+ROUTES = ("templated", "rt", "rt1", "cl", "gm", "gm1")
 NAMES = {"templated": "transport_upwind", "rt": "transport_upwind_rt",
-         "cl": "transport_upwind_cl", "gm": "transport_upwind_gm",
-         "gm1": "transport_upwind_gm1"}  # launch counters by route
+         "rt1": "transport_upwind_rt1", "cl": "transport_upwind_cl",
+         "gm": "transport_upwind_gm", "gm1": "transport_upwind_gm1"}  # launch counters by route
 BAND_CELLS = 4096  # a K-cl rank's band at most: the templated 64x64 block's load
+# K-rt1 keeps a grid of up to RT1_CELLS cells (one cell a thread there)
+# while the batch holds up to RT1_BATCH_CELLS cells: such a launch is
+# bound by its chain of substeps, where K-rt1's one cell a thread ran
+# faster than K-rt's strips of 4 cells (bench_routes.py on the H100: 100-
+# 784 cells at N=64, 100-384 at N=1000); past either, K-rt ran faster
+# (784 and 900 cells at N=1000, 1,296 cells up at N=64).
+RT1_CELLS, RT1_BATCH_CELLS = 1024, 400_000
+# Threads a block at most, and the rows of a strip (csrc `kStrip`,
+# `kMaxStrip`): the templated K's, and the range K-rt and K-gm plan in.
 MAX_THREADS, MIN_STRIP, MAX_STRIP = 1024, 4, 16
-# K-gm: rows a thread's strip (csrc `kStrip`), threads a block at most
-# (`kGmThreads`), and bands a member at most: the H100's SMs, so that one
-# member's blocks, one an SM, are resident at once.
+# K-gm: rows of its first plan's strip (csrc `kStrip`), threads a block at
+# most (`kGmThreads`), and bands a member at most: the H100's SMs, so that
+# one member's blocks, one an SM, are resident at once.
 GM_STRIP, GM_THREADS, GM_MAX_BANDS = 4, 1024, 132
+# Registers a thread needs, by the cells it holds, from what ptxas reported
+# on the H100 (`reg_budget` is what a block's thread count leaves a
+# thread): the strip body, a model by its strip's rows S with the faces in
+# registers (11 S + 12: 55 at S = 4, 64 at S = 5) or in shared memory
+# (3 S + 24: at most 71 at S = 11); K-gm, by its strip's (rows, columns a
+# thread), the least register cap under which it built without spilling
+# (53-61 at 1,024 threads for 4-6 cells, 72 for (8, 1), 80 for (5, 2), 95
+# for (4, 3), 121-127 for 15-16 cells; (12, 1) and (16, 1) spilled at 128
+# and 168): a plan takes only these shapes.
+RT_REGS = {"registers": (11, 12), "shared": (3, 24)}
+GM_SHAPES = {(4, 1): 64, (5, 1): 64, (6, 1): 64, (4, 2): 64, (8, 1): 72, (5, 2): 80,
+             (4, 3): 96, (5, 3): 128, (6, 2): 128, (4, 4): 128, (8, 2): 128}
+
+
+def reg_budget(threads):
+    """Registers a thread may take in a block of `threads` threads that one
+    SM holds: its 65,536 registers over the block's warps, allocated four
+    at a time, in steps of 8, at most 255 (ptxas's cap under
+    `__launch_bounds__(threads, 1)`)."""
+    warps = -(-threads // 128) * 4
+    return min(255, 65536 // (32 * warps) // 8 * 8)
 
 
 def smem_bytes(Nx, Ny):
-    """Shared memory K and its runtime-grid variant take for one member:
-    two fw tiles of the grid. K-gm puts the same tiles in device memory."""
+    """Shared memory K-rt1 takes for one member, and the templated K and
+    K-rt with their faces in registers: two fw tiles of the grid. K-gm1
+    puts the same tiles in device memory."""
     return 2 * 4 * Nx * Ny
 
 
@@ -52,6 +90,40 @@ def check_grid(Nx, Ny):
     through one of its routes."""
     if Nx < 1 or Ny < 1:
         raise ValueError(f"transport kernel: a {Nx}x{Ny} grid has no cells")
+
+
+def rt_threads(Nx, Ny, strip):
+    """The strip body's threads a member: strips of `strip` rows (the last
+    may hold fewer), one column a thread."""
+    return -(-Nx // strip) * Ny
+
+
+def rt_bytes(Nx, Ny, strip, place):
+    """The strip body's shared bytes a member: two fw tiles, and with the
+    faces in "shared" memory each thread's 4 `strip` + 1 faces and
+    sources."""
+    slots = 4 * strip + 1 if place == "shared" else 0
+    return 4 * (2 * Nx * Ny + slots * rt_threads(Nx, Ny, strip))
+
+
+def rt_plan(Nx, Ny):
+    """K-rt's plan for a grid: (strip, place), the smallest strip from
+    MIN_STRIP (or Nx, where fewer) up to MAX_STRIP whose threads one block
+    holds (at most MAX_THREADS) without spilling, with the faces and
+    sources in "registers" where `RT_REGS` fits `reg_budget`, else in
+    "shared" memory where the bytes fit `_build.SMEM_LIMIT`; None where no
+    strip fits (a row wider than a block, or past ~9,500 cells)."""
+    check_grid(Nx, Ny)
+    for strip in range(min(MIN_STRIP, Nx), MAX_STRIP + 1):
+        threads = rt_threads(Nx, Ny, strip)
+        if threads > MAX_THREADS:
+            continue
+        for place in ("registers", "shared"):
+            a, c = RT_REGS[place]
+            if (a * strip + c <= reg_budget(threads)
+                    and rt_bytes(Nx, Ny, strip, place) <= _build.SMEM_LIMIT):
+                return strip, place
+    return None
 
 
 def cl_shape(Nx, Ny):
@@ -70,16 +142,47 @@ def cl_shape(Nx, Ny):
     return None
 
 
-def gm_bands(Nx, Ny):
-    """K-gm's bands of a member: [(first row, rows)] of the G bands, G the
-    fewest whose largest band (ceil(Nx / G) rows) a block of GM_THREADS
-    threads holds in strips of GM_STRIP rows, one column a thread (at most
-    GM_STRIP * (GM_THREADS // Ny) rows); the first Nx mod G bands take one
-    row more. None past K-gm's capacity: a row wider than a block
-    (Ny > GM_THREADS), or more than GM_MAX_BANDS bands."""
+def gm_slots(strip, cols):
+    """A K-gm thread's faces and sources in shared memory: its columns' strip
+    + 1 faces along i, its rows' cols + 1 faces along j, its cells'
+    sources (csrc `GmSlots`)."""
+    return cols * (strip + 1) + strip * (cols + 1) + strip * cols
+
+
+def gm_threads(Ny, rows, strip=GM_STRIP, cols=1):
+    """K-gm's threads a block for a band of `rows` rows: its strips times
+    its column groups."""
+    return -(-rows // strip) * -(-Ny // cols)
+
+
+def gm_bytes(Ny, rows, strip=GM_STRIP, cols=1):
+    """K-gm's shared bytes a block for a band of `rows` rows: two fw tiles
+    of the band, and each thread's `gm_slots`."""
+    return 4 * (2 * rows * Ny + gm_slots(strip, cols) * gm_threads(Ny, rows, strip, cols))
+
+
+def gm_fits(Ny, rows, strip=GM_STRIP, cols=1):
+    """Whether one block holds a band of `rows` rows: its threads, its
+    bytes, and the registers its strip shape needs (`GM_SHAPES`)."""
+    threads = gm_threads(Ny, rows, strip, cols)
+    return (threads <= GM_THREADS and gm_bytes(Ny, rows, strip, cols) <= _build.SMEM_LIMIT
+            and GM_SHAPES.get((strip, cols), 256) <= reg_budget(threads))
+
+
+def gm_bands(Nx, Ny, strip=GM_STRIP, cols=1):
+    """K-gm's bands of a member in strips of `strip` rows and `cols`
+    columns a thread: [(first row, rows)] of the G bands, G the fewest
+    whose largest band (ceil(Nx / G) rows) one block holds (`gm_fits`), the
+    first Nx mod G bands one row more. None where no band of `strip` rows
+    (or of every row, where fewer) fits, or past GM_MAX_BANDS bands, or
+    for a shape not in `GM_SHAPES`."""
     check_grid(Nx, Ny)
-    rows = GM_STRIP * (GM_THREADS // Ny)
-    if rows == 0 or -(-Nx // rows) > GM_MAX_BANDS:
+    if (strip, cols) not in GM_SHAPES:
+        return None
+    rows = min(Nx, strip * (GM_THREADS // -(-Ny // cols)))
+    while rows >= min(strip, Nx) and not gm_fits(Ny, rows, strip, cols):
+        rows -= 1
+    if rows < min(strip, Nx) or -(-Nx // rows) > GM_MAX_BANDS:
         return None
     G = -(-Nx // rows)
     h, rem = divmod(Nx, G)
@@ -87,22 +190,37 @@ def gm_bands(Nx, Ny):
     return [(sum(sizes[:r]), sizes[r]) for r in range(G)]
 
 
-def route(Nx, Ny):
-    """Which kernel K takes a grid: "templated" at `_build.GRIDS`, "rt" up
-    to BAND_CELLS cells, "cl" where a cluster takes it (`cl_shape`), "rt"
-    where the two fw tiles fit one block's shared memory
-    (`_build.SMEM_LIMIT`), else "gm" where `gm_bands` gives a plan and
-    "gm1" past it."""
+def gm_plan(Nx, Ny):
+    """K-gm's plan for a grid: (bands, strip, cols), of the strip shapes of
+    `GM_SHAPES` whose `gm_bands` exist, the fewest cells a thread (strip x
+    cols), then the fewest bands, then the fewest columns; so where strips
+    of GM_STRIP rows and one column fit, that first plan. None past
+    K-gm's capacity."""
+    for cells in sorted({a * b for a, b in GM_SHAPES}):
+        plans = [(bands, strip, cols) for strip, cols in GM_SHAPES if strip * cols == cells
+                 for bands in [gm_bands(Nx, Ny, strip, cols)] if bands]
+        if plans:
+            return min(plans, key=lambda p: (len(p[0]), p[2]))
+    return None
+
+
+def route(Nx, Ny, batch=None):
+    """Which kernel K takes a grid of a batch of `batch` members (not
+    given: a small batch): "templated" at `_build.GRIDS`; "cl" past
+    BAND_CELLS cells where a cluster takes it (`cl_shape`); where the two
+    fw tiles fit one block's shared memory (`_build.SMEM_LIMIT`) "rt1" on
+    up to RT1_CELLS cells while the batch holds up to RT1_BATCH_CELLS,
+    else "rt" where `rt_plan` gives a plan, else "rt1"; past that "gm"
+    where `gm_plan` gives a plan and "gm1" past it."""
     check_grid(Nx, Ny)
     if (Nx, Ny) in _build.GRIDS:
         return "templated"
-    if Nx * Ny <= BAND_CELLS:
-        return "rt"
-    if cl_shape(Nx, Ny):
+    if Nx * Ny > BAND_CELLS and cl_shape(Nx, Ny):
         return "cl"
     if smem_bytes(Nx, Ny) <= _build.SMEM_LIMIT:
-        return "rt"
-    return "gm" if gm_bands(Nx, Ny) else "gm1"
+        small = Nx * Ny <= RT1_CELLS and (batch or 1) * Nx * Ny <= RT1_BATCH_CELLS
+        return "rt" if not small and rt_plan(Nx, Ny) else "rt1"
+    return "gm" if gm_plan(Nx, Ny) else "gm1"
 
 
 def transport_substeps_torch(s, Fx, Fy, q, dts_pv, n_sub, fluid):
@@ -135,20 +253,17 @@ def transport_substeps_torch(s, Fx, Fy, q, dts_pv, n_sub, fluid):
 def transport_substeps_cuda(s, Fx, Fy, q, dts_pv, n_sub, fluid, force=None):
     """The hand kernel. Same arguments as the plain version, float32 on one
     CUDA device; a `q` with one member is read by every member in place.
-    The grid's `route` picks the templated kernel, the runtime-grid
-    variant, K-cl, K-gm or K-gm1; `force` (one of `ROUTES`) picks one at
-    any grid (the templated kernel only at `_build.GRIDS`, K-cl where
-    `cl_shape` gives a cluster, K-gm where `gm_bands` gives bands)."""
+    The grid's `route` picks the body; `force` (one of `ROUTES`) picks one
+    at any grid (the templated kernel only at `_build.GRIDS`, K-rt where
+    `rt_plan`, K-cl where `cl_shape` and K-gm where `gm_plan` give a plan)."""
     B, Nx, Ny = s.shape
     if force not in (None, *ROUTES):
         raise ValueError(f"force must be one of {ROUTES} or None, got {force!r}")
-    rt = route(Nx, Ny) if force is None else force
-    band = cl_shape(Nx, Ny) if rt == "cl" else None
-    if rt == "cl" and band is None:
-        raise ValueError(f"transport kernel: no cluster takes a {Nx}x{Ny} grid")
-    bands = gm_bands(Nx, Ny) if rt == "gm" else None
-    if rt == "gm" and bands is None:
-        raise ValueError(f"transport kernel: no band plan of K-gm takes a {Nx}x{Ny} grid")
+    rt = route(Nx, Ny, B) if force is None else force
+    plan = {"rt": rt_plan, "cl": cl_shape, "gm": gm_plan}.get(rt, lambda Nx, Ny: ())(Nx, Ny)
+    if plan is None:
+        what = {"rt": "no strip plan of K-rt", "cl": "no cluster", "gm": "no band plan of K-gm"}
+        raise ValueError(f"transport kernel: {what[rt]} takes a {Nx}x{Ny} grid")
     shapes = {"s": (s, (B, Nx, Ny)), "Fx": (Fx, (B, Nx + 1, Ny)),
               "Fy": (Fy, (B, Nx, Ny + 1)), "q": (q, (1 if q.shape[0] == 1 else B, Nx, Ny)),
               "dts_pv": (dts_pv, (B,))}
@@ -168,19 +283,23 @@ def transport_substeps_cuda(s, Fx, Fy, q, dts_pv, n_sub, fluid, force=None):
             dts_pv.data_ptr(), n_sub.data_ptr(), out.data_ptr())
     tail = (B, Nx, Ny, vw, vo, swc, sor, _build.stream_ptr(s.device))
     if rt == "gm":  # each band's edge rows in two slots, and the substeps it published
+        bands, strip, cols = plan
         G = len(bands)
+        threads = gm_threads(Ny, max(h for _, h in bands), strip, cols)
         halo = torch.empty(B * G * 4 * Ny, dtype=torch.float32, device=s.device)
         flags = torch.zeros(B * G, dtype=torch.int32, device=s.device)
-        code = _build.lib().hm_transport_substeps_gm(
+        code = _build.transport_gm_lib(strip, cols, threads).hm_transport_substeps_gm(
             *args, halo.data_ptr(), flags.data_ptr(), B, Nx, Ny, G, *tail[3:])
     elif rt == "gm1":
         ws = torch.empty(B * smem_bytes(Nx, Ny) // 4, dtype=torch.float32, device=s.device)
         code = _build.lib().hm_transport_substeps_gm1(*args, ws.data_ptr(), *tail)
     elif rt == "cl":
-        code = _build.transport_cl_lib(Nx, Ny, *band).hm_transport_substeps_cl(*args, *tail)
+        code = _build.transport_cl_lib(Nx, Ny, *plan).hm_transport_substeps_cl(*args, *tail)
+    elif rt == "rt":
+        code = _build.transport_rt_lib(Nx, Ny, *plan).hm_transport_substeps_rt(*args, *tail)
     else:
         lib = _build.lib()
-        fn = lib.hm_transport_substeps_rt if rt == "rt" else lib.hm_transport_substeps
+        fn = lib.hm_transport_substeps_rt1 if rt == "rt1" else lib.hm_transport_substeps
         code = fn(*args, *tail)
     _build.check(code, NAMES[rt])
     _build.LAUNCHES[NAMES[rt]] += 1

@@ -62,21 +62,24 @@ def _route(kernel, Nx, Ny, unit_diag=True):
     return pressure.route(Nx, Ny, unit_diag) if kernel == "pressure" else transport.route(Nx, Ny)
 
 
-def _shared_route(kernel):
-    return "smem" if kernel == "pressure" else "rt"
+def _shared_route(kernel, Nx, Ny):
+    if kernel == "pressure":
+        return "smem"
+    return "rt" if Nx * Ny > transport.RT1_CELLS else "rt1"
 
 
 @pytest.mark.parametrize("kernel", ["pressure", "transport"])
 @pytest.mark.parametrize("Nx,Ny", [(24, 24), (64, 32), (128, 128)])
 def test_uninstantiated_grid_raises(kernel, Nx, Ny):
     """A grid outside `GRIDS` takes the shared-memory route where its layout
-    fits one block (P's per-grid library; K's runtime-grid variant up to
-    4,096 cells) and a thread-block cluster a member where it does not (P
+    fits one block (P's per-grid library; K's strip body built for the
+    grid, K-rt, up to 4,096 cells, or the runtime-grid body on up to
+    1,024) and a thread-block cluster a member where it does not (P
     at 128x128 needs 458,528 bytes, K has 16,384 cells); on either route
     the wrapper gets past its grid check to the CPU tensors' refusal."""
     need = _need(kernel, Nx, Ny)
     big = need > SMEM_LIMIT or (kernel == "transport" and Nx * Ny > transport.BAND_CELLS)
-    assert _route(kernel, Nx, Ny) == ("cl" if big else _shared_route(kernel))
+    assert _route(kernel, Nx, Ny) == ("cl" if big else _shared_route(kernel, Nx, Ny))
     with pytest.raises(ValueError, match="need float32 CUDA"):
         _call(kernel, Nx, Ny)
 
@@ -86,24 +89,25 @@ def test_uninstantiated_grid_raises(kernel, Nx, Ny):
     ("pressure", 80, 80, False, 231_872, "smem"),
     ("pressure", 96, 64, False, None, "smem"),
     ("transport", 171, 171, True, 233_928, "gm"),
-    ("transport", 8, 3632, True, 232_448, "rt"),
+    ("transport", 8, 3632, True, 232_448, "rt1"),
 ])
 def test_shared_memory_limit(kernel, Nx, Ny, unit_diag, need, expect):
     """At and around the 232,448 bytes one block may take: the byte counts
     of the layouts, the route they choose (a layout at the limit still
     fits; past it a cluster where one holds the grid, else device memory:
     no power of two splits 171 rows, and 8 rows of 3,632 cells leave no
-    band of 4,096 cells a block can hold), and a forced device-memory
-    route, which every grid takes (P: P-gm1, and P-gm where `gm_plan` cuts
-    the grid; K: K-gm1, and K-gm where `gm_bands` splits the grid; 3,632
-    columns exceed one block's row)."""
+    band of 4,096 cells a block can hold; its row of 3,632 cells exceeds a
+    block of the strip body, so K-rt1, the runtime-grid body, takes it),
+    and a forced device-memory route, which every grid takes (P: P-gm1, and
+    P-gm where `gm_plan` cuts the grid; K: K-gm1, and K-gm where its
+    `gm_plan` splits the grid; a band of 3,632 columns exceeds a block)."""
     got = _need(kernel, Nx, Ny, unit_diag)
     if need is not None:
         assert got == need
-    assert (got <= SMEM_LIMIT) == (expect in ("smem", "rt"))
+    assert (got <= SMEM_LIMIT) == (expect in ("smem", "rt", "rt1"))
     assert _route(kernel, Nx, Ny, unit_diag) == expect
     forces = (None, "gm1", *(("gm",) if pressure.gm_plan(Nx, Ny, unit_diag) else ())) if (
-        kernel == "pressure") else (None, "gm1", *(("gm",) if transport.gm_bands(Nx, Ny) else ()))
+        kernel == "pressure") else (None, "gm1", *(("gm",) if transport.gm_plan(Nx, Ny) else ()))
     for force in forces:
         with pytest.raises(ValueError, match="need float32 CUDA"):
             _call(kernel, Nx, Ny, unit_diag, force=force)

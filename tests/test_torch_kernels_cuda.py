@@ -157,11 +157,16 @@ def test_pressure_unscaled_kernel_matches_plain(dev, Nx, Ny, smoother):
 
 
 @pytest.mark.parametrize("Nx,Ny", [(15, 15), (12, 9), (10, 10), (12, 12), (24, 16), (80, 80),
-                                   (64, 64), (5, 3)])
+                                   (64, 64), (5, 3), (60, 60), (75, 75), (97, 97), (3, 500),
+                                   (25, 150)])
 def test_transport_runtime_grid_matches_plain(dev, Nx, Ny):
-    """K's runtime-grid variant does the plain version's float32 operations
-    in its order, so it agrees bit for bit, at grids outside `GRIDS`,
-    forced (80x80's route is K-cl, 64x64's the templated K)."""
+    """K-rt, the strip body built for a grid outside `GRIDS` (strips of 4
+    rows with short last strips at 15x15, 10x10 and 5x3; of 7 rows with the
+    faces in shared memory at 80x80, 6 at 75x75, 11 at 97x97; of 5 rows,
+    faces in registers, at 25x150), does the
+    plain version's float32 operations in its order, so it agrees bit for
+    bit, on its route and forced (80x80's route is K-cl, 64x64's the
+    templated K)."""
     g = torch.Generator(device=dev).manual_seed(5)
     B = 16
     s = torch.rand(B, Nx, Ny, generator=g, device=dev)
@@ -180,6 +185,41 @@ def test_transport_runtime_grid_matches_plain(dev, Nx, Ny):
     assert _build.LAUNCHES["transport_upwind_rt"] == before + 1
     ref = transport_substeps_torch(s, Fx, Fy, q, dts_pv, n_sub, fluid)
     assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("Nx,Ny,force", [(8, 3632, None), (150, 150, None), (15, 15, "rt1"),
+                                         (80, 80, "rt1"), (64, 64, "rt1")])
+def test_transport_rt1_matches_plain(dev, Nx, Ny, force):
+    """K-rt1, the runtime-grid body, on its route where no strip plan fits
+    (a row of 3,632 cells; 22,500 cells that no cluster takes) and forced
+    where K-rt, K-cl or the templated K take the grid: bit for bit."""
+    args = _transport_inputs(dev, Nx, Ny, 5)
+    assert transport_route(Nx, Ny) == "rt1" or force == "rt1"
+    before = _build.LAUNCHES["transport_upwind_rt1"]
+    out = transport_substeps_cuda(*args, force=force)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["transport_upwind_rt1"] == before + 1
+    assert torch.equal(out, transport_substeps_torch(*args))
+
+
+def test_transport_rt_refuses_what_it_does_not_take(dev):
+    """K-rt forced where no strip plan fits raises before any launch; a
+    grid's library refuses another grid (its launch returns an error, the
+    wrapper raises); neither counts a launch."""
+    from historymatching_tpu_torch.ops import transport
+
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError, match="no strip plan"):
+        transport_substeps_cuda(*_transport_inputs(dev, 8, 3632, 5, B=2), force="rt")
+    lib = _build.transport_rt_lib(15, 15, *transport.rt_plan(15, 15))
+    s, Fx, Fy, q, dts_pv, n_sub, _ = _transport_inputs(dev, 12, 12, 5, B=2)
+    out = torch.empty_like(s)
+    code = lib.hm_transport_substeps_rt(s.data_ptr(), Fx.data_ptr(), Fy.data_ptr(), q.data_ptr(),
+                                        144, dts_pv.data_ptr(), n_sub.data_ptr(), out.data_ptr(),
+                                        2, 12, 12, 1.0, 1.0, 0.0, 0.0, _build.stream_ptr(dev))
+    with pytest.raises(RuntimeError, match="transport_upwind_rt: CUDA error"):
+        _build.check(code, "transport_upwind_rt")
+    assert _build.LAUNCHES == before
 
 
 def test_failed_coarse_member_on_the_card(dev):
@@ -312,7 +352,13 @@ def test_new_kernel_resources(dev, Nx, Ny):
         p = _build.kernel_info(name, Nx, Ny)
         assert p["shared_bytes"] == smem_bytes(Nx, Ny, n_levels(Nx, Ny), unit)
         assert p["blocks_per_sm"] >= 1
+    from historymatching_tpu_torch.ops.transport import rt_bytes, rt_plan, rt_threads
+
     k = _build.kernel_info("transport_upwind_rt", Nx, Ny)
+    plan = rt_plan(Nx, Ny)
+    assert k["shared_bytes"] == rt_bytes(Nx, Ny, *plan) and k["blocks_per_sm"] >= 1, k
+    assert k["threads"] == rt_threads(Nx, Ny, plan[0]) and k["local_bytes"] == 0, k
+    k = _build.kernel_info("transport_upwind_rt1", Nx, Ny)
     assert k["shared_bytes"] == 2 * 4 * Nx * Ny and k["blocks_per_sm"] >= 1
 
 
@@ -434,24 +480,89 @@ def test_transport_gm_refused_launch_raises(dev, monkeypatch):
     from historymatching_tpu_torch.ops import transport
 
     Nx, Ny = 133, 1024
-    monkeypatch.setattr(transport, "gm_bands", lambda Nx, Ny: [(i, 1) for i in range(Nx)])
+    monkeypatch.setattr(transport, "gm_bands",
+                        lambda Nx, Ny, strip=4, cols=1: [(i, 1) for i in range(Nx)])
     before = _build.LAUNCHES["transport_upwind_gm"]
     with pytest.raises(RuntimeError, match="transport_upwind_gm: CUDA error"):
         transport_substeps_cuda(*_transport_inputs(dev, Nx, Ny, 7, B=2), force="gm")
     assert _build.LAUNCHES["transport_upwind_gm"] == before
 
 
-@pytest.mark.parametrize("Nx,Ny,force", [(32, 1088, None), (171, 171, "gm1"), (64, 64, "gm1")])
+@pytest.mark.parametrize("Nx,Ny,force", [(8, 5000, None), (32, 1088, "gm1"), (171, 171, "gm1"),
+                                         (64, 64, "gm1")])
 def test_transport_gm1_matches_plain(dev, Nx, Ny, force):
     """K-gm1, one block a member with its fw tiles in device memory, on its
-    route past K-gm's capacity (1,088 columns exceed one block's row) and
-    forced at 171x171 and 64x64: bit for bit."""
+    route past K-gm's capacity (a band of 4 rows of 5,000 cells exceeds a
+    block) and forced at 32x1088 (K-gm's since its plans widened), 171x171
+    and 64x64: bit for bit."""
     args = _transport_inputs(dev, Nx, Ny, 7)
     before = _build.LAUNCHES["transport_upwind_gm1"]
     out = transport_substeps_cuda(*args, force=force)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["transport_upwind_gm1"] == before + 1
     assert torch.equal(out, transport_substeps_torch(*args))
+
+
+# K-gm's widened plans (`gm_plan`): grids past the first plan's capacity.
+WIDE_GM = [(32, 1088, 4), (600, 600, 2), (1057, 440, 2), (1000, 1000, 1), (33, 1025, 2),
+           (2112, 440, 1), (1320, 700, 1)]
+
+
+@pytest.mark.parametrize("Nx,Ny,B", WIDE_GM)
+def test_transport_gm_wide_matches_plain(dev, Nx, Ny, B):
+    """K-gm on its widened plans, on its route: 32x1088 (8 bands of 4 rows,
+    strips of 4 rows and 2 columns a thread), 600x600 (120 bands, strips of
+    5 rows), 1057x440 (106 bands of 10 rows, strips of 5), 1000x1000 (125
+    bands of 8 rows, strips of 4 rows and 2 columns), 33x1025 (the last
+    column group one column), 2112x440 (132 bands of 16 rows, strips of 8)
+    and 1320x700 (132 bands of 10 rows, strips of 5 rows and 2 columns):
+    bit for bit, a shared source field too; one launch each."""
+    from historymatching_tpu_torch.ops.transport import gm_plan
+
+    assert transport_route(Nx, Ny) == "gm" and gm_plan(Nx, Ny)[1:] != (4, 1)
+    s, Fx, Fy, q, dts_pv, n_sub, fluid = _transport_inputs(dev, Nx, Ny, 9, B)
+    n_sub.clamp_(max=40)
+    before = _build.LAUNCHES["transport_upwind_gm"]
+    out = transport_substeps_cuda(s, Fx, Fy, q, dts_pv, n_sub, fluid)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["transport_upwind_gm"] == before + 1
+    assert torch.equal(out, transport_substeps_torch(s, Fx, Fy, q, dts_pv, n_sub, fluid))
+    q1 = q[:1].contiguous()
+    assert torch.equal(transport_substeps_cuda(s, Fx, Fy, q1, dts_pv, n_sub, fluid),
+                       transport_substeps_torch(s, Fx, Fy, q1, dts_pv, n_sub, fluid))
+
+
+@pytest.mark.parametrize("Nx,Ny", [(15, 15), (12, 9), (10, 10), (12, 12), (24, 16), (80, 80),
+                                   (60, 60), (75, 75), (97, 97), (3, 500), (64, 64), (25, 150)])
+def test_rt_kernel_resources(dev, Nx, Ny):
+    """Every K-rt instantiation: its plan's threads and bytes (`rt_bytes`),
+    no spills (the register model `RT_REGS` holds), a block resident on an
+    SM."""
+    from historymatching_tpu_torch.ops.transport import rt_bytes, rt_plan, rt_threads
+
+    k = _build.kernel_info("transport_upwind_rt", Nx, Ny)
+    plan = rt_plan(Nx, Ny)
+    print(f"K-rt {Nx}x{Ny} {plan}: {k}")
+    assert (k["strip"], k["faces"]) == plan
+    assert k["threads"] == rt_threads(Nx, Ny, plan[0]) and k["local_bytes"] == 0, k
+    assert k["shared_bytes"] == rt_bytes(Nx, Ny, *plan) and k["blocks_per_sm"] >= 1, k
+
+
+@pytest.mark.parametrize("Nx,Ny,B", WIDE_GM)
+def test_gm_wide_kernel_resources(dev, Nx, Ny, B):
+    """Every widened K-gm instantiation: its plan's threads and bytes
+    (`gm_threads`, `gm_bytes`), no spills (the register model `GM_REGS`
+    holds), its bands and at least one member in flight."""
+    from historymatching_tpu_torch.ops.transport import gm_bytes, gm_plan, gm_threads
+
+    bands, strip, cols = gm_plan(Nx, Ny)
+    rows = max(h for _, h in bands)
+    k = _build.kernel_info("transport_upwind_gm", Nx, Ny)
+    print(f"K-gm {Nx}x{Ny} strip {strip} cols {cols}: {k}")
+    assert (k["strip"], k["cols"], k["bands"]) == (strip, cols, len(bands)), k
+    assert k["local_bytes"] == 0 and k["groups_resident"] >= 1, k
+    assert k["threads"] == gm_threads(Ny, rows, strip, cols), k
+    assert k["shared_bytes"] == gm_bytes(Ny, rows, strip, cols), k
 
 
 @pytest.mark.parametrize("Nx,Ny", [(64, 64), (128, 128), (60, 220), (256, 256), (120, 440)])
@@ -464,7 +575,7 @@ def test_gm_kernel_resources(dev, Nx, Ny):
     (not 256x256): its bytes a block as `gm_layout` counts them, its
     blocks a member, no spills, and at least one member in flight."""
     from historymatching_tpu_torch.ops.pressure import gm_bytes, gm_plan
-    from historymatching_tpu_torch.ops.transport import gm_bands
+    from historymatching_tpu_torch.ops.transport import gm_plan as k_gm_plan
 
     for name in ("pressure_pcg_gm1", "pressure_pcg_cheb_gm1", "pressure_pcg_diag_gm1",
                  "pressure_pcg_cheb_diag_gm1", "transport_upwind_gm1"):
@@ -481,7 +592,7 @@ def test_gm_kernel_resources(dev, Nx, Ny):
         assert p["shared_bytes"] == gm_bytes(Nx, Ny, n_levels(Nx, Ny), *plan, unit), p
         assert p["local_bytes"] == 0 and p["blocks"] == plan[0] and p["groups_resident"] >= 1, p
     k = _build.kernel_info("transport_upwind_gm", Nx, Ny)
-    bands = gm_bands(Nx, Ny)
+    bands = k_gm_plan(Nx, Ny)[0]
     rows = max(h for _, h in bands)
     print(f"K-gm {Nx}x{Ny}: {k}")
     assert k["local_bytes"] == 0 and k["blocks_per_sm"] >= 1, k
