@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
 """Time each route of kernels P and K against the others on one NVIDIA GPU.
 
-    python3 bench_routes.py [--out FILE] [--kernel P|K] [--grids 15x15,60x60,...]
+    python3 bench_routes.py [--out FILE] [--kernel P|K|gm1] [--grids 15x15,60x60,...]
+                            [--root DIR]
 
 The evidence behind `ops/pressure.route` and `ops/transport.route` past one
 block: P-cl (a thread-block cluster a member, on the grid's `cl_plan`)
 against P-gm (a member over co-resident blocks, on the grid's `gm_plan`)
-and P-gm1 (one block a member, its arrays in device memory), and where
+and P-gm1 (one block a member, its coarse levels and fine faces in
+shared memory, the rest in device memory, its inverse streamed through a
+ring of bulk copies), and where
 that plan distributes the coarsest inverse over the ranks (P-cl/d: 100x100,
 60x220) also against the plan that reads it in place from device memory on
 two ranks ("cl_device"); P-gm against P-gm1 at 120x440 (no cluster holds
-it) at N=16, 64 and 1000; K-cl
+it) at N=16, 64 and 1000, with ladders at the scaled 100x100 (N=128-512),
+120x440 (N=16-256) and 60x220 (N=128-512); K-cl
 against K's runtime-grid variant and K-gm (a member over co-resident
 blocks a band of rows); on `chip_smoke.py` [23]'s grids and its kind of
 inputs (the flagship geometry, a prior drawn for each grid from seed 1 +
@@ -30,10 +34,21 @@ milliseconds a launch (CUDA events, the mean of `--reps` after a warm-up),
 P's iteration median and maximum (a launch lasts as long as its slowest
 member), P's bound (`chip_smoke.pressure_bound_ms` on that run's
 iterations) and, for a variant that reads the inverse from device memory
-every V-cycle, the floor that reading sets (its bytes an iteration of each
-member at the card's memory rate). The card's name and power limit come
+every V-cycle (P-gm1, the in-place plan), the floor that reading sets
+(`chip_smoke.inverse_floor_ms`: its bytes once a V-cycle of each member at
+the card's memory rate) and its share of the time, and P-gm1's plan. The
+card's name and power limit come
 first; `--out` writes the rows as JSON; `--grids` keeps the rows of those
 grids only. Raises without CUDA.
+
+`--kernel gm1` times P-gm1's own choices instead (`gm1_row`, GM1_CASES):
+its route's plan (`ops/pressure.gm1_plan`) and a whole block's, with the
+coarsest inverse streamed through the ring or read by plain loads (the
+ring's control, `_build.pressure_gm1_loads_lib`), at fixed work, p bit for
+bit the same across them; and the route's plan at the bench settings. `--root DIR` times the package and `chip_smoke.py` of another
+checkout (an unpacked `git archive` of an earlier commit) on this file's
+cases, each variant that checkout has: to compare two commits in one call,
+run parent, change, change, parent.
 """
 
 import argparse
@@ -42,7 +57,13 @@ import os
 import subprocess
 import sys
 
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+# the checkout whose package and chip_smoke.py are timed: this one, or --root
+HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = HERE
+if "--root" in sys.argv[:-1]:
+    ROOT = os.path.abspath(sys.argv[sys.argv.index("--root") + 1])
+    sys.path[:] = [p for p in sys.path if os.path.abspath(p or ".") != HERE]
+sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
 
@@ -69,7 +90,19 @@ K_WIDE_ROWS = {(32, 1088): ("mg", K_LADDER), (600, 600): ("jacobi", K_LADDER),
 # `GM_BATCH_MAX`), timed at these batches too, between the two of MEMBERS
 # (120x440 also at [23]'s N=16).
 LADDER = {((100, 100), True): (128, 192, 256, 512), ((120, 440), True): (16, 96, 128, 192),
-          ((120, 440), False): (16, 96, 128, 192, 256)}
+          ((120, 440), False): (16, 96, 128, 192, 256), ((60, 220), True): (128, 256, 512)}
+# P-gm1's choices (`--kernel gm1`): (grid, batch), on [23]'s kind of inputs
+# (the scaled system, Jacobi): its routes at N=1000, past and within one
+# wave of 132 members (one block an SM) at 120x440 and 100x100, and [23]'s
+# 32x1088 path. Fixed work: 64 iterations in windows of 8, so 72 V-cycles a
+# member.
+GM1_CASES = [((100, 100), 1000), ((60, 220), 1000), ((120, 440), 1000), ((120, 440), 264),
+             ((120, 440), 128), ((100, 100), 128), ((100, 100), 64), ((32, 1088), 4)]
+GM1_FIXED = dict(tol=0.0, maxiter=64, restart_every=8, patience_iters=100_000)
+# The plan of a whole block timed beside the route's (`ops/pressure.gm1_plan`'s
+# shared bytes at most, ring held back and least stage): 227 KB, two stages
+# of at least 64 KB.
+GM1_WHOLE_BLOCK = (232_448, 131_072, 65_536)
 
 
 def p_row(Nx, Ny, unit, n_members, reps, variants=None):
@@ -106,8 +139,58 @@ def p_row(Nx, Ny, unit, n_members, reps, variants=None):
             fine_flops=cs.P_FLOPS_FINE + (0 if unit else cs.P_FLOPS_DIAG))[0]
         if kw.get("force") == "gm1" or kw.get("plan", (0, ""))[1] == "device":
             # the inverse read every V-cycle
-            row[f"{tag}_inverse_floor_ms"] = (1e3 * 4 * args[1][0].numel()
-                                              * float(it.double().sum()) / cs.HBM_BYTES)
+            row[f"{tag}_inverse_floor_ms"] = cs.inverse_floor_ms(args[1], it)
+            row[f"{tag}_floor_share"] = row[f"{tag}_inverse_floor_ms"] / row[f"{tag}_ms"]
+        if kw.get("force") == "gm1":
+            row["gm1_plan"] = cs.gm1_said(Nx, Ny, unit)[0]
+    return row
+
+
+def gm1_row(Nx, Ny, n_members, reps):
+    """P-gm1 at a grid and batch: at fixed work (GM1_FIXED) its route's plan
+    ("plan") and a whole block's (GM1_WHOLE_BLOCK, "block"), each with its
+    inverse read through the ring ("ring") or by plain loads ("loads"),
+    every p equal bit for bit; then the route's plan at the bench settings,
+    with its iterations and the inverse's floor. A checkout without these
+    choices (`--root`) times its P-gm1 as it runs ("route")."""
+    import inspect
+
+    import torch
+
+    import historymatching_tpu_torch as ht
+    from historymatching_tpu_torch.models.ressim import _source_field
+    from historymatching_tpu_torch.ops import pressure
+    from historymatching_tpu_torch.ops.pressure import pressure_solve_cuda
+    from historymatching_tpu_torch.parallel.runner import set_perm
+
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 23)
+    m = cs.grid_model(torch, Nx, Ny)
+    pre = ht.sample_prior_perm(gen, m, n_members, r=0.8)
+    qf = _source_field(m, m.inj_rates[:, 0], m.prd_rates[:, 0])
+    args = cs.p_system(set_perm(m, pre), qf, True)
+    row = dict(kernel="P-gm1", grid=f"{Nx}x{Ny}", N=n_members, root=ROOT)
+    variants = {"route": dict(force="gm1")}
+    if "inverse_loads" in inspect.signature(pressure_solve_cuda).parameters:
+        plans = dict(plan=pressure.gm1_plan(Nx, Ny),
+                     block=pressure.gm1_plan(Nx, Ny, True, *GM1_WHOLE_BLOCK))
+        variants = {f"{tag}_{'loads' if ld else 'ring'}": dict(plan=plan, inverse_loads=ld)
+                    for tag, plan in plans.items() for ld in (False, True)}
+        row["plans"] = {tag: cs.gm1_said(Nx, Ny, True, plan)[0] for tag, plan in plans.items()}
+    first = None
+    for tag, kw in variants.items():
+        solve = lambda: pressure_solve_cuda(*args, **GM1_FIXED, **kw)  # noqa: E731
+        p = solve()[0]
+        first = p if first is None else first
+        assert torch.equal(p, first), (Nx, Ny, n_members, tag)
+        row[f"{tag}_ms"] = cs.cuda_ms(solve, reps)
+    bench = {k: cs.BASE[k] for k in cs.SOLVE_KEYS}
+    solve = lambda: pressure_solve_cuda(*args, **bench, force="gm1")  # noqa: E731
+    _, it, _ = solve()
+    row["bench_ms"] = cs.cuda_ms(solve, reps)
+    row["bench_iters"] = (int(it.median()), int(it.max()))
+    if len(variants) > 1:
+        row["bench_inverse_floor_ms"] = cs.inverse_floor_ms(args[1], it)
+        row["bench_floor_share"] = row["bench_inverse_floor_ms"] / row["bench_ms"]
     return row
 
 
@@ -188,10 +271,13 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out", default="")
-    ap.add_argument("--kernel", choices=("P", "K"), default=None,
-                    help="time one kernel's routes only (default: both)")
+    ap.add_argument("--kernel", choices=("P", "K", "gm1"), default=None,
+                    help="time one kernel's routes only (default: P's and K's), or P-gm1's "
+                         "choices")
     ap.add_argument("--grids", default="",
                     help="comma-separated NXxNY: time the rows of these grids only")
+    ap.add_argument("--root", default=ROOT,
+                    help="the checkout whose package and chip_smoke.py to time")
     opts = ap.parse_args(argv)
     keep = {tuple(map(int, g.split("x"))) for g in opts.grids.split(",") if g}
     do_p, do_k = opts.kernel in (None, "P"), opts.kernel in (None, "K")
@@ -203,14 +289,20 @@ def main(argv=None):
         raise RuntimeError("bench_routes.py runs on a CUDA device only")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
+    rows = []
+    if opts.kernel == "gm1":
+        for (Nx, Ny), n_members in GM1_CASES:
+            if not keep or (Nx, Ny) in keep:
+                rows.append(gm1_row(Nx, Ny, n_members, opts.reps))
+                print(json.dumps(rows[-1]), flush=True)
     kept = lambda gs: [g for g in gs if not keep or g in keep]  # noqa: E731
     p_grids = kept(g for g, _ in P_CASES) if do_p else []
     k_grids = kept(K_GRIDS + K_RT_ROWS + list(K_WIDE_ROWS)) if do_k else []
     plans = {(*g, *kw["plan"]) for g, unit in P_CASES if g in p_grids
              for kw in p_variants(*g, unit).values() if "plan" in kw}
-    _build.prebuild(cl_grids=sorted(set(p_grids) | set(k_grids)), cl_plans=plans,
-                    gm_grids=p_grids, k_grids=k_grids)
-    rows = []
+    if p_grids or k_grids:
+        _build.prebuild(cl_grids=sorted(set(p_grids) | set(k_grids)), cl_plans=plans,
+                        gm_grids=p_grids, k_grids=k_grids)
 
     def emit(row_fn, Nx, Ny, *args):
         if keep and (Nx, Ny) not in keep:

@@ -97,13 +97,16 @@ Phases, one printed line or more each; any failed check raises:
     their shared memory) and K-gm at 120x440 (a 60x220 layer refined 2x2,
     past any cluster; N=16), where each P-gm instantiation is then held to
     its plain version and timed with its bound, its plain version and P-gm1
-    (one block a member, its arrays in device memory) beside it, with its
+    (one block a member, its coarse levels in shared memory, the rest in
+    device memory, its inverse streamed through a ring of bulk copies)
+    beside it, with its
     registers, spills, blocks and members in flight, and K-gm beside K-gm1
     (one block a member, its fw tiles in device memory); `simulate` at
     32x1088 (N=4), past P-gm's capacity and K-gm's first plan (a row wider
     than a block), through each P-gm1 instantiation and K-gm on its widened
     plan (strips of 4 rows and 2 columns a thread), then K-gm timed on its
-    step 6 beside K-gm1 and P-gm1 on the first step's system; `simulate` at
+    step 6 beside K-gm1 and P-gm1 on the first step's system (with its plan
+    and its inverse's floor); `simulate` at
     4x1100 through K-rt1 (a row wider than a block of the strip body) and
     at 5x6000 through K-gm1 (past K-gm's capacity), N=4, each timed on its
     step 6; P-gm1, K-gm and K-gm1 forced at 64x64 on [6]'s inputs beside
@@ -121,11 +124,11 @@ Phases, one printed line or more each; any failed check raises:
     P-gm1, K-rt1 and K-gm, all forced;
     24b. the bench case's geometry at P-cl/d's grids, a 60x220 layer of
     SPE10 model 2 and 100x100 (`parity.build_case(seed=1, N=1000, Nx, Ny)`):
-    5 steps of the first pass through `forward_model` and P's route (P-cl/d
-    at 60x220, P-gm1 at 100x100 for 1000 members), P's device time a step;
-    on the first step P-cl/d and P-gm1 (and at 100x100 P-gm) forced, held
-    to the plain version after one window and timed side by side with their
-    bounds;
+    5 steps of the first pass through `forward_model` and P's route (P-gm1
+    at both for 1000 members), P's device time a step; on the first step
+    P-cl/d and P-gm1 (and at 100x100 P-gm) forced, held to the plain
+    version after one window and timed side by side with their bounds,
+    P-gm1 with its plan and its inverse's floor;
 25. on a world of one over NCCL (`parallel.mesh`): `forward_model(mesh=)`
     on a member-sharded prior, 64x64, N=128, 5 steps, bit for bit against
     the run without a mesh; then [5]'s flagship ES-MDA (N=1000, 64x64, 40
@@ -203,9 +206,9 @@ LARGE_GRIDS = ((60, 60), (88, 88), (96, 96), (100, 100), (128, 128), (60, 220), 
 LARGE_N, BIG, MESH_N, MESH_STEPS = 64, (128, 128), 128, 5
 P_GM = tuple((smoother, unit) for unit in (True, False) for smoother in ("jacobi", "cheb"))
 # (grid, scaled system) whose P route is the device-memory one (P-gm1) past
-# a batch, and the batch (`ops/pressure.route`): P-cl/d keeps 9 members in
+# a batch, and the batch (`ops/pressure.route`): P-cl/d keeps 7-9 members in
 # flight there.
-P_GM_PAST = {(100, 100, True): 192}
+P_GM_PAST = {(100, 100, True): 192, (60, 220, True): 256}
 # [24b]: the bench case's geometry on P-cl/d's grids, a 60x220 layer of
 # SPE10 model 2 and 100x100, N=1000, 5 steps of the first pass.
 LAYER_GRIDS, LAYER_STEPS = ((60, 220), (100, 100)), 5
@@ -326,6 +329,43 @@ def transport_bound_ms(s, Fx, Fy, q, n_sub):
 def bound(flops, nbytes):
     t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def inverse_floor_ms(Ainv, iters, restart_every=8):
+    """Least time of a P launch that reads each member's coarsest inverse
+    from device memory once a V-cycle (P-gm1's ring, P-cl's in-place plan):
+    a V-cycle an iteration and one a restart window, for these members'
+    iterations, at the card's memory rate."""
+    it = iters.double()
+    vcycles = float((it + (it / restart_every).ceil()).sum())
+    return 1e3 * 4 * Ainv[0].numel() * vcycles / HBM_BYTES
+
+
+def gm1_said(Nx, Ny, unit=True, plan=None):
+    """P-gm1's plan at a grid (`ops/pressure.gm1_plan`, or `plan`) for a log
+    line and a record: its shared bytes and the arrays there, the ring, the
+    workspace."""
+    from historymatching_tpu_torch.ops.pressure import gm1_plan
+
+    p = plan or gm1_plan(Nx, Ny, unit)
+    rec = dict(shared_bytes=p.smem_bytes, shared_arrays=sorted(
+        f"{k}{lvl}" for k, lvl in p.shared), ring_stages=p.stages, ring_stage_bytes=4 * p.stage,
+               workspace_bytes=4 * p.ws_floats, threads=p.threads)
+    said = (f"plan: {p.smem_bytes} shared bytes ({', '.join(rec['shared_arrays'])}), ring "
+            f"{p.stages} x {4 * p.stage} bytes, workspace {4 * p.ws_floats} bytes a member")
+    return rec, said
+
+
+def noisy_start(args, seed):
+    """P's arguments `args` with the start p0 replaced by seeded noise, each
+    member's at the scale of its right-hand side's largest entry."""
+    import torch
+
+    q = args[2]
+    g = torch.Generator(device=q.device).manual_seed(seed)
+    p0 = torch.randn(q.shape, generator=g, device=q.device) * q.abs().amax(dim=(-2, -1),
+                                                                         keepdim=True)
+    return (*args[:3], p0, *args[4:])
 
 
 def sync():
@@ -895,7 +935,7 @@ def large_grid_phases(dev, six):
         cl_bytes,
         cl_inverse_rows,
         cl_plan,
-        gm1_bytes,
+        gm1_plan,
         gm_plan,
         kernel_name,
         pressure_solve_cuda,
@@ -968,14 +1008,17 @@ def large_grid_phases(dev, six):
             if plan and plan[1] == "distributed" and cl_plan(Nx, Ny, unit, "device"):
                 runs.append(("cl", cl_plan(Nx, Ny, unit, "device")))
             runs.append(("gm1", None))
-            if (Nx, Ny, True) in P_GM_PAST:
+            if (Nx, Ny) == (100, 100):  # P-gm lost to P-gm1 past P-cl/d's batch
                 runs.append(("gm", None))
             for force, plan_k in runs:
                 name, fig = p_run(tag, systems[unit], smoother, unit, force, plan_k)
+                layer_cl = pressure.route(*LAYER_GRIDS[0], True, N) == "cl"
                 if force == "cl" and plan_k is None and ((Nx, Ny) == BIG or (
-                        (Nx, Ny) == LAYER_GRIDS[0] and (smoother, unit) != ("jacobi", True))):
+                        (Nx, Ny) == LAYER_GRIDS[0]
+                        and ((smoother, unit) != ("jacobi", True) or not layer_cl))):
                     # the plain version, at [24]'s grid and at P-cl/d's path's
-                    # ([24b] times it for the Jacobi instantiation)
+                    # ([24b] times it for the Jacobi instantiation where
+                    # [24b]'s route is P-cl/d)
                     fig["plain_ms"] = cuda_ms(lambda: pressure_solve_torch(
                         *systems[unit], **base1, smoother=smoother, unit_diag=unit), 1)
                 said.append(f"{name}{'' if plan_k is None else ' ' + str(plan_k)} window rel "
@@ -989,7 +1032,7 @@ def large_grid_phases(dev, six):
                                f"rows a rank; {fig['resources']})" if "cluster" in fig else ""))
         log(f"[23] P {tag}, N={LARGE_N}, {levels} levels (coarsest {nc} cells), P layout "
             f"{smem_bytes(Nx, Ny, levels)} shared bytes, P-gm plan {gm_plan(Nx, Ny)}, P-gm1 "
-            f"workspace {gm1_bytes(Nx, Ny, levels)} bytes a member, at bench settings: "
+            f"workspace {4 * gm1_plan(Nx, Ny).ws_floats} bytes a member, at bench settings: "
             + "; ".join(said))
 
         # K on step 6 of a prior run: its own route, the runtime-grid
@@ -1204,9 +1247,11 @@ def gm1_path(figs, gen):
     thread), counted; then K-gm on step 6 of the first run, bit for bit and
     timed with its bound, the plain version and K-gm1 (forced, bit for bit
     too) beside it, and each P-gm1 instantiation on the first step's system
-    (the unscaled one on the prior scaled by MILD), one window against the
-    plain version and a launch at bench settings timed with its bound and
-    the plain version's time. Into `figs`."""
+    (the unscaled one on the prior scaled by MILD), its step over one window
+    against the plain version's (the scaled system from seeded noise, as
+    from 0 no window improves its residual here; every member's plain step
+    nonzero) and a launch at bench settings timed with its bound and the
+    plain version's time. Into `figs`."""
     import torch
 
     import historymatching_tpu_torch as ht
@@ -1263,25 +1308,42 @@ def gm1_path(figs, gen):
             assert bool(torch.isfinite(res_i.wsats).all())
             figs[name][f"launches_simulate_{tag}"] = n_i[name]
         args, kw = systems[unit], dict(smoother=smoother, unit_diag=unit)
-        p_t = pressure_solve_torch(*args, **WINDOW4, **kw)[0]
-        p_k = pressure_solve_cuda(*args, **WINDOW4, **kw)[0]
-        err = rel_err(p_k, p_t)
-        assert bool(torch.isfinite(p_k).all()) and err <= P_TOL, (name, err)
+        # One window, the kernel's step from the start held to the plain
+        # version's. From p0 = 0 no window improves the scaled system's
+        # residual at this grid (P's plateau), so both would return the
+        # start: that system starts from seeded noise. Every member's plain
+        # step is nonzero, so the check cannot pass on the start alone.
+        start = noisy_start(args, SEED + 23) if unit else args
+        p0 = start[3]
+        step_t = pressure_solve_torch(*start, **WINDOW4, **kw)[0] - p0
+        step_k = pressure_solve_cuda(*start, **WINDOW4, **kw)[0] - p0
+        moved = float(step_t.norm(dim=(-2, -1)).min())
+        err = rel_err(step_k, step_t)
+        assert moved > 0 and bool(torch.isfinite(step_k).all()) and err <= P_TOL, (
+            name, moved, err)
         _, it, _ = pressure_solve_cuda(*args, **base1, **kw)
         ms = cuda_ms(lambda: pressure_solve_cuda(*args, **base1, **kw), 3)
         plain_ms = cuda_ms(lambda: pressure_solve_torch(*args, **base1, **kw), 1, warm=False)
         vf = P_FLOPS_VCYCLE_CHEB if smoother == "cheb" else P_FLOPS_VCYCLE
         bnd, by = pressure_bound_ms(args[0], args[1], it, vf,
                                     P_FLOPS_FINE + (0 if unit else P_FLOPS_DIAG))
+        floor = inverse_floor_ms(args[1], it)
+        plan, plan_said = gm1_said(Nx, Ny, unit)
+        used = _build.kernel_info(name, Nx, Ny)
+        assert used["local_bytes"] == 0 and used["shared_bytes"] == plan["shared_bytes"], used
         figs[name]["grids"][tag] = dict(
             ms=ms, bound_ms=bnd, bound_by=by, share_of_bound=bnd / ms, max_rel_err=err,
-            max_abs_err=float((p_k - p_t).abs().max()), plain_ms=plain_ms,
-            iters_median=int(it.median()), resources=_build.kernel_info(name, Nx, Ny))
+            max_abs_err=float((step_k - step_t).abs().max()), plain_ms=plain_ms,
+            start="noise" if unit else "zero", least_step=moved,
+            iters_median=int(it.median()), inverse_floor_ms=floor, share_of_floor=floor / ms,
+            plan=plan, resources=used)
         figs[name]["max_abs_err"] = max(figs[name]["max_abs_err"],
                                         figs[name]["grids"][tag]["max_abs_err"])
-        said.append(f"{name} window rel {err:.2e}, {ms:.3f} ms a launch (iterations median "
-                    f"{int(it.median())}), bound {bnd:.4f} ms ({by}, {bnd / ms:.1%}), plain "
-                    f"{plain_ms:.3f} ms")
+        said.append(f"{name} window from {'noise' if unit else 'zero'} step rel {err:.2e} "
+                    f"(least |plain step| {moved:.3g}), {ms:.3f} ms a launch (iterations median "
+                    f"{int(it.median())}), bound {bnd:.4f} ms ({by}, {bnd / ms:.1%}), inverse "
+                    f"floor {floor:.4f} ms ({floor / ms:.1%}), plain {plain_ms:.3f} ms; "
+                    f"{plan_said}; {used}")
     log(f"[23] P-gm1 on its path at {tag}, N={n}: 5 steps of simulate through each "
         f"instantiation; the first step's system at bench settings: " + "; ".join(said))
     res_gm = _build.kernel_info("transport_upwind_gm", Nx, Ny)
@@ -1515,12 +1577,12 @@ def layer_case_phase():
     """Phase 24b: the reference's bench case (`parity.build_case(seed=1,
     N=1000)`) on P-cl/d's grids, a 60x220 layer of SPE10 model 2 and
     100x100: 5 steps of the first pass through `forward_model` and P's
-    route (P-cl/d at 60x220, P-gm1 at 100x100 past `P_GM_PAST`'s batch),
-    each step one P and one K launch, P's device time a step from a
-    profile; on the first step's system P-cl/d and P-gm1 (and at 100x100
-    P-gm) forced, each held to the plain version after one window and timed
-    at the first pass's settings beside its bound (the plain version's time
-    at 60x220, P-cl/d's path). Returns per grid its figures."""
+    route (P-gm1 at both, past `P_GM_PAST`'s batch), each step one P and
+    one K launch, P's device time a step from a profile; on the first
+    step's system P-cl/d and P-gm1 (and at 100x100 P-gm) forced, each held
+    to the plain version after one window and timed at the first pass's
+    settings beside its bound, and P-gm1's plan and its inverse's floor
+    (the plain version's time at 60x220). Returns per grid its figures."""
     import torch
 
     import historymatching_tpu_torch as ht
@@ -1568,8 +1630,8 @@ def layer_case_phase():
         p_t = pressure_solve_torch(*args, **WINDOW4)[0]
         plan = cl_plan(Nx, Ny)
         figs, said = {}, []
-        # P-gm beside them where the route takes the batch
-        for force in ("cl", "gm1") + (("gm",) if limit else ()):
+        # P-gm beside them at 100x100, where it lost to P-gm1 past P-cl/d's batch
+        for force in ("cl", "gm1") + (("gm",) if (Nx, Ny) == (100, 100) else ()):
             solve = lambda kw: pressure_solve_cuda(*args, **kw, force=force)  # noqa: E731
             p_k = solve(WINDOW4)[0]
             err = rel_err(p_k, p_t)
@@ -1582,10 +1644,16 @@ def layer_case_phase():
                                iters_median=int(it.median()), iters_max=int(it.max()),
                                accepted=int((rl <= 5e-2).sum()))
             who = dict(cl=f"P-cl/d {plan}", gm=f"P-gm {gm_plan(Nx, Ny)}", gm1="P-gm1")[force]
+            extra = ""
+            if force == "gm1":
+                floor = inverse_floor_ms(args[1], it)
+                figs[force]["plan"], plan_said = gm1_said(Nx, Ny)
+                figs[force].update(inverse_floor_ms=floor, share_of_floor=floor / ms)
+                extra = f", inverse floor {floor:.4f} ms ({floor / ms:.1%}); {plan_said}"
             said.append(f"{who} window max rel "
                         f"{err:.2e}, {ms:.3f} ms (iterations median {int(it.median())} max "
                         f"{int(it.max())}, accepted {figs[force]['accepted']}), bound {bnd:.4f} "
-                        f"ms ({by}, {bnd / ms:.1%})")
+                        f"ms ({by}, {bnd / ms:.1%})" + extra)
         if (Nx, Ny) == LAYER_GRIDS[0]:
             figs["cl"]["plain_ms"] = cuda_ms(lambda: pressure_solve_torch(*args, **kw1), 1)
             said.append(f"plain {figs['cl']['plain_ms']:.3f} ms")
@@ -2567,8 +2635,9 @@ def main(argv=None):
             **{k: v for k, v in d.items() if k.startswith("launches_simulate")},
             **{k: d[k] for k in ("forced_64x64", "large_case") if k in d}))
     # P-cl/d, under its P-cl counters: the Jacobi instantiation's path is
-    # [24b] at 60x220, checked and timed on its first step; the others' is
-    # [23]'s simulate at 60x220, timed there at bench settings (N=64).
+    # [24b] at 60x220 where its route takes N (checked and timed on its
+    # first step); the others' (and the Jacobi one's past P-cl/d's batch)
+    # is [23]'s simulate at 60x220, timed there at bench settings (N=64).
     from historymatching_tpu_torch.ops.pressure import kernel_name
 
     lay_at = f"{LAYER_GRIDS[0][0]}x{LAYER_GRIDS[0][1]}"
@@ -2577,12 +2646,14 @@ def main(argv=None):
         name = kernel_name(smoother, unit, "cl")
         d = large[name]
         dist = {t: g for t, g in d["grids"].items() if g.get("inverse") == "distributed"}
-        if (smoother, unit) == ("jacobi", True):
+        jacobi = (smoother, unit) == ("jacobi", True)
+        if jacobi and lay["route"] == "cl":
             g, at = lay["kernels"]["cl"], f"{lay_at} N={N} ([24b]'s first step)"
-            launches_path, gm1_ms = lay["launches"][name], lay["kernels"]["gm1"]["ms"]
-        else:
+            launches_path = lay["launches"][name]
+        else:  # past P-cl/d's batch [24b]'s route is P-gm1's
             g, at = dist[lay_at], f"{lay_at} N={LARGE_N}"
-            launches_path, gm1_ms = d[f"launches_simulate_{lay_at}"], None
+            launches_path = d[f"launches_simulate_{lay_at}"]
+        gm1_ms = lay["kernels"]["gm1"]["ms"] if jacobi else None
         kernels.append(dict(
             name=name + "/d", counter=name, route="cuda",
             source="historymatching_tpu_torch/csrc/pressure_pcg_cl.cu",

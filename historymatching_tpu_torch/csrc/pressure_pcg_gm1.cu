@@ -1,6 +1,9 @@
-// Kernel P-gm1: kernel P (pressure_pcg.cu) with its arrays in device
-// memory, one thread block a member: the first device-memory form (PR 9's
-// P-gm), kept for the grids P-gm (pressure_pcg_gm.cu) takes no plan for.
+// Kernel P-gm1: kernel P (pressure_pcg.cu) for any grid with a hierarchy,
+// one thread block a member, its arrays split by a plan between the block's
+// shared memory and a device workspace, and the coarsest inverse streamed
+// through a ring of bulk asynchronous copies. It takes the grids P-gm
+// (pressure_pcg_gm.cu) has no plan for and the batches past P-gm's and
+// P-cl/d's limits.
 //
 // Replaces: historymatching_tpu/ops/pressure_pallas.py,
 //   pressure_solve_pallas (pressure_pcg_kernel), and its multi-member
@@ -8,8 +11,8 @@
 //   its hierarchy in VMEM with vmem_limit_bytes raised (pressure_pallas.py
 //   :163-166), no cluster of P-cl holds the layout and P-gm's bands do not
 //   fit (ops/pressure.py `gm_plan` None: e.g. 32x1088, whose band of 8 rows
-//   of 1,088 cells exceeds one block's shared memory); anywhere with
-//   force="gm1".
+//   of 1,088 cells exceeds one block's shared memory), or the batch is past
+//   `route`'s limits; anywhere with force="gm1".
 //
 // It computes what P computes: the restarted MG-preconditioned CG of
 // ops/cg.py `pcg` on the Jacobi-scaled (UNIT) or unscaled TPFA system, with
@@ -21,28 +24,50 @@
 // reductions and the coarse product sum in another order, so the two agree
 // to rounding (ops/pressure.py holds both to the plain version).
 //
-// One thread block per member, as P. The grid is a run-time argument (the
-// kernel's parameters, read in place as a __grid_constant__), so one
-// library serves every grid: the layout, every level's sides and the
-// offsets of its arrays, comes from ops/pressure.py `layout` (with `gm1`)
-// as a table, and the wrapper allocates a workspace of that many floats a
-// member with torch.empty. Every level's faces, diagonal, reciprocal
-// diagonal, right-hand side, iterate and temporary, and the CG vectors x,
-// p, z and A p, live there; the metric weight w and q are read in place,
-// the coarsest inverse too (row-major, as the plain version multiplies by
-// it), and the reduction slots are in shared memory. Threads walk a
-// level's 2x2 tiles in grid-stride loops; a thread owns the same tiles in
-// every pass, so a pass that reads only its own cells needs no barrier,
-// and the barriers are P's.
+// One thread block a member. The grid is a run-time argument (the kernel's
+// parameters, read in place as a __grid_constant__), so one library serves
+// every grid. The plan (ops/pressure.py `gm1_plan`, passed as a table)
+// places a member's arrays by reads a V-cycle per byte: the coarsest
+// level's right-hand side and correction, then the coarser levels' whole
+// sets, coarsest first, then the fine faces TX and TY, then the fine
+// diagonal and its reciprocal on the unscaled system, each in the block's
+// dynamic shared memory while it fits beside the ring; the rest (the fine
+// vectors, the CG vectors x, p, z and A p, and what did not fit) in a
+// device workspace that the wrapper allocates. An array's offset in the
+// table says where: >= 0 a float of the workspace, < 0 the float -1 - o of
+// shared memory. A plan takes at most ~160 KB, so that the SM keeps ~92 KB
+// of L1 for the passes over the levels in the workspace, whose gathers
+// read each cell's neighbours. Threads walk a level's 2x2 tiles in
+// grid-stride loops; a thread owns the same tiles in every pass, so a pass
+// that reads only its own cells needs no barrier, and the barriers are P's.
 //
-// What bounds it on the H100: device memory and L2. A CG iteration streams
-// the fine level's arrays several times (each smoothing sweep reads TX, TY,
-// B and a vector with its neighbours and writes one); at 128x128 a
-// member's workspace is ~0.7 MB, so the resident members overflow the
-// 50 MB L2 and the sweeps go to device memory. Where the coarsest level is
-// large (15x55 = 825 cells on a 60x220 grid, 25x25 at 100x100) its
-// inverse, read once a V-cycle, is the largest read of all; that solve
-// runs on every warp, a row a warp, with coalesced reads along the row.
+// The coarsest inverse (row-major, as the plain version multiplies by it)
+// is the largest read of a V-cycle: 1.56 MB a member at 100x100, 2.72 MB at
+// 60x220 and 120x440. It streams through a ring of `stages` slots in shared
+// memory, few and large (two of ~50 KB: each stage's copy and barriers
+// cost more than its bytes): one thread copies a stage with one
+// cp.async.bulk that completes
+// on the slot's "full" mbarrier; every warp arrives on the slot's "empty"
+// mbarrier once it has read the slot, and the slot is refilled at once with
+// the stage one ring further on, which is the next V-cycle's (the inverse
+// is the same in every V-cycle). So the ring is full when a V-cycle's
+// coarse solve starts, and the stream overlaps the up-sweep, the CG vector
+// passes and the next down-sweep. A member's inverse starts on a 16-byte
+// boundary only where its index is a multiple of 4 (625^2 and 825^2 are 1
+// more than a multiple of 4): its stream starts at the 16-byte boundary at
+// or below it, the bulk copies take the aligned middle, and at most three
+// floats at each end, read once by plain loads and kept in shared memory,
+// are written into their stage by the copying thread; nothing is read
+// outside the member's inverse. The product keeps P-gm1's order of summation: a
+// row a warp, each lane its columns lane, lane + 32, ... in order, then
+// `warp_sum`; a row cut by a stage boundary carries its partial sums to
+// the next stage.
+//
+// What bounds it on the H100: device memory. Each V-cycle reads a member's
+// whole inverse once (132 members in flight overflow the 50 MB L2), and
+// the fine vectors in the workspace are streamed by every pass. The copying
+// thread refills the slot its warps left before it starts the next
+// stage's product, so a copy waits for no product.
 
 #include <cuda_runtime.h>
 #include <float.h>
@@ -52,24 +77,52 @@
 
 namespace {
 
+// Threads a block at most; the ring's fewest and most stages; shared memory
+// a block may opt into (ops/pressure.py GM1_MAX_THREADS, GM1_MIN_STAGES,
+// GM1_MAX_STAGES, _build.SMEM_LIMIT).
 constexpr int kMaxThreads = 512;
+constexpr int kMinStages = 2, kMaxStages = 4;
+constexpr int kSmemLimit = 232448;
 
-// A level: its sides and the offsets (floats) of its arrays in a member's
-// workspace, in the order of ops/pressure.py LEVEL_KEYS.
+// A level: its sides and the offsets of its arrays, in the order of
+// ops/pressure.py LEVEL_KEYS (>= 0 in the workspace, < 0 in shared memory).
 struct Level {
   int n, m, tx, ty, d, rd, b, x, t;
 };
 
 struct Args {
-  int L;                 // levels; L - 1 is the coarsest
-  int floats;            // a member's workspace
-  int xv, pv, zv, apv;   // the CG vectors x, p, z, A p
+  int L;                       // levels; L - 1 is the coarsest
+  int floats;                  // a member's workspace
+  int smem, threads;           // dynamic shared bytes and threads a block
+  int stages, stage;           // the ring's slots and floats a slot
+  int ring, bars, red, ends;   // shared floats: the ring, its 2 x kMaxStages
+                               // barriers, the reduction slots, the inverse's ends
+  int xv, pv, zv, apv;         // the CG vectors x, p, z, A p
   Level lv[kMaxLevels];
   const float* tx[kMaxLevels];  // the member-major inputs, per level
   const float* ty[kMaxLevels];
   const float* d[kMaxLevels];
   const float* ainv;  // (B, nc, nc)
 };
+
+__device__ __forceinline__ float* at(float* ws, float* sh, int o) {
+  return o >= 0 ? ws + o : sh + (-1 - o);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void wait_bar(unsigned bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
 
 __device__ __forceinline__ void own(const float* v, int m, int I, int J, float out[4]) {
   const int o = 2 * I * m + 2 * J;
@@ -133,21 +186,22 @@ __device__ __forceinline__ void tiles(int n, int m, F f) {
   }
 }
 
-// The view of level l of one member's workspace.
+// The view of level l of one member's arrays.
 template <bool CHEB, bool UNIT>
 struct View {
   float* ws;
+  float* sh;
   const Level* lv;
   int l;
   __device__ const Level& g() const { return lv[l]; }
   __device__ bool unit() const { return UNIT && l == 0; }
-  __device__ float* TX() const { return ws + g().tx; }
-  __device__ float* TY() const { return ws + g().ty; }
-  __device__ float* D() const { return ws + g().d; }
-  __device__ float* RD() const { return ws + g().rd; }
-  __device__ float* B() const { return ws + g().b; }
-  __device__ float* X() const { return ws + g().x; }
-  __device__ float* T() const { return ws + g().t; }
+  __device__ float* TX() const { return at(ws, sh, g().tx); }
+  __device__ float* TY() const { return at(ws, sh, g().ty); }
+  __device__ float* D() const { return at(ws, sh, g().d); }
+  __device__ float* RD() const { return at(ws, sh, g().rd); }
+  __device__ float* B() const { return at(ws, sh, g().b); }
+  __device__ float* X() const { return at(ws, sh, g().x); }
+  __device__ float* T() const { return at(ws, sh, g().t); }
   __device__ void own_rd(int I, int J, float rd[4]) const {
     if (unit()) {
       rd[0] = rd[1] = rd[2] = rd[3] = 1.0f;
@@ -156,6 +210,135 @@ struct View {
     }
   }
 };
+
+// A member's inverse as the ring streams it, once a V-cycle: stream float i
+// is the inverse's float i - phase, from the 16-byte boundary at or below
+// the inverse's start (`src`). The bulk copies take [he, be); the head [phase,
+// he) and the tail [be, phase + n2), at most three floats each, are kept in
+// shared memory (`ends`: head at 0, tail at 4). The stream, rounded up to
+// whole 16-byte units, is cut into K stages of the plan's size.
+struct Stream {
+  const float* src;
+  int phase, n2, he, be, K;
+};
+
+__device__ __forceinline__ Stream stream_of(const Args& a, int b) {
+  const Level& c = a.lv[a.L - 1];
+  Stream s;
+  s.n2 = (c.n * c.m) * (c.n * c.m);
+  const float* inv = a.ainv + (size_t)b * s.n2;
+  s.phase = (int)((reinterpret_cast<size_t>(inv) >> 2) & 3);
+  s.src = inv - s.phase;
+  const int lead = (4 - s.phase) & 3;
+  s.he = s.phase + (lead < s.n2 ? lead : s.n2);
+  const int end = (s.phase + s.n2) & ~3;
+  s.be = end > s.he ? end : s.he;
+  s.K = (r4(s.phase + s.n2) + a.stage - 1) / a.stage;
+  return s;
+}
+
+// The full and empty barriers of slot k (8 bytes each, full ones first).
+__device__ __forceinline__ unsigned full_bar(const Args& a, float* sh, int k) {
+  return smem_addr(sh + a.bars) + 8u * (unsigned)k;
+}
+__device__ __forceinline__ unsigned empty_bar(const Args& a, float* sh, int k) {
+  return smem_addr(sh + a.bars) + 8u * (unsigned)(kMaxStages + k);
+}
+
+// Stage `gg` of the endless stream (stage gg % K of a V-cycle) into slot gg
+// % stages, by the copying thread: the stage's ends from `ends`, its
+// aligned middle by one bulk copy completing on the slot's full barrier.
+__device__ void fill(const Args& a, float* sh, const Stream& s, int gg) {
+  const int slot = gg % a.stages, lo = (gg % s.K) * a.stage, hi = lo + a.stage;
+  float* dst = sh + a.ring + slot * a.stage;
+  const float* ends = sh + a.ends;
+  bool plain = false;
+  for (int i = s.phase; i < s.he; ++i) {
+    if (i >= lo && i < hi) {
+      dst[i - lo] = ends[i - s.phase];
+      plain = true;
+    }
+  }
+  for (int i = s.be; i < s.phase + s.n2; ++i) {
+    if (i >= lo && i < hi) {
+      dst[i - lo] = ends[4 + i - s.be];
+      plain = true;
+    }
+  }
+  // the plain floats before any later bulk copy into the slot
+  if (plain) asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  const int b0 = lo > s.he ? lo : s.he, b1 = hi < s.be ? hi : s.be;
+  const unsigned bytes = b1 > b0 ? 4u * (unsigned)(b1 - b0) : 0u, bar = full_bar(a, sh, slot);
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+  if (bytes > 0)
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+        "[%3];" ::"r"(smem_addr(dst + (b0 - lo))),
+        "l"(s.src + b0), "r"(bytes), "r"(bar)
+        : "memory");
+}
+
+// The copying thread waits until every warp has read stage gg, then fills
+// its slot with stage gg + stages.
+__device__ __forceinline__ void refill(const Args& a, float* sh, const Stream& s, int gg) {
+  wait_bar(empty_bar(a, sh, gg % a.stages), (unsigned)((gg / a.stages) & 1));
+  fill(a, sh, s, gg + a.stages);
+}
+
+// Coarsest level: x = inverse @ b, a row a warp, the lanes along the row,
+// stage by stage through the ring; `g` counts the stages read so far.
+__device__ void coarse_solve(const Args& a, float* sh, int member, const float* b, float* x,
+                             int nc, int& g) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+#ifdef HM_GM1_LOADS
+  // The ring's control, built only to time the ring against it
+  // (bench_routes.py --kernel gm1): the same product in the same order of
+  // summation, its rows read by plain loads from device memory. The ring
+  // is filled once at the start, never read, and drained at the end.
+  const float* inv = a.ainv + (size_t)member * nc * nc;
+  for (int r = warp; r < nc; r += warps) {
+    float acc = 0.0f;
+    for (int c = lane; c < nc; c += 32) acc += inv[(size_t)r * nc + c] * b[c];
+    const float v = warp_sum(acc);
+    if (lane == 0) x[r] = v;
+  }
+  return;
+#endif
+  const Stream s = stream_of(a, member);
+  float acc = 0.0f;
+  for (int k = 0; k < s.K; ++k) {
+    const int gg = g + k, slot = gg % a.stages;
+    wait_bar(full_bar(a, sh, slot), (unsigned)((gg / a.stages) & 1));
+    // the previous stage's slot refilled before this stage's product, so
+    // the copy does not wait for it
+    if (threadIdx.x == 0 && k > 0) refill(a, sh, s, gg - 1);
+    const float* st = sh + a.ring + slot * a.stage;
+    const int base = k * a.stage - s.phase;  // the inverse's float at the stage's first
+    const int p0 = base > 0 ? base : 0, p1 = base + a.stage < s.n2 ? base + a.stage : s.n2;
+    if (p0 < p1) {
+      const int r0 = p0 / nc, r1 = (p1 - 1) / nc;
+      for (int r = r0 + (warp - r0 % warps + warps) % warps; r <= r1; r += warps) {
+        const int c0 = p0 - r * nc > 0 ? p0 - r * nc : 0;
+        const int c1 = p1 - r * nc < nc ? p1 - r * nc : nc;
+        if (c0 == 0) acc = 0.0f;  // a row starts; else the row cut by the stage's start
+        const float* row = st + (r * nc - base);
+#pragma unroll 4
+        for (int c = c0 + ((lane - c0) & 31); c < c1; c += 32) acc += row[c] * b[c];
+        if (c1 == nc) {
+          const float v = warp_sum(acc);
+          if (lane == 0) x[r] = v;
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0)
+      asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(empty_bar(a, sh, slot))
+                   : "memory");
+  }
+  if (threadIdx.x == 0) refill(a, sh, s, g + s.K - 1);
+  g += s.K;
+}
 
 // Pre-smoothing from x = 0, the first sweep folded into the second one's
 // reads (pressure_pcg.cu `smooth_down`).
@@ -190,18 +373,6 @@ __device__ void restrict_residual(const View<CHEB, UNIT>& V, float* Bc) {
     own(V.B(), m, I, J, b);
     Bc[I * (m / 2) + J] = restrict_tile(b, Ax);
   });
-}
-
-// Coarsest level: x = inverse @ b, a row a warp, the lanes along the row.
-__device__ void coarse_solve(const float* A, const float* b, float* x, int nc) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
-  for (int r = warp; r < nc; r += warps) {
-    const float* row = A + (size_t)r * nc;
-    float acc = 0.0f;
-    for (int k = lane; k < nc; k += 32) acc += row[k] * b[k];
-    acc = warp_sum(acc);
-    if (lane == 0) x[r] = acc;
-  }
 }
 
 // First post-smoothing sweep after the coarse correction E (the next
@@ -246,23 +417,24 @@ __device__ void smooth_up_second(const View<CHEB, UNIT>& V, const float* E, floa
 }
 
 // z = V-cycle(r) from a zero initial guess; r is the fine B (R) vector, z
-// goes to `z`. Clobbers the levels' X and T vectors.
+// goes to `z`. Clobbers the levels' X and T vectors; `g` is the ring's
+// count of stages read.
 template <bool CHEB, bool UNIT>
-__device__ void vcycle(float* ws, const Args& a, const float* Ainv, float* z) {
+__device__ void vcycle(float* ws, float* sh, const Args& a, int member, float* z, int& g) {
   const int LC = a.L - 1;
   for (int l = 0; l < LC; ++l) {
-    const View<CHEB, UNIT> V{ws, a.lv, l};
+    const View<CHEB, UNIT> V{ws, sh, a.lv, l};
     smooth_down(V);
     __syncthreads();
-    restrict_residual(V, ws + a.lv[l + 1].b);
+    restrict_residual(V, at(ws, sh, a.lv[l + 1].b));
     __syncthreads();
   }
   const Level& c = a.lv[LC];
-  coarse_solve(Ainv, ws + c.b, ws + c.x, c.n * c.m);
+  coarse_solve(a, sh, member, at(ws, sh, c.b), at(ws, sh, c.x), c.n * c.m, g);
   __syncthreads();
   for (int l = LC - 1; l >= 0; --l) {
-    const View<CHEB, UNIT> V{ws, a.lv, l};
-    const float* E = ws + a.lv[l + 1].x;
+    const View<CHEB, UNIT> V{ws, sh, a.lv, l};
+    const float* E = at(ws, sh, a.lv[l + 1].x);
     smooth_up_first(V, E);
     __syncthreads();
     smooth_up_second(V, E, l == 0 ? z : V.X());
@@ -293,26 +465,30 @@ struct Reducer {
   }
 };
 
-// Member b's hierarchy into its workspace: TY padded to m wide, the
-// diagonals with their reciprocals (not on the unit fine level).
+// Member b's hierarchy into its places: TY padded to m wide, the diagonals
+// with their reciprocals (not on the unit fine level).
 template <bool UNIT>
-__device__ void load_levels(float* ws, const Args& a, int b) {
+__device__ void load_levels(float* ws, float* sh, const Args& a, int b) {
   for (int l = 0; l < a.L - 1; ++l) {
     const Level& g = a.lv[l];
     const int n = g.n, m = g.m;
     const float* tx = a.tx[l] + (size_t)b * (n - 1) * m;
-    for (int k = threadIdx.x; k < (n - 1) * m; k += blockDim.x) ws[g.tx + k] = tx[k];
+    float* TX = at(ws, sh, g.tx);
+    for (int k = threadIdx.x; k < (n - 1) * m; k += blockDim.x) TX[k] = tx[k];
     const float* ty = a.ty[l] + (size_t)b * n * (m - 1);
+    float* TY = at(ws, sh, g.ty);
     for (int k = threadIdx.x; k < n * m; k += blockDim.x) {
       const int i = k / m, j = k - i * m;
-      ws[g.ty + k] = j < m - 1 ? ty[i * (m - 1) + j] : 0.0f;
+      TY[k] = j < m - 1 ? ty[i * (m - 1) + j] : 0.0f;
     }
     if (l > 0 || !UNIT) {
       const float* d = a.d[l] + (size_t)b * n * m;
+      float* D = at(ws, sh, g.d);
+      float* RD = at(ws, sh, g.rd);
       for (int k = threadIdx.x; k < n * m; k += blockDim.x) {
         const float v = d[k];
-        ws[g.d + k] = v;
-        ws[g.rd + k] = 1.0f / v;
+        D[k] = v;
+        RD[k] = 1.0f / v;
       }
     }
   }
@@ -325,30 +501,54 @@ pressure_pcg_gm1_kernel(const __grid_constant__ Args a, const float* __restrict_
                        float* __restrict__ p_out, int* __restrict__ it_out,
                        float* __restrict__ rel_out, float* ws_g, float tol, int maxiter,
                        int restart_every, int patience) {
-  __shared__ float2 red_buf[2 * (kMaxThreads / 32)];
+  extern __shared__ float4 sh4[];
+  float* sh = reinterpret_cast<float*>(sh4);
   const Level& F = a.lv[0];
   const int NX = F.n, NY = F.m, b = blockIdx.x;
   const size_t off = (size_t)b * NX * NY;
   float* ws = ws_g + (size_t)b * a.floats;
-  const Level& C = a.lv[a.L - 1];
-  const float* Ainv = a.ainv + (size_t)b * (C.n * C.m) * (C.n * C.m);
+
+  // The ring's barriers, then its first stages: they arrive while the
+  // hierarchy loads and the first residual runs.
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < a.stages; ++k) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(full_bar(a, sh, k))
+                   : "memory");
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(empty_bar(a, sh, k)),
+                   "r"(blockDim.x >> 5)
+                   : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    const Stream s = stream_of(a, b);
+    float* ends = sh + a.ends;
+    for (int i = s.phase; i < s.he; ++i) ends[i - s.phase] = s.src[i];
+    for (int i = s.be; i < s.phase + s.n2; ++i) ends[4 + i - s.be] = s.src[i];
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const Stream s = stream_of(a, b);
+    for (int k = 0; k < a.stages; ++k) fill(a, sh, s, k);
+  }
+  int g = 0;  // the ring's stages read
+
   const float* q = q_g + off;
   const float* w = w_g + off;
-  float* xb = p_out + off;  // the best iterate lives here
-  float* P = ws + F.x;      // p for the matvec's gathers; the V-cycle's fine iterate
+  float* xb = p_out + off;           // the best iterate lives here
+  // the fine vectors and the CG vectors are always in the workspace
+  float* P = ws + F.x;  // p for the matvec's gathers; the V-cycle's fine iterate
   float* R = ws + F.b;
   float* Tv = ws + F.t;
   float* X = ws + a.xv;
   float* Pv = ws + a.pv;
   float* Z = ws + a.zv;
   float* AP = ws + a.apv;
-  const float* TX = ws + F.tx;
-  const float* TY = ws + F.ty;
-  const float* Df = ws + F.d;
-  Reducer red{red_buf, 0};
+  const float* TX = at(ws, sh, F.tx);
+  const float* TY = at(ws, sh, F.ty);
+  const float* Df = at(ws, sh, F.d);
+  Reducer red{reinterpret_cast<float2*>(sh + a.red), 0};
   auto fine = [&](auto f) { tiles(NX, NY, f); };
 
-  load_levels<UNIT>(ws, a, b);
+  load_levels<UNIT>(ws, sh, a, b);
   fine([&](int I, int J) {
     float x[4];
     own(p0_g + off, NY, I, J, x);
@@ -399,7 +599,7 @@ pressure_pcg_gm1_kernel(const __grid_constant__ Args a, const float* __restrict_
       residual(unused, unused);
       __syncthreads();
     }
-    vcycle<CHEB, UNIT>(ws, a, Ainv, Z);
+    vcycle<CHEB, UNIT>(ws, sh, a, b, Z, g);
     // The first window's direction is Minv(r0), which is this z; a
     // steepest-descent window restarts from z too.
     const bool restart = use_sd || first;
@@ -453,7 +653,7 @@ pressure_pcg_gm1_kernel(const __grid_constant__ Args a, const float* __restrict_
         put(R, NY, I, J, r);
       });
       __syncthreads();
-      vcycle<CHEB, UNIT>(ws, a, Ainv, Z);
+      vcycle<CHEB, UNIT>(ws, sh, a, b, Z, g);
       prz = prr = 0.0f;
       fine([&](int I, int J) {
         float r[4], z[4], wv[4];
@@ -517,35 +717,39 @@ pressure_pcg_gm1_kernel(const __grid_constant__ Args a, const float* __restrict_
   if (threadIdx.x == 0) {
     it_out[b] = kk;
     rel_out[b] = sqrtf(rr_best / fmaxf(bb, FLT_MIN));
+    // The copies still in flight, one a slot, land before the block's
+    // shared memory is released.
+    for (int gg = g; gg < g + a.stages; ++gg)
+      wait_bar(full_bar(a, sh, gg % a.stages), (unsigned)((gg / a.stages) & 1));
   }
-}
-
-// Threads a block: one per fine 2x2 tile, in whole warps, at most 512.
-inline int block_threads(int Nx, int Ny) {
-  const int t = (Nx / 2) * (Ny / 2);
-  return t >= kMaxThreads ? kMaxThreads : (t + 31) / 32 * 32;
 }
 
 template <bool CHEB, bool UNIT>
 int launch(const Args& a, const float* q, const float* p0, const float* w, float* p_out,
            int* it_out, float* rel_out, float* ws, int B, float tol, int maxiter,
            int restart_every, int patience, cudaStream_t stream) {
-  pressure_pcg_gm1_kernel<CHEB, UNIT><<<B, block_threads(a.lv[0].n, a.lv[0].m), 0, stream>>>(
-      a, q, p0, w, p_out, it_out, rel_out, ws, tol, maxiter, restart_every, patience);
+  auto kern = pressure_pcg_gm1_kernel<CHEB, UNIT>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<B, a.threads, a.smem, stream>>>(a, q, p0, w, p_out, it_out, rel_out, ws, tol, maxiter,
+                                         restart_every, patience);
   return (int)cudaGetLastError();
 }
 
 template <bool CHEB, bool UNIT>
-int info(int Nx, int Ny, int* out) {
+int info(int threads, int smem, int* out) {
   auto kern = pressure_pcg_gm1_kernel<CHEB, UNIT>;
-  cudaFuncAttributes at{};
-  cudaError_t e = cudaFuncGetAttributes(&at, kern);
+  cudaFuncAttributes attr{};
+  cudaError_t e = cudaFuncGetAttributes(&attr, kern);
   int blocks = 0;
-  const int threads = block_threads(Nx, Ny);
-  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, threads, 0);
-  out[0] = at.numRegs;
-  out[1] = (int)at.localSizeBytes;
-  out[2] = (int)at.sharedSizeBytes;
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, threads, smem);
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = (int)attr.sharedSizeBytes + smem;
   out[3] = threads;
   out[4] = blocks;
   return (int)e;
@@ -556,10 +760,12 @@ int info(int Nx, int Ny, int* out) {
 // lv: 3 * levels pointers, per level TX (B, n-1, m), TY (B, n, m-1), diag
 // (B, n, m), float32; the level-0 diag is read only where unit is 0. ainv
 // (B, nc, nc); q, p0, w, p_out (B, Nx, Ny); ws the workspace, B times the
-// layout's floats. table (host memory): levels, floats a member, the
-// offsets of x, p, z and A p, then per level n, m and the offsets of TX,
-// TY, D, 1/D, B, X and T (ops/pressure.py `gm1_table`). cheb: 0 for the
-// damped-Jacobi smoother, 1 for the Chebyshev one.
+// plan's floats. table (host memory, ops/pressure.py `gm1_table`): levels,
+// floats a member, dynamic shared bytes, threads, the ring's stages and
+// floats a stage, the shared offsets of the ring, its barriers, the
+// reduction slots and the inverse's ends, the offsets of x, p, z and A p,
+// then per level n, m and the offsets of TX, TY, D, 1/D, B, X and T. cheb:
+// 0 for the damped-Jacobi smoother, 1 for the Chebyshev one.
 extern "C" int hm_pressure_gm1_solve(const float* const* lv, const float* ainv, const float* q,
                                     const float* p0, const float* w, float* p_out, int* it_out,
                                     float* rel_out, float* ws, const int* table, int B,
@@ -569,19 +775,31 @@ extern "C" int hm_pressure_gm1_solve(const float* const* lv, const float* ainv, 
   a.L = table[0];
   if (a.L < 2 || a.L > kMaxLevels || (!unit && lv[2] == nullptr)) return (int)cudaErrorInvalidValue;
   a.floats = table[1];
-  a.xv = table[2];
-  a.pv = table[3];
-  a.zv = table[4];
-  a.apv = table[5];
+  a.smem = table[2];
+  a.threads = table[3];
+  a.stages = table[4];
+  a.stage = table[5];
+  a.ring = table[6];
+  a.bars = table[7];
+  a.red = table[8];
+  a.ends = table[9];
+  a.xv = table[10];
+  a.pv = table[11];
+  a.zv = table[12];
+  a.apv = table[13];
   for (int l = 0; l < a.L; ++l) {
-    const int* t = table + 6 + 9 * l;
+    const int* t = table + 14 + 9 * l;
     a.lv[l] = Level{t[0], t[1], t[2], t[3], t[4], t[5], t[6], t[7], t[8]};
     a.tx[l] = lv[3 * l];
     a.ty[l] = lv[3 * l + 1];
     a.d[l] = lv[3 * l + 2];
   }
   a.ainv = ainv;
-  if (a.lv[0].n % 2 || a.lv[0].m % 2) return (int)cudaErrorInvalidValue;
+  if (a.lv[0].n % 2 || a.lv[0].m % 2 || a.lv[0].x < 0 || a.lv[0].b < 0 || a.lv[0].t < 0 ||
+      a.xv < 0 || a.pv < 0 || a.zv < 0 || a.apv < 0 || a.threads < 32 || a.threads > kMaxThreads ||
+      a.threads % 32 || a.smem > kSmemLimit || a.stages < kMinStages || a.stages > kMaxStages ||
+      a.stage <= 0 || a.stage % 4 || a.ring % 4 || a.bars % 2)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
 #define HM_GM(c, u) \
   launch<c, u>(a, q, p0, w, p_out, it_out, rel_out, ws, B, tol, maxiter, restart_every, patience, s)
@@ -590,10 +808,12 @@ extern "C" int hm_pressure_gm1_solve(const float* const* lv, const float* ainv, 
 #undef HM_GM
 }
 
-// out: registers a thread, local (stack and spill) bytes a thread, static
-// shared bytes, threads a block at the grid, resident blocks an SM, of the
-// instantiation for the smoother (cheb 0 or 1) and fine diagonal (unit).
-extern "C" int hm_pressure_gm1_info(int Nx, int Ny, int cheb, int unit, int* out) {
-  if (cheb) return unit ? info<true, true>(Nx, Ny, out) : info<true, false>(Nx, Ny, out);
-  return unit ? info<false, true>(Nx, Ny, out) : info<false, false>(Nx, Ny, out);
+// out: registers a thread, local (stack and spill) bytes a thread, shared
+// bytes a block (static and the plan's dynamic `smem`), threads a block,
+// resident blocks an SM, of the instantiation for the smoother (cheb 0 or
+// 1) and fine diagonal (unit) at the plan's `threads` and `smem`.
+extern "C" int hm_pressure_gm1_info(int threads, int smem, int cheb, int unit, int* out) {
+  if (cheb)
+    return unit ? info<true, true>(threads, smem, out) : info<true, false>(threads, smem, out);
+  return unit ? info<false, true>(threads, smem, out) : info<false, false>(threads, smem, out);
 }

@@ -99,9 +99,10 @@ _SIGNATURES = {
     },
     "pressure_pcg_gm1": {
         # level pointers, Ainv, q, p0, w, p_out, it_out, rel_out, workspace,
-        # layout table, B, tol, maxiter, restart_every, patience, cheb, unit,
+        # plan table, B, tol, maxiter, restart_every, patience, cheb, unit,
         # stream
         "hm_pressure_gm1_solve": [P, P, P, P, P, P, P, P, P, P, I, F, I, I, I, I, I, P],
+        # threads, shared bytes, cheb, unit, out
         "hm_pressure_gm1_info": [I, I, I, I, P],
     },
 }
@@ -247,6 +248,17 @@ def _get(make_spec, *args):
     return _libs[key]
 
 
+def _gm1_loads_spec():
+    return _spec("pressure_pcg_gm1", key="pressure_pcg_gm1_loads", flags=["-DHM_GM1_LOADS"])
+
+
+def pressure_gm1_loads_lib():
+    """P-gm1's ring's control (`-DHM_GM1_LOADS`: the coarsest inverse read
+    by plain loads from device memory, the product's order of summation
+    kept), built on first use, for timing the ring against it."""
+    return _get(_gm1_loads_spec)
+
+
 def _pcl_spec(Nx, Ny, c, place):
     return _cl_specs(Nx, Ny, [(c, place)])[0]
 
@@ -378,14 +390,14 @@ def kernel_info(kernel, Nx, Ny, plan=None):
     registers and local (stack and spill) bytes a thread, dynamic shared
     bytes and threads a block, resident blocks an SM. `kernel` is a key of
     `LAUNCHES`; K-rt reports its grid's library (`ops.transport.rt_plan`),
-    and adds its strip's rows and the place of its faces; a device-memory
-    variant ("_gm1", K-gm1) reports its static
-    shared bytes (its workspace is `ops.pressure.gm1_bytes`, or K's two
-    tiles); K-gm its shared bytes (two fw tiles, each thread's faces and
-    sources), and adds its bands a member, the groups of bands (members in
-    flight) the card holds at once, and its strip's rows and columns a
-    thread (`ops.transport.gm_plan`); P-gm
-    ("_gm", on its grid's `gm_plan`) its bytes a block, and adds its blocks
+    and adds its strip's rows and the place of its faces; K-gm1 its static
+    shared bytes (its workspace holds K's two tiles); P-gm1 ("_gm1", on its
+    grid's `gm1_plan`) its plan's shared bytes; K-gm its shared bytes (two
+    fw tiles, each thread's faces and sources), and adds its bands a
+    member, the groups of bands (members in flight) the card holds at
+    once, and its strip's rows and columns a thread
+    (`ops.transport.gm_plan`); P-gm ("_gm", on its grid's `gm_plan`) its
+    bytes a block, and adds its blocks
     a member and the groups (members in flight) the card holds at once; a
     cluster variant ("_cl", on its route's
     cluster or P-cl's `plan`) its bytes a rank, and adds the ranks a cluster
@@ -429,10 +441,11 @@ def kernel_info(kernel, Nx, Ny, plan=None):
             raise ValueError(f"{kernel}: no plan of P-gm fits a {Nx}x{Ny} grid")
         code = pressure_gm_lib(Nx, Ny, *plan).hm_pressure_gm_info(Nx, Ny, cheb, unit, out)
         keys += ("blocks", "groups_resident")
+    elif kernel.endswith("_gm1"):
+        plan = pressure.gm1_plan(Nx, Ny, bool(unit))
+        code = lib().hm_pressure_gm1_info(plan.threads, plan.smem_bytes, cheb, unit, out)
     else:
-        fn = (lib().hm_pressure_gm1_info if kernel.endswith("_gm1")
-              else pressure_lib(Nx, Ny).hm_pressure_info)
-        code = fn(Nx, Ny, cheb, unit, out)
+        code = pressure_lib(Nx, Ny).hm_pressure_info(Nx, Ny, cheb, unit, out)
     check(code, kernel)
     if kernel.endswith("_cl"):
         keys += ("cluster", "max_active_clusters")

@@ -35,10 +35,12 @@ on a member spread over G co-resident blocks, each holding a band of rows
 of every level but the coarsest and a block of the coarsest inverse's
 rows in its shared memory, band edges, the coarse solve's vectors and the
 reductions exchanged through L2 (`gm_plan`, `gm_layout`). Where no plan
-fits the card (a band wider than one block holds), P-gm1 runs
-(`csrc/pressure_pcg_gm1.cu`, one library for every grid): one block a
-member, every level's arrays and the CG vectors in a per-member workspace
-that the wrapper allocates (`layout` with `gm1`). Their launches count
+fits the card (a band wider than one block holds), or the batch is past
+the grid's `GM_BATCH_MAX`, P-gm1 runs (`csrc/pressure_pcg_gm1.cu`, one
+library for every grid): one block a member, its coarse levels and fine
+faces in shared memory as far as they fit, the rest in a per-member
+workspace that the wrapper allocates, and the coarsest inverse streamed
+through a ring of bulk copies in shared memory (`gm1_plan`). Their launches count
 under the same names with "_cl", "_gm" or "_gm1" appended. `route` says
 which a grid takes, `force` ("cl", "gm", "gm1") takes one at any grid it
 fits, and `plan` a cluster other than `cl_plan`'s. A grid without a
@@ -53,6 +55,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -147,7 +150,7 @@ def cl_threads(Nx, Ny, c, place="shared"):
     return max(t, 256) if place == "distributed" else t
 
 
-def layout(Nx, Ny, levels, unit_diag=True, gm1=False, cl=0, place="shared"):
+def layout(Nx, Ny, levels, unit_diag=True, cl=0, place="shared"):
     """Kernel P's arrays for one member (one rank of a cluster of `cl` for
     P-cl), in floats, each rounded up to 4: (per level a dict of its rows
     `n`, its columns `m`, whether it is `split` and the offsets of
@@ -158,12 +161,8 @@ def layout(Nx, Ny, levels, unit_diag=True, gm1=False, cl=0, place="shared"):
     smoothing temporary T, and without `unit_diag` its diagonal D and
     reciprocal diagonal RD; an intermediate level its faces, D, RD, B and
     X, its temporary aliasing the fine T (while the temporaries fit there);
-    the coarsest its B and X. In shared memory (`gm1` False: `Geo` in
-    csrc/pressure_pcg.cu) the coarsest inverse (transposed) and two
-    reduction slots a warp follow. In P-gm1's device workspace (`gm1`:
-    csrc/pressure_pcg_gm1.cu) the CG vectors x, p, z and A p follow instead:
-    its coarse solve reads the member's inverse in place, and its reduction
-    slots are in shared memory.
+    the coarsest its B and X. Then (`Geo` in csrc/pressure_pcg.cu) the
+    coarsest inverse (transposed) and two reduction slots a warp.
 
     With `cl` (P-cl, `Geo` in csrc/pressure_pcg_cl.cu) a rank holds a band
     of rows of each split level (`cl_split`, `cl_bands`; `n` is the
@@ -212,24 +211,20 @@ def layout(Nx, Ny, levels, unit_diag=True, gm1=False, cl=0, place="shared"):
         lv.append(d)
         o += size
     nc = sides[lc][0] * sides[lc][1]
-    if gm1:
-        extra = {k: o + i * vec[0] for i, k in enumerate(("x", "p", "z", "Ap"))}
-        o += 4 * vec[0]
-    else:
-        extra = {}
-        if place == "shared" or not cl:
-            extra["inverse"] = o
-            o += _r4(nc * nc)
-        elif place == "distributed":
-            start, stop = cl_inverse_rows(nc, cl)[0]
-            extra["inverse"] = o
-            o += _r4((stop - start) * nc) + 4
-            extra["barrier"] = o
-            o += 4
-        extra["reduction"] = o
-        # two slots of a float pair a warp; P-cl's slots add one a rank
-        o += (4 * (cl_threads(Nx, Ny, cl, place) // 32 + cl) if cl
-              else 4 * (_kernel_threads(Nx, Ny) // 32))
+    extra = {}
+    if place == "shared" or not cl:
+        extra["inverse"] = o
+        o += _r4(nc * nc)
+    elif place == "distributed":
+        start, stop = cl_inverse_rows(nc, cl)[0]
+        extra["inverse"] = o
+        o += _r4((stop - start) * nc) + 4
+        extra["barrier"] = o
+        o += 4
+    extra["reduction"] = o
+    # two slots of a float pair a warp; P-cl's slots add one a rank
+    o += (4 * (cl_threads(Nx, Ny, cl, place) // 32 + cl) if cl
+          else 4 * (_kernel_threads(Nx, Ny) // 32))
     return lv, extra, o
 
 
@@ -237,11 +232,6 @@ def smem_bytes(Nx, Ny, levels, unit_diag=True):
     """Shared memory the shared-memory kernel takes for one member: its
     `layout`."""
     return 4 * layout(Nx, Ny, levels, unit_diag)[2]
-
-
-def gm1_bytes(Nx, Ny, levels, unit_diag=True):
-    """Device memory P-gm1's workspace takes for one member: its `layout`."""
-    return 4 * layout(Nx, Ny, levels, unit_diag, gm1=True)[2]
 
 
 def cl_bytes(Nx, Ny, levels, c, unit_diag=True, place="shared"):
@@ -282,11 +272,137 @@ def cl_plan(Nx, Ny, unit_diag=True, place=None):
                  if cl_fits(Nx, Ny, c, place, unit_diag, limit)), None)
 
 
-def gm1_table(Nx, Ny, levels, unit_diag=True):
-    """P-gm1's layout as the C entry takes it: levels, floats a member, the
-    offsets of x, p, z and A p, then per level its LEVEL_KEYS."""
-    lv, extra, floats = layout(Nx, Ny, levels, unit_diag, gm1=True)
-    return [levels, floats, *extra.values()] + [d[k] for d in lv for k in LEVEL_KEYS]
+# P-gm1 (csrc/pressure_pcg_gm1.cu `kMaxThreads`, `kMinStages`, `kMaxStages`):
+# a block's threads at most (one a fine 2x2 tile, in whole warps) and the
+# ring's fewest and most stages; then the shared memory a plan takes at
+# most, the ring it holds back from the arrays, and the least stage. On an
+# H100 each stage's copy and barriers cost more than its bytes, so two
+# stages of ~50 KB streamed faster than four to twelve of 16-40 KB; and a
+# block under 160 KB, which leaves the SM ~92 KB of L1 for the fine
+# passes' reads of neighbouring cells, ran faster at N=1000 and at 120x440
+# from N=128 than a block of the whole 227 KB, which won only at 100x100
+# N=64 and 32x1088 N=4 and tied at 100x100 N=128: too few points for a
+# rule by batch (bench_routes.py --kernel gm1; PERF.md).
+GM1_MAX_THREADS, GM1_MIN_STAGES, GM1_MAX_STAGES = 512, 2, 4
+GM1_SMEM_BYTES, GM1_RING_MIN_BYTES, GM1_STAGE_BYTES = 163_840, 98_304, 49_152
+CG_KEYS = ("x", "p", "z", "Ap")  # P-gm1's CG vectors, each a fine level's size
+
+
+class Gm1Plan(NamedTuple):
+    """P-gm1's plan for a grid (`gm1_plan`), in floats but `smem_bytes`:
+    each array by (key, level) (a CG vector's level None) at its offset in
+    `shared` memory or in the `device` workspace; the head in shared
+    memory (the ring's barriers at `bars`, the reduction slots at `red`,
+    the inverse's ends at `ends`); the ring of `stages` slots of `stage`
+    floats at `ring`."""
+    threads: int
+    shared: dict
+    device: dict
+    bars: int
+    red: int
+    ends: int
+    ring: int
+    stages: int
+    stage: int
+    smem_bytes: int
+    ws_floats: int
+
+
+def gm1_threads(Nx, Ny):
+    """Threads of a P-gm1 block: one per fine 2x2 tile, in whole warps, at
+    most GM1_MAX_THREADS."""
+    t = (Nx // 2) * (Ny // 2)
+    return GM1_MAX_THREADS if t >= GM1_MAX_THREADS else -(-t // 32) * 32
+
+
+def gm1_arrays(Nx, Ny, unit_diag=True):
+    """P-gm1's arrays for one member, each (key, floats) rounded up to 4:
+    those the plan places in shared memory while they fit, in its order (by
+    reads a V-cycle per byte: the coarsest level's B and X; the coarser
+    levels' whole sets, coarsest first; the fine TX and TY; the fine D and
+    1/D where the system is unscaled), then those that stay in the device
+    workspace (the fine X, B and T, the CG vectors)."""
+    levels = n_levels(Nx, Ny)
+    lc = levels - 1
+    size = lambda lvl, k: _r4(((Nx >> lvl) - (k == "TX")) * (Ny >> lvl))  # noqa: E731
+    sets = [((k, lvl), size(lvl, k)) for lvl in range(lc - 1, 0, -1)
+            for k in ("TX", "TY", "D", "RD", "B", "X", "T")]
+    fine = ("TX", "TY") + (() if unit_diag else ("D", "RD"))
+    ranked = ([((k, lc), size(lc, k)) for k in ("B", "X")] + sets
+              + [((k, 0), size(0, k)) for k in fine])
+    rest = [((k, 0), size(0, k)) for k in ("B", "X", "T")] + [((k, None), size(0, "x"))
+                                                            for k in CG_KEYS]
+    return ranked, rest
+
+
+@functools.lru_cache(maxsize=None)
+def gm1_plan(Nx, Ny, unit_diag=True, smem=GM1_SMEM_BYTES, ring_min=GM1_RING_MIN_BYTES,
+             stage_min=GM1_STAGE_BYTES):
+    """P-gm1's plan for a grid (`Gm1Plan`), in at most `smem` bytes of
+    shared memory. That holds the head (barriers for GM1_MAX_STAGES slots,
+    two reduction slots of a float pair for GM1_MAX_THREADS // 32 warps,
+    eight floats of the inverse's ends), then each array of `gm1_arrays`'
+    ranked list, in order, that fits beside the ring held back (`ring_min`
+    bytes, or a member's stream where smaller; for the coarsest level's
+    vectors, the least ring); what is left goes to the ring: as many stages
+    of at least `stage_min` bytes as fit (GM1_MIN_STAGES to
+    GM1_MAX_STAGES), each a multiple of 16 bytes and no larger than a
+    member's stream (its inverse and at most three floats of its 16-byte
+    phase, in whole 16-byte units) cut in as many. The rest of the arrays,
+    in order, in the device workspace."""
+    check_grid(Nx, Ny)
+    levels = n_levels(Nx, Ny)
+    nc = (Nx >> (levels - 1)) * (Ny >> (levels - 1))
+    stream = _r4(nc * nc + 3)
+    limit = smem // 4
+    bars, red = 0, 4 * GM1_MAX_STAGES
+    ends = red + 4 * (GM1_MAX_THREADS // 32)
+    used = ends + 8
+
+    def cut(k):  # a stage of the stream cut in k
+        return _r4(-(-stream // k))
+
+    hold = min(ring_min // 4, GM1_MIN_STAGES * cut(GM1_MIN_STAGES))
+    ranked, rest = gm1_arrays(Nx, Ny, unit_diag)
+    shared, device = {}, {}
+    for key, size in ranked:
+        # the coarsest level's vectors need only the least ring beside them
+        room = 4 * GM1_MIN_STAGES if key[1] == levels - 1 else hold
+        if used + size + room <= limit:
+            shared[key] = used
+            used += size
+        else:
+            rest.append((key, size))
+    left = limit - used
+    stages = min(GM1_MAX_STAGES, max(GM1_MIN_STAGES, left // (stage_min // 4)))
+    stage = min(left // stages // 4 * 4, cut(stages))
+    o = 0
+    for key, size in rest:
+        device[key] = o
+        o += size
+    return Gm1Plan(gm1_threads(Nx, Ny), shared, device, bars, red, ends, used, stages, stage,
+                   4 * (used + stages * stage), o)
+
+
+def gm1_table(Nx, Ny, unit_diag=True, plan=None):
+    """P-gm1's plan (the grid's `gm1_plan`, or `plan`) as the C entry takes
+    it: levels, floats a member, shared bytes, threads, the ring's stages
+    and floats a stage, the shared offsets of the ring, its barriers, the
+    reduction slots and the inverse's ends, the offsets of x, p, z and A p,
+    then per level its LEVEL_KEYS. An array's offset is its float in the workspace, or -1 - its
+    float in shared memory; an array the level does not have is 0."""
+    plan = plan or gm1_plan(Nx, Ny, unit_diag)
+    levels = n_levels(Nx, Ny)
+
+    def where(key):
+        if key in plan.shared:
+            return -1 - plan.shared[key]
+        return plan.device.get(key, 0)
+
+    head = [levels, plan.ws_floats, plan.smem_bytes, plan.threads, plan.stages, plan.stage,
+            plan.ring, plan.bars, plan.red, plan.ends] + [where((k, None)) for k in CG_KEYS]
+    return head + [v for lvl in range(levels) for v in (
+        Nx >> lvl, Ny >> lvl, *(where((k, lvl)) for k in LEVEL_KEYS[2:]))]
 
 
 # P-gm: a member's blocks at most (the H100's SMs: one block an SM, all
@@ -433,21 +549,25 @@ def check_grid(Nx, Ny):
 # where P-gm1 keeps 132, and its member's iteration runs faster. Where P-gm1
 # won at N=1000 all the same, the largest batch P-cl/d takes, by (Nx, Ny,
 # unit_diag); the device-memory route takes larger ones. The scaled 100x100:
-# P-cl/d ran 2.5x faster at N=64 and 1.22x at 192, even at 256, 1.13x
-# slower at 1000 (bench_routes.py on an H100; PERF.md keeps the figures).
-DIST_BATCH_MAX = {(100, 100, True): 192}
+# P-cl/d ran 2.5x faster at N=64 and 1.06x at 192, 1.05x slower at 128
+# (one wave of P-gm1), 1.20x at 256 and 1.36x at 1000. The scaled 60x220
+# layer: P-cl/d 1.25x faster at N=128 and 1.12x at 256, even at 512, 1.08x
+# slower at 1000 (bench_routes.py on an H100, the ring-streamed P-gm1;
+# PERF.md keeps the figures).
+DIST_BATCH_MAX = {(100, 100, True): 192, (60, 220, True): 256}
 # P-gm keeps 132 // G members in flight (6 at the scaled 120x440, 14 at
 # 100x100) where P-gm1 keeps 132, and its member runs 3x faster at
 # 120x440. The largest batch P-gm takes on the device-memory route, by (Nx,
 # Ny, unit_diag): the largest batch timed where it beat P-gm1. P-gm1 takes
-# larger ones (and any batch not given). The scaled 120x440: P-gm 3.0x
-# faster at N=16, 1.16x at 64, 1.09x slower at 96, 1.31x at 1000; unscaled
-# 2.9x at 16, 1.7x at 96, even at 128, 1.16x slower at 192. At the scaled
-# 100x100 past DIST_BATCH_MAX P-gm lost to P-gm1 at every batch timed
-# (256, 512, 1000), so none there (bench_routes.py on an H100; PERF.md
-# keeps the figures). A grid not listed takes P-gm at any batch where it
-# has a plan.
-GM_BATCH_MAX = {(120, 440, True): 64, (120, 440, False): 128, (100, 100, True): 0}
+# larger ones (and any batch not given). The scaled 120x440: P-gm 2.8x
+# faster at N=16, 1.10x at 64, 1.18x slower at 96, 1.39x at 1000; unscaled
+# 3.0x faster at 16, 1.6x at 96, 1.10x slower at 128, 1.6x at 1000. At the
+# scaled 100x100 and 60x220 past DIST_BATCH_MAX P-gm lost to P-gm1 at every
+# batch timed (256, 512, 1000; 512, 1000), so none there (bench_routes.py
+# on an H100, the ring-streamed P-gm1; PERF.md keeps the figures). A grid
+# not listed takes P-gm at any batch where it has a plan.
+GM_BATCH_MAX = {(120, 440, True): 64, (120, 440, False): 96, (100, 100, True): 0,
+                (60, 220, True): 0}
 
 
 def route(Nx, Ny, unit_diag=True, batch=None):
@@ -474,7 +594,7 @@ def route(Nx, Ny, unit_diag=True, batch=None):
 
 def pressure_solve_cuda(hier, Ainv, q, p0, w, tol, maxiter, patience_iters=96,
                         restart_every=8, smoother="jacobi", unit_diag=True, force=None,
-                        plan=None):
+                        plan=None, inverse_loads=False):
     """The hand kernel. Same arguments as the plain version, float32 on one
     CUDA device. With `unit_diag` (the contract of
     `models.ressim.scaled_system`) the kernel takes the fine diagonal as 1
@@ -482,14 +602,20 @@ def pressure_solve_cuda(hier, Ainv, q, p0, w, tol, maxiter, patience_iters=96,
     `route` for these B members picks the shared-memory kernel, P-cl or
     P-gm; `force` (one of ROUTES) picks one at any grid it fits, and `plan`
     ((c, place), as `cl_plan` gives it) a cluster for P-cl other than the
-    grid's."""
+    grid's, or (a `Gm1Plan`) a plan for P-gm1 other than the grid's; for
+    timing the ring, `inverse_loads` runs P-gm1's control
+    (`_build.pressure_gm1_loads_lib`: the inverse read by plain loads).
+    Neither P-gm1 choice moves a float of the result."""
     B, Nx, Ny = q.shape
     if smoother not in SMOOTHERS:
         raise ValueError(f"smoother must be one of {SMOOTHERS}, got {smoother!r}")
-    if force not in (None, *ROUTES) or (plan is not None and force not in (None, "cl")):
-        raise ValueError(f"force must be one of {ROUTES} or None (\"cl\" with a plan), "
-                         f"got {force!r}")
-    rt = "cl" if plan is not None else route(Nx, Ny, unit_diag, B) if force is None else force
+    planned = None if plan is None else "gm1" if isinstance(plan, Gm1Plan) else "cl"
+    if force not in (None, *ROUTES) or (plan is not None and force not in (None, planned)):
+        raise ValueError(f"force must be one of {ROUTES} or None (the plan's route with a "
+                         f"plan), got {force!r}")
+    rt = planned or (route(Nx, Ny, unit_diag, B) if force is None else force)
+    if inverse_loads and rt != "gm1":
+        raise ValueError(f"inverse_loads is P-gm1's, not route {rt!r}'s")
     if rt == "cl":
         plan = plan or cl_plan(Nx, Ny, unit_diag)
         if plan is None or plan[1] not in INV_PLACES or not cl_fits(Nx, Ny, *plan, unit_diag):
@@ -542,9 +668,10 @@ def pressure_solve_cuda(hier, Ainv, q, p0, w, tol, maxiter, patience_iters=96,
             *common, net.data_ptr(), flags.data_ptr(), cap, B, Nx, Ny, levels, float(tol),
             *solver)
     elif rt == "gm1":
-        table = gm1_table(Nx, Ny, levels, unit_diag)
+        table = gm1_table(Nx, Ny, unit_diag, plan)
         ws = torch.empty(B * table[1], dtype=torch.float32, device=q.device)
-        code = _build.lib().hm_pressure_gm1_solve(
+        lib = _build.pressure_gm1_loads_lib() if inverse_loads else _build.lib()
+        code = lib.hm_pressure_gm1_solve(
             *common, ws.data_ptr(), (ctypes.c_int * len(table))(*table), B, float(tol), *solver)
     elif rt == "cl":
         code = _build.pressure_cl_lib(Nx, Ny, *plan).hm_pressure_cl_solve(

@@ -193,21 +193,21 @@ def test_transport_cluster_bands_and_strips(Nx, Ny):
 
 # P's route past one block, by grid, fine diagonal and batch: P-cl on
 # every grid a cluster holds; at the scaled 100x100 P-cl/d only up to 192
-# members, the device-memory route past them (and for a batch not given):
-# P-gm1, which beat P-gm there.
-P_GM_PAST = {(100, 100, True): 192}
+# members and at the scaled 60x220 up to 256, the device-memory route past
+# them (and for a batch not given): P-gm1, which beat P-gm there.
+P_GM_PAST = {(100, 100, True): 192, (60, 220, True): 256}
 
 
-@pytest.mark.parametrize("batch", [None, 64, 192, 193, 1000])
+@pytest.mark.parametrize("batch", [None, 64, 192, 193, 256, 257, 1000])
 @pytest.mark.parametrize("unit_diag", [True, False])
 @pytest.mark.parametrize("Nx,Ny", [g for g in CL_GRIDS if g != (80, 80)])
 def test_pressure_route_past_one_block(Nx, Ny, unit_diag, batch):
     """P takes P-cl past one block's shared memory wherever a cluster holds
     the layout; where the plan distributes the inverse and the
-    device-memory route won at N=1000 (the scaled 100x100), only up to the
-    batch where P-cl/d still won (`DIST_BATCH_MAX`), P-gm1 beyond it (P-gm
-    has a plan there but lost to P-gm1 at every batch timed:
-    `GM_BATCH_MAX`)."""
+    device-memory route won at N=1000 (the scaled 100x100 and 60x220),
+    only up to the batch where P-cl/d still won (`DIST_BATCH_MAX`), P-gm1
+    beyond it (P-gm has a plan there but lost to P-gm1 at every batch
+    timed: `GM_BATCH_MAX`)."""
     plan = cl_plan(Nx, Ny, unit_diag)
     limit = P_GM_PAST.get((Nx, Ny, unit_diag))
     expect = "gm1" if limit is not None and (batch is None or batch > limit) else "cl"

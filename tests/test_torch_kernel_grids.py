@@ -15,8 +15,9 @@ from historymatching_tpu_torch.ops import pressure, transport
 from historymatching_tpu_torch.ops._build import CSRC, GRIDS, SMEM_LIMIT
 from historymatching_tpu_torch.ops.multigrid import build_hierarchy_5pt, n_levels
 from historymatching_tpu_torch.ops.pressure import (
+    CG_KEYS,
     LEVEL_KEYS,
-    gm1_bytes,
+    gm1_plan,
     gm1_table,
     layout,
     pressure_solve_cuda,
@@ -114,34 +115,35 @@ def test_shared_memory_limit(kernel, Nx, Ny, unit_diag, need, expect):
 
 
 # The grids the JAX package simulates and kernel P's shared-memory layout
-# does not fit: (P's shared bytes, P-gm1's workspace bytes, K's shared
-# bytes, K's route), a member each.
+# does not fit: (P's shared bytes, P-gm1's workspace bytes (its plan's:
+# what its shared memory does not hold), K's shared bytes, K's route), a
+# member each.
 LARGE_GRIDS = {
-    (60, 60): (297_712, 152_672, 28_800, "rt"),
-    (88, 88): (272_048, 337_248, 61_952, "cl"),
-    (96, 96): (257_584, 404_576, 73_728, "cl"),
-    (100, 100): (1_827_072, 424_432, 80_000, "cl"),
-    (128, 128): (458_528, 719_520, 131_072, "cl"),
-    (60, 220): (3_071_152, 559_712, 105_600, "cl"),
-    (192, 192): (1_030_960, 1_620_320, 294_912, "cl"),
-    (256, 256): (1_833_760, 2_881_184, 524_288, "cl"),
+    (60, 60): (297_712, 100_800, 28_800, "rt"),
+    (88, 88): (272_048, 247_808, 61_952, "cl"),
+    (96, 96): (257_584, 258_048, 73_728, "cl"),
+    (100, 100): (1_827_072, 369_600, 80_000, "cl"),
+    (128, 128): (458_528, 589_312, 131_072, "cl"),
+    (60, 220): (3_071_152, 513_920, 105_600, "cl"),
+    (192, 192): (1_030_960, 1_510_656, 294_912, "cl"),
+    (256, 256): (1_833_760, 2_816_512, 524_288, "cl"),
 }
 
 
 @pytest.mark.parametrize("Nx,Ny", list(LARGE_GRIDS))
 def test_large_grid_layouts_and_routes(Nx, Ny):
     """The layout count at each grid past one block's shared memory: P's
-    shared bytes and P-gm1's workspace, both from `layout`; P takes P-cl
-    everywhere but on the scaled 100x100 past 192 members (or for a batch
-    not given), where its coarsest inverse is distributed over 9 ranks and
-    P-gm1 (132 members in flight; P-gm, 14 in flight, lost to it there)
-    takes it; K its runtime-grid variant up to 4,096 cells (60x60) and K-cl
-    above."""
+    shared bytes (`layout`) and P-gm1's workspace (`gm1_plan`); P takes P-cl
+    everywhere but on the scaled 100x100 past 192 members and the scaled
+    60x220 past 256 (or for a batch not given), where its coarsest inverse
+    is distributed over 9 or 15 ranks and P-gm1 (132 members in flight;
+    P-gm, 14 or 8 in flight, lost to it there) takes it; K its runtime-grid
+    variant up to 4,096 cells (60x60) and K-cl above."""
     p_smem, p_gm, k_smem, k_route = LARGE_GRIDS[(Nx, Ny)]
     levels = n_levels(Nx, Ny)
     assert smem_bytes(Nx, Ny, levels) == p_smem > SMEM_LIMIT
-    assert gm1_bytes(Nx, Ny, levels) == p_gm
-    p_route = "gm1" if (Nx, Ny) == (100, 100) else "cl"
+    assert 4 * gm1_plan(Nx, Ny).ws_floats == p_gm
+    p_route = "gm1" if (Nx, Ny) in ((100, 100), (60, 220)) else "cl"
     assert pressure.route(Nx, Ny) == pressure.route(Nx, Ny, True, 1000) == p_route
     assert pressure.route(Nx, Ny, True, 64) == pressure.route(Nx, Ny, False) == "cl"
     assert transport.smem_bytes(Nx, Ny) == k_smem and transport.route(Nx, Ny) == k_route
@@ -152,8 +154,15 @@ def test_large_grid_layouts_and_routes(Nx, Ny):
 
 def _spans(Nx, Ny, unit_diag, gm1):
     """Every array of `layout` that a kernel reads or writes, as (name,
-    start, end) in floats."""
-    lv, extra, floats = layout(Nx, Ny, n_levels(Nx, Ny), unit_diag, gm1)
+    start, end) in floats; for P-gm1 (`gm1`) those of its plan's device
+    workspace."""
+    if gm1:
+        plan = gm1_plan(Nx, Ny, unit_diag)
+        n = lambda lvl: Nx >> lvl if lvl is not None else Nx  # noqa: E731
+        m = lambda lvl: Ny >> lvl if lvl is not None else Ny  # noqa: E731
+        return [((k, lvl), o, o + (n(lvl) - (k == "TX")) * m(lvl))
+                for (k, lvl), o in plan.device.items()], plan.ws_floats
+    lv, extra, floats = layout(Nx, Ny, n_levels(Nx, Ny), unit_diag)
     lc = len(lv) - 1
     spans = []
     for lvl, d in enumerate(lv):
@@ -176,19 +185,24 @@ def test_layout_arrays_fit_and_do_not_overlap(Nx, Ny, gm1, unit_diag):
     """`layout` places every array inside the member's floats, 4-aligned
     (the kernels load float pairs), and no two overlap, except that each
     intermediate level's smoothing temporary lives inside the fine one (its
-    only use comes after the fine temporary's last read); P-gm1's table
-    carries the same offsets."""
+    only use comes after the fine temporary's last read); P-gm1's plan
+    does the same in its device workspace, each array its own, and its
+    table carries the same offsets."""
     spans, floats = _spans(Nx, Ny, unit_diag, gm1)
     assert all(o % 4 == 0 and 0 <= o < e <= floats for _, o, e in spans)
-    coarse_t = lambda k: k[0] == "T" and k[1] > 0  # noqa: E731
+    coarse_t = lambda k: not gm1 and k[0] == "T" and k[1] > 0  # noqa: E731
     own = sorted((o, e, k) for k, o, e in spans if not coarse_t(k))
     assert all(e1 <= o2 for (_, e1, _), (o2, _, _) in zip(own, own[1:])), own
     fine_t = next((o, e) for k, o, e in spans if k == ("T", 0))
     assert all(fine_t[0] <= o and e <= fine_t[1] for k, o, e in spans if coarse_t(k))
     if gm1:
-        lv, extra, _ = layout(Nx, Ny, n_levels(Nx, Ny), unit_diag, gm1=True)
-        assert gm1_table(Nx, Ny, len(lv), unit_diag) == (
-            [len(lv), floats, *extra.values()] + [d[k] for d in lv for k in LEVEL_KEYS])
+        table = gm1_table(Nx, Ny, unit_diag)
+        levels = n_levels(Nx, Ny)
+        assert table[1] == floats and table[10:14] == [o for k, o, _ in spans
+                                                       if k in [(c, None) for c in CG_KEYS]]
+        device = {(LEVEL_KEYS[2 + i], lvl): table[16 + 9 * lvl + i]
+                  for lvl in range(levels) for i in range(7)}
+        assert all(device[k] == o for k, o, _ in spans if k[1] is not None)
 
 
 @pytest.mark.parametrize("Nx,Ny", [(15, 15), (12, 9), (4, 4), (6, 5)])

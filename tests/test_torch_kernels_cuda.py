@@ -89,20 +89,27 @@ def _system(mm, q, unit_diag):
 
 
 def _pressure_vs_plain(dev, Nx, Ny, smoother, unit_diag=True, window=16, scale=1.0, force=None,
-                       plan=None, B=8):
+                       plan=None, B=8, noise=False, moved=False):
     """One launch of P's `smoother` instantiation against the plain version
     with the same smoother, after fixed work (one restart window of
     `window` iterations, or two of 8 for 16); the launch counts on that
     instantiation's own key. Without `unit_diag`, on the unscaled system
     (the instantiation that reads the fine diagonal); `scale` multiplies
     the pre-permeability fields; `force` the route (P-gm: "gm", P-gm1:
-    "gm1"), `plan` P-cl's cluster; B members."""
+    "gm1"), `plan` P-cl's cluster; B members. The kernel's step from the
+    start is held to the plain version's; with `noise` the start is seeded
+    noise at the right-hand side's scale, not 0; with `moved` every
+    member's plain step must be nonzero (so the check cannot pass on the
+    start alone)."""
     g = torch.Generator(device=dev).manual_seed(1)
     m = _model(Nx, Ny, dev)
     mm = set_perm(m, scale * torch.randn(B, m.Nxy, generator=g, device=dev))
     q = torch.zeros(Nx, Ny, device=dev)
     q[Nx // 2, Ny // 2], q[1, 1] = 1.0, -1.0
     args = _system(mm, q, unit_diag)
+    if noise:
+        p0 = torch.randn(args[2].shape, generator=g, device=dev)
+        args = (*args[:3], p0 * args[2].abs().amax(dim=(-2, -1), keepdim=True), args[4])
     fixed = dict(tol=0.0, maxiter=window, restart_every=min(window, 8), patience_iters=160,
                  smoother=smoother, unit_diag=unit_diag)
     route = "cl" if plan else force or pressure_route(Nx, Ny, unit_diag, B)
@@ -113,7 +120,9 @@ def _pressure_vs_plain(dev, Nx, Ny, smoother, unit_diag=True, window=16, scale=1
     assert {k: v - before[k] for k, v in _build.LAUNCHES.items() if v != before[k]} == {name: 1}
     p_t, it_t, rel_t = pressure_solve_torch(*args, **fixed)
     assert torch.equal(it_k, it_t)
-    dn, nt = (p_k - p_t).norm(dim=(-2, -1)), p_t.norm(dim=(-2, -1))
+    step_k, step_t = p_k - args[3], p_t - args[3]
+    dn, nt = (step_k - step_t).norm(dim=(-2, -1)), step_t.norm(dim=(-2, -1))
+    assert not moved or bool((nt > 0).all()), nt
     # zero from both: the member's weighted residual never improved on its start
     err = torch.where((dn == 0) & (nt == 0), 0.0, dn / nt)
     assert float(err.max()) <= 1e-3
@@ -404,15 +413,22 @@ def test_pressure_gm_blocks_match_plain(dev, Nx, Ny, force, B, smoother, unit_di
 
 @pytest.mark.parametrize("unit_diag", [True, False])
 @pytest.mark.parametrize("smoother", ["jacobi", "cheb"])
-@pytest.mark.parametrize("Nx,Ny,B", [(120, 440, 2), (100, 100, 8), (64, 64, 8), (32, 1088, 2)])
+@pytest.mark.parametrize("Nx,Ny,B", [(120, 440, 2), (100, 100, 8), (64, 64, 8), (32, 1088, 2),
+                                     (100, 100, 5), (60, 220, 5)])
 def test_pressure_gm1_matches_plain(dev, Nx, Ny, B, smoother, unit_diag):
-    """P-gm1, one block a member with its arrays in device memory, forced at
+    """P-gm1, one block a member with its arrays split between shared and
+    device memory and its inverse streamed through the ring, forced at
     P-gm's points and on its own route at 32x1088 (a band of 8 rows of
-    1,088 cells fits no block), as P-gm."""
-    kw = {} if unit_diag else dict(unit_diag=False, scale=0.2)
+    1,088 cells fits no block), as P-gm. Five members at 100x100 and 60x220
+    (625^2 and 825^2 are 1 mod 4): each member's inverse starts at another
+    16-byte phase, and the last one's tail is not a whole 16 bytes. The
+    scaled system starts from seeded noise: from 0 some members' window
+    (every one at 32x1088) does not improve the residual, and both versions
+    return the start. Every member's plain step is nonzero."""
+    kw = dict(noise=True) if unit_diag else dict(unit_diag=False, scale=0.2)
     force = None if (Nx, Ny) == (32, 1088) else "gm1"
     assert pressure_route(Nx, Ny, unit_diag, B) == "gm1" or force == "gm1"
-    _pressure_vs_plain(dev, Nx, Ny, smoother, window=4, force=force, B=B, **kw)
+    _pressure_vs_plain(dev, Nx, Ny, smoother, window=4, force=force, B=B, moved=True, **kw)
 
 
 def test_pressure_gm_refused_launch_raises(dev, monkeypatch):
@@ -567,20 +583,26 @@ def test_gm_wide_kernel_resources(dev, Nx, Ny, B):
 
 @pytest.mark.parametrize("Nx,Ny", [(64, 64), (128, 128), (60, 220), (256, 256), (120, 440)])
 def test_gm_kernel_resources(dev, Nx, Ny):
-    """The device-memory variants' footprints: P-gm1's and K-gm1's few static
-    shared bytes (P-gm1's reduction slots), K-gm's two fw tiles of its
-    largest band and each thread's 17 faces and sources; no spills;
+    """The device-memory variants' footprints: P-gm1's shared bytes and
+    threads as its plan counts them (`gm1_plan`), K-gm1's few static shared
+    bytes, K-gm's two fw tiles of its largest band and each thread's 17
+    faces and sources; no spills;
     resident blocks on an SM; K-gm's bands and the members in flight
     (groups of bands resident at once). P-gm, where `gm_plan` cuts the grid
     (not 256x256): its bytes a block as `gm_layout` counts them, its
     blocks a member, no spills, and at least one member in flight."""
-    from historymatching_tpu_torch.ops.pressure import gm_bytes, gm_plan
+    from historymatching_tpu_torch.ops.pressure import gm1_plan, gm_bytes, gm_plan
     from historymatching_tpu_torch.ops.transport import gm_plan as k_gm_plan
 
     for name in ("pressure_pcg_gm1", "pressure_pcg_cheb_gm1", "pressure_pcg_diag_gm1",
-                 "pressure_pcg_cheb_diag_gm1", "transport_upwind_gm1"):
+                 "pressure_pcg_cheb_diag_gm1"):
         p = _build.kernel_info(name, Nx, Ny)
-        assert p["shared_bytes"] <= 1024 and p["local_bytes"] == 0 and p["blocks_per_sm"] >= 1
+        plan = gm1_plan(Nx, Ny, "_diag" not in name)
+        print(f"{name} {Nx}x{Ny}: {p}")
+        assert p["shared_bytes"] == plan.smem_bytes and p["threads"] == plan.threads, p
+        assert p["local_bytes"] == 0 and p["blocks_per_sm"] >= 1, p
+    k = _build.kernel_info("transport_upwind_gm1", Nx, Ny)
+    assert k["shared_bytes"] <= 1024 and k["local_bytes"] == 0 and k["blocks_per_sm"] >= 1
     for name in ("pressure_pcg_gm", "pressure_pcg_cheb_gm", "pressure_pcg_diag_gm",
                  "pressure_pcg_cheb_diag_gm"):
         unit = "_diag" not in name

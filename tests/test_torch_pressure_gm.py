@@ -197,7 +197,7 @@ def test_gm_layout_arrays_fit_and_do_not_overlap(Nx, Ny, unit_diag):
 
 # P's route by grid, fine diagonal and batch where P-gm or P-gm1 takes it:
 # at 120x440 P-gm up to GM_BATCH_MAX's batch, P-gm1 past it; at the scaled
-# 100x100 past DIST_BATCH_MAX P-gm1 (P-gm lost to it there).
+# 100x100 and 60x220 past DIST_BATCH_MAX P-gm1 (P-gm lost to it there).
 GM_ROUTES = {
     (120, 440, True, None): "gm1", (120, 440, False, None): "gm1",
     (120, 440, True, 16): "gm", (120, 440, False, 16): "gm",
@@ -206,6 +206,8 @@ GM_ROUTES = {
     (120, 440, False, GM_BATCH_MAX[(120, 440, False)] + 1): "gm1",
     (100, 100, True, 1000): "gm1", (100, 100, True, None): "gm1",
     (100, 100, True, 64): "cl", (100, 100, False, 1000): "cl",
+    (60, 220, True, 1000): "gm1", (60, 220, True, None): "gm1", (60, 220, True, 256): "cl",
+    (60, 220, True, 257): "gm1", (60, 220, False, 1000): "cl",
     (32, 1088, True, 4): "gm1", (32, 1088, False, 4): "gm1",
     (8, 5000, True, None): "gm1", (192, 192, True, None): "cl",
 }
@@ -214,8 +216,9 @@ GM_ROUTES = {
 @pytest.mark.parametrize("key", list(GM_ROUTES))
 def test_gm_routes_and_capacity(key):
     """P-gm where no cluster holds the grid (120x440) up to the batch of
-    `GM_BATCH_MAX`, P-gm1 past it and past the scaled 100x100's
-    `DIST_BATCH_MAX` (P-gm lost to P-gm1 at every batch timed there); P-gm1,
+    `GM_BATCH_MAX`, P-gm1 past it and past the scaled 100x100's and
+    60x220's `DIST_BATCH_MAX` (P-gm lost to P-gm1 at every batch timed
+    there); P-gm1,
     before any launch, where `gm_plan` gives no plan (a band of
     2**(levels - 1) rows too wide for a block:
     32x1088, 8x5000; 192x192, where P-cl takes it). P-gm forced where it
