@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time each route of kernels P and K against the others on one NVIDIA GPU.
 
-    python3 bench_routes.py [--out FILE] [--kernel P|K|gm1] [--grids 15x15,60x60,...]
+    python3 bench_routes.py [--out FILE] [--kernel P|K|gm1|cl] [--grids 15x15,60x60,...]
                             [--root DIR]
 
 The evidence behind `ops/pressure.route` and `ops/transport.route` past one
@@ -36,16 +36,27 @@ member), P's bound (`chip_smoke.pressure_bound_ms` on that run's
 iterations) and, for a variant that reads the inverse from device memory
 every V-cycle (P-gm1, the in-place plan), the floor that reading sets
 (`chip_smoke.inverse_floor_ms`: its bytes once a V-cycle of each member at
-the card's memory rate) and its share of the time, and P-gm1's plan. The
-card's name and power limit come
-first; `--out` writes the rows as JSON; `--grids` keeps the rows of those
-grids only. Raises without CUDA.
+the card's memory rate) and its share of the time, and P-gm1's plan; each
+variant's members accepted (rel <= 5e-2); for P-cl its clusters resident
+on the card, its cluster barriers an iteration (where the checkout has
+P-cl's probe build: `chip_smoke.cl_iteration_barriers`) and an estimate
+of an iteration's time (the launch's time x clusters resident / members /
+mean iterations, which counts the last wave's idle tail). The card's name
+and power limit come first; `--out` writes the rows as JSON; `--grids`
+keeps the rows of those grids only. Raises without CUDA.
 
 `--kernel gm1` times P-gm1's own choices instead (`gm1_row`, GM1_CASES):
 its route's plan (`ops/pressure.gm1_plan`) and a whole block's, with the
 coarsest inverse streamed through the ring or read by plain loads (the
 ring's control, `_build.pressure_gm1_loads_lib`), at fixed work, p bit for
-bit the same across them; and the route's plan at the bench settings. `--root DIR` times the package and `chip_smoke.py` of another
+bit the same across them; and the route's plan at the bench settings.
+`--kernel cl` times P-cl on `chip_smoke.py` [24]'s first step (the bench
+case at 128x128, N=1000, the first pass's settings; `cl_row`): the route's
+plan held to the plain version after one window (`chip_smoke.P_TOL`),
+with its iterations, members accepted, bound, clusters resident, barriers
+and iteration estimate, and a hash of p (equal hashes: the same bits); then P's, K's and the wall's time a step over 10
+first-pass steps, profiled. `--root DIR` times the package and
+`chip_smoke.py` of another
 checkout (an unpacked `git archive` of an earlier commit) on this file's
 cases, each variant that checkout has: to compare two commits in one call,
 run parent, change, change, parent.
@@ -69,7 +80,8 @@ import chip_smoke as cs  # noqa: E402
 
 # (grid, scaled system) of P, Jacobi; grids of K.
 P_CASES = [((60, 60), True), ((88, 88), True), ((96, 96), True), ((100, 100), True),
-           ((128, 128), True), ((60, 220), True), ((120, 440), True),
+           ((128, 128), True), ((60, 220), True), ((192, 192), True), ((256, 256), True),
+           ((120, 440), True),
            ((60, 60), False), ((88, 88), False), ((96, 96), False), ((100, 100), False),
            ((128, 128), False), ((60, 220), False), ((192, 192), False), ((120, 440), False)]
 K_GRIDS = [(80, 80), (88, 88), (96, 96), (100, 100), (128, 128)]
@@ -130,10 +142,14 @@ def p_row(Nx, Ny, unit, n_members, reps, variants=None):
                gm_groups=gplan and _build.kernel_info(pressure.kernel_name("jacobi", unit, "gm"),
                                                       Nx, Ny)["groups_resident"])
     for tag, kw in (variants or p_variants(Nx, Ny, unit)).items():
-        _, it, _ = pressure_solve_cuda(*args, **solve, unit_diag=unit, **kw)
+        _, it, rel = pressure_solve_cuda(*args, **solve, unit_diag=unit, **kw)
         row[f"{tag}_ms"] = cs.cuda_ms(lambda: pressure_solve_cuda(
             *args, **solve, unit_diag=unit, **kw), reps)
         row[f"{tag}_iters"] = (int(it.median()), int(it.max()))
+        row[f"{tag}_accepted"] = int((rel <= 5e-2).sum())
+        if "plan" in kw:
+            row.update({f"{tag}_{k}": v for k, v in cl_figures(
+                args, unit, kw["plan"], row[f"{tag}_ms"], it).items()})
         row[f"{tag}_bound_ms"] = cs.pressure_bound_ms(
             args[0], args[1], it,
             fine_flops=cs.P_FLOPS_FINE + (0 if unit else cs.P_FLOPS_DIAG))[0]
@@ -143,6 +159,79 @@ def p_row(Nx, Ny, unit, n_members, reps, variants=None):
             row[f"{tag}_floor_share"] = row[f"{tag}_inverse_floor_ms"] / row[f"{tag}_ms"]
         if kw.get("force") == "gm1":
             row["gm1_plan"] = cs.gm1_said(Nx, Ny, unit)[0]
+    return row
+
+
+def probes(plans):
+    """`_build.prebuild`'s P-cl probe builds for `plans` (Nx, Ny, c, place),
+    where the checkout has them."""
+    return {"cl_probes": plans} if hasattr(cs, "cl_iteration_barriers") else {}
+
+
+def cl_figures(args, unit, plan, ms, it):
+    """P-cl's clusters resident on the card for `plan`, its cluster barriers
+    an iteration on P's arguments `args` (where the checkout has the probe
+    build) and an estimate of an iteration's time in microseconds: the
+    launch's `ms` x clusters resident / members / mean iterations (`it`)."""
+    from historymatching_tpu_torch.ops import _build, pressure
+
+    Nx, Ny = args[2].shape[1:]
+    resident = _build.kernel_info(pressure.kernel_name("jacobi", unit, "cl"), Nx, Ny,
+                                  plan)["max_active_clusters"]
+    out = dict(resident=resident, iteration_us_estimate=1e3 * ms * min(resident, len(it))
+               / len(it) / float(it.float().mean()))
+    if hasattr(cs, "cl_iteration_barriers"):
+        out["cluster_barriers"] = cs.cl_iteration_barriers(args, unit, plan)
+    return out
+
+
+def cl_row(reps):
+    """P-cl on [24]'s first step (`chip_smoke.large_case_kernels`' system):
+    the bench case (seed 1) at 128x128, N=1000, s = 0, the first pass's
+    settings; the route's plan, held to the plain version after one window
+    within `chip_smoke.P_TOL`, then timed, with its iterations, members
+    accepted, bound, `cl_figures` and a hash of p. Then P's device time a
+    step on the route (`step_ms`, with K's and the wall's): 10 steps of the
+    first pass from s = 0, profiled as `chip_smoke.py` [24] profiles its
+    loose-pass steps."""
+    import hashlib
+
+    import torch
+
+    import historymatching_tpu_torch as ht
+    from historymatching_tpu_torch import parity
+    from historymatching_tpu_torch.models.ressim import _source_field
+    from historymatching_tpu_torch.ops import _build, pressure
+    from historymatching_tpu_torch.ops.pressure import pressure_solve_cuda, pressure_solve_torch
+    from historymatching_tpu_torch.parallel.runner import set_perm
+
+    Nx, Ny = cs.BIG
+    case = parity.build_case(cs.SEED, cs.N, Nx, Ny, cs.NTIME)
+    model, prior = case["model"], case["prior"]
+    qf = _source_field(model, model.inj_rates[:, 0], model.prd_rates[:, 0])
+    args = cs.p_system(set_perm(model, prior), qf, True)
+    first = dict(cs.BASE, **cs.SCHED[0])
+    kw1 = {k: first[k] for k in cs.SOLVE_KEYS}
+    plan = pressure.cl_plan(Nx, Ny)
+    _build.prebuild(cl_plans=[(Nx, Ny, *plan)], **probes([(Nx, Ny, *plan)]))
+    row = dict(kernel="P-cl", case="[24] first step", grid=f"{Nx}x{Ny}", N=cs.N, root=ROOT,
+               plan=plan)
+    solve = lambda kw: pressure_solve_cuda(*args, **kw, plan=plan)  # noqa: E731
+    err = cs.rel_err(solve(cs.WINDOW4)[0], pressure_solve_torch(*args, **cs.WINDOW4)[0])
+    assert err <= cs.P_TOL, err
+    p, it, rel = solve(kw1)
+    ms = cs.cuda_ms(lambda: solve(kw1), reps)
+    row.update(cl_ms=ms, cl_window_rel=err,
+               cl_iters=(int(it.median()), float(it.float().mean()), int(it.max())),
+               cl_accepted=int((rel <= 5e-2).sum()),
+               cl_bound_ms=cs.pressure_bound_ms(args[0], args[1], it)[0],
+               cl_p_hash=hashlib.sha1(p.cpu().numpy().tobytes()).hexdigest()[:16])
+    row.update({f"cl_{k}": v for k, v in cl_figures(args, True, plan, ms, it).items()})
+    steps = dict(dt=cs.DT, nTime=10, keep_wsats=False, **first)
+    mm, s0 = set_perm(model, prior), torch.zeros(model.Nxy, device=prior.device)
+    ht.simulate(mm, s0, **dict(steps, nTime=1))
+    stages, busy, wall_ms, _ = cs.profile_steps(lambda: ht.simulate(mm, s0, **steps), 10)
+    row.update(step_ms=stages, step_busy_ms=busy, step_wall_ms=wall_ms)
     return row
 
 
@@ -197,8 +286,8 @@ def gm1_row(Nx, Ny, n_members, reps):
 def p_variants(Nx, Ny, unit, extra=True):
     """P's variants at a grid: P-cl on the grid's plan ("cl", where a
     cluster holds it), P-gm ("gm", where `gm_plan` cuts it) and P-gm1
-    ("gm1"); with `extra`, where the plan distributes the inverse, also the
-    in-place plan ("cl_device") and the distributed plan on 16 ranks
+    ("gm1"); with `extra`, where the plan distributes the inverse, also
+    the in-place plan ("cl_device") and the distributed plan on 16 ranks
     ("cl_16")."""
     from historymatching_tpu_torch.ops import pressure
 
@@ -271,9 +360,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out", default="")
-    ap.add_argument("--kernel", choices=("P", "K", "gm1"), default=None,
+    ap.add_argument("--kernel", choices=("P", "K", "gm1", "cl"), default=None,
                     help="time one kernel's routes only (default: P's and K's), or P-gm1's "
-                         "choices")
+                         "choices, or P-cl on [24]'s first step")
     ap.add_argument("--grids", default="",
                     help="comma-separated NXxNY: time the rows of these grids only")
     ap.add_argument("--root", default=ROOT,
@@ -290,6 +379,9 @@ def main(argv=None):
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
     rows = []
+    if opts.kernel == "cl":
+        rows.append(cl_row(opts.reps))
+        print(json.dumps(rows[-1]), flush=True)
     if opts.kernel == "gm1":
         for (Nx, Ny), n_members in GM1_CASES:
             if not keep or (Nx, Ny) in keep:
@@ -302,7 +394,7 @@ def main(argv=None):
              for kw in p_variants(*g, unit).values() if "plan" in kw}
     if p_grids or k_grids:
         _build.prebuild(cl_grids=sorted(set(p_grids) | set(k_grids)), cl_plans=plans,
-                        gm_grids=p_grids, k_grids=k_grids)
+                        gm_grids=p_grids, k_grids=k_grids, **probes(plans))
 
     def emit(row_fn, Nx, Ny, *args):
         if keep and (Nx, Ny) not in keep:

@@ -610,6 +610,39 @@ def enopt_phases(dev, gen):
     return figs, robust
 
 
+def iteration_us(ms, resident, iters):
+    """An estimate of a P-cl iteration's time in microseconds, from a
+    launch of `ms` over len(iters) members with `resident` clusters on the
+    card at once: ms x min(resident, members) / members / mean iterations.
+    It takes every resident cluster as busy for the whole launch, so it
+    counts the last wave's idle tail as iteration time."""
+    n = len(iters)
+    return 1e3 * ms * min(resident, n) / n / float(iters.float().mean())
+
+
+def cl_iteration_barriers(args, unit, plan):
+    """The cluster barriers of one CG iteration of P-cl's Jacobi V-cycle on
+    `plan`, as its probe build counts them on member 0 of P's arguments
+    `args`: a window of one iteration and one of two (tol 0, so neither
+    stops early), the difference of their counts."""
+    import ctypes
+
+    from historymatching_tpu_torch.ops import _build
+    from historymatching_tpu_torch.ops.pressure import pressure_solve_cuda
+
+    hier, Ainv, q, p0, w = args
+    one = ([tuple(t[:1] for t in lvl) for lvl in hier], Ainv[:1], q[:1], p0[:1], w[:1])
+    lib = _build.pressure_cl_lib(*q.shape[1:], *plan, True)
+    got, counts = ctypes.c_uint(), []
+    for k in (1, 2):
+        _build.check(lib.hm_pressure_cl_barriers(ctypes.byref(got)), "probe")  # from 0
+        pressure_solve_cuda(*one, tol=0.0, maxiter=k, restart_every=k, unit_diag=unit,
+                            plan=plan, probe=True)
+        _build.check(lib.hm_pressure_cl_barriers(ctypes.byref(got)), "probe")
+        counts.append(got.value)
+    return counts[1] - counts[0]
+
+
 def rel_err(p_k, p_t):
     """Largest per-member relative difference; zero from both counts as
     agreement (a member whose weighted residual never improved on its
@@ -958,7 +991,8 @@ def large_grid_phases(dev, six):
     def p_run(tag, args, smoother, unit, force, plan=None):
         """One window against the plain version, then one launch at bench
         settings timed; the route's figures (P-cl on `plan`, else the
-        grid's)."""
+        grid's), and for P-cl an estimate of an iteration's time
+        (`iteration_us`)."""
         kw = dict(smoother=smoother, unit_diag=unit, force=force, plan=plan)
         name = kernel_name(smoother, unit, force)
         (p_k, _, _), n = launched(lambda: pressure_solve_cuda(*args, **WINDOW4, **kw))
@@ -974,17 +1008,20 @@ def large_grid_phases(dev, six):
         fig = dict(ms=ms, bound_ms=bnd, bound_by=by, share_of_bound=bnd / ms, max_rel_err=err,
                    max_abs_err=abs_err, iters_median=int(it_k.median()),
                    accepted=int((rl_k <= 5e-2).sum()))
+        est = None
         if force == "cl":
             c, place = plan or cl_plan(*args[2].shape[1:], unit)
             rows = cl_inverse_rows(args[1].shape[-1], c)[0]
+            res = _build.kernel_info(name, *args[2].shape[1:], (c, place))
             fig.update(cluster=c, inverse=place, rank_bytes=cl_bytes(
                 *args[2].shape[1:], len(args[0]), c, unit, place),
                        inverse_rows=rows[1] - rows[0] if place == "distributed" else None,
-                       resources=_build.kernel_info(name, *args[2].shape[1:], (c, place)))
+                       resources=res)
+            est = iteration_us(ms, res["max_active_clusters"], it_k)
         # the in-place plan beside P-cl/d is kept under its own key
         figs[name]["grids"][tag if plan is None else f"{tag} c={plan[0]} {plan[1]}"] = fig
         figs[name]["max_abs_err"] = max(figs[name]["max_abs_err"], abs_err)
-        return name, fig
+        return name, fig, est
 
     for Nx, Ny in LARGE_GRIDS:
         tag = f"{Nx}x{Ny}"
@@ -1011,7 +1048,7 @@ def large_grid_phases(dev, six):
             if (Nx, Ny) == (100, 100):  # P-gm lost to P-gm1 past P-cl/d's batch
                 runs.append(("gm", None))
             for force, plan_k in runs:
-                name, fig = p_run(tag, systems[unit], smoother, unit, force, plan_k)
+                name, fig, est = p_run(tag, systems[unit], smoother, unit, force, plan_k)
                 layer_cl = pressure.route(*LAYER_GRIDS[0], True, N) == "cl"
                 if force == "cl" and plan_k is None and ((Nx, Ny) == BIG or (
                         (Nx, Ny) == LAYER_GRIDS[0]
@@ -1029,7 +1066,8 @@ def large_grid_phases(dev, six):
                             + (f", plain {fig['plain_ms']:.3f} ms" if "plain_ms" in fig else "")
                             + (f", cluster {fig['cluster']} (inverse {fig['inverse']}, "
                                f"{fig['rank_bytes']} bytes a rank, {fig['inverse_rows']} inverse "
-                               f"rows a rank; {fig['resources']})" if "cluster" in fig else ""))
+                               f"rows a rank; {fig['resources']}; an iteration ~{est:.2f} us, "
+                               f"an estimate)" if "cluster" in fig else ""))
         log(f"[23] P {tag}, N={LARGE_N}, {levels} levels (coarsest {nc} cells), P layout "
             f"{smem_bytes(Nx, Ny, levels)} shared bytes, P-gm plan {gm_plan(Nx, Ny)}, P-gm1 "
             f"workspace {4 * gm1_plan(Nx, Ny).ws_floats} bytes a member, at bench settings: "
@@ -1673,13 +1711,15 @@ def large_case_kernels(model, prior):
     first step (N=1000, 128x128, s = 0). P's route, P-cl: one launch after
     one window held to the plain version within P_TOL, then timed at the
     first pass's settings beside P-gm1 forced on the same inputs (held the
-    same way), the plain version and the bound. K's route, K-cl: bit for bit, timed beside
-    the runtime-grid variant and K-gm forced (each bit for bit too). These
+    same way), the plain version and the bound, and P-cl's cluster barriers
+    an iteration as its probe build counts them (`cl_iteration_barriers`).
+    K's route, K-cl: bit for bit, timed beside the runtime-grid variant and
+    K-gm forced (each bit for bit too). These
     launches are not the path's: the caller has read its counts."""
     import torch
 
     from historymatching_tpu_torch.models.ressim import _source_field, cfl_substeps, pressure_step
-    from historymatching_tpu_torch.ops import pressure, transport
+    from historymatching_tpu_torch.ops import _build, pressure, transport
     from historymatching_tpu_torch.ops.pressure import (
         cl_plan,
         kernel_name,
@@ -1699,7 +1739,7 @@ def large_case_kernels(model, prior):
     kw1 = {k: first[k] for k in SOLVE_KEYS}
     args = p_system(mm, qf, True)
     assert pressure.route(Nx, Ny) == "cl"
-    c0 = cl_plan(Nx, Ny)[0]
+    c0, place0 = cl_plan(Nx, Ny)
     p_t = pressure_solve_torch(*args, **WINDOW4)[0]
     p_figs, said = {}, []
     for force in ("cl", "gm1"):
@@ -1715,11 +1755,19 @@ def large_case_kernels(model, prior):
         tag = f"{name}" + (f" c={c0}" if force == "cl" else "")
         p_figs[name] = dict(ms=ms, bound_ms=bnd, bound_by=by, share_of_bound=bnd / ms,
                             max_rel_err=err, max_abs_err=abs_err,
-                            iters_median=int(it_k.median()), accepted=int((rl_k <= 5e-2).sum()),
-                            **({"cluster": c0} if force == "cl" else {}))
+                            iters_median=int(it_k.median()), accepted=int((rl_k <= 5e-2).sum()))
+        if force == "cl":
+            # the barriers counted by the probe build, on member 0
+            resident = _build.kernel_info(name, Nx, Ny)["max_active_clusters"]
+            p_figs[name].update(cluster=c0, clusters_resident=resident,
+                                barriers=cl_iteration_barriers(args, True, (c0, place0)))
         said.append(f"{tag} window max rel {err:.2e} (abs {abs_err:.2e}), {ms:.3f} ms a launch "
                     f"(iterations median {p_figs[name]['iters_median']}, accepted "
-                    f"{p_figs[name]['accepted']}), bound {bnd:.4f} ms ({by}, {bnd / ms:.1%})")
+                    f"{p_figs[name]['accepted']}), bound {bnd:.4f} ms ({by}, {bnd / ms:.1%})"
+                    + (f"; {resident} clusters resident, {p_figs[name]['barriers']} cluster "
+                       f"barriers an iteration (counted by the probe build), an iteration "
+                       f"~{iteration_us(ms, resident, it_k):.2f} us (an estimate)"
+                       if force == "cl" else ""))
     plain_ms = cuda_ms(lambda: pressure_solve_torch(*args, **kw1), 1)
     del args, p_k, p_t
     cl_fig = dict(p_figs["pressure_pcg_cl"], plain_ms=plain_ms,
@@ -2041,6 +2089,7 @@ def main(argv=None):
     # and the in-place plans [23] times beside P-cl/d
     _build.prebuild(P_NEW_GRIDS, cl_grids=LARGE_GRIDS + K_RT_GRIDS,
                     cl_plans=[(*g, *cl_plan(*g, True, "device")) for g in LAYER_GRIDS],
+                    cl_probes=[(*BIG, *cl_plan(*BIG))],  # [24] counts P-cl's barriers
                     gm_grids=(GM_PATH_GRID,) + LAYER_GRIDS[1:] + _build.GRIDS,  # [2]'s table
                     k_grids=K_RT_GRIDS + ((NX, NY), GM1_PATH_GRID, CAPACITY_GRID) + LARGE_GRIDS)
     log(f"[2] kernels built in {time.perf_counter() - t0:.1f} s "

@@ -21,7 +21,8 @@
 // agrees with the plain version to rounding, as P-gm does.
 //
 // Partition. One cluster of C blocks (ranks) per member, launched with
-// cudaLaunchKernelEx and a cluster dimension, the grid B C blocks. Rank r
+// cudaLaunchKernelEx and a cluster dimension, the grid B C blocks, T
+// threads a rank (ops/pressure.py `cl_threads`). Rank r
 // owns a band of rows of every level that is split, its height even on
 // each (so 2x2 tiles and the 2x2 restriction stay inside a rank): equal
 // bands n / C (the levels from the fine one down while a band has an even
@@ -29,9 +30,10 @@
 // inverse is distributed, bands of unequal even heights on every level but
 // the coarsest (`Geo::band`; every rank's layout makes room for the
 // largest, and ranks past the rows hold none). Inside its band a rank is kernel P's block: 2x2
-// tiles a thread, x, p, z and the metric weight w in registers (w read
-// from device memory where a thread holds more than four tiles), the best
-// iterate written to p_out, the coarse temporaries aliased into the fine one.
+// tiles a thread, x, p and the metric weight w in registers (w read from
+// device memory where a thread holds more than four tiles), z in the fine
+// iterate's rows, the best iterate written to p_out, the coarse
+// temporaries aliased into the fine one.
 // Every array of a split level has a halo row above and below the band.
 // A rank never reads another's shared memory to get them: whoever writes
 // a band's first or last row also stores it into the neighbouring rank's
@@ -42,39 +44,46 @@
 // after every barrier (pulling the rows instead ran slower: PERF.md, PR 10).
 // The static halos (the face row above, the reciprocal diagonal's rows)
 // come from device memory with the band. The levels below the split ones
-// are gathered on rank 0: the last split level restricts its residual
-// straight into rank 0's right-hand side, rank 0 runs those levels as P
-// runs its coarse levels (on its block, then the levels of <= 64 cells and
-// the coarse solve on warp 0) while the other ranks wait at one cluster
-// barrier, then stores each rank's rows of the correction into that
-// rank's copy of the level. Where the coarsest inverse does not fit beside
-// the bands it stays in device memory (60x60, 88x88), read in place a row a
-// warp, the rows split over every rank's warps (each rank first copies the
-// coarse right-hand side from rank 0), as P-gm's `coarse_solve` reads it.
-// Where it fits neither rank 0 nor beside a whole SM's two blocks (100x100,
-// 625 cells, 1.56 MB; a 60x220 layer, 825 cells, 2.72 MB) it is
-// distributed: rank r holds rows [r KR, (r + 1) KR) of it in its shared
-// memory, loaded once a launch by one bulk asynchronous copy that runs
-// under the prologue; the last split level's restriction stores each
-// coarse right-hand side value into every rank, each rank multiplies its
-// rows, and stores each result into the ranks whose bands read it: the
-// coarse solve costs no cluster barrier beyond the one before the
-// prolongation, and device memory sees the inverse once a launch, where
-// P-gm and the in-place variant read it every V-cycle. The grid, the
-// cluster size and the inverse's place are compile-time constants
-// (ops/_build.py builds one library a grid and cluster), and
-// ops/pressure.py `layout` (with `cl`) counts the same per-rank layout
-// that `Geo` below places.
+// are gathered, whole, on every rank: the last split level's restriction
+// stores each value of its residual into every rank's right-hand side,
+// and after one cluster barrier every rank runs those levels as P runs its
+// coarse levels (on its block, then the levels of <= 64 cells and the
+// coarse solve on warp 0), the same operations in the same order, so every
+// rank's copy of the correction holds the same bits and each prolongs
+// from its own. Where the coarsest inverse does not fit beside the bands
+// it stays in device memory (60x60, 88x88), read in place a row a warp,
+// the rows split over every rank's warps, each result stored into every
+// rank, as P-gm's `coarse_solve` reads it. Where it fits neither a rank
+// nor beside a whole SM's two blocks (100x100, 625 cells, 1.56 MB; a
+// 60x220 layer, 825 cells, 2.72 MB) it is distributed: rank r holds rows
+// [r KR, (r + 1) KR) of it in its shared memory, loaded once a launch by
+// one bulk asynchronous copy that runs under the prologue; the last split
+// level's restriction stores each coarse right-hand side value into every
+// rank, each rank multiplies its rows, and stores each result into the
+// ranks whose bands read it: the coarse solve costs no cluster barrier
+// beyond the one before the prolongation, and device memory sees the
+// inverse once a launch, where P-gm and the in-place variant read it
+// every V-cycle. The grid, the cluster size, the threads and the
+// inverse's place are compile-time constants (ops/_build.py builds one
+// library a grid and plan), and ops/pressure.py `layout` (with `cl`)
+// counts the same per-rank layout that `Geo` below places.
 //
-// Agreement across the cluster. Every barrier of P becomes a cluster
-// barrier (barrier.cluster arrive.release / wait.acquire), which orders
-// the stores into the neighbours' halos before their reads. A reduction
-// sums each rank's warps into its total, which its thread 0 stores into
-// every rank; after the cluster barrier every thread of every rank adds
-// the ranks' totals in rank order, so every rank holds bit-identical r.z,
-// p.Ap and residual norms and
-// takes every loop test (rr > tol2, the patience count, `better`, `blown`)
-// the same way; a divergent rank would deadlock the next barrier. A final
+// Agreement across the cluster. Every barrier of P that orders a halo
+// becomes a cluster barrier (barrier.cluster arrive.release /
+// wait.acquire), which orders the stores into the neighbours' halos before
+// their reads; a rank stores into a neighbour's halo only after the
+// barrier that follows the neighbour's last read of it (the schedule is
+// emulated in tests/test_torch_pressure_cl.py, and the probe build,
+// -DHM_CL_PROBE, counts the cluster barriers member 0 passes and reports
+// the layout `Geo` places, which the card tests hold to that emulation's).
+// (Splitting a barrier, the band-edge tiles before the arrival and the
+// interior ones before the wait, ran slower on an H100, as did a reduction that stores every warp's
+// pair into every rank: PERF.md.) A reduction sums each rank's warps into
+// its total, which its thread 0 stores into every rank; after the cluster
+// barrier every thread of every rank adds the ranks' totals in rank order,
+// so every rank holds bit-identical r.z, p.Ap and residual norms and takes
+// every loop test (rr > tol2, the patience count, `better`, `blown`) the
+// same way; a divergent rank would deadlock the next barrier. A final
 // cluster barrier keeps every rank's shared memory alive until no rank
 // reads it any more.
 //
@@ -84,8 +93,8 @@
 // iteration, 132 members in flight); here each rank holds a band of the
 // load of P's 64x64 block, every array in shared memory, so device memory
 // sees one read of the hierarchy, p0 and w, q at window ends and the write
-// of the best iterate. The cost is the cluster barriers (16 an iteration,
-// as P's block barriers) and the stores of the band-edge rows. With the
+// of the best iterate. The cost is the cluster barriers (15 an iteration
+// at 128x128) and the stores of the band-edge rows. With the
 // inverse distributed a rank takes a whole SM and a cluster of 9-16 most
 // of a GPC, so about a tenth of the members P-gm keeps in flight run at
 // once; each runs its V-cycles from shared memory only.
@@ -98,7 +107,8 @@
 #include "pcg_tile.cuh"
 
 #ifndef HM_GRID_NX
-#error "pressure_pcg_cl.cu is built for one grid: -DHM_GRID_NX -DHM_GRID_NY -DHM_CL -DHM_CL_INV"
+#error "pressure_pcg_cl.cu is built for one grid and plan: -DHM_GRID_NX -DHM_GRID_NY -DHM_CL \
+-DHM_CL_INV -DHM_CL_THREADS"
 #endif
 
 namespace cg = cooperative_groups;
@@ -107,16 +117,16 @@ namespace {
 
 constexpr int kSmemLimit = 232448;    // shared bytes one block may opt into (sm_90)
 constexpr int kSmPerSm = 228 * 1024;  // an SM's shared memory; 1 KB of each block reserved
-constexpr int kSplitMinCells = 256;   // a level of <= 16x16 cells is gathered on rank 0
+constexpr int kSplitMinCells = 256;   // a level of <= 16x16 cells is gathered on every rank
 // Where the coarsest inverse lives (ops/pressure.py INV_PLACES): read in
-// place from device memory, whole (transposed) in rank 0's shared memory,
+// place from device memory, whole (transposed) in every rank's shared memory,
 // or a block of its rows in each rank's shared memory.
 constexpr int kInvDevice = 0, kInvShared = 1, kInvDistributed = 2;
 
 // The per-rank geometry and shared-memory layout (floats) of one grid on a
-// cluster of C ranks, the coarsest inverse at INV. Matches ops/pressure.py
-// `layout` with `cl`.
-template <int NX, int NY, int C, int INV, bool CHEB = false, bool UNIT = true>
+// cluster of C ranks of T threads, the coarsest inverse at INV. Matches
+// ops/pressure.py `layout` with `cl`.
+template <int NX, int NY, int C, int INV, int T, bool CHEB = false, bool UNIT = true>
 struct Geo {
   static constexpr bool kCheb = CHEB;
   static constexpr bool kUnit = UNIT;
@@ -174,10 +184,13 @@ struct Geo {
   }
   // A coarse level's smoothing temporary aliases the fine T while the
   // temporaries of levels 1..l fit in it, else it follows the level's X.
+  // Where levels are gathered, only the fine T's own rows (from TB): a
+  // neighbour may store into its halo rows while this rank still runs them.
+  static constexpr int TB = kDist ? 0 : halo(0);
   __host__ __device__ static constexpr bool t_alias(int l) {
     int o = 0;
     for (int k = 1; k <= l; ++k) o += vec(k);
-    return o <= vec(0);
+    return o <= (kDist ? vec(0) : rows(0) * m(0));
   }
   __host__ __device__ static constexpr int t_offset(int l) {
     int o = 0;
@@ -203,19 +216,16 @@ struct Geo {
   // source's 16-byte alignment (the bulk copy's); its copy's barrier follows.
   static constexpr int BAR = INVERSE + (kShared ? r4(NC * NC) : kDist ? r4(KR * NC) + 4 : 0);
   static constexpr int RED = BAR + (kDist ? 4 : 0);
-  // Threads a rank: about one per four fine tiles of the largest band, in
-  // the nearest multiple of 128 (the granule registers are allocated in);
-  // with the inverse distributed at least 256, 8 warps for its rows.
-  static constexpr int TILES0 = rows(0) * m(0) / 4;
-  static constexpr int THREADS_RAW = ((TILES0 + 3) / 4 + 64) / 128 * 128;
-  static constexpr int THREADS_BAND =
-      THREADS_RAW < 128 ? 128 : THREADS_RAW > 1024 ? 1024 : THREADS_RAW;
-  static constexpr int THREADS = kDist && THREADS_BAND < 256 ? 256 : THREADS_BAND;
+  // Threads a rank (ops/pressure.py `cl_threads`: about one per four fine
+  // tiles of the largest band, in a multiple of 128, at least 256 where the
+  // inverse is distributed or read in place).
+  static constexpr int THREADS = T;
   static constexpr int WARPS = THREADS / 32;
+  static constexpr int TILES0 = rows(0) * m(0) / 4;
   static constexpr int TPT = (TILES0 + THREADS - 1) / THREADS;
   // The metric weight w of a thread's tiles stays in registers up to four
   // tiles a thread; past that (96x96, 100x100, 60x220, 192x192) it is read
-  // from device memory where used, so that x, p and z fit the registers.
+  // from device memory where used, so that x and p fit the registers.
   static constexpr bool W_REGS = TPT <= 4;
   // Two reduction slots, each the warps' pairs and the ranks' totals.
   static constexpr int SLOT = WARPS + C;
@@ -228,9 +238,9 @@ struct Geo {
   static constexpr int REG_BLOCKS = 65536 / (THREADS * 128);
   static constexpr int MIN_BLOCKS_RAW = SMEM_BLOCKS < REG_BLOCKS ? SMEM_BLOCKS : REG_BLOCKS;
   static constexpr int MIN_BLOCKS = MIN_BLOCKS_RAW < 1 ? 1 : MIN_BLOCKS_RAW;
-  // Gathered levels of <= 64 cells and the coarse solve run on rank 0's
+  // Gathered levels of <= 64 cells and the coarse solve run on each rank's
   // warp 0 (where the inverse is in shared memory and small); the others
-  // on rank 0's block.
+  // on each rank's block.
   __host__ __device__ static constexpr int first_warp_level() {
     int l = LS;
     while (l < LC && cells(l) > 64) ++l;
@@ -241,6 +251,7 @@ struct Geo {
   static_assert(NX % 2 == 0 && NY % 2 == 0 && L >= 2 && L <= kMaxLevels,
                 "a tiled fine level and a coarse level");
   static_assert(C >= 2 && C <= 16 && LS >= 1 && RANKS >= 1, "the cluster splits the fine level");
+  static_assert(T % 128 == 0 && T >= 128 && T <= 1024, "whole register granules of threads");
 };
 
 // The arrays of level l in a rank's shared memory (the same offsets on
@@ -248,27 +259,29 @@ struct Geo {
 template <class G, int l>
 struct Lvl {
   static constexpr int h = G::rows(l), m = G::m(l), H = G::halo(l);
-  __device__ static float* tx0(float* sh) { return sh + G::base(l); }
-  __device__ static float* ty0(float* sh) { return tx0(sh) + G::faces(l); }
-  __device__ static float* TX(float* sh) { return tx0(sh) + H; }
-  __device__ static float* TY(float* sh) { return ty0(sh) + H; }
-  __device__ static float* D(float* sh) {
+  __host__ __device__ static float* tx0(float* sh) { return sh + G::base(l); }
+  __host__ __device__ static float* ty0(float* sh) { return tx0(sh) + G::faces(l); }
+  __host__ __device__ static float* TX(float* sh) { return tx0(sh) + H; }
+  __host__ __device__ static float* TY(float* sh) { return ty0(sh) + H; }
+  __host__ __device__ static float* D(float* sh) {
     if constexpr (l == 0) return ty0(sh) + 4 * G::vec(0) + H;
     else return ty0(sh) + G::vec(l) + H;
   }
-  __device__ static float* RD(float* sh) { return D(sh) + G::vec(l); }
-  __device__ static float* B(float* sh) {
+  __host__ __device__ static float* RD(float* sh) { return D(sh) + G::vec(l); }
+  __host__ __device__ static float* B(float* sh) {
     if constexpr (l == 0) return ty0(sh) + 2 * G::vec(0) + H;  // R
     else if constexpr (l == G::LC) return sh + G::base(l);
     else return RD(sh) + G::vec(l);
   }
-  __device__ static float* X(float* sh) {
+  __host__ __device__ static float* X(float* sh) {
     if constexpr (l == 0) return ty0(sh) + G::vec(0) + H;  // P
     else return B(sh) + G::vec(l);
   }
-  __device__ static float* T(float* sh) {
-    if constexpr (l == 0 || G::t_alias(l))
-      return Lvl<G, 0>::ty0(sh) + 3 * G::vec(0) + G::t_offset(l) + H;
+  __host__ __device__ static float* T(float* sh) {
+    if constexpr (l == 0)
+      return ty0(sh) + 3 * G::vec(0) + H;
+    else if constexpr (G::t_alias(l))
+      return Lvl<G, 0>::ty0(sh) + 3 * G::vec(0) + G::TB + G::t_offset(l) + H;
     else return X(sh) + G::vec(l);
   }
 };
@@ -285,12 +298,6 @@ __device__ __forceinline__ unsigned at_rank(const void* p, int rank) {
   return a;
 }
 
-__device__ __forceinline__ float ld_rank(const float* p, int rank) {
-  float v;
-  asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(at_rank(p, rank)));
-  return v;
-}
-
 __device__ __forceinline__ void st_rank(float* p, int rank, float v) {
   asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(at_rank(p, rank)), "f"(v));
 }
@@ -300,9 +307,18 @@ __device__ __forceinline__ void st2_rank(float* p, int rank, float a, float b) {
                "f"(b));
 }
 
+#ifdef HM_CL_PROBE
+// The probe build counts the cluster barriers that block 0 (member 0's
+// rank 0) passes (`hm_pressure_cl_barriers`).
+__device__ unsigned g_cluster_barriers;
+#endif
+
 // Every thread of every rank arrives (its shared-memory stores, its own
 // and those into other ranks, released) before any goes on.
 __device__ __forceinline__ void cluster_sync() {
+#ifdef HM_CL_PROBE
+  if (blockIdx.x == 0 && threadIdx.x == 0) ++g_cluster_barriers;
+#endif
   asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
   asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
 }
@@ -424,9 +440,8 @@ __device__ __forceinline__ void own_rd(float* sh, int I, int J, float rd[4]) {
 // from -1 to the band's tile rows: the rank's own band (its halo rows
 // beyond) where level l+1 is split, or level l is gathered; the rank's
 // copy of the whole gathered level, from this band's first coarse row,
-// where level l is split and level l+1 gathered (its right-hand side is
-// rank 0's, or every rank's where the inverse is distributed; its
-// correction is copied to every rank).
+// where level l is split and level l+1 gathered (every rank's right-hand
+// side receives every rank's restriction).
 template <class G, int l>
 struct Parent {
   static constexpr bool kSplit = G::split(l + 1);
@@ -439,11 +454,9 @@ struct Parent {
   // A restricted value into the right-hand side, and into the neighbour's
   // halo where it is a band's first or last coarse row.
   __device__ static void st(float* p, int I, int J, int r, float v) {
-    if constexpr (kGathered && G::kDist) {
+    if constexpr (kGathered) {
 #pragma unroll
       for (int q = 0; q < G::kC; ++q) st_rank(p + at(I, J, r), q, v);
-    } else if constexpr (kGathered) {
-      st_rank(p + at(I, J, r), 0, v);
     } else {
       p[at(I, J, r)] = v;
       if constexpr (kSplit) {
@@ -474,7 +487,7 @@ __device__ __forceinline__ void smooth_down(float* sh, int w, int r) {
 }
 
 // Residual b - A x of level l, restricted by 2x2 block sums into level
-// l+1's right-hand side (rank 0's, where level l+1 is gathered).
+// l+1's right-hand side (every rank's, where level l+1 is gathered).
 template <class G, int l, int NW>
 __device__ __forceinline__ void restrict_residual(float* sh, int w, int r) {
   using V = Lvl<G, l>;
@@ -489,8 +502,8 @@ __device__ __forceinline__ void restrict_residual(float* sh, int w, int r) {
   });
 }
 
-// Coarsest level on rank 0, inverse in shared memory: x = inverse @ b, one
-// row a worker (P's `coarse_solve`).
+// Coarsest level on each rank, inverse in shared memory: x = inverse @ b,
+// one row a worker (P's `coarse_solve`).
 template <class G, int NW>
 __device__ __forceinline__ void coarse_solve(float* sh, int w) {
   using V = Lvl<G, G::LC>;
@@ -505,19 +518,16 @@ __device__ __forceinline__ void coarse_solve(float* sh, int w) {
   }
 }
 
-// Coarsest level, inverse in device memory (row-major, read in place): each
-// rank copies rank 0's b, then every warp of every rank takes rows
-// rank-major, the lanes along the row (P-gm's `coarse_solve`), and writes
-// its rows of x into rank 0. Between two cluster barriers.
+// Coarsest level, inverse in device memory (row-major, read in place): every
+// rank holds b (its own gathered levels computed it), every warp of every
+// rank takes rows rank-major, the lanes along the row (P-gm's
+// `coarse_solve`), and lane q stores each result into rank q. Before a
+// cluster barrier.
 template <class G>
 __device__ __forceinline__ void coarse_solve_cluster(float* sh, const float* A, int r) {
   using V = Lvl<G, G::LC>;
   constexpr int nc = G::NC;
-  float* b = V::B(sh);
-  if (r > 0) {
-    for (int k = threadIdx.x; k < nc; k += G::THREADS) b[k] = ld_rank(b + k, 0);
-    __syncthreads();
-  }
+  const float* b = V::B(sh);
   float* x = V::X(sh);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int row = r * G::WARPS + warp; row < nc; row += G::kC * G::WARPS) {
@@ -525,7 +535,7 @@ __device__ __forceinline__ void coarse_solve_cluster(float* sh, const float* A, 
     float acc = 0.0f;
     for (int k = lane; k < nc; k += 32) acc += a[k] * b[k];
     acc = warp_sum(acc);
-    if (lane == 0) st_rank(x + row, 0, acc);
+    if (lane < G::kC) st_rank(x + row, lane, acc);
   }
 }
 
@@ -552,21 +562,6 @@ __device__ __forceinline__ void coarse_product(float* sh, const float* A, int r)
     acc = warp_sum(acc);
     const int i = row / mc;
     if (lane < G::kC && t > 0 && i >= f - 1 && i <= f + t) st_rank(x + row, lane, acc);
-  }
-}
-
-// Rank 0, once its whole correction of the first gathered level is in
-// place: each other rank's rows of it (its band's coarse rows and the one
-// above and below) into that rank's copy.
-template <class G>
-__device__ __forceinline__ void spread_correction(float* sh) {
-  constexpr int l = G::LS - 1, mc = G::m(l) / 2, nc = G::n(l + 1);
-  float* E = Lvl<G, l + 1>::X(sh);
-  for (int q = 1; q < G::RANKS; ++q) {
-    const int f = G::first(q, l) / 2, t = G::band(q, l) / 2;
-    const int lo = f - 1, hi = f + t < nc ? f + t : nc - 1;
-    for (int k = lo * mc + threadIdx.x; k <= hi * mc + mc - 1; k += G::THREADS)
-      st_rank(E + k, q, E[k]);
   }
 }
 
@@ -614,7 +609,8 @@ __device__ __forceinline__ void smooth_up_second(float* sh, int w, int r, Out ou
   });
 }
 
-// Down the split levels, every rank on its band.
+// Down the split levels, every rank on its band; the last one's
+// restriction stores into every rank's copy of the next level.
 template <class G, int l>
 __device__ __forceinline__ void down_split(float* sh, int r) {
   if constexpr (l < G::LS) {
@@ -626,7 +622,7 @@ __device__ __forceinline__ void down_split(float* sh, int r) {
   }
 }
 
-// Down the gathered levels above LW, on rank 0's block.
+// Down the gathered levels above LW, on each rank's block.
 template <class G, int l>
 __device__ __forceinline__ void down_gathered(float* sh) {
   if constexpr (l < G::LW) {
@@ -638,7 +634,7 @@ __device__ __forceinline__ void down_gathered(float* sh) {
   }
 }
 
-// Levels LW.. (<= 64 cells) and the coarse solve, on rank 0's warp 0.
+// Levels LW.. (<= 64 cells) and the coarse solve, on each rank's warp 0.
 template <class G, int l>
 __device__ __forceinline__ void warp_levels(float* sh, int lane) {
   if constexpr (l == G::LC) {
@@ -660,7 +656,7 @@ __device__ __forceinline__ void warp_levels(float* sh, int lane) {
   }
 }
 
-// Up the gathered levels from l to LS, on rank 0's block.
+// Up the gathered levels from l to LS, on each rank's block.
 template <class G, int l>
 __device__ __forceinline__ void up_gathered(float* sh) {
   if constexpr (l >= G::LS) {
@@ -690,18 +686,23 @@ __device__ __forceinline__ void up_split(float* sh, int r) {
 }
 
 // z = V-cycle(r) from a zero initial guess; the fine R vector is its
-// right-hand side, z lands in the owning threads' registers. Ainv: the
+// right-hand side, z lands in the fine X's own rows (the fine P, which
+// holds the V-cycle's iterate until then and p again once the thread has
+// read z there, tile by tile: no register holds z). Ainv: the
 // member's inverse in device memory, or the rank's block of its rows in
-// shared memory where it is distributed.
+// shared memory where it is distributed. Where levels are gathered, every
+// rank runs them on its own copy; the first split phase up needs no
+// barrier before it, as its halos were ordered on the way down and its
+// stores go to halos no gathered level aliases.
 template <class G>
-__device__ __forceinline__ void vcycle(float* sh, const float* Ainv, int r,
-                                       float (&z)[G::TPT][4]) {
+__device__ __forceinline__ void vcycle(float* sh, const float* Ainv, int r) {
   down_split<G, 0>(sh, r);
   if constexpr (G::kDist) {
     coarse_product<G>(sh, Ainv, r);  // every level above the coarsest is split
-  } else if constexpr (G::kShared) {
-    if (r == 0) {
-      down_gathered<G, G::LS>(sh);
+    cluster_sync();
+  } else {
+    down_gathered<G, G::LS>(sh);
+    if constexpr (G::kShared) {
       if constexpr (G::WARP_TAIL) {
         if (threadIdx.x < 32) warp_levels<G, G::LW>(sh, threadIdx.x);
       } else {
@@ -709,25 +710,17 @@ __device__ __forceinline__ void vcycle(float* sh, const float* Ainv, int r,
       }
       __syncthreads();
       up_gathered<G, G::LW - 1>(sh);
-      spread_correction<G>(sh);
-    }
-  } else {
-    if (r == 0) down_gathered<G, G::LS>(sh);
-    cluster_sync();
-    coarse_solve_cluster<G>(sh, Ainv, r);
-    cluster_sync();
-    if (r == 0) {
+    } else {
+      coarse_solve_cluster<G>(sh, Ainv, r);
+      cluster_sync();
       up_gathered<G, G::LC - 1>(sh);
-      spread_correction<G>(sh);
     }
   }
-  cluster_sync();
   up_split<G, G::LS - 1>(sh, r);
   smooth_up_first<G, 0, G::THREADS>(sh, threadIdx.x, r);
   cluster_sync();
-  smooth_up_second<G, 0, G::THREADS>(sh, threadIdx.x, r, [&](int k, int, int, const float* x) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) z[k][c] = x[c];
+  smooth_up_second<G, 0, G::THREADS>(sh, threadIdx.x, r, [&](int, int I, int J, const float* x) {
+    put<G::m(0)>(Lvl<G, 0>::X(sh), I, J, x);
   });
 }
 
@@ -780,48 +773,44 @@ struct HierPtrs {  // per level: TX (B, n-1, m), TY (B, n, m-1), diag (B, n, m)
 // Member b's hierarchy into rank r's shared memory: a split level's band
 // with the halo rows its stencil reads (TX from the face above the band,
 // zero past the last face; the reciprocal diagonal a row beyond each
-// side), a gathered level whole on rank 0; TY padded to m wide, diagonals
-// with their reciprocals, the coarsest inverse transposed where it lives
-// in shared memory.
+// side), a gathered level whole; TY padded to m wide, diagonals with their
+// reciprocals, the coarsest inverse transposed where it lives whole in
+// shared memory.
 template <class G, int l>
 __device__ __forceinline__ void load_level(float* sh, const HierPtrs& h, int b, int r) {
   using V = Lvl<G, l>;
   constexpr int n = G::n(l), m = G::m(l), T = G::THREADS;
   if constexpr (l < G::LC) {
-    if (G::split(l) || r == 0) {
-      constexpr int hal = G::split(l) ? 1 : 0;
-      const int rows = G::rows_of(r, l), i0 = G::split(l) ? G::first(r, l) : 0;
-      const float* tx = h.tx[l] + (size_t)b * (n - 1) * m;
-      for (int k = threadIdx.x; k < (rows + hal - (G::split(l) ? 0 : 1)) * m; k += T) {
-        const int g = (i0 - hal) * m + k;  // from the face above the band
-        V::TX(sh)[k - hal * m] = g >= 0 && g < (n - 1) * m ? tx[g] : 0.0f;
-      }
-      const float* ty = h.ty[l] + (size_t)b * n * (m - 1);
-      for (int k = threadIdx.x; k < rows * m; k += T) {
-        const int i = k / m, j = k - i * m;
-        V::TY(sh)[k] = j < m - 1 ? ty[(i0 + i) * (m - 1) + j] : 0.0f;
-      }
-      if constexpr (l > 0 || !G::kUnit) {
-        const float* d = h.d[l] + (size_t)b * n * m;
-        for (int k = threadIdx.x; k < (rows + 2 * hal) * m; k += T) {
-          const int g = (i0 - hal) * m + k;
-          if (g < 0 || g >= n * m) continue;
-          const float v = d[g];
-          V::D(sh)[k - hal * m] = v;
-          V::RD(sh)[k - hal * m] = 1.0f / v;
-        }
+    constexpr int hal = G::split(l) ? 1 : 0;
+    const int rows = G::rows_of(r, l), i0 = G::split(l) ? G::first(r, l) : 0;
+    const float* tx = h.tx[l] + (size_t)b * (n - 1) * m;
+    for (int k = threadIdx.x; k < (rows + hal - (G::split(l) ? 0 : 1)) * m; k += T) {
+      const int g = (i0 - hal) * m + k;  // from the face above the band
+      V::TX(sh)[k - hal * m] = g >= 0 && g < (n - 1) * m ? tx[g] : 0.0f;
+    }
+    const float* ty = h.ty[l] + (size_t)b * n * (m - 1);
+    for (int k = threadIdx.x; k < rows * m; k += T) {
+      const int i = k / m, j = k - i * m;
+      V::TY(sh)[k] = j < m - 1 ? ty[(i0 + i) * (m - 1) + j] : 0.0f;
+    }
+    if constexpr (l > 0 || !G::kUnit) {
+      const float* d = h.d[l] + (size_t)b * n * m;
+      for (int k = threadIdx.x; k < (rows + 2 * hal) * m; k += T) {
+        const int g = (i0 - hal) * m + k;
+        if (g < 0 || g >= n * m) continue;
+        const float v = d[g];
+        V::D(sh)[k - hal * m] = v;
+        V::RD(sh)[k - hal * m] = 1.0f / v;
       }
     }
     load_level<G, l + 1>(sh, h, b, r);
   } else if constexpr (G::kShared) {
-    if (r == 0) {
-      constexpr int nc = G::NC;
-      const float* a = h.ainv + (size_t)b * nc * nc;
-      float* At = sh + G::INVERSE;
-      for (int k = threadIdx.x; k < nc * nc; k += T) {
-        const int row = k / nc, c = k - row * nc;
-        At[c * nc + row] = a[k];
-      }
+    constexpr int nc = G::NC;
+    const float* a = h.ainv + (size_t)b * nc * nc;
+    float* At = sh + G::INVERSE;
+    for (int k = threadIdx.x; k < nc * nc; k += T) {
+      const int row = k / nc, c = k - row * nc;
+      At[c * nc + row] = a[k];
     }
   }
 }
@@ -877,14 +866,13 @@ __device__ __forceinline__ void wait_inverse(float* sh) {
         : "memory");
 }
 
-template <int NX, int NY, int C, int INV, bool CHEB, bool UNIT>
-__global__ void __launch_bounds__(Geo<NX, NY, C, INV, CHEB, UNIT>::THREADS,
-                                  Geo<NX, NY, C, INV, CHEB, UNIT>::MIN_BLOCKS)
+template <int NX, int NY, int C, int INV, int THR, bool CHEB, bool UNIT>
+__global__ void __launch_bounds__(THR, (Geo<NX, NY, C, INV, THR, CHEB, UNIT>::MIN_BLOCKS))
 pressure_pcg_cl_kernel(HierPtrs h, const float* __restrict__ q_g, const float* __restrict__ p0_g,
                        const float* __restrict__ w_g, float* __restrict__ p_out,
                        int* __restrict__ it_out, float* __restrict__ rel_out, float tol,
                        int maxiter, int restart_every, int patience) {
-  using G = Geo<NX, NY, C, INV, CHEB, UNIT>;
+  using G = Geo<NX, NY, C, INV, THR, CHEB, UNIT>;
   using F = Lvl<G, 0>;
   constexpr int T = G::THREADS, TPT = G::TPT;
   extern __shared__ float4 sh4[];
@@ -915,7 +903,7 @@ pressure_pcg_cl_kernel(HierPtrs h, const float* __restrict__ q_g, const float* _
   // the inverse's rows arrive while the hierarchy loads and the residual runs
   if constexpr (G::kDist) Ainv = load_inverse<G>(sh, h.ainv, b, r);
   load_level<G, 0>(sh, h, b, r);
-  float x[TPT][4] = {}, p[TPT][4] = {}, w[G::W_REGS ? TPT : 1][4] = {}, z[TPT][4] = {};
+  float x[TPT][4] = {}, p[TPT][4] = {}, w[G::W_REGS ? TPT : 1][4] = {};
   fine([&](int k, int I, int J) {
     own<NY>(p0_g + off, I, J, x[k]);
     if constexpr (G::W_REGS) own<NY>(w_g + off, I, J, w[k]);
@@ -971,19 +959,20 @@ pressure_pcg_cl_kernel(HierPtrs h, const float* __restrict__ q_g, const float* _
       residual(unused, unused);
       cluster_sync();
     }
-    vcycle<G>(sh, Ainv, r, z);
+    vcycle<G>(sh, Ainv, r);
     const bool restart = use_sd || first;
     float prz = 0.0f, prr = 0.0f;
     fine([&](int k, int I, int J) {
-      float rv[4], wv[4];
+      float rv[4], wv[4], zv[4];
       own<NY>(R, I, J, rv);
+      own<NY>(P, I, J, zv);
       weight(k, I, J, wv);
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        prz += rv[c] * z[k][c];
+        prz += rv[c] * zv[c];
         const float wr = wv[c] * rv[c];
         prr += wr * wr;
-        if (restart) p[k][c] = z[k][c];
+        if (restart) p[k][c] = zv[c];
       }
       put_band<G, 0>(P, I, J, r, p[k]);
     });
@@ -1016,15 +1005,16 @@ pressure_pcg_cl_kernel(HierPtrs h, const float* __restrict__ q_g, const float* _
         put_band<G, 0>(R, I, J, r, rv);
       });
       cluster_sync();
-      vcycle<G>(sh, Ainv, r, z);
+      vcycle<G>(sh, Ainv, r);
       prz = prr = 0.0f;
       fine([&](int k, int I, int J) {
-        float rv[4], wv[4];
+        float rv[4], wv[4], zv[4];
         own<NY>(R, I, J, rv);
+        own<NY>(P, I, J, zv);
         weight(k, I, J, wv);
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          prz += rv[c] * z[k][c];
+          prz += rv[c] * zv[c];
           const float wr = wv[c] * rv[c];
           prr += wr * wr;
         }
@@ -1032,8 +1022,10 @@ pressure_pcg_cl_kernel(HierPtrs h, const float* __restrict__ q_g, const float* _
       s = red.sum(prz, prr, r);
       const float beta = beta_mask * s.x / (rz == 0.0f ? 1.0f : rz);
       fine([&](int k, int I, int J) {
+        float zv[4];
+        own<NY>(P, I, J, zv);
 #pragma unroll
-        for (int c = 0; c < 4; ++c) p[k][c] = z[k][c] + beta * p[k][c];
+        for (int c = 0; c < 4; ++c) p[k][c] = zv[c] + beta * p[k][c];
         put_band<G, 0>(P, I, J, r, p[k]);
       });
       rz = s.x;
@@ -1066,13 +1058,14 @@ pressure_pcg_cl_kernel(HierPtrs h, const float* __restrict__ q_g, const float* _
 }
 
 template <bool CHEB, bool UNIT>
-using GridGeo = Geo<HM_GRID_NX, HM_GRID_NY, HM_CL, HM_CL_INV, CHEB, UNIT>;
+using GridGeo = Geo<HM_GRID_NX, HM_GRID_NY, HM_CL, HM_CL_INV, HM_CL_THREADS, CHEB, UNIT>;
 
 template <bool CHEB, bool UNIT>
 cudaError_t configure(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int B,
                       cudaStream_t stream) {
   using G = GridGeo<CHEB, UNIT>;
-  auto kern = pressure_pcg_cl_kernel<HM_GRID_NX, HM_GRID_NY, HM_CL, HM_CL_INV, CHEB, UNIT>;
+  auto kern =
+      pressure_pcg_cl_kernel<HM_GRID_NX, HM_GRID_NY, HM_CL, HM_CL_INV, HM_CL_THREADS, CHEB, UNIT>;
   cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G::BYTES);
   if (e == cudaSuccess && G::kC > 8)
@@ -1108,7 +1101,7 @@ int launch(const float* const* lv, int n_levels, const float* ainv, const float*
     }
     h.ainv = ainv;
     auto kern =
-        pressure_pcg_cl_kernel<HM_GRID_NX, HM_GRID_NY, HM_CL, HM_CL_INV, CHEB, UNIT>;
+        pressure_pcg_cl_kernel<HM_GRID_NX, HM_GRID_NY, HM_CL, HM_CL_INV, HM_CL_THREADS, CHEB, UNIT>;
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr[1];
     cudaError_t e = configure<CHEB, UNIT>(&cfg, attr, B, stream);
@@ -1134,7 +1127,7 @@ int info(int* out) {
     return (int)cudaErrorInvalidValue;
   } else {
     auto kern =
-        pressure_pcg_cl_kernel<HM_GRID_NX, HM_GRID_NY, HM_CL, HM_CL_INV, CHEB, UNIT>;
+        pressure_pcg_cl_kernel<HM_GRID_NX, HM_GRID_NY, HM_CL, HM_CL_INV, HM_CL_THREADS, CHEB, UNIT>;
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr[1];
     cudaError_t e = configure<CHEB, UNIT>(&cfg, attr, 1, nullptr);
@@ -1155,12 +1148,72 @@ int info(int* out) {
   }
 }
 
+#ifdef HM_CL_PROBE
+// Level l's rows, columns and array offsets (floats, of the halo row above
+// where the level is split), in ops/pressure.py LEVEL_KEYS' order, as Lvl
+// places them; the coarsest level's B and X only.
+template <class G, int l>
+void level_offsets(float* sh, int* out) {
+  if constexpr (l < G::L) {
+    using V = Lvl<G, l>;
+    const int H = G::halo(l);
+    int* o = out + 9 * l;
+    o[0] = G::rows(l);
+    o[1] = G::m(l);
+    const bool coarsest = l == G::LC;
+    o[2] = coarsest ? 0 : (int)(V::TX(sh) - sh) - H;
+    o[3] = coarsest ? 0 : (int)(V::TY(sh) - sh) - H;
+    o[4] = coarsest ? 0 : (int)(V::D(sh) - sh) - H;
+    o[5] = coarsest ? 0 : (int)(V::RD(sh) - sh) - H;
+    o[6] = (int)(V::B(sh) - sh) - H;
+    o[7] = (int)(V::X(sh) - sh) - H;
+    o[8] = coarsest ? 0 : (int)(V::T(sh) - sh) - H;
+    level_offsets<G, l + 1>(sh, out);
+  }
+}
+
+template <bool UNIT>
+int layout_of(int* out) {
+  using G = GridGeo<false, UNIT>;
+  static float sh[G::FLOATS];  // only its addresses are taken
+  out[0] = G::L;
+  level_offsets<G, 0>(sh, out + 1);
+  int* e = out + 1 + 9 * G::L;
+  e[0] = G::INVERSE;
+  e[1] = G::BAR;
+  e[2] = G::RED;
+  e[3] = G::FLOATS;
+  return 0;
+}
+#endif
+
 }  // namespace
+
+#ifdef HM_CL_PROBE
+// The probe build's entry points. The cluster barriers block 0 passed since
+// the last call, into *out; the counter restarts from 0.
+extern "C" int hm_pressure_cl_barriers(unsigned* out) {
+  cudaError_t e = cudaDeviceSynchronize();
+  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(out, g_cluster_barriers, sizeof(unsigned));
+  const unsigned zero = 0;
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_cluster_barriers, &zero, sizeof(unsigned));
+  return (int)e;
+}
+
+// A rank's layout as `Geo` and `Lvl` place it: out[0] the levels L, then
+// for each level its rows, columns, TX, TY, D, RD, B, X and T
+// (`level_offsets`), then the coarsest inverse's offset, its copy's
+// barrier's, the reduction slots' and the floats a rank (at most 1 + 9 *
+// kMaxLevels + 4 ints).
+extern "C" int hm_pressure_cl_layout(int unit, int* out) {
+  return unit ? layout_of<true>(out) : layout_of<false>(out);
+}
+#endif
 
 // The arguments of hm_pressure_solve (pressure_pcg.cu): lv holds 3 *
 // n_levels pointers, per level TX, TY, diag, each (B, ...) float32, the
 // level-0 diag read only where unit is 0; cheb picks the smoother. This
-// library is built for one grid and cluster; another grid is refused.
+// library is built for one grid and plan; another grid is refused.
 extern "C" int hm_pressure_cl_solve(const float* const* lv, const float* ainv, const float* q,
                                     const float* p0, const float* w, float* p_out, int* it_out,
                                     float* rel_out, int B, int Nx, int Ny, int n_levels,

@@ -17,7 +17,8 @@ grid and its plan, one library each, built on first use
 The cluster variants (P-cl in `pressure_pcg_cl.cu`, K-cl in `transport_upwind.cu`
 under `-DHM_KCL_*`) are templates on the grid and the cluster size (and
 P-cl on the coarsest inverse's place), one library each, built on first
-use (`pressure_cl_lib`, `transport_cl_lib`).
+use (`pressure_cl_lib`, `transport_cl_lib`; P-cl's probe build beside it,
+`pressure_cl_lib(..., probe=True)`).
 A library's
 name carries a hash of its source, the shared headers and the flags, so an
 edited source rebuilds. The libraries are loaded with `ctypes`; each C
@@ -115,6 +116,10 @@ _SIGNATURES["pressure_pcg_gm"] = {"hm_pressure_gm_solve": _PRESSURE[:8] + [P, P,
                                   "hm_pressure_gm_info": [I, I, I, I, P]}
 _SIGNATURES["pressure_pcg_cl"] = {"hm_pressure_cl_solve": _PRESSURE,
                                   "hm_pressure_cl_info": [I, I, I, I, P]}
+# P-cl's probe build (-DHM_CL_PROBE) adds its barrier count and its layout
+_SIGNATURES["pressure_pcg_cl_probe"] = dict(_SIGNATURES["pressure_pcg_cl"],
+                                        hm_pressure_cl_barriers=[P],
+                                        hm_pressure_cl_layout=[I, P])
 _SIGNATURES["transport_upwind_cl"] = {"hm_transport_substeps_cl": _TRANSPORT,
                                       "hm_transport_cl_info": [I, I, P]}
 _SIGNATURES["transport_upwind_rt"] = {"hm_transport_substeps_rt": _TRANSPORT,
@@ -155,15 +160,19 @@ def _spec(stem, grid=None, key=None, flags=None, sigs=None):
     return key, stem, flags, os.path.join(BUILD_DIR, f"lib{key}_{h[:16]}.so"), sigs or stem
 
 
-def _cl_specs(Nx, Ny, pressure_plans=(), transport_shape=None):
+def _cl_specs(Nx, Ny, pressure_plans=(), transport_shape=None, probe=False):
     """The cluster libraries of one grid: P-cl for each (c, place of the
-    inverse) plan, K-cl for a (c, strip) shape."""
-    from historymatching_tpu_torch.ops.pressure import INV_PLACES
+    inverse) plan, on `cl_threads`' threads a rank (its probe build with
+    `probe`), K-cl for a (c, strip) shape."""
+    from historymatching_tpu_torch.ops.pressure import INV_PLACES, cl_threads
 
     tag = {"shared": "s", "device": "g", "distributed": "d"}
-    specs = [_spec("pressure_pcg_cl", key=f"pressure_pcg_cl_{Nx}x{Ny}_c{c}{tag[place]}",
+    end, extra = ("_probe", ["-DHM_CL_PROBE"]) if probe else ("", [])
+    specs = [_spec("pressure_pcg_cl", key=f"pressure_pcg_cl_{Nx}x{Ny}_c{c}{tag[place]}{end}",
                    flags=[f"-DHM_GRID_NX={Nx}", f"-DHM_GRID_NY={Ny}", f"-DHM_CL={c}",
-                          f"-DHM_CL_INV={INV_PLACES[place]}"])
+                          f"-DHM_CL_INV={INV_PLACES[place]}",
+                          f"-DHM_CL_THREADS={cl_threads(Nx, Ny, c, place)}", *extra],
+                   sigs="pressure_pcg_cl" + end)
              for c, place in dict.fromkeys(pressure_plans)]
     if transport_shape is not None:
         c, strip = transport_shape
@@ -259,15 +268,18 @@ def pressure_gm1_loads_lib():
     return _get(_gm1_loads_spec)
 
 
-def _pcl_spec(Nx, Ny, c, place):
-    return _cl_specs(Nx, Ny, [(c, place)])[0]
+def _pcl_spec(Nx, Ny, c, place, probe):
+    return _cl_specs(Nx, Ny, [(c, place)], probe=probe)[0]
 
 
-def pressure_cl_lib(Nx, Ny, c, place):
+def pressure_cl_lib(Nx, Ny, c, place, probe=False):
     """P-cl's C entry points for one grid on clusters of `c` ranks, the
     coarsest inverse at `place` (`ops.pressure.INV_PLACES`), built on first
-    use."""
-    return _get(_pcl_spec, Nx, Ny, c, place)
+    use. With `probe`, its probe build (`-DHM_CL_PROBE`): the same kernel,
+    counting the cluster barriers member 0's rank 0 passes
+    (`hm_pressure_cl_barriers`), and the layout its `Geo` places
+    (`hm_pressure_cl_layout`)."""
+    return _get(_pcl_spec, Nx, Ny, c, place, probe)
 
 
 def _gm_spec(Nx, Ny, G, kb):
@@ -362,12 +374,14 @@ def _cl_grid_specs(Nx, Ny):
     return _cl_specs(Nx, Ny, plans, shape)
 
 
-def prebuild(pressure_grids=(), cl_grids=(), cl_plans=(), gm_grids=(), k_grids=()):
+def prebuild(pressure_grids=(), cl_grids=(), cl_plans=(), gm_grids=(), k_grids=(),
+             cl_probes=()):
     """Build the main libraries, kernel P's libraries for `pressure_grids`
     outside `GRIDS`, the cluster libraries of `cl_grids`, P-cl's for each
-    (Nx, Ny, c, place) of `cl_plans`, P-gm's for both fine diagonals'
-    plans of each grid of `gm_grids` and K's own libraries of each grid of
-    `k_grids` (`_k_specs`), every compiler at once."""
+    (Nx, Ny, c, place) of `cl_plans` and its probe build for each of
+    `cl_probes`, P-gm's for both fine diagonals' plans of each grid of
+    `gm_grids` and K's own libraries of each grid of `k_grids`
+    (`_k_specs`), every compiler at once."""
     from historymatching_tpu_torch.ops.pressure import gm_plan
 
     extra = [g for g in dict.fromkeys(tuple(g) for g in pressure_grids) if g not in GRIDS]
@@ -376,6 +390,7 @@ def prebuild(pressure_grids=(), cl_grids=(), cl_plans=(), gm_grids=(), k_grids=(
     _load([_spec(stem) for stem in _MAIN] + [_spec("pressure_pcg", g) for g in extra]
           + [sp for g in cl_grids for sp in _cl_grid_specs(*g)]
           + [_cl_specs(Nx, Ny, [(c, place)])[0] for Nx, Ny, c, place in cl_plans]
+          + [_cl_specs(Nx, Ny, [(c, place)], probe=True)[0] for Nx, Ny, c, place in cl_probes]
           + [_gm_spec(*args) for args in dict.fromkeys(gm)]
           + [sp for g in k_grids for sp in _k_specs(*g)])
 

@@ -23,12 +23,12 @@ Where a member's layout (`layout`, `smem_bytes`) exceeds one block's
 shared memory, P-cl runs instead (`csrc/pressure_pcg_cl.cu`, one library
 a grid, cluster size and place of the coarsest inverse): the same solve on
 a thread-block cluster of c blocks a member, each holding a band of rows
-of the split levels, the coarse levels gathered on the first block, in
-the cluster's distributed shared memory (`layout` with `cl` counts a
-block's share, `cl_plan` picks c and the inverse's place: whole on the
-first block, read in place from device memory, or, where neither leaves
-room (100x100, a 60x220 layer), a block of its rows on each rank: P-cl/d,
-`cl_bands`, `cl_inverse_rows`). Where no cluster of up to 16 holds it, or
+of the split levels and a copy of the coarse levels, which every block
+runs, in the cluster's distributed shared memory (`layout` with `cl`
+counts a block's share, `cl_plan` picks c and the inverse's place: whole
+on every block, read in place from device memory, or, where neither
+leaves room (100x100, a 60x220 layer), a block of its rows on each rank:
+P-cl/d, `cl_bands`, `cl_inverse_rows`). Where no cluster of up to 16 holds it, or
 the batch is past the grid's `DIST_BATCH_MAX`, P-gm runs
 (`csrc/pressure_pcg_gm.cu`, one library a grid and plan): the same solve
 on a member spread over G co-resident blocks, each holding a band of rows
@@ -95,9 +95,9 @@ LEVEL_KEYS = ("n", "m", "TX", "TY", "D", "RD", "B", "X", "T")
 
 CLUSTERS = (2, 4, 8, 16)  # P-cl's equal-band cluster sizes, smallest first (16: non-portable)
 DIST_CLUSTERS = tuple(range(2, 17))  # with the inverse distributed: any size up to 16
-SPLIT_MIN_CELLS = 256  # P-cl gathers a level of <= 16x16 cells on its first rank
+SPLIT_MIN_CELLS = 256  # P-cl gathers a level of <= 16x16 cells, whole on every rank
 # Where P-cl keeps a member's coarsest inverse: read in place from device
-# memory, whole in the first rank's shared memory, or a block of its rows in
+# memory, whole in every rank's shared memory, or a block of its rows in
 # each rank's shared memory; the value is the kernel's -DHM_CL_INV.
 INV_PLACES = {"device": 0, "shared": 1, "distributed": 2}
 
@@ -143,11 +143,13 @@ def cl_threads(Nx, Ny, c, place="shared"):
     """Threads of a P-cl rank: about one per four fine 2x2 tiles of its
     largest band, in the nearest whole multiple of 128 (the granule the
     registers are allocated in), from 128 to 1024; with the inverse
-    distributed at least 256, eight warps for the coarse product's rows."""
+    distributed or read in place at least 256, eight warps a rank for the
+    coarse product's rows (on an H100 the scaled 60x60 and 88x88 ran
+    faster so at N=64 and 1000: bench_routes.py, PERF.md)."""
     h = max(rows for _, rows in cl_bands(Nx, Ny, n_levels(Nx, Ny), c, place))
     t = -(-(h * Ny // 4) // 4)
     t = max(128, min(1024, (t + 64) // 128 * 128))
-    return max(t, 256) if place == "distributed" else t
+    return t if place == "shared" else max(t, 256)
 
 
 def layout(Nx, Ny, levels, unit_diag=True, cl=0, place="shared"):
@@ -168,14 +170,15 @@ def layout(Nx, Ny, levels, unit_diag=True, cl=0, place="shared"):
     of rows of each split level (`cl_split`, `cl_bands`; `n` is the
     largest band, which every rank's layout makes room for), each array
     with a halo row above and below (the offsets are of the halo row above;
-    the one below follows the rank's own rows), its TX one face row a cell
+    the one below follows the rank's own rows; where levels are gathered a
+    coarse temporary aliases only the fine T's own rows), its TX one face
+    row a cell
     row (zero past the grid's last face), and every other level whole
-    (used on the first rank; the others hold a copy of the first gathered
-    level's correction). `place` puts the coarsest inverse (`INV_PLACES`):
-    "shared" whole, "device" nowhere (read in place), "distributed" a block of
-    `cl_inverse_rows` and four floats for its alignment, then the bulk
-    copy's barrier; then two reduction slots of the rank's warps and the
-    cluster's totals."""
+    (every rank runs them). `place` puts the coarsest inverse
+    (`INV_PLACES`): "shared" whole, "device" nowhere (read in place),
+    "distributed" a block of `cl_inverse_rows` and four floats for its
+    alignment, then the bulk copy's barrier; then two reduction slots of the
+    rank's warps (`cl_threads`) and the cluster's totals."""
     ls = cl_split(Nx, Ny, levels, cl, place) if cl else 0
     hmax = max(h for _, h in cl_bands(Nx, Ny, levels, cl, place)) if cl else Nx
     sides = [(Nx >> lvl, Ny >> lvl) for lvl in range(levels)]
@@ -183,6 +186,9 @@ def layout(Nx, Ny, levels, unit_diag=True, cl=0, place="shared"):
     vec = [_r4((h + (2 if lvl < ls else 0)) * m)
            for lvl, (h, (_, m)) in enumerate(zip(rows, sides))]
     lc = levels - 1
+    # P-cl's levels gathered whole beside split ones: their temporaries
+    # alias only the fine T's own rows, past its halo row above
+    gathered_t = bool(cl) and place != "distributed"
     lv, o, t_off = [], 0, 0
     for lvl, (n, m) in enumerate(sides):
         d = dict(n=rows[lvl], m=m, split=lvl < ls, TX=0, TY=0, D=0, RD=0, B=o,
@@ -200,8 +206,8 @@ def layout(Nx, Ny, levels, unit_diag=True, cl=0, place="shared"):
                 d["X"] = d["B"] + vec[lvl]
                 size = d["TY"] - o + 5 * vec[lvl]
                 t_off += vec[lvl]
-                if t_off <= vec[0]:
-                    d["T"] = lv[0]["T"] + t_off - vec[lvl]
+                if t_off <= (rows[0] * sides[0][1] if gathered_t else vec[0]):
+                    d["T"] = lv[0]["T"] + (sides[0][1] if gathered_t else 0) + t_off - vec[lvl]
                 else:
                     d["T"] = d["X"] + vec[lvl]
                     size += vec[lvl]
@@ -594,7 +600,7 @@ def route(Nx, Ny, unit_diag=True, batch=None):
 
 def pressure_solve_cuda(hier, Ainv, q, p0, w, tol, maxiter, patience_iters=96,
                         restart_every=8, smoother="jacobi", unit_diag=True, force=None,
-                        plan=None, inverse_loads=False):
+                        plan=None, inverse_loads=False, probe=False):
     """The hand kernel. Same arguments as the plain version, float32 on one
     CUDA device. With `unit_diag` (the contract of
     `models.ressim.scaled_system`) the kernel takes the fine diagonal as 1
@@ -605,7 +611,9 @@ def pressure_solve_cuda(hier, Ainv, q, p0, w, tol, maxiter, patience_iters=96,
     grid's, or (a `Gm1Plan`) a plan for P-gm1 other than the grid's; for
     timing the ring, `inverse_loads` runs P-gm1's control
     (`_build.pressure_gm1_loads_lib`: the inverse read by plain loads).
-    Neither P-gm1 choice moves a float of the result."""
+    Neither P-gm1 choice moves a float of the result. `probe` runs P-cl's
+    probe build (`_build.pressure_cl_lib(..., probe=True)`), the same
+    kernel counting the cluster barriers member 0 passes."""
     B, Nx, Ny = q.shape
     if smoother not in SMOOTHERS:
         raise ValueError(f"smoother must be one of {SMOOTHERS}, got {smoother!r}")
@@ -616,6 +624,8 @@ def pressure_solve_cuda(hier, Ainv, q, p0, w, tol, maxiter, patience_iters=96,
     rt = planned or (route(Nx, Ny, unit_diag, B) if force is None else force)
     if inverse_loads and rt != "gm1":
         raise ValueError(f"inverse_loads is P-gm1's, not route {rt!r}'s")
+    if probe and rt != "cl":
+        raise ValueError(f"probe is P-cl's, not route {rt!r}'s")
     if rt == "cl":
         plan = plan or cl_plan(Nx, Ny, unit_diag)
         if plan is None or plan[1] not in INV_PLACES or not cl_fits(Nx, Ny, *plan, unit_diag):
@@ -674,7 +684,7 @@ def pressure_solve_cuda(hier, Ainv, q, p0, w, tol, maxiter, patience_iters=96,
         code = lib.hm_pressure_gm1_solve(
             *common, ws.data_ptr(), (ctypes.c_int * len(table))(*table), B, float(tol), *solver)
     elif rt == "cl":
-        code = _build.pressure_cl_lib(Nx, Ny, *plan).hm_pressure_cl_solve(
+        code = _build.pressure_cl_lib(Nx, Ny, *plan, probe).hm_pressure_cl_solve(
             *common, B, Nx, Ny, levels, float(tol), *solver)
     else:
         code = _build.pressure_lib(Nx, Ny).hm_pressure_solve(*common, B, Nx, Ny, levels,

@@ -1,7 +1,7 @@
 """What the CPU can check of the cluster variants P-cl and K-cl: the
 cluster each grid takes, a rank's layout (`ops/pressure.layout` with
-`cl`), the row bands of the split levels and the levels gathered on the
-first rank, the coarsest inverse's place (P-cl/d: its rows distributed
+`cl`), the row bands of the split levels and the levels gathered whole on
+every rank, the coarsest inverse's place (P-cl/d: its rows distributed
 over the ranks), K-cl's bands and strips, the routes that follow (by batch
 where P-cl/d lost at N=1000), and the wrappers' refusal of CPU tensors.
 The kernels run only on the card (tests/test_torch_kernels_cuda.py,
@@ -90,8 +90,8 @@ def test_pressure_cluster_bands_cover_the_levels(Nx, Ny):
     """Every split level's rows are the ranks' bands, each row in exactly
     one band, each band an even number of rows (2x2 tiles and the
     restriction stay inside a rank), a coarse band half its finer one; the
-    levels below are whole on the first rank: the first level of <= 256
-    cells or of an odd band, and every coarser one."""
+    levels below are whole on every rank: the first level of <= 256 cells
+    or of an odd band, and every coarser one."""
     levels = n_levels(Nx, Ny)
     c, place = cl_plan(Nx, Ny)
     lv, extra, floats = layout(Nx, Ny, levels, cl=c, place=place)
@@ -129,9 +129,12 @@ def test_pressure_cluster_inverse_place(Nx, Ny, place):
     """The coarsest inverse of 60x220 (825^2 floats, 2.7 MB) and 100x100
     (625^2, 1.56 MB) is distributed over the ranks' shared memory; 60x60's
     (225^2) is read in place from device memory, and 88x88's (121^2), whose
-    rank then fits two blocks an SM; 4x4's and 3x3's sit in the first
-    rank's shared memory."""
-    assert cl_plan(Nx, Ny)[1] == place
+    rank then fits two blocks an SM; 4x4's and 3x3's sit in every rank's
+    shared memory. Where the coarse product's rows are split over
+    the ranks (read in place or distributed), eight warps a rank or more."""
+    c, got = cl_plan(Nx, Ny)
+    assert got == place
+    assert cl_threads(Nx, Ny, c, place) >= (128 if place == "shared" else 256)
 
 
 @pytest.mark.parametrize("Nx,Ny,unit_diag", [
@@ -217,10 +220,12 @@ def test_pressure_route_past_one_block(Nx, Ny, unit_diag, batch):
 
 # The plans (c, place, bytes a rank) on the grids of equal bands, scaled
 # and unscaled, as they were before the inverse could be distributed; the
-# rule that adds P-cl/d leaves them so.
+# rule that adds P-cl/d leaves them so. Where the inverse is read in place
+# (60x60, the scaled 88x88) a rank runs 8 warps, not 4: 64 bytes more of
+# their reduction slots.
 EQUAL_BAND_PLANS = {
-    (60, 60): ((2, "device", 61_808), (2, "device", 77_168)),
-    (88, 88): ((4, "device", 103_120), (2, "shared", 209_952)),
+    (60, 60): ((2, "device", 61_872), (2, "device", 77_232)),
+    (88, 88): ((4, "device", 103_184), (2, "shared", 209_952)),
     (96, 96): ((4, "shared", 75_472), (4, "shared", 95_440)),
     (128, 128): ((8, "shared", 74_976), (8, "shared", 93_408)),
     (192, 192): ((8, "shared", 159_984), (8, "shared", 199_920)),
@@ -324,7 +329,7 @@ def test_cluster_route_refused_where_no_cluster_holds_the_grid():
     """P-cl forced where no cluster's rank fits (a 60x220 layer refined 2x2,
     120x440, either system), or on a plan that does not fit, and K-cl
     forced where no band fits (171 rows), raise before any launch; P-gm and
-    K-gm take them."""
+    K-gm take them. P-cl's probe build is P-cl's alone."""
     args = _p_args(120, 440)
     for unit in (True, False):
         with pytest.raises(ValueError, match="no cluster"):
@@ -333,6 +338,10 @@ def test_cluster_route_refused_where_no_cluster_holds_the_grid():
             pressure_solve_cuda(*args, tol=1e-3, maxiter=8, unit_diag=unit, force="gm")
     with pytest.raises(ValueError, match="no cluster"):
         pressure_solve_cuda(*_p_args(100, 100), tol=1e-3, maxiter=8, plan=(8, "distributed"))
+    with pytest.raises(ValueError, match="probe is P-cl's"):
+        pressure_solve_cuda(*_p_args(128, 128), tol=1e-3, maxiter=8, force="gm", probe=True)
+    with pytest.raises(ValueError, match="need float32 CUDA"):
+        pressure_solve_cuda(*_p_args(128, 128), tol=1e-3, maxiter=8, probe=True)
     with pytest.raises(ValueError, match="force must be"):
         pressure_solve_cuda(*_p_args(100, 100), tol=1e-3, maxiter=8, plan=(9, "distributed"),
                             force="gm")

@@ -625,16 +625,19 @@ def test_gm_kernel_resources(dev, Nx, Ny):
 
 @pytest.mark.parametrize("unit_diag", [True, False])
 @pytest.mark.parametrize("smoother", ["jacobi", "cheb"])
-@pytest.mark.parametrize("Nx,Ny", [(60, 60), (88, 88), (96, 96), (128, 128), (60, 220)])
-def test_pressure_cl_matches_plain(dev, Nx, Ny, smoother, unit_diag):
+@pytest.mark.parametrize("Nx,Ny,B", [(60, 60, 8), (88, 88, 8), (96, 96, 8), (128, 128, 8),
+                                     (128, 128, 5), (60, 220, 8), (192, 192, 8),
+                                     (256, 256, 8)])
+def test_pressure_cl_matches_plain(dev, Nx, Ny, B, smoother, unit_diag):
     """P-cl forced, against the plain version after one window of 4
     iterations: 60x60 (the inverse read in place, a 30x30 level gathered on
-    rank 0), 88x88 (its 11x11 inverse in place, over four ranks), 96x96 and
-    128x128 (the small coarse levels on rank 0's warp), 60x220 (its
+    both ranks), 88x88 (its 11x11 inverse in place, over four ranks), 96x96,
+    128x128 (on 8 members and on 5) and 192x192 (the small coarse levels on
+    each rank's warp), 256x256 (16 ranks, four split levels), 60x220 (its
     825-cell inverse distributed over 15 or 16 ranks, P-cl/d). The unscaled
     system on fields of mild contrast, as the shared-memory P."""
     _pressure_vs_plain(dev, Nx, Ny, smoother, unit_diag=unit_diag, window=4,
-                       scale=1.0 if unit_diag else 0.2, force="cl")
+                       scale=1.0 if unit_diag else 0.2, force="cl", B=B)
 
 
 # P-cl/d's grids with their plans (c ranks, the inverse distributed), and
