@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time each route of kernels P and K against the others on one NVIDIA GPU.
 
-    python3 bench_routes.py [--out FILE] [--kernel P|K|gm1|cl] [--grids 15x15,60x60,...]
+    python3 bench_routes.py [--out FILE] [--kernel P|K|gm1|cl|kcl] [--grids 15x15,...]
                             [--root DIR]
 
 The evidence behind `ops/pressure.route` and `ops/transport.route` past one
@@ -55,7 +55,15 @@ case at 128x128, N=1000, the first pass's settings; `cl_row`): the route's
 plan held to the plain version after one window (`chip_smoke.P_TOL`),
 with its iterations, members accepted, bound, clusters resident, barriers
 and iteration estimate, and a hash of p (equal hashes: the same bits); then P's, K's and the wall's time a step over 10
-first-pass steps, profiled. `--root DIR` times the package and
+first-pass steps, profiled. `--kernel kcl` times K-cl on the same first
+step's substeps (`kcl_row`): its route's plan and, where the checkout has
+K-cl's plans, a ladder of them (KCL_LADDER) and the source's measured
+alternatives (KCL_DEFINES), each bit for bit with the plain version, with
+its registers, spills, ranks an SM, clusters resident, an estimate of a
+substep's time (the launch's time x clusters resident / members / mean
+substeps, which counts the last wave's tail) and a hash of s. A K row
+carries the same figures for K-cl; at 80x80, 88x88 and 96x96 K-cl and
+K-rt are also timed at N=128 and 256 (K_CL_MEMBERS). `--root DIR` times the package and
 `chip_smoke.py` of another
 checkout (an unpacked `git archive` of an earlier commit) on this file's
 cases, each variant that checkout has: to compare two commits in one call,
@@ -86,6 +94,19 @@ P_CASES = [((60, 60), True), ((88, 88), True), ((96, 96), True), ((100, 100), Tr
            ((128, 128), False), ((60, 220), False), ((192, 192), False), ((120, 440), False)]
 K_GRIDS = [(80, 80), (88, 88), (96, 96), (100, 100), (128, 128)]
 MEMBERS = (64, 1000)
+# K-cl against K-rt where K-rt once ran faster (`ops/transport.route`'s
+# batch rule): these grids at these batches too.
+K_CL_GRIDS, K_CL_MEMBERS = [(80, 80), (88, 88), (96, 96)], (128, 256)
+# K-cl's plans timed on [24]'s first step (`--kernel kcl`): (c, strip, m,
+# place), and the source's alternatives built on a plan: the halo pushed
+# under a cluster barrier a exchange instead of an mbarrier handshake
+# (HM_KCL_SYNC), the halo strips on every row every substep (HM_KCL_SKIP=0).
+KCL_LADDER = [(8, 4, 4, "shared"), (8, 4, 4, "registers"), (8, 4, 3, "shared"),
+              (8, 4, 2, "shared"), (8, 4, 1, "shared"), (4, 8, 4, "shared"), (4, 8, 2, "shared"),
+              (4, 8, 1, "shared"), (8, 8, 4, "shared"), (8, 8, 2, "shared"),
+              (16, 4, 4, "shared"), (16, 4, 2, "shared")]
+KCL_DEFINES = [((8, 4, 4, "shared"), ("HM_KCL_SYNC=1",)), ((8, 4, 4, "shared"), ("HM_KCL_SKIP=0",)),
+               ((4, 8, 4, "shared"), ("HM_KCL_SYNC=1",)), ((4, 8, 2, "shared"), ("HM_KCL_SYNC=1",))]
 # K's grids that no cluster takes, and their batches.
 K_GM_GRIDS, K_GM_MEMBERS = [(120, 440), (171, 171)], (16, 64, 1000)
 # K's grids whose route moved to K-rt (the strip body built for the grid,
@@ -235,6 +256,97 @@ def cl_row(reps):
     return row
 
 
+def kcl_figures(Nx, Ny, ms, nsub, plan=None, defines=()):
+    """K-cl's resources on `plan` (the route's where not given) and an
+    estimate of a substep's time in microseconds: the launch's `ms` x
+    clusters resident / members / mean substeps."""
+    from historymatching_tpu_torch.ops import _build, transport
+
+    if defines:
+        lib = _build.transport_cl_lib(Nx, Ny, transport.ClPlan(*plan), defines)
+        out = (__import__("ctypes").c_int * 7)()
+        _build.check(lib.hm_transport_cl_info(Nx, Ny, out), "transport_upwind_cl")
+        info = dict(zip(("registers", "local_bytes", "shared_bytes", "threads",
+                         "blocks_per_sm", "cluster", "max_active_clusters"), out))
+    else:
+        info = _build.kernel_info("transport_upwind_cl", Nx, Ny, *([plan] if plan else []))
+    return dict(info, substep_us_estimate=cs.iteration_us(ms, info["max_active_clusters"], nsub))
+
+
+def kcl_run(t_args, plan=None, defines=()):
+    """One launch of K-cl on `plan` (the route's where not given), or on a
+    library of `plan` built with `defines`, called as the wrapper calls it."""
+    import torch
+
+    from historymatching_tpu_torch.ops import _build, transport
+    from historymatching_tpu_torch.ops.transport import transport_substeps_cuda
+
+    if not defines:
+        return transport_substeps_cuda(*t_args, force="cl", **({"plan": plan} if plan else {}))
+    s, Fx, Fy, q, dts_pv, n_sub, fluid = t_args
+    B, Nx, Ny = s.shape
+    out = torch.empty_like(s)
+    lib = _build.transport_cl_lib(Nx, Ny, transport.ClPlan(*plan), defines)
+    code = lib.hm_transport_substeps_cl(
+        s.data_ptr(), Fx.data_ptr(), Fy.data_ptr(), q.data_ptr(), 0 if q.shape[0] == 1 else Nx * Ny,
+        dts_pv.data_ptr(), n_sub.data_ptr(), out.data_ptr(), B, Nx, Ny,
+        *(float(v) for v in fluid), _build.stream_ptr(s.device))
+    _build.check(code, "transport_upwind_cl")
+    return out
+
+
+def kcl_row(reps):
+    """K-cl on [24]'s first step: the bench case (seed 1) at 128x128,
+    N=1000, s = 0, the substeps of the first pass's pressure step; the
+    route's plan, and where the checkout has K-cl's plans KCL_LADDER and
+    KCL_DEFINES, each held to the plain version bit for bit and timed, with
+    `kcl_figures` and a hash of s."""
+    import hashlib
+
+    import torch
+
+    from historymatching_tpu_torch import parity
+    from historymatching_tpu_torch.models.ressim import _source_field, cfl_substeps, pressure_step
+    from historymatching_tpu_torch.ops import _build, transport
+    from historymatching_tpu_torch.ops.transport import transport_substeps_torch
+    from historymatching_tpu_torch.parallel.runner import set_perm
+
+    Nx, Ny = cs.BIG
+    case = parity.build_case(cs.SEED, cs.N, Nx, Ny, cs.NTIME)
+    model, prior = case["model"], case["prior"]
+    mm = set_perm(model, prior)
+    qf = _source_field(model, model.inj_rates[:, 0], model.prd_rates[:, 0])
+    first = dict(cs.BASE, **cs.SCHED[0])
+    s0 = torch.zeros(prior.shape[0], Nx, Ny, device=prior.device)
+    _, Fx, Fy, _, _, _ = pressure_step(mm, s0, qf, torch.zeros_like(s0), tol_accept=5e-2, **first)
+    Fx, Fy = Fx.contiguous(), Fy.contiguous()
+    nsub, dtspv = cfl_substeps(mm, Fx, Fy, qf, cs.DT)
+    t_args = (s0, Fx, Fy, qf[None].contiguous(), dtspv, nsub, cs.fluid_of(model))
+    ladder = hasattr(transport, "cl_plans")
+    variants = [(None, ())]
+    if ladder:
+        variants += [(p, ()) for p in KCL_LADDER if transport.ClPlan(*p) in transport.cl_plans(
+            Nx, Ny)] + [(p, d) for p, d in KCL_DEFINES]
+        _build.prebuild(kcl_plans=[(Nx, Ny, transport.ClPlan(*(p or transport.cl_plan(Nx, Ny))),
+                                    d) for p, d in variants])
+    ref = transport_substeps_torch(*t_args)
+    row = dict(kernel="K-cl", case="[24] first step", grid=f"{Nx}x{Ny}", N=cs.N, root=ROOT,
+               substeps=(int(nsub.median()), float(nsub.float().mean()), int(nsub.max())),
+               bound_ms=cs.transport_bound_ms(s0, Fx, Fy, t_args[3], nsub)[0],
+               route_plan=transport.cl_plan(Nx, Ny) if ladder else transport.cl_shape(Nx, Ny),
+               variants=[])
+    for plan, defines in variants:
+        out = kcl_run(t_args, plan, defines)
+        assert torch.equal(out, ref), (plan, defines, float((out - ref).abs().max()))
+        ms = cs.cuda_ms(lambda: kcl_run(t_args, plan, defines), reps)
+        fig = dict(plan=plan or "route", defines=list(defines), ms=ms,
+                   s_hash=hashlib.sha1(out.cpu().numpy().tobytes()).hexdigest()[:16],
+                   **kcl_figures(Nx, Ny, ms, nsub, plan, defines))
+        row["variants"].append(fig)
+        print(json.dumps(fig), flush=True)
+    return row
+
+
 def gm1_row(Nx, Ny, n_members, reps):
     """P-gm1 at a grid and batch: at fixed work (GM1_FIXED) its route's plan
     ("plan") and a whole block's (GM1_WHOLE_BLOCK, "block"), each with its
@@ -332,13 +444,14 @@ def k_row(Nx, Ny, n_members, reps, forces=None, precond="mg"):
     nsub, dtspv = cfl_substeps(mm, Fx, Fy, qf, cs.DT)
     t_args = (s0, Fx, Fy, qf[None].contiguous(), dtspv, nsub, cs.fluid_of(m))
     plan = transport.gm_plan(Nx, Ny)
+    cl_plan = getattr(transport, "cl_plan", getattr(transport, "cl_shape", None))(Nx, Ny)
     row = dict(kernel="K", grid=f"{Nx}x{Ny}", N=n_members,
                route=transport.route(Nx, Ny, n_members),
-               shape=transport.cl_shape(Nx, Ny), rt_plan=transport.rt_plan(Nx, Ny),
+               cl_plan=cl_plan, rt_plan=transport.rt_plan(Nx, Ny),
                gm_plan=plan and (len(plan[0]), *plan[1:]), substeps=int(nsub.median()),
                precond=precond, bound_ms=cs.transport_bound_ms(s0, Fx, Fy, t_args[3], nsub)[0])
     fits = transport.smem_bytes(Nx, Ny) <= _build.SMEM_LIMIT
-    forces = forces or ((["cl"] if transport.cl_shape(Nx, Ny) else ["gm1"])
+    forces = forces or ((["cl"] if cl_plan else ["gm1"])
                         + (["rt1"] if fits else [])
                         + (["rt"] if fits and transport.rt_plan(Nx, Ny) else [])
                         + (["gm"] if plan else []))
@@ -349,6 +462,8 @@ def k_row(Nx, Ny, n_members, reps, forces=None, precond="mg"):
         assert torch.equal(out, first), (Nx, Ny, force)
         row[f"{force}_ms"] = cs.cuda_ms(
             lambda: transport_substeps_cuda(*t_args, force=force), reps)
+    if "cl" in forces:
+        row.update({f"cl_{k}": v for k, v in kcl_figures(Nx, Ny, row["cl_ms"], nsub).items()})
     if plan and "gm" in forces:
         gm = _build.kernel_info("transport_upwind_gm", Nx, Ny)
         row.update(gm_bands=gm["bands"], gm_groups_resident=gm["groups_resident"],
@@ -360,9 +475,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out", default="")
-    ap.add_argument("--kernel", choices=("P", "K", "gm1", "cl"), default=None,
+    ap.add_argument("--kernel", choices=("P", "K", "gm1", "cl", "kcl"), default=None,
                     help="time one kernel's routes only (default: P's and K's), or P-gm1's "
-                         "choices, or P-cl on [24]'s first step")
+                         "choices, or P-cl or K-cl on [24]'s first step")
     ap.add_argument("--grids", default="",
                     help="comma-separated NXxNY: time the rows of these grids only")
     ap.add_argument("--root", default=ROOT,
@@ -382,6 +497,8 @@ def main(argv=None):
     if opts.kernel == "cl":
         rows.append(cl_row(opts.reps))
         print(json.dumps(rows[-1]), flush=True)
+    if opts.kernel == "kcl":
+        rows.append(kcl_row(opts.reps))
     if opts.kernel == "gm1":
         for (Nx, Ny), n_members in GM1_CASES:
             if not keep or (Nx, Ny) in keep:
@@ -408,13 +525,16 @@ def main(argv=None):
             emit(p_row, Nx, Ny, unit, n_members, opts.reps)
         for Nx, Ny in K_GRIDS if do_k else ():
             emit(k_row, Nx, Ny, n_members, opts.reps)
+    for n_members in K_CL_MEMBERS if do_k else ():
+        for Nx, Ny in K_CL_GRIDS:
+            emit(k_row, Nx, Ny, n_members, opts.reps, ["cl", "rt"])
     for n_members in K_GM_MEMBERS if do_k else ():
         for Nx, Ny in K_GM_GRIDS:
             emit(k_row, Nx, Ny, n_members, opts.reps)
     for n_members in MEMBERS if do_k else ():
         for Nx, Ny in K_RT_ROWS:
             emit(k_row, Nx, Ny, n_members, opts.reps,
-                 ["rt", "rt1"] + (["cl"] if transport.cl_shape(Nx, Ny) else []))
+                 ["rt", "rt1"] + (["cl"] if transport.route(Nx, Ny) == "cl" else []))
     for (Nx, Ny), (precond, batches) in K_WIDE_ROWS.items() if do_k else ():
         for n_members in batches:
             emit(k_row, Nx, Ny, n_members, opts.reps, ["gm", "gm1"], precond)

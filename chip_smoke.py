@@ -611,11 +611,12 @@ def enopt_phases(dev, gen):
 
 
 def iteration_us(ms, resident, iters):
-    """An estimate of a P-cl iteration's time in microseconds, from a
-    launch of `ms` over len(iters) members with `resident` clusters on the
-    card at once: ms x min(resident, members) / members / mean iterations.
-    It takes every resident cluster as busy for the whole launch, so it
-    counts the last wave's idle tail as iteration time."""
+    """An estimate of a P-cl iteration's (or a K-cl substep's) time in
+    microseconds, from a launch of `ms` over len(iters) members with
+    `resident` clusters on the card at once: ms x min(resident, members) /
+    members / mean iterations (substeps). It takes every resident cluster
+    as busy for the whole launch, so it counts the last wave's idle tail as
+    iteration time."""
     n = len(iters)
     return 1e3 * ms * min(resident, n) / n / float(iters.float().mean())
 
@@ -1110,15 +1111,19 @@ def large_grid_phases(dev, six):
                            forced_ms=k_ms, plain_ms=plain_ms,
                            substeps_median=int(nsub.median()))
                 if force == "cl":
-                    fig.update(cluster=transport.cl_shape(Nx, Ny),
-                               resources=_build.kernel_info("transport_upwind_cl", Nx, Ny))
+                    res = _build.kernel_info("transport_upwind_cl", Nx, Ny)
+                    fig.update(plan=transport.cl_plan(Nx, Ny), resources=res,
+                               substep_us_estimate=iteration_us(
+                                   k_ms[force], res["max_active_clusters"], nsub))
                 else:
                     fig.update(resources=_build.kernel_info("transport_upwind_gm", Nx, Ny))
                 figs[f"transport_upwind_{force}"]["grids"][tag] = fig
         log(f"[23] K {tag}, N={LARGE_N}, step 6 of a prior run (simulate's launches {n_sim}; "
             f"cg_iters median {int(it.median())}, accepted {int(ok.sum())}/{LARGE_N}): "
             f"substeps median {int(nsub.median())} max {int(nsub.max())}; route {k_route!r}"
-            + (f" (cluster, strip {transport.cl_shape(Nx, Ny)})" if k_route == "cl" else "")
+            + (f" ({transport.cl_plan(Nx, Ny)}, a substep ~"
+               f"{figs['transport_upwind_cl']['grids'][tag]['substep_us_estimate']:.2f} us by "
+               f"estimate)" if k_route == "cl" else "")
             + "; ms " + ", ".join(f"{k} {v:.4f}" for k, v in k_ms.items())
             + f", each bit for bit with the plain version; bound {bnd:.5f} ms ({by}, "
             f"{k_route} {bnd / k_ms[k_route]:.1%}, gm {bnd / k_ms['gm']:.1%}); K-gm "
@@ -1794,11 +1799,17 @@ def large_case_kernels(model, prior):
                                        share_of_bound=k_bnd / ms, max_abs_err=0.0,
                                        substeps_median=int(nsub.median()))
               for f, ms in k_ms.items()}
+    k_res = _build.kernel_info("transport_upwind_cl", Nx, Ny)
+    k_sub = iteration_us(k_ms["cl"], k_res["max_active_clusters"], nsub)
     k_figs["transport_upwind_cl"].update(rt1_ms=k_ms["rt1"], gm_ms=k_ms["gm"],
-                                         cluster=transport.cl_shape(Nx, Ny))
+                                         plan=transport.cl_plan(Nx, Ny), resources=k_res,
+                                         substep_us_estimate=k_sub)
     log(f"[24] kernels on the first step's system (N={prior.shape[0]}, {Nx}x{Ny}, the first "
-        f"pass's settings): " + "; ".join(said) + f"; plain {plain_ms:.3f} ms; K (cluster, strip "
-        f"{transport.cl_shape(Nx, Ny)}; {int(nsub.median())} substeps median) max|ds| 0 on every "
+        f"pass's settings): " + "; ".join(said) + f"; plain {plain_ms:.3f} ms; K-cl "
+        f"({transport.cl_plan(Nx, Ny)}: {k_res['registers']} registers, {k_res['local_bytes']} "
+        f"local bytes, {k_res['blocks_per_sm']} ranks an SM, {k_res['max_active_clusters']} "
+        f"clusters resident, a substep ~{k_sub:.2f} us by estimate; "
+        f"{int(nsub.median())} substeps median) max|ds| 0 on every "
         f"route, ms " + ", ".join(f"{k} {v:.3f}" for k, v in k_ms.items())
         + f", plain {k_plain_ms:.3f}, bound {k_bnd:.5f} ms ({k_by}, K-cl "
         f"{k_bnd / k_ms['cl']:.1%})")

@@ -15,9 +15,9 @@ first (strips of 4 rows, one column a thread) get one library each
 grid and its plan, one library each, built on first use
 (`pressure_gm_lib`).
 The cluster variants (P-cl in `pressure_pcg_cl.cu`, K-cl in `transport_upwind.cu`
-under `-DHM_KCL_*`) are templates on the grid and the cluster size (and
-P-cl on the coarsest inverse's place), one library each, built on first
-use (`pressure_cl_lib`, `transport_cl_lib`; P-cl's probe build beside it,
+under `-DHM_KCL_*`) are templates on the grid and the cluster size (P-cl
+also on the coarsest inverse's place, K-cl on its plan), one library each,
+built on first use (`pressure_cl_lib`, `transport_cl_lib`; P-cl's probe build beside it,
 `pressure_cl_lib(..., probe=True)`).
 A library's
 name carries a hash of its source, the shared headers and the flags, so an
@@ -160,10 +160,11 @@ def _spec(stem, grid=None, key=None, flags=None, sigs=None):
     return key, stem, flags, os.path.join(BUILD_DIR, f"lib{key}_{h[:16]}.so"), sigs or stem
 
 
-def _cl_specs(Nx, Ny, pressure_plans=(), transport_shape=None, probe=False):
+def _cl_specs(Nx, Ny, pressure_plans=(), transport_plan=None, probe=False, defines=()):
     """The cluster libraries of one grid: P-cl for each (c, place of the
     inverse) plan, on `cl_threads`' threads a rank (its probe build with
-    `probe`), K-cl for a (c, strip) shape."""
+    `probe`), K-cl for a plan (`ops.transport.ClPlan`), asking for the
+    ranks an SM that `ops.transport.cl_ranks` counts."""
     from historymatching_tpu_torch.ops.pressure import INV_PLACES, cl_threads
 
     tag = {"shared": "s", "device": "g", "distributed": "d"}
@@ -174,11 +175,20 @@ def _cl_specs(Nx, Ny, pressure_plans=(), transport_shape=None, probe=False):
                           f"-DHM_CL_THREADS={cl_threads(Nx, Ny, c, place)}", *extra],
                    sigs="pressure_pcg_cl" + end)
              for c, place in dict.fromkeys(pressure_plans)]
-    if transport_shape is not None:
-        c, strip = transport_shape
-        specs.append(_spec("transport_upwind", key=f"transport_upwind_cl_{Nx}x{Ny}_c{c}s{strip}",
+    if transport_plan is not None:
+        from historymatching_tpu_torch.ops.transport import cl_ranks
+
+        c, strip, m, place = transport_plan
+        ranks = cl_ranks(Nx, Ny, transport_plan)
+        tag = "".join(f"_{d.replace('=', '')}" for d in defines)
+        specs.append(_spec("transport_upwind",
+                           key=f"transport_upwind_cl_{Nx}x{Ny}_c{c}s{strip}m{m}{place[0]}r{ranks}"
+                               + tag,
                            flags=[f"-DHM_KCL_NX={Nx}", f"-DHM_KCL_NY={Ny}", f"-DHM_KCL_C={c}",
-                                  f"-DHM_KCL_S={strip}"], sigs="transport_upwind_cl"))
+                                  f"-DHM_KCL_S={strip}", f"-DHM_KCL_M={m}",
+                                  f"-DHM_KCL_SHARED={int(place == 'shared')}",
+                                  f"-DHM_KCL_R={ranks}", *(f"-D{d}" for d in defines)],
+                           sigs="transport_upwind_cl"))
     return specs
 
 
@@ -295,14 +305,15 @@ def pressure_gm_lib(Nx, Ny, G, kb):
     return _get(_gm_spec, Nx, Ny, G, kb)
 
 
-def _kcl_spec(Nx, Ny, c, strip):
-    return _cl_specs(Nx, Ny, transport_shape=(c, strip))[0]
+def _kcl_spec(Nx, Ny, plan, defines=()):
+    return _cl_specs(Nx, Ny, transport_plan=plan, defines=defines)[0]
 
 
-def transport_cl_lib(Nx, Ny, c, strip):
-    """K-cl's C entry points for one grid on clusters of `c` ranks with
-    strips of `strip` cells, built on first use."""
-    return _get(_kcl_spec, Nx, Ny, c, strip)
+def transport_cl_lib(Nx, Ny, plan, defines=()):
+    """K-cl's C entry points for one grid on a plan (`ops.transport.ClPlan`:
+    ranks, strip rows, halo rows, place of the faces), built on first use;
+    `defines` (NAME=VALUE) build one of the source's measured alternatives."""
+    return _get(_kcl_spec, Nx, Ny, plan, tuple(defines))
 
 
 def _rt_spec(Nx, Ny, strip, place):
@@ -370,18 +381,19 @@ def _cl_grid_specs(Nx, Ny):
     plans = [pressure.cl_plan(Nx, Ny, unit) for unit in (True, False)
              if n_levels(Nx, Ny) >= 2 and pressure.route(Nx, Ny, unit) != "smem"]
     plans = [plan for plan in plans if plan]
-    shape = transport.cl_shape(Nx, Ny) if transport.route(Nx, Ny) == "cl" else None
-    return _cl_specs(Nx, Ny, plans, shape)
+    kcl = transport.cl_plan(Nx, Ny) if transport.route(Nx, Ny) == "cl" else None
+    return _cl_specs(Nx, Ny, plans, kcl)
 
 
 def prebuild(pressure_grids=(), cl_grids=(), cl_plans=(), gm_grids=(), k_grids=(),
-             cl_probes=()):
+             cl_probes=(), kcl_plans=()):
     """Build the main libraries, kernel P's libraries for `pressure_grids`
     outside `GRIDS`, the cluster libraries of `cl_grids`, P-cl's for each
     (Nx, Ny, c, place) of `cl_plans` and its probe build for each of
     `cl_probes`, P-gm's for both fine diagonals' plans of each grid of
-    `gm_grids` and K's own libraries of each grid of `k_grids`
-    (`_k_specs`), every compiler at once."""
+    `gm_grids`, K's own libraries of each grid of `k_grids` (`_k_specs`)
+    and K-cl's for each (Nx, Ny, plan[, defines]) of `kcl_plans`, every
+    compiler at once."""
     from historymatching_tpu_torch.ops.pressure import gm_plan
 
     extra = [g for g in dict.fromkeys(tuple(g) for g in pressure_grids) if g not in GRIDS]
@@ -392,7 +404,8 @@ def prebuild(pressure_grids=(), cl_grids=(), cl_plans=(), gm_grids=(), k_grids=(
           + [_cl_specs(Nx, Ny, [(c, place)])[0] for Nx, Ny, c, place in cl_plans]
           + [_cl_specs(Nx, Ny, [(c, place)], probe=True)[0] for Nx, Ny, c, place in cl_probes]
           + [_gm_spec(*args) for args in dict.fromkeys(gm)]
-          + [sp for g in k_grids for sp in _k_specs(*g)])
+          + [sp for g in k_grids for sp in _k_specs(*g)]
+          + [_kcl_spec(*args) for args in kcl_plans])
 
 
 def check(code, name):
@@ -415,8 +428,10 @@ def kernel_info(kernel, Nx, Ny, plan=None):
     bytes a block, and adds its blocks
     a member and the groups (members in flight) the card holds at once; a
     cluster variant ("_cl", on its route's
-    cluster or P-cl's `plan`) its bytes a rank, and adds the ranks a cluster
-    and the clusters the card holds at once."""
+    cluster, P-cl's `plan` or K-cl's, `ops.transport.ClPlan`) its bytes a
+    rank, and adds the ranks a cluster and the clusters the card holds at
+    once; K-cl also its plan and the ranks an SM it asks for
+    (`ops.transport.cl_ranks`)."""
     from historymatching_tpu_torch.ops import pressure, transport
 
     out = (ctypes.c_int * 7)()
@@ -424,8 +439,9 @@ def kernel_info(kernel, Nx, Ny, plan=None):
     cheb, unit = int("cheb" in kernel), int("_diag" not in kernel)
     keys = ("registers", "local_bytes", "shared_bytes", "threads", "blocks_per_sm")
     if kernel == "transport_upwind_cl":
-        code = transport_cl_lib(Nx, Ny, *transport.cl_shape(Nx, Ny)).hm_transport_cl_info(
-            Nx, Ny, out)
+        plan = transport.ClPlan(*(plan or transport.cl_plan(Nx, Ny)))
+        code = transport_cl_lib(Nx, Ny, plan).hm_transport_cl_info(Nx, Ny, out)
+        extra = dict(plan._asdict(), ranks_planned=transport.cl_ranks(Nx, Ny, plan))
     elif kernel == "transport_upwind_gm":
         plan = transport.gm_plan(Nx, Ny)
         if plan is None:

@@ -11,7 +11,8 @@ member loops over its own substep count (`csrc/transport_upwind.cu`).
   in shared memory), one library a grid, built on first use, but where
   K-rt1 ran faster (`RT1_CELLS`, `RT1_BATCH_CELLS`);
 - "cl" (K-cl): a thread-block cluster a member, each block a band of rows
-  (`cl_shape`), past 4,096 cells where a cluster takes the grid;
+  and m halo rows above and below it, m substeps a halo exchange
+  (`cl_plan`), past 4,096 cells where a cluster takes the grid;
 - "rt1" (K-rt1): the runtime-grid body K-rt had before, where the two fw
   tiles fit one block but no strip plan does, and on small grids at small
   batches;
@@ -30,6 +31,8 @@ kernel, which raises on what it does not take.
 
 from __future__ import annotations
 
+from collections import namedtuple
+
 import torch
 import torch.nn.functional as F
 
@@ -41,6 +44,21 @@ NAMES = {"templated": "transport_upwind", "rt": "transport_upwind_rt",
          "rt1": "transport_upwind_rt1", "cl": "transport_upwind_cl",
          "gm": "transport_upwind_gm", "gm1": "transport_upwind_gm1"}  # launch counters by route
 BAND_CELLS = 4096  # a K-cl rank's band at most: the templated 64x64 block's load
+# K-cl's plan: c ranks a member, strips of `strip` rows, m halo rows (the
+# substeps between two halo exchanges), the faces in "registers" or
+# "shared" memory. CL_HALO: m; CL_MAX_RANKS: ranks an SM a plan asks for
+# at most; an H100 SM's shared bytes, and those the runtime reserves a block.
+ClPlan = namedtuple("ClPlan", "c strip m place")
+CL_HALO, CL_MAX_RANKS = 4, 2
+SM_SHARED, BLOCK_RESERVED = 233_472, 1024
+# K-cl's registers a thread by its strip's rows S, from what ptxas reported
+# on the H100 (CUDA 12.9): with the faces in registers 75-78 at S = 4
+# (m = 1-4) and 96 at S = 5, 64 with a 4-8 byte spill under a cap of 64;
+# in shared memory 40 at S = 4 without a spill under a cap of 40, spills of
+# 8-40 bytes at S = 5-7 under that cap, 56 at S = 6, 64 at S = 6 and 8 and
+# 72 at S = 8 without one. A rank's halo strips and the exchange cost ~20
+# registers more than K-rt's strip (`RT_REGS`) with the faces in registers.
+CL_REGS = {"registers": (18, 6), "shared": (4, 24)}
 # K-rt1 keeps a grid of up to RT1_CELLS cells (one cell a thread there)
 # while the batch holds up to RT1_BATCH_CELLS cells: such a launch is
 # bound by its chain of substeps, where K-rt1's one cell a thread ran
@@ -126,20 +144,76 @@ def rt_plan(Nx, Ny):
     return None
 
 
-def cl_shape(Nx, Ny):
-    """K-cl's cluster for a grid: (c, strip), the smallest power of two c
-    up to 16 that divides Nx into bands of at most BAND_CELLS cells, and
-    the strip (cells a thread along i), the smallest divisor of the band's
-    rows from MIN_STRIP up (or the band's rows, where fewer) that keeps a
-    block at MAX_THREADS; None where no cluster takes the grid."""
-    for c in (2, 4, 8, 16):
+def cl_threads(Nx, Ny, c, strip):
+    """K-cl's threads a rank: the band's strips of `strip` rows (the last
+    may hold fewer) and a halo strip above and below it, one column a
+    thread."""
+    return (-(-(Nx // c) // strip) + 2) * Ny
+
+
+def cl_bytes(Nx, Ny, plan):
+    """K-cl's shared bytes a rank (csrc `KClGeo::BYTES`): two mbarriers, four
+    halo slots (two parities, from above and from below) of each column's m
+    rows padded to a vector of 1, 2 or 4 floats, two fw tiles of the band
+    and its halos, and with the faces in "shared" memory each thread's 4
+    `strip` + 1 faces and sources."""
+    c, strip, m, place = plan
+    v = 1 if m == 1 else 2 if m == 2 else 4
+    faces = 4 * strip + 1 if place == "shared" else 0
+    return 4 * (4 + 4 * v * Ny + 2 * (Nx // c + 2 * m) * Ny
+                + faces * cl_threads(Nx, Ny, c, strip))
+
+
+def cl_ranks(Nx, Ny, plan):
+    """The ranks of `plan` one SM holds by its threads, its registers (the
+    `CL_REGS` model, allocated 8 at a time for each warp) and its shared
+    bytes (`SM_SHARED`, and `BLOCK_RESERVED` a block), at most
+    `CL_MAX_RANKS`; 0 where the registers do not fit one rank."""
+    c, strip, m, place = plan
+    threads = cl_threads(Nx, Ny, c, strip)
+    a, b = CL_REGS[place]
+    regs = -(-(a * strip + b) // 8) * 8
+    warps = -(-threads // 32)
+    by_regs = 65536 // (32 * warps * regs) if regs <= 255 else 0
+    by_bytes = SM_SHARED // (cl_bytes(Nx, Ny, plan) + BLOCK_RESERVED)
+    return min(by_regs, by_bytes, 2048 // threads, CL_MAX_RANKS)
+
+
+def cl_plans(Nx, Ny):
+    """Every plan K-cl takes for a grid: ClPlan(c, strip, m, place) with c
+    ranks from 2 to 16 that split Nx in equal bands of at most BAND_CELLS
+    cells, strips of `strip` rows from MIN_STRIP (or the band's rows, where
+    fewer) to MAX_STRIP whose last holds at least m rows, m from 1 to
+    CL_HALO, the faces in "registers" or "shared" memory; at most
+    MAX_THREADS threads and `_build.SMEM_LIMIT` bytes a rank, and one rank
+    an SM at least (`cl_ranks`)."""
+    plans = []
+    for c in range(2, 17):
         h = Nx // c
         if Nx % c or h * Ny > BAND_CELLS:
             continue
         for strip in range(min(MIN_STRIP, h), min(MAX_STRIP, h) + 1):
-            if h % strip == 0 and h // strip * Ny <= MAX_THREADS:
-                return c, strip
-    return None
+            last = h - (-(-h // strip) - 1) * strip
+            if cl_threads(Nx, Ny, c, strip) > MAX_THREADS:
+                continue
+            for m in range(1, min(CL_HALO, last) + 1):
+                for place in ("registers", "shared"):
+                    plan = ClPlan(c, strip, m, place)
+                    if cl_bytes(Nx, Ny, plan) <= _build.SMEM_LIMIT and cl_ranks(Nx, Ny, plan):
+                        plans.append(plan)
+    return plans
+
+
+def cl_plan(Nx, Ny):
+    """K-cl's plan for a grid (`cl_plans`): the most halo rows, then the
+    most ranks an SM (`cl_ranks`), then the fewest ranks a member, then the
+    faces in registers, then the shortest strip; None where no cluster
+    takes the grid."""
+    plans = cl_plans(Nx, Ny)
+    if not plans:
+        return None
+    return min(plans, key=lambda p: (-p.m, -cl_ranks(Nx, Ny, p), p.c, p.place != "registers",
+                                     p.strip))
 
 
 def gm_slots(strip, cols):
@@ -207,7 +281,7 @@ def gm_plan(Nx, Ny):
 def route(Nx, Ny, batch=None):
     """Which kernel K takes a grid of a batch of `batch` members (not
     given: a small batch): "templated" at `_build.GRIDS`; "cl" past
-    BAND_CELLS cells where a cluster takes it (`cl_shape`); where the two
+    BAND_CELLS cells where a cluster takes it (`cl_plan`); where the two
     fw tiles fit one block's shared memory (`_build.SMEM_LIMIT`) "rt1" on
     up to RT1_CELLS cells while the batch holds up to RT1_BATCH_CELLS,
     else "rt" where `rt_plan` gives a plan, else "rt1"; past that "gm"
@@ -215,7 +289,7 @@ def route(Nx, Ny, batch=None):
     check_grid(Nx, Ny)
     if (Nx, Ny) in _build.GRIDS:
         return "templated"
-    if Nx * Ny > BAND_CELLS and cl_shape(Nx, Ny):
+    if Nx * Ny > BAND_CELLS and cl_plan(Nx, Ny):
         return "cl"
     if smem_bytes(Nx, Ny) <= _build.SMEM_LIMIT:
         small = Nx * Ny <= RT1_CELLS and (batch or 1) * Nx * Ny <= RT1_BATCH_CELLS
@@ -250,17 +324,21 @@ def transport_substeps_torch(s, Fx, Fy, q, dts_pv, n_sub, fluid):
     return s
 
 
-def transport_substeps_cuda(s, Fx, Fy, q, dts_pv, n_sub, fluid, force=None):
+def transport_substeps_cuda(s, Fx, Fy, q, dts_pv, n_sub, fluid, force=None, plan=None):
     """The hand kernel. Same arguments as the plain version, float32 on one
     CUDA device; a `q` with one member is read by every member in place.
     The grid's `route` picks the body; `force` (one of `ROUTES`) picks one
     at any grid (the templated kernel only at `_build.GRIDS`, K-rt where
-    `rt_plan`, K-cl where `cl_shape` and K-gm where `gm_plan` give a plan)."""
+    `rt_plan`, K-cl where `cl_plan` and K-gm where `gm_plan` give a plan);
+    `plan` (one of `cl_plans`) another plan of K-cl."""
     B, Nx, Ny = s.shape
     if force not in (None, *ROUTES):
         raise ValueError(f"force must be one of {ROUTES} or None, got {force!r}")
     rt = route(Nx, Ny, B) if force is None else force
-    plan = {"rt": rt_plan, "cl": cl_shape, "gm": gm_plan}.get(rt, lambda Nx, Ny: ())(Nx, Ny)
+    if plan is not None and (rt != "cl" or ClPlan(*plan) not in cl_plans(Nx, Ny)):
+        raise ValueError(f"transport kernel: {plan} is no plan of K-cl at {Nx}x{Ny}")
+    plan = plan or {"rt": rt_plan, "cl": cl_plan, "gm": gm_plan}.get(
+        rt, lambda Nx, Ny: ())(Nx, Ny)
     if plan is None:
         what = {"rt": "no strip plan of K-rt", "cl": "no cluster", "gm": "no band plan of K-gm"}
         raise ValueError(f"transport kernel: {what[rt]} takes a {Nx}x{Ny} grid")
@@ -294,7 +372,8 @@ def transport_substeps_cuda(s, Fx, Fy, q, dts_pv, n_sub, fluid, force=None):
         ws = torch.empty(B * smem_bytes(Nx, Ny) // 4, dtype=torch.float32, device=s.device)
         code = _build.lib().hm_transport_substeps_gm1(*args, ws.data_ptr(), *tail)
     elif rt == "cl":
-        code = _build.transport_cl_lib(Nx, Ny, *plan).hm_transport_substeps_cl(*args, *tail)
+        code = _build.transport_cl_lib(Nx, Ny, ClPlan(*plan)).hm_transport_substeps_cl(*args,
+                                                                                     *tail)
     elif rt == "rt":
         code = _build.transport_rt_lib(Nx, Ny, *plan).hm_transport_substeps_rt(*args, *tail)
     else:

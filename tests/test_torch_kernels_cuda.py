@@ -666,20 +666,37 @@ def test_pressure_cl_distributed_matches_plain(dev, grid, unit_diag, place, smoo
                        scale=1.0 if unit_diag else 0.2, plan=plan, B=4)
 
 
-@pytest.mark.parametrize("Nx,Ny", [(80, 80), (128, 128), (60, 220), (192, 192), (100, 100)])
-def test_transport_cl_matches_plain(dev, Nx, Ny):
-    """K-cl on its route (clusters of 2, 4, 4, 16 and 4 ranks; bands of 40,
-    32, 15, 12 and 25 rows in strips of 4 or 5 cells): the plain version's
-    operations in its order, so bit for bit; a shared source field too."""
+# K-cl's route grids, and at 128x128 and 80x80 other plans of the same body
+# (halo rows 1 to 3, faces in registers and in shared memory, other ranks).
+KCL_GRIDS = [(80, 80), (88, 88), (96, 96), (100, 100), (128, 128), (60, 220), (192, 192),
+             (256, 256)]
+KCL_PLANS = [((128, 128), (8, 4, 1, "registers")), ((128, 128), (8, 4, 2, "shared")),
+             ((128, 128), (16, 4, 4, "registers")), ((128, 128), (4, 8, 3, "shared")),
+             ((80, 80), (2, 4, 4, "registers")), ((80, 80), (4, 5, 3, "registers"))]
+
+
+@pytest.mark.parametrize("Nx,Ny,plan", [(*g, None) for g in KCL_GRIDS]
+                         + [(*g, p) for g, p in KCL_PLANS])
+def test_transport_cl_matches_plain(dev, Nx, Ny, plan):
+    """K-cl on its route at every grid it takes, and on other plans: the
+    plain version's operations in its order, so bit for bit; members with
+    0 substeps, fewer than the plan's halo rows m, and counts m does not
+    divide; a shared source field too."""
+    from historymatching_tpu_torch.ops.transport import ClPlan, cl_plan
+
+    assert transport_route(Nx, Ny) == "cl"
     args = _transport_inputs(dev, Nx, Ny, 11)
+    args[5][:4] = torch.tensor([0, 1, 3, 5], dtype=torch.int32, device=dev)
+    m = ClPlan(*(plan or cl_plan(Nx, Ny))).m
+    assert int(args[5][1]) < m or m == 1
     before = _build.LAUNCHES["transport_upwind_cl"]
-    out = transport_substeps_cuda(*args)
+    out = transport_substeps_cuda(*args, force="cl", plan=plan)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["transport_upwind_cl"] == before + 1
     assert torch.equal(out, transport_substeps_torch(*args))
     s, Fx, Fy, q, dts_pv, n_sub, fluid = args
     q1 = q[:1].contiguous()
-    assert torch.equal(transport_substeps_cuda(s, Fx, Fy, q1, dts_pv, n_sub, fluid),
+    assert torch.equal(transport_substeps_cuda(s, Fx, Fy, q1, dts_pv, n_sub, fluid, "cl", plan),
                        transport_substeps_torch(s, Fx, Fy, q1, dts_pv, n_sub, fluid))
 
 
@@ -687,8 +704,9 @@ def test_transport_cl_matches_plain(dev, Nx, Ny):
                                    (60, 220), (192, 192), (256, 256)])
 def test_cl_kernel_resources(dev, Nx, Ny):
     """The cluster variants' footprints: the bytes a rank that the layout
-    counts (`ops/pressure.layout` with `cl`), no spills, a block resident
-    on an SM and a cluster on the card."""
+    counts (`ops/pressure.layout` with `cl`; K-cl's `cl_bytes`), no spills,
+    a block resident on an SM (K-cl: the ranks an SM its plan asks for,
+    `cl_ranks`) and a cluster on the card."""
     from historymatching_tpu_torch.ops.pressure import cl_bytes, cl_plan
 
     for name, unit in (("pressure_pcg_cl", True), ("pressure_pcg_cheb_cl", True),
@@ -704,9 +722,13 @@ def test_cl_kernel_resources(dev, Nx, Ny):
             assert p["cluster"] == c and p["local_bytes"] == 0, (name, place, p)
             assert p["blocks_per_sm"] >= 1 and p["max_active_clusters"] >= 1, (name, place, p)
     if transport_route(Nx, Ny) == "cl":
+        from historymatching_tpu_torch.ops.transport import cl_bytes, cl_plan, cl_ranks
+
+        plan = cl_plan(Nx, Ny)
         k = _build.kernel_info("transport_upwind_cl", Nx, Ny)
-        assert k["local_bytes"] == 0 and k["blocks_per_sm"] >= 1, k
-        assert k["max_active_clusters"] >= 1, k
+        assert k["local_bytes"] == 0 and k["shared_bytes"] == cl_bytes(Nx, Ny, plan), k
+        assert k["blocks_per_sm"] == cl_ranks(Nx, Ny, plan) == k["ranks_planned"], k
+        assert k["cluster"] == plan.c and k["max_active_clusters"] >= 1, k
 
 
 def test_npv_batch_with_wells_per_member(dev):
