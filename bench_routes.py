@@ -101,12 +101,20 @@ K_CL_GRIDS, K_CL_MEMBERS = [(80, 80), (88, 88), (96, 96)], (128, 256)
 # place), and the source's alternatives built on a plan: the halo pushed
 # under a cluster barrier a exchange instead of an mbarrier handshake
 # (HM_KCL_SYNC), the halo strips on every row every substep (HM_KCL_SKIP=0).
-KCL_LADDER = [(8, 4, 4, "shared"), (8, 4, 4, "registers"), (8, 4, 3, "shared"),
-              (8, 4, 2, "shared"), (8, 4, 1, "shared"), (4, 8, 4, "shared"), (4, 8, 2, "shared"),
-              (4, 8, 1, "shared"), (8, 8, 4, "shared"), (8, 8, 2, "shared"),
-              (16, 4, 4, "shared"), (16, 4, 2, "shared")]
-KCL_DEFINES = [((8, 4, 4, "shared"), ("HM_KCL_SYNC=1",)), ((8, 4, 4, "shared"), ("HM_KCL_SKIP=0",)),
-               ((4, 8, 4, "shared"), ("HM_KCL_SYNC=1",)), ((4, 8, 2, "shared"), ("HM_KCL_SYNC=1",))]
+KCL_LADDER = [(8, 4, 4, "shared"), (8, 4, 4, "registers"), (4, 8, 4, "shared")]
+KCL_DEFINES = [((8, 4, 4, "shared"), ("HM_KCL_SKIP=0",)), ((4, 8, 4, "shared"), ("HM_KCL_SKIP=0",)),
+               ((8, 4, 4, "registers"), ("HM_KCL_SKIP=0",)),
+               ((8, 4, 2, "shared"), ("HM_KCL_SKIP=0",)),
+               ((4, 4, 1, "registers"), ("HM_KCL_PUSHFW=1", "HM_KCL_PR=1")),
+               ((8, 4, 1, "registers"), ("HM_KCL_PUSHFW=1", "HM_KCL_PR=2")),
+               ((8, 4, 1, "registers"), ("HM_KCL_PUSHFW=1", "HM_KCL_PR=1")),
+               ((8, 4, 1, "shared"), ("HM_KCL_PUSHFW=1", "HM_KCL_PR=3")),
+               ((8, 4, 1, "shared"), ("HM_KCL_PUSHFW=1", "HM_KCL_PR=2")),
+               ((16, 4, 1, "registers"), ("HM_KCL_PUSHFW=1", "HM_KCL_PR=4")),
+               ((16, 4, 1, "registers"), ("HM_KCL_PUSHFW=1", "HM_KCL_PR=2")),
+               ((8, 8, 1, "registers"), ("HM_KCL_PUSHFW=1", "HM_KCL_PR=2")),
+               ((4, 8, 1, "registers"), ("HM_KCL_PUSHFW=1", "HM_KCL_PR=1")),
+               ((4, 8, 1, "shared"), ("HM_KCL_PUSHFW=1", "HM_KCL_PR=1"))]
 # K's grids that no cluster takes, and their batches.
 K_GM_GRIDS, K_GM_MEMBERS = [(120, 440), (171, 171)], (16, 64, 1000)
 # K's grids whose route moved to K-rt (the strip body built for the grid,
