@@ -57,13 +57,15 @@ with its iterations, members accepted, bound, clusters resident, barriers
 and iteration estimate, and a hash of p (equal hashes: the same bits); then P's, K's and the wall's time a step over 10
 first-pass steps, profiled. `--kernel kcl` times K-cl on the same first
 step's substeps (`kcl_row`): its route's plan and, where the checkout has
-K-cl's plans, a ladder of them (KCL_LADDER) and the source's measured
-alternatives (KCL_DEFINES), each bit for bit with the plain version, with
-its registers, spills, ranks an SM, clusters resident, an estimate of a
-substep's time (the launch's time x clusters resident / members / mean
-substeps, which counts the last wave's tail) and a hash of s. A K row
-carries the same figures for K-cl; at 80x80, 88x88 and 96x96 K-cl and
-K-rt are also timed at N=128 and 256 (K_CL_MEMBERS). `--root DIR` times the package and
+K-cl's plans, a ladder of them (KCL_LADDER), each bit for bit with the
+plain version, with its registers, spills, ranks an SM, clusters
+resident, an estimate of a substep's time (the launch's time x clusters
+resident / members / mean substeps, which counts the last wave's tail)
+and a hash of s, then its candidate plans (`cl_candidates`) at its grids
+at N=64 and 1000. A K row carries the same figures for K-cl's plan, and
+times `cl_alternatives` beside it; at
+80x80, 88x88 and 96x96 K-cl and K-rt are also timed at N=128 and 256
+(K_CL_MEMBERS). `--root DIR` times the package and
 `chip_smoke.py` of another
 checkout (an unpacked `git archive` of an earlier commit) on this file's
 cases, each variant that checkout has: to compare two commits in one call,
@@ -97,24 +99,15 @@ MEMBERS = (64, 1000)
 # K-cl against K-rt where K-rt once ran faster (`ops/transport.route`'s
 # batch rule): these grids at these batches too.
 K_CL_GRIDS, K_CL_MEMBERS = [(80, 80), (88, 88), (96, 96)], (128, 256)
-# K-cl's plans timed on [24]'s first step (`--kernel kcl`): (c, strip, m,
-# place), and the source's alternatives built on a plan: the halo pushed
-# under a cluster barrier a exchange instead of an mbarrier handshake
-# (HM_KCL_SYNC), the halo strips on every row every substep (HM_KCL_SKIP=0).
-KCL_LADDER = [(8, 4, 4, "shared"), (8, 4, 4, "registers"), (4, 8, 4, "shared")]
-KCL_DEFINES = [((8, 4, 4, "shared"), ("HM_KCL_SKIP=0",)), ((4, 8, 4, "shared"), ("HM_KCL_SKIP=0",)),
-               ((8, 4, 4, "registers"), ("HM_KCL_SKIP=0",)),
-               ((8, 4, 2, "shared"), ("HM_KCL_SKIP=0",)),
-               ((4, 4, 1, "registers"), ("HM_KCL_PUSHFW=1", "HM_KCL_PR=1")),
-               ((8, 4, 1, "registers"), ("HM_KCL_PUSHFW=1", "HM_KCL_PR=2")),
-               ((8, 4, 1, "registers"), ("HM_KCL_PUSHFW=1", "HM_KCL_PR=1")),
-               ((8, 4, 1, "shared"), ("HM_KCL_PUSHFW=1", "HM_KCL_PR=3")),
-               ((8, 4, 1, "shared"), ("HM_KCL_PUSHFW=1", "HM_KCL_PR=2")),
-               ((16, 4, 1, "registers"), ("HM_KCL_PUSHFW=1", "HM_KCL_PR=4")),
-               ((16, 4, 1, "registers"), ("HM_KCL_PUSHFW=1", "HM_KCL_PR=2")),
-               ((8, 8, 1, "registers"), ("HM_KCL_PUSHFW=1", "HM_KCL_PR=2")),
-               ((4, 8, 1, "registers"), ("HM_KCL_PUSHFW=1", "HM_KCL_PR=1")),
-               ((4, 8, 1, "shared"), ("HM_KCL_PUSHFW=1", "HM_KCL_PR=1"))]
+# K-cl's plans timed on [24]'s first step (`--kernel kcl`): (c, strip,
+# place of the faces), and its candidates at its grids (`cl_candidates`)
+# at N=64 and 1000; in a K row, beside the route's plan, the parent's
+# layout and one strip a band on twice the ranks (`cl_alternatives`).
+KCL_GRIDS = [(80, 80), (88, 88), (96, 96), (100, 100), (128, 128), (60, 220), (192, 192),
+             (256, 256)]
+KCL_LADDER = [(4, 4, "registers"), (8, 4, "registers"), (16, 4, "registers"),
+              (4, 8, "registers"), (8, 8, "registers"), (4, 16, "registers"),
+              (8, 16, "registers"), (16, 8, "registers"), (4, 4, "shared"), (8, 4, "shared")]
 # K's grids that no cluster takes, and their batches.
 K_GM_GRIDS, K_GM_MEMBERS = [(120, 440), (171, 171)], (16, 64, 1000)
 # K's grids whose route moved to K-rt (the strip body built for the grid,
@@ -264,51 +257,37 @@ def cl_row(reps):
     return row
 
 
-def kcl_figures(Nx, Ny, ms, nsub, plan=None, defines=()):
+def kcl_figures(Nx, Ny, ms, nsub, plan=None):
     """K-cl's resources on `plan` (the route's where not given) and an
-    estimate of a substep's time in microseconds: the launch's `ms` x
-    clusters resident / members / mean substeps."""
-    from historymatching_tpu_torch.ops import _build, transport
+    estimate of a substep's time in microseconds (`chip_smoke.iteration_us`:
+    the launch's `ms` x clusters resident / members / mean substeps)."""
+    from historymatching_tpu_torch.ops import _build
 
-    if defines:
-        lib = _build.transport_cl_lib(Nx, Ny, transport.ClPlan(*plan), defines)
-        out = (__import__("ctypes").c_int * 7)()
-        _build.check(lib.hm_transport_cl_info(Nx, Ny, out), "transport_upwind_cl")
-        info = dict(zip(("registers", "local_bytes", "shared_bytes", "threads",
-                         "blocks_per_sm", "cluster", "max_active_clusters"), out))
-    else:
-        info = _build.kernel_info("transport_upwind_cl", Nx, Ny, *([plan] if plan else []))
+    info = _build.kernel_info("transport_upwind_cl", Nx, Ny, *([plan] if plan else []))
     return dict(info, substep_us_estimate=cs.iteration_us(ms, info["max_active_clusters"], nsub))
 
 
-def kcl_run(t_args, plan=None, defines=()):
-    """One launch of K-cl on `plan` (the route's where not given), or on a
-    library of `plan` built with `defines`, called as the wrapper calls it."""
-    import torch
+def cl_alternatives(Nx, Ny):
+    """Plans of K-cl beside the route's: strips of 4 rows (MIN_STRIP) with
+    the fewest ranks and the faces in registers (the parent's layout), and
+    the plan of one strip a band with twice the route's ranks."""
+    from historymatching_tpu_torch.ops import transport
 
-    from historymatching_tpu_torch.ops import _build, transport
-    from historymatching_tpu_torch.ops.transport import transport_substeps_cuda
-
-    if not defines:
-        return transport_substeps_cuda(*t_args, force="cl", **({"plan": plan} if plan else {}))
-    s, Fx, Fy, q, dts_pv, n_sub, fluid = t_args
-    B, Nx, Ny = s.shape
-    out = torch.empty_like(s)
-    lib = _build.transport_cl_lib(Nx, Ny, transport.ClPlan(*plan), defines)
-    code = lib.hm_transport_substeps_cl(
-        s.data_ptr(), Fx.data_ptr(), Fy.data_ptr(), q.data_ptr(), 0 if q.shape[0] == 1 else Nx * Ny,
-        dts_pv.data_ptr(), n_sub.data_ptr(), out.data_ptr(), B, Nx, Ny,
-        *(float(v) for v in fluid), _build.stream_ptr(s.device))
-    _build.check(code, "transport_upwind_cl")
-    return out
+    if not hasattr(transport, "cl_plans"):
+        return []
+    plans, route = transport.cl_plans(Nx, Ny), transport.cl_plan(Nx, Ny)
+    four = [p for p in plans if p.strip == transport.MIN_STRIP and p.place == "registers"]
+    more = [p for p in plans if p.c == 2 * route.c and p.place == "registers"
+            and transport.cl_strips(Nx, p) == 1]
+    return [p for p in dict.fromkeys(four[:1] + more[:1]) if p != route]
 
 
 def kcl_row(reps):
     """K-cl on [24]'s first step: the bench case (seed 1) at 128x128,
     N=1000, s = 0, the substeps of the first pass's pressure step; the
-    route's plan, and where the checkout has K-cl's plans KCL_LADDER and
-    KCL_DEFINES, each held to the plain version bit for bit and timed, with
-    `kcl_figures` and a hash of s."""
+    route's plan and, where the checkout has K-cl's plans, KCL_LADDER, each
+    held to the plain version bit for bit and timed, with `kcl_figures` and
+    a hash of s."""
     import hashlib
 
     import torch
@@ -316,7 +295,10 @@ def kcl_row(reps):
     from historymatching_tpu_torch import parity
     from historymatching_tpu_torch.models.ressim import _source_field, cfl_substeps, pressure_step
     from historymatching_tpu_torch.ops import _build, transport
-    from historymatching_tpu_torch.ops.transport import transport_substeps_torch
+    from historymatching_tpu_torch.ops.transport import (
+        transport_substeps_cuda,
+        transport_substeps_torch,
+    )
     from historymatching_tpu_torch.parallel.runner import set_perm
 
     Nx, Ny = cs.BIG
@@ -330,26 +312,23 @@ def kcl_row(reps):
     Fx, Fy = Fx.contiguous(), Fy.contiguous()
     nsub, dtspv = cfl_substeps(mm, Fx, Fy, qf, cs.DT)
     t_args = (s0, Fx, Fy, qf[None].contiguous(), dtspv, nsub, cs.fluid_of(model))
-    ladder = hasattr(transport, "cl_plans")
-    variants = [(None, ())]
-    if ladder:
-        variants += [(p, ()) for p in KCL_LADDER if transport.ClPlan(*p) in transport.cl_plans(
-            Nx, Ny)] + [(p, d) for p, d in KCL_DEFINES]
-        _build.prebuild(kcl_plans=[(Nx, Ny, transport.ClPlan(*(p or transport.cl_plan(Nx, Ny))),
-                                    d) for p, d in variants])
+    plans = [None]
+    if hasattr(transport, "cl_plans"):
+        plans += [transport.ClPlan(*p) for p in KCL_LADDER]
+        _build.prebuild(kcl_plans=[(Nx, Ny, p or transport.cl_plan(Nx, Ny)) for p in plans])
     ref = transport_substeps_torch(*t_args)
     row = dict(kernel="K-cl", case="[24] first step", grid=f"{Nx}x{Ny}", N=cs.N, root=ROOT,
                substeps=(int(nsub.median()), float(nsub.float().mean()), int(nsub.max())),
-               bound_ms=cs.transport_bound_ms(s0, Fx, Fy, t_args[3], nsub)[0],
-               route_plan=transport.cl_plan(Nx, Ny) if ladder else transport.cl_shape(Nx, Ny),
-               variants=[])
-    for plan, defines in variants:
-        out = kcl_run(t_args, plan, defines)
-        assert torch.equal(out, ref), (plan, defines, float((out - ref).abs().max()))
-        ms = cs.cuda_ms(lambda: kcl_run(t_args, plan, defines), reps)
-        fig = dict(plan=plan or "route", defines=list(defines), ms=ms,
+               bound_ms=cs.transport_bound_ms(s0, Fx, Fy, t_args[3], nsub)[0], variants=[])
+    for plan in plans:
+        run = lambda: transport_substeps_cuda(  # noqa: E731
+            *t_args, force="cl", **({"plan": plan} if plan else {}))
+        out = run()
+        assert torch.equal(out, ref), (plan, float((out - ref).abs().max()))
+        ms = cs.cuda_ms(run, reps)
+        fig = dict(plan=plan or "route", ms=ms,
                    s_hash=hashlib.sha1(out.cpu().numpy().tobytes()).hexdigest()[:16],
-                   **kcl_figures(Nx, Ny, ms, nsub, plan, defines))
+                   **kcl_figures(Nx, Ny, ms, nsub, plan))
         row["variants"].append(fig)
         print(json.dumps(fig), flush=True)
     return row
@@ -424,19 +403,14 @@ def p_variants(Nx, Ny, unit, extra=True):
     return variants
 
 
-def k_row(Nx, Ny, n_members, reps, forces=None, precond="mg"):
-    """One row of K at a grid and batch, on the substeps of the first step
-    (its pressure step with `precond`): each variant of `forces`, by
-    default each that takes the grid (K-cl, K-rt1 where its tiles fit one
-    block, K-rt where a strip plan fits, K-gm where `gm_plan` splits it,
-    and K-gm1 where no cluster does), timed, each held to the first bit
-    for bit."""
+def k_inputs(Nx, Ny, n_members, precond="mg"):
+    """K's arguments on the substeps of the first step at a grid and batch
+    (`chip_smoke.py` [23]'s kind of inputs: the flagship geometry, a prior
+    drawn from seed 1 + 23, s = 0), its pressure step with `precond`."""
     import torch
 
     import historymatching_tpu_torch as ht
     from historymatching_tpu_torch.models.ressim import _source_field, cfl_substeps, pressure_step
-    from historymatching_tpu_torch.ops import _build, transport
-    from historymatching_tpu_torch.ops.transport import transport_substeps_cuda
     from historymatching_tpu_torch.parallel.runner import set_perm
 
     dev = torch.device("cuda")
@@ -450,7 +424,67 @@ def k_row(Nx, Ny, n_members, reps, forces=None, precond="mg"):
                                        precond=precond, **solve)
     Fx, Fy = Fx.contiguous(), Fy.contiguous()
     nsub, dtspv = cfl_substeps(mm, Fx, Fy, qf, cs.DT)
-    t_args = (s0, Fx, Fy, qf[None].contiguous(), dtspv, nsub, cs.fluid_of(m))
+    return s0, Fx, Fy, qf[None].contiguous(), dtspv, nsub, cs.fluid_of(m)
+
+
+def cl_candidates(Nx, Ny):
+    """K-cl's plans timed at a grid by `--kernel kcl`: the route's, those of
+    `cl_alternatives`, and with the faces in registers every plan whose
+    strips divide the band and that puts the most members on an SM (its
+    ranks an SM over its ranks a member), and for each cluster the plan of
+    the fewest strips a band."""
+    from historymatching_tpu_torch.ops import transport
+
+    regs = [p for p in transport.cl_plans(Nx, Ny) if p.place == "registers"]
+    most = max(transport.cl_ranks(Nx, Ny, p) / p.c for p in regs)
+    tall = [min((p for p in regs if p.c == c), key=lambda p: (transport.cl_strips(Nx, p),
+                                                               p.strip))
+            for c in sorted({p.c for p in regs})]
+    return list(dict.fromkeys(
+        [transport.cl_plan(Nx, Ny), *cl_alternatives(Nx, Ny), *tall]
+        + [p for p in regs if transport.cl_ranks(Nx, Ny, p) / p.c == most
+           and (Nx // p.c) % p.strip == 0]))
+
+
+def kcl_grid_row(Nx, Ny, n_members, reps):
+    """K-cl's `cl_candidates` at a grid and batch (`k_inputs`), each held to
+    the route's plan bit for bit and timed, with `kcl_figures`."""
+    import torch
+
+    from historymatching_tpu_torch.ops.transport import transport_substeps_cuda
+
+    t_args = k_inputs(Nx, Ny, n_members)
+    nsub = t_args[5]
+    row = dict(kernel="K-cl", grid=f"{Nx}x{Ny}", N=n_members, substeps=int(nsub.median()),
+               bound_ms=cs.transport_bound_ms(*t_args[:4], nsub)[0], variants=[])
+    first = None
+    for plan in cl_candidates(Nx, Ny):
+        run = lambda: transport_substeps_cuda(*t_args, force="cl", plan=plan)  # noqa: E731
+        out = run()
+        first = out if first is None else first
+        assert torch.equal(out, first), (Nx, Ny, plan)
+        ms = cs.cuda_ms(run, reps)
+        info = kcl_figures(Nx, Ny, ms, nsub, plan)
+        row["variants"].append(dict(plan=plan, ms=ms, **{k: info[k] for k in (
+            "registers", "local_bytes", "threads", "blocks_per_sm", "max_active_clusters",
+            "substep_us_estimate")}))
+    return row
+
+
+def k_row(Nx, Ny, n_members, reps, forces=None, precond="mg"):
+    """One row of K at a grid and batch, on the substeps of the first step
+    (its pressure step with `precond`): each variant of `forces`, by
+    default each that takes the grid (K-cl, K-rt1 where its tiles fit one
+    block, K-rt where a strip plan fits, K-gm where `gm_plan` splits it,
+    and K-gm1 where no cluster does), timed, each held to the first bit
+    for bit."""
+    import torch
+
+    from historymatching_tpu_torch.ops import _build, transport
+    from historymatching_tpu_torch.ops.transport import transport_substeps_cuda
+
+    t_args = k_inputs(Nx, Ny, n_members, precond)
+    s0, Fx, Fy, _, _, nsub, _ = t_args
     plan = transport.gm_plan(Nx, Ny)
     cl_plan = getattr(transport, "cl_plan", getattr(transport, "cl_shape", None))(Nx, Ny)
     row = dict(kernel="K", grid=f"{Nx}x{Ny}", N=n_members,
@@ -472,6 +506,12 @@ def k_row(Nx, Ny, n_members, reps, forces=None, precond="mg"):
             lambda: transport_substeps_cuda(*t_args, force=force), reps)
     if "cl" in forces:
         row.update({f"cl_{k}": v for k, v in kcl_figures(Nx, Ny, row["cl_ms"], nsub).items()})
+        row["cl_others"] = []
+        for alt in cl_alternatives(Nx, Ny):
+            run = lambda: transport_substeps_cuda(*t_args, force="cl", plan=alt)  # noqa: E731
+            assert torch.equal(run(), first), (Nx, Ny, alt)
+            ms = cs.cuda_ms(run, reps)
+            row["cl_others"].append(dict(kcl_figures(Nx, Ny, ms, nsub, alt), ms=ms))
     if plan and "gm" in forces:
         gm = _build.kernel_info("transport_upwind_gm", Nx, Ny)
         row.update(gm_bands=gm["bands"], gm_groups_resident=gm["groups_resident"],
@@ -507,6 +547,13 @@ def main(argv=None):
         print(json.dumps(rows[-1]), flush=True)
     if opts.kernel == "kcl":
         rows.append(kcl_row(opts.reps))
+        grids = [g for g in KCL_GRIDS if not keep or g in keep]
+        if grids and hasattr(transport, "cl_plans"):
+            _build.prebuild(kcl_plans=[(*g, p) for g in grids for p in cl_candidates(*g)])
+            for n_members in MEMBERS:
+                for Nx, Ny in grids:
+                    rows.append(kcl_grid_row(Nx, Ny, n_members, opts.reps))
+                    print(json.dumps(rows[-1]), flush=True)
     if opts.kernel == "gm1":
         for (Nx, Ny), n_members in GM1_CASES:
             if not keep or (Nx, Ny) in keep:

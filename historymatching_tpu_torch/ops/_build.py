@@ -160,7 +160,7 @@ def _spec(stem, grid=None, key=None, flags=None, sigs=None):
     return key, stem, flags, os.path.join(BUILD_DIR, f"lib{key}_{h[:16]}.so"), sigs or stem
 
 
-def _cl_specs(Nx, Ny, pressure_plans=(), transport_plan=None, probe=False, defines=()):
+def _cl_specs(Nx, Ny, pressure_plans=(), transport_plan=None, probe=False):
     """The cluster libraries of one grid: P-cl for each (c, place of the
     inverse) plan, on `cl_threads`' threads a rank (its probe build with
     `probe`), K-cl for a plan (`ops.transport.ClPlan`), asking for the
@@ -178,17 +178,14 @@ def _cl_specs(Nx, Ny, pressure_plans=(), transport_plan=None, probe=False, defin
     if transport_plan is not None:
         from historymatching_tpu_torch.ops.transport import cl_ranks
 
-        c, strip, m, place = transport_plan
+        c, strip, place = transport_plan
         ranks = cl_ranks(Nx, Ny, transport_plan)
-        tag = "".join(f"_{d.replace('=', '')}" for d in defines)
         specs.append(_spec("transport_upwind",
-                           key=f"transport_upwind_cl_{Nx}x{Ny}_c{c}s{strip}m{m}{place[0]}r{ranks}"
-                               + tag,
+                           key=f"transport_upwind_cl_{Nx}x{Ny}_c{c}s{strip}{place[0]}r{ranks}",
                            flags=[f"-DHM_KCL_NX={Nx}", f"-DHM_KCL_NY={Ny}", f"-DHM_KCL_C={c}",
-                                  f"-DHM_KCL_S={strip}", f"-DHM_KCL_M={m}",
+                                  f"-DHM_KCL_S={strip}",
                                   f"-DHM_KCL_SHARED={int(place == 'shared')}",
-                                  f"-DHM_KCL_R={ranks}", *(f"-D{d}" for d in defines)],
-                           sigs="transport_upwind_cl"))
+                                  f"-DHM_KCL_R={ranks}"], sigs="transport_upwind_cl"))
     return specs
 
 
@@ -305,15 +302,14 @@ def pressure_gm_lib(Nx, Ny, G, kb):
     return _get(_gm_spec, Nx, Ny, G, kb)
 
 
-def _kcl_spec(Nx, Ny, plan, defines=()):
-    return _cl_specs(Nx, Ny, transport_plan=plan, defines=defines)[0]
+def _kcl_spec(Nx, Ny, plan):
+    return _cl_specs(Nx, Ny, transport_plan=plan)[0]
 
 
-def transport_cl_lib(Nx, Ny, plan, defines=()):
+def transport_cl_lib(Nx, Ny, plan):
     """K-cl's C entry points for one grid on a plan (`ops.transport.ClPlan`:
-    ranks, strip rows, halo rows, place of the faces), built on first use;
-    `defines` (NAME=VALUE) build one of the source's measured alternatives."""
-    return _get(_kcl_spec, Nx, Ny, plan, tuple(defines))
+    ranks, strip rows, place of the faces), built on first use."""
+    return _get(_kcl_spec, Nx, Ny, plan)
 
 
 def _rt_spec(Nx, Ny, strip, place):
@@ -392,8 +388,8 @@ def prebuild(pressure_grids=(), cl_grids=(), cl_plans=(), gm_grids=(), k_grids=(
     (Nx, Ny, c, place) of `cl_plans` and its probe build for each of
     `cl_probes`, P-gm's for both fine diagonals' plans of each grid of
     `gm_grids`, K's own libraries of each grid of `k_grids` (`_k_specs`)
-    and K-cl's for each (Nx, Ny, plan[, defines]) of `kcl_plans`, every
-    compiler at once."""
+    and K-cl's for each (Nx, Ny, plan) of `kcl_plans`, every compiler at
+    once."""
     from historymatching_tpu_torch.ops.pressure import gm_plan
 
     extra = [g for g in dict.fromkeys(tuple(g) for g in pressure_grids) if g not in GRIDS]

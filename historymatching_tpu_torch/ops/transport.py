@@ -11,8 +11,9 @@ member loops over its own substep count (`csrc/transport_upwind.cu`).
   in shared memory), one library a grid, built on first use, but where
   K-rt1 ran faster (`RT1_CELLS`, `RT1_BATCH_CELLS`);
 - "cl" (K-cl): a thread-block cluster a member, each block a band of rows
-  and m halo rows above and below it, m substeps a halo exchange
-  (`cl_plan`), past 4,096 cells where a cluster takes the grid;
+  whose edge rows of fw it pushes into its neighbours' shared memory
+  every substep (`cl_plan`), past 4,096 cells where a cluster takes the
+  grid;
 - "rt1" (K-rt1): the runtime-grid body K-rt had before, where the two fw
   tiles fit one block but no strip plan does, and on small grids at small
   batches;
@@ -44,21 +45,27 @@ NAMES = {"templated": "transport_upwind", "rt": "transport_upwind_rt",
          "rt1": "transport_upwind_rt1", "cl": "transport_upwind_cl",
          "gm": "transport_upwind_gm", "gm1": "transport_upwind_gm1"}  # launch counters by route
 BAND_CELLS = 4096  # a K-cl rank's band at most: the templated 64x64 block's load
-# K-cl's plan: c ranks a member, strips of `strip` rows, m halo rows (the
-# substeps between two halo exchanges), the faces in "registers" or
-# "shared" memory. CL_HALO: m; CL_MAX_RANKS: ranks an SM a plan asks for
-# at most; an H100 SM's shared bytes, and those the runtime reserves a block.
-ClPlan = namedtuple("ClPlan", "c strip m place")
-CL_HALO, CL_MAX_RANKS = 4, 2
-SM_SHARED, BLOCK_RESERVED = 233_472, 1024
+# K-cl's plan: c ranks a member (one of CL_CLUSTERS), strips of `strip`
+# rows, the faces in "registers" or "shared" memory. CL_MAX_RANKS: ranks an
+# SM a plan asks for at most; an H100 SM's shared bytes, and those the runtime reserves a
+# block.
+ClPlan = namedtuple("ClPlan", "c strip place")
+CL_CLUSTERS, CL_MAX_RANKS = (2, 4, 8, 16), 4
+SM_SHARED, BLOCK_RESERVED, SMS = 233_472, 1024, 132
+# Where two ranks hold a grid (two bands of at most BAND_CELLS), K-cl runs
+# strips of 4 rows, and a batch past one wave of its clusters (SMS / 2
+# members) takes K-rt: on the H100 (bench_routes.py, N = 64 / 128 / 256 /
+# 1000) K-cl on (2, 4) took 0.328-0.365 / 0.617 / 1.203 / 4.744-4.773 ms at
+# 80x80 (K-rt 0.609-0.612 / 0.604 / 1.187 / 4.742-4.762) and 0.474-0.478 /
+# 0.936 / 1.808 / 7.057-7.144 at 88x88 (K-rt 0.746 / 0.742 / 1.462 /
+# 5.838); one strip a band there ran 0.463-0.565 and 0.565-0.655 at N=64.
 # K-cl's registers a thread by its strip's rows S, from what ptxas reported
-# on the H100 (CUDA 12.9): with the faces in registers 75-78 at S = 4
-# (m = 1-4) and 96 at S = 5, 64 with a 4-8 byte spill under a cap of 64;
-# in shared memory 40 at S = 4 without a spill under a cap of 40, spills of
-# 8-40 bytes at S = 5-7 under that cap, 56 at S = 6, 64 at S = 6 and 8 and
-# 72 at S = 8 without one. A rank's halo strips and the exchange cost ~20
-# registers more than K-rt's strip (`RT_REGS`) with the faces in registers.
-CL_REGS = {"registers": (18, 6), "shared": (4, 24)}
+# on the H100 (CUDA 12.9): with the faces in registers 63 at S = 4 under a
+# cap of 64 (71-76 under more), 77-80 at S = 5, 110 at S = 8, 122 at S =
+# 10, 133-134 at S = 11, 145-151 at S = 12, 177 at S = 15 and 188-189 at S =
+# 16; in shared memory 40 at S = 4 under a cap of 40 at 512 threads but an
+# 8-byte spill at 700, 56 under 64 and 80 at S = 8. None spilled but that.
+CL_REGS = {"registers": (12, 14), "shared": (10, 8)}
 # K-rt1 keeps a grid of up to RT1_CELLS cells (one cell a thread there)
 # while the batch holds up to RT1_BATCH_CELLS cells: such a launch is
 # bound by its chain of substeps, where K-rt1's one cell a thread ran
@@ -146,22 +153,18 @@ def rt_plan(Nx, Ny):
 
 def cl_threads(Nx, Ny, c, strip):
     """K-cl's threads a rank: the band's strips of `strip` rows (the last
-    may hold fewer) and a halo strip above and below it, one column a
-    thread."""
-    return (-(-(Nx // c) // strip) + 2) * Ny
+    may hold fewer), one column a thread."""
+    return -(-(Nx // c) // strip) * Ny
 
 
 def cl_bytes(Nx, Ny, plan):
-    """K-cl's shared bytes a rank (csrc `KClGeo::BYTES`): two mbarriers, four
-    halo slots (two parities, from above and from below) of each column's m
-    rows padded to a vector of 1, 2 or 4 floats, two fw tiles of the band
-    and its halos, and with the faces in "shared" memory each thread's 4
-    `strip` + 1 faces and sources."""
-    c, strip, m, place = plan
-    v = 1 if m == 1 else 2 if m == 2 else 4
+    """K-cl's shared bytes a rank (csrc `KClGeo::BYTES`): two mbarriers,
+    four halo slots (two parities, the fw row from above and from below),
+    two fw tiles of the band, and with the faces in "shared" memory each
+    thread's 4 `strip` + 1 faces and sources."""
+    c, strip, place = plan
     faces = 4 * strip + 1 if place == "shared" else 0
-    return 4 * (4 + 4 * v * Ny + 2 * (Nx // c + 2 * m) * Ny
-                + faces * cl_threads(Nx, Ny, c, strip))
+    return 4 * (4 + 4 * Ny + 2 * (Nx // c) * Ny + faces * cl_threads(Nx, Ny, c, strip))
 
 
 def cl_ranks(Nx, Ny, plan):
@@ -169,51 +172,65 @@ def cl_ranks(Nx, Ny, plan):
     `CL_REGS` model, allocated 8 at a time for each warp) and its shared
     bytes (`SM_SHARED`, and `BLOCK_RESERVED` a block), at most
     `CL_MAX_RANKS`; 0 where the registers do not fit one rank."""
-    c, strip, m, place = plan
+    c, strip, place = plan
     threads = cl_threads(Nx, Ny, c, strip)
     a, b = CL_REGS[place]
     regs = -(-(a * strip + b) // 8) * 8
-    warps = -(-threads // 32)
-    by_regs = 65536 // (32 * warps * regs) if regs <= 255 else 0
+    by_regs = 65536 // (32 * -(-threads // 32) * regs) if regs <= 255 else 0
     by_bytes = SM_SHARED // (cl_bytes(Nx, Ny, plan) + BLOCK_RESERVED)
     return min(by_regs, by_bytes, 2048 // threads, CL_MAX_RANKS)
 
 
 def cl_plans(Nx, Ny):
-    """Every plan K-cl takes for a grid: ClPlan(c, strip, m, place) with c
-    ranks from 2 to 16 that split Nx in equal bands of at most BAND_CELLS
+    """Every plan K-cl takes for a grid: ClPlan(c, strip, place) with c
+    ranks of CL_CLUSTERS that split Nx in equal bands of at most BAND_CELLS
     cells, strips of `strip` rows from MIN_STRIP (or the band's rows, where
-    fewer) to MAX_STRIP whose last holds at least m rows, m from 1 to
-    CL_HALO, the faces in "registers" or "shared" memory; at most
-    MAX_THREADS threads and `_build.SMEM_LIMIT` bytes a rank, and one rank
-    an SM at least (`cl_ranks`)."""
+    fewer) to MAX_STRIP, the faces in "registers" or "shared" memory; at
+    most MAX_THREADS threads and `_build.SMEM_LIMIT` bytes a rank, and one
+    rank an SM at least (`cl_ranks`)."""
     plans = []
-    for c in range(2, 17):
+    for c in CL_CLUSTERS:
         h = Nx // c
         if Nx % c or h * Ny > BAND_CELLS:
             continue
         for strip in range(min(MIN_STRIP, h), min(MAX_STRIP, h) + 1):
-            last = h - (-(-h // strip) - 1) * strip
-            if cl_threads(Nx, Ny, c, strip) > MAX_THREADS:
-                continue
-            for m in range(1, min(CL_HALO, last) + 1):
-                for place in ("registers", "shared"):
-                    plan = ClPlan(c, strip, m, place)
-                    if cl_bytes(Nx, Ny, plan) <= _build.SMEM_LIMIT and cl_ranks(Nx, Ny, plan):
-                        plans.append(plan)
+            for place in ("registers", "shared"):
+                plan = ClPlan(c, strip, place)
+                if (cl_threads(Nx, Ny, c, strip) <= MAX_THREADS and cl_ranks(Nx, Ny, plan)
+                        and cl_bytes(Nx, Ny, plan) <= _build.SMEM_LIMIT):
+                    plans.append(plan)
     return plans
 
 
+def cl_strips(Nx, plan):
+    """K-cl's strips a band on `plan`: its rows over the strip's, rounded up."""
+    return -(-(Nx // plan.c) // plan.strip)
+
+
 def cl_plan(Nx, Ny):
-    """K-cl's plan for a grid (`cl_plans`): the most halo rows, then the
-    most ranks an SM (`cl_ranks`), then the fewest ranks a member, then the
-    faces in registers, then the shortest strip; None where no cluster
-    takes the grid."""
+    """K-cl's plan for a grid (`cl_plans`), the faces in registers where a
+    plan keeps them there: where two ranks hold the grid, two ranks in
+    strips of MIN_STRIP rows; else one strip a band (a thread a column of
+    the band, where a band has at most MAX_STRIP rows) with the most
+    members an SM (`cl_ranks` over the ranks a member), then the fewest
+    ranks; else the fewest ranks, then the shortest strip. None where no
+    cluster takes the grid. On the H100 at N=1000 (bench_routes.py --kernel
+    kcl) one strip a band ran 1.07-1.43x faster than strips of 4 rows at
+    96x96, 128x128, 60x220, 192x192 and 256x256, and 1.07-1.42x at N=64:
+    taller strips hold the i-neighbours' fw in registers and a member's
+    cells in fewer registers, so more members fit an SM. Where two ranks
+    hold the grid, strips of 4 rows on two ranks ran 1.2-1.7x faster at
+    N=64 (a substep's chain of 4 cells a thread, not 10-11) and within 2%
+    at N=1000 at 80x80 (`route` gives larger batches K-rt)."""
     plans = cl_plans(Nx, Ny)
+    plans = [p for p in plans if p.place == "registers"] or plans
     if not plans:
         return None
-    return min(plans, key=lambda p: (-p.m, -cl_ranks(Nx, Ny, p), p.c, p.place != "registers",
-                                     p.strip))
+    two = [p for p in plans if p.c == 2]
+    one = [p for p in plans if cl_strips(Nx, p) == 1]
+    if one and not two:
+        return min(one, key=lambda p: (-cl_ranks(Nx, Ny, p) / p.c, p.c))
+    return min(plans, key=lambda p: (p.c, p.strip))
 
 
 def gm_slots(strip, cols):
@@ -281,7 +298,9 @@ def gm_plan(Nx, Ny):
 def route(Nx, Ny, batch=None):
     """Which kernel K takes a grid of a batch of `batch` members (not
     given: a small batch): "templated" at `_build.GRIDS`; "cl" past
-    BAND_CELLS cells where a cluster takes it (`cl_plan`); where the two
+    BAND_CELLS cells where a cluster takes it (`cl_plan`), but "rt" where
+    the cluster has two ranks, the batch fills more than one wave of them
+    (SMS / 2 members) and `rt_plan` gives a plan; where the two
     fw tiles fit one block's shared memory (`_build.SMEM_LIMIT`) "rt1" on
     up to RT1_CELLS cells while the batch holds up to RT1_BATCH_CELLS,
     else "rt" where `rt_plan` gives a plan, else "rt1"; past that "gm"
@@ -290,7 +309,8 @@ def route(Nx, Ny, batch=None):
     if (Nx, Ny) in _build.GRIDS:
         return "templated"
     if Nx * Ny > BAND_CELLS and cl_plan(Nx, Ny):
-        return "cl"
+        two = cl_plan(Nx, Ny).c == 2 and (batch or 1) > SMS // 2
+        return "rt" if two and rt_plan(Nx, Ny) else "cl"
     if smem_bytes(Nx, Ny) <= _build.SMEM_LIMIT:
         small = Nx * Ny <= RT1_CELLS and (batch or 1) * Nx * Ny <= RT1_BATCH_CELLS
         return "rt" if not small and rt_plan(Nx, Ny) else "rt1"

@@ -36,12 +36,12 @@ CL_GRIDS = {
     (60, 60): ((2, 1, "device"), None),
     (80, 80): ((2, 3, "shared"), (2, 4)),
     (88, 88): ((4, 1, "device"), (2, 4)),
-    (96, 96): ((4, 3, "shared"), (4, 4)),
-    (100, 100): ((9, 2, "distributed"), (4, 5)),
-    (128, 128): ((8, 3, "shared"), (4, 4)),
-    (60, 220): ((15, 2, "distributed"), (4, 5)),
-    (192, 192): ((8, 3, "shared"), (16, 4)),
-    (256, 256): ((16, 4, "shared"), (16, 4)),
+    (96, 96): ((4, 3, "shared"), (8, 12)),
+    (100, 100): ((9, 2, "distributed"), (4, 4)),
+    (128, 128): ((8, 3, "shared"), (8, 16)),
+    (60, 220): ((15, 2, "distributed"), (4, 15)),
+    (192, 192): ((8, 3, "shared"), (16, 12)),
+    (256, 256): ((16, 4, "shared"), (16, 16)),
 }
 # P-cl/d's grids: scaled and unscaled, the plan (c, bytes a rank) and each
 # rank's fine rows.
@@ -178,20 +178,37 @@ def test_pressure_cluster_layout_arrays_fit_and_do_not_overlap(Nx, Ny, unit_diag
 
 @pytest.mark.parametrize("Nx,Ny", list(CL_GRIDS))
 def test_transport_cluster_bands_and_strips(Nx, Ny):
-    """K-cl's cluster: the smallest power of two whose bands (Nx / c rows)
-    hold at most 4,096 cells, the band's rows tiled by strips, at most 1,024
-    threads a rank; grids of up to 4,096 cells keep the runtime-grid
-    variant (60x60)."""
-    shape = transport.cl_shape(Nx, Ny)
+    """K-cl's cluster: a power of two up to 16 whose equal bands (Nx / c
+    rows) hold at most 4,096 cells, in strips (the last may hold fewer
+    rows) of one column a thread, at most 1,024 threads a rank, with the
+    faces in registers: two ranks in strips of 4 where two hold the grid
+    (80x80, 88x88), else one strip a band where a band has at most 16 rows,
+    else strips of 4 (100x100); grids of up to 4,096 cells keep the
+    runtime-grid variant (60x60)."""
+    plan = transport.cl_plan(Nx, Ny)
     if Nx * Ny <= transport.BAND_CELLS:
         assert transport.route(Nx, Ny) == "rt"
         return
-    assert shape == CL_GRIDS[(Nx, Ny)][1] and transport.route(Nx, Ny) == "cl"
-    c, strip = shape
+    assert (plan.c, plan.strip) == CL_GRIDS[(Nx, Ny)][1] and transport.route(Nx, Ny) == "cl"
+    c, strip = plan.c, plan.strip
     h = Nx // c
-    assert Nx % c == 0 and h * Ny <= transport.BAND_CELLS and h % strip == 0
-    assert h // strip * Ny <= 1024 and c & (c - 1) == 0 and c <= 16
-    assert all(Nx % s or (Nx // s) * Ny > transport.BAND_CELLS for s in (2, 4, 8, 16) if s < c)
+    assert Nx % c == 0 and h * Ny <= transport.BAND_CELLS and plan.place == "registers"
+    assert -(-h // strip) * Ny <= 1024 and c & (c - 1) == 0 and 2 <= c <= 16
+    two = Nx % 2 == 0 and Nx // 2 * Ny <= transport.BAND_CELLS
+    assert (c == 2 and strip == 4) if two else (strip == h or h > transport.MAX_STRIP)
+
+
+# K's route at K-cl's grids by batch: where two ranks hold the grid (80x80,
+# 88x88) K-cl up to one wave of its clusters (SMS / 2 = 66 members), K-rt
+# past it; elsewhere K-cl at every batch.
+@pytest.mark.parametrize("batch", [None, 1, 64, 66, 67, 128, 256, 1000])
+@pytest.mark.parametrize("Nx,Ny", [g for g in CL_GRIDS if g != (60, 60)])
+def test_transport_route_takes_the_batch_past_a_wave_of_two_ranks(Nx, Ny, batch):
+    two = transport.cl_plan(Nx, Ny).c == 2
+    assert two == ((Nx, Ny) in ((80, 80), (88, 88)))
+    past = two and (batch or 1) > transport.SMS // 2
+    assert transport.route(Nx, Ny, batch) == ("rt" if past else "cl")
+    assert not past or transport.rt_plan(Nx, Ny) is not None
 
 
 # P's route past one block, by grid, fine diagonal and batch: P-cl on

@@ -666,13 +666,15 @@ def test_pressure_cl_distributed_matches_plain(dev, grid, unit_diag, place, smoo
                        scale=1.0 if unit_diag else 0.2, plan=plan, B=4)
 
 
-# K-cl's route grids, and at 128x128 and 80x80 other plans of the same body
-# (halo rows 1 to 3, faces in registers and in shared memory, other ranks).
+# K-cl's route grids, and other plans of the same body: strips of 4 rows
+# (the parent's layout), more ranks an SM, the faces in shared memory,
+# strips that do not divide the band.
 KCL_GRIDS = [(80, 80), (88, 88), (96, 96), (100, 100), (128, 128), (60, 220), (192, 192),
              (256, 256)]
-KCL_PLANS = [((128, 128), (8, 4, 1, "registers")), ((128, 128), (8, 4, 2, "shared")),
-             ((128, 128), (16, 4, 4, "registers")), ((128, 128), (4, 8, 3, "shared")),
-             ((80, 80), (2, 4, 4, "registers")), ((80, 80), (4, 5, 3, "registers"))]
+KCL_PLANS = [((128, 128), (4, 4, "registers")), ((128, 128), (16, 4, "registers")),
+             ((128, 128), (4, 8, "registers")), ((128, 128), (8, 4, "shared")),
+             ((80, 80), (4, 6, "registers")), ((80, 80), (8, 10, "registers")),
+             ((100, 100), (4, 4, "shared"))]
 
 
 @pytest.mark.parametrize("Nx,Ny,plan", [(*g, None) for g in KCL_GRIDS]
@@ -680,15 +682,12 @@ KCL_PLANS = [((128, 128), (8, 4, 1, "registers")), ((128, 128), (8, 4, 2, "share
 def test_transport_cl_matches_plain(dev, Nx, Ny, plan):
     """K-cl on its route at every grid it takes, and on other plans: the
     plain version's operations in its order, so bit for bit; members with
-    0 substeps, fewer than the plan's halo rows m, and counts m does not
-    divide; a shared source field too."""
-    from historymatching_tpu_torch.ops.transport import ClPlan, cl_plan
-
+    0, 1, 3 and 5 substeps (each substep's edge rows pushed into the slots
+    of parity k & 1: a count below two and odd counts); a shared source
+    field too."""
     assert transport_route(Nx, Ny) == "cl"
     args = _transport_inputs(dev, Nx, Ny, 11)
     args[5][:4] = torch.tensor([0, 1, 3, 5], dtype=torch.int32, device=dev)
-    m = ClPlan(*(plan or cl_plan(Nx, Ny))).m
-    assert int(args[5][1]) < m or m == 1
     before = _build.LAUNCHES["transport_upwind_cl"]
     out = transport_substeps_cuda(*args, force="cl", plan=plan)
     torch.cuda.synchronize()
@@ -727,7 +726,7 @@ def test_cl_kernel_resources(dev, Nx, Ny):
         plan = cl_plan(Nx, Ny)
         k = _build.kernel_info("transport_upwind_cl", Nx, Ny)
         assert k["local_bytes"] == 0 and k["shared_bytes"] == cl_bytes(Nx, Ny, plan), k
-        assert k["blocks_per_sm"] == cl_ranks(Nx, Ny, plan) == k["ranks_planned"], k
+        assert k["blocks_per_sm"] >= cl_ranks(Nx, Ny, plan) == k["ranks_planned"] >= 1, k
         assert k["cluster"] == plan.c and k["max_active_clusters"] >= 1, k
 
 

@@ -6,22 +6,20 @@ schedule in a plain emulation held to the plain version and to the JAX
 package's Pallas kernel.
 
 The emulation (`cl_substeps`) runs each rank of a member as its own
-coroutine. A rank holds its band of Nx / c rows and m halo rows above and
-below it (none past the grid's edge); it runs m substeps on that region,
-a neighbour's fw outside the region 0. Within a group of g substeps a
-halo row at distance d from the band is valid after t of them where d <=
-g - t; the kernel computes no other, and the emulation makes every other
-NaN after each substep, so a valid row that read one would show. It then
-pushes its first m rows of
-s into rank r - 1's slot (exchange e & 1, from below) and its last m into
-rank r + 1's (e & 1, from above), waits until both neighbours' pushes of
-exchange e have landed in its own slots, and reads its halo rows from
-them. The last group runs n_sub mod m substeps. A seeded scheduler
-interleaves the ranks as far as those waits allow. The slots start as NaN,
-so a read of a slot nobody wrote shows, and each push asserts that the
-slot's previous content was read: the protocol of two slots and no
-explicit release (a rank's next push into a neighbour follows the
-neighbour's own push of the exchange between, which follows its reads).
+coroutine. A rank holds its band of Nx / c rows in strips of `strip` rows.
+Each substep k it computes its band's fw, pushes its first row into rank
+r - 1's halo slot (k & 1, from below) and its last into rank r + 1's (k &
+1, from above), computes what needs only its own band, waits until both
+neighbours' pushes of substep k have landed in its own slots, reads them,
+and updates its band, strip by strip (a strip's rows above and below it
+from the band's tile or, at the band's edge, from the slot). A seeded
+scheduler interleaves the ranks as far as those waits allow, so a rank
+may run ahead of a neighbour. The slots start as NaN, so a read of a slot
+nobody wrote shows, and each push asserts that the slot's previous
+content was read: the protocol of two slots and no explicit release (a
+rank's push of substep k + 2 into a neighbour follows its wait for the
+neighbour's push of k + 1, which the neighbour's edge strip makes after
+it read substep k's slot).
 
 Tolerances: float64 and float32 against `transport_substeps_torch` bit for
 bit (the same operations in the same order); float32 against
@@ -36,18 +34,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-import torch.nn.functional as F
 
 from historymatching_tpu.ops.transport_pallas import transport_substeps_pallas
 from historymatching_tpu_torch.ops import transport
 from historymatching_tpu_torch.ops._build import CSRC, SMEM_LIMIT
 from historymatching_tpu_torch.ops.transport import (
     BAND_CELLS,
-    CL_HALO,
+    CL_CLUSTERS,
     CL_MAX_RANKS,
+    CL_REGS,
     MAX_STRIP,
     MAX_THREADS,
-    RT_REGS,
     ClPlan,
     cl_bytes,
     cl_plan,
@@ -68,79 +65,76 @@ class SlotRace(AssertionError):
     """A push into a halo slot whose previous content was not read yet."""
 
 
-def cl_substeps(s, Fx, Fy, q, dts_pv, n_sub, fluid, c, m, seed=0, parities=2):
-    """K-cl's schedule in plain torch: c ranks a member, m halo rows and m
-    substeps a halo exchange, `parities` halo slots a side (the kernel's
-    two; one shows the race the second prevents). Same arguments as
-    `transport_substeps_torch`, `q` with one member or B."""
+def cl_substeps(s, Fx, Fy, q, dts_pv, n_sub, fluid, c, strip, seed=0, parities=2):
+    """K-cl's schedule in plain torch: c ranks a member, strips of `strip`
+    rows, `parities` halo slots a side (the kernel's two; one shows the
+    race the second prevents). Same arguments as `transport_substeps_torch`,
+    `q` with one member or B."""
     vw, vo, swc, sor = fluid
     B, Nx, Ny = s.shape
     H = Nx // c
-    assert Nx % c == 0 and 1 <= m <= H
+    assert Nx % c == 0
     rng = np.random.default_rng(seed)
     out = s.clone()
     for b in range(B):
         nsub = int(n_sub[b])
-        # [rank][parity][from above, from below]: m rows, the exchange that
-        # wrote them and the exchange whose reader has read them
-        slots = torch.full((c, parities, 2, m, Ny), float("nan"), dtype=s.dtype)
+        # [rank][parity][from above, from below]: a row, the substep that
+        # wrote it and the substep whose reader has read it
+        slots = torch.full((c, parities, 2, Ny), float("nan"), dtype=s.dtype)
         written = np.full((c, parities, 2), -1)
         read = np.full((c, parities, 2), -1)
         qb = q[b if q.shape[0] > 1 else 0]
 
-        def push(dst, side, e, rows):
-            p = e % parities
+        def push(dst, side, k, row):
+            p = k % parities
             if written[dst, p, side] != read[dst, p, side]:
-                raise SlotRace(f"exchange {e} into rank {dst}'s slot {p}, side {side}, "
-                               f"before exchange {written[dst, p, side]} was read")
-            slots[dst, p, side] = rows
-            written[dst, p, side] = e
+                raise SlotRace(f"substep {k} into rank {dst}'s slot {p}, side {side}, "
+                               f"before substep {written[dst, p, side]}'s was read")
+            slots[dst, p, side] = row
+            written[dst, p, side] = k
 
         def rank(r):
-            """Rank r of member b: yields after each substep and while it
+            """Rank r of member b: yields after its pushes and while it
             waits; its band's new saturations go to `out` at the end."""
-            top, bot = (m if r > 0 else 0), (m if r < c - 1 else 0)
-            lo, hi = r * H - top, (r + 1) * H + bot  # the region's grid rows
+            lo, hi = r * H, (r + 1) * H
             sb = s[b, lo:hi].clone()
             xp, xn = Fx[b, lo:hi + 1].clamp_min(0.0), Fx[b, lo:hi + 1].clamp_max(0.0)
             yp, yn = Fy[b, lo:hi].clamp_min(0.0), Fy[b, lo:hi].clamp_max(0.0)
             fi, fp = qb[lo:hi].clamp_min(0.0), qb[lo:hi].clamp_max(0.0)
-            far = torch.cat([torch.arange(top, 0, -1), torch.zeros(H, dtype=torch.long),
-                             torch.arange(1, bot + 1)])  # each row's distance from the band
-            k = e = 0
-            while True:
-                g = min(m, nsub - k)
-                for t in range(g):
-                    S = (sb - swc) / (1.0 - swc - sor)
-                    Mw = S * S / vw
-                    Mo = (1.0 - S) * (1.0 - S) / vo
-                    fw = Mw / (Mw + Mo)
-                    Fw_x = xp * F.pad(fw, (0, 0, 1, 0)) + xn * F.pad(fw, (0, 0, 0, 1))
-                    Fw_y = yp * F.pad(fw, (1, 0)) + yn * F.pad(fw, (0, 1))
-                    div = (Fw_x[1:] - Fw_x[:-1]) + (Fw_y[:, 1:] - Fw_y[:, :-1])
-                    sb = torch.clamp(sb + dts_pv[b] * (fi + fp * fw - div), swc, 1.0 - sor)
-                    sb[far > g - t - 1] = float("nan")  # rows no band row needs this group
-                    k += 1
-                    yield
-                if k >= nsub:
-                    break
+            zero = torch.zeros(Ny, dtype=s.dtype)
+            for k in range(nsub):
+                S = (sb - swc) / (1.0 - swc - sor)
+                Mw = S * S / vw
+                Mo = (1.0 - S) * (1.0 - S) / vo
+                fw = Mw / (Mw + Mo)
                 if r > 0:
-                    push(r - 1, 1, e, sb[top:top + m])
+                    push(r - 1, 1, k, fw[0])
                 if r < c - 1:
-                    push(r + 1, 0, e, sb[top + H - m:top + H])
-                p = e % parities
+                    push(r + 1, 0, k, fw[-1])
+                yield
+                p = k % parities
                 sides = [side for side, there in ((0, r > 0), (1, r < c - 1)) if there]
-                while any(written[r, p, side] != e for side in sides):
+                while any(written[r, p, side] != k for side in sides):
                     yield
+                new = torch.empty_like(sb)
+                for i0 in range(0, H, strip):
+                    hs = min(strip, H - i0)
+                    st = slice(i0, i0 + hs)
+                    f_up = fw[i0 - 1] if i0 > 0 else slots[r, p, 0].clone() if r > 0 else zero
+                    f_dn = (fw[i0 + hs] if i0 + hs < H else slots[r, p, 1].clone()
+                            if r < c - 1 else zero)
+                    fwx = torch.cat([f_up[None], fw[st], f_dn[None]])
+                    Fw_x = xp[i0:i0 + hs + 1] * fwx[:-1] + xn[i0:i0 + hs + 1] * fwx[1:]
+                    edge = torch.zeros(hs, 1, dtype=s.dtype)
+                    fwy = torch.cat([edge, fw[st], edge], dim=1)
+                    Fw_y = yp[st] * fwy[:, :-1] + yn[st] * fwy[:, 1:]
+                    div = (Fw_x[1:] - Fw_x[:-1]) + (Fw_y[:, 1:] - Fw_y[:, :-1])
+                    new[st] = torch.clamp(sb[st] + dts_pv[b] * (fi[st] + fp[st] * fw[st] - div),
+                                          swc, 1.0 - sor)
                 for side in sides:
-                    rows = slots[r, p, side].clone()
-                    read[r, p, side] = e
-                    if side == 0:
-                        sb[:m] = rows
-                    else:
-                        sb[-m:] = rows
-                e += 1
-            out[b, r * H:(r + 1) * H] = sb[top:top + H]
+                    read[r, p, side] = k
+                sb = new
+            out[b, lo:hi] = sb
 
         live = {r: rank(r) for r in range(c)}
         while live:
@@ -166,34 +160,35 @@ def _inputs(seed, B, Nx, Ny, dtype, n_sub):
     return tuple(np.asarray(x, dtype=dtype) for x in (s, Fx, Fy, q, dts_pv)) + (n_sub,)
 
 
-# (grid, ranks, halo rows, each member's substeps): counts of 0, below m,
-# equal to it, and that m does not divide; bands of 2 to 8 rows.
+# (grid, ranks, strip rows, each member's substeps): members with no
+# substep, a strip taller than the band, short last strips, one-row bands.
 SCHEDULES = [((16, 16), 4, 4, [0, 3, 4, 9, 13, 1, 8, 6]),
-             ((16, 12), 2, 4, [7, 0, 2, 12]),
-             ((12, 10), 2, 3, [5, 1, 3, 10, 0, 7]),
-             ((16, 16), 4, 2, [9, 2, 1, 0, 5]),
+             ((16, 12), 2, 3, [7, 0, 2, 12]),
+             ((12, 10), 2, 4, [5, 1, 3, 10, 0, 7]),
+             ((16, 16), 4, 5, [9, 2, 1, 0, 5]),
              ((8, 8), 4, 2, [3, 4, 5, 0]),
              ((10, 7), 2, 1, [4, 0, 1, 6]),
-             ((12, 16), 4, 1, [2, 7, 0]),
-             ((16, 9), 2, 4, [16, 3, 0, 1, 2])]
+             ((12, 16), 4, 2, [2, 7, 0]),
+             ((16, 9), 16, 4, [16, 3, 0, 1, 2])]
 
 
-@pytest.mark.parametrize("grid,c,m,n_sub", SCHEDULES)
-def test_cl_schedule_matches_plain_f64(grid, c, m, n_sub):
-    """Float64: the ranks, each computing its band and its halo rows from
-    its own region and its neighbours' pushed rows, give the plain
-    version's saturations bit for bit, under three interleavings."""
+@pytest.mark.parametrize("grid,c,strip,n_sub", SCHEDULES)
+def test_cl_schedule_matches_plain_f64(grid, c, strip, n_sub):
+    """Float64: the ranks, each computing its band from its own fw and its
+    neighbours' pushed edge rows, give the plain version's saturations bit
+    for bit, under three interleavings."""
     s, Fx, Fy, q, dts_pv, n = map(torch.as_tensor, _inputs(3, len(n_sub), *grid, np.float64,
                                                            n_sub))
     fluid = (0.3, 3.0, 0.1, 0.2)
     ref = transport_substeps_torch(s, Fx, Fy, q[None], dts_pv, n, fluid)
     for seed in range(3):
-        assert torch.equal(cl_substeps(s, Fx, Fy, q[None], dts_pv, n, fluid, c, m, seed), ref)
+        assert torch.equal(cl_substeps(s, Fx, Fy, q[None], dts_pv, n, fluid, c, strip, seed),
+                           ref)
     assert not torch.equal(ref, s)
 
 
-@pytest.mark.parametrize("grid,c,m,n_sub", SCHEDULES)
-def test_cl_schedule_matches_pallas_interpret_f32(grid, c, m, n_sub):
+@pytest.mark.parametrize("grid,c,strip,n_sub", SCHEDULES)
+def test_cl_schedule_matches_pallas_interpret_f32(grid, c, strip, n_sub):
     """Float32: the schedule bit for bit against the plain version, and
     against the JAX package's Pallas kernel in interpret mode (atol 1e-6),
     member by member."""
@@ -202,7 +197,7 @@ def test_cl_schedule_matches_pallas_interpret_f32(grid, c, m, n_sub):
     fluid = (fl.vw, fl.vo, fl.swc, fl.sor)
     arrays = _inputs(5, len(n_sub), Nx, Ny, np.float32, n_sub)
     s, Fx, Fy, q, dts_pv, n = map(torch.as_tensor, arrays)
-    got = cl_substeps(s, Fx, Fy, q[None], dts_pv, n, fluid, c, m, seed=1)
+    got = cl_substeps(s, Fx, Fy, q[None], dts_pv, n, fluid, c, strip, seed=1)
     assert torch.equal(got, transport_substeps_torch(s, Fx, Fy, q[None], dts_pv, n, fluid))
     for b in range(len(n_sub)):
         ref = transport_substeps_pallas(*(jnp.asarray(x[b]) for x in arrays[:3]),
@@ -222,8 +217,8 @@ def test_cl_schedule_per_member_sources_f64():
 
 def test_one_slot_a_side_races():
     """The check the protocol is held to bites: with one slot a side, some
-    interleaving pushes exchange e + 1 into a slot its reader has not read
-    at exchange e; with the kernel's two, none does (the tests above)."""
+    interleaving pushes substep k + 1's row into a slot its reader has not
+    read at substep k; with the kernel's two, none does (the tests above)."""
     s, Fx, Fy, q, dts_pv, n = map(torch.as_tensor, _inputs(2, 1, 16, 8, np.float64, [24]))
     fluid = (0.3, 3.0, 0.1, 0.2)
     raced = 0
@@ -242,28 +237,38 @@ ROUTE_GRIDS = [(80, 80), (88, 88), (96, 96), (100, 100), (128, 128), (60, 220), 
 EDGE_GRIDS = [(65, 64), (4098, 1), (17, 1000), (300, 300), (66, 66)]
 
 
+# K-cl's route plans: (ranks, strip rows, ranks an SM), the faces in
+# registers: two ranks in strips of 4 where two hold the grid, one strip a
+# band where a band has at most 16 rows, else strips of 4 (100x100).
+ROUTE_PLANS = {(80, 80): (2, 4, 1), (88, 88): (2, 4, 1), (96, 96): (8, 12, 4),
+               (100, 100): (4, 4, 1), (128, 128): (8, 16, 2), (60, 220): (4, 15, 1),
+               (192, 192): (16, 12, 2), (256, 256): (16, 16, 1)}
+
+
 @pytest.mark.parametrize("Nx,Ny", ROUTE_GRIDS + EDGE_GRIDS)
 def test_cl_plans_tile_the_grid_and_fit_the_card(Nx, Ny):
-    """Every plan: equal bands of at most BAND_CELLS cells cover each row
-    once; the band's strips (the last may hold fewer rows, at least m)
-    cover each band row once; the rank's threads (its strips and two halo
-    strips of one column a thread) fit a block; its registers (`RT_REGS`)
-    fit the H100's 65,536 for each of its ranks an SM, and its shared
-    bytes those of one block and, for each of its ranks, the SM's."""
+    """Every plan: equal bands of at most BAND_CELLS cells, a cluster of
+    `CL_CLUSTERS`, cover each row once; the band's strips (the last may hold fewer rows) cover each band
+    row once; the rank's threads (one column of a strip a thread) fit a
+    block; its registers (`CL_REGS`) fit the H100's 65,536 for each of its
+    ranks an SM, and its shared bytes those of one block and, for each of
+    its ranks, the SM's. The route's plan keeps the faces in registers; on
+    two ranks where two hold the grid, with the shortest strips; else on
+    one strip a band where a plan has one, with the most members an SM,
+    then the fewest ranks; else on the fewest ranks and shortest strips."""
     plans = cl_plans(Nx, Ny)
     for plan in plans:
-        c, strip, m, place = plan
+        c, strip, place = plan
         h = Nx // c
         bands = [range(r * h, (r + 1) * h) for r in range(c)]
         assert [i for band in bands for i in band] == list(range(Nx))
-        assert h * Ny <= BAND_CELLS and 2 <= c <= 16
+        assert h * Ny <= BAND_CELLS and c in CL_CLUSTERS and strip <= MAX_STRIP
         strips = [range(i, min(i + strip, h)) for i in range(0, h, strip)]
         assert [i for st in strips for i in st] == list(range(h))
-        assert 1 <= m <= min(CL_HALO, len(strips[-1])) and strip <= MAX_STRIP
         threads = cl_threads(Nx, Ny, c, strip)
-        assert threads == (len(strips) + 2) * Ny <= MAX_THREADS
+        assert threads == len(strips) * Ny <= MAX_THREADS
         ranks = cl_ranks(Nx, Ny, plan)
-        a, b0 = RT_REGS[place]
+        a, b0 = CL_REGS[place]
         regs = -(-(a * strip + b0) // 8) * 8
         assert 1 <= ranks <= CL_MAX_RANKS and ranks * threads <= 2048
         assert ranks * -(-threads // 32) * 32 * regs <= 65536
@@ -271,36 +276,40 @@ def test_cl_plans_tile_the_grid_and_fit_the_card(Nx, Ny):
         assert ranks * (cl_bytes(Nx, Ny, plan) + transport.BLOCK_RESERVED) <= transport.SM_SHARED
     plan = cl_plan(Nx, Ny)
     assert (plan is None) == (not plans) and (plan is None or plan in plans)
+    if plan is not None:
+        regs = [p for p in plans if p.place == "registers"]
+        assert plan.place == "registers" or not regs
+        one = [p for p in regs if p.strip == Nx // p.c]
+        if plan.c == 2 or not one:
+            assert (plan.c, plan.strip) == min((p.c, p.strip) for p in regs)
+        else:
+            assert plan.strip == Nx // plan.c and not any(p.c == 2 for p in regs)
+            assert cl_ranks(Nx, Ny, plan) / plan.c == max(cl_ranks(Nx, Ny, p) / p.c for p in one)
     if (Nx, Ny) in ROUTE_GRIDS:
-        assert plan is not None and transport.route(Nx, Ny) == "cl"
+        c, strip, ranks = ROUTE_PLANS[(Nx, Ny)]
+        assert (plan.c, plan.strip, plan.place) == (c, strip, "registers")
+        assert cl_ranks(Nx, Ny, plan) == ranks and transport.route(Nx, Ny) == "cl"
 
 
 def test_cl_plan_constants_match_the_cuda_source():
     """`cl_threads` and `cl_bytes` count what csrc `KClGeo` lays out: its
-    threads, its halo slots' vector, its tile rows and its bytes; the
-    halo rows and cluster size it takes are the plan's bounds."""
+    threads and its bytes (two mbarriers, four halo rows, two fw tiles, the
+    faces' slots); its bounds are the plans'."""
     with open(os.path.join(CSRC, "transport_upwind.cu")) as f:
         text = f.read()
     geo = text[text.index("struct KClGeo"):]
     geo = geo[:geo.index("};")]
     defs = dict(re.findall(r"static constexpr int (\w+) = ([^;]+);", geo))
-    assert "M <= 4" in geo and "C <= 16" in geo and "THREADS <= 1024" in geo
+    assert "C >= 2 && C <= 16" in geo and f"THREADS <= {MAX_THREADS}" in geo
     assert f"H * NY <= {BAND_CELLS}" in geo and f"BYTES <= {SMEM_LIMIT}" in geo
-    assert CL_HALO == 4
-
-    def value(name, env):
-        expr = defs[name].replace("(int)sizeof(float)", "4").replace("SHARED ?", "SHARED and")
-        expr = re.sub(r"(\w+) == (\d) \? (\d) : (\w+) == (\d) \? (\d) : (\d)",
-                      r"(\3 if \1 == \2 else \6 if \4 == \5 else \7)", expr)
-        expr = expr.replace("SHARED and 4 * S + 1 : 0", "(4 * S + 1 if SHARED else 0)")
-        return eval(expr.replace("/", "//"), {}, env)
-
+    assert int(re.search(r"constexpr int kMaxStrip = (\d+);", text).group(1)) == MAX_STRIP
+    assert defs["FACES"] == "SHARED ? 4 * S + 1 : 0"
     for Nx, Ny in ROUTE_GRIDS + [(12, 10), (16, 9)]:
-        for plan in cl_plans(Nx, Ny) or [ClPlan(2, 3, 3, "shared")]:
-            env = dict(NX=Nx, NY=Ny, C=plan.c, S=plan.strip, M=plan.m,
-                       SHARED=plan.place == "shared")
-            for name in ("H", "NB", "LAST", "THREADS", "E", "V", "SLOT", "FACES", "HALO",
-                         "TILE", "FACE", "BYTES"):
-                env[name] = value(name, env)
+        for plan in cl_plans(Nx, Ny) or [ClPlan(2, 3, "shared")]:
+            env = dict(NX=Nx, NY=Ny, C=plan.c, S=plan.strip)
+            env["FACES"] = 4 * plan.strip + 1 if plan.place == "shared" else 0
+            for name in ("H", "NB", "LAST", "THREADS", "HALO", "TILE", "FACE", "BYTES"):
+                expr = defs[name].replace("(int)sizeof(float)", "4").replace("/", "//")
+                env[name] = eval(expr, {}, env)
             assert env["THREADS"] == cl_threads(Nx, Ny, plan.c, plan.strip)
             assert env["BYTES"] == cl_bytes(Nx, Ny, plan)
