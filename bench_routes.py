@@ -99,15 +99,13 @@ MEMBERS = (64, 1000)
 # K-cl against K-rt where K-rt once ran faster (`ops/transport.route`'s
 # batch rule): these grids at these batches too.
 K_CL_GRIDS, K_CL_MEMBERS = [(80, 80), (88, 88), (96, 96)], (128, 256)
-# K-cl's plans timed on [24]'s first step (`--kernel kcl`): (c, strip,
-# place of the faces), and its candidates at its grids (`cl_candidates`)
+# K-cl's plans timed on [24]'s first step (`--kernel kcl`): (c, strip),
+# and its candidates at its grids (`cl_candidates`)
 # at N=64 and 1000; in a K row, beside the route's plan, the parent's
 # layout and one strip a band on twice the ranks (`cl_alternatives`).
 KCL_GRIDS = [(80, 80), (88, 88), (96, 96), (100, 100), (128, 128), (60, 220), (192, 192),
              (256, 256)]
-KCL_LADDER = [(4, 4, "registers"), (8, 4, "registers"), (16, 4, "registers"),
-              (4, 8, "registers"), (8, 8, "registers"), (4, 16, "registers"),
-              (8, 16, "registers"), (16, 8, "registers"), (4, 4, "shared"), (8, 4, "shared")]
+KCL_LADDER = [(4, 4), (8, 4), (16, 4), (4, 8), (8, 8), (4, 16), (8, 16), (16, 8)]
 # K's grids that no cluster takes, and their batches.
 K_GM_GRIDS, K_GM_MEMBERS = [(120, 440), (171, 171)], (16, 64, 1000)
 # K's grids whose route moved to K-rt (the strip body built for the grid,
@@ -268,17 +266,16 @@ def kcl_figures(Nx, Ny, ms, nsub, plan=None):
 
 
 def cl_alternatives(Nx, Ny):
-    """Plans of K-cl beside the route's: strips of 4 rows (MIN_STRIP) with
-    the fewest ranks and the faces in registers (the parent's layout), and
-    the plan of one strip a band with twice the route's ranks."""
+    """Plans of K-cl beside the route's: strips of 4 rows (MIN_STRIP) on the
+    fewest ranks (the parent's layout), and one strip a band on twice the
+    route's ranks."""
     from historymatching_tpu_torch.ops import transport
 
     if not hasattr(transport, "cl_plans"):
         return []
     plans, route = transport.cl_plans(Nx, Ny), transport.cl_plan(Nx, Ny)
-    four = [p for p in plans if p.strip == transport.MIN_STRIP and p.place == "registers"]
-    more = [p for p in plans if p.c == 2 * route.c and p.place == "registers"
-            and transport.cl_strips(Nx, p) == 1]
+    four = [p for p in plans if p.strip == transport.MIN_STRIP]
+    more = [p for p in plans if p.c == 2 * route.c and transport.cl_strips(Nx, p) == 1]
     return [p for p in dict.fromkeys(four[:1] + more[:1]) if p != route]
 
 
@@ -429,13 +426,12 @@ def k_inputs(Nx, Ny, n_members, precond="mg"):
 
 def cl_candidates(Nx, Ny):
     """K-cl's plans timed at a grid by `--kernel kcl`: the route's, those of
-    `cl_alternatives`, and with the faces in registers every plan whose
-    strips divide the band and that puts the most members on an SM (its
-    ranks an SM over its ranks a member), and for each cluster the plan of
-    the fewest strips a band."""
+    `cl_alternatives`, every plan whose strips divide the band and that
+    puts the most members on an SM (its ranks an SM over its ranks a
+    member), and for each cluster the plan of the fewest strips a band."""
     from historymatching_tpu_torch.ops import transport
 
-    regs = [p for p in transport.cl_plans(Nx, Ny) if p.place == "registers"]
+    regs = transport.cl_plans(Nx, Ny)
     most = max(transport.cl_ranks(Nx, Ny, p) / p.c for p in regs)
     tall = [min((p for p in regs if p.c == c), key=lambda p: (transport.cl_strips(Nx, p),
                                                                p.strip))

@@ -178,14 +178,13 @@ def _cl_specs(Nx, Ny, pressure_plans=(), transport_plan=None, probe=False):
     if transport_plan is not None:
         from historymatching_tpu_torch.ops.transport import cl_ranks
 
-        c, strip, place = transport_plan
+        c, strip = transport_plan
         ranks = cl_ranks(Nx, Ny, transport_plan)
         specs.append(_spec("transport_upwind",
-                           key=f"transport_upwind_cl_{Nx}x{Ny}_c{c}s{strip}{place[0]}r{ranks}",
+                           key=f"transport_upwind_cl_{Nx}x{Ny}_c{c}s{strip}r{ranks}",
                            flags=[f"-DHM_KCL_NX={Nx}", f"-DHM_KCL_NY={Ny}", f"-DHM_KCL_C={c}",
-                                  f"-DHM_KCL_S={strip}",
-                                  f"-DHM_KCL_SHARED={int(place == 'shared')}",
-                                  f"-DHM_KCL_R={ranks}"], sigs="transport_upwind_cl"))
+                                  f"-DHM_KCL_S={strip}", f"-DHM_KCL_R={ranks}"],
+                           sigs="transport_upwind_cl"))
     return specs
 
 
@@ -308,7 +307,7 @@ def _kcl_spec(Nx, Ny, plan):
 
 def transport_cl_lib(Nx, Ny, plan):
     """K-cl's C entry points for one grid on a plan (`ops.transport.ClPlan`:
-    ranks, strip rows, place of the faces), built on first use."""
+    ranks, strip rows), built on first use."""
     return _get(_kcl_spec, Nx, Ny, plan)
 
 

@@ -46,10 +46,9 @@ NAMES = {"templated": "transport_upwind", "rt": "transport_upwind_rt",
          "gm": "transport_upwind_gm", "gm1": "transport_upwind_gm1"}  # launch counters by route
 BAND_CELLS = 4096  # a K-cl rank's band at most: the templated 64x64 block's load
 # K-cl's plan: c ranks a member (one of CL_CLUSTERS), strips of `strip`
-# rows, the faces in "registers" or "shared" memory. CL_MAX_RANKS: ranks an
-# SM a plan asks for at most; an H100 SM's shared bytes, and those the runtime reserves a
-# block.
-ClPlan = namedtuple("ClPlan", "c strip place")
+# rows. CL_MAX_RANKS: ranks an SM a plan asks for at most; an H100 SM's
+# shared bytes, those the runtime reserves a block, and its SMs.
+ClPlan = namedtuple("ClPlan", "c strip")
 CL_CLUSTERS, CL_MAX_RANKS = (2, 4, 8, 16), 4
 SM_SHARED, BLOCK_RESERVED, SMS = 233_472, 1024, 132
 # Where two ranks hold a grid (two bands of at most BAND_CELLS), K-cl runs
@@ -59,13 +58,14 @@ SM_SHARED, BLOCK_RESERVED, SMS = 233_472, 1024, 132
 # 80x80 (K-rt 0.609-0.612 / 0.604 / 1.187 / 4.742-4.762) and 0.474-0.478 /
 # 0.936 / 1.808 / 7.057-7.144 at 88x88 (K-rt 0.746 / 0.742 / 1.462 /
 # 5.838); one strip a band there ran 0.463-0.565 and 0.565-0.655 at N=64.
-# K-cl's registers a thread by its strip's rows S, from what ptxas reported
-# on the H100 (CUDA 12.9): with the faces in registers 63 at S = 4 under a
-# cap of 64 (71-76 under more), 77-80 at S = 5, 110 at S = 8, 122 at S =
-# 10, 133-134 at S = 11, 145-151 at S = 12, 177 at S = 15 and 188-189 at S =
-# 16; in shared memory 40 at S = 4 under a cap of 40 at 512 threads but an
-# 8-byte spill at 700, 56 under 64 and 80 at S = 8. None spilled but that.
-CL_REGS = {"registers": (12, 14), "shared": (10, 8)}
+# K-cl's registers a thread, 12 S + 14 by its strip's rows S, from what
+# ptxas reported on the H100 (CUDA 12.9), none spilling: 63 at S = 4 under
+# a cap of 64 (71-76 under more), 77-80 at S = 5, 110 at S = 8, 122 at S =
+# 10, 133-134 at S = 11, 145-151 at S = 12, 177 at S = 15, 188-189 at S =
+# 16. (The faces held in shared memory instead, as K-rt's SHARED plans
+# hold them, took 40-56 registers at S = 4 but ran 1.13-1.15x slower at
+# [24]'s first step; they went.)
+CL_REGS = (12, 14)
 # K-rt1 keeps a grid of up to RT1_CELLS cells (one cell a thread there)
 # while the batch holds up to RT1_BATCH_CELLS cells: such a launch is
 # bound by its chain of substeps, where K-rt1's one cell a thread ran
@@ -79,7 +79,7 @@ MAX_THREADS, MIN_STRIP, MAX_STRIP = 1024, 4, 16
 # K-gm: rows of its first plan's strip (csrc `kStrip`), threads a block at
 # most (`kGmThreads`), and bands a member at most: the H100's SMs, so that
 # one member's blocks, one an SM, are resident at once.
-GM_STRIP, GM_THREADS, GM_MAX_BANDS = 4, 1024, 132
+GM_STRIP, GM_THREADS, GM_MAX_BANDS = 4, 1024, SMS
 # Registers a thread needs, by the cells it holds, from what ptxas reported
 # on the H100 (`reg_budget` is what a block's thread count leaves a
 # thread): the strip body, a model by its strip's rows S with the faces in
@@ -159,12 +159,9 @@ def cl_threads(Nx, Ny, c, strip):
 
 def cl_bytes(Nx, Ny, plan):
     """K-cl's shared bytes a rank (csrc `KClGeo::BYTES`): two mbarriers,
-    four halo slots (two parities, the fw row from above and from below),
-    two fw tiles of the band, and with the faces in "shared" memory each
-    thread's 4 `strip` + 1 faces and sources."""
-    c, strip, place = plan
-    faces = 4 * strip + 1 if place == "shared" else 0
-    return 4 * (4 + 4 * Ny + 2 * (Nx // c) * Ny + faces * cl_threads(Nx, Ny, c, strip))
+    four halo slots (two parities, the fw row from above and from below)
+    and two fw tiles of the band."""
+    return 4 * (4 + 4 * Ny + 2 * (Nx // plan.c) * Ny)
 
 
 def cl_ranks(Nx, Ny, plan):
@@ -172,9 +169,9 @@ def cl_ranks(Nx, Ny, plan):
     `CL_REGS` model, allocated 8 at a time for each warp) and its shared
     bytes (`SM_SHARED`, and `BLOCK_RESERVED` a block), at most
     `CL_MAX_RANKS`; 0 where the registers do not fit one rank."""
-    c, strip, place = plan
+    c, strip = plan
     threads = cl_threads(Nx, Ny, c, strip)
-    a, b = CL_REGS[place]
+    a, b = CL_REGS
     regs = -(-(a * strip + b) // 8) * 8
     by_regs = 65536 // (32 * -(-threads // 32) * regs) if regs <= 255 else 0
     by_bytes = SM_SHARED // (cl_bytes(Nx, Ny, plan) + BLOCK_RESERVED)
@@ -182,23 +179,21 @@ def cl_ranks(Nx, Ny, plan):
 
 
 def cl_plans(Nx, Ny):
-    """Every plan K-cl takes for a grid: ClPlan(c, strip, place) with c
-    ranks of CL_CLUSTERS that split Nx in equal bands of at most BAND_CELLS
-    cells, strips of `strip` rows from MIN_STRIP (or the band's rows, where
-    fewer) to MAX_STRIP, the faces in "registers" or "shared" memory; at
-    most MAX_THREADS threads and `_build.SMEM_LIMIT` bytes a rank, and one
-    rank an SM at least (`cl_ranks`)."""
+    """Every plan K-cl takes for a grid: ClPlan(c, strip) with c ranks of
+    CL_CLUSTERS that split Nx in equal bands of at most BAND_CELLS cells,
+    strips of `strip` rows from MIN_STRIP (or the band's rows, where fewer)
+    to MAX_STRIP; at most MAX_THREADS threads and `_build.SMEM_LIMIT` bytes
+    a rank, and one rank an SM at least (`cl_ranks`)."""
     plans = []
     for c in CL_CLUSTERS:
         h = Nx // c
         if Nx % c or h * Ny > BAND_CELLS:
             continue
         for strip in range(min(MIN_STRIP, h), min(MAX_STRIP, h) + 1):
-            for place in ("registers", "shared"):
-                plan = ClPlan(c, strip, place)
-                if (cl_threads(Nx, Ny, c, strip) <= MAX_THREADS and cl_ranks(Nx, Ny, plan)
-                        and cl_bytes(Nx, Ny, plan) <= _build.SMEM_LIMIT):
-                    plans.append(plan)
+            plan = ClPlan(c, strip)
+            if (cl_threads(Nx, Ny, c, strip) <= MAX_THREADS and cl_ranks(Nx, Ny, plan)
+                    and cl_bytes(Nx, Ny, plan) <= _build.SMEM_LIMIT):
+                plans.append(plan)
     return plans
 
 
@@ -208,9 +203,8 @@ def cl_strips(Nx, plan):
 
 
 def cl_plan(Nx, Ny):
-    """K-cl's plan for a grid (`cl_plans`), the faces in registers where a
-    plan keeps them there: where two ranks hold the grid, two ranks in
-    strips of MIN_STRIP rows; else one strip a band (a thread a column of
+    """K-cl's plan for a grid (`cl_plans`): where two ranks hold the grid,
+    two ranks in strips of MIN_STRIP rows; else one strip a band (a thread a column of
     the band, where a band has at most MAX_STRIP rows) with the most
     members an SM (`cl_ranks` over the ranks a member), then the fewest
     ranks; else the fewest ranks, then the shortest strip. None where no
@@ -223,7 +217,6 @@ def cl_plan(Nx, Ny):
     N=64 (a substep's chain of 4 cells a thread, not 10-11) and within 2%
     at N=1000 at 80x80 (`route` gives larger batches K-rt)."""
     plans = cl_plans(Nx, Ny)
-    plans = [p for p in plans if p.place == "registers"] or plans
     if not plans:
         return None
     two = [p for p in plans if p.c == 2]

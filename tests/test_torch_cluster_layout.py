@@ -180,8 +180,8 @@ def test_pressure_cluster_layout_arrays_fit_and_do_not_overlap(Nx, Ny, unit_diag
 def test_transport_cluster_bands_and_strips(Nx, Ny):
     """K-cl's cluster: a power of two up to 16 whose equal bands (Nx / c
     rows) hold at most 4,096 cells, in strips (the last may hold fewer
-    rows) of one column a thread, at most 1,024 threads a rank, with the
-    faces in registers: two ranks in strips of 4 where two hold the grid
+    rows) of one column a thread, at most 1,024 threads a rank: two ranks
+    in strips of 4 where two hold the grid
     (80x80, 88x88), else one strip a band where a band has at most 16 rows,
     else strips of 4 (100x100); grids of up to 4,096 cells keep the
     runtime-grid variant (60x60)."""
@@ -192,7 +192,7 @@ def test_transport_cluster_bands_and_strips(Nx, Ny):
     assert (plan.c, plan.strip) == CL_GRIDS[(Nx, Ny)][1] and transport.route(Nx, Ny) == "cl"
     c, strip = plan.c, plan.strip
     h = Nx // c
-    assert Nx % c == 0 and h * Ny <= transport.BAND_CELLS and plan.place == "registers"
+    assert Nx % c == 0 and h * Ny <= transport.BAND_CELLS
     assert -(-h // strip) * Ny <= 1024 and c & (c - 1) == 0 and 2 <= c <= 16
     two = Nx % 2 == 0 and Nx // 2 * Ny <= transport.BAND_CELLS
     assert (c == 2 and strip == 4) if two else (strip == h or h > transport.MAX_STRIP)

@@ -667,14 +667,12 @@ def test_pressure_cl_distributed_matches_plain(dev, grid, unit_diag, place, smoo
 
 
 # K-cl's route grids, and other plans of the same body: strips of 4 rows
-# (the parent's layout), more ranks an SM, the faces in shared memory,
-# strips that do not divide the band.
+# (the parent's layout), more ranks an SM, strips that do not divide the
+# band.
 KCL_GRIDS = [(80, 80), (88, 88), (96, 96), (100, 100), (128, 128), (60, 220), (192, 192),
              (256, 256)]
-KCL_PLANS = [((128, 128), (4, 4, "registers")), ((128, 128), (16, 4, "registers")),
-             ((128, 128), (4, 8, "registers")), ((128, 128), (8, 4, "shared")),
-             ((80, 80), (4, 6, "registers")), ((80, 80), (8, 10, "registers")),
-             ((100, 100), (4, 4, "shared"))]
+KCL_PLANS = [((128, 128), (4, 4)), ((128, 128), (16, 4)), ((128, 128), (4, 8)),
+             ((128, 128), (8, 4)), ((80, 80), (4, 6)), ((80, 80), (8, 10)), ((100, 100), (4, 5))]
 
 
 @pytest.mark.parametrize("Nx,Ny,plan", [(*g, None) for g in KCL_GRIDS]

@@ -237,9 +237,9 @@ ROUTE_GRIDS = [(80, 80), (88, 88), (96, 96), (100, 100), (128, 128), (60, 220), 
 EDGE_GRIDS = [(65, 64), (4098, 1), (17, 1000), (300, 300), (66, 66)]
 
 
-# K-cl's route plans: (ranks, strip rows, ranks an SM), the faces in
-# registers: two ranks in strips of 4 where two hold the grid, one strip a
-# band where a band has at most 16 rows, else strips of 4 (100x100).
+# K-cl's route plans: (ranks, strip rows, ranks an SM): two ranks in
+# strips of 4 where two hold the grid, one strip a band where a band has at
+# most 16 rows, else strips of 4 (100x100).
 ROUTE_PLANS = {(80, 80): (2, 4, 1), (88, 88): (2, 4, 1), (96, 96): (8, 12, 4),
                (100, 100): (4, 4, 1), (128, 128): (8, 16, 2), (60, 220): (4, 15, 1),
                (192, 192): (16, 12, 2), (256, 256): (16, 16, 1)}
@@ -252,13 +252,13 @@ def test_cl_plans_tile_the_grid_and_fit_the_card(Nx, Ny):
     row once; the rank's threads (one column of a strip a thread) fit a
     block; its registers (`CL_REGS`) fit the H100's 65,536 for each of its
     ranks an SM, and its shared bytes those of one block and, for each of
-    its ranks, the SM's. The route's plan keeps the faces in registers; on
-    two ranks where two hold the grid, with the shortest strips; else on
-    one strip a band where a plan has one, with the most members an SM,
-    then the fewest ranks; else on the fewest ranks and shortest strips."""
+    its ranks, the SM's. The route's plan: on two ranks where two hold the
+    grid, with the shortest strips; else on one strip a band where a plan
+    has one, with the most members an SM, then the fewest ranks; else on
+    the fewest ranks and shortest strips."""
     plans = cl_plans(Nx, Ny)
     for plan in plans:
-        c, strip, place = plan
+        c, strip = plan
         h = Nx // c
         bands = [range(r * h, (r + 1) * h) for r in range(c)]
         assert [i for band in bands for i in band] == list(range(Nx))
@@ -268,7 +268,7 @@ def test_cl_plans_tile_the_grid_and_fit_the_card(Nx, Ny):
         threads = cl_threads(Nx, Ny, c, strip)
         assert threads == len(strips) * Ny <= MAX_THREADS
         ranks = cl_ranks(Nx, Ny, plan)
-        a, b0 = CL_REGS[place]
+        a, b0 = CL_REGS
         regs = -(-(a * strip + b0) // 8) * 8
         assert 1 <= ranks <= CL_MAX_RANKS and ranks * threads <= 2048
         assert ranks * -(-threads // 32) * 32 * regs <= 65536
@@ -277,24 +277,22 @@ def test_cl_plans_tile_the_grid_and_fit_the_card(Nx, Ny):
     plan = cl_plan(Nx, Ny)
     assert (plan is None) == (not plans) and (plan is None or plan in plans)
     if plan is not None:
-        regs = [p for p in plans if p.place == "registers"]
-        assert plan.place == "registers" or not regs
-        one = [p for p in regs if p.strip == Nx // p.c]
+        one = [p for p in plans if p.strip == Nx // p.c]
         if plan.c == 2 or not one:
-            assert (plan.c, plan.strip) == min((p.c, p.strip) for p in regs)
+            assert plan == min(plans)
         else:
-            assert plan.strip == Nx // plan.c and not any(p.c == 2 for p in regs)
+            assert plan.strip == Nx // plan.c and not any(p.c == 2 for p in plans)
             assert cl_ranks(Nx, Ny, plan) / plan.c == max(cl_ranks(Nx, Ny, p) / p.c for p in one)
     if (Nx, Ny) in ROUTE_GRIDS:
         c, strip, ranks = ROUTE_PLANS[(Nx, Ny)]
-        assert (plan.c, plan.strip, plan.place) == (c, strip, "registers")
+        assert plan == (c, strip)
         assert cl_ranks(Nx, Ny, plan) == ranks and transport.route(Nx, Ny) == "cl"
 
 
 def test_cl_plan_constants_match_the_cuda_source():
     """`cl_threads` and `cl_bytes` count what csrc `KClGeo` lays out: its
-    threads and its bytes (two mbarriers, four halo rows, two fw tiles, the
-    faces' slots); its bounds are the plans'."""
+    threads and its bytes (two mbarriers, four halo rows, two fw tiles);
+    its bounds are the plans'."""
     with open(os.path.join(CSRC, "transport_upwind.cu")) as f:
         text = f.read()
     geo = text[text.index("struct KClGeo"):]
@@ -303,12 +301,10 @@ def test_cl_plan_constants_match_the_cuda_source():
     assert "C >= 2 && C <= 16" in geo and f"THREADS <= {MAX_THREADS}" in geo
     assert f"H * NY <= {BAND_CELLS}" in geo and f"BYTES <= {SMEM_LIMIT}" in geo
     assert int(re.search(r"constexpr int kMaxStrip = (\d+);", text).group(1)) == MAX_STRIP
-    assert defs["FACES"] == "SHARED ? 4 * S + 1 : 0"
     for Nx, Ny in ROUTE_GRIDS + [(12, 10), (16, 9)]:
-        for plan in cl_plans(Nx, Ny) or [ClPlan(2, 3, "shared")]:
+        for plan in cl_plans(Nx, Ny) or [ClPlan(2, 3)]:
             env = dict(NX=Nx, NY=Ny, C=plan.c, S=plan.strip)
-            env["FACES"] = 4 * plan.strip + 1 if plan.place == "shared" else 0
-            for name in ("H", "NB", "LAST", "THREADS", "HALO", "TILE", "FACE", "BYTES"):
+            for name in ("H", "NB", "LAST", "THREADS", "HALO", "TILE", "BYTES"):
                 expr = defs[name].replace("(int)sizeof(float)", "4").replace("/", "//")
                 env[name] = eval(expr, {}, env)
             assert env["THREADS"] == cl_threads(Nx, Ny, plan.c, plan.strip)
