@@ -204,6 +204,8 @@ def test_transport_cluster_bands_and_strips(Nx, Ny):
 @pytest.mark.parametrize("batch", [None, 1, 64, 66, 67, 128, 256, 1000])
 @pytest.mark.parametrize("Nx,Ny", [g for g in CL_GRIDS if g != (60, 60)])
 def test_transport_route_takes_the_batch_past_a_wave_of_two_ranks(Nx, Ny, batch):
+    """K-rt takes a two-rank K-cl grid's batch past one wave of clusters;
+    K-cl keeps every other batch and grid."""
     two = transport.cl_plan(Nx, Ny).c == 2
     assert two == ((Nx, Ny) in ((80, 80), (88, 88)))
     past = two and (batch or 1) > transport.SMS // 2

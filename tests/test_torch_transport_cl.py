@@ -248,8 +248,8 @@ ROUTE_PLANS = {(80, 80): (2, 4, 1), (88, 88): (2, 4, 1), (96, 96): (8, 12, 4),
 @pytest.mark.parametrize("Nx,Ny", ROUTE_GRIDS + EDGE_GRIDS)
 def test_cl_plans_tile_the_grid_and_fit_the_card(Nx, Ny):
     """Every plan: equal bands of at most BAND_CELLS cells, a cluster of
-    `CL_CLUSTERS`, cover each row once; the band's strips (the last may hold fewer rows) cover each band
-    row once; the rank's threads (one column of a strip a thread) fit a
+    `CL_CLUSTERS`, cover each row once; the band's strips (the last may
+    hold fewer rows) cover each band row once; the rank's threads (one column of a strip a thread) fit a
     block; its registers (`CL_REGS`) fit the H100's 65,536 for each of its
     ranks an SM, and its shared bytes those of one block and, for each of
     its ranks, the SM's. The route's plan: on two ranks where two hold the
@@ -282,7 +282,8 @@ def test_cl_plans_tile_the_grid_and_fit_the_card(Nx, Ny):
             assert plan == min(plans)
         else:
             assert plan.strip == Nx // plan.c and not any(p.c == 2 for p in plans)
-            assert cl_ranks(Nx, Ny, plan) / plan.c == max(cl_ranks(Nx, Ny, p) / p.c for p in one)
+            most = max(cl_ranks(Nx, Ny, p) / p.c for p in one)
+            assert cl_ranks(Nx, Ny, plan) / plan.c == most
     if (Nx, Ny) in ROUTE_GRIDS:
         c, strip, ranks = ROUTE_PLANS[(Nx, Ny)]
         assert plan == (c, strip)
