@@ -62,8 +62,7 @@ plain version, with its registers, spills, ranks an SM, clusters
 resident, an estimate of a substep's time (the launch's time x clusters
 resident / members / mean substeps, which counts the last wave's tail)
 and a hash of s, then its candidate plans (`cl_candidates`) at its grids
-at N=64 and 1000. A K row carries the same figures for K-cl's plan, and
-times `cl_alternatives` beside it; at
+at N=64 and 1000. A K row carries the same figures for K-cl's plan; at
 80x80, 88x88 and 96x96 K-cl and K-rt are also timed at N=128 and 256
 (K_CL_MEMBERS). `--root DIR` times the package and
 `chip_smoke.py` of another
@@ -100,9 +99,7 @@ MEMBERS = (64, 1000)
 # batch rule): these grids at these batches too.
 K_CL_GRIDS, K_CL_MEMBERS = [(80, 80), (88, 88), (96, 96)], (128, 256)
 # K-cl's plans timed on [24]'s first step (`--kernel kcl`): (c, strip),
-# and its candidates at its grids (`cl_candidates`)
-# at N=64 and 1000; in a K row, beside the route's plan, the parent's
-# layout and one strip a band on twice the ranks (`cl_alternatives`).
+# and its candidates at its grids (`cl_candidates`) at N=64 and 1000.
 KCL_GRIDS = [(80, 80), (88, 88), (96, 96), (100, 100), (128, 128), (60, 220), (192, 192),
              (256, 256)]
 KCL_LADDER = [(4, 4), (8, 4), (16, 4), (4, 8), (8, 8), (4, 16), (8, 16), (16, 8)]
@@ -265,20 +262,6 @@ def kcl_figures(Nx, Ny, ms, nsub, plan=None):
     return dict(info, substep_us_estimate=cs.iteration_us(ms, info["max_active_clusters"], nsub))
 
 
-def cl_alternatives(Nx, Ny):
-    """Plans of K-cl beside the route's: strips of 4 rows (MIN_STRIP) on the
-    fewest ranks (the parent's layout), and one strip a band on twice the
-    route's ranks."""
-    from historymatching_tpu_torch.ops import transport
-
-    if not hasattr(transport, "cl_plans"):
-        return []
-    plans, route = transport.cl_plans(Nx, Ny), transport.cl_plan(Nx, Ny)
-    four = [p for p in plans if p.strip == transport.MIN_STRIP]
-    more = [p for p in plans if p.c == 2 * route.c and transport.cl_strips(Nx, p) == 1]
-    return [p for p in dict.fromkeys(four[:1] + more[:1]) if p != route]
-
-
 def kcl_row(reps):
     """K-cl on [24]'s first step: the bench case (seed 1) at 128x128,
     N=1000, s = 0, the substeps of the first pass's pressure step; the
@@ -425,19 +408,23 @@ def k_inputs(Nx, Ny, n_members, precond="mg"):
 
 
 def cl_candidates(Nx, Ny):
-    """K-cl's plans timed at a grid by `--kernel kcl`: the route's, those of
-    `cl_alternatives`, every plan whose strips divide the band and that
-    puts the most members on an SM (its ranks an SM over its ranks a
-    member), and for each cluster the plan of the fewest strips a band."""
+    """K-cl's plans timed at a grid by `--kernel kcl`: the route's, strips
+    of MIN_STRIP rows on the fewest ranks (the parent's layout), one strip
+    a band on twice the route's ranks, every plan whose strips divide the
+    band and that puts the most members on an SM (its ranks an SM over its
+    ranks a member), and for each cluster the plan of the fewest strips a
+    band."""
     from historymatching_tpu_torch.ops import transport
 
-    regs = transport.cl_plans(Nx, Ny)
+    regs, route = transport.cl_plans(Nx, Ny), transport.cl_plan(Nx, Ny)
+    four = [p for p in regs if p.strip == transport.MIN_STRIP]
+    more = [p for p in regs if p.c == 2 * route.c and transport.cl_strips(Nx, p) == 1]
     most = max(transport.cl_ranks(Nx, Ny, p) / p.c for p in regs)
     tall = [min((p for p in regs if p.c == c), key=lambda p: (transport.cl_strips(Nx, p),
                                                                p.strip))
             for c in sorted({p.c for p in regs})]
     return list(dict.fromkeys(
-        [transport.cl_plan(Nx, Ny), *cl_alternatives(Nx, Ny), *tall]
+        [route, *four[:1], *more[:1], *tall]
         + [p for p in regs if transport.cl_ranks(Nx, Ny, p) / p.c == most
            and (Nx // p.c) % p.strip == 0]))
 
@@ -502,12 +489,6 @@ def k_row(Nx, Ny, n_members, reps, forces=None, precond="mg"):
             lambda: transport_substeps_cuda(*t_args, force=force), reps)
     if "cl" in forces:
         row.update({f"cl_{k}": v for k, v in kcl_figures(Nx, Ny, row["cl_ms"], nsub).items()})
-        row["cl_others"] = []
-        for alt in cl_alternatives(Nx, Ny):
-            run = lambda: transport_substeps_cuda(*t_args, force="cl", plan=alt)  # noqa: E731
-            assert torch.equal(run(), first), (Nx, Ny, alt)
-            ms = cs.cuda_ms(run, reps)
-            row["cl_others"].append(dict(kcl_figures(Nx, Ny, ms, nsub, alt), ms=ms))
     if plan and "gm" in forces:
         gm = _build.kernel_info("transport_upwind_gm", Nx, Ny)
         row.update(gm_bands=gm["bands"], gm_groups_resident=gm["groups_resident"],

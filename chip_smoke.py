@@ -1092,7 +1092,7 @@ def large_grid_phases(dev, six):
         t_args = (s5, Fx, Fy, qf[None].contiguous(), dtspv, nsub, fluid_of(m))
         s_t = transport_substeps_torch(*t_args)
         fits = transport.smem_bytes(Nx, Ny) <= _build.SMEM_LIMIT
-        k_ms = {}
+        k_ms, k_est = {}, None
         # the route; where the two fw tiles fit, K-rt1 and (on a strip plan) K-rt
         for force in dict.fromkeys((k_route, *(("rt1",) if fits else ()),
                                     *(("rt",) if fits and transport.rt_plan(Nx, Ny) else ()),
@@ -1112,18 +1112,16 @@ def large_grid_phases(dev, six):
                            substeps_median=int(nsub.median()))
                 if force == "cl":
                     res = _build.kernel_info("transport_upwind_cl", Nx, Ny)
-                    fig.update(plan=transport.cl_plan(Nx, Ny), resources=res,
-                               substep_us_estimate=iteration_us(
-                                   k_ms[force], res["max_active_clusters"], nsub))
+                    fig.update(plan=transport.cl_plan(Nx, Ny), resources=res)
+                    k_est = iteration_us(k_ms[force], res["max_active_clusters"], nsub)
                 else:
                     fig.update(resources=_build.kernel_info("transport_upwind_gm", Nx, Ny))
                 figs[f"transport_upwind_{force}"]["grids"][tag] = fig
         log(f"[23] K {tag}, N={LARGE_N}, step 6 of a prior run (simulate's launches {n_sim}; "
             f"cg_iters median {int(it.median())}, accepted {int(ok.sum())}/{LARGE_N}): "
             f"substeps median {int(nsub.median())} max {int(nsub.max())}; route {k_route!r}"
-            + (f" ({transport.cl_plan(Nx, Ny)}, a substep ~"
-               f"{figs['transport_upwind_cl']['grids'][tag]['substep_us_estimate']:.2f} us by "
-               f"estimate)" if k_route == "cl" else "")
+            + (f" ({transport.cl_plan(Nx, Ny)}, a substep ~{k_est:.2f} us by estimate)"
+               if k_route == "cl" else "")
             + "; ms " + ", ".join(f"{k} {v:.4f}" for k, v in k_ms.items())
             + f", each bit for bit with the plain version; bound {bnd:.5f} ms ({by}, "
             f"{k_route} {bnd / k_ms[k_route]:.1%}, gm {bnd / k_ms['gm']:.1%}); K-gm "
@@ -1802,8 +1800,7 @@ def large_case_kernels(model, prior):
     k_res = _build.kernel_info("transport_upwind_cl", Nx, Ny)
     k_sub = iteration_us(k_ms["cl"], k_res["max_active_clusters"], nsub)
     k_figs["transport_upwind_cl"].update(rt1_ms=k_ms["rt1"], gm_ms=k_ms["gm"],
-                                         plan=transport.cl_plan(Nx, Ny), resources=k_res,
-                                         substep_us_estimate=k_sub)
+                                         plan=transport.cl_plan(Nx, Ny), resources=k_res)
     log(f"[24] kernels on the first step's system (N={prior.shape[0]}, {Nx}x{Ny}, the first "
         f"pass's settings): " + "; ".join(said) + f"; plain {plain_ms:.3f} ms; K-cl "
         f"({transport.cl_plan(Nx, Ny)}: {k_res['registers']} registers, {k_res['local_bytes']} "

@@ -425,8 +425,7 @@ def kernel_info(kernel, Nx, Ny, plan=None):
     cluster variant ("_cl", on its route's
     cluster, P-cl's `plan` or K-cl's, `ops.transport.ClPlan`) its bytes a
     rank, and adds the ranks a cluster and the clusters the card holds at
-    once; K-cl also its plan and the ranks an SM it asks for
-    (`ops.transport.cl_ranks`)."""
+    once; K-cl also its plan."""
     from historymatching_tpu_torch.ops import pressure, transport
 
     out = (ctypes.c_int * 7)()
@@ -436,7 +435,7 @@ def kernel_info(kernel, Nx, Ny, plan=None):
     if kernel == "transport_upwind_cl":
         plan = transport.ClPlan(*(plan or transport.cl_plan(Nx, Ny)))
         code = transport_cl_lib(Nx, Ny, plan).hm_transport_cl_info(Nx, Ny, out)
-        extra = dict(plan._asdict(), ranks_planned=transport.cl_ranks(Nx, Ny, plan))
+        extra = plan._asdict()
     elif kernel == "transport_upwind_gm":
         plan = transport.gm_plan(Nx, Ny)
         if plan is None:

@@ -33,6 +33,7 @@ kernel, which raises on what it does not take.
 from __future__ import annotations
 
 from collections import namedtuple
+from functools import lru_cache
 
 import torch
 import torch.nn.functional as F
@@ -178,12 +179,13 @@ def cl_ranks(Nx, Ny, plan):
     return min(by_regs, by_bytes, 2048 // threads, CL_MAX_RANKS)
 
 
+@lru_cache(maxsize=None)
 def cl_plans(Nx, Ny):
-    """Every plan K-cl takes for a grid: ClPlan(c, strip) with c ranks of
-    CL_CLUSTERS that split Nx in equal bands of at most BAND_CELLS cells,
-    strips of `strip` rows from MIN_STRIP (or the band's rows, where fewer)
-    to MAX_STRIP; at most MAX_THREADS threads and `_build.SMEM_LIMIT` bytes
-    a rank, and one rank an SM at least (`cl_ranks`)."""
+    """Every plan K-cl takes for a grid, a tuple of ClPlan(c, strip): c
+    ranks of CL_CLUSTERS that split Nx in equal bands of at most BAND_CELLS
+    cells, strips of `strip` rows from MIN_STRIP (or the band's rows, where
+    fewer) to MAX_STRIP; at most MAX_THREADS threads and `_build.SMEM_LIMIT`
+    bytes a rank, and one rank an SM at least (`cl_ranks`)."""
     plans = []
     for c in CL_CLUSTERS:
         h = Nx // c
@@ -194,7 +196,7 @@ def cl_plans(Nx, Ny):
             if (cl_threads(Nx, Ny, c, strip) <= MAX_THREADS and cl_ranks(Nx, Ny, plan)
                     and cl_bytes(Nx, Ny, plan) <= _build.SMEM_LIMIT):
                 plans.append(plan)
-    return plans
+    return tuple(plans)
 
 
 def cl_strips(Nx, plan):
@@ -202,6 +204,7 @@ def cl_strips(Nx, plan):
     return -(-(Nx // plan.c) // plan.strip)
 
 
+@lru_cache(maxsize=None)
 def cl_plan(Nx, Ny):
     """K-cl's plan for a grid (`cl_plans`): where two ranks hold the grid,
     two ranks in strips of MIN_STRIP rows; else one strip a band (a thread a column of
@@ -301,8 +304,9 @@ def route(Nx, Ny, batch=None):
     check_grid(Nx, Ny)
     if (Nx, Ny) in _build.GRIDS:
         return "templated"
-    if Nx * Ny > BAND_CELLS and cl_plan(Nx, Ny):
-        two = cl_plan(Nx, Ny).c == 2 and (batch or 1) > SMS // 2
+    plan = cl_plan(Nx, Ny) if Nx * Ny > BAND_CELLS else None
+    if plan:
+        two = plan.c == 2 and (batch or 1) > SMS // 2
         return "rt" if two and rt_plan(Nx, Ny) else "cl"
     if smem_bytes(Nx, Ny) <= _build.SMEM_LIMIT:
         small = Nx * Ny <= RT1_CELLS and (batch or 1) * Nx * Ny <= RT1_BATCH_CELLS

@@ -666,34 +666,29 @@ def test_pressure_cl_distributed_matches_plain(dev, grid, unit_diag, place, smoo
                        scale=1.0 if unit_diag else 0.2, plan=plan, B=4)
 
 
-# K-cl's route grids, and other plans of the same body: strips of 4 rows
-# (the parent's layout), more ranks an SM, strips that do not divide the
-# band.
+# K-cl's route grids: between them several strips a band, a short last
+# strip (100x100), one strip a band, and one, two and four ranks an SM.
 KCL_GRIDS = [(80, 80), (88, 88), (96, 96), (100, 100), (128, 128), (60, 220), (192, 192),
              (256, 256)]
-KCL_PLANS = [((128, 128), (4, 4)), ((128, 128), (16, 4)), ((128, 128), (4, 8)),
-             ((128, 128), (8, 4)), ((80, 80), (4, 6)), ((80, 80), (8, 10)), ((100, 100), (4, 5))]
 
 
-@pytest.mark.parametrize("Nx,Ny,plan", [(*g, None) for g in KCL_GRIDS]
-                         + [(*g, p) for g, p in KCL_PLANS])
-def test_transport_cl_matches_plain(dev, Nx, Ny, plan):
-    """K-cl on its route at every grid it takes, and on other plans: the
-    plain version's operations in its order, so bit for bit; members with
-    0, 1, 3 and 5 substeps (each substep's edge rows pushed into the slots
-    of parity k & 1: a count below two and odd counts); a shared source
-    field too."""
+@pytest.mark.parametrize("Nx,Ny", KCL_GRIDS)
+def test_transport_cl_matches_plain(dev, Nx, Ny):
+    """K-cl on its route at every grid it takes: the plain version's
+    operations in its order, so bit for bit; members with 0, 1, 3 and 5
+    substeps (each substep's edge rows pushed into the slots of parity
+    k & 1: a count below two and odd counts); a shared source field too."""
     assert transport_route(Nx, Ny) == "cl"
     args = _transport_inputs(dev, Nx, Ny, 11)
     args[5][:4] = torch.tensor([0, 1, 3, 5], dtype=torch.int32, device=dev)
     before = _build.LAUNCHES["transport_upwind_cl"]
-    out = transport_substeps_cuda(*args, force="cl", plan=plan)
+    out = transport_substeps_cuda(*args, force="cl")
     torch.cuda.synchronize()
     assert _build.LAUNCHES["transport_upwind_cl"] == before + 1
     assert torch.equal(out, transport_substeps_torch(*args))
     s, Fx, Fy, q, dts_pv, n_sub, fluid = args
     q1 = q[:1].contiguous()
-    assert torch.equal(transport_substeps_cuda(s, Fx, Fy, q1, dts_pv, n_sub, fluid, "cl", plan),
+    assert torch.equal(transport_substeps_cuda(s, Fx, Fy, q1, dts_pv, n_sub, fluid, "cl"),
                        transport_substeps_torch(s, Fx, Fy, q1, dts_pv, n_sub, fluid))
 
 
@@ -724,7 +719,7 @@ def test_cl_kernel_resources(dev, Nx, Ny):
         plan = cl_plan(Nx, Ny)
         k = _build.kernel_info("transport_upwind_cl", Nx, Ny)
         assert k["local_bytes"] == 0 and k["shared_bytes"] == cl_bytes(Nx, Ny, plan), k
-        assert k["blocks_per_sm"] >= cl_ranks(Nx, Ny, plan) == k["ranks_planned"] >= 1, k
+        assert k["blocks_per_sm"] >= cl_ranks(Nx, Ny, plan) >= 1, k
         assert k["cluster"] == plan.c and k["max_active_clusters"] >= 1, k
 
 
