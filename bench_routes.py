@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time each route of kernels P and K against the others on one NVIDIA GPU.
 
-    python3 bench_routes.py [--out FILE] [--kernel P|K|gm1|cl|kcl] [--grids 15x15,...]
+    python3 bench_routes.py [--out FILE] [--kernel P|K|gm1|cl|kcl|k1] [--grids 15x15,...]
                             [--root DIR]
 
 The evidence behind `ops/pressure.route` and `ops/transport.route` past one
@@ -15,14 +15,14 @@ that plan distributes the coarsest inverse over the ranks (P-cl/d: 100x100,
 two ranks ("cl_device"); P-gm against P-gm1 at 120x440 (no cluster holds
 it) at N=16, 64 and 1000, with ladders at the scaled 100x100 (N=128-512),
 120x440 (N=16-256) and 60x220 (N=128-512); K-cl
-against K's runtime-grid variant and K-gm (a member over co-resident
+against K-rt1 (the tile body, a member in one block) and K-gm (a member over co-resident
 blocks a band of rows); on `chip_smoke.py` [23]'s grids and its kind of
 inputs (the flagship geometry, a prior drawn for each grid from seed 1 +
 23, the unscaled system on fields of mild contrast), at [23]'s N=64 and
 at the bench case's N=1000; on the grids no cluster takes (120x440,
-171x171) K-gm against K-gm1 (one block a member) at N=16, 64 and 1000;
-K-rt (the strip body built for the grid) against K-rt1 (the runtime-grid
-body) on `chip_smoke.py` [18]'s grids, 60x60 and 75x75 at N=64 and 1000;
+171x171) K-gm against K-gm1 (co-resident 2-D tiles) at N=16, 64 and 1000;
+K-rt (the strip body built for the grid) against K-rt1 on
+`chip_smoke.py` [18]'s grids, 60x60 and 75x75 at N=64 and 1000;
 and K-gm on its widened plans against K-gm1 at 32x1088 and 600x600 at
 N=4 to 1000, 1057x440 and 1000x1000 (their step solved by the diagonally
 preconditioned `pcg` in torch ops: P's coarse inverse at 600x600 is 126
@@ -64,7 +64,16 @@ resident / members / mean substeps, which counts the last wave's tail)
 and a hash of s, then its candidate plans (`cl_candidates`) at its grids
 at N=64 and 1000. A K row carries the same figures for K-cl's plan; at
 80x80, 88x88 and 96x96 K-cl and K-rt are also timed at N=128 and 256
-(K_CL_MEMBERS). `--root DIR` times the package and
+(K_CL_MEMBERS). `--kernel k1` times K-rt1 and K-gm1 (`k1_row`) on the
+first step's substeps (`k_inputs`, the pressure step by the diagonally
+preconditioned `pcg` in torch ops) at K1_ROWS' grids and batches: the
+route's body, K-rt1 where it takes the grid and K-gm1, each with a hash of
+s (equal hashes: the same bits; every variant equal to the first), and in
+a checkout with K-rt1's small-grid plans (`ops/transport.rt1_plan`) a
+ladder of them (K1_LADDER: rows a thread and members a block) and K-gm1's
+plans on each strip shape of its tiles (`k1_gm1_plans`); the
+parent's first forms come from its checkout through `--root`.
+`--root DIR` times the package and
 `chip_smoke.py` of another
 checkout (an unpacked `git archive` of an earlier commit) on this file's
 cases, each variant that checkout has: to compare two commits in one call,
@@ -115,6 +124,18 @@ K_RT_ROWS = [(15, 15), (12, 9), (10, 10), (12, 12), (24, 16), (80, 80), (60, 60)
 K_LADDER = (4, 16, 32, 64, 128, 256, 1000)
 K_WIDE_ROWS = {(32, 1088): ("mg", K_LADDER), (600, 600): ("jacobi", K_LADDER),
                (1057, 440): ("jacobi", (4, 64, 1000)), (1000, 1000): ("jacobi", (4, 64))}
+# `--kernel k1`: K-rt1's and K-gm1's grids and batches. K-gm1: rows wider
+# than K-gm's (5x6000 [23]'s path, 8x5000, 16x2056) and a member past its
+# capacity (1090x1090); K-rt1: a row wider than a block of the strip body
+# (4x1100, [23]'s path), the grids past one block's strips that it took
+# before (8x3632, 150x150, 99x199) and small grids ([18]'s, [21]'s 12x12).
+# The small grids' ladder: (rows a thread, members a block).
+K1_ROWS = {(5, 6000): (4, 64, 1000), (8, 5000): (4, 64, 1000), (16, 2056): (4, 64, 1000),
+           (1090, 1090): (4,), (4, 1100): (4, 64, 1000), (8, 3632): (64, 1000),
+           (150, 150): (64, 1000), (99, 199): (64, 1000), (12, 12): (64, 1000),
+           (10, 10): (64, 1000), (15, 15): (64, 1000), (24, 16): (64, 1000),
+           (12, 9): (64, 1000)}
+K1_LADDER = [(1, 1), (2, 1), (1, 2), (1, 4), (2, 4)]
 # P's cases whose route takes the batch (`ops/pressure.DIST_BATCH_MAX`,
 # `GM_BATCH_MAX`), timed at these batches too, between the two of MEMBERS
 # (120x440 also at [23]'s N=16).
@@ -362,6 +383,106 @@ def gm1_row(Nx, Ny, n_members, reps):
     return row
 
 
+def k1_plans(Nx, Ny, n_members):
+    """K-rt1's small-grid plans of K1_LADDER at a grid and batch, by tag
+    ("s<rows>m<members>"): strips of `rows` rows, one column a thread, the
+    faces in registers, `members` a block where the block holds them
+    (`ops/transport.tile_fits`); none in a checkout without them or past
+    RT1_CELLS cells."""
+    from historymatching_tpu_torch.ops import transport
+
+    if not hasattr(transport, "rt1_plan") or Nx * Ny > transport.RT1_CELLS:
+        return {}
+    plans = {}
+    for strip, members in K1_LADDER:
+        strip = min(strip, Nx)
+        threads = -(-transport.tile_threads(Nx, Ny, strip, 1) // 32) * 32
+        if members <= n_members and transport.tile_fits(Nx, Ny, strip, 1, "registers", members,
+                                                        threads):
+            plans[f"s{strip}m{members}"] = transport.TilePlan(1, 1, strip, 1, "registers",
+                                                              members, threads)
+    return plans
+
+
+def device_ms(fn, reps):
+    """Mean milliseconds of `fn` on the card alone over `reps` runs: the
+    launches are queued behind a ~0.1 s spin of the card, so that the host
+    has queued them all before the first starts, and the events time the
+    card's work only, not the host's launch of each (which is longer than a
+    small grid's launch)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def k1_gm1_plans(Nx, Ny):
+    """K-gm1's plans on each strip shape of its tiles (`gm1_plan` on one
+    shape), by tag ("t<strip>x<cols>"), where its route is K-gm1; none in a
+    checkout without them."""
+    from historymatching_tpu_torch.ops import transport
+
+    if not hasattr(transport, "gm1_plan") or transport.route(Nx, Ny) != "gm1":
+        return {}
+    plans = {f"t{a}x{c}": transport.gm1_plan(Nx, Ny, ((a, c),))
+             for a, c in transport.TILE_SHAPES["tiles"]}
+    return {k: p for k, p in plans.items() if p and p != transport.gm1_plan(Nx, Ny)}
+
+
+def k1_row(Nx, Ny, n_members, reps):
+    """K-rt1 and K-gm1 at a grid and batch on the first step's substeps: the
+    route's body, K-rt1 where it takes the grid (its tiles fit one block;
+    here, where `rt1_plan` gives a plan), K-gm1, `k1_plans` and, on a grid
+    of up to RT1_CELLS cells, K-rt, each timed with a hash of s and held to
+    the first bit for bit; on grids of up to 4,400 cells each also timed
+    on the card alone (`device_ms`, 20 runs)."""
+    import hashlib
+
+    import torch
+
+    from historymatching_tpu_torch.ops import _build, transport
+    from historymatching_tpu_torch.ops.transport import transport_substeps_cuda
+
+    t_args = k_inputs(Nx, Ny, n_members, "jacobi")
+    s0, Fx, Fy, _, _, nsub, _ = t_args
+    rt = transport.route(Nx, Ny, n_members)
+    new = hasattr(transport, "rt1_plan")
+    rt1 = (transport.rt1_plan(Nx, Ny) if new
+           else transport.smem_bytes(Nx, Ny) <= _build.SMEM_LIMIT)
+    runs = {"route": {}, **({"rt1": dict(force="rt1")} if rt1 else {}),
+            "gm1": dict(force="gm1"),
+            **({"rt": dict(force="rt")} if Nx * Ny <= transport.RT1_CELLS else {}),
+            **{k: dict(force="rt1", plan=p) for k, p in k1_plans(Nx, Ny, n_members).items()},
+            **{k: dict(force="gm1", plan=p) for k, p in k1_gm1_plans(Nx, Ny).items()}}
+    row = dict(kernel="K1", grid=f"{Nx}x{Ny}", N=n_members, root=ROOT, route=rt,
+               substeps=(int(nsub.median()), float(nsub.float().mean()), int(nsub.max())),
+               bound_ms=cs.transport_bound_ms(s0, Fx, Fy, t_args[3], nsub)[0], variants={})
+    if new:
+        row["plans"] = {k: tuple(p) if p else p for k, p in (
+            ("rt1", transport.rt1_plan(Nx, Ny)), ("gm1", transport.gm1_plan(Nx, Ny)),
+            *k1_gm1_plans(Nx, Ny).items())}
+    first = None
+    for tag, kw in runs.items():
+        run = lambda: transport_substeps_cuda(*t_args, **kw)  # noqa: E731
+        out = run()
+        first = out if first is None else first
+        assert torch.equal(out, first), (Nx, Ny, n_members, tag)
+        row["variants"][tag] = dict(
+            ms=cs.cuda_ms(run, reps if Nx * Ny < 10**6 else 2),
+            s_hash=hashlib.sha1(out.cpu().numpy().tobytes()).hexdigest()[:16])
+        if Nx * Ny <= 4400:
+            row["variants"][tag]["device_ms"] = device_ms(run, 20)
+    return row
+
+
 def p_variants(Nx, Ny, unit, extra=True):
     """P's variants at a grid: P-cl on the grid's plan ("cl", where a
     cluster holds it), P-gm ("gm", where `gm_plan` cuts it) and P-gm1
@@ -457,10 +578,11 @@ def kcl_grid_row(Nx, Ny, n_members, reps):
 def k_row(Nx, Ny, n_members, reps, forces=None, precond="mg"):
     """One row of K at a grid and batch, on the substeps of the first step
     (its pressure step with `precond`): each variant of `forces`, by
-    default each that takes the grid (K-cl, K-rt1 where its tiles fit one
-    block, K-rt where a strip plan fits, K-gm where `gm_plan` splits it,
-    and K-gm1 where no cluster does), timed, each held to the first bit
-    for bit."""
+    default each that takes the grid (K-cl, K-rt1 where one block holds
+    the grid (`rt1_plan`; in a checkout without it, where its tiles fit),
+    K-rt where a strip plan fits, K-gm where `gm_plan` splits it, and
+    K-gm1 where no cluster does), timed, each held to the first bit for
+    bit."""
     import torch
 
     from historymatching_tpu_torch.ops import _build, transport
@@ -476,8 +598,9 @@ def k_row(Nx, Ny, n_members, reps, forces=None, precond="mg"):
                gm_plan=plan and (len(plan[0]), *plan[1:]), substeps=int(nsub.median()),
                precond=precond, bound_ms=cs.transport_bound_ms(s0, Fx, Fy, t_args[3], nsub)[0])
     fits = transport.smem_bytes(Nx, Ny) <= _build.SMEM_LIMIT
+    rt1 = transport.rt1_plan(Nx, Ny) if hasattr(transport, "rt1_plan") else fits
     forces = forces or ((["cl"] if cl_plan else ["gm1"])
-                        + (["rt1"] if fits else [])
+                        + (["rt1"] if rt1 else [])
                         + (["rt"] if fits and transport.rt_plan(Nx, Ny) else [])
                         + (["gm"] if plan else []))
     first = None
@@ -500,9 +623,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out", default="")
-    ap.add_argument("--kernel", choices=("P", "K", "gm1", "cl", "kcl"), default=None,
+    ap.add_argument("--kernel", choices=("P", "K", "gm1", "cl", "kcl", "k1"), default=None,
                     help="time one kernel's routes only (default: P's and K's), or P-gm1's "
-                         "choices, or P-cl or K-cl on [24]'s first step")
+                         "choices, or P-cl or K-cl on [24]'s first step, or K-rt1 and K-gm1")
     ap.add_argument("--grids", default="",
                     help="comma-separated NXxNY: time the rows of these grids only")
     ap.add_argument("--root", default=ROOT,
@@ -531,6 +654,20 @@ def main(argv=None):
                 for Nx, Ny in grids:
                     rows.append(kcl_grid_row(Nx, Ny, n_members, opts.reps))
                     print(json.dumps(rows[-1]), flush=True)
+    if opts.kernel == "k1":
+        grids = [g for g in K1_ROWS if not keep or g in keep]
+        _build.prebuild(k_grids=grids)
+        if hasattr(transport, "rt1_plan"):
+            _build._load([sp for g in grids for sp in _build._kt_specs(*g)]
+                         + [_build._tile_plan_spec(p, False)
+                            for g in grids for n in K1_ROWS[g]
+                            for p in k1_plans(*g, n).values()]
+                         + [_build._tile_plan_spec(p, True)
+                            for g in grids for p in k1_gm1_plans(*g).values()])
+        for Nx, Ny in grids:
+            for n_members in K1_ROWS[(Nx, Ny)]:
+                rows.append(k1_row(Nx, Ny, n_members, opts.reps))
+                print(json.dumps(rows[-1]), flush=True)
     if opts.kernel == "gm1":
         for (Nx, Ny), n_members in GM1_CASES:
             if not keep or (Nx, Ny) in keep:

@@ -52,9 +52,9 @@ Phases, one printed line or more each; any failed check raises:
     not cover (15x15, 12x9, 10x10, 12x12, 24x16, 80x80; one library a
     grid), forced, against its plain version at N=64 on fields and fluxes
     of a real pressure step (bit for bit), each timed beside K-rt1 (the
-    runtime-grid body, these small grids' route; bit for bit too) and its
-    bound; and built for 64x64 on [6]'s inputs against the templated K and
-    K-rt1;
+    tile body: these small grids' route, a member on its own warps; bit
+    for bit too) and its bound; and built for 64x64 on [6]'s inputs against
+    the templated K and K-rt1;
 19. kernel P built for grids outside the main library (8x8, 10x10, 12x12,
     24x16, 80x80), both smoothers, against its plain version after one
     window, the acceptance counts at bench settings and its time a launch;
@@ -87,7 +87,7 @@ Phases, one printed line or more each; any failed check raises:
     instantiations, each against its plain version after one window and
     timed at bench settings, with its plan, bytes and inverse rows a rank,
     resources and clusters resident; K on its route (K-cl, or K-rt at
-    60x60), K-rt1 where its tiles fit, K-rt where a strip plan fits and
+    60x60), K-rt1 where its one-block plan fits, K-rt where a strip plan fits and
     K-gm forced, each bit for bit on a real step and timed against its
     bound (K-gm, a member over co-resident blocks a band of rows, with its
     bands and members in flight); a few steps of `simulate`
@@ -101,7 +101,7 @@ Phases, one printed line or more each; any failed check raises:
     device memory, its inverse streamed through a ring of bulk copies)
     beside it, with its
     registers, spills, blocks and members in flight, and K-gm beside K-gm1
-    (one block a member, its fw tiles in device memory); `simulate` at
+    (a member over co-resident 2-D tiles); `simulate` at
     32x1088 (N=4), past P-gm's capacity and K-gm's first plan (a row wider
     than a block), through each P-gm1 instantiation and K-gm on its widened
     plan (strips of 4 rows and 2 columns a thread), then K-gm timed on its
@@ -109,7 +109,8 @@ Phases, one printed line or more each; any failed check raises:
     and its inverse's floor); `simulate` at
     4x1100 through K-rt1 (a row wider than a block of the strip body) and
     at 5x6000 through K-gm1 (past K-gm's capacity), N=4, each timed on its
-    step 6; P-gm1, K-gm and K-gm1 forced at 64x64 on [6]'s inputs beside
+    step 6 with its plan, K-gm1's device-memory body forced there too;
+    P-gm1, K-gm and K-gm1 forced at 64x64 on [6]'s inputs beside
     the shared-memory kernels;
     23c. K at 600x600, N=4, past K-gm's first plan (150 bands of 4 rows)
     with rows under 1,024 cells: on the first step's inputs K-gm on its
@@ -121,7 +122,7 @@ Phases, one printed line or more each; any failed check raises:
     saturations of every step kept on the card; wall, launches, cg
     acceptance a pass, peak memory, RMSE, and 10 profiled steps; on its
     first step P-cl and K-cl against their plain versions and timed beside
-    P-gm1, K-rt1 and K-gm, all forced;
+    P-gm1, K-gm1 and K-gm, all forced;
     24b. the bench case's geometry at P-cl/d's grids, a 60x220 layer of
     SPE10 model 2 and 100x100 (`parity.build_case(seed=1, N=1000, Nx, Ny)`):
     5 steps of the first pass through `forward_model` and P's route (P-gm1
@@ -219,8 +220,8 @@ GM_PATH_GRID, GM_PATH_N = (120, 440), 16
 # grid whose 1,088 columns exceed one block's row (and whose band of 8 rows
 # exceeds P-gm's block), N=4.
 GM1_PATH_GRID, GM1_PATH_N = (32, 1088), 4
-# [23]'s paths of K-rt1 (a row wider than a block of the strip body) and
-# K-gm1 (past K-gm's capacity), N=4; [23c]'s grid past K-gm's first plan
+# [23]'s paths of the tile body: K-rt1 (a row wider than a block of the
+# strip body) and K-gm1 (past K-gm's capacity), N=4; [23c]'s grid past K-gm's first plan
 # with rows under 1,024 cells, N=4.
 ROUTE_PATHS, ROUTE_PATH_N = {"rt1": (4, 1100), "gm1": (5, 6000)}, 4
 CAPACITY_GRID, CAPACITY_N = (600, 600), 4
@@ -248,7 +249,7 @@ EXAMPLES = (
 STAGE_OF = (("pressure_pcg_kernel", "pressure_pcg"), ("pressure_pcg_gm_kernel", "pressure_pcg"),
             ("pressure_pcg_gm1_kernel", "pressure_pcg"), ("pressure_pcg_cl_kernel", "pressure_pcg"),
             ("transport_upwind_kernel", "transport_upwind"),
-            ("transport_upwind_rt1_kernel", "transport_upwind"),
+            ("transport_upwind_tile_kernel", "transport_upwind"),
             ("transport_upwind_gm_kernel", "transport_upwind"),
             ("transport_upwind_gm1_kernel", "transport_upwind"),
             ("transport_upwind_cl_kernel", "transport_upwind"))
@@ -885,7 +886,7 @@ def new_grid_phases(dev, six):
             info = _build.kernel_info(name, *grid)
             figs[name]["grids"].setdefault(f"{grid[0]}x{grid[1]}", {})["resources"] = info
             log(f"[19c] {name} {grid[0]}x{grid[1]}: {info}")
-            assert name != "transport_upwind_rt" or info["local_bytes"] == 0, (grid, info)
+            assert info["local_bytes"] == 0, (name, grid, info)
     big = grid_model(torch, *GM_GRID)
     _build.reset_launches()
     res = ht.simulate(set_perm(big, torch.zeros(2, big.Nxy, device=dev)),
@@ -1093,8 +1094,10 @@ def large_grid_phases(dev, six):
         s_t = transport_substeps_torch(*t_args)
         fits = transport.smem_bytes(Nx, Ny) <= _build.SMEM_LIMIT
         k_ms, k_est = {}, None
-        # the route; where the two fw tiles fit, K-rt1 and (on a strip plan) K-rt
-        for force in dict.fromkeys((k_route, *(("rt1",) if fits else ()),
+        # the route; K-rt1 where its one-block plan fits, and where the two fw
+        # tiles fit, K-rt on a strip plan
+        rt1 = transport.rt1_plan(Nx, Ny)
+        for force in dict.fromkeys((k_route, *(("rt1",) if rt1 else ()),
                                     *(("rt",) if fits and transport.rt_plan(Nx, Ny) else ()),
                                     "gm")):
             s_k, n = launched(lambda: transport_substeps_cuda(*t_args, force=force))
@@ -1405,13 +1408,15 @@ def gm1_path(figs, gen):
 
 
 def route_paths(figs, gen):
-    """[23]'s paths of the bodies K keeps for the grids no newer plan takes,
-    `simulate` at each grid of ROUTE_PATHS (N=4, 5 steps; grids without a
-    multigrid hierarchy, so P is the plain Jacobi-PCG in torch ops): K-rt1
-    at 4x1100 (a row wider than a block of the strip body) and K-gm1 at
-    5x6000 (30,000 cells, two fw tiles past a block, a band of 4 rows past
-    K-gm's), counted; then each on step 6, bit for bit and timed with its
-    bound and the plain version. Into `figs`."""
+    """[23]'s paths of the tile body, `simulate` at each grid of ROUTE_PATHS
+    (N=4, 5 steps; grids without a multigrid hierarchy, so P is the plain
+    Jacobi-PCG in torch ops): K-rt1 at 4x1100 (a row wider than a block of
+    the strip body; one block of strips of 4 rows and 2 columns a thread)
+    and K-gm1 at 5x6000 (30,000 cells, two fw tiles past a block, a band of
+    4 rows past K-gm's; 2-D tiles over co-resident blocks), counted; then
+    each on step 6, bit for bit and timed with its bound, its plan and the
+    plain version, and K-gm1's device-memory body (its route past the
+    tiles' capacity) forced there the same way. Into `figs`."""
     import torch
 
     import historymatching_tpu_torch as ht
@@ -1447,14 +1452,26 @@ def route_paths(figs, gen):
         plain_ms = cuda_ms(lambda: transport_substeps_torch(*t_args), 1)
         bnd, by = transport_bound_ms(s5, Fx, Fy, t_args[3], nsub)
         figs[name][f"launches_simulate_{tag}"] = launches[name]
-        figs[name]["grids"][tag] = dict(ms=ms, bound_ms=bnd, bound_by=by, share_of_bound=bnd / ms,
-                                        max_abs_err=0.0, plain_ms=plain_ms,
-                                        substeps_median=int(nsub.median()),
-                                        resources=_build.kernel_info(name, Nx, Ny))
+        res = _build.kernel_info(name, Nx, Ny)
+        assert res["local_bytes"] == 0, res
+        fig = figs[name]["grids"][tag] = dict(
+            ms=ms, bound_ms=bnd, bound_by=by, share_of_bound=bnd / ms, max_abs_err=0.0,
+            plain_ms=plain_ms, substeps_median=int(nsub.median()), resources=res)
+        said = ""
+        if rt == "gm1":  # the device-memory body, forced
+            dev_run = lambda: transport_substeps_cuda(  # noqa: E731
+                *t_args, force="gm1", plan=transport.DEVICE)
+            assert torch.equal(dev_run(), transport_substeps_torch(*t_args))
+            dev_ms = cuda_ms(dev_run, 3)
+            dev_res = _build.kernel_info(name, Nx, Ny, transport.DEVICE)
+            assert dev_res["local_bytes"] == 0, dev_res
+            fig["device_memory_body"] = dict(ms=dev_ms, share_of_bound=bnd / dev_ms,
+                                             max_abs_err=0.0, resources=dev_res)
+            said = f"; its device-memory body forced max|ds| 0, {dev_ms:.3f} ms ({dev_res})"
         log(f"[23] {name} on its route at {tag}, N={n}: simulate 5 steps {wall:.3f} s, launches "
             f"{launches}; on step 6 max|ds| 0, {ms:.3f} ms ({int(nsub.median())} substeps "
-            f"median; {figs[name]['grids'][tag]['resources']}), plain {plain_ms:.3f} ms, bound "
-            f"{bnd:.5f} ms ({by}, {bnd / ms:.1%})")
+            f"median; {res}), plain {plain_ms:.3f} ms, bound {bnd:.5f} ms ({by}, "
+            f"{bnd / ms:.1%}){said}")
 
 
 def capacity_check(figs, gen):
@@ -1786,7 +1803,7 @@ def large_case_kernels(model, prior):
     assert transport.route(Nx, Ny) == "cl"
     s_t = transport_substeps_torch(*t_args)
     k_ms = {}
-    for force in ("cl", "rt1", "gm"):
+    for force in ("cl", "gm1", "gm"):
         s_k, n = launched(lambda: transport_substeps_cuda(*t_args, force=force))
         assert n == {transport.NAMES[force]: 1}, n
         assert torch.equal(s_k, s_t), (force, float((s_k - s_t).abs().max()))
@@ -1799,7 +1816,7 @@ def large_case_kernels(model, prior):
               for f, ms in k_ms.items()}
     k_res = _build.kernel_info("transport_upwind_cl", Nx, Ny)
     k_sub = iteration_us(k_ms["cl"], k_res["max_active_clusters"], nsub)
-    k_figs["transport_upwind_cl"].update(rt1_ms=k_ms["rt1"], gm_ms=k_ms["gm"],
+    k_figs["transport_upwind_cl"].update(gm1_ms=k_ms["gm1"], gm_ms=k_ms["gm"],
                                          plan=transport.cl_plan(Nx, Ny), resources=k_res)
     log(f"[24] kernels on the first step's system (N={prior.shape[0]}, {Nx}x{Ny}, the first "
         f"pass's settings): " + "; ".join(said) + f"; plain {plain_ms:.3f} ms; K-cl "
@@ -2099,7 +2116,9 @@ def main(argv=None):
                     cl_plans=[(*g, *cl_plan(*g, True, "device")) for g in LAYER_GRIDS],
                     cl_probes=[(*BIG, *cl_plan(*BIG))],  # [24] counts P-cl's barriers
                     gm_grids=(GM_PATH_GRID,) + LAYER_GRIDS[1:] + _build.GRIDS,  # [2]'s table
-                    k_grids=K_RT_GRIDS + ((NX, NY), GM1_PATH_GRID, CAPACITY_GRID) + LARGE_GRIDS)
+                    k_grids=K_RT_GRIDS + ((NX, NY), GM1_PATH_GRID, CAPACITY_GRID, GM_PATH_GRID,
+                                          BIG) + LARGE_GRIDS + tuple(ROUTE_PATHS.values()),
+                    kt_grids=_build.GRIDS)  # [2]'s table
     log(f"[2] kernels built in {time.perf_counter() - t0:.1f} s "
         f"(compiled: {_build.build_info['built']}) -> {_build.build_info['paths']}")
     for stem, text in _build.build_info["ptxas"].items():
@@ -2625,9 +2644,9 @@ def main(argv=None):
         library_ms=None, share_of_bound=rt["bound_ms"] / rt["ms"], templated_ms=rt["templated_ms"],
         rt1_ms=rt["rt1_ms"], grids=rt["grids"],
         launches_examples={r["run"]: r["launches"].get("transport_upwind_rt", 0) for r in runs}))
-    # K-rt1, the runtime-grid body: its path is [23]'s simulate at
-    # ROUTE_PATHS' grid, timed there, and [21]'s optimise --small (12x12);
-    # forced at [18]'s grids, at [6]'s inputs and on [24]'s first step.
+    # K-rt1, the tile body with a member in one block: its path is [23]'s
+    # simulate at ROUTE_PATHS' grid, timed there, and [21]'s optimise
+    # --small (12x12); forced at [18]'s grids and at [6]'s inputs.
     rt1, rt1_at = large.pop("transport_upwind_rt1"), "x".join(map(str, ROUTE_PATHS["rt1"]))
     g = rt1["grids"][rt1_at]
     kernels.append(dict(
@@ -2639,7 +2658,6 @@ def main(argv=None):
         share_of_bound=g["share_of_bound"], at_grid=rt1_at,
         grids=dict(new["transport_upwind_rt1"]["grids"], **rt1["grids"]),
         forced_64x64=new["transport_upwind_rt1"]["forced_64x64"],
-        large_case=dict(big["kernels"]["transport_upwind_rt1"], forced=True),
         launches_examples={r["run"]: r["launches"].get("transport_upwind_rt1", 0) for r in runs}))
     # P with an explicit fine diagonal: its path is [19b]'s
     # simulate(scale_system=False); timed at [6]'s shapes.

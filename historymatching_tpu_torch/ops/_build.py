@@ -8,10 +8,12 @@ compiled on first use into a library of its own (`pressure_lib`);
 `prebuild` starts every compiler a run will need at once. Kernel K's
 strip body is compiled likewise for any other grid whose strips fit one
 block (K-rt, `transport_rt_lib`). The device-memory variants P-gm1
-(`pressure_pcg_gm1.cu`), K-rt1, K-gm and K-gm1 (beside K) take the grid at
-run time, so one library serves every grid; K-gm's plans other than its
-first (strips of 4 rows, one column a thread) get one library each
-(`transport_gm_lib`); P-gm (`pressure_pcg_gm.cu`) is a template on the
+(`pressure_pcg_gm1.cu`), K-gm and K-gm1's device-memory body (beside K)
+take the grid at run time, so one library serves every grid; K-gm's plans
+other than its first (strips of 4 rows, one column a thread) get one
+library each (`transport_gm_lib`), and so does each strip shape, face
+placement and thread bound of the tile body that K-rt1 and K-gm1's tiles
+run (`transport_tile_lib`); P-gm (`pressure_pcg_gm.cu`) is a template on the
 grid and its plan, one library each, built on first use
 (`pressure_gm_lib`).
 The cluster variants (P-cl in `pressure_pcg_cl.cu`, K-cl in `transport_upwind.cu`
@@ -57,11 +59,11 @@ SMEM_TWO_A_SM = 115_712
 SMEM_PER_SM = 228 * 1024  # an SM's shared memory, 1 KB of it reserved for each block
 
 # Launches by kernel: K's templated body, K-rt (the same body built for
-# another grid), K-rt1 (the runtime-grid body), the device-memory and
-# cluster variants, and P by smoother, by fine diagonal (unit, or read:
-# the unscaled system) and by route (shared memory, "_gm": co-resident
-# blocks a member, "_gm1": device memory, one block a member, "_cl": a
-# thread-block cluster a member).
+# another grid), K-rt1 (the tile body, a member in one block), the
+# co-resident, device-memory and cluster variants, and P by smoother, by
+# fine diagonal (unit, or read: the unscaled system) and by route (shared
+# memory, "_gm": co-resident blocks a member, "_gm1": device memory, one
+# block a member, "_cl": a thread-block cluster a member).
 _P_NAMES = ("pressure_pcg", "pressure_pcg_cheb", "pressure_pcg_diag", "pressure_pcg_cheb_diag")
 LAUNCHES = dict.fromkeys(("transport_upwind", "transport_upwind_rt", "transport_upwind_rt1",
                           *_P_NAMES,
@@ -83,16 +85,14 @@ _SIGNATURES = {
     "transport_upwind": {
         # s, Fx, Fy, q, q_stride, dts_pv, n_sub, out, B, Nx, Ny, vw, vo, swc, sor, stream
         "hm_transport_substeps": _TRANSPORT,
-        "hm_transport_substeps_rt1": _TRANSPORT,
         # the same with the halo and the flags after `out`, the bands after Ny
         "hm_transport_substeps_gm": _TRANSPORT[:8] + [P, P] + _TRANSPORT[8:11] + [I]
         + _TRANSPORT[11:],
-        # the same with the fw workspace after `out`
-        "hm_transport_substeps_gm1": _TRANSPORT[:8] + [P] + _TRANSPORT[8:],
+        # the same with the fw workspace and the barrier count after `out`
+        "hm_transport_substeps_gm1": _TRANSPORT[:8] + [P, P] + _TRANSPORT[8:],
         "hm_transport_info": [I, I, P],
-        "hm_transport_rt1_info": [I, I, P],
         "hm_transport_gm_info": [I, I, I, P],
-        "hm_transport_gm1_info": [I, I, P],
+        "hm_transport_gm1_info": [P],
     },
     "pressure_pcg": {
         "hm_pressure_solve": _PRESSURE,
@@ -124,6 +124,12 @@ _SIGNATURES["transport_upwind_cl"] = {"hm_transport_substeps_cl": _TRANSPORT,
                                       "hm_transport_cl_info": [I, I, P]}
 _SIGNATURES["transport_upwind_rt"] = {"hm_transport_substeps_rt": _TRANSPORT,
                                       "hm_transport_rt_info": [I, I, P]}
+# the tile body: K-gm's arguments with the tiles a member along i and j,
+# the members a block and the threads a member after Ny
+_SIGNATURES["transport_upwind_tile"] = {
+    "hm_transport_substeps_tile": _TRANSPORT[:8] + [P, P] + _TRANSPORT[8:11] + [I, I, I, I]
+    + _TRANSPORT[11:],
+    "hm_transport_tile_info": [I, I, I, I, I, I, P]}
 _SIGNATURES["transport_upwind_gm"] = {
     k: _SIGNATURES["transport_upwind"][k] for k in ("hm_transport_substeps_gm",
                                                     "hm_transport_gm_info")}
@@ -229,9 +235,9 @@ def _load(specs):
 
 
 def lib():
-    """The main libraries' C entry points (K at `GRIDS`, K-rt1, K-gm's first
-    plan, K-gm1, P at `GRIDS`, P-gm1), built first where their sources
-    changed."""
+    """The main libraries' C entry points (K at `GRIDS`, K-gm's first plan,
+    K-gm1's device-memory body, P at `GRIDS`, P-gm1), built first where
+    their sources changed."""
     if "main" not in _libs:
         _load([_spec(stem) for stem in _MAIN])
         _libs["main"] = types.SimpleNamespace(**{k: v for stem in _MAIN
@@ -348,6 +354,59 @@ def transport_gm_lib(strip, cols, threads):
     return _get(_kgm_spec, strip, cols, _gm_threads(threads))
 
 
+# The tile body's library for a strip shape, a face placement
+# (`ops/transport.TILE_FACES`), several tiles a member or one (K-gm1's
+# plans, K-rt1's), one member a block or up to `ops.transport.RT1_PACK`
+# (`groups`), and its thread bound: a block's threads rounded up to whole
+# groups of four warps, which leaves ptxas's register cap as it is
+# (registers go to a block four warps at a time; `ops.transport.reg_budget`).
+_FACES = {"registers": 0, "shared": 1}
+
+
+def _tile_threads(threads):
+    return -(-threads // 128) * 128
+
+
+def _tile_spec(strip, cols, faces, tiled, threads, groups=1):
+    t = _tile_threads(threads)
+    m = f"m{groups}" if groups > 1 else ""
+    return _spec("transport_upwind",
+                 key=f"transport_upwind_tile_s{strip}w{cols}{faces[0]}{'g' * tiled}{m}t{t}",
+                 flags=[f"-DHM_KT_S={strip}", f"-DHM_KT_W={cols}", f"-DHM_KT_F={_FACES[faces]}",
+                        f"-DHM_KT_G={int(tiled)}", f"-DHM_KT_M={groups}", f"-DHM_KT_T={t}"],
+                 sigs="transport_upwind_tile")
+
+
+def _tile_plan_spec(plan, tiled):
+    """The tile body's library of a plan (`ops.transport.TilePlan`)."""
+    from historymatching_tpu_torch.ops.transport import RT1_PACK
+
+    return _tile_spec(plan.strip, plan.cols, plan.faces, tiled, plan.members * plan.threads,
+                      1 if plan.members == 1 else RT1_PACK)
+
+
+def transport_tile_lib(plan, tiled):
+    """The tile body's C entry points for a plan (`ops.transport.TilePlan`):
+    K-rt1's, and with `tiled` K-gm1's tiles; strips of `plan.strip` rows
+    and `plan.cols` columns a thread, the faces in `plan.faces`, one member
+    a block or several, in blocks of the plan's threads, built on first
+    use."""
+    from historymatching_tpu_torch.ops.transport import RT1_PACK
+
+    return _get(_tile_spec, plan.strip, plan.cols, plan.faces, bool(tiled),
+                _tile_threads(plan.members * plan.threads),
+                1 if plan.members == 1 else RT1_PACK)
+
+
+def _kt_specs(Nx, Ny):
+    """The tile body's libraries for a grid's plans of K-rt1 and K-gm1
+    (`rt1_plan`, `gm1_plan`)."""
+    from historymatching_tpu_torch.ops import transport
+
+    plans = (transport.rt1_plan(Nx, Ny), False), (transport.gm1_plan(Nx, Ny), True)
+    return [_tile_plan_spec(p, tiled) for p, tiled in plans if p]
+
+
 def _k_specs(Nx, Ny):
     """K's libraries of its own for a grid: K-rt where `rt_plan` gives a
     plan (its route, or `force`), K-gm where `gm_plan` gives one other than
@@ -381,14 +440,15 @@ def _cl_grid_specs(Nx, Ny):
 
 
 def prebuild(pressure_grids=(), cl_grids=(), cl_plans=(), gm_grids=(), k_grids=(),
-             cl_probes=(), kcl_plans=()):
+             cl_probes=(), kcl_plans=(), kt_grids=()):
     """Build the main libraries, kernel P's libraries for `pressure_grids`
     outside `GRIDS`, the cluster libraries of `cl_grids`, P-cl's for each
     (Nx, Ny, c, place) of `cl_plans` and its probe build for each of
     `cl_probes`, P-gm's for both fine diagonals' plans of each grid of
-    `gm_grids`, K's own libraries of each grid of `k_grids` (`_k_specs`)
-    and K-cl's for each (Nx, Ny, plan) of `kcl_plans`, every compiler at
-    once."""
+    `gm_grids`, K's own libraries of each grid of `k_grids` (`_k_specs`,
+    and the tile body's for K-rt1's and K-gm1's plans, `_kt_specs`), the
+    tile body's alone for each grid of `kt_grids`, and K-cl's for each
+    (Nx, Ny, plan) of `kcl_plans`, every compiler at once."""
     from historymatching_tpu_torch.ops.pressure import gm_plan
 
     extra = [g for g in dict.fromkeys(tuple(g) for g in pressure_grids) if g not in GRIDS]
@@ -399,7 +459,8 @@ def prebuild(pressure_grids=(), cl_grids=(), cl_plans=(), gm_grids=(), k_grids=(
           + [_cl_specs(Nx, Ny, [(c, place)])[0] for Nx, Ny, c, place in cl_plans]
           + [_cl_specs(Nx, Ny, [(c, place)], probe=True)[0] for Nx, Ny, c, place in cl_probes]
           + [_gm_spec(*args) for args in dict.fromkeys(gm)]
-          + [sp for g in k_grids for sp in _k_specs(*g)]
+          + [sp for g in k_grids for sp in _k_specs(*g) + _kt_specs(*g)]
+          + [sp for g in kt_grids for sp in _kt_specs(*g)]
           + [_kcl_spec(*args) for args in kcl_plans])
 
 
@@ -413,8 +474,12 @@ def kernel_info(kernel, Nx, Ny, plan=None):
     registers and local (stack and spill) bytes a thread, dynamic shared
     bytes and threads a block, resident blocks an SM. `kernel` is a key of
     `LAUNCHES`; K-rt reports its grid's library (`ops.transport.rt_plan`),
-    and adds its strip's rows and the place of its faces; K-gm1 its static
-    shared bytes (its workspace holds K's two tiles); P-gm1 ("_gm1", on its
+    and adds its strip's rows and the place of its faces; K-rt1 and K-gm1
+    on their grid's plan (`ops.transport.rt1_plan`, `gm1_plan`), or on
+    `plan`: the tile body's shared bytes a block, and
+    adds its tiles a member, the members in flight and its plan, or K-gm1's
+    device-memory body's static shared bytes, and adds the blocks its
+    launch takes and its plan, DEVICE; P-gm1 ("_gm1", on its
     grid's `gm1_plan`) its plan's shared bytes; K-gm its shared bytes (two
     fw tiles, each thread's faces and sources), and adds its bands a
     member, the groups of bands (members in flight) the card holds at
@@ -452,11 +517,19 @@ def kernel_info(kernel, Nx, Ny, plan=None):
             raise ValueError(f"{kernel}: no strip plan takes a {Nx}x{Ny} grid")
         code = transport_rt_lib(Nx, Ny, *plan).hm_transport_rt_info(Nx, Ny, out)
         extra = dict(strip=plan[0], faces=plan[1])
+    elif kernel in ("transport_upwind_rt1", "transport_upwind_gm1"):
+        plan = transport._plan(kernel[-3:], Nx, Ny, None, plan)
+        if plan == transport.DEVICE:
+            code = lib().hm_transport_gm1_info(out)
+            keys += ("blocks",)
+            extra = dict(plan=plan)
+        else:
+            code = transport_tile_lib(plan, kernel.endswith("gm1")).hm_transport_tile_info(
+                Nx, Ny, plan.gr, plan.gc, plan.members, plan.threads, out)
+            keys += ("tiles", "groups_resident")
+            extra = dict(plan=plan._asdict())
     elif kernel.startswith("transport"):
-        fn = {"transport_upwind_rt1": lib().hm_transport_rt1_info,
-              "transport_upwind_gm1": lib().hm_transport_gm1_info}.get(kernel,
-                                                                       lib().hm_transport_info)
-        code = fn(Nx, Ny, out)
+        code = lib().hm_transport_info(Nx, Ny, out)
     elif kernel.endswith("_cl"):
         plan = plan or pressure.cl_plan(Nx, Ny, bool(unit))
         code = pressure_cl_lib(Nx, Ny, *plan).hm_pressure_cl_info(Nx, Ny, cheb, unit, out)

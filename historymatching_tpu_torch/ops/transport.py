@@ -14,14 +14,18 @@ member loops over its own substep count (`csrc/transport_upwind.cu`).
   whose edge rows of fw it pushes into its neighbours' shared memory
   every substep (`cl_plan`), past 4,096 cells where a cluster takes the
   grid;
-- "rt1" (K-rt1): the runtime-grid body K-rt had before, where the two fw
-  tiles fit one block but no strip plan does, and on small grids at small
-  batches;
+- "rt1" (K-rt1): the tile body (`rt1_plan`) with a member in one block,
+  where the two fw tiles fit one block but no strip plan of one column a
+  thread does, and on small grids at small batches, where a member runs
+  on its own warps, one cell a thread (several members a block, each on
+  its own named barrier, where `plan` asks);
 - "gm" (K-gm): a member over co-resident blocks, each a band of rows in
   strips of S rows and W columns a thread (`gm_plan`), the bands' edge rows
   exchanged through L2, for the grids left;
-- "gm1" (K-gm1): past K-gm's capacity, K-rt1's body with its fw tiles in
-  device memory, one block a member.
+- "gm1" (K-gm1): past K-gm's capacity, the tile body over co-resident
+  blocks, a member in 2-D tiles whose edge rows and columns go through L2
+  (`gm1_plan`); past the tiles' capacity, every block the card holds on
+  one member at a time, its state in device memory.
 Beside it, `transport_substeps_torch` is the plain PyTorch version; it runs
 the batch to its largest count and freezes each member after its own, which
 gives the same per-member result.
@@ -69,10 +73,11 @@ SM_SHARED, BLOCK_RESERVED, SMS = 233_472, 1024, 132
 CL_REGS = (12, 14)
 # K-rt1 keeps a grid of up to RT1_CELLS cells (one cell a thread there)
 # while the batch holds up to RT1_BATCH_CELLS cells: such a launch is
-# bound by its chain of substeps, where K-rt1's one cell a thread ran
-# faster than K-rt's strips of 4 cells (bench_routes.py on the H100: 100-
-# 784 cells at N=64, 100-384 at N=1000); past either, K-rt ran faster
-# (784 and 900 cells at N=1000, 1,296 cells up at N=64).
+# bound by its chain of substeps, where K-rt1's first form, one cell a
+# thread, ran faster than K-rt's strips of 4 cells (bench_routes.py on the
+# H100, launch times with the host's: 100-784 cells at N=64, 100-384 at
+# N=1000); past either, K-rt ran faster (784 and 900 cells at N=1000,
+# 1,296 cells up at N=64). The tile body kept the rule (PERF.md).
 RT1_CELLS, RT1_BATCH_CELLS = 1024, 400_000
 # Threads a block at most, and the rows of a strip (csrc `kStrip`,
 # `kMaxStrip`): the templated K's, and the range K-rt and K-gm plan in.
@@ -105,9 +110,9 @@ def reg_budget(threads):
 
 
 def smem_bytes(Nx, Ny):
-    """Shared memory K-rt1 takes for one member, and the templated K and
-    K-rt with their faces in registers: two fw tiles of the grid. K-gm1
-    puts the same tiles in device memory."""
+    """Shared memory the templated K and K-rt with their faces in registers
+    take for one member, and the floor of a one-block tile plan of K-rt1:
+    two fw tiles of the grid."""
     return 2 * 4 * Nx * Ny
 
 
@@ -291,6 +296,137 @@ def gm_plan(Nx, Ny):
     return None
 
 
+# K-rt1 and K-gm1 run the tile body (csrc `transport_upwind_tile_kernel`,
+# one library a strip shape, face placement, tiling and thread bound,
+# built on first use: `_build.transport_tile_lib`). Its plan: a member in
+# gr x gc tiles (rows and columns split as `gm_bands` splits rows, the
+# first ones one more), strips of `strip` rows and `cols` columns a thread,
+# the faces and sources held in "registers" (split once) or in "shared"
+# memory slots (K-gm's `gm_slots`), `members` members a block on their own
+# groups of `threads` threads (one tile a member; whole warps where more
+# than one).
+TilePlan = namedtuple("TilePlan", "gr gc strip cols faces members threads")
+TILE_FACES = ("registers", "shared")  # csrc kFacesRegs, kFacesSlots
+# Registers a thread needs by strip shape: the least register cap of those
+# tried (64, 72, 80, 96, 128: 1,024, 896, 768, 640 and 512 threads) under
+# which the tile body built without spilling (ptxas on the H100, CUDA
+# 12.9): one tile a member with the faces in "registers" or in "shared"
+# memory, and several ("tiles", K-gm1's, faces in shared memory; its edge
+# logic costs 32-64 registers more than one tile's). A plan takes only
+# these shapes: tiles of 4x2, 4x4, 5x2 and 8x1 spilled under 128.
+TILE_SHAPES = {
+    "registers": {(1, 1): 64, (2, 1): 64, (4, 1): 128},
+    "shared": {(4, 1): 80, (5, 1): 80, (6, 1): 96, (4, 2): 80, (5, 2): 96, (4, 3): 96,
+               (5, 3): 128, (6, 2): 128, (4, 4): 128, (8, 1): 128, (8, 2): 128},
+    "tiles": {(4, 1): 128, (5, 1): 128, (6, 1): 128},
+}
+# A small grid's member (up to RT1_CELLS cells) on its own group of warps:
+# one cell a thread (strips of RT1_STRIP rows), the faces split once into
+# registers, one member a block. On the H100 (bench_routes.py --kernel k1,
+# the card's time alone, at 12x12, 10x10, 15x15, 24x16 and 12x9): one cell
+# a thread ran 3.15-5.26 us a launch at N=64 against strips of 2 rows'
+# 3.98-7.67 and the first form's 3.25-6.66, and 4.74-19.32 at N=1000
+# against the first form's 5.08-30.92; two or four members a block (up to
+# RT1_PACK, csrc `kMaxGroups`, each on its own named barrier: `plan=`
+# forces them) ran 3-67% slower than one at every grid and batch measured.
+RT1_STRIP, RT1_PACK = 1, 4
+
+
+def tile_threads(rows, width, strip, cols):
+    """The tile body's threads a tile of rows x width: its strips times its
+    column groups."""
+    return -(-rows // strip) * -(-width // cols)
+
+
+def tile_bytes(rows, width, strip, cols, faces, members=1, threads=None):
+    """The tile body's shared bytes a block: each group's two fw tiles of
+    rows x width, and with the faces in "shared" memory each thread's
+    `gm_slots`."""
+    t = threads or tile_threads(rows, width, strip, cols)
+    return 4 * members * (2 * rows * width + (gm_slots(strip, cols) * t if faces == "shared"
+                                              else 0))
+
+
+def tile_fits(rows, width, strip, cols, faces, members=1, threads=None, tiled=False):
+    """Whether one block holds `members` tiles of rows x width on a strip
+    shape of `TILE_SHAPES` (under "tiles" where `tiled`): its threads, its
+    bytes and its registers."""
+    regs = TILE_SHAPES["tiles" if tiled else faces].get((strip, cols))
+    t = members * (threads or tile_threads(rows, width, strip, cols))
+    return (regs is not None and t <= MAX_THREADS and regs <= reg_budget(t)
+            and tile_bytes(rows, width, strip, cols, faces, members, threads) <= _build.SMEM_LIMIT)
+
+
+def tile_dims(Nx, Ny, plan):
+    """The largest tile of a plan: (rows, columns)."""
+    return -(-Nx // plan.gr), -(-Ny // plan.gc)
+
+
+@lru_cache(maxsize=None)
+def rt1_plan(Nx, Ny):
+    """K-rt1's plan for a grid, a TilePlan of one tile a member. A grid of up to
+    RT1_CELLS cells: strips of RT1_STRIP rows, one column a thread, the
+    faces in registers, the member's threads rounded to whole warps, one
+    member a block. A larger grid: one block a member,
+    with the faces in "shared" memory, on the strip shape of the fewest
+    cells a thread, then the fewest columns, that fits (`tile_fits`); None
+    where none fits (past ~8,000 cells)."""
+    check_grid(Nx, Ny)
+    if Nx * Ny <= RT1_CELLS:
+        strip = min(RT1_STRIP, Nx)
+        threads = -(-tile_threads(Nx, Ny, strip, 1) // 32) * 32
+        return TilePlan(1, 1, strip, 1, "registers", 1, threads)
+    for strip, cols in sorted(TILE_SHAPES["shared"], key=lambda sc: (sc[0] * sc[1], sc[1])):
+        if tile_fits(Nx, Ny, strip, cols, "shared"):
+            return TilePlan(1, 1, strip, cols, "shared", 1, tile_threads(Nx, Ny, strip, cols))
+    return None
+
+
+def _widest(rows, Ny, strip, cols):
+    """The most columns of a tile of `rows` rows that one block holds on a
+    strip shape with the faces in shared memory (`tile_fits`), 0 where
+    none."""
+    width = min(Ny, cols * (MAX_THREADS // -(-rows // strip)))
+    while width > 0 and not tile_fits(rows, width, strip, cols, "shared", tiled=True):
+        width -= 1
+    return width
+
+
+@lru_cache(maxsize=None)
+def gm1_plan(Nx, Ny, shapes=None):
+    """K-gm1's tile plan for a grid: a TilePlan of gr x gc tiles a member,
+    one block a tile, the faces in shared memory, at most GM_MAX_BANDS tiles
+    (so one member's blocks, one an SM, are resident at once), on the strip
+    shapes of `TILE_SHAPES["tiles"]`: a strip that divides the largest
+    tile's rows where one does (no short last strip), then, as `gm_plan`,
+    the fewest cells a thread, then the fewest tiles, then the fewest
+    columns a thread, then the shortest edges (a tile's rows and columns).
+    On the H100 (bench_routes.py --kernel k1) 5x6000's tiles of 5 rows ran
+    3.50-3.55 / 20.5-20.6 / 312 ms at N=4 / 64 / 1000 on strips of 5
+    against strips of 4's (and a strip of 1 row) 3.72-3.81 / 29.1-29.8 /
+    443-447. None
+    past the tiles' capacity (~0.9-1.08 M cells), where K-gm1 runs its
+    device-memory body. `shapes`: the (strip, cols) to choose from, by
+    default all."""
+    check_grid(Nx, Ny)
+    plans = []
+    for strip, cols in shapes or TILE_SHAPES["tiles"]:
+        best = None  # the shape's plan: the fewest tiles, then the shortest edges
+        for gr in range(1, min(Nx, GM_MAX_BANDS) + 1):
+            rows = -(-Nx // gr)
+            width = _widest(rows, Ny, strip, cols)
+            gc = -(-Ny // width) if width else 0
+            if width and gr * gc <= GM_MAX_BANDS and (
+                    best is None or (gr * gc, rows + -(-Ny // gc)) < best[0]):
+                best = (gr * gc, rows + -(-Ny // gc)), gr, gc, rows
+        if best:
+            _, gr, gc, rows = best
+            key = (rows % strip > 0, strip * cols, gr * gc, cols, best[0][1])
+            plans.append((key, TilePlan(gr, gc, strip, cols, "shared", 1,
+                                        tile_threads(rows, -(-Ny // gc), strip, cols))))
+    return min(plans)[1] if plans else None
+
+
 def route(Nx, Ny, batch=None):
     """Which kernel K takes a grid of a batch of `batch` members (not
     given: a small batch): "templated" at `_build.GRIDS`; "cl" past
@@ -299,8 +435,9 @@ def route(Nx, Ny, batch=None):
     (SMS / 2 members) and `rt_plan` gives a plan; where the two
     fw tiles fit one block's shared memory (`_build.SMEM_LIMIT`) "rt1" on
     up to RT1_CELLS cells while the batch holds up to RT1_BATCH_CELLS,
-    else "rt" where `rt_plan` gives a plan, else "rt1"; past that "gm"
-    where `gm_plan` gives a plan and "gm1" past it."""
+    else "rt" where `rt_plan` gives a plan, else "rt1" where `rt1_plan`
+    gives one; past that "gm" where `gm_plan` gives a plan and "gm1" past
+    it."""
     check_grid(Nx, Ny)
     if (Nx, Ny) in _build.GRIDS:
         return "templated"
@@ -310,7 +447,10 @@ def route(Nx, Ny, batch=None):
         return "rt" if two and rt_plan(Nx, Ny) else "cl"
     if smem_bytes(Nx, Ny) <= _build.SMEM_LIMIT:
         small = Nx * Ny <= RT1_CELLS and (batch or 1) * Nx * Ny <= RT1_BATCH_CELLS
-        return "rt" if not small and rt_plan(Nx, Ny) else "rt1"
+        if not small and rt_plan(Nx, Ny):
+            return "rt"
+        if rt1_plan(Nx, Ny):
+            return "rt1"
     return "gm" if gm_plan(Nx, Ny) else "gm1"
 
 
@@ -341,24 +481,52 @@ def transport_substeps_torch(s, Fx, Fy, q, dts_pv, n_sub, fluid):
     return s
 
 
+DEVICE = "device"  # K-gm1's plan past its tiles: every resident block on one member
+
+
+def _plan(rt, Nx, Ny, B, plan):
+    """The plan a launch of route `rt` runs: `plan` where given and the
+    route takes it (K-cl: one of `cl_plans`; K-rt1: a TilePlan of one tile
+    a member that `tile_fits`; K-gm1: a TilePlan whose tiles fit, or
+    DEVICE), else the route's own; () for the routes without one."""
+    if plan is None:
+        plan = {"rt": rt_plan, "cl": cl_plan, "gm": gm_plan, "gm1": gm1_plan,
+                "rt1": rt1_plan}.get(rt, lambda Nx, Ny: ())(Nx, Ny)
+        if plan is None and rt != "gm1":
+            what = {"rt": "no strip plan of K-rt", "cl": "no cluster",
+                    "gm": "no band plan of K-gm", "rt1": "no tile plan of K-rt1"}
+            raise ValueError(f"transport kernel: {what[rt]} takes a {Nx}x{Ny} grid")
+        return DEVICE if plan is None else plan
+    if rt == "cl" and ClPlan(*plan) in cl_plans(Nx, Ny):
+        return ClPlan(*plan)
+    if rt == "gm1" and plan == DEVICE:
+        return DEVICE
+    if rt in ("rt1", "gm1") and plan != DEVICE and len(plan) == len(TilePlan._fields):
+        p = TilePlan(*plan)
+        rows, width = tile_dims(Nx, Ny, p)
+        if (p.faces in TILE_FACES and (p.gr * p.gc == 1 or (rt == "gm1" and p.members == 1))
+                and p.members <= RT1_PACK and (p.members == 1 or p.threads % 32 == 0)
+                and p.gr <= Nx and p.gc <= Ny
+                and p.threads >= tile_threads(rows, width, p.strip, p.cols)
+                and tile_fits(rows, width, p.strip, p.cols, p.faces, p.members, p.threads,
+                              rt == "gm1")):
+            return p
+    raise ValueError(f"transport kernel: {plan} is no plan of {rt} at {Nx}x{Ny}")
+
+
 def transport_substeps_cuda(s, Fx, Fy, q, dts_pv, n_sub, fluid, force=None, plan=None):
     """The hand kernel. Same arguments as the plain version, float32 on one
     CUDA device; a `q` with one member is read by every member in place.
     The grid's `route` picks the body; `force` (one of `ROUTES`) picks one
     at any grid (the templated kernel only at `_build.GRIDS`, K-rt where
-    `rt_plan`, K-cl where `cl_plan` and K-gm where `gm_plan` give a plan);
-    `plan` (one of `cl_plans`) another plan of K-cl."""
+    `rt_plan`, K-cl where `cl_plan`, K-gm where `gm_plan` and K-rt1 where
+    `rt1_plan` give a plan; K-gm1 at any); `plan` another plan of K-cl (one
+    of `cl_plans`), K-rt1 or K-gm1 (a TilePlan, or DEVICE for K-gm1)."""
     B, Nx, Ny = s.shape
     if force not in (None, *ROUTES):
         raise ValueError(f"force must be one of {ROUTES} or None, got {force!r}")
     rt = route(Nx, Ny, B) if force is None else force
-    if plan is not None and (rt != "cl" or ClPlan(*plan) not in cl_plans(Nx, Ny)):
-        raise ValueError(f"transport kernel: {plan} is no plan of K-cl at {Nx}x{Ny}")
-    plan = plan or {"rt": rt_plan, "cl": cl_plan, "gm": gm_plan}.get(
-        rt, lambda Nx, Ny: ())(Nx, Ny)
-    if plan is None:
-        what = {"rt": "no strip plan of K-rt", "cl": "no cluster", "gm": "no band plan of K-gm"}
-        raise ValueError(f"transport kernel: {what[rt]} takes a {Nx}x{Ny} grid")
+    plan = _plan(rt, Nx, Ny, B, plan)
     shapes = {"s": (s, (B, Nx, Ny)), "Fx": (Fx, (B, Nx + 1, Ny)),
               "Fy": (Fy, (B, Nx, Ny + 1)), "q": (q, (1 if q.shape[0] == 1 else B, Nx, Ny)),
               "dts_pv": (dts_pv, (B,))}
@@ -385,18 +553,28 @@ def transport_substeps_cuda(s, Fx, Fy, q, dts_pv, n_sub, fluid, force=None, plan
         flags = torch.zeros(B * G, dtype=torch.int32, device=s.device)
         code = _build.transport_gm_lib(strip, cols, threads).hm_transport_substeps_gm(
             *args, halo.data_ptr(), flags.data_ptr(), B, Nx, Ny, G, *tail[3:])
-    elif rt == "gm1":
-        ws = torch.empty(B * smem_bytes(Nx, Ny) // 4, dtype=torch.float32, device=s.device)
-        code = _build.lib().hm_transport_substeps_gm1(*args, ws.data_ptr(), *tail)
+    elif plan == DEVICE:  # two fw tiles of one member, and the barriers passed
+        ws = torch.empty(2 * Nx * Ny, dtype=torch.float32, device=s.device)
+        count = torch.zeros(1, dtype=torch.int32, device=s.device)
+        code = _build.lib().hm_transport_substeps_gm1(*args, ws.data_ptr(), count.data_ptr(),
+                                                      *tail)
+    elif rt == "gm1":  # each tile's edges in two slots, and the substeps it published
+        P = plan.gr * plan.gc
+        halo = torch.empty(B * P * 4 * sum(tile_dims(Nx, Ny, plan)), dtype=torch.float32,
+                           device=s.device)
+        flags = torch.zeros(B * P, dtype=torch.int32, device=s.device)
+        code = _build.transport_tile_lib(plan, True).hm_transport_substeps_tile(
+            *args, halo.data_ptr(), flags.data_ptr(), B, Nx, Ny, plan.gr, plan.gc, 1,
+            plan.threads, *tail[3:])
+    elif rt == "rt1":  # one tile a member: no halo, no flags
+        code = _build.transport_tile_lib(plan, False).hm_transport_substeps_tile(
+            *args, None, None, B, Nx, Ny, 1, 1, plan.members, plan.threads, *tail[3:])
     elif rt == "cl":
-        code = _build.transport_cl_lib(Nx, Ny, ClPlan(*plan)).hm_transport_substeps_cl(*args,
-                                                                                     *tail)
+        code = _build.transport_cl_lib(Nx, Ny, plan).hm_transport_substeps_cl(*args, *tail)
     elif rt == "rt":
         code = _build.transport_rt_lib(Nx, Ny, *plan).hm_transport_substeps_rt(*args, *tail)
     else:
-        lib = _build.lib()
-        fn = lib.hm_transport_substeps_rt1 if rt == "rt1" else lib.hm_transport_substeps
-        code = fn(*args, *tail)
+        code = _build.lib().hm_transport_substeps(*args, *tail)
     _build.check(code, NAMES[rt])
     _build.LAUNCHES[NAMES[rt]] += 1
     return out

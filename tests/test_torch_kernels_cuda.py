@@ -196,12 +196,16 @@ def test_transport_runtime_grid_matches_plain(dev, Nx, Ny):
     assert torch.equal(out, ref)
 
 
-@pytest.mark.parametrize("Nx,Ny,force", [(8, 3632, None), (150, 150, None), (15, 15, "rt1"),
+@pytest.mark.parametrize("Nx,Ny,force", [(4, 1100, None), (2, 2000, None), (15, 15, "rt1"),
                                          (80, 80, "rt1"), (64, 64, "rt1")])
 def test_transport_rt1_matches_plain(dev, Nx, Ny, force):
-    """K-rt1, the runtime-grid body, on its route where no strip plan fits
-    (a row of 3,632 cells; 22,500 cells that no cluster takes) and forced
-    where K-rt, K-cl or the templated K take the grid: bit for bit."""
+    """K-rt1, the tile body with a member in one block, on its route where no
+    strip plan of one column a thread fits (rows of 1,100 and 2,000 cells:
+    strips of 4 rows and 2 or 4 columns a thread) and forced where K-rt,
+    K-cl or the templated K take the grid: bit for bit. (8x3632 and 150x150,
+    its grids before no one-block plan built without spilling, are K-gm1's
+    and K-gm's: `test_transport_gm1_matches_plain`,
+    `test_transport_gm_matches_plain`.)"""
     args = _transport_inputs(dev, Nx, Ny, 5)
     assert transport_route(Nx, Ny) == "rt1" or force == "rt1"
     before = _build.LAUNCHES["transport_upwind_rt1"]
@@ -209,6 +213,30 @@ def test_transport_rt1_matches_plain(dev, Nx, Ny, force):
     torch.cuda.synchronize()
     assert _build.LAUNCHES["transport_upwind_rt1"] == before + 1
     assert torch.equal(out, transport_substeps_torch(*args))
+
+
+@pytest.mark.parametrize("Nx,Ny,members,strip", [(12, 12, 4, 2), (10, 10, 4, 1), (12, 9, 3, 4),
+                                                 (24, 16, 2, 2)])
+def test_transport_rt1_groups_match_plain(dev, Nx, Ny, members, strip):
+    """K-rt1 on small grids, several members a block, each on its own warps
+    and named barrier, looping over its own substep count (unequal in every
+    block, some none): bit for bit; the route's plan too."""
+    from historymatching_tpu_torch.ops.transport import TilePlan, rt1_plan, tile_threads
+
+    B = 3 * members + 1  # a last block with one member
+    s, Fx, Fy, q, dts_pv, n_sub, fluid = _transport_inputs(dev, Nx, Ny, 11, B)
+    n_sub[::members] = 0
+    threads = -(-tile_threads(Nx, Ny, strip, 1) // 32) * 32
+    plan = TilePlan(1, 1, strip, 1, "registers", members, threads)
+    ref = transport_substeps_torch(s, Fx, Fy, q, dts_pv, n_sub, fluid)
+    before = _build.LAUNCHES["transport_upwind_rt1"]
+    for p in (plan, rt1_plan(Nx, Ny)):
+        out = transport_substeps_cuda(s, Fx, Fy, q, dts_pv, n_sub, fluid, force="rt1", plan=p)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), p
+    assert _build.LAUNCHES["transport_upwind_rt1"] == before + 2
+    info = _build.kernel_info("transport_upwind_rt1", Nx, Ny, plan)
+    assert info["threads"] == members * threads and info["local_bytes"] == 0, info
 
 
 def test_transport_rt_refuses_what_it_does_not_take(dev):
@@ -367,8 +395,12 @@ def test_new_kernel_resources(dev, Nx, Ny):
     plan = rt_plan(Nx, Ny)
     assert k["shared_bytes"] == rt_bytes(Nx, Ny, *plan) and k["blocks_per_sm"] >= 1, k
     assert k["threads"] == rt_threads(Nx, Ny, plan[0]) and k["local_bytes"] == 0, k
+    from historymatching_tpu_torch.ops.transport import rt1_plan, tile_bytes
+
     k = _build.kernel_info("transport_upwind_rt1", Nx, Ny)
-    assert k["shared_bytes"] == 2 * 4 * Nx * Ny and k["blocks_per_sm"] >= 1
+    plan = rt1_plan(Nx, Ny)
+    assert k["shared_bytes"] == tile_bytes(Nx, Ny, plan.strip, plan.cols, plan.faces)
+    assert k["local_bytes"] == 0 and k["blocks_per_sm"] >= 1, k
 
 
 def test_build_defaults_to_cuda(dev):
@@ -466,7 +498,7 @@ def _transport_inputs(dev, Nx, Ny, seed, B=8):
 
 @pytest.mark.parametrize("Nx,Ny,force,B", [(171, 171, None, 8), (120, 440, None, 16),
                                            (120, 440, None, 64), (192, 192, "gm", 8),
-                                           (64, 64, "gm", 8)])
+                                           (64, 64, "gm", 8), (150, 150, None, 8)])
 def test_transport_gm_matches_plain(dev, Nx, Ny, force, B):
     """K-gm, a member over co-resident blocks a band of rows, where the two
     fw tiles do not fit one block and no cluster takes the grid (171x171
@@ -504,19 +536,43 @@ def test_transport_gm_refused_launch_raises(dev, monkeypatch):
     assert _build.LAUNCHES["transport_upwind_gm"] == before
 
 
-@pytest.mark.parametrize("Nx,Ny,force", [(8, 5000, None), (32, 1088, "gm1"), (171, 171, "gm1"),
-                                         (64, 64, "gm1")])
-def test_transport_gm1_matches_plain(dev, Nx, Ny, force):
-    """K-gm1, one block a member with its fw tiles in device memory, on its
-    route past K-gm's capacity (a band of 4 rows of 5,000 cells exceeds a
-    block) and forced at 32x1088 (K-gm's since its plans widened), 171x171
-    and 64x64: bit for bit."""
-    args = _transport_inputs(dev, Nx, Ny, 7)
+@pytest.mark.parametrize("Nx,Ny,force,B", [(8, 5000, None, 8), (32, 1088, "gm1", 8),
+                                           (171, 171, "gm1", 8), (64, 64, "gm1", 8),
+                                           (5, 6000, None, 8), (8, 3632, None, 8),
+                                           (1090, 1090, None, 2)])
+def test_transport_gm1_matches_plain(dev, Nx, Ny, force, B):
+    """K-gm1 on its route past K-gm's capacity, a member over co-resident
+    2-D tiles (8x5000, [23]'s 5x6000, and 8x3632, K-rt1's before), on its
+    device-memory body past the tiles' capacity (1090x1090, two members of
+    one step), and forced at 32x1088 (K-gm's since its plans widened),
+    171x171 and 64x64: bit for bit, a shared source field too."""
+    from historymatching_tpu_torch.ops.transport import DEVICE, gm1_plan
+
+    s, Fx, Fy, q, dts_pv, n_sub, fluid = _transport_inputs(dev, Nx, Ny, 7, B)
+    assert (gm1_plan(Nx, Ny) is None) == ((Nx, Ny) == (1090, 1090))
     before = _build.LAUNCHES["transport_upwind_gm1"]
-    out = transport_substeps_cuda(*args, force=force)
+    out = transport_substeps_cuda(s, Fx, Fy, q, dts_pv, n_sub, fluid, force=force)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["transport_upwind_gm1"] == before + 1
-    assert torch.equal(out, transport_substeps_torch(*args))
+    assert torch.equal(out, transport_substeps_torch(s, Fx, Fy, q, dts_pv, n_sub, fluid))
+    q1 = q[:1].contiguous()
+    plan = DEVICE if (Nx, Ny) == (64, 64) else None  # the device-memory body on a small grid
+    assert torch.equal(
+        transport_substeps_cuda(s, Fx, Fy, q1, dts_pv, n_sub, fluid, force="gm1", plan=plan),
+        transport_substeps_torch(s, Fx, Fy, q1, dts_pv, n_sub, fluid))
+
+
+def test_transport_gm1_refused_launch_raises(dev):
+    """A K-gm1 plan whose tiles the card cannot hold at once (266 tiles of
+    one row of 512 columns, at most two blocks an SM on 132 SMs) is refused
+    by the cooperative launch; the wrapper raises and counts no launch."""
+    from historymatching_tpu_torch.ops.transport import TilePlan
+
+    before = _build.LAUNCHES["transport_upwind_gm1"]
+    with pytest.raises(RuntimeError, match="transport_upwind_gm1: CUDA error"):
+        transport_substeps_cuda(*_transport_inputs(dev, 133, 1024, 7, B=2), force="gm1",
+                                plan=TilePlan(133, 2, 4, 1, "shared", 1, 512))
+    assert _build.LAUNCHES["transport_upwind_gm1"] == before
 
 
 # K-gm's widened plans (`gm_plan`): grids past the first plan's capacity.
@@ -581,11 +637,43 @@ def test_gm_wide_kernel_resources(dev, Nx, Ny, B):
     assert k["shared_bytes"] == gm_bytes(Ny, rows, strip, cols), k
 
 
+# The tile body's plans on the card tests' and chip_smoke's paths: K-rt1's
+# and K-gm1's.
+TILE_PLANS = [("rt1", 4, 1100), ("rt1", 2, 2000), ("rt1", 15, 15), ("rt1", 12, 12),
+              ("rt1", 80, 80), ("rt1", 64, 64), ("rt1", 88, 88), ("gm1", 5, 6000),
+              ("gm1", 8, 5000), ("gm1", 16, 2056), ("gm1", 8, 3632), ("gm1", 32, 1088),
+              ("gm1", 171, 171), ("gm1", 600, 600), ("gm1", 120, 440), ("gm1", 128, 128)]
+
+
+@pytest.mark.parametrize("rt,Nx,Ny", TILE_PLANS)
+def test_tile_kernel_resources(dev, rt, Nx, Ny):
+    """Every plan of the tile body on these paths: its threads and bytes as
+    the plan counts them (`tile_threads`, `tile_bytes`), no spills (the
+    register table `TILE_SHAPES` holds), its tiles and at least one member
+    in flight."""
+    from historymatching_tpu_torch.ops.transport import (
+        gm1_plan,
+        rt1_plan,
+        tile_bytes,
+        tile_dims,
+    )
+
+    plan = rt1_plan(Nx, Ny) if rt == "rt1" else gm1_plan(Nx, Ny)
+    k = _build.kernel_info(f"transport_upwind_{rt}", Nx, Ny, plan)
+    print(f"K-{rt} {Nx}x{Ny} {plan}: {k}")
+    assert k["local_bytes"] == 0 and k["groups_resident"] >= 1, k
+    assert k["threads"] == plan.members * plan.threads and k["tiles"] == plan.gr * plan.gc, k
+    assert k["shared_bytes"] == tile_bytes(*tile_dims(Nx, Ny, plan), plan.strip, plan.cols,
+                                           plan.faces, plan.members, plan.threads), k
+
+
 @pytest.mark.parametrize("Nx,Ny", [(64, 64), (128, 128), (60, 220), (256, 256), (120, 440)])
 def test_gm_kernel_resources(dev, Nx, Ny):
     """The device-memory variants' footprints: P-gm1's shared bytes and
-    threads as its plan counts them (`gm1_plan`), K-gm1's few static shared
-    bytes, K-gm's two fw tiles of its largest band and each thread's 17
+    threads as its plan counts them (`gm1_plan`), K-gm1's forced tiles
+    (`transport.gm1_plan`: its tiles' two fw tiles and slots, its threads, at
+    least one member in flight) and its device-memory body's few static
+    shared bytes, K-gm's two fw tiles of its largest band and each thread's 17
     faces and sources; no spills;
     resident blocks on an SM; K-gm's bands and the members in flight
     (groups of bands resident at once). P-gm, where `gm_plan` cuts the grid
@@ -601,8 +689,17 @@ def test_gm_kernel_resources(dev, Nx, Ny):
         print(f"{name} {Nx}x{Ny}: {p}")
         assert p["shared_bytes"] == plan.smem_bytes and p["threads"] == plan.threads, p
         assert p["local_bytes"] == 0 and p["blocks_per_sm"] >= 1, p
+    from historymatching_tpu_torch.ops.transport import DEVICE, tile_bytes, tile_dims
+    from historymatching_tpu_torch.ops.transport import gm1_plan as k_gm1_plan
+
     k = _build.kernel_info("transport_upwind_gm1", Nx, Ny)
-    assert k["shared_bytes"] <= 1024 and k["local_bytes"] == 0 and k["blocks_per_sm"] >= 1
+    plan = k_gm1_plan(Nx, Ny)
+    assert k["local_bytes"] == 0 and k["blocks_per_sm"] >= 1 and k["groups_resident"] >= 1, k
+    assert k["threads"] == plan.threads and k["tiles"] == plan.gr * plan.gc, k
+    assert k["shared_bytes"] == tile_bytes(*tile_dims(Nx, Ny, plan), plan.strip, plan.cols,
+                                           "shared"), k
+    k = _build.kernel_info("transport_upwind_gm1", Nx, Ny, DEVICE)
+    assert k["shared_bytes"] <= 1024 and k["local_bytes"] == 0 and k["blocks"] >= 132, k
     for name in ("pressure_pcg_gm", "pressure_pcg_cheb_gm", "pressure_pcg_diag_gm",
                  "pressure_pcg_cheb_diag_gm"):
         unit = "_diag" not in name

@@ -2,7 +2,8 @@
 outside `_build.GRIDS` (csrc/transport_upwind.cu `transport_upwind_kernel`
 under -DHM_KRT_*): its plan (`ops/transport.rt_plan`: strips of S rows, one
 column a thread, the faces in registers or in shared memory), the route
-between it and K-rt1 (the runtime-grid body it replaced), the library a
+between it and K-rt1 (the runtime-grid body it replaced; the tile body
+since, tests/test_torch_transport_tile.py), the library a
 grid gets, and its schedule in a plain emulation held to the plain version
 and to the JAX package's Pallas kernel.
 
@@ -97,14 +98,17 @@ def test_reg_budget():
 
 # K's route: the strip body (K-rt) on every grid of more than RT1_CELLS
 # cells whose strips fit a block and whose tiles fit; K-rt1 on the grids
-# of up to RT1_CELLS cells (one cell a thread, faster there) and where no
-# strip plan fits (a row wider than a block's threads; more cells than
-# S = 16 rows a thread or shared memory hold).
+# of up to RT1_CELLS cells (faster there) and where no strip plan of one
+# column a thread fits but K-rt1's one-block tile plan does (a row wider
+# than a block's threads); past that, where K-rt1's first form held a grid
+# with its faces read from L1 every substep (8x3632, 150x150, 99x199: no
+# one-block plan of the tile body builds without spilling), K-gm or K-gm1
+# (bench_routes.py --kernel k1: faster at N=64 and 1000).
 STRIP_ROUTES = {
     (15, 15): "rt1", (12, 9): "rt1", (10, 10): "rt1", (12, 12): "rt1", (24, 16): "rt1",
     (30, 30): "rt1", (32, 32): "templated", (33, 32): "rt", (36, 36): "rt",
     (60, 60): "rt", (75, 75): "rt", (97, 97): "rt", (3, 500): "rt",
-    (8, 3632): "rt1", (2, 2000): "rt1", (150, 150): "rt1", (99, 199): "rt1",
+    (8, 3632): "gm1", (2, 2000): "rt1", (150, 150): "gm", (99, 199): "gm",
     (80, 80): "cl", (64, 64): "templated",
 }
 
@@ -112,10 +116,13 @@ STRIP_ROUTES = {
 @pytest.mark.parametrize("grid", list(STRIP_ROUTES))
 def test_strip_route(grid):
     """K-rt past RT1_CELLS cells where `rt_plan` gives a plan and the two
-    fw tiles fit, K-rt1 where only the tiles fit or on fewer cells, K-cl
-    and the templated K keep theirs; a forced K-rt without a plan is
-    refused before any launch, and every route reaches the wrappers'
-    refusal of CPU tensors (nothing falls back)."""
+    fw tiles fit, K-rt1 where only the tiles and its one-block plan fit or
+    on fewer cells, K-gm or K-gm1 past that, K-cl and the templated K keep
+    theirs; a forced K-rt or K-rt1 without a plan is refused before any
+    launch, and every route reaches the wrappers' refusal of CPU tensors
+    (nothing falls back)."""
+    from historymatching_tpu_torch.ops.transport import rt1_plan
+
     Nx, Ny = grid
     assert transport.route(Nx, Ny) == STRIP_ROUTES[grid]
     if STRIP_ROUTES[grid] in ("rt", "rt1"):  # the route for a batch not given: a small one
@@ -127,7 +134,11 @@ def test_strip_route(grid):
     if rt_plan(Nx, Ny) is None:
         with pytest.raises(ValueError, match="no strip plan"):
             transport_substeps_cuda(*args, force="rt")
-    for force in (None, "rt1") + (("rt",) if rt_plan(Nx, Ny) else ()):
+    if rt1_plan(Nx, Ny) is None:
+        with pytest.raises(ValueError, match="no tile plan of K-rt1"):
+            transport_substeps_cuda(*args, force="rt1")
+    for force in ((None,) + (("rt1",) if rt1_plan(Nx, Ny) else ())
+                  + (("rt",) if rt_plan(Nx, Ny) else ())):
         with pytest.raises(ValueError, match="need float32 CUDA"):
             transport_substeps_cuda(*args, force=force)
     assert transport.NAMES["rt"] == "transport_upwind_rt"
