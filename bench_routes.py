@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time each route of kernels P and K against the others on one NVIDIA GPU.
 
-    python3 bench_routes.py [--out FILE] [--kernel P|K|gm1|cl|kcl|k1] [--grids 15x15,...]
+    python3 bench_routes.py [--out FILE] [--kernel P|K|gm1|cl|kcl|k1|tileregs]
+                            [--grids 15x15,...]
                             [--root DIR]
 
 The evidence behind `ops/pressure.route` and `ops/transport.route` past one
@@ -67,12 +68,17 @@ at N=64 and 1000. A K row carries the same figures for K-cl's plan; at
 (K_CL_MEMBERS). `--kernel k1` times K-rt1 and K-gm1 (`k1_row`) on the
 first step's substeps (`k_inputs`, the pressure step by the diagonally
 preconditioned `pcg` in torch ops) at K1_ROWS' grids and batches: the
-route's body, K-rt1 where it takes the grid and K-gm1, each with a hash of
-s (equal hashes: the same bits; every variant equal to the first), and in
-a checkout with K-rt1's small-grid plans (`ops/transport.rt1_plan`) a
-ladder of them (K1_LADDER: rows a thread and members a block) and K-gm1's
-plans on each strip shape of its tiles (`k1_gm1_plans`); the
-parent's first forms come from its checkout through `--root`.
+route's body, K-rt1 where it takes the grid, K-gm1 where the route is
+another, K-rt on small grids, and in a checkout with K-gm1's
+device-memory plans (`ops/transport.GM1Device`) K-gm1's tiles and one
+block a member, or past its tiles the card's blocks spread over the
+batch, beside its route's plan; each with a hash of
+s (equal hashes: the same bits; every variant equal to the first); the
+parent's first forms come from its checkout through `--root`. `--kernel
+tileregs` builds the tile body on every strip shape and face placement of
+TILE_REG_SHAPES at every register cap of TILE_REG_CAPS (the most threads
+a block that leaves the cap) and prints each build's registers and local
+(spill) bytes, the source of `ops/transport.TILE_SHAPES`.
 `--root DIR` times the package and
 `chip_smoke.py` of another
 checkout (an unpacked `git archive` of an earlier commit) on this file's
@@ -129,13 +135,23 @@ K_WIDE_ROWS = {(32, 1088): ("mg", K_LADDER), (600, 600): ("jacobi", K_LADDER),
 # capacity (1090x1090); K-rt1: a row wider than a block of the strip body
 # (4x1100, [23]'s path), the grids past one block's strips that it took
 # before (8x3632, 150x150, 99x199) and small grids ([18]'s, [21]'s 12x12).
-# The small grids' ladder: (rows a thread, members a block).
-K1_ROWS = {(5, 6000): (4, 64, 1000), (8, 5000): (4, 64, 1000), (16, 2056): (4, 64, 1000),
-           (1090, 1090): (4,), (4, 1100): (4, 64, 1000), (8, 3632): (64, 1000),
-           (150, 150): (64, 1000), (99, 199): (64, 1000), (12, 12): (64, 1000),
-           (10, 10): (64, 1000), (15, 15): (64, 1000), (24, 16): (64, 1000),
-           (12, 9): (64, 1000)}
-K1_LADDER = [(1, 1), (2, 1), (1, 2), (1, 4), (2, 4)]
+SWITCH = (64, 128, 256, 1000)  # the batches that place a route's switch
+GM1_SWITCH = (4, 16, 32, 48, *SWITCH)  # K-gm1's tiles against one block a member
+K1_ROWS = {(5, 6000): (4, *SWITCH), (8, 5000): GM1_SWITCH, (16, 2056): GM1_SWITCH,
+           (1090, 1090): (4, 64), (4, 1100): (4, 64, 1000), (8, 3632): GM1_SWITCH,
+           (150, 150): (64, 1000), (99, 199): (64, 1000), (12, 12): SWITCH,
+           (10, 10): SWITCH, (15, 15): SWITCH, (24, 16): SWITCH, (12, 9): SWITCH,
+           (28, 28): SWITCH}
+# `--kernel tileregs`: (face placement, strip rows, columns a thread), "tiles"
+# K-gm1's build with the edge logic, and the register caps with the most
+# threads a block that leaves each (`ops/transport.reg_budget`).
+TILE_REG_SHAPES = ([("registers", a, 1) for a in (1, 2, 4)]
+                   + [("shared", a, c) for a, c in ((4, 1), (5, 1), (6, 1), (4, 2), (5, 2),
+                                                     (4, 3), (5, 3), (6, 2), (4, 4), (8, 1),
+                                                     (8, 2))]
+                   + [("tiles", a, c) for a, c in ((4, 1), (5, 1), (6, 1), (8, 1), (4, 2),
+                                                    (5, 2))])
+TILE_REG_CAPS = {64: 1024, 72: 896, 80: 768, 96: 640, 128: 512}
 # P's cases whose route takes the batch (`ops/pressure.DIST_BATCH_MAX`,
 # `GM_BATCH_MAX`), timed at these batches too, between the two of MEMBERS
 # (120x440 also at [23]'s N=16).
@@ -383,27 +399,6 @@ def gm1_row(Nx, Ny, n_members, reps):
     return row
 
 
-def k1_plans(Nx, Ny, n_members):
-    """K-rt1's small-grid plans of K1_LADDER at a grid and batch, by tag
-    ("s<rows>m<members>"): strips of `rows` rows, one column a thread, the
-    faces in registers, `members` a block where the block holds them
-    (`ops/transport.tile_fits`); none in a checkout without them or past
-    RT1_CELLS cells."""
-    from historymatching_tpu_torch.ops import transport
-
-    if not hasattr(transport, "rt1_plan") or Nx * Ny > transport.RT1_CELLS:
-        return {}
-    plans = {}
-    for strip, members in K1_LADDER:
-        strip = min(strip, Nx)
-        threads = -(-transport.tile_threads(Nx, Ny, strip, 1) // 32) * 32
-        if members <= n_members and transport.tile_fits(Nx, Ny, strip, 1, "registers", members,
-                                                        threads):
-            plans[f"s{strip}m{members}"] = transport.TilePlan(1, 1, strip, 1, "registers",
-                                                              members, threads)
-    return plans
-
-
 def device_ms(fn, reps):
     """Mean milliseconds of `fn` on the card alone over `reps` runs: the
     launches are queued behind a ~0.1 s spin of the card, so that the host
@@ -424,26 +419,40 @@ def device_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def k1_gm1_plans(Nx, Ny):
-    """K-gm1's plans on each strip shape of its tiles (`gm1_plan` on one
-    shape), by tag ("t<strip>x<cols>"), where its route is K-gm1; none in a
-    checkout without them."""
-    from historymatching_tpu_torch.ops import transport
+def tile_regs_rows():
+    """`--kernel tileregs`: each tile body build of TILE_REG_SHAPES at each
+    cap of TILE_REG_CAPS, built at once: {library key: [registers, local
+    bytes]} as the CUDA runtime reports them."""
+    import ctypes
 
-    if not hasattr(transport, "gm1_plan") or transport.route(Nx, Ny) != "gm1":
-        return {}
-    plans = {f"t{a}x{c}": transport.gm1_plan(Nx, Ny, ((a, c),))
-             for a, c in transport.TILE_SHAPES["tiles"]}
-    return {k: p for k, p in plans.items() if p and p != transport.gm1_plan(Nx, Ny)}
+    from historymatching_tpu_torch.ops import _build
+
+    builds = [(faces, a, c, t) for faces, a, c in TILE_REG_SHAPES for t in TILE_REG_CAPS.values()]
+    spec = lambda f, a, c, t: _build._tile_spec(  # noqa: E731
+        a, c, "shared" if f == "tiles" else f, f == "tiles", t)
+    _build._load([spec(*b) for b in builds])
+    rows = {}
+    for faces, a, c, t in builds:
+        key = spec(faces, a, c, t)[0]
+        out = (ctypes.c_int * 7)()
+        lib = _build._get(_build._tile_spec, a, c, "shared" if faces == "tiles" else faces,
+                          faces == "tiles", t)
+        _build.check(lib.hm_transport_tile_info(a, c, 1, 1, 32, out), key)  # any launch shape
+        rows[key] = [out[0], out[1]]
+    return rows
 
 
 def k1_row(Nx, Ny, n_members, reps):
     """K-rt1 and K-gm1 at a grid and batch on the first step's substeps: the
     route's body, K-rt1 where it takes the grid (its tiles fit one block;
-    here, where `rt1_plan` gives a plan), K-gm1, `k1_plans` and, on a grid
-    of up to RT1_CELLS cells, K-rt, each timed with a hash of s and held to
-    the first bit for bit; on grids of up to 4,400 cells each also timed
-    on the card alone (`device_ms`, 20 runs)."""
+    here, where `rt1_plan` gives a plan), K-gm1 where the route is another,
+    on a grid of up to RT1_CELLS cells K-rt, and where the route is K-gm1
+    its tiles ("gm1_tiles") and its device-memory body on one block a
+    member ("gm1_block") where its tiles take the grid, past them that
+    body on the card's blocks spread evenly over the batch ("gm1_spread"),
+    each where it is not the route's plan; each timed with a hash
+    of s and held to the first bit for bit; on grids of up to 4,400 cells
+    each also timed on the card alone (`device_ms`, 20 runs)."""
     import hashlib
 
     import torch
@@ -454,21 +463,27 @@ def k1_row(Nx, Ny, n_members, reps):
     t_args = k_inputs(Nx, Ny, n_members, "jacobi")
     s0, Fx, Fy, _, _, nsub, _ = t_args
     rt = transport.route(Nx, Ny, n_members)
-    new = hasattr(transport, "rt1_plan")
-    rt1 = (transport.rt1_plan(Nx, Ny) if new
+    new = hasattr(transport, "GM1Device")
+    rt1 = (transport.rt1_plan(Nx, Ny) if hasattr(transport, "rt1_plan")
            else transport.smem_bytes(Nx, Ny) <= _build.SMEM_LIMIT)
-    runs = {"route": {}, **({"rt1": dict(force="rt1")} if rt1 else {}),
-            "gm1": dict(force="gm1"),
-            **({"rt": dict(force="rt")} if Nx * Ny <= transport.RT1_CELLS else {}),
-            **{k: dict(force="rt1", plan=p) for k, p in k1_plans(Nx, Ny, n_members).items()},
-            **{k: dict(force="gm1", plan=p) for k, p in k1_gm1_plans(Nx, Ny).items()}}
+    dev = {}
+    if new and rt == "gm1":  # K-gm1's plans beside its route's
+        tiles = transport.gm1_plan(Nx, Ny)
+        resident = _build.gm1_resident(s0.device)
+        plans = ({"gm1_tiles": tiles, "gm1_block": transport.GM1Device(1)} if tiles else
+                 {"gm1_spread": transport.GM1Device(resident // min(n_members, resident))})
+        dev = {k: dict(force="gm1", plan=p) for k, p in plans.items()
+               if p != transport._plan("gm1", Nx, Ny, n_members, None)}
+    runs = {"route": {}, **({"rt1": dict(force="rt1")} if rt1 and rt != "rt1" else {}),
+            **({"gm1": dict(force="gm1")} if rt != "gm1" else {}),
+            **({"rt": dict(force="rt")} if Nx * Ny <= transport.RT1_CELLS and rt != "rt"
+               else {}), **dev}
     row = dict(kernel="K1", grid=f"{Nx}x{Ny}", N=n_members, root=ROOT, route=rt,
                substeps=(int(nsub.median()), float(nsub.float().mean()), int(nsub.max())),
                bound_ms=cs.transport_bound_ms(s0, Fx, Fy, t_args[3], nsub)[0], variants={})
     if new:
-        row["plans"] = {k: tuple(p) if p else p for k, p in (
-            ("rt1", transport.rt1_plan(Nx, Ny)), ("gm1", transport.gm1_plan(Nx, Ny)),
-            *k1_gm1_plans(Nx, Ny).items())}
+        row["plans"] = {"rt1": transport.rt1_plan(Nx, Ny), "gm1": transport.gm1_plan(Nx, Ny),
+                        "route": transport._plan(rt, Nx, Ny, n_members, None)}
     first = None
     for tag, kw in runs.items():
         run = lambda: transport_substeps_cuda(*t_args, **kw)  # noqa: E731
@@ -623,9 +638,11 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out", default="")
-    ap.add_argument("--kernel", choices=("P", "K", "gm1", "cl", "kcl", "k1"), default=None,
+    ap.add_argument("--kernel", choices=("P", "K", "gm1", "cl", "kcl", "k1", "tileregs"),
+                    default=None,
                     help="time one kernel's routes only (default: P's and K's), or P-gm1's "
-                         "choices, or P-cl or K-cl on [24]'s first step, or K-rt1 and K-gm1")
+                         "choices, or P-cl or K-cl on [24]'s first step, or K-rt1 and K-gm1, "
+                         "or read the tile body's registers")
     ap.add_argument("--grids", default="",
                     help="comma-separated NXxNY: time the rows of these grids only")
     ap.add_argument("--root", default=ROOT,
@@ -654,16 +671,14 @@ def main(argv=None):
                 for Nx, Ny in grids:
                     rows.append(kcl_grid_row(Nx, Ny, n_members, opts.reps))
                     print(json.dumps(rows[-1]), flush=True)
+    if opts.kernel == "tileregs":
+        rows.append(dict(kernel="tileregs", builds=tile_regs_rows()))
+        print(json.dumps(rows[-1]), flush=True)
     if opts.kernel == "k1":
         grids = [g for g in K1_ROWS if not keep or g in keep]
         _build.prebuild(k_grids=grids)
         if hasattr(transport, "rt1_plan"):
-            _build._load([sp for g in grids for sp in _build._kt_specs(*g)]
-                         + [_build._tile_plan_spec(p, False)
-                            for g in grids for n in K1_ROWS[g]
-                            for p in k1_plans(*g, n).values()]
-                         + [_build._tile_plan_spec(p, True)
-                            for g in grids for p in k1_gm1_plans(*g).values()])
+            _build._load([sp for g in grids for sp in _build._kt_specs(*g)])
         for Nx, Ny in grids:
             for n_members in K1_ROWS[(Nx, Ny)]:
                 rows.append(k1_row(Nx, Ny, n_members, opts.reps))

@@ -1415,8 +1415,9 @@ def route_paths(figs, gen):
     and K-gm1 at 5x6000 (30,000 cells, two fw tiles past a block, a band of
     4 rows past K-gm's; 2-D tiles over co-resident blocks), counted; then
     each on step 6, bit for bit and timed with its bound, its plan and the
-    plain version, and K-gm1's device-memory body (its route past the
-    tiles' capacity) forced there the same way. Into `figs`."""
+    plain version, and K-gm1's device-memory body forced there the same
+    way, one member at a time (its route past the tiles' capacity) and one
+    block a member (its route at large batches). Into `figs`."""
     import torch
 
     import historymatching_tpu_torch as ht
@@ -1458,16 +1459,19 @@ def route_paths(figs, gen):
             ms=ms, bound_ms=bnd, bound_by=by, share_of_bound=bnd / ms, max_abs_err=0.0,
             plain_ms=plain_ms, substeps_median=int(nsub.median()), resources=res)
         said = ""
-        if rt == "gm1":  # the device-memory body, forced
-            dev_run = lambda: transport_substeps_cuda(  # noqa: E731
-                *t_args, force="gm1", plan=transport.DEVICE)
-            assert torch.equal(dev_run(), transport_substeps_torch(*t_args))
+        # the device-memory body, forced: one member at a time (its plan past
+        # the tiles) and one block a member (its plan at large batches)
+        for key, dplan in (("device_memory_body", transport.DEVICE),
+                           ("one_block_a_member", transport.GM1Device(1))) if rt == "gm1" else ():
+            dev_run = lambda p=dplan: transport_substeps_cuda(  # noqa: E731
+                *t_args, force="gm1", plan=p)
+            assert torch.equal(dev_run(), transport_substeps_torch(*t_args)), dplan
             dev_ms = cuda_ms(dev_run, 3)
-            dev_res = _build.kernel_info(name, Nx, Ny, transport.DEVICE)
+            dev_res = _build.kernel_info(name, Nx, Ny, dplan)
             assert dev_res["local_bytes"] == 0, dev_res
-            fig["device_memory_body"] = dict(ms=dev_ms, share_of_bound=bnd / dev_ms,
-                                             max_abs_err=0.0, resources=dev_res)
-            said = f"; its device-memory body forced max|ds| 0, {dev_ms:.3f} ms ({dev_res})"
+            fig[key] = dict(ms=dev_ms, share_of_bound=bnd / dev_ms, max_abs_err=0.0,
+                            resources=dev_res)
+            said += f"; {key.replace('_', ' ')} forced max|ds| 0, {dev_ms:.3f} ms ({dev_res})"
         log(f"[23] {name} on its route at {tag}, N={n}: simulate 5 steps {wall:.3f} s, launches "
             f"{launches}; on step 6 max|ds| 0, {ms:.3f} ms ({int(nsub.median())} substeps "
             f"median; {res}), plain {plain_ms:.3f} ms, bound {bnd:.5f} ms ({by}, "

@@ -88,8 +88,10 @@ _SIGNATURES = {
         # the same with the halo and the flags after `out`, the bands after Ny
         "hm_transport_substeps_gm": _TRANSPORT[:8] + [P, P] + _TRANSPORT[8:11] + [I]
         + _TRANSPORT[11:],
-        # the same with the fw workspace and the barrier count after `out`
-        "hm_transport_substeps_gm1": _TRANSPORT[:8] + [P, P] + _TRANSPORT[8:],
+        # the same with the fw workspace and the groups' barrier counts after
+        # `out`, the blocks a member and the groups after Ny
+        "hm_transport_substeps_gm1": _TRANSPORT[:8] + [P, P] + _TRANSPORT[8:11] + [I, I]
+        + _TRANSPORT[11:],
         "hm_transport_info": [I, I, P],
         "hm_transport_gm_info": [I, I, I, P],
         "hm_transport_gm1_info": [P],
@@ -124,12 +126,12 @@ _SIGNATURES["transport_upwind_cl"] = {"hm_transport_substeps_cl": _TRANSPORT,
                                       "hm_transport_cl_info": [I, I, P]}
 _SIGNATURES["transport_upwind_rt"] = {"hm_transport_substeps_rt": _TRANSPORT,
                                       "hm_transport_rt_info": [I, I, P]}
-# the tile body: K-gm's arguments with the tiles a member along i and j,
-# the members a block and the threads a member after Ny
+# the tile body: K-gm's arguments with the tiles a member along i and j
+# and the threads a block after Ny
 _SIGNATURES["transport_upwind_tile"] = {
-    "hm_transport_substeps_tile": _TRANSPORT[:8] + [P, P] + _TRANSPORT[8:11] + [I, I, I, I]
+    "hm_transport_substeps_tile": _TRANSPORT[:8] + [P, P] + _TRANSPORT[8:11] + [I, I, I]
     + _TRANSPORT[11:],
-    "hm_transport_tile_info": [I, I, I, I, I, I, P]}
+    "hm_transport_tile_info": [I, I, I, I, I, P]}
 _SIGNATURES["transport_upwind_gm"] = {
     k: _SIGNATURES["transport_upwind"][k] for k in ("hm_transport_substeps_gm",
                                                     "hm_transport_gm_info")}
@@ -356,9 +358,8 @@ def transport_gm_lib(strip, cols, threads):
 
 # The tile body's library for a strip shape, a face placement
 # (`ops/transport.TILE_FACES`), several tiles a member or one (K-gm1's
-# plans, K-rt1's), one member a block or up to `ops.transport.RT1_PACK`
-# (`groups`), and its thread bound: a block's threads rounded up to whole
-# groups of four warps, which leaves ptxas's register cap as it is
+# plans, K-rt1's), and its thread bound: a block's threads rounded up to
+# whole groups of four warps, which leaves ptxas's register cap as it is
 # (registers go to a block four warps at a time; `ops.transport.reg_budget`).
 _FACES = {"registers": 0, "shared": 1}
 
@@ -367,35 +368,45 @@ def _tile_threads(threads):
     return -(-threads // 128) * 128
 
 
-def _tile_spec(strip, cols, faces, tiled, threads, groups=1):
+def _tile_spec(strip, cols, faces, tiled, threads):
     t = _tile_threads(threads)
-    m = f"m{groups}" if groups > 1 else ""
     return _spec("transport_upwind",
-                 key=f"transport_upwind_tile_s{strip}w{cols}{faces[0]}{'g' * tiled}{m}t{t}",
+                 key=f"transport_upwind_tile_s{strip}w{cols}{faces[0]}{'g' * tiled}t{t}",
                  flags=[f"-DHM_KT_S={strip}", f"-DHM_KT_W={cols}", f"-DHM_KT_F={_FACES[faces]}",
-                        f"-DHM_KT_G={int(tiled)}", f"-DHM_KT_M={groups}", f"-DHM_KT_T={t}"],
+                        f"-DHM_KT_G={int(tiled)}", f"-DHM_KT_T={t}"],
                  sigs="transport_upwind_tile")
 
 
 def _tile_plan_spec(plan, tiled):
     """The tile body's library of a plan (`ops.transport.TilePlan`)."""
-    from historymatching_tpu_torch.ops.transport import RT1_PACK
-
-    return _tile_spec(plan.strip, plan.cols, plan.faces, tiled, plan.members * plan.threads,
-                      1 if plan.members == 1 else RT1_PACK)
+    return _tile_spec(plan.strip, plan.cols, plan.faces, tiled, plan.threads)
 
 
 def transport_tile_lib(plan, tiled):
     """The tile body's C entry points for a plan (`ops.transport.TilePlan`):
     K-rt1's, and with `tiled` K-gm1's tiles; strips of `plan.strip` rows
-    and `plan.cols` columns a thread, the faces in `plan.faces`, one member
-    a block or several, in blocks of the plan's threads, built on first
-    use."""
-    from historymatching_tpu_torch.ops.transport import RT1_PACK
-
+    and `plan.cols` columns a thread, the faces in `plan.faces`, in blocks
+    of the plan's threads, built on first use."""
     return _get(_tile_spec, plan.strip, plan.cols, plan.faces, bool(tiled),
-                _tile_threads(plan.members * plan.threads),
-                1 if plan.members == 1 else RT1_PACK)
+                _tile_threads(plan.threads))
+
+
+_gm1_resident = {}
+
+
+def gm1_resident(device):
+    """The blocks of K-gm1's device-memory body that the card of `device`
+    holds at once (`hm_transport_gm1_info`), read once a card."""
+    import torch
+
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    if index not in _gm1_resident:
+        out = (ctypes.c_int * 7)()
+        with torch.cuda.device(index):
+            check(lib().hm_transport_gm1_info(out), "transport_upwind_gm1")
+        _gm1_resident[index] = out[5]
+    return _gm1_resident[index]
 
 
 def _kt_specs(Nx, Ny):
@@ -478,8 +489,8 @@ def kernel_info(kernel, Nx, Ny, plan=None):
     on their grid's plan (`ops.transport.rt1_plan`, `gm1_plan`), or on
     `plan`: the tile body's shared bytes a block, and
     adds its tiles a member, the members in flight and its plan, or K-gm1's
-    device-memory body's static shared bytes, and adds the blocks its
-    launch takes and its plan, DEVICE; P-gm1 ("_gm1", on its
+    device-memory body's static shared bytes, and adds the blocks the card
+    holds at once and its plan (a GM1Device); P-gm1 ("_gm1", on its
     grid's `gm1_plan`) its plan's shared bytes; K-gm its shared bytes (two
     fw tiles, each thread's faces and sources), and adds its bands a
     member, the groups of bands (members in flight) the card holds at
@@ -519,13 +530,13 @@ def kernel_info(kernel, Nx, Ny, plan=None):
         extra = dict(strip=plan[0], faces=plan[1])
     elif kernel in ("transport_upwind_rt1", "transport_upwind_gm1"):
         plan = transport._plan(kernel[-3:], Nx, Ny, None, plan)
-        if plan == transport.DEVICE:
+        if isinstance(plan, transport.GM1Device):
             code = lib().hm_transport_gm1_info(out)
             keys += ("blocks",)
-            extra = dict(plan=plan)
+            extra = dict(plan=plan._asdict())
         else:
             code = transport_tile_lib(plan, kernel.endswith("gm1")).hm_transport_tile_info(
-                Nx, Ny, plan.gr, plan.gc, plan.members, plan.threads, out)
+                Nx, Ny, plan.gr, plan.gc, plan.threads, out)
             keys += ("tiles", "groups_resident")
             extra = dict(plan=plan._asdict())
     elif kernel.startswith("transport"):

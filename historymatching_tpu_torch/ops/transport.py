@@ -17,15 +17,14 @@ member loops over its own substep count (`csrc/transport_upwind.cu`).
 - "rt1" (K-rt1): the tile body (`rt1_plan`) with a member in one block,
   where the two fw tiles fit one block but no strip plan of one column a
   thread does, and on small grids at small batches, where a member runs
-  on its own warps, one cell a thread (several members a block, each on
-  its own named barrier, where `plan` asks);
+  on its own block of warps, one cell a thread;
 - "gm" (K-gm): a member over co-resident blocks, each a band of rows in
   strips of S rows and W columns a thread (`gm_plan`), the bands' edge rows
   exchanged through L2, for the grids left;
 - "gm1" (K-gm1): past K-gm's capacity, the tile body over co-resident
   blocks, a member in 2-D tiles whose edge rows and columns go through L2
-  (`gm1_plan`); past the tiles' capacity, every block the card holds on
-  one member at a time, its state in device memory.
+  (`gm1_plan`); past the tiles' capacity, and at large batches where one
+  block a member runs faster, its device-memory body (`GM1Device`).
 Beside it, `transport_substeps_torch` is the plain PyTorch version; it runs
 the batch to its largest count and freezes each member after its own, which
 gives the same per-member result.
@@ -73,12 +72,18 @@ SM_SHARED, BLOCK_RESERVED, SMS = 233_472, 1024, 132
 CL_REGS = (12, 14)
 # K-rt1 keeps a grid of up to RT1_CELLS cells (one cell a thread there)
 # while the batch holds up to RT1_BATCH_CELLS cells: such a launch is
-# bound by its chain of substeps, where K-rt1's first form, one cell a
-# thread, ran faster than K-rt's strips of 4 cells (bench_routes.py on the
-# H100, launch times with the host's: 100-784 cells at N=64, 100-384 at
-# N=1000); past either, K-rt ran faster (784 and 900 cells at N=1000,
-# 1,296 cells up at N=64). The tile body kept the rule (PERF.md).
-RT1_CELLS, RT1_BATCH_CELLS = 1024, 400_000
+# bound by its chain of substeps, where one cell a thread runs faster
+# than K-rt's strips of 4 cells. On the H100 (bench_routes.py --kernel k1,
+# the card's time alone, N = 64 / 128 / 256 / 1000) K-rt1 ran 3.73 / 3.79
+# / 3.86 / 6.76 us at 12x12 (K-rt 4.29 / 4.34 / 4.41 / 6.71), 3.34 / 3.37
+# / 3.50 / 4.86 at 10x10 (4.85 / 4.90 / 4.90 / 5.50), 4.23 / 4.34 / 4.66
+# / 10.36 at 15x15 (7.50 / 7.71 / 7.72 / 9.30), 5.40 / 5.50 / 7.02 /
+# 19.54 at 24x16 (9.73 / 9.86 / 11.40 / 21.18), 3.51 / 3.57 / 3.71 /
+# 5.25 at 12x9 (3.51 / 3.56 / 3.62 / 4.60) and 11.83 / 11.99 / 21.80 /
+# 80.94 at 28x28 (14.69 / 14.80 / 22.53 / 74.11): up to 102,400 cells a
+# batch K-rt1 wins or ties (within 2.5%: 12x9 N=256), past it K-rt wins or
+# ties but at 28x28 N=256 and 24x16 N=1000 (K-rt1 3% and 8% faster).
+RT1_CELLS, RT1_BATCH_CELLS = 1024, 102_400
 # Threads a block at most, and the rows of a strip (csrc `kStrip`,
 # `kMaxStrip`): the templated K's, and the range K-rt and K-gm plan in.
 MAX_THREADS, MIN_STRIP, MAX_STRIP = 1024, 4, 16
@@ -302,34 +307,34 @@ def gm_plan(Nx, Ny):
 # gr x gc tiles (rows and columns split as `gm_bands` splits rows, the
 # first ones one more), strips of `strip` rows and `cols` columns a thread,
 # the faces and sources held in "registers" (split once) or in "shared"
-# memory slots (K-gm's `gm_slots`), `members` members a block on their own
-# groups of `threads` threads (one tile a member; whole warps where more
-# than one).
-TilePlan = namedtuple("TilePlan", "gr gc strip cols faces members threads")
+# memory slots (K-gm's `gm_slots`), blocks of `threads` threads.
+TilePlan = namedtuple("TilePlan", "gr gc strip cols faces threads")
 TILE_FACES = ("registers", "shared")  # csrc kFacesRegs, kFacesSlots
-# Registers a thread needs by strip shape: the least register cap of those
-# tried (64, 72, 80, 96, 128: 1,024, 896, 768, 640 and 512 threads) under
-# which the tile body built without spilling (ptxas on the H100, CUDA
-# 12.9): one tile a member with the faces in "registers" or in "shared"
-# memory, and several ("tiles", K-gm1's, faces in shared memory; its edge
-# logic costs 32-64 registers more than one tile's). A plan takes only
-# these shapes: tiles of 4x2, 4x4, 5x2 and 8x1 spilled under 128.
+# Registers a thread needs by strip shape: a register cap of those tried
+# (64, 72, 80, 96, 128: 1,024, 896, 768, 640 and 512 threads) under which
+# the tile body builds without spilling (ptxas on the H100, CUDA 12.9;
+# bench_routes.py --kernel tileregs reads every shape at every cap, and a
+# card test builds each entry at its cap): one tile a member with the
+# faces in "registers" or in "shared" memory, and several ("tiles",
+# K-gm1's, faces in shared memory; its edge logic costs 32-64 registers
+# more than one tile's). A plan takes only these shapes: tiles of 8x1 and
+# 5x2 spill under 128.
 TILE_SHAPES = {
     "registers": {(1, 1): 64, (2, 1): 64, (4, 1): 128},
     "shared": {(4, 1): 80, (5, 1): 80, (6, 1): 96, (4, 2): 80, (5, 2): 96, (4, 3): 96,
                (5, 3): 128, (6, 2): 128, (4, 4): 128, (8, 1): 128, (8, 2): 128},
     "tiles": {(4, 1): 128, (5, 1): 128, (6, 1): 128},
 }
-# A small grid's member (up to RT1_CELLS cells) on its own group of warps:
-# one cell a thread (strips of RT1_STRIP rows), the faces split once into
-# registers, one member a block. On the H100 (bench_routes.py --kernel k1,
-# the card's time alone, at 12x12, 10x10, 15x15, 24x16 and 12x9): one cell
-# a thread ran 3.15-5.26 us a launch at N=64 against strips of 2 rows'
-# 3.98-7.67 and the first form's 3.25-6.66, and 4.74-19.32 at N=1000
-# against the first form's 5.08-30.92; two or four members a block (up to
-# RT1_PACK, csrc `kMaxGroups`, each on its own named barrier: `plan=`
-# forces them) ran 3-67% slower than one at every grid and batch measured.
-RT1_STRIP, RT1_PACK = 1, 4
+# A small grid's member (up to RT1_CELLS cells) on its own block: one cell
+# a thread (strips of RT1_STRIP rows), the faces split once into
+# registers, the threads rounded to whole warps. On the H100
+# (bench_routes.py --kernel k1, the card's time alone, at 12x12, 10x10,
+# 15x15, 24x16 and 12x9): one cell a thread ran 3.15-5.26 us a launch at
+# N=64 against strips of 2 rows' 3.98-7.67 and the first form's
+# 3.25-6.66, and 4.74-19.32 at N=1000 against the first form's
+# 5.08-30.92. Two or four members a block, each on its own named barrier,
+# ran 3-67% slower than one at every grid and batch measured, and went.
+RT1_STRIP = 1
 
 
 def tile_threads(rows, width, strip, cols):
@@ -338,23 +343,21 @@ def tile_threads(rows, width, strip, cols):
     return -(-rows // strip) * -(-width // cols)
 
 
-def tile_bytes(rows, width, strip, cols, faces, members=1, threads=None):
-    """The tile body's shared bytes a block: each group's two fw tiles of
-    rows x width, and with the faces in "shared" memory each thread's
-    `gm_slots`."""
+def tile_bytes(rows, width, strip, cols, faces, threads=None):
+    """The tile body's shared bytes a block: two fw tiles of rows x width,
+    and with the faces in "shared" memory each thread's `gm_slots`."""
     t = threads or tile_threads(rows, width, strip, cols)
-    return 4 * members * (2 * rows * width + (gm_slots(strip, cols) * t if faces == "shared"
-                                              else 0))
+    return 4 * (2 * rows * width + (gm_slots(strip, cols) * t if faces == "shared" else 0))
 
 
-def tile_fits(rows, width, strip, cols, faces, members=1, threads=None, tiled=False):
-    """Whether one block holds `members` tiles of rows x width on a strip
-    shape of `TILE_SHAPES` (under "tiles" where `tiled`): its threads, its
-    bytes and its registers."""
+def tile_fits(rows, width, strip, cols, faces, threads=None, tiled=False):
+    """Whether one block holds a tile of rows x width on a strip shape of
+    `TILE_SHAPES` (under "tiles" where `tiled`): its threads, its bytes and
+    its registers."""
     regs = TILE_SHAPES["tiles" if tiled else faces].get((strip, cols))
-    t = members * (threads or tile_threads(rows, width, strip, cols))
+    t = threads or tile_threads(rows, width, strip, cols)
     return (regs is not None and t <= MAX_THREADS and regs <= reg_budget(t)
-            and tile_bytes(rows, width, strip, cols, faces, members, threads) <= _build.SMEM_LIMIT)
+            and tile_bytes(rows, width, strip, cols, faces, threads) <= _build.SMEM_LIMIT)
 
 
 def tile_dims(Nx, Ny, plan):
@@ -364,21 +367,20 @@ def tile_dims(Nx, Ny, plan):
 
 @lru_cache(maxsize=None)
 def rt1_plan(Nx, Ny):
-    """K-rt1's plan for a grid, a TilePlan of one tile a member. A grid of up to
-    RT1_CELLS cells: strips of RT1_STRIP rows, one column a thread, the
-    faces in registers, the member's threads rounded to whole warps, one
-    member a block. A larger grid: one block a member,
-    with the faces in "shared" memory, on the strip shape of the fewest
-    cells a thread, then the fewest columns, that fits (`tile_fits`); None
-    where none fits (past ~8,000 cells)."""
+    """K-rt1's plan for a grid, a TilePlan of one tile a member. A grid of
+    up to RT1_CELLS cells: strips of RT1_STRIP rows, one column a thread,
+    the faces in registers, the member's threads rounded to whole warps. A
+    larger grid: the faces in "shared" memory, on the strip shape of the
+    fewest cells a thread, then the fewest columns, that fits
+    (`tile_fits`); None where none fits (past ~8,000 cells)."""
     check_grid(Nx, Ny)
     if Nx * Ny <= RT1_CELLS:
         strip = min(RT1_STRIP, Nx)
         threads = -(-tile_threads(Nx, Ny, strip, 1) // 32) * 32
-        return TilePlan(1, 1, strip, 1, "registers", 1, threads)
+        return TilePlan(1, 1, strip, 1, "registers", threads)
     for strip, cols in sorted(TILE_SHAPES["shared"], key=lambda sc: (sc[0] * sc[1], sc[1])):
         if tile_fits(Nx, Ny, strip, cols, "shared"):
-            return TilePlan(1, 1, strip, cols, "shared", 1, tile_threads(Nx, Ny, strip, cols))
+            return TilePlan(1, 1, strip, cols, "shared", tile_threads(Nx, Ny, strip, cols))
     return None
 
 
@@ -393,7 +395,7 @@ def _widest(rows, Ny, strip, cols):
 
 
 @lru_cache(maxsize=None)
-def gm1_plan(Nx, Ny, shapes=None):
+def gm1_plan(Nx, Ny):
     """K-gm1's tile plan for a grid: a TilePlan of gr x gc tiles a member,
     one block a tile, the faces in shared memory, at most GM_MAX_BANDS tiles
     (so one member's blocks, one an SM, are resident at once), on the strip
@@ -404,27 +406,31 @@ def gm1_plan(Nx, Ny, shapes=None):
     On the H100 (bench_routes.py --kernel k1) 5x6000's tiles of 5 rows ran
     3.50-3.55 / 20.5-20.6 / 312 ms at N=4 / 64 / 1000 on strips of 5
     against strips of 4's (and a strip of 1 row) 3.72-3.81 / 29.1-29.8 /
-    443-447. None
-    past the tiles' capacity (~0.9-1.08 M cells), where K-gm1 runs its
-    device-memory body. `shapes`: the (strip, cols) to choose from, by
-    default all."""
+    443-447. None past the tiles' capacity (~0.9-1.08 M cells), where
+    K-gm1 runs its device-memory body."""
     check_grid(Nx, Ny)
-    plans = []
-    for strip, cols in shapes or TILE_SHAPES["tiles"]:
-        best = None  # the shape's plan: the fewest tiles, then the shortest edges
-        for gr in range(1, min(Nx, GM_MAX_BANDS) + 1):
-            rows = -(-Nx // gr)
-            width = _widest(rows, Ny, strip, cols)
-            gc = -(-Ny // width) if width else 0
-            if width and gr * gc <= GM_MAX_BANDS and (
-                    best is None or (gr * gc, rows + -(-Ny // gc)) < best[0]):
-                best = (gr * gc, rows + -(-Ny // gc)), gr, gc, rows
-        if best:
-            _, gr, gc, rows = best
-            key = (rows % strip > 0, strip * cols, gr * gc, cols, best[0][1])
-            plans.append((key, TilePlan(gr, gc, strip, cols, "shared", 1,
-                                        tile_threads(rows, -(-Ny // gc), strip, cols))))
+    plans = [p for p in (_gm1_shape_plan(Nx, Ny, *sc) for sc in TILE_SHAPES["tiles"]) if p]
     return min(plans)[1] if plans else None
+
+
+def _gm1_shape_plan(Nx, Ny, strip, cols):
+    """`gm1_plan`'s plan on one strip shape, the fewest tiles, then the
+    shortest edges, with the key `gm1_plan` ranks it by; None where the
+    shape takes no plan."""
+    best = None
+    for gr in range(1, min(Nx, GM_MAX_BANDS) + 1):
+        rows = -(-Nx // gr)
+        width = _widest(rows, Ny, strip, cols)
+        gc = -(-Ny // width) if width else 0
+        if width and gr * gc <= GM_MAX_BANDS and (
+                best is None or (gr * gc, rows + -(-Ny // gc)) < best[0]):
+            best = (gr * gc, rows + -(-Ny // gc)), gr, gc, rows
+    if best is None:
+        return None
+    (tiles, edges), gr, gc, rows = best
+    key = (rows % strip > 0, strip * cols, tiles, cols, edges)
+    return key, TilePlan(gr, gc, strip, cols, "shared",
+                         tile_threads(rows, -(-Ny // gc), strip, cols))
 
 
 def route(Nx, Ny, batch=None):
@@ -481,35 +487,87 @@ def transport_substeps_torch(s, Fx, Fy, q, dts_pv, n_sub, fluid):
     return s
 
 
-DEVICE = "device"  # K-gm1's plan past its tiles: every resident block on one member
+# K-gm1's device-memory body (csrc `transport_upwind_gm1_kernel`): `per`
+# blocks a member, each a run of its cells in row-major order, s and fw in
+# device memory, a barrier of the member's blocks a substep; per = 0
+# (DEVICE): every block the card holds at once on one member at a time.
+# On the H100 (bench_routes.py --kernel k1) at 1090x1090 one member at a
+# time ran 172.1 / 2757.8 ms at N=4 / 64 against 321.0 / 5451.5 with the
+# card's 132 blocks spread over the batch (33 / 2 a member) and the first
+# form's (one block a member) 6404.5 / 8814.7.
+GM1Device = namedtuple("GM1Device", "per")
+DEVICE = GM1Device(0)
+# K-gm1 takes one block a member (GM1Device(1)) where its tiles hold
+# fewer than GM1_TILE_CELLS cells in flight (their members in flight, SMS
+# over the tiles a member, times a member's cells) and the batch reaches
+# those cells over GM1_WAVE_CELLS: one block's substep on the H100 took
+# ~0.75 ns a cell (22.5-30.3 us at 29,056-40,000 cells), a wave of tiles'
+# ~3.1-4.1 us, so it pays from about that many waves, and past the card's
+# blocks the tiles keep up only with that many cells in flight. On the H100
+# (bench_routes.py --kernel k1, N = 4 / 16 / 32 / 48 / 64 / 128 / 256 /
+# 1000) the tiles ran 5.85 / 17.72 / 35.02 / 46.37 / 63.29 / 125.50 /
+# 245.41 / 948.28 ms at 8x5000 (240,000 cells in flight; one block a
+# member 45.49 / 45.22 / 45.83 / 49.17 / 59.57 / 95.07 / 189.16 /
+# 736.25), 4.92 / 14.89 / 24.80 / 34.74 / 48.55 / 93.53 / 182.35 / 701.52
+# at 16x2056 (230,272; 30.24 / 30.50 / 30.82 / 31.79 / 45.27 / 61.53 /
+# 121.84 / 473.45) and 4.42 / 8.68 / 17.47 / 26.30 / 34.45 / 69.15 /
+# 137.48 / 535.32 at 8x3632 (232,448; 23.33 / 23.16 / 23.62 / 23.79 /
+# 26.15 / 45.03 / 89.65 / 350.19): GM1_WAVE_CELLS from 4,843 to 4,999
+# splits them; at 5x6000 (330,000 cells in flight) the tiles won at
+# every batch, 3.50 / 20.63 / 41.36 / 81.81 / 308.38 at N = 4 / 64 / 128
+# / 256 / 1000 against 25.30 / 28.87 / 59.96 / 120.03 / 467.61.
+GM1_TILE_CELLS, GM1_WAVE_CELLS = 280_000, 4_900
+
+
+def gm1_groups(plan, B, resident):
+    """K-gm1's device-memory launch on `plan` for a batch of B members when
+    the card holds `resident` of its blocks at once: (blocks a member,
+    members in flight)."""
+    per = plan.per or resident
+    return per, max(1, min(B, resident // per))
+
+
+def gm1_route_plan(Nx, Ny, batch=None):
+    """K-gm1's plan for a grid and batch: `gm1_plan`'s tiles, but one block
+    a member (GM1Device(1)) where the tiles hold fewer than GM1_TILE_CELLS
+    cells in flight and the batch holds at least those cells over
+    GM1_WAVE_CELLS members; DEVICE past the tiles' capacity."""
+    tiles = gm1_plan(Nx, Ny)
+    if tiles is None:
+        return DEVICE
+    flight = max(1, SMS // (tiles.gr * tiles.gc)) * Nx * Ny
+    block = flight < GM1_TILE_CELLS and (batch or 1) * GM1_WAVE_CELLS >= flight
+    return GM1Device(1) if block else tiles
 
 
 def _plan(rt, Nx, Ny, B, plan):
-    """The plan a launch of route `rt` runs: `plan` where given and the
-    route takes it (K-cl: one of `cl_plans`; K-rt1: a TilePlan of one tile
-    a member that `tile_fits`; K-gm1: a TilePlan whose tiles fit, or
-    DEVICE), else the route's own; () for the routes without one."""
+    """The plan a launch of route `rt` for B members runs: `plan` where
+    given and the route takes it (K-cl: one of `cl_plans`; K-rt1: a
+    TilePlan of one tile a member that `tile_fits`; K-gm1: a TilePlan whose
+    tiles fit, or a GM1Device), else the route's own (K-gm1's by the batch,
+    `gm1_route_plan`); () for the routes without one."""
+    if plan is None and rt == "gm1":
+        return gm1_route_plan(Nx, Ny, B)
     if plan is None:
-        plan = {"rt": rt_plan, "cl": cl_plan, "gm": gm_plan, "gm1": gm1_plan,
+        plan = {"rt": rt_plan, "cl": cl_plan, "gm": gm_plan,
                 "rt1": rt1_plan}.get(rt, lambda Nx, Ny: ())(Nx, Ny)
-        if plan is None and rt != "gm1":
+        if plan is None:
             what = {"rt": "no strip plan of K-rt", "cl": "no cluster",
                     "gm": "no band plan of K-gm", "rt1": "no tile plan of K-rt1"}
             raise ValueError(f"transport kernel: {what[rt]} takes a {Nx}x{Ny} grid")
-        return DEVICE if plan is None else plan
+        return plan
     if rt == "cl" and ClPlan(*plan) in cl_plans(Nx, Ny):
         return ClPlan(*plan)
-    if rt == "gm1" and plan == DEVICE:
-        return DEVICE
-    if rt in ("rt1", "gm1") and plan != DEVICE and len(plan) == len(TilePlan._fields):
+    if rt == "gm1" and isinstance(plan, GM1Device) and int(plan.per) >= 0:
+        return plan
+    if (rt in ("rt1", "gm1") and not isinstance(plan, GM1Device)
+            and len(plan) == len(TilePlan._fields)):
         p = TilePlan(*plan)
         rows, width = tile_dims(Nx, Ny, p)
-        if (p.faces in TILE_FACES and (p.gr * p.gc == 1 or (rt == "gm1" and p.members == 1))
-                and p.members <= RT1_PACK and (p.members == 1 or p.threads % 32 == 0)
+        if (p.faces in TILE_FACES and (p.gr * p.gc == 1 or rt == "gm1")
                 and p.gr <= Nx and p.gc <= Ny
                 and p.threads >= tile_threads(rows, width, p.strip, p.cols)
-                and tile_fits(rows, width, p.strip, p.cols, p.faces, p.members, p.threads,
-                              rt == "gm1")):
+                and tile_fits(rows, width, p.strip, p.cols, p.faces, p.threads, rt == "gm1")):
             return p
     raise ValueError(f"transport kernel: {plan} is no plan of {rt} at {Nx}x{Ny}")
 
@@ -521,7 +579,7 @@ def transport_substeps_cuda(s, Fx, Fy, q, dts_pv, n_sub, fluid, force=None, plan
     at any grid (the templated kernel only at `_build.GRIDS`, K-rt where
     `rt_plan`, K-cl where `cl_plan`, K-gm where `gm_plan` and K-rt1 where
     `rt1_plan` give a plan; K-gm1 at any); `plan` another plan of K-cl (one
-    of `cl_plans`), K-rt1 or K-gm1 (a TilePlan, or DEVICE for K-gm1)."""
+    of `cl_plans`), K-rt1 or K-gm1 (a TilePlan, or a GM1Device for K-gm1)."""
     B, Nx, Ny = s.shape
     if force not in (None, *ROUTES):
         raise ValueError(f"force must be one of {ROUTES} or None, got {force!r}")
@@ -553,22 +611,23 @@ def transport_substeps_cuda(s, Fx, Fy, q, dts_pv, n_sub, fluid, force=None, plan
         flags = torch.zeros(B * G, dtype=torch.int32, device=s.device)
         code = _build.transport_gm_lib(strip, cols, threads).hm_transport_substeps_gm(
             *args, halo.data_ptr(), flags.data_ptr(), B, Nx, Ny, G, *tail[3:])
-    elif plan == DEVICE:  # two fw tiles of one member, and the barriers passed
-        ws = torch.empty(2 * Nx * Ny, dtype=torch.float32, device=s.device)
-        count = torch.zeros(1, dtype=torch.int32, device=s.device)
+    elif isinstance(plan, GM1Device):  # a group's two fw tiles, and its barriers passed
+        per, groups = gm1_groups(plan, B, _build.gm1_resident(s.device))
+        ws = torch.empty(groups * 2 * Nx * Ny, dtype=torch.float32, device=s.device)
+        count = torch.zeros(groups, dtype=torch.int32, device=s.device)
         code = _build.lib().hm_transport_substeps_gm1(*args, ws.data_ptr(), count.data_ptr(),
-                                                      *tail)
+                                                      B, Nx, Ny, per, groups, *tail[3:])
     elif rt == "gm1":  # each tile's edges in two slots, and the substeps it published
         P = plan.gr * plan.gc
         halo = torch.empty(B * P * 4 * sum(tile_dims(Nx, Ny, plan)), dtype=torch.float32,
                            device=s.device)
         flags = torch.zeros(B * P, dtype=torch.int32, device=s.device)
         code = _build.transport_tile_lib(plan, True).hm_transport_substeps_tile(
-            *args, halo.data_ptr(), flags.data_ptr(), B, Nx, Ny, plan.gr, plan.gc, 1,
-            plan.threads, *tail[3:])
+            *args, halo.data_ptr(), flags.data_ptr(), B, Nx, Ny, plan.gr, plan.gc, plan.threads,
+            *tail[3:])
     elif rt == "rt1":  # one tile a member: no halo, no flags
         code = _build.transport_tile_lib(plan, False).hm_transport_substeps_tile(
-            *args, None, None, B, Nx, Ny, 1, 1, plan.members, plan.threads, *tail[3:])
+            *args, None, None, B, Nx, Ny, 1, 1, plan.threads, *tail[3:])
     elif rt == "cl":
         code = _build.transport_cl_lib(Nx, Ny, plan).hm_transport_substeps_cl(*args, *tail)
     elif rt == "rt":

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from historymatching_tpu_torch.models.ressim import ResSim, _tpfa, scaled_system
-from historymatching_tpu_torch.ops import _build
+from historymatching_tpu_torch.ops import _build, transport
 from historymatching_tpu_torch.ops.multigrid import build_hierarchy, coarse_inverse, n_levels
 from historymatching_tpu_torch.ops.pressure import (
     kernel_name,
@@ -218,16 +218,17 @@ def test_transport_rt1_matches_plain(dev, Nx, Ny, force):
 @pytest.mark.parametrize("Nx,Ny,members,strip", [(12, 12, 4, 2), (10, 10, 4, 1), (12, 9, 3, 4),
                                                  (24, 16, 2, 2)])
 def test_transport_rt1_groups_match_plain(dev, Nx, Ny, members, strip):
-    """K-rt1 on small grids, several members a block, each on its own warps
-    and named barrier, looping over its own substep count (unequal in every
-    block, some none): bit for bit; the route's plan too."""
+    """K-rt1 on small grids, one member a block, members of unequal substep
+    counts (every `members`-th none) each looping over its own count: bit
+    for bit on the route's plan and on strips of `strip` rows."""
     from historymatching_tpu_torch.ops.transport import TilePlan, rt1_plan, tile_threads
 
-    B = 3 * members + 1  # a last block with one member
+    B = 3 * members + 1
     s, Fx, Fy, q, dts_pv, n_sub, fluid = _transport_inputs(dev, Nx, Ny, 11, B)
     n_sub[::members] = 0
+    assert len(set(n_sub.tolist())) > 2
     threads = -(-tile_threads(Nx, Ny, strip, 1) // 32) * 32
-    plan = TilePlan(1, 1, strip, 1, "registers", members, threads)
+    plan = TilePlan(1, 1, strip, 1, "registers", threads)
     ref = transport_substeps_torch(s, Fx, Fy, q, dts_pv, n_sub, fluid)
     before = _build.LAUNCHES["transport_upwind_rt1"]
     for p in (plan, rt1_plan(Nx, Ny)):
@@ -236,7 +237,7 @@ def test_transport_rt1_groups_match_plain(dev, Nx, Ny, members, strip):
         assert torch.equal(out, ref), p
     assert _build.LAUNCHES["transport_upwind_rt1"] == before + 2
     info = _build.kernel_info("transport_upwind_rt1", Nx, Ny, plan)
-    assert info["threads"] == members * threads and info["local_bytes"] == 0, info
+    assert info["threads"] == threads and info["local_bytes"] == 0, info
 
 
 def test_transport_rt_refuses_what_it_does_not_take(dev):
@@ -545,8 +546,10 @@ def test_transport_gm1_matches_plain(dev, Nx, Ny, force, B):
     2-D tiles (8x5000, [23]'s 5x6000, and 8x3632, K-rt1's before), on its
     device-memory body past the tiles' capacity (1090x1090, two members of
     one step), and forced at 32x1088 (K-gm's since its plans widened),
-    171x171 and 64x64: bit for bit, a shared source field too."""
-    from historymatching_tpu_torch.ops.transport import DEVICE, gm1_plan
+    171x171 and 64x64: bit for bit, a shared source field too; at 64x64
+    the device-memory body on the card's blocks spread over the batch, on
+    one block a member and on three."""
+    from historymatching_tpu_torch.ops.transport import DEVICE, GM1Device, gm1_plan
 
     s, Fx, Fy, q, dts_pv, n_sub, fluid = _transport_inputs(dev, Nx, Ny, 7, B)
     assert (gm1_plan(Nx, Ny) is None) == ((Nx, Ny) == (1090, 1090))
@@ -556,22 +559,30 @@ def test_transport_gm1_matches_plain(dev, Nx, Ny, force, B):
     assert _build.LAUNCHES["transport_upwind_gm1"] == before + 1
     assert torch.equal(out, transport_substeps_torch(s, Fx, Fy, q, dts_pv, n_sub, fluid))
     q1 = q[:1].contiguous()
-    plan = DEVICE if (Nx, Ny) == (64, 64) else None  # the device-memory body on a small grid
-    assert torch.equal(
-        transport_substeps_cuda(s, Fx, Fy, q1, dts_pv, n_sub, fluid, force="gm1", plan=plan),
-        transport_substeps_torch(s, Fx, Fy, q1, dts_pv, n_sub, fluid))
+    small = (Nx, Ny) == (64, 64)  # the device-memory body on a small grid
+    ref1 = transport_substeps_torch(s, Fx, Fy, q1, dts_pv, n_sub, fluid)
+    for plan in (DEVICE, GM1Device(1), GM1Device(3)) if small else (None,):
+        out = transport_substeps_cuda(s, Fx, Fy, q1, dts_pv, n_sub, fluid, force="gm1",
+                                      plan=plan)
+        assert torch.equal(out, ref1), plan
 
 
 def test_transport_gm1_refused_launch_raises(dev):
     """A K-gm1 plan whose tiles the card cannot hold at once (266 tiles of
-    one row of 512 columns, at most two blocks an SM on 132 SMs) is refused
-    by the cooperative launch; the wrapper raises and counts no launch."""
-    from historymatching_tpu_torch.ops.transport import TilePlan
+    one row of 512 columns, at most two blocks an SM on 132 SMs), and a
+    device-memory plan of more blocks a member than the card holds, are
+    refused by the cooperative launch; the wrapper raises and counts no
+    launch."""
+    from historymatching_tpu_torch.ops.transport import GM1Device, TilePlan
 
     before = _build.LAUNCHES["transport_upwind_gm1"]
     with pytest.raises(RuntimeError, match="transport_upwind_gm1: CUDA error"):
         transport_substeps_cuda(*_transport_inputs(dev, 133, 1024, 7, B=2), force="gm1",
-                                plan=TilePlan(133, 2, 4, 1, "shared", 1, 512))
+                                plan=TilePlan(133, 2, 4, 1, "shared", 512))
+    per = _build.gm1_resident(dev) + 1
+    with pytest.raises(RuntimeError, match="transport_upwind_gm1: CUDA error"):
+        transport_substeps_cuda(*_transport_inputs(dev, 64, 64, 7, B=2), force="gm1",
+                                plan=GM1Device(per))
     assert _build.LAUNCHES["transport_upwind_gm1"] == before
 
 
@@ -662,9 +673,35 @@ def test_tile_kernel_resources(dev, rt, Nx, Ny):
     k = _build.kernel_info(f"transport_upwind_{rt}", Nx, Ny, plan)
     print(f"K-{rt} {Nx}x{Ny} {plan}: {k}")
     assert k["local_bytes"] == 0 and k["groups_resident"] >= 1, k
-    assert k["threads"] == plan.members * plan.threads and k["tiles"] == plan.gr * plan.gc, k
+    assert k["threads"] == plan.threads and k["tiles"] == plan.gr * plan.gc, k
     assert k["shared_bytes"] == tile_bytes(*tile_dims(Nx, Ny, plan), plan.strip, plan.cols,
-                                           plan.faces, plan.members, plan.threads), k
+                                           plan.faces, plan.threads), k
+
+
+# Each register cap of `TILE_SHAPES` and the most threads a block that
+# leaves it (`reg_budget`).
+CAP_THREADS = {128: 512, 96: 640, 80: 768, 72: 896, 64: 1024}
+TILE_SHAPE_CASES = [(faces, sc) for faces in ("registers", "shared", "tiles")
+                    for sc in transport.TILE_SHAPES[faces]]
+
+
+@pytest.mark.parametrize("faces,shape", TILE_SHAPE_CASES)
+def test_tile_shapes_build_without_spills(dev, faces, shape):
+    """Every strip shape of `TILE_SHAPES`, built at the most threads its
+    register cap allows (one strip row of that many column groups, one
+    tile; "tiles" in K-gm1's build with the edge logic): no spilled bytes,
+    and at most the cap's registers."""
+    from historymatching_tpu_torch.ops.transport import TilePlan, reg_budget
+
+    strip, cols = shape
+    cap = transport.TILE_SHAPES[faces][shape]
+    threads = CAP_THREADS[cap]
+    assert reg_budget(threads) == cap
+    rt = "gm1" if faces == "tiles" else "rt1"
+    plan = TilePlan(1, 1, strip, cols, "shared" if faces == "tiles" else faces, threads)
+    k = _build.kernel_info(f"transport_upwind_{rt}", strip, cols * threads, plan)
+    print(f"tile body {faces} {shape} at {threads} threads: {k}")
+    assert k["local_bytes"] == 0 and k["registers"] <= cap and k["threads"] == threads, k
 
 
 @pytest.mark.parametrize("Nx,Ny", [(64, 64), (128, 128), (60, 220), (256, 256), (120, 440)])

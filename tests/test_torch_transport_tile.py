@@ -1,8 +1,9 @@
 """What the CPU can check of the tile body (csrc/transport_upwind.cu
 `transport_upwind_tile_kernel`, built under -DHM_KT_*), which K-rt1 and
 K-gm1 run: its plans (`ops/transport.rt1_plan`: a member in one block,
-small members on their own warps, several a block where a plan asks;
-`gm1_plan`: a member over co-resident 2-D tiles), the routes around
+small members on their own block of warps; `gm1_plan`: a member over
+co-resident 2-D tiles; K-gm1's device-memory body, `GM1Device`), the
+routes around
 them, the libraries they get, and their schedules in plain emulations
 held to the plain version and to the JAX package's Pallas kernel.
 
@@ -15,10 +16,10 @@ halo starts as NaN, so a read of a slot nobody wrote shows, and each slot
 records who has yet to read it: rewriting a slot that a neighbour has not
 read raises.
 
-`grouped_substeps` runs the members of a block of several groups, each
-group a coroutine looping over its own member's substeps and meeting only
-its own barrier (a named barrier in the kernel); with one barrier for the
-whole block instead, members of unequal substep counts deadlock.
+`grouped_substeps` runs members of unequal substep counts side by side,
+each a coroutine looping over its own member's substeps and meeting only
+its own barrier (its block's, in the kernel: one member a block); with one
+barrier shared by several members instead, they deadlock.
 
 Tolerances: float64 against `transport_substeps_torch` bit for bit (the
 same operations in the same order); float32 against
@@ -40,7 +41,6 @@ from historymatching_tpu_torch.ops.transport import (
     GM_MAX_BANDS,
     MAX_THREADS,
     RT1_CELLS,
-    RT1_PACK,
     TILE_SHAPES,
     TilePlan,
     gm1_plan,
@@ -101,13 +101,14 @@ def test_gm1_plan_covers_every_cell_once(Nx, Ny):
     shape's plan has fewer cells a thread."""
     plan = gm1_plan(Nx, Ny)
     rows, width = tile_dims(Nx, Ny, plan)
-    assert plan.faces == "shared" and plan.members == 1 and plan.gr * plan.gc <= GM_MAX_BANDS
+    assert plan.faces == "shared" and plan.gr * plan.gc <= GM_MAX_BANDS
     assert plan.threads == tile_threads(rows, width, plan.strip, plan.cols) <= MAX_THREADS
     assert tile_bytes(rows, width, plan.strip, plan.cols, "shared") <= _build.SMEM_LIMIT
     assert TILE_SHAPES["tiles"][plan.strip, plan.cols] <= reg_budget(plan.threads)
     assert len(_owners(Nx, Ny, plan)) == Nx * Ny
     short = lambda p: tile_dims(Nx, Ny, p)[0] % p.strip > 0  # noqa: E731
-    others = [p for p in (gm1_plan(Nx, Ny, (sc,)) for sc in TILE_SHAPES["tiles"]) if p]
+    others = [p[1] for p in (transport._gm1_shape_plan(Nx, Ny, *sc)
+                             for sc in TILE_SHAPES["tiles"]) if p]
     assert plan in others
     assert all((short(plan), plan.strip * plan.cols) <= (short(p), p.strip * p.cols)
                for p in others)
@@ -115,11 +116,13 @@ def test_gm1_plan_covers_every_cell_once(Nx, Ny):
 
 def test_gm1_past_its_tiles_takes_the_device_memory_body():
     """Past ~1.08 M cells no plan of at most GM_MAX_BANDS tiles fits:
-    K-gm1 runs its device-memory body (DEVICE), forced or on its route,
-    and reaches the wrappers' refusal of CPU tensors (nothing falls back)."""
+    K-gm1 runs its device-memory body (DEVICE: the card's blocks spread
+    over the batch), forced or on its route, and reaches the wrappers'
+    refusal of CPU tensors (nothing falls back)."""
     for Nx, Ny in [(1090, 1090), (2000, 2000), (1, 400_000)]:
         assert gm1_plan(Nx, Ny) is None and transport.route(Nx, Ny) == "gm1"
         assert transport._plan("gm1", Nx, Ny, 2, None) == transport.DEVICE
+    assert transport._plan("gm1", 64, 64, 2, transport.GM1Device(1)) == (1,)
     z = torch.zeros(1, 6, 5)
     args = (z, torch.zeros(1, 7, 5), torch.zeros(1, 6, 6), z, torch.ones(1),
             torch.ones(1, dtype=torch.int32), (1.0, 1.0, 0.0, 0.0))
@@ -127,6 +130,33 @@ def test_gm1_past_its_tiles_takes_the_device_memory_body():
         transport_substeps_cuda(*args, force="gm1", plan=transport.DEVICE)
     with pytest.raises(ValueError, match="no plan of rt1"):
         transport_substeps_cuda(*args, force="rt1", plan=transport.DEVICE)
+
+
+# bench_routes.py --kernel k1 on the H100: K-gm1's faster plan at each
+# (grid, batch) measured, its tiles or one block a member.
+GM1_FASTER = {
+    **{((5, 6000), n): "tiles" for n in (4, 64, 128, 256, 1000)},
+    **{((8, 5000), n): "tiles" for n in (4, 16, 32, 48)},
+    **{((8, 5000), n): "block" for n in (64, 128, 256, 1000)},
+    **{(g, n): "tiles" for g in ((16, 2056), (8, 3632)) for n in (4, 16, 32)},
+    **{(g, n): "block" for g in ((16, 2056), (8, 3632)) for n in (48, 64, 128, 256, 1000)}}
+
+
+@pytest.mark.parametrize("case", list(GM1_FASTER))
+def test_gm1_route_plan_takes_the_faster(case):
+    """K-gm1's plan by the batch is the one that ran faster: one block a
+    member where its tiles hold fewer than GM1_TILE_CELLS cells in flight
+    and the batch reaches those cells over GM1_WAVE_CELLS, else the tiles;
+    the launch's plan where none is given."""
+    (Nx, Ny), batch = case
+    plan = transport.gm1_route_plan(Nx, Ny, batch)
+    assert transport.route(Nx, Ny, batch) == "gm1"
+    assert plan == (transport.GM1Device(1) if GM1_FASTER[case] == "block" else gm1_plan(Nx, Ny))
+    tiles = gm1_plan(Nx, Ny)
+    flight = GM_MAX_BANDS // (tiles.gr * tiles.gc) * Nx * Ny
+    assert (GM1_FASTER[case] == "block") == (
+        flight < transport.GM1_TILE_CELLS and batch * transport.GM1_WAVE_CELLS >= flight)
+    assert transport._plan("gm1", Nx, Ny, batch, None) == plan
 
 
 # K-rt1's grids: rows wider than a block of the strip body ([23]'s
@@ -145,16 +175,15 @@ def test_rt1_plan_is_one_block_a_member(Nx, Ny):
     registers."""
     plan = rt1_plan(Nx, Ny)
     assert (plan.gr, plan.gc) == (1, 1) and len(_owners(Nx, Ny, plan)) == Nx * Ny
-    block = plan.members * plan.threads
-    assert block <= MAX_THREADS and TILE_SHAPES[plan.faces][plan.strip, plan.cols] <= (
-        reg_budget(block))
-    assert tile_bytes(Nx, Ny, plan.strip, plan.cols, plan.faces, plan.members,
+    assert plan.threads <= MAX_THREADS and TILE_SHAPES[plan.faces][plan.strip, plan.cols] <= (
+        reg_budget(plan.threads))
+    assert tile_bytes(Nx, Ny, plan.strip, plan.cols, plan.faces,
                       plan.threads) <= _build.SMEM_LIMIT
     if Nx * Ny <= RT1_CELLS:
         assert plan.faces == "registers" and plan.strip == min(transport.RT1_STRIP, Nx)
-        assert plan.cols == 1 and plan.threads % 32 == 0 and plan.members == 1
+        assert plan.cols == 1 and plan.threads % 32 == 0
     else:
-        assert plan.faces == "shared" and plan.members == 1
+        assert plan.faces == "shared"
         assert plan.threads == tile_threads(Nx, Ny, plan.strip, plan.cols)
         assert all(not transport.tile_fits(Nx, Ny, a, c, "shared")
                    for a, c in TILE_SHAPES["shared"] if a * c < plan.strip * plan.cols)
@@ -184,20 +213,18 @@ def test_grids_past_one_block_leave_rt1(grid):
 
 
 def test_tile_constants_match_the_cuda_source():
-    """The face placements, the members a block at most, the thread bound
-    of a library (a block's threads in groups of four warps, which keeps
-    `reg_budget`) and its flags."""
+    """The face placements, the thread bound of a library (a block's
+    threads in groups of four warps, which keeps `reg_budget`) and its
+    flags."""
     with open(os.path.join(_build.CSRC, "transport_upwind.cu")) as f:
         text = f.read()
     assert re.search(r"constexpr int kFacesRegs = 0, kFacesSlots = 1;", text)
     assert transport.TILE_FACES == ("registers", "shared")
-    assert int(re.search(r"constexpr int kMaxGroups = (\d+);", text).group(1)) == RT1_PACK
     key, stem, flags, _, sigs = _build._tile_spec(4, 2, "shared", False, 550)
     assert key == "transport_upwind_tile_s4w2st640" and sigs == "transport_upwind_tile"
-    assert flags == ["-DHM_KT_S=4", "-DHM_KT_W=2", "-DHM_KT_F=1", "-DHM_KT_G=0", "-DHM_KT_M=1",
-                     "-DHM_KT_T=640"]
-    packed = TilePlan(1, 1, 1, 1, "registers", RT1_PACK, 128)
-    assert _build._tile_plan_spec(packed, False)[0] == "transport_upwind_tile_s1w1rm4t512"
+    assert flags == ["-DHM_KT_S=4", "-DHM_KT_W=2", "-DHM_KT_F=1", "-DHM_KT_G=0", "-DHM_KT_T=640"]
+    small = TilePlan(1, 1, 1, 1, "registers", 160)
+    assert _build._tile_plan_spec(small, False)[0] == "transport_upwind_tile_s1w1rt256"
     assert all(reg_budget(t) == reg_budget(-(-t // 128) * 128) for t in range(1, 1025))
     plan = gm1_plan(5, 6000)
     assert [sp[0] for sp in _build._kt_specs(5, 6000)] == [
@@ -207,16 +234,18 @@ def test_tile_constants_match_the_cuda_source():
 
 def test_forced_plans_are_checked():
     """A plan given to K-rt1 or K-gm1 must take the grid: one tile a member
-    for K-rt1, threads covering the tile, whole warps for several members;
-    K-cl's plans only for K-cl."""
-    good = rt1_plan(12, 12)._replace(members=3)
+    for K-rt1, threads covering the tile, within one block; a GM1Device
+    only for K-gm1; K-cl's plans only for K-cl."""
+    good = rt1_plan(12, 12)
     assert transport._plan("rt1", 12, 12, 8, good) == good
     for bad in (good._replace(threads=48), good._replace(threads=100),
                 good._replace(gr=2), good._replace(faces="global"), (2, 4),
-                good._replace(members=RT1_PACK + 1)):
+                good._replace(threads=MAX_THREADS + 32), transport.DEVICE):
         with pytest.raises(ValueError, match="no plan of"):
             transport._plan("rt1", 12, 12, 8, bad)
-    tiles = TilePlan(3, 4, 4, 1, "shared", 1, 51)
+    with pytest.raises(ValueError, match="no plan of"):
+        transport._plan("gm1", 64, 64, 8, transport.GM1Device(-1))
+    tiles = TilePlan(3, 4, 4, 1, "shared", 51)
     assert transport._plan("gm1", 33, 65, 5, tiles) == tiles
     with pytest.raises(ValueError, match="no plan of"):
         transport._plan("gm1", 33, 65, 5, tiles._replace(threads=50))
@@ -356,15 +385,15 @@ class Deadlock(RuntimeError):
 
 def grouped_substeps(s, Fx, Fy, q, dts_pv, n_sub, fluid, members, strip=2, seed=0,
                      barrier="named"):
-    """K-rt1's small-grid schedule in plain torch: blocks of `members`
-    groups, group g of block x running member x members + g, each group a
-    coroutine that computes its member's fw (strips of `strip` rows, one
-    column a thread; its faces split once), meets a barrier, updates its
-    cells, for its own member's substeps. "named": each group's own barrier
-    (csrc `group_sync`, `barrier.sync` id g + 1); "block": one barrier for
-    every group of the block (a `__syncthreads`), which a group that has
-    finished never reaches, so the others raise Deadlock. Same arguments
-    as `transport_substeps_torch`."""
+    """K-rt1's small-grid schedule in plain torch: the members in sets of
+    `members` resident together, member g of set x a coroutine that
+    computes its member's fw (strips of `strip` rows, one column a thread;
+    its faces split once), meets a barrier, updates its cells, for its own
+    member's substeps. "named": each member's own barrier (its block's
+    `__syncthreads`: one member a block); "block": one barrier shared by
+    the set's members, which a member that has finished never reaches, so
+    the others raise Deadlock. Same arguments as
+    `transport_substeps_torch`."""
     vw, vo, swc, sor = fluid
     B, Nx, Ny = s.shape
     rng = np.random.default_rng(seed)
@@ -427,10 +456,10 @@ def _ragged(arrays):
 
 @pytest.mark.parametrize("members,strip,seed", [(3, 2, 0), (4, 1, 1), (7, 4, 2), (2, 2, 3)])
 def test_grouped_schedule_matches_plain_f64(members, strip, seed):
-    """Float64: several members a block, each on its own group and barrier,
-    each looping over its own substep count: the plain version's
-    saturations bit for bit, the members of the batch's largest count not
-    holding the others back; one barrier for the whole block deadlocks."""
+    """Float64: members resident together, each on its own barrier, each
+    looping over its own substep count: the plain version's saturations
+    bit for bit, the members of the batch's largest count not holding the
+    others back; one barrier shared by several members deadlocks."""
     Nx, Ny = 6, 5
     arrays = _ragged(_inputs(15, 7, Nx, Ny, np.float64))
     s, Fx, Fy, q, dts_pv, n_sub = map(torch.as_tensor, arrays)
