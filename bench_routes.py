@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time each route of kernels P and K against the others on one NVIDIA GPU.
 
-    python3 bench_routes.py [--out FILE] [--kernel P|K|gm1|cl|kcl|k1|tileregs]
+    python3 bench_routes.py [--out FILE] [--kernel P|K|gm1|cl|kcl|k1|tileregs|banded]
                             [--grids 15x15,...]
                             [--root DIR]
 
@@ -79,6 +79,13 @@ tileregs` builds the tile body on every strip shape and face placement of
 TILE_REG_SHAPES at every register cap of TILE_REG_CAPS (the most threads
 a block that leaves the cap) and prints each build's registers and local
 (spill) bytes, the source of `ops/transport.TILE_SHAPES`.
+`--kernel banded` times the exact oracle's banded Cholesky (kernel B,
+`csrc/banded_cholesky.cu`; `banded_rows`) at 64x64 on bands of the bench
+case's prior (seed 1, at zero saturation) at N=16, 192 and 1000, beside
+its bound (`chip_smoke.banded_bound_ms`) and two cut copies of its source
+(built with nvcc beside the run, in a temporary directory): without the
+back substitution, and without it and the rank-1 update; the differences
+are those parts' times.
 `--root DIR` times the package and
 `chip_smoke.py` of another
 checkout (an unpacked `git archive` of an earlier commit) on this file's
@@ -634,15 +641,87 @@ def k_row(Nx, Ny, n_members, reps, forces=None, precond="mg"):
     return row
 
 
+# `--kernel banded`: the members B is timed at, and the cuts of its source
+# (text replaced in a copy): the back substitution, then the rank-1 update.
+BANDED_MEMBERS = (16, 192, 1000)
+_BACK_CUT = ("  if (failed || tid >= 32) return;", "  return;")
+
+
+def _banded_update_cut(src):
+    start = src.index("#pragma unroll\n    for (int k0 = 0; k0 < E; k0 += kGroup)")
+    return src[start:src.index("    __syncthreads();\n    // Phase 3", start)], ""
+
+
+def banded_rows(reps):
+    """`--kernel banded`: kernel B's ms a launch at BANDED_MEMBERS beside
+    its bound and its source without the back substitution ("no_back") and
+    without that and the rank-1 update ("no_back_no_update")."""
+    import ctypes
+    import tempfile
+
+    import torch
+
+    from historymatching_tpu_torch import parity
+    from historymatching_tpu_torch.models import oracle
+    from historymatching_tpu_torch.ops import _build, banded
+    from historymatching_tpu_torch.ops.stencil import stencil_diag, transmissibilities
+    from historymatching_tpu_torch.parallel.runner import perm_transf
+
+    with open(os.path.join(_build.CSRC, "banded_cholesky.cu")) as f:
+        src = f.read()
+    cuts = {"no_back": [_BACK_CUT], "no_back_no_update": [_BACK_CUT, _banded_update_cut(src)]}
+    tmp = tempfile.mkdtemp()
+    fns = {}
+    for name, reps_ in cuts.items():
+        text = src
+        for a, b in reps_:
+            text = text.replace(a, b)
+        cu, so = os.path.join(tmp, name + ".cu"), os.path.join(tmp, name + ".so")
+        with open(cu, "w") as f:
+            f.write(text)
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC, "-o", so, cu],
+                       check=True, capture_output=True)
+        fns[name] = ctypes.CDLL(so).hm_banded_solve
+        fns[name].argtypes = _build._SIGNATURES["banded_cholesky"]["hm_banded_solve"]
+    case = parity.build_case(1, BANDED_MEMBERS[0])
+    model, Nx, Ny = case["model"], case["Nx"], case["Ny"]
+    perm = perm_transf(case["prior"].double()).reshape(-1, Nx, Ny)
+    TX, TY = transmissibilities(perm, perm, model.grid.hx, model.grid.hy)  # mobility 1 at s=0
+    ab16 = oracle.banded_operator(TX, TY, stencil_diag(TX, TY))
+    q16 = torch.randn(len(ab16), Nx * Ny, dtype=torch.float64, device=ab16.device,
+                      generator=torch.Generator(device=ab16.device).manual_seed(1))
+    rows = []
+    per, threads = banded.launch_plan(Ny)
+    for B in BANDED_MEMBERS:
+        ab = ab16.repeat(-(-B // len(ab16)), 1, 1)[:B].contiguous()
+        q = q16.repeat(-(-B // len(q16)), 1)[:B].contiguous()
+        p, info = torch.empty_like(q), torch.zeros(B, dtype=torch.int32, device=q.device)
+        ucol = torch.empty(B, Nx * Ny, Ny + 1, dtype=torch.float64, device=q.device)
+        row = dict(kernel="banded_cholesky", grid=f"{Nx}x{Ny}", N=B,
+                   ms=cs.cuda_ms(lambda: banded.banded_solve_cuda(ab, q), reps))
+        for name, fn in fns.items():
+            def launch(fn=fn):
+                _build.check(fn(ab.data_ptr(), q.data_ptr(), p.data_ptr(), ucol.data_ptr(),
+                                info.data_ptr(), B, Nx * Ny, Ny, per, threads,
+                                _build.stream_ptr(q.device)), name)
+            row[name + "_ms"] = cs.cuda_ms(launch, reps)
+            assert int(info.max()) == 0, (name, "a pivot failed: the cut does not time the run")
+        row["bound_ms"], row["bound_by"] = cs.banded_bound_ms(B, Nx * Ny, Ny)
+        rows.append(row)
+        del ab, q, ucol
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out", default="")
-    ap.add_argument("--kernel", choices=("P", "K", "gm1", "cl", "kcl", "k1", "tileregs"),
+    ap.add_argument("--kernel", choices=("P", "K", "gm1", "cl", "kcl", "k1", "tileregs",
+                                         "banded"),
                     default=None,
                     help="time one kernel's routes only (default: P's and K's), or P-gm1's "
                          "choices, or P-cl or K-cl on [24]'s first step, or K-rt1 and K-gm1, "
-                         "or read the tile body's registers")
+                         "or read the tile body's registers, or the oracle's banded Cholesky")
     ap.add_argument("--grids", default="",
                     help="comma-separated NXxNY: time the rows of these grids only")
     ap.add_argument("--root", default=ROOT,
@@ -671,6 +750,10 @@ def main(argv=None):
                 for Nx, Ny in grids:
                     rows.append(kcl_grid_row(Nx, Ny, n_members, opts.reps))
                     print(json.dumps(rows[-1]), flush=True)
+    if opts.kernel == "banded":
+        for row in banded_rows(opts.reps):
+            rows.append(row)
+            print(json.dumps(row), flush=True)
     if opts.kernel == "tileregs":
         rows.append(dict(kernel="tileregs", builds=tile_regs_rows()))
         print(json.dumps(rows[-1]), flush=True)

@@ -7,7 +7,10 @@ Phases, one printed line or more each; any failed check raises:
 1. device: require CUDA, print the card's name and power limit, TF32 off;
 2. build the hand-written kernels (historymatching_tpu_torch/csrc) with nvcc,
    one compiler per source and per cluster library (each grid of [23] and
-   [18]), in parallel; print each kernel's registers,
+   [18]): the main libraries' compilers at once, waited for before [3];
+   the others' three at a time in the background behind [3]-[17], [22]
+   and [26], which run on the main libraries alone, waited for before
+   [18]; then print each kernel's registers,
    local (spill) bytes, shared memory and resident blocks per SM, P in
    both its smoother instantiations (damped Jacobi and Chebyshev);
 3. kernel K (transport) against its plain PyTorch version, float32;
@@ -77,7 +80,7 @@ Phases, one printed line or more each; any failed check raises:
     for each seed (JAX's threefry draws, computed by the port), held to the
     committed exact float64 oracle's posterior RMSE by each rung's gate;
     every seed's prior RMSE must match its ref's. With `--parity-out DIR`
-    each rung's record is written there;
+    each rung's record is written there. It runs right after [17];
 23. the grids whose layouts exceed one block's shared memory (60x60,
     88x88, 96x96, 100x100, 128x128, 60x220, 192x192, 256x256), N=64: P-cl
     (a thread-block cluster a member; at 100x100 and 60x220 P-cl/d, the
@@ -139,6 +142,16 @@ Phases, one printed line or more each; any failed check raises:
     and of the unsharded run, each P and K launch count equal to its
     phase's, and each result equal to the unsharded run's bit for bit.
 
+26. the exact float64 oracle (`models.oracle`, run after [22]): a 64x64,
+    N=16, 40-step `forward_oracle` of seed 1's prior through the banded
+    Cholesky kernel (`csrc/banded_cholesky.cu`) against the same run through
+    its plain version; on the run's last bands the kernel against the plain
+    version and each member's residual, a member without a positive pivot
+    raising, the kernel's time at N=16, 192 and 1000 against its bound, the
+    plain version's and the library's dense Cholesky's at N=16; and seed 1
+    of `parity/cpu_f64_refs.json` (N=192) through `parity.run_case(oracle=
+    True)`, held to the committed row.
+
 The line before the last is the kernels' JSON record (with each kernel's
 launches in each rung of [22]); the last line is
 {"ok": true, "device": {...}}. Without a card, or without the package
@@ -170,8 +183,10 @@ IES_ITERS, IES_STEP = 10, 0.4
 SOLVE_KEYS = ("tol", "maxiter", "patience_iters")  # what one P launch takes
 K_TOL, P_TOL = 1e-5, 1e-3
 # Peak rates of one H100 SXM (NVIDIA's data sheet): float32 outside the
-# tensor cores, and device memory.
-F32_FLOPS, HBM_BYTES = 67e12, 3.35e12
+# tensor cores, and device memory; float64 through the tensor cores (34e12
+# on the CUDA cores, where the banded Cholesky runs: the bound takes the
+# card's best).
+F32_FLOPS, HBM_BYTES, F64_FLOPS = 67e12, 3.35e12, 67e12
 # The least work a unit of each kernel's function needs. K: flops a cell and
 # substep with the upwind split folded once a step into five coefficients
 # with dt (fw 8, the update and s + acc 11, the clamp 2), and flops a cell
@@ -258,6 +273,16 @@ JACOBI_KERNELS = ("transport_upwind", "pressure_pcg")  # the main path's
 # the reference's robust case (Optimise.py:833-875), each at its full size.
 EN_ITERS, EN_NENS, EN_CHOL, EN_SMALL_B = 30, 10, 0.1, 40
 ROBUST_N, ROBUST_ITERS, ROBUST_SHORT_ITERS = 31, 30, 5
+# [26]: the exact float64 oracle's 40-step forward run and its bands at
+# N=16, the kernel also timed at N=192 and 1000 (the committed refs'
+# ensembles). The kernel does the plain version's float64 operations in its
+# order (bit for bit expected); held at 1e-10 relative on p, 1e-9 on the
+# run's saturations and productions, and each member's relative residual
+# |A p - q| / |q| at 1e-11, or within 1.5x LAPACK's own on the same band
+# where that is over 1e-11 (a band of the bench's permeabilities reaches
+# ~1e7 on its diagonal against sources of 1).
+ORACLE_N, ORACLE_REPS, ORACLE_BATCHES = 16, 5, (192, 1000)
+ORACLE_P_TOL, ORACLE_RES_TOL, ORACLE_FWD_TOL, ORACLE_LAPACK_RES = 1e-10, 1e-11, 1e-9, 1.5
 
 
 _T0 = time.perf_counter()
@@ -327,8 +352,8 @@ def transport_bound_ms(s, Fx, Fy, q, n_sub):
     return bound(flops, nbytes)
 
 
-def bound(flops, nbytes):
-    t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES
+def bound(flops, nbytes, peak=F32_FLOPS):
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -2062,6 +2087,222 @@ def parity_phase(card, out_dir):
     return recs
 
 
+def banded_bound_ms(B, n, kd):
+    """Least time of a banded solve of B members (ops/banded.py): its
+    float64 operations (a column: the square root and two divisions, the
+    row's divisions, the rank-1 update's products and differences, both
+    substitutions' products and differences) at the float64 rate, or its
+    bytes (ab and q read once, p and info written once)."""
+    ops = sum(3 + 3 * kn + kn * (kn + 1) + 2 * min(kd, j)
+              for j, kn in ((j, min(kd, n - 1 - j)) for j in range(n)))
+    return bound(B * ops, B * (8 * ((kd + 1) * n + 2 * n) + 4), F64_FLOPS)
+
+
+def graphed_plain_solve(B, n, kd):
+    """The plain banded solve (`ops.banded.plain_solve`) of B members of
+    band width kd, captured once in a CUDA graph and replayed: the same
+    operations in the same order, ~45,000 small kernels a solve, without
+    a launch from the host each. Raises where a pivot is not positive."""
+    import torch
+
+    from historymatching_tpu_torch.ops.banded import plain_solve
+
+    ab_s = torch.ones(B, kd + 1, n, dtype=torch.float64, device="cuda")
+    ab_s[:, :kd] = 0.0  # the identity: a warm-up that succeeds
+    q_s = torch.zeros(B, n, dtype=torch.float64, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        plain_solve(ab_s, q_s)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        p_s, info_s = plain_solve(ab_s, q_s)
+
+    def solve(ab, q):
+        ab_s.copy_(ab)
+        q_s.copy_(q)
+        graph.replay()
+        if int(info_s.max()) > 0:
+            raise torch.linalg.LinAlgError(f"banded Cholesky: pivot not positive {info_s}")
+        return p_s.clone()
+
+    return solve
+
+
+def oracle_phase():
+    """Phase 26: the exact float64 oracle on the card (`models.oracle`, its
+    banded Cholesky kernel). Returns the kernel's record."""
+    import numpy as np
+    import torch
+    from scipy.linalg import solveh_banded
+
+    from historymatching_tpu_torch import parity
+    from historymatching_tpu_torch.models import oracle
+    from historymatching_tpu_torch.models.ressim import _source_field, relperm
+    from historymatching_tpu_torch.ops import _build
+    from historymatching_tpu_torch.ops.banded import NAME, banded_solve_cuda, banded_solve_torch
+    from historymatching_tpu_torch.ops.stencil import stencil_diag, transmissibilities
+    from historymatching_tpu_torch.parallel.runner import perm_transf
+
+    t_phase = time.perf_counter()
+    case = parity.build_case(SEED, ORACLE_N)  # the bench case's draws of seed 1
+    model, prior = case["model"], case["prior"].double()
+    runs = {}
+    for tag, solve in (("kernel", None), ("plain", graphed_plain_solve(ORACLE_N, NX * NY, NY))):
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = oracle.forward_oracle(model, prior, dt=DT, nTime=NTIME, solve=solve)
+        torch.cuda.synchronize()
+        runs[tag] = (*out, time.perf_counter() - t0, _build.LAUNCHES[NAME])
+    (last, prods, wall, launches), (last_t, prods_t, wall_t, launches_t) = runs.values()
+    fwd_err = max(float((last - last_t).abs().max()), float((prods - prods_t).abs().max()))
+    log(f"[26] forward_oracle {NX}x{NY}, N={ORACLE_N}, {NTIME} steps, float64: the kernel's run "
+        f"{wall:.3f} s ({launches} launches), the plain solve's {wall_t:.3f} s ({launches_t}); "
+        f"max |ds|, |d prods| = {fwd_err:.3e} (tol {ORACLE_FWD_TOL}); final saturations "
+        f"{float(last.min()):.4f}..{float(last.max()):.4f}, productions up to "
+        f"{float(prods.max()):.4f}")
+    assert launches == NTIME and launches_t == 0 and last.dtype == torch.float64
+    assert bool(torch.isfinite(last).all()) and 0 <= float(last.min()) <= float(last.max()) <= 1
+    assert fwd_err <= ORACLE_FWD_TOL and float(prods.max()) > 0
+
+    # The bands of the run's last state, and the step's sources.
+    s = last.reshape(ORACLE_N, NX, NY)
+    perm = perm_transf(prior).reshape(ORACLE_N, NX, NY)
+    Mw, Mo = relperm(s, model.fluid)
+    TX, TY = transmissibilities(perm * (Mw + Mo), perm * (Mw + Mo), model.grid.hx, model.grid.hy)
+    ab = oracle.banded_operator(TX, TY, stencil_diag(TX, TY))
+    q = _source_field(model, model.inj_rates[:, 0].double(), model.prd_rates[:, 0].double())
+    q = q.reshape(1, -1).expand(ORACLE_N, -1).contiguous()
+    p = banded_solve_cuda(ab, q)
+    p_t = banded_solve_torch(ab, q)
+    abs_err = float((p - p_t).abs().max())
+    p_err = abs_err / float(p_t.abs().max())
+    resid = lambda x: (oracle.banded_matvec(ab, x) - q).norm(dim=1) / q.norm(dim=1)  # noqa: E731
+    res = resid(p).cpu()
+    # LAPACK's dpbsv on the same bands on the host: where a member's band
+    # reaches ~1e7 against sources of 1, no float64 solve's residual is
+    # under 1e-11 (PERF.md, Findings).
+    ab_h, q_h = ab.cpu().numpy(), q.cpu().numpy()
+    res_lapack = resid(torch.as_tensor(np.stack(
+        [solveh_banded(ab_h[i], q_h[i], lower=False) for i in range(ORACLE_N)]),
+        device=ab.device)).cpu()
+    res_ok = (res <= ORACLE_RES_TOL) | (res <= ORACLE_LAPACK_RES * res_lapack)
+    log(f"[26] banded Cholesky {NX}x{NY} (kd={NY}), N={ORACLE_N}, the run's last bands: kernel vs "
+        f"plain max|dp|/max|p| = {p_err:.3e} (tol {ORACLE_P_TOL}), max |dp| {abs_err:.3e}; "
+        f"relative residuals {[float(f'{x:.2e}') for x in res]} (LAPACK's "
+        f"{[float(f'{x:.2e}') for x in res_lapack]}; tol {ORACLE_RES_TOL}, or "
+        f"{ORACLE_LAPACK_RES}x LAPACK's): {int(res_ok.sum())}/{ORACLE_N} within")
+    assert bool(torch.isfinite(p).all()) and p_err <= ORACLE_P_TOL and bool(res_ok.all())
+    res = float(res.max())
+    bad = ab.clone()
+    bad[3, NY, 100] = -1.0
+    try:
+        banded_solve_cuda(bad, q)
+        raise AssertionError("a member without a positive pivot did not raise")
+    except torch.linalg.LinAlgError as e:
+        assert "members [3]" in str(e), e
+        log(f"[26] member 3 with a negative pivot at column 100 raises: {e}")
+
+    # Times: the kernel at N=16, 192 and 1000 (the bands repeated), the
+    # plain version and the library's dense Cholesky at N=16.
+    ms = {ORACLE_N: cuda_ms(lambda: banded_solve_cuda(ab, q), ORACLE_REPS)}
+    plain_ms = cuda_ms(lambda: banded_solve_torch(ab, q), 1, warm=False)
+    n = NX * NY
+    dense = torch.zeros(ORACLE_N, n, n, dtype=torch.float64, device=ab.device)
+    for k in range(NY + 1):
+        band = ab[:, NY - k, k:]
+        dense.diagonal(k, 1, 2).copy_(band)
+        dense.diagonal(-k, 1, 2).copy_(band)
+    lib = lambda: torch.cholesky_solve(q[..., None], torch.linalg.cholesky_ex(dense).L)  # noqa: E731
+    lib_err = float((lib()[..., 0] - p).abs().max()) / float(p.abs().max())
+    library_ms = cuda_ms(lib, 3)
+    del dense
+    bounds = {ORACLE_N: banded_bound_ms(ORACLE_N, n, NY)}
+    for B in ORACLE_BATCHES:
+        big = ab.repeat(-(-B // ORACLE_N), 1, 1)[:B].contiguous()
+        qb = q.repeat(-(-B // ORACLE_N), 1)[:B].contiguous()
+        ms[B] = cuda_ms(lambda: banded_solve_cuda(big, qb), 3)
+        bounds[B] = banded_bound_ms(B, n, NY)
+        del big, qb
+    info = _build.kernel_info(NAME, NX, NY)
+    for B in ms:
+        log(f"[26] banded Cholesky N={B}: {ms[B]:.4f} ms a launch, bound {bounds[B][0]:.4f} ms "
+            f"({bounds[B][1]}, {bounds[B][0] / ms[B]:.1%})"
+            + (f"; plain {plain_ms:.1f} ms, torch.linalg.cholesky_ex + cholesky_solve on the "
+               f"dense matrix {library_ms:.3f} ms (max|dp|/max|p| {lib_err:.1e})"
+               if B == ORACLE_N else ""))
+    log(f"[26] banded Cholesky resources at kd={NY}: {info}")
+
+    # Seed 1 of the N=192 ES-MDA refs through the port's oracle, on the
+    # CPU's draws (PRIOR_RTOL of JAX's); its posterior's gap is printed
+    # (bench_gpu.py --oracle holds all 38 seeds; PERF.md, Findings).
+    ref = parity.load_ref("cpu_f64_refs.json")
+    row = parity.run_oracle_seed("PARITY_GPU", ref, "es_mda", SEED)
+    log(f"[26] parity.run_case(oracle=True), cpu_f64_refs.json seed {SEED} (N={row['N']}): "
+        f"rmse_prior {row['rmse_prior']:.12f} (ref {row['rmse_prior_ref']:.12f}, gap "
+        f"{row['prior_rel_gap']:.2e}, tol {parity.PRIOR_RTOL}), rmse_post "
+        f"{row['rmse_post']:.12f} (ref {row['rmse_post_ref']:.12f}, gap "
+        f"{row['post_rel_gap']:.2e}); {row['wall_s']:.2f} s on the card against the CPU's "
+        f"{row['cpu_first_call_s']} s")
+    assert row["prior_rel_gap"] <= parity.PRIOR_RTOL and np.isfinite(row["rmse_post"]), row
+    log(f"[26] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return dict(name=NAME, route="cuda", source="historymatching_tpu_torch/csrc/banded_cholesky.cu",
+                replaces="historymatching_tpu/models/oracle.py:151",
+                note="not a TPU kernel: the JAX oracle's LAPACK dpbsv (solveh_banded)",
+                launches=launches, max_abs_err=abs_err, ms=ms[ORACLE_N], plain_ms=plain_ms,
+                bound_ms=bounds[ORACLE_N][0], bound_by=bounds[ORACLE_N][1],
+                library_ms=library_ms, share_of_bound=bounds[ORACLE_N][0] / ms[ORACLE_N],
+                at_grid=f"{NX}x{NY} N={ORACLE_N}",
+                batches={str(B): dict(ms=ms[B], bound_ms=bounds[B][0], bound_by=bounds[B][1])
+                         for B in ORACLE_BATCHES},
+                forward_max_err=fwd_err, residual_max=res, parity_seed=row, resources=info)
+
+
+def build_args():
+    """`_build.prebuild`'s arguments: every library the phases run."""
+    from historymatching_tpu_torch.ops import _build
+    from historymatching_tpu_torch.ops.pressure import cl_plan
+
+    # and the in-place plans [23] times beside P-cl/d
+    return dict(pressure_grids=P_NEW_GRIDS, cl_grids=LARGE_GRIDS + K_RT_GRIDS,
+                cl_plans=[(*g, *cl_plan(*g, True, "device")) for g in LAYER_GRIDS],
+                cl_probes=[(*BIG, *cl_plan(*BIG))],  # [24] counts P-cl's barriers
+                gm_grids=(GM_PATH_GRID,) + LAYER_GRIDS[1:] + _build.GRIDS,  # [2]'s table
+                k_grids=K_RT_GRIDS + ((NX, NY), GM1_PATH_GRID, CAPACITY_GRID, GM_PATH_GRID,
+                                      BIG) + LARGE_GRIDS + tuple(ROUTE_PATHS.values()),
+                kt_grids=_build.GRIDS)  # [2]'s table
+
+
+def finish_build(t0):
+    """Phase 2's end: wait for the libraries compiled behind the early
+    phases; print the build's figures, every kernel's spills and each
+    kernel's resources at `GRIDS`."""
+    from historymatching_tpu_torch.ops import _build
+
+    t1 = time.perf_counter()
+    _build.prebuild(**build_args())
+    log(f"[2] kernels built: waited {time.perf_counter() - t1:.1f} s for the last, "
+        f"{time.perf_counter() - t0:.1f} s since the build started "
+        f"(compiled: {_build.build_info['built']}) -> {_build.build_info['paths']}")
+    for stem, text in _build.build_info["ptxas"].items():
+        fn = ""
+        for line in text.splitlines():
+            if "Function properties for" in line:
+                fn = line.split("Function properties for", 1)[1].strip()
+            elif "spill" in line and not line.strip().startswith("0 bytes stack frame, 0 bytes"):
+                log(f"[2] ptxas {stem} {fn}: {line.strip()}")
+    # clusters: [23]; K-rt, built per grid: [19c]
+    for name in (k for k in _build.LAUNCHES if not k.endswith("_cl")
+                 and k != "transport_upwind_rt"):
+        for grid in _build.GRIDS:
+            info = _build.kernel_info(name, *grid)
+            log(f"[2] {name} {grid[0]}x{grid[1]}: {info['registers']} registers, "
+                f"{info['local_bytes']} local (stack/spill) bytes, {info['shared_bytes']} shared "
+                f"bytes, {info['threads']} threads, {info['blocks_per_sm']} resident blocks/SM")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Drive the port's main path once on one GPU.")
     ap.add_argument("--parity-out", default="",
@@ -2111,35 +2352,15 @@ def main(argv=None):
     assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
     log("[1] TF32 off (matmul and cudnn)")
 
-    # 2. build
-    t0 = time.perf_counter()
-    from historymatching_tpu_torch.ops.pressure import cl_plan
-
-    # and the in-place plans [23] times beside P-cl/d
-    _build.prebuild(P_NEW_GRIDS, cl_grids=LARGE_GRIDS + K_RT_GRIDS,
-                    cl_plans=[(*g, *cl_plan(*g, True, "device")) for g in LAYER_GRIDS],
-                    cl_probes=[(*BIG, *cl_plan(*BIG))],  # [24] counts P-cl's barriers
-                    gm_grids=(GM_PATH_GRID,) + LAYER_GRIDS[1:] + _build.GRIDS,  # [2]'s table
-                    k_grids=K_RT_GRIDS + ((NX, NY), GM1_PATH_GRID, CAPACITY_GRID, GM_PATH_GRID,
-                                          BIG) + LARGE_GRIDS + tuple(ROUTE_PATHS.values()),
-                    kt_grids=_build.GRIDS)  # [2]'s table
-    log(f"[2] kernels built in {time.perf_counter() - t0:.1f} s "
-        f"(compiled: {_build.build_info['built']}) -> {_build.build_info['paths']}")
-    for stem, text in _build.build_info["ptxas"].items():
-        fn = ""
-        for line in text.splitlines():
-            if "Function properties for" in line:
-                fn = line.split("Function properties for", 1)[1].strip()
-            elif "spill" in line and not line.strip().startswith("0 bytes stack frame, 0 bytes"):
-                log(f"[2] ptxas {stem} {fn}: {line.strip()}")
-    # clusters: [23]; K-rt, built per grid: [19c]
-    for name in (k for k in _build.LAUNCHES if not k.endswith("_cl")
-                 and k != "transport_upwind_rt"):
-        for grid in _build.GRIDS:
-            info = _build.kernel_info(name, *grid)
-            log(f"[2] {name} {grid[0]}x{grid[1]}: {info['registers']} registers, "
-                f"{info['local_bytes']} local (stack/spill) bytes, {info['shared_bytes']} shared "
-                f"bytes, {info['threads']} threads, {info['blocks_per_sm']} resident blocks/SM")
+    # 2. build: the main libraries (phases [3]-[17], [22] and [26] run on
+    # them alone) now, the others in the background, three compilers at a
+    # time, waited for before [18]
+    t_build = time.perf_counter()
+    _build.prebuild(**build_args(), wait=False)
+    _build.lib()
+    log(f"[2] main libraries built in {time.perf_counter() - t_build:.1f} s, "
+        f"{len(_build._pending)} more compiling behind phases [3]-[17], [22] and [26] "
+        f"(compiled: {_build.build_info['built']})")
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     model = flagship_model(torch)
@@ -2596,9 +2817,11 @@ def main(argv=None):
         f"{same} (max |d| {float((post_r - ref_r).abs().max()):.3e})")
     assert same
 
+    par = parity_phase(card, opts.parity_out)
+    orc = oracle_phase()
+    finish_build(t_build)
     new = new_grid_phases(dev, six)
     runs = example_phases()
-    par = parity_phase(card, opts.parity_out)
     large = large_grid_phases(dev, six)
     big = large_case_phase(dev)
     layer = layer_case_phase()
@@ -2741,6 +2964,7 @@ def main(argv=None):
             ms=g["ms"], plain_ms=g.get("plain_ms"), bound_ms=g["bound_ms"],
             bound_by=g["bound_by"], library_ms=None, share_of_bound=g["bound_ms"] / g["ms"],
             at_grid=at, gm1_ms=gm1_ms, grids=dist))
+    kernels.append(orc)  # [26]'s path: the oracle's forward run
     for rec in kernels:
         rec["launches_parity"] = {p["name"]: p["launches"].get(rec.get("counter", rec["name"]), 0)
                                   for p in par}

@@ -5,7 +5,9 @@ C interface, for `sm_90a` (Hopper), on first use, into `_build/` beside
 the package; the compilers run in parallel. Kernel P is a template on the
 grid: the main library holds the grids of `GRIDS`, and any other grid is
 compiled on first use into a library of its own (`pressure_lib`);
-`prebuild` starts every compiler a run will need at once. Kernel K's
+`prebuild` starts every compiler a run will need at once (or, with
+`wait=False`, builds the main libraries and compiles the others in the
+background, a few at a time, while the run works). Kernel K's
 strip body is compiled likewise for any other grid whose strips fit one
 block (K-rt, `transport_rt_lib`). The device-memory variants P-gm1
 (`pressure_pcg_gm1.cu`), K-gm and K-gm1's device-memory body (beside K)
@@ -40,6 +42,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 import types
 
@@ -63,15 +66,19 @@ SMEM_PER_SM = 228 * 1024  # an SM's shared memory, 1 KB of it reserved for each 
 # co-resident, device-memory and cluster variants, and P by smoother, by
 # fine diagonal (unit, or read: the unscaled system) and by route (shared
 # memory, "_gm": co-resident blocks a member, "_gm1": device memory, one
-# block a member, "_cl": a thread-block cluster a member).
+# block a member, "_cl": a thread-block cluster a member); and the exact
+# oracle's float64 banded Cholesky (`banded_cholesky.cu`).
 _P_NAMES = ("pressure_pcg", "pressure_pcg_cheb", "pressure_pcg_diag", "pressure_pcg_cheb_diag")
 LAUNCHES = dict.fromkeys(("transport_upwind", "transport_upwind_rt", "transport_upwind_rt1",
                           *_P_NAMES,
                           "transport_upwind_gm", "transport_upwind_gm1",
                           *(n + "_gm" for n in _P_NAMES), *(n + "_gm1" for n in _P_NAMES),
-                          "transport_upwind_cl", *(n + "_cl" for n in _P_NAMES)), 0)
+                          "transport_upwind_cl", *(n + "_cl" for n in _P_NAMES),
+                          "banded_cholesky"), 0)
 
 _libs = {}
+_pending = {}  # library key -> an event set when `start`'s compiler of it has finished
+_done = {}  # library key -> (path, temporary path, return code, report) from `start`
 _keys = {}  # (spec maker, its arguments) -> library key
 build_info = {"paths": {}, "built": [], "ptxas": {}, "seconds": 0.0}
 
@@ -99,6 +106,12 @@ _SIGNATURES = {
     "pressure_pcg": {
         "hm_pressure_solve": _PRESSURE,
         "hm_pressure_info": [I, I, I, I, P],
+    },
+    "banded_cholesky": {
+        # ab, q, p, ucol, info, B, n, kd, pairs a thread, threads, stream
+        "hm_banded_solve": [P, P, P, P, P, I, I, I, I, I, P],
+        # kd, pairs a thread, threads, out
+        "hm_banded_info": [I, I, I, P],
     },
     "pressure_pcg_gm1": {
         # level pointers, Ainv, q, p0, w, p_out, it_out, rel_out, workspace,
@@ -196,27 +209,66 @@ def _cl_specs(Nx, Ny, pressure_plans=(), transport_plan=None, probe=False):
     return specs
 
 
+def _compile(stem, flags, so):
+    """Start nvcc on `stem` into `so` (through a temporary file); returns a
+    function that waits for it and gives (so, temporary path, return code,
+    ptxas's report)."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    src = os.path.join(CSRC, f"{stem}.cu")
+    proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, *flags, "-o", tmp, src],
+                            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+
+    def finish():
+        _, err = proc.communicate()
+        return so, tmp, proc.returncode, err
+
+    return finish
+
+
+def start(specs, jobs=3):
+    """Compile the libraries of `specs` not built, loaded or started yet in
+    the background, `jobs` compilers at a time, and return at once; the
+    first `_load` of each waits for its compiler. A run starts what it
+    needs later while it works on the libraries it has, without taking
+    every core from it."""
+    slots = threading.Semaphore(jobs)
+
+    def one(key, stem, flags, so, done):
+        try:
+            with slots:
+                _done[key] = _compile(stem, flags, so)()
+        except Exception as e:  # noqa: BLE001  (reported by the `_load` that waits)
+            _done[key] = so, None, -1, repr(e)
+        finally:
+            done.set()
+
+    for key, stem, flags, so, _ in specs:
+        if key not in _libs and key not in _pending and not os.path.exists(so):
+            _pending[key] = done = threading.Event()
+            threading.Thread(target=one, args=(key, stem, flags, so, done), daemon=True).start()
+
+
 def _load(specs):
-    """Build (all compilers at once) and load the libraries of `specs` not
-    loaded yet; each becomes a namespace of its C entry points in `_libs`."""
+    """Build (all compilers at once; those `start` started, as they come)
+    and load the libraries of `specs` not loaded yet; each becomes a
+    namespace of its C entry points in `_libs`."""
     specs = list({sp[0]: sp for sp in specs if sp[0] not in _libs}.values())
     if not specs:
         return
     t0 = time.perf_counter()
     jobs = {}
     for key, stem, flags, so, _ in specs:
-        if not os.path.exists(so):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{so}.{os.getpid()}.tmp"
-            src = os.path.join(CSRC, f"{stem}.cu")
-            jobs[key] = (so, tmp, subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, *flags, "-o", tmp, src], stdout=subprocess.PIPE,
-                stderr=subprocess.PIPE, text=True))
+        if key in _pending:
+            jobs[key] = _pending.pop(key).wait
+        elif not os.path.exists(so):
+            jobs[key] = _compile(stem, flags, so)
     failed = []
-    for key, (so, tmp, proc) in jobs.items():
-        _, err = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed on {key} ({proc.returncode}):\n{err[-4000:]}")
+    for key, finish in jobs.items():
+        result = finish()
+        so, tmp, code, err = _done.pop(key) if result is True else result
+        if code != 0:
+            failed.append(f"nvcc failed on {key} ({code}):\n{err[-4000:]}")
             continue
         os.replace(tmp, so)
         build_info["ptxas"][key] = err
@@ -238,8 +290,8 @@ def _load(specs):
 
 def lib():
     """The main libraries' C entry points (K at `GRIDS`, K-gm's first plan,
-    K-gm1's device-memory body, P at `GRIDS`, P-gm1), built first where
-    their sources changed."""
+    K-gm1's device-memory body, P at `GRIDS`, P-gm1, the banded Cholesky),
+    built first where their sources changed."""
     if "main" not in _libs:
         _load([_spec(stem) for stem in _MAIN])
         _libs["main"] = types.SimpleNamespace(**{k: v for stem in _MAIN
@@ -451,7 +503,7 @@ def _cl_grid_specs(Nx, Ny):
 
 
 def prebuild(pressure_grids=(), cl_grids=(), cl_plans=(), gm_grids=(), k_grids=(),
-             cl_probes=(), kcl_plans=(), kt_grids=()):
+             cl_probes=(), kcl_plans=(), kt_grids=(), wait=True):
     """Build the main libraries, kernel P's libraries for `pressure_grids`
     outside `GRIDS`, the cluster libraries of `cl_grids`, P-cl's for each
     (Nx, Ny, c, place) of `cl_plans` and its probe build for each of
@@ -459,20 +511,28 @@ def prebuild(pressure_grids=(), cl_grids=(), cl_plans=(), gm_grids=(), k_grids=(
     `gm_grids`, K's own libraries of each grid of `k_grids` (`_k_specs`,
     and the tile body's for K-rt1's and K-gm1's plans, `_kt_specs`), the
     tile body's alone for each grid of `kt_grids`, and K-cl's for each
-    (Nx, Ny, plan) of `kcl_plans`, every compiler at once."""
+    (Nx, Ny, plan) of `kcl_plans`, every compiler at once. Without `wait`
+    it builds the main libraries and only starts the others (`start`: a
+    few compilers at a time, in the background)."""
     from historymatching_tpu_torch.ops.pressure import gm_plan
 
     extra = [g for g in dict.fromkeys(tuple(g) for g in pressure_grids) if g not in GRIDS]
     gm = [(*g, *plan) for g in gm_grids for plan in (gm_plan(*g, True), gm_plan(*g, False))
           if plan]
-    _load([_spec(stem) for stem in _MAIN] + [_spec("pressure_pcg", g) for g in extra]
-          + [sp for g in cl_grids for sp in _cl_grid_specs(*g)]
-          + [_cl_specs(Nx, Ny, [(c, place)])[0] for Nx, Ny, c, place in cl_plans]
-          + [_cl_specs(Nx, Ny, [(c, place)], probe=True)[0] for Nx, Ny, c, place in cl_probes]
-          + [_gm_spec(*args) for args in dict.fromkeys(gm)]
-          + [sp for g in k_grids for sp in _k_specs(*g) + _kt_specs(*g)]
-          + [sp for g in kt_grids for sp in _kt_specs(*g)]
-          + [_kcl_spec(*args) for args in kcl_plans])
+    main = [_spec(stem) for stem in _MAIN]
+    specs = ([_spec("pressure_pcg", g) for g in extra]
+             + [sp for g in cl_grids for sp in _cl_grid_specs(*g)]
+             + [_cl_specs(Nx, Ny, [(c, place)])[0] for Nx, Ny, c, place in cl_plans]
+             + [_cl_specs(Nx, Ny, [(c, place)], probe=True)[0] for Nx, Ny, c, place in cl_probes]
+             + [_gm_spec(*args) for args in dict.fromkeys(gm)]
+             + [sp for g in k_grids for sp in _k_specs(*g) + _kt_specs(*g)]
+             + [sp for g in kt_grids for sp in _kt_specs(*g)]
+             + [_kcl_spec(*args) for args in kcl_plans])
+    if wait:
+        _load(main + specs)
+    else:
+        _load(main)
+        start(specs)
 
 
 def check(code, name):
@@ -508,7 +568,13 @@ def kernel_info(kernel, Nx, Ny, plan=None):
     extra = {}
     cheb, unit = int("cheb" in kernel), int("_diag" not in kernel)
     keys = ("registers", "local_bytes", "shared_bytes", "threads", "blocks_per_sm")
-    if kernel == "transport_upwind_cl":
+    if kernel == "banded_cholesky":  # the band of an Nx x Ny grid: kd = Ny
+        from historymatching_tpu_torch.ops.banded import launch_plan
+
+        per, threads = launch_plan(Ny)
+        code = lib().hm_banded_info(Ny, per, threads, out)
+        extra = dict(pairs_a_thread=per)
+    elif kernel == "transport_upwind_cl":
         plan = transport.ClPlan(*(plan or transport.cl_plan(Nx, Ny)))
         code = transport_cl_lib(Nx, Ny, plan).hm_transport_cl_info(Nx, Ny, out)
         extra = plan._asdict()

@@ -23,6 +23,9 @@ each seed by rmse_post(port) / rmse_post(ref):
 
 `run_rung` runs one rung and returns its record; `bench_gpu.py` at the
 repo root runs them all on the card and writes `parity/PARITY_GPU*.json`.
+`run_case(oracle=True)` runs a seed through the port's own float64 oracle
+(`models.oracle`), and `run_oracle_seed` holds that to the seed's
+committed row (`bench_gpu.py --oracle`, `parity/ORACLE_GPU.json`).
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from historymatching_tpu_torch import prng
 from historymatching_tpu_torch.da.geostat import gaussian_fields_fft
 from historymatching_tpu_torch.da.localization import domain_partition
 from historymatching_tpu_torch.da.update import decorrelator, es_mda, ies, mda_alphas
+from historymatching_tpu_torch.models.oracle import forward_oracle
 from historymatching_tpu_torch.models.ressim import ResSim
 from historymatching_tpu_torch.ops import _build
 from historymatching_tpu_torch.parallel.runner import forward_model, obs_ens_fn, prod_inds
@@ -61,6 +65,12 @@ THRESHOLD, MAX_RATIO = 1.05, 1.12
 IES_REPLICAS, IES_PERTURB = 8, 1e-6
 # A seed's prior RMSE against its ref's: the port drew JAX's inputs.
 PRIOR_RTOL = 1e-6
+# The port's float64 oracle on the card against the committed refs
+# (`bench_gpu.py --oracle`): each posterior RMSE within ORACLE_RTOL of its
+# row, or, for IES, within the oracle's own spread at that seed: the
+# largest move of its posterior RMSE when the prior is scaled by 1 + k
+# ORACLE_PERTURB, k = 1, 2.
+ORACLE_RTOL, ORACLE_PERTURB = 1e-6, 1e-12
 CRITERION = {
     "es_mda": f"median ratio <= {THRESHOLD} and worst seed <= {MAX_RATIO}",
     "ies": (f"median ratio over seeds x {IES_REPLICAS} replicas <= {THRESHOLD}, and the "
@@ -118,40 +128,71 @@ def _sync(device):
 
 
 def run_case(method, seed, N, Nx=64, Ny=64, nTime=40, sim_kwargs=None, sched=None,
-             replicas=1, dtype=torch.float32, device="cuda"):
+             replicas=1, dtype=torch.float32, device="cuda", oracle=False,
+             perturb=IES_PERTURB):
     """One seed of one analysis, `bench.run_case` / `bench._ies_one`:
     the truth simulated at `sim_kwargs` (default `BASE`) gives the
     observations, then ES-MDA ("es_mda", or "es_mda_loc" over 4x4-cell
     domains with the radius-1.2 bump taper) with `sched` per pass
     (default `DEFAULT_SCHED`), or IES with `sched` per iteration (default
     `IES_DEFAULT_SCHED`, its length the iteration count), xStep 0.4. IES
-    runs `replicas` times, replica k on the prior scaled by (1 + k 1e-6)
-    in float32. The pipeline runs in `dtype` on inputs drawn in float32.
+    (and any analysis on the oracle) runs `replicas` times, replica k on
+    the prior scaled by (1 + k `perturb`) in float32. The pipeline runs in
+    `dtype` on inputs drawn in float32.
+
+    With `oracle` every forward run (the truth's and each pass's or
+    iteration's) is the exact float64 oracle (`models.oracle.forward_oracle`,
+    `bench.run_case(oracle=True)` / `bench.run_ies_case(oracle=True)`):
+    `dtype` must be float64, the solver settings are ignored, IES's
+    replicas scale the prior in float64, and the seed's draws (the fields,
+    the noise, the analysis's perturbations) are made on the CPU and moved
+    to `device`: the card's DFTs and normals round otherwise, and the
+    CPU's draws are the same on every host (they differ from JAX's by
+    float32 rounding of the DFTs, `PRIOR_RTOL`).
     Returns {seed, rmse_prior, rmse_post: [per replica], elapsed_s: [per
     replica], the workload's wall without the truth run}."""
     sim_kwargs = BASE if sim_kwargs is None else sim_kwargs
     ies_method = method == "ies"
     if sched is None:
         sched = IES_DEFAULT_SCHED if ies_method else DEFAULT_SCHED
-    case = build_case(seed, N, Nx, Ny, nTime, device)
+    if oracle and dtype != torch.float64:
+        raise ValueError("the oracle is a float64 reference: pass dtype=torch.float64")
+    forward = forward_oracle if oracle else forward_model
+    if oracle:  # the CPU's draws, the same on every host (oracle_cpu_check.py --port-draws)
+        cpu = build_case(seed, N, Nx, Ny, nTime, "cpu")
+        case = dict(cpu, model=build_model(Nx, Ny, device),
+                    **{k: cpu[k].to(device) for k in ("truth", "prior", "noise", "R12")})
+    else:
+        cpu = case = build_case(seed, N, Nx, Ny, nTime, device)
     model = case["model"]
     truth, prior, R12, noise = (case[k].to(dtype) for k in ("truth", "prior", "R12", "noise"))
-    _, prod_truth = forward_model(model, truth[None], dt=DT, nTime=nTime, keep_wsats=False,
-                                  **sim_kwargs)
+    _, prod_truth = forward(model, truth[None], dt=DT, nTime=nTime, keep_wsats=False,
+                            **sim_kwargs)
     obs = torch.clamp(prod_truth[0].reshape(-1) + noise, 0, 1)
-    fwds = [obs_ens_fn(model, DT, nTime, **dict(sim_kwargs, **ov)) for ov in sched]
+    if oracle:
+        def oracle_fn(E):
+            return forward_oracle(model, E, dt=DT, nTime=nTime)[1].reshape(E.shape[0], -1)
+
+        fwds = [oracle_fn] * len(sched)
+    else:
+        fwds = [obs_ens_fn(model, DT, nTime, **dict(sim_kwargs, **ov)) for ov in sched]
+    sdtype = torch.float64 if oracle else torch.float32
+    scales = [torch.tensor(1 + k * perturb, dtype=sdtype) for k in range(replicas)]
+
+    def prior_of(k):
+        return (case["prior"].to(sdtype) * scales[k].to(device)).to(dtype)
+
     if ies_method:
         # drawn with the float32 R12, as bench._ies_one
-        perturbs = gaussian_noise(N, obs.numel(), L=case["R12"], key=case["key_mda"]).to(dtype)
+        perturbs = gaussian_noise(N, obs.numel(), L=cpu["R12"], key=cpu["key_mda"]).to(device,
+                                                                                         dtype)
         dec = decorrelator(R12)
-        scales = [torch.tensor(1 + k * IES_PERTURB, dtype=torch.float32) for k in range(replicas)]
 
         def workload(k):
-            prior_k = (case["prior"] * scales[k].to(device)).to(dtype)
-            return ies(prior_k, fwds, obs, perturbs, dec, xStep=IES_XSTEP, iMax=len(sched))[0]
+            return ies(prior_of(k), fwds, obs, perturbs, dec, xStep=IES_XSTEP, iMax=len(sched))[0]
     else:
-        if replicas != 1:
-            raise ValueError("replicas are for IES")
+        if replicas != 1 and not oracle:
+            raise ValueError("replicas are for IES and the oracle")
         loc_kw = {}
         if method == "es_mda_loc":
             domains, taper_dom = domain_partition(model.grid, prod_inds(model), nTime=nTime,
@@ -161,9 +202,16 @@ def run_case(method, seed, N, Nx=64, Ny=64, nTime=40, sim_kwargs=None, sched=Non
         elif method != "es_mda":
             raise ValueError(f"unknown method {method!r}")
         alphas = mda_alphas(len(sched), dtype=dtype, device=device)
+        draw_kw = dict(key=case["key_mda"])
+        if oracle:  # es_mda's per-pass draws, made on the CPU
+            draws, key = [], cpu["key_mda"]
+            for _ in sched:
+                key, sub = prng.split(key)
+                draws.append(gaussian_noise(N, obs.numel(), L=cpu["R12"], key=sub))
+            draw_kw = dict(noise=draws)
 
         def workload(k):
-            return es_mda(prior, fwds, obs, R12, alphas, key=case["key_mda"], **loc_kw)
+            return es_mda(prior_of(k), fwds, obs, R12, alphas, **draw_kw, **loc_kw)
     posts, walls = [], []
     for k in range(replicas):
         _sync(device)
@@ -248,6 +296,39 @@ def run_rung(name, ref_file, method, device="cuda", sim_kwargs=None, card=None, 
         rec.update(iMax=len(sched), xStep=IES_XSTEP, replicas=IES_REPLICAS,
                    perturbation=IES_PERTURB, note=IES_NOTE)
     return rec
+
+
+def run_oracle_seed(name, ref, method, seed, device="cuda", spread=False):
+    """One seed of a ref file through the port's float64 oracle
+    (`run_case(oracle=True)`), held to the ref's row: the prior's and the
+    posterior's RMSE, their gaps relative to the row, and, for IES (any
+    method with `spread`), the oracle's own spread (replicas 1 and 2 at
+    ORACLE_PERTURB). Returns the row that `bench_gpu.py --oracle` writes."""
+    ies_method = method == "ies"
+    row = {r["seed"]: r for r in ref["rows"]}[seed]
+    _sync(device)
+    t0 = time.perf_counter()
+    r = run_case(method, seed, ref["N"], sched=IES_DEFAULT_SCHED if ies_method else DEFAULT_SCHED,
+                 replicas=3 if ies_method or spread else 1, dtype=torch.float64, device=device,
+                 oracle=True, perturb=ORACLE_PERTURB)
+    _sync(device)
+    out = dict(rung=name, method=method, N=ref["N"], seed=seed, rmse_prior=r["rmse_prior"],
+               rmse_post=r["rmse_post"][0], rmse_prior_ref=row["rmse_prior"],
+               rmse_post_ref=row["rmse_post"],
+               prior_rel_gap=abs(r["rmse_prior"] - row["rmse_prior"]) / row["rmse_prior"],
+               post_rel_gap=abs(r["rmse_post"][0] - row["rmse_post"]) / row["rmse_post"],
+               wall_s=time.perf_counter() - t0, workload_s=r["elapsed_s"][0],
+               cpu_first_call_s=row.get("first_call_s"))
+    ok_post = out["post_rel_gap"] <= ORACLE_RTOL
+    if len(r["rmse_post"]) > 1:
+        moved = max(abs(x - r["rmse_post"][0]) for x in r["rmse_post"][1:])
+        out.update(rmse_post_perturbed=r["rmse_post"][1:], spread=moved,
+                   post_within_spread=abs(r["rmse_post"][0] - row["rmse_post"]) <= moved)
+        if ies_method and not ok_post and out["post_within_spread"]:
+            out["exception"] = "IES: the posterior's gap is within the oracle's own spread"
+        ok_post = ok_post or (ies_method and out["post_within_spread"])
+    out["ok"] = out["prior_rel_gap"] <= PRIOR_RTOL and ok_post
+    return out
 
 
 def check_record(rec):

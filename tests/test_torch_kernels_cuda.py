@@ -882,3 +882,43 @@ def test_npv_batch_with_wells_per_member(dev):
     for b in range(3):
         one = npv_value(mm, cfg, inj_xy=xy[b])
         assert abs(float(one) - float(v[b])) <= 1e-3 * abs(float(one))
+
+
+def _bands_on(dev, Nx, Ny, B, seed):
+    """B members' pinned TPFA bands of the flagship geometry's transform of
+    random fields, float64 on the card, and their sources."""
+    from historymatching_tpu_torch.models.oracle import banded_operator
+    from historymatching_tpu_torch.ops.stencil import stencil_diag, transmissibilities
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    K = 0.1 + torch.exp(5 * torch.randn(B, Nx, Ny, generator=g, device=dev,
+                                        dtype=torch.float64))
+    s = torch.rand(B, Nx, Ny, generator=g, device=dev, dtype=torch.float64)
+    mob = s**2 + (1 - s) ** 2
+    TX, TY = transmissibilities(K * mob, K * mob, 2.0 / Nx, 1.0 / Ny)
+    q = torch.randn(B, Nx * Ny, generator=g, device=dev, dtype=torch.float64)
+    return banded_operator(TX, TY, stencil_diag(TX, TY)), q - q.mean(1, keepdim=True)
+
+
+@pytest.mark.parametrize("Nx,Ny,B", [(16, 16, 4), (12, 9, 3), (64, 64, 3), (8, 200, 2)])
+def test_banded_kernel_matches_plain(dev, Nx, Ny, B):
+    """The banded Cholesky kernel does the plain version's float64
+    operations in its order: equal bit for bit, at both pair counts a
+    thread (kd=200 takes 32)."""
+    from historymatching_tpu_torch.ops.banded import NAME, banded_solve_cuda, banded_solve_torch
+
+    ab, q = _bands_on(dev, Nx, Ny, B, seed=Nx + Ny)
+    before = _build.LAUNCHES[NAME]
+    p = banded_solve_cuda(ab, q)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[NAME] == before + 1
+    assert torch.equal(p, banded_solve_torch(ab, q))
+
+
+def test_banded_kernel_raises_on_a_member_without_a_positive_pivot(dev):
+    from historymatching_tpu_torch.ops.banded import banded_solve
+
+    ab, q = _bands_on(dev, 12, 9, 3, seed=1)
+    ab[2, 9, 40] = -1.0
+    with pytest.raises(torch.linalg.LinAlgError, match=r"members \[2\] .*columns \[40\]"):
+        banded_solve(ab, q)

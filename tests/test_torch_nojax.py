@@ -6,7 +6,8 @@ port's JAX-keyed draws are made, and the simulator (with the straggler recook
 engaged, and with the Chebyshev smoother), the localized ES-MDA, IES,
 ILES-domains, EnOpt on the bench case's fixture, an ES-MDA resumed through
 a checkpoint, a profiler trace, the member-sharded ES-MDA and IES on a
-gloo world of one and EnGrad with a key run. chip_smoke.py imports nothing of
+gloo world of one, EnGrad with a key, and the exact float64 oracle
+(`models.oracle`, `ops.banded`, `parity.run_case(oracle=True)`) run. chip_smoke.py imports nothing of
 JAX in any phase, nor does bench_gpu.py, which refuses to run without a
 card."""
 
@@ -143,6 +144,21 @@ try:
                        torch.tensor([0.3, 0.2], dtype=torch.float64), key=k))
 finally:
     dist.destroy_process_group()
+# The exact float64 oracle without JAX: the banded solve against the
+# stencil's operator, and a forward run through parity's oracle path.
+from historymatching_tpu_torch import ops
+from historymatching_tpu_torch.models import oracle
+from historymatching_tpu_torch.ops.banded import banded_solve
+TX, TY = ops.transmissibilities(torch.ones(8, 8, dtype=torch.float64),
+                                torch.ones(8, 8, dtype=torch.float64), 0.1, 0.1)
+ab = oracle.banded_operator(TX, TY, ops.stencil_diag(TX, TY))[None]
+qq = torch.randn(1, 64, generator=g, dtype=torch.float64)
+assert float((oracle.banded_matvec(ab, banded_solve(ab, qq)) - qq).abs().max()) < 1e-12
+_, prods_o = oracle.forward_oracle(m, torch.zeros(2, 64, dtype=torch.float64), dt=0.01, nTime=2)
+assert prods_o.shape == (2, 2, 1) and prods_o.dtype == torch.float64
+out = parity.run_case("es_mda", 1, 4, 8, 8, nTime=2, sched=[{}] * 2, dtype=torch.float64,
+                      device="cpu", oracle=True)
+assert out["rmse_post"][0] > 0
 print('port-import-ok')
 """
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

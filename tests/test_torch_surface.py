@@ -38,7 +38,7 @@ JAX_PKG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
                        "historymatching_tpu")
 
 # ROADMAP.md, "Do not port": whole modules, and names by module.
-NOT_PORTED_MODULES = {"ops.packed", "models.oracle"}
+NOT_PORTED_MODULES = {"ops.packed"}
 NOT_PORTED = {
     "ops.linalg": {"svd", "eigh_psd", "sqrtm_psd", "pinv", "sigma_max"},
     "ops.multigrid": {"pack_hierarchy", "pack_coarse_inv", "vcycle_apply_packed"},
